@@ -1,0 +1,373 @@
+// WaveNet autoregressive generation on Hopper: the whole sample loop in one launch.
+//
+// Replaces tacotron2_tpu/ops/pallas/wavenet_ar.py:generate_ar (the Pallas TPU kernel),
+// in its main-path variant: raw scalar input, Gaussian head (out_channels == 2), fused
+// critical path (wavenet_fused_ar=True), local conditioning, no global conditioning,
+// fresh call (zero ring buffers, no streamed state).
+//
+// Design. One thread block per sequence (grid = B), NT = 1024 threads. Blocks never talk
+// to each other. Each block runs all T steps; per step, with __syncthreads() between
+// dependent stages and f32 accumulation:
+//   1. the conditioning row  bf16(c_t) @ w_cond + b_cond,  kept bf16-rounded like the
+//      TPU kernel's per-chunk conditioning slab;
+//   2. per layer l: consts = b_tap + b_fused + cond_l + bf16(past taps) @ w_tap[l][:past];
+//   3. the fused chain  z_l = GLU(z_{l-1} @ w_fused[l] + sqrt(1/2) h_{l-1} @ w_cur[l]
+//      + consts)  with the residual/skip 1x1 of layer l-1 computed beside it;
+//   4. the head  relu -> 1x1 -> relu -> 1x1;
+//   5. the Gaussian sample  clip(mean + exp(max(logs, log_scale_min)) * eps, -1, 1);
+//   6. the feedback  h = sample * first_w + first_b.
+// The activations that feed a matmul are rounded to bf16 at the same places the TPU
+// kernel casts them, so the plain PyTorch version (ops/wavenet_ar.py
+// generate_ar_reference) and this kernel compute the same function.
+//
+// Where the data lives. The packed weights (bf16, 3.70 M values = 7.4 MB at the default
+// L=20, R=128, G=256, S=128) stay in global memory, which the 50 MB L2 holds across
+// steps. The per-layer ring buffers ((k-1)*dilation slots of R floats, 523,776 floats =
+// 2.1 MB per sequence) are an f32 scratch tensor the wrapper allocates. h, z, the skip
+// sum, the conditioning row and the matmul partial sums live in shared memory (~90 KB).
+//
+// What bounds it. Every step reads all 7.4 MB of weights once per block and does about
+// 3.7 M multiply-adds, so a step is bound by the L2 -> SM bandwidth of the one SM that
+// runs the sequence (shared memory holds about 3% of the weights). The design answers
+// with wide loads and many of them in flight: a warp reads a full 512-byte weight row as
+// 16-byte vectors (8 bf16 columns per thread), and the 32 warps split the rows of each
+// matmul between them; partial sums meet in shared memory. Measured on an H100 SXM
+// (700 W): one SM streams about 239 GB/s from L2, a floor of ~31 us/step for this
+// traffic, while a step takes ~178 us: the loads of each layer are drained at its
+// barriers, so load latency, not bandwidth, sets the pace of this first design.
+// Sharing weight reads across sequences (tensor-core mma over batched rows), clusters
+// with distributed shared memory, and fp8 weights are left for later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// 1024 threads: measured on an H100 SXM (700 W), 179 us/step at the default sizes
+// against 223 us with 512 threads and 356 us with 256; unrolling further did not help.
+constexpr int NT = 1024;  // threads per block
+constexpr int UNROLL = 4;  // weight loads in flight per thread and row slice
+constexpr int COLS = 8;   // bf16 columns per 16-byte load
+constexpr int RED = NT * COLS;  // floats in one partial-sum buffer
+constexpr float SQRT_HALF = 0.70710678118654752f;
+
+struct Args {
+  const float* c_up;       // (B, T, cin)
+  const float* noise;      // (B, T)
+  const float* first_w;    // (R,)
+  const float* first_b;    // (R,)
+  const __nv_bfloat16* w_tap;    // (L, k*R, G)
+  const float* b_tap;            // (L, G)
+  const __nv_bfloat16* w_os;     // (L, G/2, R+S)
+  const float* b_os;             // (L, R+S)
+  const __nv_bfloat16* w_fused;  // (L, G/2, G)
+  const float* b_fused;          // (L, G)
+  const __nv_bfloat16* w_cond;   // (cin, L*G)
+  const float* b_cond;           // (L*G,)
+  const __nv_bfloat16* w_s1;     // (S, S)
+  const float* b_s1;             // (S,)
+  const float* w_s2;             // (S, 2)
+  const float* b_s2;             // (2,)
+  float* rings;                  // (B, ring_floats) scratch
+  float* audio;                  // (B, T)
+  float* params;                 // (B, T, 2) or null
+  long long ring_floats;
+  int T, cin, L, lps, R, G, S, k, legacy, residual_legacy;
+  float log_scale_min;
+};
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ void fma8(float acc[COLS], float a, uint4 w) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(p[i]);
+    acc[2 * i] = fmaf(a, f.x, acc[2 * i]);
+    acc[2 * i + 1] = fmaf(a, f.y, acc[2 * i + 1]);
+  }
+}
+
+// One operand of a block matvec: rows [0, rows) of a bf16 matrix with leading
+// dimension ld, times act[0, rows) from shared memory.
+struct Seg {
+  const __nv_bfloat16* w;
+  int ld;
+  int rows;
+  const float* act;
+};
+
+// Partial sums of out[n] = sum over segments of act . W[:, n], n in [0, N).
+// Thread tid owns column group g = tid % (N/8) and row slice ks = tid / (N/8)
+// (rows ks, ks + KS, ...), KS = NT / (N/8); it writes red[ks*N + 8g .. 8g+7].
+// The caller synchronises and sums the KS slices. Needs N % 8 == 0, NT % (N/8) == 0.
+__device__ __forceinline__ void matvec_partial(const Seg* segs, int nseg, int N,
+                                               float* red) {
+  const int ng = N / COLS;
+  const int ks_n = NT / ng;
+  const int g = threadIdx.x % ng;
+  const int ks = threadIdx.x / ng;
+  float acc[COLS];
+#pragma unroll
+  for (int i = 0; i < COLS; ++i) acc[i] = 0.f;
+  for (int s = 0; s < nseg; ++s) {
+    const __nv_bfloat16* w = segs[s].w + g * COLS;
+    const size_t ld = segs[s].ld;
+    const float* act = segs[s].act;
+    const int rows = segs[s].rows;
+#pragma unroll UNROLL
+    for (int r = ks; r < rows; r += ks_n) {
+      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(w + r * ld));
+      fma8(acc, act[r], wv);
+    }
+  }
+  float* out = red + ks * N + g * COLS;
+#pragma unroll
+  for (int i = 0; i < COLS; ++i) out[i] = acc[i];
+}
+
+__device__ __forceinline__ float reduce_slices(const float* red, int N, int n) {
+  const int ks_n = NT / (N / COLS);
+  float s = 0.f;
+  for (int ks = 0; ks < ks_n; ++ks) s += red[ks * N + n];
+  return s;
+}
+
+__global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const int R = a.R, G = a.G, S = a.S, L = a.L, k = a.k, cin = a.cin;
+  const int half = G / 2, past = (k - 1) * R, LG = L * G, RS = R + S;
+  const float rho = a.residual_legacy ? SQRT_HALF : 1.f;
+
+  float* cond = smem;                   // (L*G)  bf16-rounded conditioning row
+  float* act = cond + LG;               // [taps (past) | h (R) | z (G/2)], bf16-rounded
+  float* taps = act;
+  float* hb = act + past;
+  float* zb = act + past + R;
+  float* red_a = act + past + R + half;  // residual/skip and head partial sums
+  float* red_b = red_a + RED;            // gate partial sums
+  float* h = red_b + RED;                // (R) f32 input of the current layer
+  float* skips = h + R;                  // (S)
+  float* xc = skips + S;                 // (cin) bf16-rounded c_t
+  float* o = xc + cin;                   // (S)
+  float* sample_s = o + S;               // (1)
+  int* ring_off = reinterpret_cast<int*>(sample_s + 4);  // (L) float offsets
+  int* win = ring_off + L;                                // (L) slots per ring
+
+  float* ring = a.rings + (size_t)b * a.ring_floats;
+  if (tid == 0) {
+    int off = 0;
+    for (int l = 0; l < L; ++l) {
+      win[l] = (k - 1) * (1 << (l % a.lps));
+      ring_off[l] = off;
+      off += win[l] * R;
+    }
+  }
+  for (long long i = tid; i < a.ring_floats; i += NT) ring[i] = 0.f;
+  for (int r = tid; r < R; r += NT) h[r] = a.first_b[r];
+  __syncthreads();
+
+  for (int t = 0; t < a.T; ++t) {
+    // --- the step's inputs: c_t, layer 0's taps and input, a cleared skip sum ---
+    const float* ct = a.c_up + ((size_t)b * a.T + t) * cin;
+    for (int i = tid; i < cin; i += NT) xc[i] = bf16r(ct[i]);
+    for (int i = tid; i < past; i += NT) {
+      const int j = i / R, r = i % R;
+      const int w0 = win[0], m = (k - 1 - j) * (w0 / (k - 1));
+      taps[i] = bf16r(ring[ring_off[0] + ((t + w0 - m) % w0) * R + r]);
+    }
+    for (int r = tid; r < R; r += NT) hb[r] = bf16r(h[r]);
+    for (int s = tid; s < S; s += NT) skips[s] = 0.f;
+    __syncthreads();
+
+    // --- 1. conditioning row for every layer: (cin) @ (cin, L*G) ---
+    for (int g = tid; g < LG / COLS; g += NT) {
+      float acc[COLS];
+#pragma unroll
+      for (int q = 0; q < COLS; ++q) acc[q] = 0.f;
+      const __nv_bfloat16* w = a.w_cond + g * COLS;
+#pragma unroll UNROLL
+      for (int i = 0; i < cin; ++i)
+        fma8(acc, xc[i], __ldg(reinterpret_cast<const uint4*>(w + (size_t)i * LG)));
+#pragma unroll
+      for (int q = 0; q < COLS; ++q) cond[g * COLS + q] = bf16r(acc[q] + a.b_cond[g * COLS + q]);
+    }
+    __syncthreads();
+
+    // --- layer 0 gates: [taps | h] @ w_tap[0] ---
+    {
+      Seg segs[1] = {{a.w_tap, G, past + R, act}};
+      matvec_partial(segs, 1, G, red_b);
+    }
+    __syncthreads();
+
+    // --- 2-3. the layer stack ---
+    for (int li = 0; li < L; ++li) {
+      // residual and skip outputs of layer li-1 (partials in red_a); h becomes the
+      // input of layer li and goes into its ring (its taps were staged already)
+      const int slot = t % win[li];
+      for (int c = tid; c < RS; c += NT) {
+        if (c < R) {
+          float hc = h[c];
+          if (li > 0) {
+            hc = (hc + a.b_os[(li - 1) * RS + c] + reduce_slices(red_a, RS, c)) * rho;
+            h[c] = hc;
+          }
+          ring[ring_off[li] + slot * R + c] = hc;
+          hb[c] = bf16r(hc) * rho;  // h term of layer li+1's fused gates
+        } else if (li > 0) {
+          const int s = c - R;
+          float sk = skips[s] + a.b_os[(li - 1) * RS + c] + reduce_slices(red_a, RS, c);
+          if (a.legacy && li - 1 > 0) sk *= SQRT_HALF;
+          skips[s] = sk;
+        }
+      }
+      // GLU of layer li (gate partials in red_b)
+      for (int n = tid; n < half; n += NT) {
+        const int base = li * G;
+        const float za = a.b_tap[base + n] + a.b_fused[base + n] + cond[base + n]
+                         + reduce_slices(red_b, G, n);
+        const float zg = a.b_tap[base + n + half] + a.b_fused[base + n + half]
+                         + cond[base + n + half] + reduce_slices(red_b, G, n + half);
+        zb[n] = bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg)));
+      }
+      // taps of layer li+1 (its ring is not written before the step's layer li+1)
+      if (li + 1 < L) {
+        const int w1 = win[li + 1], d1 = w1 / (k - 1);
+        for (int i = tid; i < past; i += NT) {
+          const int j = i / R, r = i % R;
+          const int m = (k - 1 - j) * d1;
+          taps[i] = bf16r(ring[ring_off[li + 1] + ((t + w1 - m) % w1) * R + r]);
+        }
+      }
+      __syncthreads();
+
+      if (li + 1 < L) {
+        // gates of layer li+1: [taps | rho*h | z] @ [w_tap[li+1] ; w_fused[li+1]]
+        Seg gate[2] = {{a.w_tap + (size_t)(li + 1) * k * R * G, G, past + R, act},
+                       {a.w_fused + (size_t)(li + 1) * half * G, G, half, zb}};
+        matvec_partial(gate, 2, G, red_b);
+        // residual and skip 1x1s of layer li: z @ w_os[li]
+        Seg os[1] = {{a.w_os + (size_t)li * half * RS, RS, half, zb}};
+        matvec_partial(os, 1, RS, red_a);
+      } else {
+        // last layer: only its skip output is used
+        Seg os[1] = {{a.w_os + (size_t)li * half * RS + R, RS, half, zb}};
+        matvec_partial(os, 1, S, red_a);
+      }
+      __syncthreads();
+    }
+
+    // --- 4. head: skip sum -> relu -> 1x1 -> relu -> 1x1 ---
+    for (int s = tid; s < S; s += NT) {
+      float sk = skips[s] + a.b_os[(L - 1) * RS + R + s] + reduce_slices(red_a, S, s);
+      if (a.legacy && L > 1) sk *= SQRT_HALF;
+      o[s] = bf16r(fmaxf(sk, 0.f));
+    }
+    __syncthreads();
+    {
+      Seg s1[1] = {{a.w_s1, S, S, o}};
+      matvec_partial(s1, 1, S, red_a);
+    }
+    __syncthreads();
+    for (int s = tid; s < S; s += NT)
+      skips[s] = fmaxf(a.b_s1[s] + reduce_slices(red_a, S, s), 0.f);
+    __syncthreads();
+
+    // --- 5. Gaussian sample (one warp) ---
+    if (tid < 32) {
+      float p0 = 0.f, p1 = 0.f;
+      for (int s = tid; s < S; s += 32) {
+        p0 = fmaf(skips[s], a.w_s2[2 * s], p0);
+        p1 = fmaf(skips[s], a.w_s2[2 * s + 1], p1);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        p0 += __shfl_xor_sync(0xffffffffu, p0, off);
+        p1 += __shfl_xor_sync(0xffffffffu, p1, off);
+      }
+      if (tid == 0) {
+        p0 += a.b_s2[0];
+        p1 += a.b_s2[1];
+        const size_t bt = (size_t)b * a.T + t;
+        const float logs = fmaxf(p1, a.log_scale_min);
+        const float x = fminf(fmaxf(p0 + expf(logs) * a.noise[bt], -1.f), 1.f);
+        a.audio[bt] = x;
+        if (a.params != nullptr) {
+          a.params[2 * bt] = p0;
+          a.params[2 * bt + 1] = p1;
+        }
+        sample_s[0] = x;
+      }
+    }
+    __syncthreads();
+
+    // --- 6. feedback through the first 1x1 conv ---
+    const float x = sample_s[0];
+    for (int r = tid; r < R; r += NT) h[r] = fmaf(x, a.first_w[r], a.first_b[r]);
+    __syncthreads();
+  }
+}
+
+size_t smem_bytes(int cin, int L, int R, int G, int S, int k) {
+  const size_t floats = (size_t)L * G + (size_t)(k - 1) * R + R + G / 2 + 2 * RED
+                        + R + S + cin + S + 4;
+  return floats * sizeof(float) + 2 * (size_t)L * sizeof(int);
+}
+
+bool tiles(int n) {  // N/8 column groups must divide the block
+  return n > 0 && n % COLS == 0 && NT % (n / COLS) == 0;
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). All pointers are device pointers; the
+// launch goes on `stream`. Returns the cudaError_t of the launch (0 on success).
+extern "C" int wavenet_ar_gaussian(
+    const void* c_up, const void* noise, const void* first_w, const void* first_b,
+    const void* w_tap, const void* b_tap, const void* w_os, const void* b_os,
+    const void* w_fused, const void* b_fused, const void* w_cond, const void* b_cond,
+    const void* w_s1, const void* b_s1, const void* w_s2, const void* b_s2,
+    void* rings, void* audio, void* params, long long ring_floats,
+    int B, int T, int cin, int L, int layers_per_stack, int R, int G, int S, int k,
+    int legacy, int residual_legacy, float log_scale_min, void* stream) {
+  if (B <= 0 || T <= 0 || cin <= 0 || L <= 0 || layers_per_stack <= 0 || k < 2
+      || G % 2 != 0 || R % COLS != 0 || !tiles(G) || !tiles(R + S) || !tiles(S))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.c_up = static_cast<const float*>(c_up);
+  a.noise = static_cast<const float*>(noise);
+  a.first_w = static_cast<const float*>(first_w);
+  a.first_b = static_cast<const float*>(first_b);
+  a.w_tap = static_cast<const __nv_bfloat16*>(w_tap);
+  a.b_tap = static_cast<const float*>(b_tap);
+  a.w_os = static_cast<const __nv_bfloat16*>(w_os);
+  a.b_os = static_cast<const float*>(b_os);
+  a.w_fused = static_cast<const __nv_bfloat16*>(w_fused);
+  a.b_fused = static_cast<const float*>(b_fused);
+  a.w_cond = static_cast<const __nv_bfloat16*>(w_cond);
+  a.b_cond = static_cast<const float*>(b_cond);
+  a.w_s1 = static_cast<const __nv_bfloat16*>(w_s1);
+  a.b_s1 = static_cast<const float*>(b_s1);
+  a.w_s2 = static_cast<const float*>(w_s2);
+  a.b_s2 = static_cast<const float*>(b_s2);
+  a.rings = static_cast<float*>(rings);
+  a.audio = static_cast<float*>(audio);
+  a.params = static_cast<float*>(params);
+  a.ring_floats = ring_floats;
+  a.T = T; a.cin = cin; a.L = L; a.lps = layers_per_stack; a.R = R; a.G = G; a.S = S;
+  a.k = k; a.legacy = legacy; a.residual_legacy = residual_legacy;
+  a.log_scale_min = log_scale_min;
+
+  const size_t smem = smem_bytes(cin, L, R, G, S, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      wavenet_ar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  wavenet_ar_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}

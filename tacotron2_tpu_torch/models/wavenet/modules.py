@@ -1,0 +1,85 @@
+"""WaveNet building blocks, (B, T, C) channels-last at every public boundary
+(counterpart of `tacotron2_tpu/models/wavenet/modules.py`).
+
+Inference only: weight normalization is folded into plain weights by `convert.py`, and
+the upsampler covers the SubPixel variant (the default).
+"""
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+
+class Conv1x1(nn.Linear):
+    """Pointwise conv == a dense layer over the channel axis of (B, T, C)."""
+
+
+class CausalConv1D(nn.Conv1d):
+    """Left-padded dilated conv over (B, T, C); weight (out, in, kernel_size)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 dilation: int = 1, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, dilation=dilation,
+                         bias=bias)
+
+    def forward(self, x: Tensor) -> Tensor:
+        pad = (self.kernel_size[0] - 1) * self.dilation[0]
+        y = super().forward(F.pad(x.transpose(1, 2), (pad, 0)))
+        return y.transpose(1, 2)
+
+
+class ResidualConv1DGLU(nn.Module):
+    """Dilated causal conv + GLU + conditioning 1x1 + residual/skip 1x1s."""
+
+    def __init__(self, residual_channels: int, gate_channels: int, kernel_size: int,
+                 skip_out_channels: int, cin_channels: int = -1, dilation: int = 1,
+                 bias: bool = True, residual_legacy: bool = True):
+        super().__init__()
+        self.residual_legacy = residual_legacy
+        self.conv = CausalConv1D(residual_channels, gate_channels, kernel_size,
+                                 dilation, bias)
+        self.conv1x1c = (Conv1x1(cin_channels, gate_channels, bias)
+                         if cin_channels > 0 else None)
+        half = gate_channels // 2
+        self.conv1x1_out = Conv1x1(half, residual_channels, bias)
+        self.conv1x1_skip = Conv1x1(half, skip_out_channels, bias)
+
+    def forward(self, x: Tensor, c: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+        """x (B, T, R); c (B, T, cin) or None. Returns (x_out (B, T, R), skip (B, T, S))."""
+        a, b = self.conv(x).chunk(2, dim=-1)
+        if c is not None:
+            ca, cb = self.conv1x1c(c).chunk(2, dim=-1)
+            a, b = a + ca, b + cb
+        gated = torch.tanh(a) * torch.sigmoid(b)
+        s = self.conv1x1_skip(gated)
+        out = self.conv1x1_out(gated) + x
+        if self.residual_legacy:
+            out = out * math.sqrt(0.5)
+        return out, s
+
+
+class UpsampleNetwork(nn.Module):
+    """mel (B, Tc, cin) -> (B, Tc*hop, cin), SubPixel variant.
+
+    The mel is an image with H = mel bins and W = time. Each layer is a SAME conv
+    (freq_axis_kernel_size, 3) from 1 to s channels, then the periodic shuffle
+    (B, H, W, s) -> (B, H, W*s), then a ReLU."""
+
+    def __init__(self, upsample_scales: Sequence[int], freq_axis_kernel_size: int = 3):
+        super().__init__()
+        self.scales = tuple(upsample_scales)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(1, s, (freq_axis_kernel_size, 3), padding='same')
+            for s in self.scales)
+
+    def forward(self, c: Tensor) -> Tensor:
+        B = c.shape[0]
+        x = c.transpose(1, 2)[:, None]                     # (B, 1, H, W)
+        for conv, s in zip(self.convs, self.scales):
+            y = conv(x)                                    # (B, s, H, W)
+            _, _, H, W = y.shape
+            x = torch.relu(y.permute(0, 2, 3, 1).reshape(B, 1, H, W * s))
+        return x[:, 0].transpose(1, 2)                     # (B, T*hop, cin)

@@ -1,0 +1,313 @@
+"""WaveNet autoregressive generation: packed weights, noise, the plain PyTorch version
+and the wrapper of the hand-written Hopper kernel (`csrc/wavenet_ar.cu`).
+
+Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for its main-path variant:
+raw scalar input, Gaussian head (`out_channels == 2`), the fused critical path
+(`wavenet_fused_ar=True`: layer l-1's residual 1x1 folded into layer l's current-tap
+conv, one serial matmul + GLU per layer), local conditioning only, fresh call.
+Anything else raises.
+
+`generate_ar` dispatches on the device of its input: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs `generate_ar_reference`.
+"""
+
+import ctypes
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import Tensor
+
+from ..models.wavenet.model import WaveNet
+
+SQRT_HALF = float(math.sqrt(0.5))
+
+# kernel launches made by generate_ar (the plain version never counts)
+LAUNCHES = 0
+
+# name -> (dtype, shape) of each packed weight, as pack_params made them, by sizes
+_PACKED_LAYOUTS: Dict[Tuple[int, ...], Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]] = {}
+
+
+def _layout_key(hp) -> Tuple[int, ...]:
+    return (hp.layers, hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
+            hp.kernel_size, hp.cin_channels, hp.out_channels)
+
+
+def check_supported(hp) -> None:
+    """Raise unless `hp` is the configuration the port's AR path covers."""
+    problems = []
+    if hp.input_type != 'raw':
+        problems.append(f'input_type={hp.input_type!r} (raw only)')
+    if hp.out_channels != 2:
+        problems.append(f'out_channels={hp.out_channels} (Gaussian head, 2, only)')
+    if not hp.wavenet_fused_ar:
+        problems.append('wavenet_fused_ar=False (fused critical path only)')
+    if hp.gin_channels > 0:
+        problems.append('global conditioning (gin_channels > 0)')
+    if hp.cin_channels <= 0:
+        problems.append('no local conditioning (cin_channels <= 0)')
+    if hp.kernel_size < 2:
+        problems.append('kernel_size < 2 (no ring buffers)')
+    if problems:
+        raise NotImplementedError('WaveNet AR generation does not cover: '
+                                  + ', '.join(problems))
+
+
+def dilations(hp) -> List[int]:
+    lps = hp.layers // hp.stacks
+    return [2 ** (i % lps) for i in range(hp.layers)]
+
+
+def ring_floats(hp) -> int:
+    """f32 ring-buffer slots per sequence: sum over layers of (k-1)*dilation*R."""
+    return (hp.kernel_size - 1) * hp.residual_channels * sum(dilations(hp))
+
+
+def _bias(layer, features: int) -> Tensor:
+    if layer.bias is not None:
+        return layer.bias.detach().float()
+    return torch.zeros(features, device=layer.weight.device)
+
+
+@torch.no_grad()
+def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
+    """Extract and pre-transform the WaveNet weights for AR generation
+    (counterpart of `pack_params`, `wavenet_ar.py:99-165`).
+
+    Layouts follow the JAX packing, (in, out): `w_tap` (L, k*R, G) with the taps
+    oldest first and the current tap last, `w_os` (L, G/2, R+S) residual and skip
+    1x1s side by side, `w_fused` (L, G/2, G) the fold rho * W_out[l-1] @ W_cur[l]
+    (zero for layer 0), `w_cond` (cin, L*G) every layer's conditioning 1x1. Weights
+    are bf16 and biases f32, except the first conv and the last head layer, which
+    stay f32 as in the JAX packing. `w_cond` keeps cin rows (no lane padding)."""
+    check_supported(hp)
+    L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
+    S, k = hp.skip_out_channels, hp.kernel_size
+    past = (k - 1) * R
+    w = {}
+    fc = model.first_conv
+    w['first_w'] = fc.weight.detach().float().t().contiguous()        # (1, R)
+    w['first_b'] = _bias(fc, R)
+
+    w_tap, b_tap, w_os, b_os, w_c, b_c = [], [], [], [], [], []
+    for blk in model.residual_layers:
+        # Conv1d weight (G, R, k) -> (k, R, G) -> (k*R, G)
+        w_tap.append(blk.conv.weight.detach().float().permute(2, 1, 0).reshape(k * R, G))
+        b_tap.append(_bias(blk.conv, G))
+        w_os.append(torch.cat([blk.conv1x1_out.weight.detach().float().t(),
+                               blk.conv1x1_skip.weight.detach().float().t()], dim=1))
+        b_os.append(torch.cat([_bias(blk.conv1x1_out, R), _bias(blk.conv1x1_skip, S)]))
+        w_c.append(blk.conv1x1c.weight.detach().float().t())           # (cin, G)
+        b_c.append(_bias(blk.conv1x1c, G))
+    w['w_tap'] = torch.stack(w_tap).bfloat16().contiguous()
+    w['b_tap'] = torch.stack(b_tap).contiguous()
+    w['w_os'] = torch.stack(w_os).bfloat16().contiguous()
+    w['b_os'] = torch.stack(b_os).contiguous()
+
+    # fused critical path (wavenet_ar.py:131-151): computed from the f32 weights
+    rho = SQRT_HALF if hp.residual_legacy else 1.0
+    w_fused = [torch.zeros(G // 2, G, device=fc.weight.device)]
+    b_fused = [torch.zeros(G, device=fc.weight.device)]
+    for i in range(1, L):
+        w_cur = w_tap[i][past:]                                        # (R, G)
+        w_fused.append(rho * (w_os[i - 1][:, :R] @ w_cur))
+        b_fused.append(rho * (b_os[i - 1][:R] @ w_cur))
+    w['w_fused'] = torch.stack(w_fused).bfloat16().contiguous()
+    w['b_fused'] = torch.stack(b_fused).contiguous()
+
+    w['w_cond'] = torch.stack(w_c, dim=1).reshape(hp.cin_channels, L * G) \
+        .bfloat16().contiguous()
+    w['b_cond'] = torch.cat(b_c).contiguous()
+    w['w_s1'] = model.skip_conv1.weight.detach().float().t().bfloat16().contiguous()
+    w['b_s1'] = _bias(model.skip_conv1, S)
+    w['w_s2'] = model.skip_conv2.weight.detach().float().t().contiguous()  # (S, 2) f32
+    w['b_s2'] = _bias(model.skip_conv2, hp.out_channels)
+    _PACKED_LAYOUTS[_layout_key(hp)] = {n: (t.dtype, tuple(t.shape)) for n, t in w.items()}
+    return w
+
+
+def make_noise(hp, generator: torch.Generator, B: int, T: int,
+               device: Optional[torch.device] = None) -> Tensor:
+    """Standard-normal sampling noise (B, T) for the Gaussian head, drawn from
+    `generator` (counterpart of `make_noise`, `wavenet_ar.py:715-726`)."""
+    eps = torch.randn(B, T, generator=generator, device=generator.device)
+    return eps.to(device) if device is not None else eps
+
+
+def _glu(z: Tensor, half: int) -> Tensor:
+    # the TPU kernel's sigmoid form: 0.5 + 0.5*tanh(x/2)
+    return torch.tanh(z[:, :half]) * (0.5 + 0.5 * torch.tanh(0.5 * z[:, half:]))
+
+
+def _bf(x: Tensor) -> Tensor:
+    """Round to bf16 and back: the places the TPU kernel casts a matmul operand."""
+    return x.bfloat16().float()
+
+
+@torch.no_grad()
+def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
+                          targets: Optional[Tensor] = None, return_params: bool = True
+                          ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Plain PyTorch AR generation with the kernel's arithmetic.
+
+    Mirrors the fused step of `wavenet_ar.py:303-453` on the packed weights:
+    bf16-rounded matmul operands, f32 products and sums, the same order of
+    operations. `targets` (B, T), when given, replaces each sample fed back (teacher
+    forcing, as `models/wavenet/model.py:285-286`), so per-step params can be
+    compared on an identical history.
+
+    Args:
+        weights: `pack_params` output.
+        c_up: (B, T, cin) upsampled conditioning, already rescaled to [0, 1].
+        noise: (B, T) standard-normal noise.
+    Returns: (audio (B, T), params (B, T, 2) or None); audio holds the fed-back samples.
+    """
+    B, T, _ = c_up.shape
+    L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
+    S, k = hp.skip_out_channels, hp.kernel_size
+    half, past = G // 2, (k - 1) * R
+    rho = SQRT_HALF if hp.residual_legacy else 1.0
+    dev = c_up.device
+    W = {name: t.to(dev).float() for name, t in weights.items()}
+    dils = dilations(hp)
+    wins = [(k - 1) * d for d in dils]
+    bufs = [torch.zeros(B, win, R, device=dev) for win in wins]
+    h = W['first_b'].expand(B, R)
+    audio = torch.empty(B, T, device=dev)
+    params = torch.empty(B, T, 2, device=dev) if return_params else None
+    c_up = c_up.float()
+    for t in range(T):
+        # the TPU kernel keeps the conditioning slab in bf16 (wavenet_ar.py:292-301)
+        cond = _bf(_bf(c_up[:, t]) @ W['w_cond'] + W['b_cond'])
+        skips = torch.zeros(B, S, device=dev)
+        consts = []
+        for li in range(L):
+            # tap x(t-m) lives at slot (t - m) mod win (wavenet_ar.py:317-326)
+            taps = [bufs[li][:, (t + wins[li] - (k - 1 - j) * dils[li]) % wins[li]]
+                    for j in range(k - 1)]
+            p = W['b_tap'][li] + W['b_fused'][li] + cond[:, li * G:(li + 1) * G]
+            consts.append(p + _bf(torch.cat(taps, dim=1)) @ W['w_tap'][li, :past])
+        z = _glu(_bf(h) @ W['w_tap'][0, past:] + consts[0], half)
+        h_prev = h
+        hs = [h]
+        for li in range(1, L):
+            zb = _bf(z)
+            b_term = zb @ W['w_fused'][li]
+            a_term = _bf(h_prev) @ W['w_tap'][li, past:]
+            if hp.residual_legacy:
+                a_term = a_term * SQRT_HALF
+            y = zb @ W['w_os'][li - 1] + W['b_os'][li - 1]
+            h_cur = (h_prev + y[:, :R]) * rho
+            skips = skips + y[:, R:]
+            if hp.legacy and li - 1 > 0:
+                skips = skips * SQRT_HALF
+            z = _glu(b_term + a_term + consts[li], half)
+            hs.append(h_cur)
+            h_prev = h_cur
+        y = _bf(z) @ W['w_os'][L - 1] + W['b_os'][L - 1]
+        skips = skips + y[:, R:]
+        if hp.legacy and L > 1:
+            skips = skips * SQRT_HALF
+        for li in range(L):  # overwrite the oldest slot, after every read
+            bufs[li][:, t % wins[li]] = hs[li]
+
+        o = torch.relu(skips)
+        o = torch.relu(_bf(o) @ W['w_s1'] + W['b_s1'])
+        params_t = o @ W['w_s2'] + W['b_s2']
+        logs = torch.clamp(params_t[:, 1], min=hp.log_scale_min_gauss)
+        sample = torch.clamp(params_t[:, 0] + torch.exp(logs) * noise[:, t], -1.0, 1.0)
+        if targets is not None:
+            sample = targets[:, t].float()
+        audio[:, t] = sample
+        if params is not None:
+            params[:, t] = params_t
+        h = sample[:, None] * W['first_w'][0] + W['first_b']
+    return audio, params
+
+
+# the packed weights in the order of the kernel's pointer arguments
+KERNEL_WEIGHTS = ('first_w', 'first_b', 'w_tap', 'b_tap', 'w_os', 'b_os', 'w_fused',
+                  'b_fused', 'w_cond', 'b_cond', 'w_s1', 'b_s1', 'w_s2', 'b_s2')
+
+
+def packed_layout(hp) -> Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]:
+    """name -> (dtype, shape) of what `pack_params` returned for the sizes of `hp`,
+    as it recorded them; raises if nothing was packed at these sizes."""
+    layout = _PACKED_LAYOUTS.get(_layout_key(hp))
+    if layout is None:
+        raise ValueError('no weights were packed at these sizes: call pack_params first')
+    return layout
+
+
+def _kernel_fn():
+    from ._build import load_library
+    fn = load_library().wavenet_ar_gaussian
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_longlong] + [ctypes.c_int] * 11
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tensor(name: str, t: Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} has dtype {t.dtype}, expected {dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {tuple(shape)}')
+    if not t.is_contiguous() or t.data_ptr() % 16 != 0:
+        raise ValueError(f'{name} must be contiguous and 16-byte aligned')
+
+
+def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
+                return_params: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+    """AR generation (counterpart of `generate_ar`, `wavenet_ar.py:515-712`).
+
+    On a CUDA tensor this launches the hand-written kernel once for all T steps; on a
+    CPU tensor it runs `generate_ar_reference`. The kernel's limits: one block of 1024
+    threads per sequence; R a multiple of 8; G, R+S and S multiples of 8 whose
+    eighths divide 1024; f32 `c_up` (B, T, cin) and `noise` (B, T), contiguous.
+
+    Returns: (audio (B, T), params (B, T, 2) or None).
+    """
+    global LAUNCHES
+    check_supported(hp)
+    if c_up.device.type == 'cpu':
+        return generate_ar_reference(weights, c_up, noise, hp,
+                                     return_params=return_params)
+    if c_up.device.type != 'cuda':
+        raise ValueError(f'generate_ar runs on CPU or CUDA tensors, not {c_up.device}')
+    device = c_up.device
+    if c_up.dim() != 3:
+        raise ValueError(f'c_up must be (B, T, cin), got {tuple(c_up.shape)}')
+    B, T, cin = c_up.shape
+    if cin != hp.cin_channels:
+        raise ValueError(f'c_up has {cin} channels, hp.cin_channels={hp.cin_channels}')
+    _check_tensor('c_up', c_up, torch.float32, (B, T, cin), device)
+    _check_tensor('noise', noise, torch.float32, (B, T), device)
+    layout = packed_layout(hp)
+    if set(weights) != set(layout):
+        raise ValueError(f'weights hold {sorted(weights)}, pack_params gives {sorted(layout)}')
+    for name in KERNEL_WEIGHTS:
+        _check_tensor(name, weights[name], *layout[name], device)
+
+    fn = _kernel_fn()
+    audio = torch.empty(B, T, device=device)
+    params = torch.empty(B, T, 2, device=device) if return_params else None
+    n_ring = ring_floats(hp)
+    rings = torch.empty(B, n_ring, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(c_up.data_ptr(), noise.data_ptr(),
+                 *[weights[name].data_ptr() for name in KERNEL_WEIGHTS],
+                 rings.data_ptr(), audio.data_ptr(),
+                 params.data_ptr() if params is not None else None,
+                 n_ring, B, T, cin, hp.layers, hp.layers // hp.stacks,
+                 hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
+                 hp.kernel_size, int(hp.legacy), int(hp.residual_legacy),
+                 float(hp.log_scale_min_gauss), stream)
+    if err != 0:
+        raise RuntimeError(f'wavenet_ar_gaussian launch failed: CUDA error {err}')
+    LAUNCHES += 1
+    return audio, params

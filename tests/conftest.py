@@ -32,6 +32,9 @@ def pytest_configure(config):
         'markers',
         'kernel_tier: slow interpret-mode Pallas kernel parity case (opt-in: '
         '--kernel or T2_KERNEL_TESTS=1; one representative stays in the default tier)')
+    config.addinivalue_line(
+        'markers',
+        'cuda: needs a CUDA card (skips without one); on the card: -m cuda')
 
 
 def pytest_addoption(parser):

@@ -1,0 +1,137 @@
+"""The port on a CUDA card: the hand-written AR kernel against its plain PyTorch
+version, its input checks, and the slice end to end. Marked `cuda`; each test skips
+without a card. On the card: `python -m pytest tests/test_torch_cuda.py -m cuda -q`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import KERNEL_TOL, planted_faults
+from tacotron2_tpu.config import default_hparams
+from tacotron2_tpu_torch import convert, synthesize
+from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+from tacotron2_tpu_torch.models.wavenet.model import WaveNet
+from tacotron2_tpu_torch.ops import wavenet_ar
+from tacotron2_tpu_torch.utils import randomize_weights, suppress_stop_tokens
+
+pytestmark = pytest.mark.cuda
+
+TINY = ("embedding_dim=32,enc_conv_channels=32,enc_conv_num_layers=1,encoder_lstm_units=16,"
+        "attention_dim=16,attention_filters=8,attention_kernel=[7],prenet_layers=[16,16],"
+        "decoder_lstm_units=32,postnet_channels=32,postnet_num_layers=2,outputs_per_step=2,"
+        "layers=4,stacks=2,residual_channels=8,gate_channels=16,skip_out_channels=8,"
+        "upsample_scales=[4,8],hop_size=32,win_size=128,n_fft=256,num_freq=129,"
+        "max_iters=8,tacotron_synthesis_batch_size=2")
+
+
+@pytest.fixture()
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device('cuda')
+
+
+def _wavenet_inputs(hp, B, frames, device, seed=0):
+    """Packed weights of a WaveNet with seeded random weights of order 1, c_up through
+    its upsampler, and noise."""
+    model = randomize_weights(WaveNet(hp), torch.Generator().manual_seed(seed))
+    model = model.to(device).eval()
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    mel = torch.rand(B, frames, hp.num_mels, generator=gen, device=device)
+    with torch.no_grad():
+        c_up = model.upsample_conditioning(mel).contiguous()
+    noise = wavenet_ar.make_noise(hp, gen, B, c_up.shape[1], device)
+    return wavenet_ar.pack_params(model, hp), c_up, noise
+
+
+@pytest.mark.parametrize('config,B,frames', [(TINY, 3, 8), ('', 2, 1)],
+                         ids=['tiny', 'default'])
+def test_kernel_matches_plain_version(device, config, B, frames):
+    """Free-running kernel vs the plain version teacher-forced on its audio: per-step
+    params within KERNEL_TOL (chip_smoke.py's bound), samples drawn from those params
+    and the shared noise."""
+    hp = default_hparams()
+    hp.parse(config)
+    weights, c_up, noise = _wavenet_inputs(hp, B, frames, device)
+    before = wavenet_ar.LAUNCHES
+    audio, params = wavenet_ar.generate_ar(weights, c_up, noise, hp)
+    torch.cuda.synchronize()
+    assert wavenet_ar.LAUNCHES == before + 1
+    _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, targets=audio)
+    assert (params - ref).abs().max().item() <= KERNEL_TOL
+    logs = torch.clamp(params[..., 1], min=hp.log_scale_min_gauss)
+    drawn = torch.clamp(params[..., 0] + torch.exp(logs) * noise, -1, 1)
+    assert (drawn - audio).abs().max().item() <= 1e-5
+    assert torch.isfinite(audio).all() and audio.abs().max() <= 1.0
+    again, none = wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False)
+    assert none is None and torch.equal(again, audio)
+
+
+@pytest.mark.parametrize('fault', list(planted_faults(default_hparams())))
+def test_kernel_check_catches_planted_faults(device, fault):
+    """Packed weights as a kernel with one bug would read them take the kernel's params
+    beyond KERNEL_TOL of the plain version's on the true weights."""
+    hp = default_hparams()
+    hp.parse(TINY)
+    weights, c_up, noise = _wavenet_inputs(hp, 3, 8, device)
+    name, plant = planted_faults(hp)[fault]
+    audio, params = wavenet_ar.generate_ar({**weights, name: plant(weights[name])},
+                                           c_up, noise, hp)
+    _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, targets=audio)
+    assert (params - ref).abs().max().item() > KERNEL_TOL
+
+
+def test_kernel_rejects_what_it_does_not_take(device):
+    hp = default_hparams()
+    hp.parse(TINY)
+    weights, c_up, noise = _wavenet_inputs(hp, 2, 2, device)
+    before = wavenet_ar.LAUNCHES
+    with pytest.raises(ValueError):  # not contiguous
+        wavenet_ar.generate_ar(weights, c_up.transpose(0, 1).contiguous().transpose(0, 1),
+                               noise, hp)
+    with pytest.raises(TypeError):
+        wavenet_ar.generate_ar(weights, c_up.double(), noise, hp)
+    with pytest.raises(ValueError):  # weights left on the CPU
+        wavenet_ar.generate_ar({k: v.cpu() for k, v in weights.items()}, c_up, noise, hp)
+    with pytest.raises(NotImplementedError):
+        wavenet_ar.generate_ar(weights, c_up, noise, hp.replace(out_channels=30))
+    assert wavenet_ar.LAUNCHES == before
+
+
+def test_tacotron_on_the_card_matches_cpu(device):
+    hp = default_hparams()
+    hp.parse(TINY)
+    torch.manual_seed(0)
+    model = Tacotron(hp).eval()
+    gen = torch.Generator().manual_seed(1)
+    inputs = torch.randint(2, 60, (2, 16), generator=gen)
+    lengths = torch.tensor([16, 11])
+    masks = tuple(torch.bernoulli(torch.full((8, 2, n), 0.5), generator=gen) * 2
+                  for n in hp.prenet_layers)
+    ref = model(inputs, lengths, max_iters=8, masks=masks)
+    got = model.to(device)(inputs.to(device), lengths.to(device), max_iters=8,
+                           masks=tuple(m.to(device) for m in masks))
+    for key in ('mel_outputs', 'stop_token_prediction', 'alignments'):
+        assert (got[key].cpu() - ref[key]).abs().max().item() <= 1e-4, key
+
+
+def test_synthesize_cli_on_the_card(device, tmp_path):
+    hp = default_hparams()
+    hp.parse(TINY)
+    torch.manual_seed(0)
+    taco, wave = str(tmp_path / 'taco.pt'), str(tmp_path / 'wavenet.pt')
+    convert.save_checkpoint(taco, 'tacotron', suppress_stop_tokens(Tacotron(hp).state_dict()))
+    convert.save_checkpoint(wave, 'wavenet', WaveNet(hp).state_dict())
+    texts = tmp_path / 'texts.txt'
+    texts.write_text('Hello world.\nHe reads books.\n', encoding='utf-8')
+    before = wavenet_ar.LAUNCHES
+    stats = synthesize.main(['--tacotron_checkpoint', taco, '--wavenet_checkpoint', wave,
+                             '--hparams', TINY, '--text_list', str(texts),
+                             '--output_dir', str(tmp_path / 'out')])
+    assert wavenet_ar.LAUNCHES > before
+    n = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
+    assert [len(w) for w in stats['wavs']] == [n, n]
+    assert all(np.isfinite(w).all() for w in stats['wavs'])
