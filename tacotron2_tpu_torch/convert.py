@@ -1,4 +1,5 @@
-"""Map flax parameter trees (numpy) onto the port's state_dicts, and save / load them.
+"""Map flax parameter trees (numpy) onto the port's state_dicts, and save / load them;
+map the JAX AR kernel's streaming state onto the port's.
 
 The trees are what the JAX package's `create_train_state` or a checkpoint restore
 holds, with every leaf turned into a numpy array. The layout changes:
@@ -12,11 +13,15 @@ holds, with every leaf turned into a numpy array. The layout changes:
     but the last (tacotron2_tpu/ops/pallas/wavenet_ar.py:80-89).
 """
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import Tensor
+
+from .models.tacotron.model import Tacotron
+from .models.wavenet.model import WaveNet
+from .ops.wavenet_ar import ring_layout
 
 
 def _t(x) -> Tensor:
@@ -118,6 +123,27 @@ def wavenet_state_dict(params: Mapping) -> Dict[str, Tensor]:
     return sd
 
 
+def stream_state_from_jax(state: Sequence, hp, batch: int) -> Tuple[Tensor, Tensor, int]:
+    """The JAX AR kernel's streaming state -> the port's (`ops/wavenet_ar.py`).
+
+    `state` is what `generate_ar(..., return_state=True)` returns
+    (`wavenet_ar.py:709-711`): a tuple of L ring buffers (win, B_PAD, R), the
+    next-step h (B_PAD, R) and the step offset t0, as numpy arrays or scalars.
+    Keeps the first `batch` rows (B_PAD holds sublane padding) and lays the rings
+    out as the port does: (batch, ring_floats), layer after layer, slot-major.
+    Returns (rings, h, t_base)."""
+    bufs, prev, t0 = state
+    rings = []
+    for buf, (_, win) in zip(bufs, ring_layout(hp), strict=True):
+        buf = np.asarray(buf, np.float32)
+        if buf.shape[0] != win or buf.shape[2] != hp.residual_channels:
+            raise ValueError(f'ring of shape {buf.shape}, expected ({win}, B_PAD, '
+                             f'{hp.residual_channels})')
+        rings.append(buf[:, :batch].transpose(1, 0, 2).reshape(batch, -1))
+    return (_t(np.concatenate(rings, axis=1)), _t(np.asarray(prev)[:batch]),
+            int(np.asarray(t0)))
+
+
 def save_checkpoint(path: str, kind: str, state_dict: Mapping[str, Tensor]) -> None:
     """Write a state_dict for the CLI (`kind` is 'tacotron' or 'wavenet')."""
     torch.save({'kind': kind,
@@ -130,3 +156,13 @@ def load_checkpoint(path: str, kind: str) -> Dict[str, Tensor]:
     if ckpt.get('kind') != kind:
         raise ValueError(f'{path} holds a {ckpt.get("kind")!r} checkpoint, not {kind!r}')
     return ckpt['state_dict']
+
+
+def load_models(tacotron_checkpoint: str, wavenet_checkpoint: str, hp, device
+                ) -> Tuple[Tacotron, WaveNet]:
+    """Both models from save_checkpoint files, on `device`, in eval mode."""
+    taco = Tacotron(hp)
+    taco.load_state_dict(load_checkpoint(tacotron_checkpoint, 'tacotron'))
+    wavenet = WaveNet(hp)
+    wavenet.load_state_dict(load_checkpoint(wavenet_checkpoint, 'wavenet'))
+    return taco.to(device).eval(), wavenet.to(device).eval()

@@ -1,15 +1,19 @@
 // WaveNet autoregressive generation on Hopper: the whole sample loop in one launch.
 //
 // Replaces tacotron2_tpu/ops/pallas/wavenet_ar.py:generate_ar (the Pallas TPU kernel),
-// in its main-path variant: raw scalar input, Gaussian head (out_channels == 2), fused
-// critical path (wavenet_fused_ar=True), local conditioning, no global conditioning,
-// fresh call (zero ring buffers, no streamed state).
+// in its main-path variants: raw scalar input, Gaussian head (out_channels == 2), fused
+// critical path (wavenet_fused_ar=True), local conditioning, no global conditioning;
+// a fresh call (zero ring buffers, h = first_b) or a streamed continuation that takes
+// the ring buffers, the next-step h and the absolute step offset t_base from the
+// previous call (the TPU kernel's state_in / return_state, wavenet_ar.py:249-271,
+// 504-511) and hands h back at the end; the rings are updated in place.
 //
 // Design. One thread block per sequence (grid = B), NT = 1024 threads. Blocks never talk
 // to each other. Each block runs all T steps; per step, with __syncthreads() between
 // dependent stages and f32 accumulation:
-//   1. the conditioning row  bf16(c_t) @ w_cond + b_cond,  kept bf16-rounded like the
-//      TPU kernel's per-chunk conditioning slab;
+//   1. the conditioning row  bf16(c_t) @ w_cond + b_cond,  rounded to bf16 where the
+//      TPU kernel keeps a bf16 per-chunk slab (padded batch <= 16 rows; the wrapper
+//      passes round_cond) and f32 where it does not;
 //   2. per layer l: consts = b_tap + b_fused + cond_l + bf16(past taps) @ w_tap[l][:past];
 //   3. the fused chain  z_l = GLU(z_{l-1} @ w_fused[l] + sqrt(1/2) h_{l-1} @ w_cur[l]
 //      + consts)  with the residual/skip 1x1 of layer l-1 computed beside it;
@@ -69,11 +73,14 @@ struct Args {
   const float* b_s1;             // (S,)
   const float* w_s2;             // (S, 2)
   const float* b_s2;             // (2,)
-  float* rings;                  // (B, ring_floats) scratch
+  float* rings;                  // (B, ring_floats): zeroed here, or the carried state
+  const float* h_in;             // (B, R) carried next-step h, or null: a fresh call
+  float* h_out;                  // (B, R) next-step h after the last step, or null
   float* audio;                  // (B, T)
   float* params;                 // (B, T, 2) or null
   long long ring_floats;
-  int T, cin, L, lps, R, G, S, k, legacy, residual_legacy;
+  long long t_base;              // absolute step of local step 0
+  int T, cin, L, lps, R, G, S, k, legacy, residual_legacy, round_cond;
   float log_scale_min;
 };
 
@@ -158,6 +165,7 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
   float* sample_s = o + S;               // (1)
   int* ring_off = reinterpret_cast<int*>(sample_s + 4);  // (L) float offsets
   int* win = ring_off + L;                                // (L) slots per ring
+  int* base = win + L;  // (L) t_base mod win: local step t uses slot (base + t) mod win
 
   float* ring = a.rings + (size_t)b * a.ring_floats;
   if (tid == 0) {
@@ -165,11 +173,16 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
     for (int l = 0; l < L; ++l) {
       win[l] = (k - 1) * (1 << (l % a.lps));
       ring_off[l] = off;
+      base[l] = (int)(a.t_base % win[l]);
       off += win[l] * R;
     }
   }
-  for (long long i = tid; i < a.ring_floats; i += NT) ring[i] = 0.f;
-  for (int r = tid; r < R; r += NT) h[r] = a.first_b[r];
+  if (a.h_in == nullptr) {
+    for (long long i = tid; i < a.ring_floats; i += NT) ring[i] = 0.f;
+    for (int r = tid; r < R; r += NT) h[r] = a.first_b[r];
+  } else {
+    for (int r = tid; r < R; r += NT) h[r] = a.h_in[(size_t)b * R + r];
+  }
   __syncthreads();
 
   for (int t = 0; t < a.T; ++t) {
@@ -179,7 +192,7 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
     for (int i = tid; i < past; i += NT) {
       const int j = i / R, r = i % R;
       const int w0 = win[0], m = (k - 1 - j) * (w0 / (k - 1));
-      taps[i] = bf16r(ring[ring_off[0] + ((t + w0 - m) % w0) * R + r]);
+      taps[i] = bf16r(ring[ring_off[0] + ((base[0] + t + w0 - m) % w0) * R + r]);
     }
     for (int r = tid; r < R; r += NT) hb[r] = bf16r(h[r]);
     for (int s = tid; s < S; s += NT) skips[s] = 0.f;
@@ -195,7 +208,10 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
       for (int i = 0; i < cin; ++i)
         fma8(acc, xc[i], __ldg(reinterpret_cast<const uint4*>(w + (size_t)i * LG)));
 #pragma unroll
-      for (int q = 0; q < COLS; ++q) cond[g * COLS + q] = bf16r(acc[q] + a.b_cond[g * COLS + q]);
+      for (int q = 0; q < COLS; ++q) {
+        const float v = acc[q] + a.b_cond[g * COLS + q];
+        cond[g * COLS + q] = a.round_cond ? bf16r(v) : v;
+      }
     }
     __syncthreads();
 
@@ -210,7 +226,7 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
     for (int li = 0; li < L; ++li) {
       // residual and skip outputs of layer li-1 (partials in red_a); h becomes the
       // input of layer li and goes into its ring (its taps were staged already)
-      const int slot = t % win[li];
+      const int slot = (base[li] + t) % win[li];
       for (int c = tid; c < RS; c += NT) {
         if (c < R) {
           float hc = h[c];
@@ -242,7 +258,7 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
         for (int i = tid; i < past; i += NT) {
           const int j = i / R, r = i % R;
           const int m = (k - 1 - j) * d1;
-          taps[i] = bf16r(ring[ring_off[li + 1] + ((t + w1 - m) % w1) * R + r]);
+          taps[i] = bf16r(ring[ring_off[li + 1] + ((base[li + 1] + t + w1 - m) % w1) * R + r]);
         }
       }
       __syncthreads();
@@ -312,12 +328,14 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
     for (int r = tid; r < R; r += NT) h[r] = fmaf(x, a.first_w[r], a.first_b[r]);
     __syncthreads();
   }
+  if (a.h_out != nullptr)
+    for (int r = tid; r < R; r += NT) a.h_out[(size_t)b * R + r] = h[r];
 }
 
 size_t smem_bytes(int cin, int L, int R, int G, int S, int k) {
   const size_t floats = (size_t)L * G + (size_t)(k - 1) * R + R + G / 2 + 2 * RED
                         + R + S + cin + S + 4;
-  return floats * sizeof(float) + 2 * (size_t)L * sizeof(int);
+  return floats * sizeof(float) + 3 * (size_t)L * sizeof(int);
 }
 
 bool tiles(int n) {  // N/8 column groups must divide the block
@@ -333,11 +351,13 @@ extern "C" int wavenet_ar_gaussian(
     const void* w_tap, const void* b_tap, const void* w_os, const void* b_os,
     const void* w_fused, const void* b_fused, const void* w_cond, const void* b_cond,
     const void* w_s1, const void* b_s1, const void* w_s2, const void* b_s2,
-    void* rings, void* audio, void* params, long long ring_floats,
-    int B, int T, int cin, int L, int layers_per_stack, int R, int G, int S, int k,
-    int legacy, int residual_legacy, float log_scale_min, void* stream) {
+    void* rings, const void* h_in, void* h_out, void* audio, void* params,
+    long long ring_floats, long long t_base, int B, int T, int cin, int L,
+    int layers_per_stack, int R, int G, int S, int k, int legacy, int residual_legacy,
+    int round_cond, float log_scale_min, void* stream) {
   if (B <= 0 || T <= 0 || cin <= 0 || L <= 0 || layers_per_stack <= 0 || k < 2
-      || G % 2 != 0 || R % COLS != 0 || !tiles(G) || !tiles(R + S) || !tiles(S))
+      || G % 2 != 0 || R % COLS != 0 || !tiles(G) || !tiles(R + S) || !tiles(S)
+      || t_base < 0)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.c_up = static_cast<const float*>(c_up);
@@ -357,11 +377,15 @@ extern "C" int wavenet_ar_gaussian(
   a.w_s2 = static_cast<const float*>(w_s2);
   a.b_s2 = static_cast<const float*>(b_s2);
   a.rings = static_cast<float*>(rings);
+  a.h_in = static_cast<const float*>(h_in);
+  a.h_out = static_cast<float*>(h_out);
   a.audio = static_cast<float*>(audio);
   a.params = static_cast<float*>(params);
   a.ring_floats = ring_floats;
+  a.t_base = t_base;
   a.T = T; a.cin = cin; a.L = L; a.lps = layers_per_stack; a.R = R; a.G = G; a.S = S;
   a.k = k; a.legacy = legacy; a.residual_legacy = residual_legacy;
+  a.round_cond = round_cond;
   a.log_scale_min = log_scale_min;
 
   const size_t smem = smem_bytes(cin, L, R, G, S, k);

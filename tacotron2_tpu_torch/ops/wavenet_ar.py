@@ -1,14 +1,21 @@
 """WaveNet autoregressive generation: packed weights, noise, the plain PyTorch version
 and the wrapper of the hand-written Hopper kernel (`csrc/wavenet_ar.cu`).
 
-Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for its main-path variant:
+Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for its main-path variants:
 raw scalar input, Gaussian head (`out_channels == 2`), the fused critical path
 (`wavenet_fused_ar=True`: layer l-1's residual 1x1 folded into layer l's current-tap
-conv, one serial matmul + GLU per layer), local conditioning only, fresh call.
-Anything else raises.
+conv, one serial matmul + GLU per layer), local conditioning only; a fresh call or a
+streamed continuation (`state_in` / `return_state`). Anything else raises.
 
 `generate_ar` dispatches on the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs `generate_ar_reference`.
+
+Streaming state. `(rings, h, t_base)`: `rings` (B, ring_floats) f32 holds every
+layer's ring buffer, layer l's `win = (k-1)*dilation` slots of R floats at float
+offset `ring_layout(hp)[l][0]`; `h` (B, R) f32 is the first-conv output that feeds
+the next step; `t_base` is the absolute step of the chunk's first sample. Local step
+t of a chunk writes slot `(t_base + t) mod win`, so chunk boundaries need not be
+multiples of anything: two state-carried calls give exactly the audio of one.
 """
 
 import ctypes
@@ -19,6 +26,7 @@ import torch
 from torch import Tensor
 
 from ..models.wavenet.model import WaveNet
+from ..utils import round_up
 
 SQRT_HALF = float(math.sqrt(0.5))
 
@@ -62,6 +70,24 @@ def dilations(hp) -> List[int]:
 def ring_floats(hp) -> int:
     """f32 ring-buffer slots per sequence: sum over layers of (k-1)*dilation*R."""
     return (hp.kernel_size - 1) * hp.residual_channels * sum(dilations(hp))
+
+
+def ring_layout(hp) -> List[Tuple[int, int]]:
+    """(float offset, slots) of each layer's ring in a sequence's row of `rings`, in
+    layer order (the kernel's `ring_off` and `win`, `csrc/wavenet_ar.cu`)."""
+    out, off = [], 0
+    for d in dilations(hp):
+        win = (hp.kernel_size - 1) * d
+        out.append((off, win))
+        off += win * hp.residual_channels
+    return out
+
+
+def rounds_conditioning(B: int) -> bool:
+    """Whether the TPU kernel rounds the conditioning row to bf16 at batch B: it keeps
+    a bf16 per-chunk slab only while its padded batch max(8, round_up(B, 8)) is at
+    most 16 rows (`wavenet_ar.py:211, 292-301`), and an f32 row past that (`:310-315`)."""
+    return max(8, round_up(B, 8)) <= 16
 
 
 def _bias(layer, features: int) -> Tensor:
@@ -145,10 +171,22 @@ def _bf(x: Tensor) -> Tensor:
     return x.bfloat16().float()
 
 
+def _check_state(state_in, hp, B: int, device) -> int:
+    """Check a streaming state against the call's batch and device; returns t_base."""
+    rings, h, t_base = state_in
+    _check_tensor('state rings', rings, torch.float32, (B, ring_floats(hp)), device)
+    _check_tensor('state h', h, torch.float32, (B, hp.residual_channels), device)
+    t_base = int(t_base)
+    if not 0 <= t_base < 2 ** 62:
+        raise ValueError(f'state t_base must be in [0, 2**62), got {t_base}')
+    return t_base
+
+
 @torch.no_grad()
 def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
-                          targets: Optional[Tensor] = None, return_params: bool = True
-                          ) -> Tuple[Tensor, Optional[Tensor]]:
+                          targets: Optional[Tensor] = None, return_params: bool = True,
+                          state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
+                          return_state: bool = False):
     """Plain PyTorch AR generation with the kernel's arithmetic.
 
     Mirrors the fused step of `wavenet_ar.py:303-453` on the packed weights:
@@ -161,7 +199,12 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
         weights: `pack_params` output.
         c_up: (B, T, cin) upsampled conditioning, already rescaled to [0, 1].
         noise: (B, T) standard-normal noise.
-    Returns: (audio (B, T), params (B, T, 2) or None); audio holds the fed-back samples.
+        state_in: a state a previous call returned (see the module docstring), to
+            continue from; None starts fresh (zero rings, h = first_b, t_base 0). The
+            state is consumed: its rings are updated in place and returned.
+        return_state: also return the state after the last step.
+    Returns: (audio (B, T), params (B, T, 2) or None[, state]); audio holds the
+        fed-back samples.
     """
     B, T, _ = c_up.shape
     L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
@@ -171,20 +214,31 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     dev = c_up.device
     W = {name: t.to(dev).float() for name, t in weights.items()}
     dils = dilations(hp)
-    wins = [(k - 1) * d for d in dils]
-    bufs = [torch.zeros(B, win, R, device=dev) for win in wins]
-    h = W['first_b'].expand(B, R)
+    layout = ring_layout(hp)
+    wins = [win for _, win in layout]
+    if state_in is None:
+        rings = torch.zeros(B, ring_floats(hp), device=dev)
+        h = W['first_b'].expand(B, R)
+        t_base = 0
+    else:
+        t_base = _check_state(state_in, hp, B, dev)
+        rings, h = state_in[0], state_in[1]
+    bufs = [rings[:, off:off + win * R].view(B, win, R) for off, win in layout]
+    bases = [t_base % win for win in wins]  # absolute slots, without a growing int
+    round_cond = rounds_conditioning(B)
     audio = torch.empty(B, T, device=dev)
     params = torch.empty(B, T, 2, device=dev) if return_params else None
     c_up = c_up.float()
     for t in range(T):
-        # the TPU kernel keeps the conditioning slab in bf16 (wavenet_ar.py:292-301)
-        cond = _bf(_bf(c_up[:, t]) @ W['w_cond'] + W['b_cond'])
+        cond = _bf(c_up[:, t]) @ W['w_cond'] + W['b_cond']
+        if round_cond:  # the TPU kernel's bf16 conditioning slab (wavenet_ar.py:292-301)
+            cond = _bf(cond)
         skips = torch.zeros(B, S, device=dev)
         consts = []
         for li in range(L):
-            # tap x(t-m) lives at slot (t - m) mod win (wavenet_ar.py:317-326)
-            taps = [bufs[li][:, (t + wins[li] - (k - 1 - j) * dils[li]) % wins[li]]
+            # tap x(t-m) lives at slot (t_base + t - m) mod win (wavenet_ar.py:317-326)
+            taps = [bufs[li][:, (bases[li] + t + wins[li] - (k - 1 - j) * dils[li])
+                             % wins[li]]
                     for j in range(k - 1)]
             p = W['b_tap'][li] + W['b_fused'][li] + cond[:, li * G:(li + 1) * G]
             consts.append(p + _bf(torch.cat(taps, dim=1)) @ W['w_tap'][li, :past])
@@ -210,7 +264,7 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
         if hp.legacy and L > 1:
             skips = skips * SQRT_HALF
         for li in range(L):  # overwrite the oldest slot, after every read
-            bufs[li][:, t % wins[li]] = hs[li]
+            bufs[li][:, (bases[li] + t) % wins[li]] = hs[li]
 
         o = torch.relu(skips)
         o = torch.relu(_bf(o) @ W['w_s1'] + W['b_s1'])
@@ -223,6 +277,8 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
         if params is not None:
             params[:, t] = params_t
         h = sample[:, None] * W['first_w'][0] + W['first_b']
+    if return_state:
+        return audio, params, (rings, h.contiguous(), t_base + T)
     return audio, params
 
 
@@ -243,7 +299,7 @@ def packed_layout(hp) -> Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]:
 def _kernel_fn():
     from ._build import load_library
     fn = load_library().wavenet_ar_gaussian
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_longlong] + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -261,7 +317,9 @@ def _check_tensor(name: str, t: Tensor, dtype, shape, device) -> None:
 
 
 def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
-                return_params: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+                return_params: bool = True,
+                state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
+                return_state: bool = False):
     """AR generation (counterpart of `generate_ar`, `wavenet_ar.py:515-712`).
 
     On a CUDA tensor this launches the hand-written kernel once for all T steps; on a
@@ -269,13 +327,18 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
     threads per sequence; R a multiple of 8; G, R+S and S multiples of 8 whose
     eighths divide 1024; f32 `c_up` (B, T, cin) and `noise` (B, T), contiguous.
 
-    Returns: (audio (B, T), params (B, T, 2) or None).
+    state_in / return_state: streaming, as in `generate_ar_reference`. The state
+    passed in is consumed: the kernel updates its rings in place (no copy) and
+    returns that tensor in the new state. Any T may be streamed; the TPU kernel's
+    `T % 128 == 0` rule guarded its slab padding, which this kernel does not have.
+
+    Returns: (audio (B, T), params (B, T, 2) or None[, state]).
     """
     global LAUNCHES
     check_supported(hp)
     if c_up.device.type == 'cpu':
-        return generate_ar_reference(weights, c_up, noise, hp,
-                                     return_params=return_params)
+        return generate_ar_reference(weights, c_up, noise, hp, return_params=return_params,
+                                     state_in=state_in, return_state=return_state)
     if c_up.device.type != 'cuda':
         raise ValueError(f'generate_ar runs on CPU or CUDA tensors, not {c_up.device}')
     device = c_up.device
@@ -291,23 +354,31 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
         raise ValueError(f'weights hold {sorted(weights)}, pack_params gives {sorted(layout)}')
     for name in KERNEL_WEIGHTS:
         _check_tensor(name, weights[name], *layout[name], device)
+    n_ring = ring_floats(hp)
+    if state_in is None:  # fresh: the kernel zeroes the rings and starts from first_b
+        rings, h_in, t_base = torch.empty(B, n_ring, device=device), None, 0
+    else:
+        t_base = _check_state(state_in, hp, B, device)
+        rings, h_in = state_in[0], state_in[1]
 
     fn = _kernel_fn()
     audio = torch.empty(B, T, device=device)
     params = torch.empty(B, T, 2, device=device) if return_params else None
-    n_ring = ring_floats(hp)
-    rings = torch.empty(B, n_ring, device=device)
+    h_out = torch.empty(B, hp.residual_channels, device=device) if return_state else None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(c_up.data_ptr(), noise.data_ptr(),
                  *[weights[name].data_ptr() for name in KERNEL_WEIGHTS],
-                 rings.data_ptr(), audio.data_ptr(),
+                 rings.data_ptr(), h_in.data_ptr() if h_in is not None else None,
+                 h_out.data_ptr() if h_out is not None else None, audio.data_ptr(),
                  params.data_ptr() if params is not None else None,
-                 n_ring, B, T, cin, hp.layers, hp.layers // hp.stacks,
+                 n_ring, t_base, B, T, cin, hp.layers, hp.layers // hp.stacks,
                  hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
                  hp.kernel_size, int(hp.legacy), int(hp.residual_legacy),
-                 float(hp.log_scale_min_gauss), stream)
+                 int(rounds_conditioning(B)), float(hp.log_scale_min_gauss), stream)
     if err != 0:
         raise RuntimeError(f'wavenet_ar_gaussian launch failed: CUDA error {err}')
     LAUNCHES += 1
+    if return_state:
+        return audio, params, (rings, h_out, t_base + T)
     return audio, params

@@ -1,14 +1,17 @@
 """Text -> mel -> wav with the port: the counterpart of `synthesize.py --model=Tacotron-2`
-(eval mode), run in memory.
+in eval mode (run in memory) and in stream mode.
 
     python -m tacotron2_tpu_torch.synthesize \\
         --tacotron_checkpoint taco.pt --wavenet_checkpoint wavenet.pt \\
-        [--text_list sentences.txt] [--hparams 'k=v,...'] [--output_dir output/] \\
-        [--device cuda]
+        [--mode eval|stream] [--text_list sentences.txt] [--hparams 'k=v,...'] \\
+        [--output_dir output/] [--device cuda]
 
-The checkpoints are the files `convert.save_checkpoint` writes. Writes one wav per
-sentence and a `map.txt` of `text|wav` lines into --output_dir. The device defaults to
-cuda; on a CUDA device the WaveNet AR loop runs in the hand-written kernel.
+The checkpoints are the files `convert.save_checkpoint` writes. eval (the default)
+decodes every sentence, vocodes them in batches of wavenet_synthesis_batch_size, and
+writes one wav per sentence and a `map.txt` of `text|wav` lines into --output_dir.
+stream vocodes each sentence in state-carried chunks, prints the time to its first
+chunk, and writes `stream/stream-{i}.wav`. The device defaults to cuda; on a CUDA
+device the WaveNet AR loop runs in the hand-written kernel.
 """
 
 import argparse
@@ -16,11 +19,13 @@ import os
 import time
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from tacotron2_tpu.config import default_hparams
 
-from .convert import load_checkpoint
+from .convert import load_models
+from .inference.streaming import StreamingSynthesizer
 from .inference.tacotron_synthesizer import Synthesizer as TacotronSynthesizer
 from .inference.wavenet_synthesizer import Synthesizer as WaveNetSynthesizer
 from .models.tacotron.model import Tacotron
@@ -36,14 +41,6 @@ def get_sentences(text_list: str, hp) -> List[str]:
     return list(hp.sentences)
 
 
-def load_models(tacotron_checkpoint: str, wavenet_checkpoint: str, hp, device):
-    taco = Tacotron(hp)
-    taco.load_state_dict(load_checkpoint(tacotron_checkpoint, 'tacotron'))
-    wavenet = WaveNet(hp)
-    wavenet.load_state_dict(load_checkpoint(wavenet_checkpoint, 'wavenet'))
-    return taco.to(device).eval(), wavenet.to(device).eval()
-
-
 def _sync(device: torch.device) -> None:
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
@@ -51,7 +48,9 @@ def _sync(device: torch.device) -> None:
 
 def synthesize(hp, sentences: Sequence[str], taco: Tacotron, wavenet: WaveNet,
                output_dir: str, device) -> Dict:
-    """Run the two stages over `sentences` in batches of tacotron_synthesis_batch_size.
+    """Decode every sentence in batches of tacotron_synthesis_batch_size, then vocode
+    the mels in batches of wavenet_synthesis_batch_size, in sentence order (the
+    grouping of `wavenet_synthesizer.run_synthesis:189-200`).
 
     Returns what was written and what it took: wav_paths, wavs (float arrays),
     decoded_frames (mel frames the decoder computed), ar_samples (samples the AR loop
@@ -63,40 +62,65 @@ def synthesize(hp, sentences: Sequence[str], taco: Tacotron, wavenet: WaveNet,
     gen_taco = torch.Generator(device).manual_seed(hp.tacotron_random_seed)
     gen_wave = torch.Generator(device).manual_seed(hp.wavenet_random_seed)
     hop = hp.get_hop_size()
-    stats = dict(wav_paths=[], wavs=[], decoded_frames=0, ar_samples=0,
-                 tacotron_seconds=0.0, wavenet_seconds=0.0)
+    stats = dict(wav_paths=[], wavs=[], decoded_frames=0, ar_samples=0)
     bs = hp.tacotron_synthesis_batch_size
     wbs = hp.wavenet_synthesis_batch_size
     t_start = time.perf_counter()
-    rows = []
+    mels = []  # one (frames, num_mels) mel per sentence, on the device
     for i in range(0, len(sentences), bs):
-        batch = list(sentences[i:i + bs])
-        _sync(device)
-        t0 = time.perf_counter()
-        mel, lengths, decoded = taco_synth.synthesize(batch, gen_taco)
-        _sync(device)
-        t1 = time.perf_counter()
-        mels = [mel[j, :lengths[j]] for j in range(len(batch))]
-        wavs = []
-        for w in range(0, len(mels), wbs):
-            part = mels[w:w + wbs]
-            wavs += wave_synth.synthesize(part, gen_wave)
-            stats['ar_samples'] += len(part) * max(int(m.shape[0]) for m in part) * hop
-        _sync(device)
-        t2 = time.perf_counter()
-        stats['tacotron_seconds'] += t1 - t0
-        stats['wavenet_seconds'] += t2 - t1
+        mel, lengths, decoded = taco_synth.synthesize(sentences[i:i + bs], gen_taco)
+        mels += [mel[j, :n] for j, n in enumerate(lengths)]
         stats['decoded_frames'] += decoded
-        for j, (text, wav) in enumerate(zip(batch, wavs)):
-            path = os.path.join(output_dir, f'wav-batch_{i // bs}_sentence_{j}.wav')
-            save_wav(wav, path, hp.sample_rate)
-            stats['wav_paths'].append(path)
-            stats['wavs'].append(wav)
-            rows.append(f'{text}|{path}\n')
+    _sync(device)
+    t_taco = time.perf_counter()
+    for w in range(0, len(mels), wbs):
+        part = mels[w:w + wbs]
+        stats['wavs'] += wave_synth.synthesize(part, gen_wave)
+        stats['ar_samples'] += len(part) * max(int(m.shape[0]) for m in part) * hop
+    _sync(device)
+    stats['tacotron_seconds'] = t_taco - t_start
+    stats['wavenet_seconds'] = time.perf_counter() - t_taco
+    rows = []
+    for n, (text, wav) in enumerate(zip(sentences, stats['wavs'])):
+        path = os.path.join(output_dir, f'wav-batch_{n // bs}_sentence_{n % bs}.wav')
+        save_wav(wav, path, hp.sample_rate)
+        stats['wav_paths'].append(path)
+        rows.append(f'{text}|{path}\n')
     with open(os.path.join(output_dir, 'map.txt'), 'w', encoding='utf-8') as f:
         f.writelines(rows)
     stats['seconds'] = time.perf_counter() - t_start
     stats['audio_seconds'] = sum(len(w) for w in stats['wavs']) / hp.sample_rate
+    return stats
+
+
+def stream_synthesize(hp, sentences: Sequence[str], taco: Tacotron, wavenet: WaveNet,
+                      output_dir: str, device) -> Dict:
+    """One stream per sentence, with seed i (`synthesize.py:39-70`): prints the
+    time to the first chunk and writes `output_dir/stream/stream-{i}.wav` from the
+    concatenated chunks. Returns wav_paths, wavs, and per sentence the host-clock
+    seconds to the first chunk (ttfa_seconds) and in all (seconds)."""
+    out_dir = os.path.join(output_dir, 'stream')
+    os.makedirs(out_dir, exist_ok=True)
+    synth = StreamingSynthesizer(taco, wavenet, hp, device)
+    stats = dict(wav_paths=[], wavs=[], ttfa_seconds=[], seconds=[])
+    for i, text in enumerate(sentences):
+        t0 = time.perf_counter()
+        chunks = []
+        for chunk in synth.stream(text, seed=i):
+            if not chunks:
+                stats['ttfa_seconds'].append(time.perf_counter() - t0)
+                print(f'sentence {i}: first audio chunk ({len(chunk)} samples, '
+                      f'{len(chunk) / hp.sample_rate:.2f} s of audio) after '
+                      f'{stats["ttfa_seconds"][-1]:.3f} s', flush=True)
+            chunks.append(chunk)
+        wav = np.concatenate(chunks)
+        stats['seconds'].append(time.perf_counter() - t0)
+        print(f'sentence {i}: {len(wav) / hp.sample_rate:.2f} s of audio in '
+              f'{stats["seconds"][-1]:.3f} s wall ({len(chunks)} chunks)', flush=True)
+        path = os.path.join(out_dir, f'stream-{i}.wav')
+        save_wav(wav, path, hp.sample_rate)
+        stats['wav_paths'].append(path)
+        stats['wavs'].append(wav)
     return stats
 
 
@@ -114,6 +138,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     parser.add_argument('--output_dir', default='output/',
                         help='where the wavs and map.txt are written')
     parser.add_argument('--device', default='cuda', help='torch device (default cuda)')
+    parser.add_argument('--mode', default='eval', choices=('eval', 'stream'),
+                        help='eval: batched text -> wav with map.txt (default); stream: '
+                             'state-carried chunks per sentence, into output_dir/stream')
     args = parser.parse_args(argv)
 
     device = torch.device(args.device)
@@ -124,8 +151,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     hp.parse(args.hparams)
     taco, wavenet = load_models(args.tacotron_checkpoint, args.wavenet_checkpoint, hp,
                                 device)
-    stats = synthesize(hp, get_sentences(args.text_list, hp), taco, wavenet,
-                       args.output_dir, device)
+    sentences = get_sentences(args.text_list, hp)
+    if args.mode == 'stream':
+        stats = stream_synthesize(hp, sentences, taco, wavenet, args.output_dir, device)
+        print(f'wrote {len(stats["wav_paths"])} streamed wavs to '
+              f'{os.path.join(args.output_dir, "stream")}')
+        return stats
+    stats = synthesize(hp, sentences, taco, wavenet, args.output_dir, device)
     print(f'wrote {len(stats["wav_paths"])} wavs and map.txt to {args.output_dir}: '
           f'{stats["audio_seconds"]:.2f} s of audio in {stats["seconds"]:.2f} s')
     return stats

@@ -3,13 +3,15 @@ version, its input checks, and the slice end to end. Marked `cuda`; each test sk
 without a card. On the card: `python -m pytest tests/test_torch_cuda.py -m cuda -q`.
 """
 
+import http.client
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KERNEL_TOL, planted_faults
+from chip_smoke import KERNEL_TOL, planted_faults, state_carry
 from tacotron2_tpu.config import default_hparams
-from tacotron2_tpu_torch import convert, synthesize
+from tacotron2_tpu_torch import convert, serve, synthesize
 from tacotron2_tpu_torch.models.tacotron.model import Tacotron
 from tacotron2_tpu_torch.models.wavenet.model import WaveNet
 from tacotron2_tpu_torch.ops import wavenet_ar
@@ -47,12 +49,13 @@ def _wavenet_inputs(hp, B, frames, device, seed=0):
     return wavenet_ar.pack_params(model, hp), c_up, noise
 
 
-@pytest.mark.parametrize('config,B,frames', [(TINY, 3, 8), ('', 2, 1)],
-                         ids=['tiny', 'default'])
+@pytest.mark.parametrize('config,B,frames', [(TINY, 3, 8), ('', 2, 1), (TINY, 17, 8)],
+                         ids=['tiny', 'default', 'tiny-b17'])
 def test_kernel_matches_plain_version(device, config, B, frames):
     """Free-running kernel vs the plain version teacher-forced on its audio: per-step
     params within KERNEL_TOL (chip_smoke.py's bound), samples drawn from those params
-    and the shared noise."""
+    and the shared noise. At B=17 the conditioning row stays f32, as in the TPU
+    kernel past its 16-row bf16 slab."""
     hp = default_hparams()
     hp.parse(config)
     weights, c_up, noise = _wavenet_inputs(hp, B, frames, device)
@@ -84,6 +87,23 @@ def test_kernel_check_catches_planted_faults(device, fault):
     assert (params - ref).abs().max().item() > KERNEL_TOL
 
 
+def test_state_carry_on_the_card(device):
+    """Three state-carried kernel chunks (boundaries 97 and 197: not multiples of the
+    tiny config's 2- and 4-slot rings) are bit-identical to one fresh call, within
+    KERNEL_TOL of the plain version run in the same chunks (params, and the state
+    after chunk 1), and both planted state faults miss it by more than KERNEL_TOL."""
+    hp = default_hparams()
+    hp.parse(TINY)
+    weights, c_up, noise = _wavenet_inputs(hp, 3, 8, device)
+    before = wavenet_ar.LAUNCHES
+    r = state_carry(weights, c_up, noise, hp, (97, 197, 256))
+    assert wavenet_ar.LAUNCHES == before + 1 + 3 + 2
+    assert r['bit_identical']
+    assert r['max_abs_err'] <= KERNEL_TOL and r['state_err'] <= KERNEL_TOL
+    assert r['t_base'] == (97, 97)
+    assert all(e > KERNEL_TOL for e in r['faults'].values()), r['faults']
+
+
 def test_kernel_rejects_what_it_does_not_take(device):
     hp = default_hparams()
     hp.parse(TINY)
@@ -98,7 +118,11 @@ def test_kernel_rejects_what_it_does_not_take(device):
         wavenet_ar.generate_ar({k: v.cpu() for k, v in weights.items()}, c_up, noise, hp)
     with pytest.raises(NotImplementedError):
         wavenet_ar.generate_ar(weights, c_up, noise, hp.replace(out_channels=30))
-    assert wavenet_ar.LAUNCHES == before
+    _, _, state = wavenet_ar.generate_ar(weights, c_up, noise, hp, return_state=True)
+    with pytest.raises(ValueError):  # state left on the CPU
+        wavenet_ar.generate_ar(weights, c_up, noise, hp,
+                               state_in=(state[0].cpu(), state[1].cpu(), state[2]))
+    assert wavenet_ar.LAUNCHES == before + 1
 
 
 def test_tacotron_on_the_card_matches_cpu(device):
@@ -135,3 +159,29 @@ def test_synthesize_cli_on_the_card(device, tmp_path):
     n = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
     assert [len(w) for w in stats['wavs']] == [n, n]
     assert all(np.isfinite(w).all() for w in stats['wavs'])
+
+
+def test_stream_service_on_the_card(device, tmp_path):
+    """The port's service at the tiny size on the card: one GET returns the WAV header
+    and max_iters * r * hop samples, generated by the kernel."""
+    hp = default_hparams()
+    hp.parse(TINY)
+    torch.manual_seed(0)
+    taco, wave = str(tmp_path / 'taco.pt'), str(tmp_path / 'wavenet.pt')
+    convert.save_checkpoint(taco, 'tacotron', suppress_stop_tokens(Tacotron(hp).state_dict()))
+    convert.save_checkpoint(wave, 'wavenet', WaveNet(hp).state_dict())
+    server = serve.build_server(['--taco_checkpoint', taco, '--wave_checkpoint', wave,
+                                 '--hparams', TINY, '--port', '0', '--no-warmup']).start()
+    before = wavenet_ar.LAUNCHES
+    try:
+        conn = http.client.HTTPConnection(*server.address, timeout=120)
+        conn.request('GET', '/tts?text=Hello+world.&format=f32')
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+    finally:
+        server.close()
+    n = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
+    assert resp.status == 200 and len(data) == 4 * n
+    assert np.isfinite(np.frombuffer(data, np.float32)).all()
+    assert wavenet_ar.LAUNCHES > before

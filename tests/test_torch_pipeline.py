@@ -3,6 +3,7 @@
 and the rule that the port imports no JAX.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ from tacotron2_tpu_torch.inference.tacotron_synthesizer import Synthesizer
 from tacotron2_tpu_torch.inference.wavenet_synthesizer import prepare_conditions
 from tacotron2_tpu_torch.models.tacotron.model import Tacotron
 from tacotron2_tpu_torch.models.wavenet.model import WaveNet
+from tacotron2_tpu_torch.ops import wavenet_ar
 from tacotron2_tpu_torch.utils import round_up, suppress_stop_tokens
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,6 +68,35 @@ def test_synthesize_cli_on_cpu(tmp_path):
         assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
     assert stats['decoded_frames'] == 2 * 2 * frames  # two batches of two rows
     assert stats['ar_samples'] == 3 * frames * hp.get_hop_size()
+
+
+def test_wavenet_batches_follow_run_synthesis(tmp_path, monkeypatch):
+    """Every sentence is decoded first, then the mels are vocoded in batches of
+    wavenet_synthesis_batch_size in sentence order, as run_synthesis groups them
+    (wavenet_synthesizer.py:189-200): five sentences with Tacotron batches of 2 and
+    WaveNet batches of 3 make AR calls of B=3 and B=2, not one per Tacotron batch."""
+    hp = tiny_hp()
+    hp.parse('max_iters=2,tacotron_synthesis_batch_size=2,wavenet_synthesis_batch_size=3')
+    torch.manual_seed(0)
+    calls = []
+    generate_ar = wavenet_ar.generate_ar
+
+    def recording(weights, c_up, noise, hp, **kw):
+        calls.append(int(c_up.shape[0]))
+        return generate_ar(weights, c_up, noise, hp, **kw)
+
+    monkeypatch.setattr(wavenet_ar, 'generate_ar', recording)
+    texts = ['One.', 'Two two.', 'Three.', 'Four four four.', 'Five.']
+    stats = synthesize.synthesize(hp, texts, Tacotron(hp), WaveNet(hp), str(tmp_path), 'cpu')
+    assert calls == [3, 2]
+    assert [os.path.basename(p) for p in stats['wav_paths']] == [
+        f'wav-batch_{n // 2}_sentence_{n % 2}.wav' for n in range(5)]
+    rows = (tmp_path / 'map.txt').read_text(encoding='utf-8').splitlines()
+    assert rows == [f'{t}|{p}' for t, p in zip(texts, stats['wav_paths'])]
+    frames = [len(w) // hp.get_hop_size() for w in stats['wavs']]
+    assert stats['ar_samples'] == (3 * max(frames[:3]) + 2 * max(frames[3:])) \
+        * hp.get_hop_size()
+    assert stats['decoded_frames'] == 3 * 2 * hp.max_iters * hp.outputs_per_step
 
 
 def test_cli_has_no_silent_cpu_choice(tmp_path):
@@ -117,7 +148,7 @@ def test_utils():
 
 
 GUARD = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint'):
     sys.modules[name] = None  # any import of these now raises ImportError
 import tacotron2_tpu_torch
@@ -126,18 +157,21 @@ names = [m.name for m in pkgutil.walk_packages(tacotron2_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 jax_pkg = sorted(m for m in sys.modules if m.startswith('tacotron2_tpu.'))
-print(len(names), jax_pkg)
+print(json.dumps([names, jax_pkg]))
 """
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with jax, flax, optax and orbax unavailable,
-    and pulls in nothing of tacotron2_tpu but config and text."""
+    """Every module of the port, the streaming service among them, imports with jax,
+    flax, optax and orbax unavailable, and pulls in nothing of tacotron2_tpu but config
+    and text."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, '-c', GUARD], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
-    n, loaded = res.stdout.strip().split(' ', 1)
-    assert int(n) >= 15
-    for mod in eval(loaded):
+    names, loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(names) >= 18
+    assert {'tacotron2_tpu_torch.inference.streaming', 'tacotron2_tpu_torch.inference.server',
+            'tacotron2_tpu_torch.serve', 'tacotron2_tpu_torch.synthesize'} <= set(names)
+    for mod in loaded:
         assert mod == 'tacotron2_tpu.config' or mod.startswith('tacotron2_tpu.text'), mod
