@@ -35,10 +35,30 @@ Phases (one line each; any failure exits nonzero):
      same WaveNet (stop tokens suppressed, max_iters=128: 35,200 samples a request):
      a GET wav, a POST f32 with a seed, two pcm16 at once and one request of
      scripts/measure_ttfa.py; exact byte counts, finite f32 samples, /healthz, and
-     three AR launches per request (chunks of 4,352 + 16,512 + 14,336 samples).
-Then a JSON line of the kernels, the card's nvidia-smi line, and the result line.
+     three AR launches per request (chunks of 4,352 + 16,512 + 14,336 samples);
+  8. the paper profile (`config.paper_hparams()`: MoL-10 head, 24 layers in 4 stacks at
+     R=256, G=512, S=256, the 2D upsampler, no legacy scalings) at full width on a
+     WaveNet with seeded random weights whose head is quieted (quiet_mol_head) so that
+     few samples clip: four planted MoL faults, each of which must miss (params beyond
+     MOL_KERNEL_TOL or samples beyond SAMPLE_TOL of the MoL draw from the kernel's own
+     params); the kernel against the plain version as in phase 3 at the paper batch
+     path's shape (B=2, 8,800 steps; the plain version in the paper service's chunks,
+     PAPER_SERVE_BOUNDS), its samples against the draw from its own params, at most
+     MAX_CLIPPED of them at +-1, with the mixtures chosen differently counted; the
+     state carry as in phase 6 at the paper service's shape (B=1 over row 0 of that
+     run in its chunks; every ring window divides 4,352, so a reset t_base is no fault
+     there and only the fresh start is planted) and at B=1 in chunks ending at odd
+     PAPER_STATE_BOUNDS; then
+     `synthesize --paper_profile` with two sentences and one request through
+     `serve.build_server --paper_profile`, both at max_iters=PAPER_MAX_ITERS (8,800
+     samples a sentence), with AR us/step from CUDA events, wall RTF, time to first
+     audio and the launch counts.
+Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
+the HBM rate and its operations over the peak rate of their type, for the run timed),
+the card's nvidia-smi line, and the result line.
 """
 
+import contextlib
 import http.client
 import importlib.util
 import json
@@ -72,6 +92,33 @@ SERVE_CHUNKS = [4352, 16512, 14336]  # streaming.py:115-117's rounding of 0.20 s
 # rings at 4,352 (and in the 256-slot rings too at 20,864)
 SERVE_BOUNDS = tuple(int(b) for b in np.cumsum(SERVE_CHUNKS))
 FAULT_STEPS = 256  # steps of chunk 2 run from each planted state fault
+# the paper profile (phase 8)
+PAPER_MAX_ITERS = 32  # the paper entry points: 8,800 samples a sentence
+# the chunk ends of one served paper request (8,800 samples: the first chunk as at the
+# default profile, the rest in one); the MoL checks run the plain version in these
+PAPER_SERVE_BOUNDS = (SERVE_CHUNKS[0], 8800)
+# the ring windows at 4 stacks of 6 layers are 2 to 64 slots, and each divides 4,352,
+# where a reset t_base changes nothing; odd chunk ends leave t_base mod win nonzero in
+# every ring (over the first 1,100 steps of the run above)
+PAPER_STATE_BOUNDS = (377, 731, 1100)
+# the seeded random head draws 68% of its samples at +-1, where a wrong mean or scale
+# that keeps the sign passes; halving the means and lowering the log-scales by 3 puts
+# them near 0.05 and the means within +-0.8, and the check fails past MAX_CLIPPED
+MOL_MEAN_SCALE = 0.5
+MOL_LOG_SCALE_SHIFT = -3.0
+MAX_CLIPPED = 0.2
+MOL_NO_FAULT = 'none (log-scales lowered by 9)'  # mol_fault_errors' run of the true kernel
+# MoL kernel vs plain version at the paper width, on weights whose params span about
+# 11: 2.0e-2 to 2.7e-2 in params and 3.3e-2 to 4.2e-2 in a carried state on an H100
+# (bf16 flips of activations, about 2.5e-3 per unit of span, as the Gaussian's 2e-3),
+# over 1,100 and 8,800 steps alike; the planted faults that change the params miss by
+# 2.3 and more. The bound sits 2.4x above the readings and 20x below the faults.
+MOL_KERNEL_TOL = 1e-1
+SAMPLE_TOL = 1e-5  # kernel samples against the head's draw from the kernel's own params
+# the card's peaks (H100 SXM data sheet, dense, at 700 W): the bound of a launch
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def phase(n, msg):
@@ -91,6 +138,55 @@ def cuda_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def ar_timer():
+    """Time every AR launch made inside the block with CUDA events: yields the list
+    of (steps, kernel ms), one entry a launch, in order."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    chunks, generate_ar = [], wavenet_ar.generate_ar
+
+    def timed(weights, c_up, noise, hp, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = generate_ar(weights, c_up, noise, hp, **kw)
+        end.record()
+        end.synchronize()
+        chunks.append((c_up.shape[1], start.elapsed_time(end)))
+        return out
+
+    wavenet_ar.generate_ar = timed
+    try:
+        yield chunks
+    finally:
+        wavenet_ar.generate_ar = generate_ar
+
+
+def ar_bound(hp, weights, B, T, return_params=True):
+    """(bound ms, 'operations' or 'bytes') of one fresh AR launch over B sequences of
+    T steps: the larger of its bytes over the HBM rate (each input read once: c_up,
+    noise, the packed weights; each output written once: audio, params) and its
+    operations over the peak rate of their type (per sequence-step the bf16
+    multiply-adds of every matvec the kernel runs: the conditioning row, each layer's
+    taps and current input, the fused and residual/skip 1x1s but layer 0's fused and
+    the last layer's residual, the head's first 1x1; in f32 the head's last 1x1 and
+    the first conv)."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    L, R, G, S = hp.layers, hp.residual_channels, hp.gate_channels, hp.skip_out_channels
+    k, cin, half = hp.kernel_size, hp.cin_channels, hp.gate_channels // 2
+    macs_bf16 = (cin * L * G + L * k * R * G + (L - 1) * half * G
+                 + (L - 1) * half * (R + S) + half * S + S * S)
+    macs_f32 = S * hp.out_channels + R
+    ops_s = 2 * B * T * (macs_bf16 / PEAK_BF16_FLOPS + macs_f32 / PEAK_F32_FLOPS)
+    n_noise = int(np.prod(wavenet_ar.noise_shape(hp, B, T)))
+    n_out = B * T * (1 + (hp.out_channels if return_params else 0))
+    nbytes = (sum(w.numel() * w.element_size() for w in weights.values())
+              + 4 * (B * T * cin + n_noise + n_out))
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1000 * max(ops_s, bytes_s), 'operations' if ops_s >= bytes_s else 'bytes'
 
 
 def _conditioning(model, hp, B, frames, gen):
@@ -132,13 +228,14 @@ def run_chunked(run, weights, c_up, noise, hp, bounds, targets=None):
     return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1), after1
 
 
-def kernel_vs_plain(weights, model, hp, B, frames, gen, bounds=None):
+def kernel_vs_plain(weights, model, hp, B, frames, gen, bounds=None, n=3, tol=KERNEL_TOL):
     """The kernel free-running with its params, the plain version on the same CUDA
     tensors teacher-forced on the kernel's audio, in one call or, with `bounds`, in
     state-carried chunks ending there (the last at T); both timed with CUDA events.
-    Returns the readings, and the inputs and outputs for phase 6."""
+    Returns the readings, and the inputs and outputs for row0_carry."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
+    what = 'wavenet_ar MoL' if wavenet_ar.is_mol(hp) else 'wavenet_ar'
     c_up = _conditioning(model, hp, B, frames, gen)
     T = c_up.shape[1]
     if bounds is not None and bounds[-1] != T:
@@ -157,15 +254,15 @@ def kernel_vs_plain(weights, model, hp, B, frames, gen, bounds=None):
         how = f' (plain version in chunks ending at {list(bounds)})'
     err = (params - ref_params).abs().max().item()
     span = (ref_params.max() - ref_params.min()).item()
-    phase(3, f'wavenet_ar B={B} T={T}{how}: max_abs_err={err:.3e} (tol {KERNEL_TOL}, '
+    phase(n, f'{what} B={B} T={T}{how}: max_abs_err={err:.3e} (tol {tol}, '
              f'params span {span:.3f}), kernel {1000 * kernel_ms / T:.1f} us/step, plain '
              f'{1000 * plain_ms / T:.1f} us/step, audio in [{audio.min().item():.3f}, '
              f'{audio.max().item():.3f}]')
     if not (torch.isfinite(audio).all() and torch.isfinite(params).all()) \
             or audio.abs().max().item() > 1.0:
-        fail('kernel audio is not finite or leaves [-1, 1]')
-    if not err <= KERNEL_TOL:
-        fail(f'kernel params differ from the plain version by {err}')
+        fail(f'{what} audio is not finite or leaves [-1, 1]')
+    if not err <= tol:
+        fail(f'{what} params differ from the plain version by {err}')
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, c_up=c_up, noise=noise,
                 audio=audio, params=params, ref_params=ref_params, ref_after1=ref_after1)
 
@@ -219,12 +316,18 @@ def state_faults(weights, c2, n2, hp, k_after1, r_after1):
     """Chunk 2's first steps (c2, n2) on the kernel from two planted faults of its
     state after chunk 1 (t_base reset to 0; a fresh start, rings zeroed and h =
     first_b), each against the plain version from its own state after chunk 1,
-    teacher-forced on the faulty audio: the params error of each."""
+    teacher-forced on the faulty audio: the params error of each. Where every ring's
+    window divides t_base, a reset t_base indexes every ring as the true one does: that
+    fault is no fault there, and its error is None."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     errs = {}
+    if not any(k_after1[2] % win for _, win in wavenet_ar.ring_layout(hp)):
+        errs['t_base reset to 0'] = None
     for fault, state in (('t_base reset to 0', (*_clone_state(k_after1)[:2], 0)),
                          ('chunk 2 started fresh', None)):
+        if fault in errs:
+            continue
         a, p = wavenet_ar.generate_ar(weights, c2, n2, hp, state_in=state)
         _, rp = wavenet_ar.generate_ar_reference(weights, c2, n2, hp, targets=a,
                                                  state_in=_clone_state(r_after1))
@@ -232,24 +335,26 @@ def state_faults(weights, c2, n2, hp, k_after1, r_after1):
     return errs
 
 
-def _judge_carry(n, what, r, bounds):
+def _judge_carry(n, what, r, bounds, tol=KERNEL_TOL):
     """Print and check one state-carry reading (see check_state_carry)."""
     T = bounds[-1]
     phase(n, f'{what}, chunks ending at {list(bounds)}: bit-identical to one call: '
              f'{r["bit_identical"]}; chunked params max_abs_err={r["max_abs_err"]:.3e}, '
              f'state after chunk 1 max_abs_err={r["state_err"]:.3e}, t_base {r["t_base"]} '
-             f'(tol {KERNEL_TOL}); planted state faults over {FAULT_STEPS} steps of chunk '
-             f'2: ' + ', '.join(f'{f} {e:.3e}' for f, e in r['faults'].items())
+             f'(tol {tol}); planted state faults over {FAULT_STEPS} steps of chunk '
+             f'2: ' + ', '.join(f'{f} {e:.3e}' if e is not None else
+                                f'{f} not planted (every ring window divides t_base)'
+                                for f, e in r['faults'].items())
              + f' (each must exceed tol); kernel {1000 * r["ms"] / T:.1f} us/step'
              + (f', plain {1000 * r["plain_ms"] / T:.1f} us/step' if r['plain_ms'] else ''))
     if not r['bit_identical']:
         fail(f'{what}: chunked kernel output differs from one call')
-    if not (r['max_abs_err'] <= KERNEL_TOL and r['state_err'] <= KERNEL_TOL) \
+    if not (r['max_abs_err'] <= tol and r['state_err'] <= tol) \
             or r['t_base'] != (bounds[0], bounds[0]):
         fail(f'{what}: the streamed kernel differs from the plain version')
     if not (torch.isfinite(r['audio']).all() and r['audio'].abs().max().item() <= 1.0):
         fail(f'{what}: streamed kernel audio is not finite or leaves [-1, 1]')
-    missed = [f for f, e in r['faults'].items() if not e > KERNEL_TOL]
+    missed = [f for f, e in r['faults'].items() if e is not None and not e > tol]
     if missed:
         fail(f'{what}: the state carry check passes planted faults: {missed}')
 
@@ -278,6 +383,30 @@ def state_carry(weights, c_up, noise, hp, bounds):
                 ms=kernel_ms, plain_ms=plain_ms, audio=audio)
 
 
+def row0_carry(weights, hp, served, bounds):
+    """The service's shape: the kernel at B=1 in state-carried chunks ending at
+    `bounds` over sequence 0 of `served`, a kernel_vs_plain run whose plain version ran
+    in those chunks; against that run's row 0 (audio and params bit-identical) and its
+    plain version, then the two planted state faults on chunk 2. Returns the readings
+    that _judge_carry checks."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    c_up, noise = served['c_up'][:1].contiguous(), served['noise'][:1].contiguous()
+    r_after1 = tuple(x[:1].contiguous() for x in served['ref_after1'][:2]) \
+        + (served['ref_after1'][2],)
+    (audio, params, k_after1), kernel_ms = cuda_ms(lambda: run_chunked(
+        wavenet_ar.generate_ar, weights, c_up, noise, hp, bounds))
+    lo, hi = bounds[0], bounds[0] + FAULT_STEPS
+    return dict(
+        bit_identical=torch.equal(audio, served['audio'][:1])
+        and torch.equal(params, served['params'][:1]),
+        max_abs_err=(params - served['ref_params'][:1]).abs().max().item(),
+        state_err=_state_err(k_after1, r_after1), t_base=(k_after1[2], r_after1[2]),
+        faults=state_faults(weights, c_up[:, lo:hi].contiguous(),
+                            noise[:, lo:hi].contiguous(), hp, k_after1, r_after1),
+        ms=kernel_ms, plain_ms=None, audio=audio)
+
+
 def check_state_carry(weights, model, hp, gen, served):
     """Phase 6: the kernel in state-carried chunks against one fresh kernel call and
     against the plain version run in the same chunks, teacher-forced on the kernel's
@@ -294,20 +423,7 @@ def check_state_carry(weights, model, hp, gen, served):
     small = state_carry(weights, c_up, noise, hp, STATE_BOUNDS)
     _judge_carry(6, f'state carry, B={MAIN_BATCH}', small, STATE_BOUNDS)
 
-    c_up, noise = served['c_up'][:1].contiguous(), served['noise'][:1].contiguous()
-    r_after1 = tuple(x[:1].contiguous() for x in served['ref_after1'][:2]) \
-        + (served['ref_after1'][2],)
-    (audio, params, k_after1), kernel_ms = cuda_ms(lambda: run_chunked(
-        wavenet_ar.generate_ar, weights, c_up, noise, hp, SERVE_BOUNDS))
-    lo, hi = SERVE_BOUNDS[0], SERVE_BOUNDS[0] + FAULT_STEPS
-    service_shape = dict(
-        bit_identical=torch.equal(audio, served['audio'][:1])
-        and torch.equal(params, served['params'][:1]),
-        max_abs_err=(params - served['ref_params'][:1]).abs().max().item(),
-        state_err=_state_err(k_after1, r_after1), t_base=(k_after1[2], r_after1[2]),
-        faults=state_faults(weights, c_up[:, lo:hi].contiguous(),
-                            noise[:, lo:hi].contiguous(), hp, k_after1, r_after1),
-        ms=kernel_ms, plain_ms=None, audio=audio)
+    service_shape = row0_carry(weights, hp, served, SERVE_BOUNDS)
     _judge_carry(6, 'state carry at the service\'s shape, B=1 (sequence 0 of phase 3\'s '
                     'B=2 run)', service_shape, SERVE_BOUNDS)
     launches = wavenet_ar.LAUNCHES - launches0
@@ -339,7 +455,11 @@ def check_tacotron(hp):
         fail(f'tacotron on the card differs from the CPU by {err}')
 
 
-def main_path(hp_overrides, hp, wavenet_state):
+def main_path(hp_overrides, hp, wavenet_state, n=5, paper=False):
+    """Phase 5 (and 8 with `paper`): `python -m tacotron2_tpu_torch.synthesize` on two
+    sentences of sentences.txt with a stop-suppressed Tacotron and `wavenet_state`;
+    every wav hp.max_iters * r * hop samples, finite, and the AR kernel launched.
+    Returns the launches and the AR kernel's us/step (CUDA events)."""
     from tacotron2_tpu_torch import convert, synthesize
     from tacotron2_tpu_torch.models.tacotron.model import Tacotron
     from tacotron2_tpu_torch.ops import wavenet_ar
@@ -357,18 +477,23 @@ def main_path(hp_overrides, hp, wavenet_state):
         text_list = os.path.join(tmp, 'texts.txt')
         with open(text_list, 'w', encoding='utf-8') as f:
             f.write('\n'.join(sentences) + '\n')
-        wavenet_ar.LAUNCHES = 0
-        stats = synthesize.main(['--tacotron_checkpoint', taco_path,
-                                 '--wavenet_checkpoint', wave_path,
-                                 '--hparams', hp_overrides, '--text_list', text_list,
-                                 '--output_dir', os.path.join(tmp, 'out'),
-                                 '--device', 'cuda'])
-        launches = wavenet_ar.LAUNCHES
+        with ar_timer() as chunks:
+            wavenet_ar.LAUNCHES = 0
+            stats = synthesize.main((['--paper_profile'] if paper else [])
+                                    + ['--tacotron_checkpoint', taco_path,
+                                       '--wavenet_checkpoint', wave_path,
+                                       '--hparams', hp_overrides, '--text_list', text_list,
+                                       '--output_dir', os.path.join(tmp, 'out'),
+                                       '--device', 'cuda'])
+            launches = wavenet_ar.LAUNCHES
         n_rows = len(open(os.path.join(tmp, 'out', 'map.txt'), encoding='utf-8')
                      .read().splitlines())
-    want_len = MAX_ITERS * hp.outputs_per_step * hp.get_hop_size()
+    want_len = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
     lens = [len(w) for w in stats['wavs']]
-    phase(5, f'main path: {len(lens)} wavs of {lens} samples, AR kernel launches={launches}; '
+    us_step = 1000 * sum(ms for _, ms in chunks) / sum(steps for steps, _ in chunks)
+    what = 'synthesize --paper_profile' if paper else 'main path'
+    phase(n, f'{what}: {len(lens)} wavs of {lens} samples, AR kernel launches={launches} '
+             f'at {us_step:.1f} us/step; '
              f'{stats["decoded_frames"] / stats["tacotron_seconds"]:.1f} mel frames/s, '
              f'{stats["ar_samples"] / stats["wavenet_seconds"]:.0f} AR samples/s, '
              f'wall RTF {stats["seconds"] / stats["audio_seconds"]:.3f} '
@@ -378,8 +503,8 @@ def main_path(hp_overrides, hp, wavenet_state):
     if not all(bool(torch.isfinite(torch.from_numpy(w)).all()) for w in stats['wavs']):
         fail('non-finite samples in the synthesized audio')
     if launches <= 0:
-        fail('the main path never launched the AR kernel')
-    return launches
+        fail(f'{what} never launched the AR kernel')
+    return launches, us_step
 
 
 def fetch(address, method, path, body=None, header_bytes=0):
@@ -416,17 +541,6 @@ def service(hp_overrides, hp, wavenet_state):
     spec.loader.exec_module(ttfa_client)
     n = MAX_ITERS * hp.outputs_per_step * hp.get_hop_size()
     text = 'The quick brown fox jumps over the lazy dog.'
-    chunks = []  # (steps, kernel ms) of every AR launch the service makes, in order
-    generate_ar = wavenet_ar.generate_ar
-
-    def timed(weights, c_up, noise, hp, **kw):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = generate_ar(weights, c_up, noise, hp, **kw)
-        end.record()
-        end.synchronize()
-        chunks.append((c_up.shape[1], start.elapsed_time(end)))
-        return out
 
     with tempfile.TemporaryDirectory(prefix='t2torch_serve_') as tmp:
         torch.manual_seed(5)
@@ -435,8 +549,8 @@ def service(hp_overrides, hp, wavenet_state):
         convert.save_checkpoint(taco_path, 'tacotron',
                                 suppress_stop_tokens(Tacotron(hp).state_dict()))
         convert.save_checkpoint(wave_path, 'wavenet', wavenet_state)
-        wavenet_ar.generate_ar = timed
-        try:
+        # (steps, kernel ms) of every AR launch the service makes, in order
+        with ar_timer() as chunks:
             t0 = time.perf_counter()
             server = serve.build_server(['--taco_checkpoint', taco_path, '--wave_checkpoint',
                                          wave_path, '--device', 'cuda', '--port', '0',
@@ -465,8 +579,6 @@ def service(hp_overrides, hp, wavenet_state):
             finally:
                 server.close()
             launches = wavenet_ar.LAUNCHES
-        finally:
-            wavenet_ar.generate_ar = generate_ar
 
     want = {'GET wav': 44 + 2 * n, 'POST f32 seed=7': 4 * n,
             'GET pcm16 #0 (concurrent)': 2 * n, 'GET pcm16 #1 (concurrent)': 2 * n}
@@ -500,10 +612,212 @@ def service(hp_overrides, hp, wavenet_state):
     return launches
 
 
+def _mixtures(params, noise, nr):
+    """The mixture each step draws from: the largest logit + Gumbel (first on ties)."""
+    return (params[..., :nr] + noise[..., 1:1 + nr]).argmax(-1)
+
+
+def quiet_mol_head(model, hp):
+    """Scale the MoL head's means by MOL_MEAN_SCALE and shift its log-scales by
+    MOL_LOG_SCALE_SHIFT in place, so that few samples clip at +-1 and a wrong mean or
+    scale in the kernel's draw shows in the samples. Returns `model`."""
+    nr = hp.out_channels // 3
+    head = model.skip_conv2
+    with torch.no_grad():
+        head.weight[nr:2 * nr] *= MOL_MEAN_SCALE
+        head.bias[nr:2 * nr] *= MOL_MEAN_SCALE
+        head.bias[2 * nr:] += MOL_LOG_SCALE_SHIFT
+    return model
+
+
+def mol_vs_plain(weights, model, hp, gen):
+    """Phase 8: the MoL kernel against its plain version (kernel_vs_plain) at the
+    paper batch path's shape, B=2 over PAPER_MAX_ITERS frames, the plain version in
+    the paper service's chunks (PAPER_SERVE_BOUNDS); then the kernel's samples against
+    the MoL draw from its own params (SAMPLE_TOL), the share of them clipped at +-1
+    (at most MAX_CLIPPED), and the steps whose mixture differs from the plain
+    version's on the same history."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    nr = hp.out_channels // 3
+    frames = PAPER_MAX_ITERS * hp.outputs_per_step
+    mol = kernel_vs_plain(weights, model, hp, MAIN_BATCH, frames, gen, PAPER_SERVE_BOUNDS,
+                          n=8, tol=MOL_KERNEL_TOL)
+    audio, params, noise = mol['audio'], mol['params'], mol['noise']
+    draw_err = (audio - wavenet_ar.mol_sample(params, noise, hp)).abs().max().item()
+    switched = int((_mixtures(params, noise, nr)
+                    != _mixtures(mol['ref_params'], noise, nr)).sum())
+    clipped = (audio.abs() >= 1).float().mean().item()
+    phase(8, f'MoL samples vs the draw from the kernel\'s params {draw_err:.3e} (tol '
+             f'{SAMPLE_TOL}); {clipped:.4f} of them clipped (at most {MAX_CLIPPED}), audio '
+             f'std {audio.std().item():.3f}; mixtures chosen differently from the plain '
+             f'version on the same history: {switched} of {audio.numel()} steps')
+    if not draw_err <= SAMPLE_TOL:
+        fail(f'the MoL kernel\'s samples are not its draw: {draw_err}')
+    if not clipped <= MAX_CLIPPED:
+        fail(f'{clipped} of the MoL samples clip: the check cannot see the draw')
+    return mol
+
+
+def mol_planted_faults(hp):
+    """Kernel inputs as a MoL kernel with one bug would use them: fault -> (plant,
+    low) where plant(weights, noise, hp) gives the kernel's weights, noise and hp, and
+    `low` asks for weights whose log-scales are lowered by 9, below
+    log_scale_min_gauss (-7.0), where it and log_scale_min (-32.2) floor differently."""
+    nr = hp.out_channels // 3
+
+    def gumbel_as_logistic(w, noise, hp):
+        noise = noise.clone()
+        noise[..., 0] = noise[..., 1]
+        return w, noise, hp
+
+    def means_from_logits(w, noise, hp):
+        s2, b2 = w['w_s2'].clone(), w['b_s2'].clone()
+        s2[:, nr:2 * nr], b2[nr:2 * nr] = s2[:, :nr], b2[:nr]
+        return {**w, 'w_s2': s2, 'b_s2': b2}, noise, hp
+
+    return {'logistic noise from a Gumbel column': (gumbel_as_logistic, False),
+            'means read from the logit slice': (means_from_logits, False),
+            'log_scale_min_gauss as the floor': (
+                lambda w, n, hp: (w, n, hp.replace(log_scale_min=hp.log_scale_min_gauss)),
+                True),
+            'legacy skip scaling on': (lambda w, n, hp: (w, n, hp.replace(legacy=True)),
+                                       False)}
+
+
+def mol_fault_errors(weights, c_up, noise, hp):
+    """(params, samples) max abs error of the kernel against the plain version for
+    each planted MoL fault and for none: the params against the plain version's on
+    the true inputs, teacher-forced on the kernel's audio; the samples against the
+    MoL draw from the kernel's own params and the true noise. 'none' runs on the low
+    log-scale weights of mol_planted_faults, which the floor fault needs too."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    nr = hp.out_channels // 3
+    b2 = weights['b_s2'].clone()
+    b2[2 * nr:] -= 9.0
+    low = {**weights, 'b_s2': b2}
+    errs = {}
+    plants = {MOL_NO_FAULT: (lambda w, n, hp: (w, n, hp), True),
+              **mol_planted_faults(hp)}
+    for fault, (plant, use_low) in plants.items():
+        w = low if use_low else weights
+        kw, kn, khp = plant(w, noise, hp)
+        audio, params = wavenet_ar.generate_ar(kw, c_up, kn, khp)
+        _, ref = wavenet_ar.generate_ar_reference(w, c_up, noise, hp, targets=audio)
+        errs[fault] = ((params - ref).abs().max().item(),
+                       (audio - wavenet_ar.mol_sample(params, noise, hp)).abs().max().item())
+    return errs
+
+
+def check_mol_faults(weights, model, hp, gen):
+    """Phase 8: each planted MoL fault must take the kernel's params beyond
+    MOL_KERNEL_TOL or its samples beyond SAMPLE_TOL (mol_fault_errors); the true
+    kernel on the low log-scale weights passes both."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    c_up = _conditioning(model, hp, MAIN_BATCH, 1, gen)
+    noise = wavenet_ar.make_noise(hp, gen, MAIN_BATCH, c_up.shape[1])
+    errs = mol_fault_errors(weights, c_up, noise, hp)
+    phase(8, f'planted MoL faults, B={MAIN_BATCH} T={c_up.shape[1]}: (params, samples) '
+             'max_abs_err ' + ', '.join(f'{f} ({p:.3e}, {d:.3e})' for f, (p, d) in errs.items())
+             + f' (each fault must exceed tol {MOL_KERNEL_TOL} or {SAMPLE_TOL})')
+    clean = errs.pop(MOL_NO_FAULT)
+    if not (clean[0] <= MOL_KERNEL_TOL and clean[1] <= SAMPLE_TOL):
+        fail(f'the MoL kernel differs from the plain version at low log-scales: {clean}')
+    missed = [f for f, (p, d) in errs.items() if not (p > MOL_KERNEL_TOL or d > SAMPLE_TOL)]
+    if missed:
+        fail(f'the MoL kernel check passes planted faults: {missed}')
+
+
+def paper_service(hp_overrides, hp, wavenet_state):
+    """Phase 8: one request through `serve.build_server --paper_profile` (with its
+    warmup stream): f32 bytes of one stream, finite, in two AR launches."""
+    from tacotron2_tpu_torch import convert, serve
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import wavenet_ar
+    from tacotron2_tpu_torch.utils import suppress_stop_tokens
+
+    n = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
+    with tempfile.TemporaryDirectory(prefix='t2torch_paper_serve_') as tmp:
+        torch.manual_seed(6)
+        taco_path = os.path.join(tmp, 'tacotron.pt')
+        wave_path = os.path.join(tmp, 'wavenet.pt')
+        convert.save_checkpoint(taco_path, 'tacotron',
+                                suppress_stop_tokens(Tacotron(hp).state_dict()))
+        convert.save_checkpoint(wave_path, 'wavenet', wavenet_state)
+        with ar_timer() as chunks:
+            t0 = time.perf_counter()
+            server = serve.build_server(['--paper_profile', '--taco_checkpoint', taco_path,
+                                         '--wave_checkpoint', wave_path, '--device', 'cuda',
+                                         '--port', '0', '--hparams', hp_overrides])
+            startup = time.perf_counter() - t0
+            chunks.clear()
+            wavenet_ar.LAUNCHES = 0
+            server.start()
+            try:
+                status, data, first, wall = fetch(
+                    server.address, 'GET', '/tts?text=The+paper+profile,+served.&format=f32')
+            finally:
+                server.close()
+            launches = wavenet_ar.LAUNCHES
+    audio_s = n / hp.sample_rate
+    us_step = 1000 * sum(ms for _, ms in chunks) / sum(steps for steps, _ in chunks)
+    phase(8, f'serve --paper_profile: up in {startup:.1f} s (load + 1 warmup stream); one '
+             f'request: status {status}, {len(data)} bytes (want {4 * n}), first audio '
+             f'{first:.3f} s, wall {wall:.3f} s for {audio_s:.3f} s of audio (stream RTF '
+             f'{wall / audio_s:.2f}); {launches} AR launches: ' + ', '.join(
+                 f'{steps} steps at {1000 * ms / steps:.1f} us/step' for steps, ms in chunks))
+    if status != 200 or len(data) != 4 * n:
+        fail('the --paper_profile service request failed or returned the wrong bytes')
+    if not np.isfinite(np.frombuffer(data, np.float32)).all():
+        fail('non-finite samples from the --paper_profile service')
+    want = [PAPER_SERVE_BOUNDS[0], n - PAPER_SERVE_BOUNDS[0]]
+    if launches != 2 or [steps for steps, _ in chunks] != want:
+        fail(f'expected 2 AR launches of {want} steps, got {launches}: '
+             f'{[steps for steps, _ in chunks]}')
+    return launches, us_step
+
+
+def paper_profile(gen):
+    """Phase 8: the paper profile at full width (see the module docstring)."""
+    from tacotron2_tpu_torch.config import paper_hparams
+    from tacotron2_tpu_torch.models.wavenet.model import WaveNet
+    from tacotron2_tpu_torch.ops import wavenet_ar
+    from tacotron2_tpu_torch.utils import randomize_weights
+
+    overrides = f'max_iters={PAPER_MAX_ITERS},tacotron_synthesis_batch_size={MAIN_BATCH}'
+    hp = paper_hparams()
+    hp.parse(overrides)
+    wavenet = quiet_mol_head(randomize_weights(WaveNet(hp), torch.Generator().manual_seed(1)),
+                             hp)
+    wavenet_state = {k: v.clone() for k, v in wavenet.state_dict().items()}
+    model = wavenet.cuda().eval()
+    weights = wavenet_ar.pack_params(model, hp)
+    check_mol_faults(weights, model, hp, gen)
+    mol = mol_vs_plain(weights, model, hp, gen)
+    launches0 = wavenet_ar.LAUNCHES
+    served_carry = row0_carry(weights, hp, mol, PAPER_SERVE_BOUNDS)
+    _judge_carry(8, 'MoL state carry at the service\'s shape, B=1 (sequence 0 of the B=2 '
+                    'run)', served_carry, PAPER_SERVE_BOUNDS, tol=MOL_KERNEL_TOL)
+    odd = state_carry(weights, mol['c_up'][:1], mol['noise'][:1], hp, PAPER_STATE_BOUNDS)
+    _judge_carry(8, 'MoL state carry, B=1', odd, PAPER_STATE_BOUNDS, tol=MOL_KERNEL_TOL)
+    carry_launches = wavenet_ar.LAUNCHES - launches0
+    batch, batch_us = main_path(overrides, hp, wavenet_state, n=8, paper=True)
+    served, served_us = paper_service(f'max_iters={PAPER_MAX_ITERS}', hp, wavenet_state)
+    bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, PAPER_SERVE_BOUNDS[-1])
+    return dict(max_abs_err=max(mol['max_abs_err'], served_carry['max_abs_err'],
+                                odd['max_abs_err']),
+                ms=mol['ms'], plain_ms=mol['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
+                batch_launches=batch, serve_launches=served, carry_launches=carry_launches,
+                batch_us_step=batch_us, serve_us_step=served_us, streamed_b1_ms=served_carry['ms'])
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail('torch finds no CUDA device')
-    from tacotron2_tpu.config import default_hparams
+    from tacotron2_tpu_torch.config import default_hparams
     from tacotron2_tpu_torch.models.wavenet.model import WaveNet
     from tacotron2_tpu_torch.ops import _build, wavenet_ar
     from tacotron2_tpu_torch.utils import randomize_weights
@@ -537,26 +851,45 @@ def main():
     kernel = kernel_vs_plain(weights, model, hp, MAIN_BATCH, frames, gen, SERVE_BOUNDS)
     wide = kernel_vs_plain(weights, model, hp, WAVENET_BATCH, 10, gen)
     check_tacotron(hp)
-    launches_batch = main_path(overrides, hp, wavenet_state)
+    launches_batch, batch_us = main_path(overrides, hp, wavenet_state)
     streamed = check_state_carry(weights, model, hp, gen, kernel)
     launches_serve = service(f'max_iters={MAX_ITERS}', hp, wavenet_state)
+    t8 = time.perf_counter()
+    paper = paper_profile(gen)
+    phase(8, f'phase 8 took {time.perf_counter() - t8:.1f} s; the whole run '
+             f'{time.perf_counter() - t_start:.1f} s')
+    bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, frames * hp.get_hop_size())
 
-    # launches: the two main paths' runs, each counted from 0 (the batch CLI, phase 5,
-    # and the service, phase 7); the checks' launches are listed apart
+    # launches: the main paths' runs, each counted from 0 (the batch CLI, phase 5, and
+    # the service, phase 7, at the default profile; both again with --paper_profile,
+    # phase 8); the checks' launches are listed apart. max_abs_err, ms, plain_ms and
+    # bound_ms are the default profile's (the times its B=2 run over 35,200 steps, phase
+    # 3); the mol_ keys are the paper width's (the times its B=2 run over 8,800 steps,
+    # phase 8). No single PyTorch call computes the AR loop: library_ms is null.
     print(json.dumps({'kernels': [dict(
-        name='wavenet_ar_gaussian', route='cuda',
+        name='wavenet_ar', route='cuda',
         source='tacotron2_tpu_torch/csrc/wavenet_ar.cu',
         replaces='tacotron2_tpu/ops/pallas/wavenet_ar.py:684',
-        variants=['fresh', 'streamed'],
-        launches=launches_batch + launches_serve,
+        variants=['gaussian-fresh', 'gaussian-streamed', 'mol-fresh', 'mol-streamed'],
+        launches=launches_batch + launches_serve + paper['batch_launches']
+        + paper['serve_launches'],
         launches_by_path={'synthesize': launches_batch, 'serve': launches_serve,
-                          'state_carry_check': streamed['launches']},
+                          'synthesize --paper_profile': paper['batch_launches'],
+                          'serve --paper_profile': paper['serve_launches'],
+                          'state_carry_check': streamed['launches'],
+                          'mol_state_carry_check': paper['carry_launches']},
         max_abs_err=max(kernel['max_abs_err'], wide['max_abs_err'],
                         streamed['max_abs_err']),
-        ms=kernel['ms'], plain_ms=kernel['plain_ms'],
+        ms=kernel['ms'], plain_ms=kernel['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
         b20_ms=wide['ms'], b20_plain_ms=wide['plain_ms'],
         streamed_ms=streamed['ms'], streamed_plain_ms=streamed['plain_ms'],
-        streamed_b1_ms=streamed['served_ms'])]}))
+        streamed_b1_ms=streamed['served_ms'], synthesize_us_step=batch_us,
+        mol_max_abs_err=paper['max_abs_err'], mol_ms=paper['ms'],
+        mol_plain_ms=paper['plain_ms'], mol_bound_ms=paper['bound_ms'],
+        mol_bound_by=paper['bound_by'], mol_streamed_b1_ms=paper['streamed_b1_ms'],
+        paper_synthesize_us_step=paper['batch_us_step'],
+        paper_serve_us_step=paper['serve_us_step'])]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}))

@@ -6,6 +6,9 @@ holds, with every leaf turned into a numpy array. The layout changes:
   - Dense kernel (in, out)            -> Linear.weight (out, in)
   - Conv kernel (k, in, out)          -> Conv1d.weight (out, in, k)
   - SubPixel conv kernel (3, 3, 1, s) -> Conv2d.weight (s, 1, 3, 3)  (HWIO -> OIHW)
+  - 2D transpose-conv kernel (fk, s, 1, 1) -> ConvTranspose2d.weight (1, 1, fk, s),
+    flipped on both spatial axes (lax.conv_transpose with transpose_kernel=False
+    correlates with the kernel as it is; torch's transpose conv flips it)
   - BatchNorm scale/bias + batch_stats mean/var -> BatchNorm1d weight/bias/running_*
   - LSTM `gates` kernels keep their i, g, f, o order (the +1.0 forget bias is applied
     by the cell, not stored)
@@ -113,13 +116,17 @@ def wavenet_state_dict(params: Mapping) -> Dict[str, Tensor]:
     _dense(sd, 'skip_conv1', params['skip_conv1'])
     _dense(sd, 'skip_conv2', params['skip_conv2'])
     ups = params.get('upsample_network', {})
-    n_up = len([k for k in ups if k.startswith('subpixel_conv_')])
-    if n_up != len(ups):
-        raise NotImplementedError('only the SubPixel upsampler is ported')
-    for i in range(n_up):
-        p = ups[f'subpixel_conv_{i + 1}']
-        sd[f'upsample.convs.{i}.weight'] = _t(_kernel(p).transpose(3, 2, 0, 1))
-        sd[f'upsample.convs.{i}.bias'] = _t(p['bias'])
+    layouts = {'subpixel_conv': lambda k: k.transpose(3, 2, 0, 1),
+               'convt2d': lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1)}
+    kinds = {name.rsplit('_', 1)[0] for name in ups}
+    if len(kinds) > 1 or not kinds <= set(layouts):
+        raise NotImplementedError('only the SubPixel and 2D upsamplers are ported '
+                                  f'(upsample_network holds {sorted(ups)})')
+    for kind in kinds:
+        for i in range(len(ups)):
+            p = ups[f'{kind}_{i + 1}']
+            sd[f'upsample.convs.{i}.weight'] = _t(layouts[kind](_kernel(p)))
+            sd[f'upsample.convs.{i}.bias'] = _t(p['bias'])
     return sd
 
 

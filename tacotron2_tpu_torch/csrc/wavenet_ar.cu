@@ -1,8 +1,10 @@
 // WaveNet autoregressive generation on Hopper: the whole sample loop in one launch.
 //
 // Replaces tacotron2_tpu/ops/pallas/wavenet_ar.py:generate_ar (the Pallas TPU kernel),
-// in its main-path variants: raw scalar input, Gaussian head (out_channels == 2), fused
-// critical path (wavenet_fused_ar=True), local conditioning, no global conditioning;
+// in its variants on the default and the paper path: raw scalar input, a Gaussian head
+// (out_channels == 2) or a mixture-of-logistics head (out_channels == 3*nr; a template
+// parameter, so each head compiles on its own), fused critical path
+// (wavenet_fused_ar=True), local conditioning, no global conditioning;
 // a fresh call (zero ring buffers, h = first_b) or a streamed continuation that takes
 // the ring buffers, the next-step h and the absolute step offset t_base from the
 // previous call (the TPU kernel's state_in / return_state, wavenet_ar.py:249-271,
@@ -17,8 +19,10 @@
 //   2. per layer l: consts = b_tap + b_fused + cond_l + bf16(past taps) @ w_tap[l][:past];
 //   3. the fused chain  z_l = GLU(z_{l-1} @ w_fused[l] + sqrt(1/2) h_{l-1} @ w_cur[l]
 //      + consts)  with the residual/skip 1x1 of layer l-1 computed beside it;
-//   4. the head  relu -> 1x1 -> relu -> 1x1;
-//   5. the Gaussian sample  clip(mean + exp(max(logs, log_scale_min)) * eps, -1, 1);
+//   4. the head  relu -> 1x1 -> relu -> 1x1 (the last 1x1 in f32);
+//   5. the sample: Gaussian  clip(mean + exp(max(logs, log_scale_min)) * eps, -1, 1);
+//      MoL (wavenet_ar.py:455-464)  the mixture of largest logit + Gumbel noise, ties
+//      averaged, then clip(mean + exp(max(logs, log_scale_min)) * logistic, -1, 1);
 //   6. the feedback  h = sample * first_w + first_b.
 // The activations that feed a matmul are rounded to bf16 at the same places the TPU
 // kernel casts them, so the plain PyTorch version (ops/wavenet_ar.py
@@ -41,6 +45,13 @@
 // barriers, so load latency, not bandwidth, sets the pace of this first design.
 // Sharing weight reads across sequences (tensor-core mma over batched rows), clusters
 // with distributed shared memory, and fp8 weights are left for later work.
+//
+// At the paper profile's widths (L=24 in 4 stacks, R=256, G=512, S=256, MoL-30) the
+// same design holds: 16.78 M bf16 weight values (33.6 MB, inside the 50 MB L2), 64
+// column groups and 16 row slices per G-wide matvec, so a thread walks 64 weight rows
+// per layer where it walks 16 at the defaults, and 122 KB of shared memory. The MoL
+// head adds 30 f32 columns of S, one warp per column, and the choice of mixture in
+// one thread: small next to the layer stack.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,10 +66,11 @@ constexpr int UNROLL = 4;  // weight loads in flight per thread and row slice
 constexpr int COLS = 8;   // bf16 columns per 16-byte load
 constexpr int RED = NT * COLS;  // floats in one partial-sum buffer
 constexpr float SQRT_HALF = 0.70710678118654752f;
+enum Head { GAUSSIAN, MOL };  // out_channels == 2; out_channels == 3*nr
 
 struct Args {
   const float* c_up;       // (B, T, cin)
-  const float* noise;      // (B, T)
+  const float* noise;      // (B, T) Gaussian, (B, T, nr+1) MoL
   const float* first_w;    // (R,)
   const float* first_b;    // (R,)
   const __nv_bfloat16* w_tap;    // (L, k*R, G)
@@ -71,16 +83,16 @@ struct Args {
   const float* b_cond;           // (L*G,)
   const __nv_bfloat16* w_s1;     // (S, S)
   const float* b_s1;             // (S,)
-  const float* w_s2;             // (S, 2)
-  const float* b_s2;             // (2,)
+  const float* w_s2;             // (S, out_ch)
+  const float* b_s2;             // (out_ch,)
   float* rings;                  // (B, ring_floats): zeroed here, or the carried state
   const float* h_in;             // (B, R) carried next-step h, or null: a fresh call
   float* h_out;                  // (B, R) next-step h after the last step, or null
   float* audio;                  // (B, T)
-  float* params;                 // (B, T, 2) or null
+  float* params;                 // (B, T, out_ch) or null
   long long ring_floats;
   long long t_base;              // absolute step of local step 0
-  int T, cin, L, lps, R, G, S, k, legacy, residual_legacy, round_cond;
+  int T, cin, L, lps, R, G, S, k, out_ch, legacy, residual_legacy, round_cond;
   float log_scale_min;
 };
 
@@ -143,6 +155,7 @@ __device__ __forceinline__ float reduce_slices(const float* red, int N, int n) {
   return s;
 }
 
+template <int HEAD>
 __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -295,29 +308,69 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
       skips[s] = fmaxf(a.b_s1[s] + reduce_slices(red_a, S, s), 0.f);
     __syncthreads();
 
-    // --- 5. Gaussian sample (one warp) ---
-    if (tid < 32) {
-      float p0 = 0.f, p1 = 0.f;
-      for (int s = tid; s < S; s += 32) {
-        p0 = fmaf(skips[s], a.w_s2[2 * s], p0);
-        p1 = fmaf(skips[s], a.w_s2[2 * s + 1], p1);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        p0 += __shfl_xor_sync(0xffffffffu, p0, off);
-        p1 += __shfl_xor_sync(0xffffffffu, p1, off);
-      }
-      if (tid == 0) {
-        p0 += a.b_s2[0];
-        p1 += a.b_s2[1];
-        const size_t bt = (size_t)b * a.T + t;
-        const float logs = fmaxf(p1, a.log_scale_min);
-        const float x = fminf(fmaxf(p0 + expf(logs) * a.noise[bt], -1.f), 1.f);
-        a.audio[bt] = x;
-        if (a.params != nullptr) {
-          a.params[2 * bt] = p0;
-          a.params[2 * bt + 1] = p1;
+    // --- 5. the sample ---
+    if constexpr (HEAD == GAUSSIAN) {
+      if (tid < 32) {  // one warp
+        float p0 = 0.f, p1 = 0.f;
+        for (int s = tid; s < S; s += 32) {
+          p0 = fmaf(skips[s], a.w_s2[2 * s], p0);
+          p1 = fmaf(skips[s], a.w_s2[2 * s + 1], p1);
         }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          p0 += __shfl_xor_sync(0xffffffffu, p0, off);
+          p1 += __shfl_xor_sync(0xffffffffu, p1, off);
+        }
+        if (tid == 0) {
+          p0 += a.b_s2[0];
+          p1 += a.b_s2[1];
+          const size_t bt = (size_t)b * a.T + t;
+          const float logs = fmaxf(p1, a.log_scale_min);
+          const float x = fminf(fmaxf(p0 + expf(logs) * a.noise[bt], -1.f), 1.f);
+          a.audio[bt] = x;
+          if (a.params != nullptr) {
+            a.params[2 * bt] = p0;
+            a.params[2 * bt + 1] = p1;
+          }
+          sample_s[0] = x;
+        }
+      }
+    } else {
+      // MoL: the out_ch head outputs o @ w_s2 + b_s2 in f32, one warp per column, into
+      // red_a (its partial sums were reduced above; the next step writes it again)
+      const int warp = tid / 32, lane = tid % 32, oc = a.out_ch, nr = oc / 3;
+      const size_t bt = (size_t)b * a.T + t;
+      for (int j = warp; j < oc; j += NT / 32) {
+        float p = 0.f;
+        for (int s = lane; s < S; s += 32)
+          p = fmaf(skips[s], a.w_s2[(size_t)s * oc + j], p);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+        if (lane == 0) {
+          p += a.b_s2[j];
+          red_a[j] = p;
+          if (a.params != nullptr) a.params[bt * oc + j] = p;
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        // the mixture of largest logit + Gumbel; tied mixtures each weigh 1/count
+        const float* nz = a.noise + bt * (nr + 1);
+        float kmax = red_a[0] + nz[1];
+        for (int i = 1; i < nr; ++i) kmax = fmaxf(kmax, red_a[i] + nz[1 + i]);
+        float count = 0.f;
+        for (int i = 0; i < nr; ++i) count += red_a[i] + nz[1 + i] >= kmax ? 1.f : 0.f;
+        const float w = 1.f / count;
+        float mean = 0.f, ls = 0.f;
+        for (int i = 0; i < nr; ++i) {
+          if (red_a[i] + nz[1 + i] >= kmax) {
+            mean += red_a[nr + i] * w;
+            ls += red_a[2 * nr + i] * w;
+          }
+        }
+        const float logs = fmaxf(ls, a.log_scale_min);
+        const float x = fminf(fmaxf(mean + expf(logs) * nz[0], -1.f), 1.f);
+        a.audio[bt] = x;
         sample_s[0] = x;
       }
     }
@@ -342,22 +395,33 @@ bool tiles(int n) {  // N/8 column groups must divide the block
   return n > 0 && n % COLS == 0 && NT % (n / COLS) == 0;
 }
 
+template <int HEAD>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.cin, a.L, a.R, a.G, a.S, a.k);
+  cudaError_t err = cudaFuncSetAttribute(
+      wavenet_ar_kernel<HEAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  wavenet_ar_kernel<HEAD><<<B, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). All pointers are device pointers; the
-// launch goes on `stream`. Returns the cudaError_t of the launch (0 on success).
-extern "C" int wavenet_ar_gaussian(
+// launch goes on `stream`. out_ch selects the head: 2 the Gaussian, 3*nr the MoL.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int wavenet_ar(
     const void* c_up, const void* noise, const void* first_w, const void* first_b,
     const void* w_tap, const void* b_tap, const void* w_os, const void* b_os,
     const void* w_fused, const void* b_fused, const void* w_cond, const void* b_cond,
     const void* w_s1, const void* b_s1, const void* w_s2, const void* b_s2,
     void* rings, const void* h_in, void* h_out, void* audio, void* params,
     long long ring_floats, long long t_base, int B, int T, int cin, int L,
-    int layers_per_stack, int R, int G, int S, int k, int legacy, int residual_legacy,
-    int round_cond, float log_scale_min, void* stream) {
+    int layers_per_stack, int R, int G, int S, int k, int out_ch, int legacy,
+    int residual_legacy, int round_cond, float log_scale_min, void* stream) {
   if (B <= 0 || T <= 0 || cin <= 0 || L <= 0 || layers_per_stack <= 0 || k < 2
       || G % 2 != 0 || R % COLS != 0 || !tiles(G) || !tiles(R + S) || !tiles(S)
-      || t_base < 0)
+      || t_base < 0 || (out_ch != 2 && (out_ch < 3 || out_ch % 3 != 0)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.c_up = static_cast<const float*>(c_up);
@@ -384,14 +448,9 @@ extern "C" int wavenet_ar_gaussian(
   a.ring_floats = ring_floats;
   a.t_base = t_base;
   a.T = T; a.cin = cin; a.L = L; a.lps = layers_per_stack; a.R = R; a.G = G; a.S = S;
-  a.k = k; a.legacy = legacy; a.residual_legacy = residual_legacy;
+  a.k = k; a.out_ch = out_ch; a.legacy = legacy; a.residual_legacy = residual_legacy;
   a.round_cond = round_cond;
   a.log_scale_min = log_scale_min;
-
-  const size_t smem = smem_bytes(cin, L, R, G, S, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      wavenet_ar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  wavenet_ar_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_ch == 2 ? launch<GAUSSIAN>(a, B, s) : launch<MOL>(a, B, s);
 }

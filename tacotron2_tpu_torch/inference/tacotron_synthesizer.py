@@ -7,9 +7,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from tacotron2_tpu.text import text_to_sequence
-
 from ..models.tacotron.model import Tacotron, output_range
+from ..text import text_to_sequence
 from ..utils import round_up
 
 

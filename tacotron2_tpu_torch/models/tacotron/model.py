@@ -11,9 +11,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import Tensor, nn
 
-from tacotron2_tpu.text import VOCAB_SIZE
-
 from ...ops import fused_decoder as fd
+from ...text import VOCAB_SIZE
 from .attention import LocationSensitiveAttention
 from .modules import BiZoneoutLSTM, EncoderConvolutions, Postnet, Prenet, ZoneoutLSTMCell
 

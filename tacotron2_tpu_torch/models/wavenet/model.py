@@ -2,7 +2,8 @@
 
 The teacher-forced forward pass runs the whole utterance in parallel; autoregressive
 generation runs on packed weights in `ops/wavenet_ar.py`. Covered: raw scalar input,
-local conditioning with the SubPixel upsampler (ReLU), no global conditioning.
+local conditioning with the SubPixel or 2D upsampler (ReLU), no global
+conditioning.
 """
 
 import math
@@ -23,11 +24,12 @@ class WaveNet(nn.Module):
             raise NotImplementedError(f'input_type={hp.input_type!r}: raw input only')
         if hp.gin_channels > 0:
             raise NotImplementedError('global conditioning is not ported yet')
-        if hp.cin_channels > 0 and (hp.upsample_type, hp.upsample_activation) != (
-                'SubPixel', 'Relu'):
+        if hp.cin_channels > 0 and (hp.upsample_type not in ('SubPixel', '2D')
+                                    or hp.upsample_activation != 'Relu'):
             raise NotImplementedError(
                 f'upsample_type={hp.upsample_type!r}, upsample_activation='
-                f'{hp.upsample_activation!r}: the SubPixel upsampler with ReLU only')
+                f'{hp.upsample_activation!r}: the SubPixel and 2D upsamplers with ReLU '
+                'only')
         self.hp = hp
         lps = hp.layers // hp.stacks
         self.first_conv = Conv1x1(1, hp.residual_channels, hp.use_bias)
@@ -38,7 +40,8 @@ class WaveNet(nn.Module):
             for i in range(hp.layers))
         self.skip_conv1 = Conv1x1(hp.skip_out_channels, hp.skip_out_channels, hp.use_bias)
         self.skip_conv2 = Conv1x1(hp.skip_out_channels, hp.out_channels, hp.use_bias)
-        self.upsample = (UpsampleNetwork(hp.upsample_scales, hp.freq_axis_kernel_size)
+        self.upsample = (UpsampleNetwork(hp.upsample_scales, hp.freq_axis_kernel_size,
+                                         hp.upsample_type)
                          if hp.cin_channels > 0 else None)
 
     def upsample_conditioning(self, c: Tensor) -> Tensor:

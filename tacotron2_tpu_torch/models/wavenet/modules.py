@@ -2,7 +2,8 @@
 (counterpart of `tacotron2_tpu/models/wavenet/modules.py`).
 
 Inference only: weight normalization is folded into plain weights by `convert.py`, and
-the upsampler covers the SubPixel variant (the default).
+the upsampler covers the SubPixel variant (the default) and the 2D transpose-conv
+variant (the paper profile).
 """
 
 import math
@@ -62,24 +63,49 @@ class ResidualConv1DGLU(nn.Module):
 
 
 class UpsampleNetwork(nn.Module):
-    """mel (B, Tc, cin) -> (B, Tc*hop, cin), SubPixel variant.
+    """mel (B, Tc, cin) -> (B, Tc*hop, cin), SubPixel or 2D variant.
 
-    The mel is an image with H = mel bins and W = time. Each layer is a SAME conv
-    (freq_axis_kernel_size, 3) from 1 to s channels, then the periodic shuffle
-    (B, H, W, s) -> (B, H, W*s), then a ReLU."""
+    The mel is an image with H = mel bins and W = time, one channel. A SubPixel layer
+    is a SAME conv (freq_axis_kernel_size, 3) from 1 to s channels, then the periodic
+    shuffle (B, H, W, s) -> (B, H, W*s). A 2D layer is a transpose conv
+    (freq_axis_kernel_size, s) with stride (1, s) from 1 channel to 1. A ReLU follows
+    every layer, the last included (`modules.py:357-397` of the JAX package).
 
-    def __init__(self, upsample_scales: Sequence[int], freq_axis_kernel_size: int = 3):
+    The 2D layer reproduces `jax.lax.conv_transpose(..., 'SAME')` with
+    `transpose_kernel=False`: a correlation of the stride-dilated input with the
+    kernel as it is, padded by lax's rule, (fk-1)/2 on each side in frequency for an
+    odd fk and s-1 in time. torch's ConvTranspose2d correlates with the kernel flipped
+    on both axes, so `convert.py` stores the flax kernel flipped, and the layer runs
+    unpadded and crops the frequency axis to lax's padding."""
+
+    def __init__(self, upsample_scales: Sequence[int], freq_axis_kernel_size: int = 3,
+                 upsample_type: str = 'SubPixel'):
         super().__init__()
+        if upsample_type not in ('SubPixel', '2D'):
+            raise NotImplementedError(f'upsample_type={upsample_type!r}: SubPixel and 2D '
+                                      'only')
+        self.upsample_type = upsample_type
         self.scales = tuple(upsample_scales)
-        self.convs = nn.ModuleList(
-            nn.Conv2d(1, s, (freq_axis_kernel_size, 3), padding='same')
-            for s in self.scales)
+        fk = freq_axis_kernel_size
+        if upsample_type == '2D':
+            self.convs = nn.ModuleList(nn.ConvTranspose2d(1, 1, (fk, s), stride=(1, s))
+                                       for s in self.scales)
+        else:
+            self.convs = nn.ModuleList(nn.Conv2d(1, s, (fk, 3), padding='same')
+                                       for s in self.scales)
+        # lax's SAME transpose padding in frequency (stride 1) is ceil((fk-1)/2) before
+        # and floor((fk-1)/2) after; the unpadded ConvTranspose2d pads fk-1 on each
+        # side, so the rest is cropped
+        self._crop = ((fk - 1) // 2, fk // 2)
 
     def forward(self, c: Tensor) -> Tensor:
         B = c.shape[0]
         x = c.transpose(1, 2)[:, None]                     # (B, 1, H, W)
         for conv, s in zip(self.convs, self.scales):
-            y = conv(x)                                    # (B, s, H, W)
-            _, _, H, W = y.shape
-            x = torch.relu(y.permute(0, 2, 3, 1).reshape(B, 1, H, W * s))
+            y = conv(x)
+            if self.upsample_type == '2D':                 # (B, 1, H + fk - 1, W*s)
+                x = torch.relu(y[:, :, self._crop[0]:y.shape[2] - self._crop[1]])
+            else:                                          # (B, s, H, W)
+                _, _, H, W = y.shape
+                x = torch.relu(y.permute(0, 2, 3, 1).reshape(B, 1, H, W * s))
         return x[:, 0].transpose(1, 2)                     # (B, T*hop, cin)

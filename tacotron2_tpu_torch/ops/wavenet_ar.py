@@ -1,11 +1,17 @@
 """WaveNet autoregressive generation: packed weights, noise, the plain PyTorch version
 and the wrapper of the hand-written Hopper kernel (`csrc/wavenet_ar.cu`).
 
-Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for its main-path variants:
-raw scalar input, Gaussian head (`out_channels == 2`), the fused critical path
-(`wavenet_fused_ar=True`: layer l-1's residual 1x1 folded into layer l's current-tap
-conv, one serial matmul + GLU per layer), local conditioning only; a fresh call or a
-streamed continuation (`state_in` / `return_state`). Anything else raises.
+Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for its variants on the
+default and the paper path: raw scalar input, a Gaussian head (`out_channels == 2`)
+or a mixture of nr logistics (MoL, `out_channels == 3*nr`: the paper profile's 30),
+the fused critical path (`wavenet_fused_ar=True`: layer l-1's residual 1x1 folded
+into layer l's current-tap conv, one serial matmul + GLU per layer), local
+conditioning only; a fresh call or a streamed continuation (`state_in` /
+`return_state`). Anything else raises.
+
+Noise. The Gaussian head takes (B, T) standard-normal noise. The MoL head takes
+(B, T, nr+1): column 0 logistic noise for the sample, columns 1..nr Gumbel noise for
+the choice of mixture (`make_noise`).
 
 `generate_ar` dispatches on the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs `generate_ar_reference`.
@@ -47,8 +53,9 @@ def check_supported(hp) -> None:
     problems = []
     if hp.input_type != 'raw':
         problems.append(f'input_type={hp.input_type!r} (raw only)')
-    if hp.out_channels != 2:
-        problems.append(f'out_channels={hp.out_channels} (Gaussian head, 2, only)')
+    if hp.out_channels != 2 and (hp.out_channels < 3 or hp.out_channels % 3):
+        problems.append(f'out_channels={hp.out_channels} (Gaussian, 2, or MoL, a '
+                        'multiple of 3)')
     if not hp.wavenet_fused_ar:
         problems.append('wavenet_fused_ar=False (fused critical path only)')
     if hp.gin_channels > 0:
@@ -60,6 +67,17 @@ def check_supported(hp) -> None:
     if problems:
         raise NotImplementedError('WaveNet AR generation does not cover: '
                                   + ', '.join(problems))
+
+
+def is_mol(hp) -> bool:
+    """Whether the head is the mixture of logistics (out_channels = 3*nr), not the
+    Gaussian (2)."""
+    return hp.out_channels != 2
+
+
+def noise_shape(hp, B: int, T: int) -> Tuple[int, ...]:
+    """(B, T) for the Gaussian head, (B, T, nr+1) for MoL."""
+    return (B, T, hp.out_channels // 3 + 1) if is_mol(hp) else (B, T)
 
 
 def dilations(hp) -> List[int]:
@@ -105,8 +123,9 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
     oldest first and the current tap last, `w_os` (L, G/2, R+S) residual and skip
     1x1s side by side, `w_fused` (L, G/2, G) the fold rho * W_out[l-1] @ W_cur[l]
     (zero for layer 0), `w_cond` (cin, L*G) every layer's conditioning 1x1. Weights
-    are bf16 and biases f32, except the first conv and the last head layer, which
-    stay f32 as in the JAX packing. `w_cond` keeps cin rows (no lane padding)."""
+    are bf16 and biases f32, except the first conv and the last head layer (`w_s2`
+    (S, out_channels), 2 or 30 columns), which stay f32 as in the JAX packing.
+    `w_cond` keeps cin rows (no lane padding)."""
     check_supported(hp)
     L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
     S, k = hp.skip_out_channels, hp.kernel_size
@@ -147,7 +166,7 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
     w['b_cond'] = torch.cat(b_c).contiguous()
     w['w_s1'] = model.skip_conv1.weight.detach().float().t().bfloat16().contiguous()
     w['b_s1'] = _bias(model.skip_conv1, S)
-    w['w_s2'] = model.skip_conv2.weight.detach().float().t().contiguous()  # (S, 2) f32
+    w['w_s2'] = model.skip_conv2.weight.detach().float().t().contiguous()  # (S, out) f32
     w['b_s2'] = _bias(model.skip_conv2, hp.out_channels)
     _PACKED_LAYOUTS[_layout_key(hp)] = {n: (t.dtype, tuple(t.shape)) for n, t in w.items()}
     return w
@@ -155,10 +174,44 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
 
 def make_noise(hp, generator: torch.Generator, B: int, T: int,
                device: Optional[torch.device] = None) -> Tensor:
-    """Standard-normal sampling noise (B, T) for the Gaussian head, drawn from
-    `generator` (counterpart of `make_noise`, `wavenet_ar.py:715-726`)."""
-    eps = torch.randn(B, T, generator=generator, device=generator.device)
+    """Sampling noise drawn from `generator` (counterpart of `make_noise`,
+    `wavenet_ar.py:715-733`): standard-normal (B, T) for the Gaussian head; for MoL
+    (B, T, nr+1), column 0 logistic noise log u - log(1-u) and columns 1..nr Gumbel
+    noise -log(-log u), u uniform in [1e-5, 1-1e-5]."""
+    dev = generator.device
+    if not is_mol(hp):
+        eps = torch.randn(B, T, generator=generator, device=dev)
+    else:
+        lo, hi = 1e-5, 1.0 - 1e-5
+        u = lo + (hi - lo) * torch.rand(B, T, 1, generator=generator, device=dev)
+        gu = lo + (hi - lo) * torch.rand(B, T, hp.out_channels // 3, generator=generator,
+                                         device=dev)
+        eps = torch.cat([torch.log(u) - torch.log(1.0 - u), -torch.log(-torch.log(gu))], -1)
     return eps.to(device) if device is not None else eps
+
+
+def mol_sample(params: Tensor, noise: Tensor, hp) -> Tensor:
+    """The MoL head's draw from its params (..., 3*nr) and noise (..., nr+1)
+    (`wavenet_ar.py:455-464`): the mixture of largest logit + Gumbel noise, ties
+    averaged (each tied mixture weighs 1/count, not argmax's first index), then
+    clip(mean + exp(max(log_scale, log_scale_min)) * logistic noise, -1, 1)."""
+    nr = hp.out_channels // 3
+    logits = params[..., :nr] + noise[..., 1:1 + nr]
+    onehot = (logits >= logits.max(-1, keepdim=True).values).float()
+    onehot = onehot / onehot.sum(-1, keepdim=True)
+    mean = (params[..., nr:2 * nr] * onehot).sum(-1)
+    logs = torch.clamp((params[..., 2 * nr:3 * nr] * onehot).sum(-1), min=hp.log_scale_min)
+    return torch.clamp(mean + torch.exp(logs) * noise[..., 0], -1.0, 1.0)
+
+
+def sample(params: Tensor, noise: Tensor, hp) -> Tensor:
+    """The head's draw from its params: `mol_sample` for MoL; for the Gaussian, params
+    (..., 2) and noise (...), clip(mean + exp(max(log_scale, log_scale_min_gauss)) *
+    eps, -1, 1). Each head has its own floor (`wavenet_ar.py:207`)."""
+    if is_mol(hp):
+        return mol_sample(params, noise, hp)
+    logs = torch.clamp(params[..., 1], min=hp.log_scale_min_gauss)
+    return torch.clamp(params[..., 0] + torch.exp(logs) * noise, -1.0, 1.0)
 
 
 def _glu(z: Tensor, half: int) -> Tensor:
@@ -198,13 +251,13 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     Args:
         weights: `pack_params` output.
         c_up: (B, T, cin) upsampled conditioning, already rescaled to [0, 1].
-        noise: (B, T) standard-normal noise.
+        noise: (B, T) for the Gaussian head, (B, T, nr+1) for MoL (`make_noise`).
         state_in: a state a previous call returned (see the module docstring), to
             continue from; None starts fresh (zero rings, h = first_b, t_base 0). The
             state is consumed: its rings are updated in place and returned.
         return_state: also return the state after the last step.
-    Returns: (audio (B, T), params (B, T, 2) or None[, state]); audio holds the
-        fed-back samples.
+    Returns: (audio (B, T), params (B, T, out_channels) or None[, state]); audio
+        holds the fed-back samples.
     """
     B, T, _ = c_up.shape
     L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
@@ -227,7 +280,7 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     bases = [t_base % win for win in wins]  # absolute slots, without a growing int
     round_cond = rounds_conditioning(B)
     audio = torch.empty(B, T, device=dev)
-    params = torch.empty(B, T, 2, device=dev) if return_params else None
+    params = torch.empty(B, T, hp.out_channels, device=dev) if return_params else None
     c_up = c_up.float()
     for t in range(T):
         cond = _bf(c_up[:, t]) @ W['w_cond'] + W['b_cond']
@@ -269,14 +322,13 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
         o = torch.relu(skips)
         o = torch.relu(_bf(o) @ W['w_s1'] + W['b_s1'])
         params_t = o @ W['w_s2'] + W['b_s2']
-        logs = torch.clamp(params_t[:, 1], min=hp.log_scale_min_gauss)
-        sample = torch.clamp(params_t[:, 0] + torch.exp(logs) * noise[:, t], -1.0, 1.0)
+        x = sample(params_t, noise[:, t], hp)
         if targets is not None:
-            sample = targets[:, t].float()
-        audio[:, t] = sample
+            x = targets[:, t].float()
+        audio[:, t] = x
         if params is not None:
             params[:, t] = params_t
-        h = sample[:, None] * W['first_w'][0] + W['first_b']
+        h = x[:, None] * W['first_w'][0] + W['first_b']
     if return_state:
         return audio, params, (rings, h.contiguous(), t_base + T)
     return audio, params
@@ -297,23 +349,30 @@ def packed_layout(hp) -> Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]:
 
 
 def _kernel_fn():
+    """The kernel's C entry; its out_ch argument picks the head's instantiation."""
     from ._build import load_library
-    fn = load_library().wavenet_ar_gaussian
-    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 12
+    fn = load_library().wavenet_ar
+    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 13
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_tensor(name: str, t: Tensor, dtype, shape, device) -> None:
+def _check_tensor(name: str, t: Tensor, dtype, shape, device, align: int = 0) -> None:
+    """Raise unless `t` has this device, dtype and shape, is contiguous, and (with
+    `align`) starts on an `align`-byte boundary: the kernel reads the packed bf16
+    weight rows as 16-byte vectors, and everything else one float at a time, so a
+    chunk of c_up or noise may start anywhere."""
     if t.device != device:
         raise ValueError(f'{name} is on {t.device}, expected {device}')
     if t.dtype != dtype:
         raise TypeError(f'{name} has dtype {t.dtype}, expected {dtype}')
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {tuple(shape)}')
-    if not t.is_contiguous() or t.data_ptr() % 16 != 0:
-        raise ValueError(f'{name} must be contiguous and 16-byte aligned')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+    if align and t.data_ptr() % align:
+        raise ValueError(f'{name} must start on a {align}-byte boundary')
 
 
 def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
@@ -325,14 +384,15 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
     On a CUDA tensor this launches the hand-written kernel once for all T steps; on a
     CPU tensor it runs `generate_ar_reference`. The kernel's limits: one block of 1024
     threads per sequence; R a multiple of 8; G, R+S and S multiples of 8 whose
-    eighths divide 1024; f32 `c_up` (B, T, cin) and `noise` (B, T), contiguous.
+    eighths divide 1024; f32 `c_up` (B, T, cin) and `noise` (`noise_shape`: (B, T)
+    Gaussian, (B, T, nr+1) MoL), contiguous.
 
     state_in / return_state: streaming, as in `generate_ar_reference`. The state
     passed in is consumed: the kernel updates its rings in place (no copy) and
     returns that tensor in the new state. Any T may be streamed; the TPU kernel's
     `T % 128 == 0` rule guarded its slab padding, which this kernel does not have.
 
-    Returns: (audio (B, T), params (B, T, 2) or None[, state]).
+    Returns: (audio (B, T), params (B, T, out_channels) or None[, state]).
     """
     global LAUNCHES
     check_supported(hp)
@@ -348,12 +408,12 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
     if cin != hp.cin_channels:
         raise ValueError(f'c_up has {cin} channels, hp.cin_channels={hp.cin_channels}')
     _check_tensor('c_up', c_up, torch.float32, (B, T, cin), device)
-    _check_tensor('noise', noise, torch.float32, (B, T), device)
+    _check_tensor('noise', noise, torch.float32, noise_shape(hp, B, T), device)
     layout = packed_layout(hp)
     if set(weights) != set(layout):
         raise ValueError(f'weights hold {sorted(weights)}, pack_params gives {sorted(layout)}')
     for name in KERNEL_WEIGHTS:
-        _check_tensor(name, weights[name], *layout[name], device)
+        _check_tensor(name, weights[name], *layout[name], device, align=16)
     n_ring = ring_floats(hp)
     if state_in is None:  # fresh: the kernel zeroes the rings and starts from first_b
         rings, h_in, t_base = torch.empty(B, n_ring, device=device), None, 0
@@ -363,7 +423,7 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
 
     fn = _kernel_fn()
     audio = torch.empty(B, T, device=device)
-    params = torch.empty(B, T, 2, device=device) if return_params else None
+    params = torch.empty(B, T, hp.out_channels, device=device) if return_params else None
     h_out = torch.empty(B, hp.residual_channels, device=device) if return_state else None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -374,10 +434,11 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                  params.data_ptr() if params is not None else None,
                  n_ring, t_base, B, T, cin, hp.layers, hp.layers // hp.stacks,
                  hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
-                 hp.kernel_size, int(hp.legacy), int(hp.residual_legacy),
-                 int(rounds_conditioning(B)), float(hp.log_scale_min_gauss), stream)
+                 hp.kernel_size, hp.out_channels, int(hp.legacy), int(hp.residual_legacy),
+                 int(rounds_conditioning(B)),
+                 float(hp.log_scale_min if is_mol(hp) else hp.log_scale_min_gauss), stream)
     if err != 0:
-        raise RuntimeError(f'wavenet_ar_gaussian launch failed: CUDA error {err}')
+        raise RuntimeError(f'wavenet_ar launch failed: CUDA error {err}')
     LAUNCHES += 1
     if return_state:
         return audio, params, (rings, h_out, t_base + T)

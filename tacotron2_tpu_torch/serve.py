@@ -1,7 +1,8 @@
 """Streaming TTS HTTP service with the port (counterpart of `serve.py`).
 
     python -m tacotron2_tpu_torch.serve --taco_checkpoint taco.pt \\
-        --wave_checkpoint wavenet.pt [--device cuda] [--port 8000] [--hparams 'k=v,...']
+        --wave_checkpoint wavenet.pt [--device cuda] [--port 8000] [--paper_profile] \\
+        [--hparams 'k=v,...']
 
     curl -N 'http://localhost:8000/tts?text=Hello+world' --output hello.wav
     curl    'http://localhost:8000/healthz'
@@ -10,7 +11,8 @@ The checkpoints are the files `convert.save_checkpoint` writes. Endpoints: GET/P
 /tts (text, seed, format=wav|pcm16|f32), GET /healthz. Clients receive waveform
 chunks while the WaveNet AR kernel is still generating; one utterance generates at a
 time, and concurrent requests queue behind the device lock, bounded by --max-waiters
-(then 503). The device defaults to cuda.
+(then 503). --paper_profile starts from `config.paper_hparams()` and --hparams applies
+on top. The device defaults to cuda.
 """
 
 import argparse
@@ -18,8 +20,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from tacotron2_tpu.config import default_hparams
-
+from .config import default_hparams, paper_hparams
 from .inference.server import TTSServer
 from .inference.streaming import StreamingSynthesizer
 
@@ -48,13 +49,16 @@ def build_server(argv: Optional[Sequence[str]] = None) -> TTSServer:
     p.add_argument('--warmup_buckets', type=int, default=1,
                    help="accepted for serve.py's command line and ignored: eager PyTorch "
                         'compiles nothing per text bucket, so one warmup stream serves all')
+    p.add_argument('--paper_profile', action='store_true',
+                   help='start from the exact-paper hparams profile (reference '
+                        'paper_hparams.py swap-in); --hparams applies on top')
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda, but torch finds no CUDA device '
                            '(pass --device cpu to run the plain PyTorch path)')
-    hp = default_hparams()
+    hp = paper_hparams() if args.paper_profile else default_hparams()
     hp.parse(args.hparams)
     synth = StreamingSynthesizer.load(args.taco_checkpoint, args.wave_checkpoint, hp,
                                       device)

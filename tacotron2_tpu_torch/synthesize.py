@@ -3,15 +3,17 @@ in eval mode (run in memory) and in stream mode.
 
     python -m tacotron2_tpu_torch.synthesize \\
         --tacotron_checkpoint taco.pt --wavenet_checkpoint wavenet.pt \\
-        [--mode eval|stream] [--text_list sentences.txt] [--hparams 'k=v,...'] \\
-        [--output_dir output/] [--device cuda]
+        [--mode eval|stream] [--text_list sentences.txt] [--paper_profile] \\
+        [--hparams 'k=v,...'] [--output_dir output/] [--device cuda]
 
 The checkpoints are the files `convert.save_checkpoint` writes. eval (the default)
 decodes every sentence, vocodes them in batches of wavenet_synthesis_batch_size, and
 writes one wav per sentence and a `map.txt` of `text|wav` lines into --output_dir.
 stream vocodes each sentence in state-carried chunks, prints the time to its first
-chunk, and writes `stream/stream-{i}.wav`. The device defaults to cuda; on a CUDA
-device the WaveNet AR loop runs in the hand-written kernel.
+chunk, and writes `stream/stream-{i}.wav`. --paper_profile starts from
+`config.paper_hparams()` (MoL-10 WaveNet, 24 layers, 2D upsampler) and --hparams
+applies on top. The device defaults to cuda; on a CUDA device the WaveNet AR loop runs
+in the hand-written kernel.
 """
 
 import argparse
@@ -22,8 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tacotron2_tpu.config import default_hparams
-
+from .config import default_hparams, paper_hparams
 from .convert import load_models
 from .inference.streaming import StreamingSynthesizer
 from .inference.tacotron_synthesizer import Synthesizer as TacotronSynthesizer
@@ -133,6 +134,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                         help='WaveNet state_dict written by convert.save_checkpoint')
     parser.add_argument('--hparams', default='',
                         help="comma-separated 'name=value' hyperparameter overrides")
+    parser.add_argument('--paper_profile', action='store_true',
+                        help='start from the exact-paper hparams profile (reference '
+                             'paper_hparams.py swap-in); --hparams applies on top')
     parser.add_argument('--text_list', default='',
                         help='file of sentences, one per line (default: hparams.sentences)')
     parser.add_argument('--output_dir', default='output/',
@@ -147,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda, but torch finds no CUDA device '
                            '(pass --device cpu to run the plain PyTorch path)')
-    hp = default_hparams()
+    hp = paper_hparams() if args.paper_profile else default_hparams()
     hp.parse(args.hparams)
     taco, wavenet = load_models(args.tacotron_checkpoint, args.wavenet_checkpoint, hp,
                                 device)

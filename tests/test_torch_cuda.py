@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KERNEL_TOL, planted_faults, state_carry
+from chip_smoke import (KERNEL_TOL, MOL_KERNEL_TOL, MOL_NO_FAULT, SAMPLE_TOL,
+                        mol_fault_errors, mol_planted_faults, planted_faults, state_carry)
 from tacotron2_tpu.config import default_hparams
+from tacotron2_tpu_torch.config import paper_hparams
 from tacotron2_tpu_torch import convert, serve, synthesize
 from tacotron2_tpu_torch.models.tacotron.model import Tacotron
 from tacotron2_tpu_torch.models.wavenet.model import WaveNet
@@ -25,6 +27,14 @@ TINY = ("embedding_dim=32,enc_conv_channels=32,enc_conv_num_layers=1,encoder_lst
         "layers=4,stacks=2,residual_channels=8,gate_channels=16,skip_out_channels=8,"
         "upsample_scales=[4,8],hop_size=32,win_size=128,n_fft=256,num_freq=129,"
         "max_iters=8,tacotron_synthesis_batch_size=2")
+# the paper profile (MoL-30, 2D upsampler, no legacy scalings) at tiny widths
+PAPER_TINY = "layers=8,stacks=4,residual_channels=8,gate_channels=16,skip_out_channels=8"
+
+
+def paper_hp():
+    hp = paper_hparams()
+    hp.parse(PAPER_TINY)
+    return hp
 
 
 @pytest.fixture()
@@ -117,7 +127,10 @@ def test_kernel_rejects_what_it_does_not_take(device):
     with pytest.raises(ValueError):  # weights left on the CPU
         wavenet_ar.generate_ar({k: v.cpu() for k, v in weights.items()}, c_up, noise, hp)
     with pytest.raises(NotImplementedError):
-        wavenet_ar.generate_ar(weights, c_up, noise, hp.replace(out_channels=30))
+        wavenet_ar.generate_ar(weights, c_up, noise, hp.replace(gin_channels=16))
+    with pytest.raises(ValueError):  # MoL noise for a Gaussian head
+        wavenet_ar.generate_ar(weights, c_up, noise[..., None].expand(-1, -1, 11).contiguous(),
+                               hp)
     _, _, state = wavenet_ar.generate_ar(weights, c_up, noise, hp, return_state=True)
     with pytest.raises(ValueError):  # state left on the CPU
         wavenet_ar.generate_ar(weights, c_up, noise, hp,
@@ -185,3 +198,69 @@ def test_stream_service_on_the_card(device, tmp_path):
     assert resp.status == 200 and len(data) == 4 * n
     assert np.isfinite(np.frombuffer(data, np.float32)).all()
     assert wavenet_ar.LAUNCHES > before
+
+
+def test_mol_kernel_matches_plain_version(device):
+    """The MoL head at the tiny paper config: params within MOL_KERNEL_TOL of the plain
+    version teacher-forced on the kernel's audio, samples within SAMPLE_TOL of the
+    MoL draw from the kernel's own params, one launch."""
+    hp = paper_hp()
+    weights, c_up, noise = _wavenet_inputs(hp, 3, 2, device)
+    assert noise.shape == (3, 550, 11)
+    before = wavenet_ar.LAUNCHES
+    audio, params = wavenet_ar.generate_ar(weights, c_up, noise, hp)
+    torch.cuda.synchronize()
+    assert wavenet_ar.LAUNCHES == before + 1 and params.shape == (3, 550, 30)
+    _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, targets=audio)
+    assert (params - ref).abs().max().item() <= MOL_KERNEL_TOL
+    drawn = wavenet_ar.mol_sample(params, noise, hp)
+    assert (drawn - audio).abs().max().item() <= SAMPLE_TOL
+    assert torch.isfinite(audio).all() and audio.abs().max() <= 1.0
+    again, none = wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False)
+    assert none is None and torch.equal(again, audio)
+
+
+@pytest.mark.parametrize('fault', list(mol_planted_faults(paper_hparams())))
+def test_mol_kernel_check_catches_planted_faults(device, fault):
+    """Each planted MoL fault takes the params beyond MOL_KERNEL_TOL or the samples
+    beyond SAMPLE_TOL; the true kernel on the same low log-scale weights passes."""
+    hp = paper_hp()
+    weights, c_up, noise = _wavenet_inputs(hp, 3, 1, device)
+    errs = mol_fault_errors(weights, c_up, noise, hp)
+    clean = errs[MOL_NO_FAULT]
+    assert clean[0] <= MOL_KERNEL_TOL and clean[1] <= SAMPLE_TOL
+    assert errs[fault][0] > MOL_KERNEL_TOL or errs[fault][1] > SAMPLE_TOL, errs[fault]
+
+
+def test_mol_tie_averages_on_the_card(device):
+    """Logits tied by construction (zero logit weights, equal biases, two equal Gumbel
+    columns): the kernel draws from the average of the two mixtures, as the plain
+    version does."""
+    hp = paper_hp()
+    weights, c_up, noise = _wavenet_inputs(hp, 2, 1, device)
+    weights['w_s2'][:, :10] = 0.0
+    weights['b_s2'][:10] = 0.3
+    noise[..., 1:] = -2.0
+    noise[..., 1 + 3] = noise[..., 1 + 7] = 1.0
+    audio, params = wavenet_ar.generate_ar(weights, c_up, noise, hp)
+    _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, targets=audio)
+    assert (params - ref).abs().max().item() <= MOL_KERNEL_TOL
+    assert (params[..., :10] == 0.3).all()
+    mean = 0.5 * (params[..., 13] + params[..., 17])
+    logs = torch.clamp(0.5 * (params[..., 23] + params[..., 27]), min=hp.log_scale_min)
+    want = torch.clamp(mean + torch.exp(logs) * noise[..., 0], -1, 1)
+    assert (want - audio).abs().max().item() <= SAMPLE_TOL
+
+
+def test_mol_state_carry_on_the_card(device):
+    """The MoL kernel in three state-carried chunks (boundaries 97 and 197 against the
+    2- and 4-slot rings of 4 stacks) is bit-identical to one call, within
+    MOL_KERNEL_TOL of the plain version in the same chunks, and both planted state
+    faults miss."""
+    hp = paper_hp()
+    weights, c_up, noise = _wavenet_inputs(hp, 1, 1, device)
+    r = state_carry(weights, c_up, noise, hp, (97, 197, 275))
+    assert r['bit_identical']
+    assert r['max_abs_err'] <= MOL_KERNEL_TOL and r['state_err'] <= MOL_KERNEL_TOL
+    assert r['t_base'] == (97, 97)
+    assert all(e > MOL_KERNEL_TOL for e in r['faults'].values()), r['faults']

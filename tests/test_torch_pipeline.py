@@ -3,6 +3,7 @@
 and the rule that the port imports no JAX.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -148,7 +149,7 @@ def test_utils():
 
 
 GUARD = """
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint'):
     sys.modules[name] = None  # any import of these now raises ImportError
 import tacotron2_tpu_torch
@@ -156,22 +157,38 @@ names = [m.name for m in pkgutil.walk_packages(tacotron2_tpu_torch.__path__,
                                                'tacotron2_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
-jax_pkg = sorted(m for m in sys.modules if m.startswith('tacotron2_tpu.'))
+spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+jax_pkg = sorted(m for m in sys.modules
+                 if m == 'tacotron2_tpu' or m.startswith('tacotron2_tpu.'))
 print(json.dumps([names, jax_pkg]))
 """
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the streaming service among them, imports with jax,
-    flax, optax and orbax unavailable, and pulls in nothing of tacotron2_tpu but config
-    and text."""
+    """Every module of the port, the streaming service among them, and chip_smoke.py
+    import with jax, flax, optax and orbax unavailable, and load no module of the JAX
+    package: neither `tacotron2_tpu` nor any `tacotron2_tpu.*` (the port keeps its own
+    copies of config and text)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, '-c', GUARD], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     names, loaded = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(names) >= 18
+    assert len(names) >= 25
     assert {'tacotron2_tpu_torch.inference.streaming', 'tacotron2_tpu_torch.inference.server',
-            'tacotron2_tpu_torch.serve', 'tacotron2_tpu_torch.synthesize'} <= set(names)
-    for mod in loaded:
-        assert mod == 'tacotron2_tpu.config' or mod.startswith('tacotron2_tpu.text'), mod
+            'tacotron2_tpu_torch.serve', 'tacotron2_tpu_torch.synthesize',
+            'tacotron2_tpu_torch.config', 'tacotron2_tpu_torch.text.frontend'} <= set(names)
+    assert loaded == []
+    # imports inside functions too (chip_smoke.py imports in its phases)
+    paths = [os.path.join(REPO, 'chip_smoke.py')] + [
+        os.path.join(d, f) for d, _, files in os.walk(os.path.join(REPO, 'tacotron2_tpu_torch'))
+        for f in files if f.endswith('.py')]
+    for path in paths:
+        with open(path, encoding='utf-8') as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                    else [node.module or ''] if isinstance(node, ast.ImportFrom) else [])
+            for mod in mods:
+                assert mod.split('.')[0] not in ('tacotron2_tpu', 'jax', 'flax'), (path, mod)

@@ -16,7 +16,7 @@ import pytest
 import torch
 from scipy.signal import lfilter
 
-from tacotron2_tpu.config import default_hparams
+from tacotron2_tpu.config import default_hparams, paper_hparams
 from tacotron2_tpu.models.wavenet.model import WaveNet as JWaveNet
 from tacotron2_tpu.ops.pallas import wavenet_ar as jar
 from tacotron2_tpu_torch import convert
@@ -29,8 +29,12 @@ from test_streaming import TINY, _shell
 from test_torch_wavenet import randomize
 
 # as tests/test_streaming.py, and a one-stack variant whose dilations reach 128
-# (ring windows up to 256 slots), so that t_base = 128 is not a multiple of every window
-CONFIGS = {'tiny': TINY, 'one_stack': TINY + ',layers=8,stacks=1'}
+# (ring windows up to 256 slots), so that t_base = 128 is not a multiple of every window;
+# 'paper_mol' is the paper profile (MoL-30, 2D upsampler, hop 275, no legacy scalings)
+# at tiny widths, one stack for the same reason
+CONFIGS = {'tiny': TINY, 'one_stack': TINY + ',layers=8,stacks=1',
+           'paper_mol': ('paper', 'layers=8,stacks=1,residual_channels=8,gate_channels=16,'
+                                  'skip_out_channels=8')}
 TACO_TINY = (",embedding_dim=32,enc_conv_channels=32,enc_conv_num_layers=1,"
              "encoder_lstm_units=16,attention_dim=16,attention_filters=8,"
              "attention_kernel=[7],prenet_layers=[16,16],decoder_lstm_units=32,"
@@ -40,8 +44,13 @@ TOL = 1e-6
 
 
 def make_hp(name):
-    hp = default_hparams()
-    hp.parse(CONFIGS[name])
+    cfg = CONFIGS[name]
+    if isinstance(cfg, tuple):
+        hp = paper_hparams()
+        hp.parse(cfg[1])
+    else:
+        hp = default_hparams()
+        hp.parse(cfg)
     return hp
 
 
@@ -52,18 +61,28 @@ def _max_abs(a, b):
 def _wavenet(hp, seed=0):
     """(flax params, port model) with the same seeded random weights."""
     params = jax.eval_shape(JWaveNet(hp).init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, 32, 1)), jnp.zeros((1, 1, 80)))['params']
+                            jnp.zeros((1, hp.get_hop_size(), 1)),
+                            jnp.zeros((1, 1, 80)))['params']
     params = randomize(params, np.random.default_rng(seed))
+    if hp.upsample_type == '2D':  # positive: random signs can zero all three ReLUs
+        params = jax.tree_util.tree_map_with_path(
+            lambda p, x: np.abs(x) if 'upsample_network' in jax.tree_util.keystr(p) else x,
+            params)
     model = WaveNet(hp)
     model.load_state_dict(convert.wavenet_state_dict(params))
     return params, model.eval()
 
 
 def _inputs(model, frames, seed=1):
+    """c_up and noise: (B, T) standard normal, or for MoL (B, T, nr+1) from
+    make_noise with a generator seeded alike."""
     rng = np.random.default_rng(seed)
     mel = rng.uniform(0.0, 1.0, (B, frames, 80)).astype(np.float32)
     with torch.no_grad():
         c_up = model.upsample_conditioning(torch.from_numpy(mel)).numpy()
+    if wavenet_ar.is_mol(model.hp):
+        return c_up, wavenet_ar.make_noise(model.hp, torch.Generator().manual_seed(seed), B,
+                                           c_up.shape[1]).numpy()
     return c_up, rng.standard_normal(c_up.shape[:2]).astype(np.float32)
 
 
@@ -94,14 +113,18 @@ def test_state_carry_matches_pallas(config):
     the port's own continuation carries that (3.1%, 4.5e-4),
     so those three checks allow it (`_agree`); the continuation from the JAX state
     stays within 1e-6 (4.2e-7). A carry that drops t_base or the rings misses on
-    every param of chunk 2, by up to 0.15 and 0.21."""
+    every param of chunk 2, by up to 0.15 and 0.21.
+
+    The paper config (MoL-30 head, (B, T, 11) noise) runs one frame, 275 steps:
+    chunks of 128 and 147."""
     hp = make_hp(config)
     flips = config == 'one_stack'
     params, model = _wavenet(hp)
-    c_up, noise = _inputs(model, 8)  # 256 steps
+    c_up, noise = _inputs(model, max(1, 256 // hp.get_hop_size()))  # 256 or 275 steps
+    jnoise = noise if noise.ndim == 3 else noise[..., None]
     wj = jar.pack_params(params, hp)
     c1, c2 = jnp.asarray(c_up[:, :128]), jnp.asarray(c_up[:, 128:])
-    n1, n2 = jnp.asarray(noise[:, :128, None]), jnp.asarray(noise[:, 128:, None])
+    n1, n2 = jnp.asarray(jnoise[:, :128]), jnp.asarray(jnoise[:, 128:])
     a1, p1, st_j = jar.generate_ar(wj, c1, n1, hp, interpret=True, return_state=True)
     a2, p2 = jar.generate_ar(wj, c2, n2, hp, interpret=True, state_in=st_j)
     a1, p1, a2, p2 = map(np.array, (a1, p1, a2, p2))

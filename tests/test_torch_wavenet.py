@@ -260,9 +260,13 @@ def test_make_noise_and_ring_sizes():
     assert wavenet_ar.ring_floats(default_hparams()) == 523776
 
 
-@pytest.mark.parametrize('extra', [',out_channels=30', ',wavenet_fused_ar=False',
-                                   ",input_type='mulaw'"])
+@pytest.mark.parametrize('extra', [',gin_channels=16', ',wavenet_fused_ar=False',
+                                   ",input_type='mulaw'",
+                                   ",input_type='mulaw-quantize',out_channels=65536"])
 def test_unsupported_configs_raise(extra):
+    """Global conditioning, mu-law inputs and the plain chain raise; the MoL head
+    (out_channels=30) is covered (tests/test_torch_paper.py)."""
+    wavenet_ar.check_supported(make_hp(',out_channels=30'))
     hp = make_hp(extra)
     with pytest.raises(NotImplementedError):
         wavenet_ar.check_supported(hp)
