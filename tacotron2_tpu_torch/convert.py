@@ -101,9 +101,13 @@ def tacotron_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, Tens
 
 def wavenet_state_dict(params: Mapping) -> Dict[str, Tensor]:
     """flax WaveNet `params` -> state_dict of models.wavenet.WaveNet (weight norm
-    folded)."""
+    folded). The first conv is (1, R) for scalar input and (Q, R) for one-hot input;
+    a multi-speaker model also holds the `gc_embedding` table and every block's
+    `conv1x1g`."""
     sd: Dict[str, Tensor] = {}
     _dense(sd, 'first_conv', params['first_conv'])
+    if 'gc_embedding' in params:
+        sd['gc_embedding.weight'] = _t(params['gc_embedding']['embedding'])
     n = len([k for k in params if k.startswith('residual_block_')])
     for i in range(n):
         blk = params[f'residual_block_{i + 1}']
@@ -111,6 +115,8 @@ def wavenet_state_dict(params: Mapping) -> Dict[str, Tensor]:
         _conv1d(sd, pre + '.conv', blk['causal_conv'])
         if 'conv1x1c' in blk:
             _dense(sd, pre + '.conv1x1c', blk['conv1x1c'])
+        if 'conv1x1g' in blk:
+            _dense(sd, pre + '.conv1x1g', blk['conv1x1g'])
         _dense(sd, pre + '.conv1x1_out', blk['conv1x1_out'])
         _dense(sd, pre + '.conv1x1_skip', blk['conv1x1_skip'])
     _dense(sd, 'skip_conv1', params['skip_conv1'])

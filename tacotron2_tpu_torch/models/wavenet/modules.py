@@ -33,33 +33,64 @@ class CausalConv1D(nn.Conv1d):
 
 
 class ResidualConv1DGLU(nn.Module):
-    """Dilated causal conv + GLU + conditioning 1x1 + residual/skip 1x1s."""
+    """Dilated causal conv + GLU + conditioning 1x1s (local `conv1x1c`, global
+    `conv1x1g`) + residual/skip 1x1s."""
 
     def __init__(self, residual_channels: int, gate_channels: int, kernel_size: int,
                  skip_out_channels: int, cin_channels: int = -1, dilation: int = 1,
-                 bias: bool = True, residual_legacy: bool = True):
+                 bias: bool = True, residual_legacy: bool = True, gin_channels: int = -1):
         super().__init__()
         self.residual_legacy = residual_legacy
         self.conv = CausalConv1D(residual_channels, gate_channels, kernel_size,
                                  dilation, bias)
         self.conv1x1c = (Conv1x1(cin_channels, gate_channels, bias)
                          if cin_channels > 0 else None)
+        self.conv1x1g = (Conv1x1(gin_channels, gate_channels, bias)
+                         if gin_channels > 0 else None)
         half = gate_channels // 2
         self.conv1x1_out = Conv1x1(half, residual_channels, bias)
         self.conv1x1_skip = Conv1x1(half, skip_out_channels, bias)
 
-    def forward(self, x: Tensor, c: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
-        """x (B, T, R); c (B, T, cin) or None. Returns (x_out (B, T, R), skip (B, T, S))."""
-        a, b = self.conv(x).chunk(2, dim=-1)
-        if c is not None:
-            ca, cb = self.conv1x1c(c).chunk(2, dim=-1)
-            a, b = a + ca, b + cb
+    def _outputs(self, conv_out: Tensor, c_proj: Optional[Tensor], g_proj: Optional[Tensor],
+                 residual: Tensor) -> Tuple[Tensor, Tensor]:
+        """GLU of the conv output plus the projected conditionings, then the residual
+        and skip 1x1s."""
+        a, b = conv_out.chunk(2, dim=-1)
+        for proj in (c_proj, g_proj):
+            if proj is not None:
+                pa, pb = proj.chunk(2, dim=-1)
+                a, b = a + pa, b + pb
         gated = torch.tanh(a) * torch.sigmoid(b)
         s = self.conv1x1_skip(gated)
-        out = self.conv1x1_out(gated) + x
+        out = self.conv1x1_out(gated) + residual
         if self.residual_legacy:
             out = out * math.sqrt(0.5)
         return out, s
+
+    def forward(self, x: Tensor, c: Optional[Tensor], g: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
+        """x (B, T, R); c (B, T, cin) or None; g (B, T, gin) or None. Returns
+        (x_out (B, T, R), skip (B, T, S))."""
+        return self._outputs(self.conv(x), self.conv1x1c(c) if c is not None else None,
+                             self.conv1x1g(g) if g is not None else None, x)
+
+    def incremental_step(self, taps: Tensor, c_proj: Optional[Tensor],
+                         g_proj: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+        """One sample. taps (B, k, R) = the layer's inputs at t-(k-1)d, ..., t-d, t;
+        c_proj and g_proj (B, G) are the conditionings already projected. Returns
+        (x_out (B, R), skip (B, S))."""
+        conv_out = torch.einsum('bki,oik->bo', taps, self.conv.weight)
+        if self.conv.bias is not None:
+            conv_out = conv_out + self.conv.bias
+        return self._outputs(conv_out, c_proj, g_proj, taps[:, -1])
+
+
+class Embedding(nn.Embedding):
+    """Speaker embedding table (n_speakers, gin_channels), N(0, std) at init."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, std: float = 0.1):
+        super().__init__(num_embeddings, embedding_dim)
+        nn.init.normal_(self.weight, 0.0, std)
 
 
 class UpsampleNetwork(nn.Module):

@@ -40,6 +40,18 @@ def _nvcc() -> str:
                        'port\'s CUDA kernels are built from source at first use')
 
 
+def compile_library(srcs, lib_path: str) -> None:
+    """Compile the CUDA sources `srcs` with nvcc into the shared library `lib_path`."""
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = f'{lib_path}.{os.getpid()}.tmp'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *srcs]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{" ".join(cmd)}\n'
+                           f'{res.stdout}\n{res.stderr}')
+    os.replace(tmp, lib_path)  # atomic: a concurrent process never loads a partial file
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Compile (if the sources changed) and load the kernels' shared library."""
@@ -50,12 +62,5 @@ def load_library() -> ctypes.CDLL:
             digest.update(f.read())
     lib_path = os.path.join(BUILD_DIR, f'libt2kernels-{digest.hexdigest()[:16]}.so')
     if not os.path.isfile(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f'{lib_path}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *srcs]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({res.returncode}):\n{" ".join(cmd)}\n'
-                               f'{res.stdout}\n{res.stderr}')
-        os.replace(tmp, lib_path)  # atomic: a concurrent process never loads a partial file
+        compile_library(srcs, lib_path)
     return ctypes.CDLL(lib_path)

@@ -1,17 +1,23 @@
 """WaveNet autoregressive generation: packed weights, noise, the plain PyTorch version
 and the wrapper of the hand-written Hopper kernel (`csrc/wavenet_ar.cu`).
 
-Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for its variants on the
-default and the paper path: raw scalar input, a Gaussian head (`out_channels == 2`)
-or a mixture of nr logistics (MoL, `out_channels == 3*nr`: the paper profile's 30),
-the fused critical path (`wavenet_fused_ar=True`: layer l-1's residual 1x1 folded
-into layer l's current-tap conv, one serial matmul + GLU per layer), local
-conditioning only; a fresh call or a streamed continuation (`state_in` /
-`return_state`). Anything else raises.
+Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for these variants: scalar
+input (raw or mu-law) with a Gaussian head (`out_channels == 2`) or a mixture of nr
+logistics (MoL, `out_channels == 3*nr`: the paper profile's 30); one-hot input
+(`mulaw-quantize`) with a categorical head over `out_channels == quantize_channels`
+classes, up to MAX_CLASSES; the fused critical path (`wavenet_fused_ar=True`: layer
+l-1's residual 1x1 folded into layer l's current-tap conv, one serial matmul + GLU per
+layer) or the plain chain (two serial matmuls per layer); local conditioning, with or
+without a global conditioning bias `g_cond` (`pack_global`); a fresh call or a
+streamed continuation (`state_in` / `return_state`). Anything else raises: the
+big-vocab categorical (more than MAX_CLASSES classes, noise drawn inside the kernel)
+and the in-kernel evaluation NLL are not ported.
 
 Noise. The Gaussian head takes (B, T) standard-normal noise. The MoL head takes
 (B, T, nr+1): column 0 logistic noise for the sample, columns 1..nr Gumbel noise for
-the choice of mixture (`make_noise`).
+the choice of mixture. The categorical head takes (B, T, Q) Gumbel noise, one value a
+class (`make_noise`). Its audio is class ids (int64); `ops/mulaw.inv_mulaw_quantize`
+decodes them.
 
 `generate_ar` dispatches on the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs `generate_ar_reference`.
@@ -24,20 +30,28 @@ t of a chunk writes slot `(t_base + t) mod win`, so chunk boundaries need not be
 multiples of anything: two state-carried calls give exactly the audio of one.
 """
 
+import collections
 import ctypes
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from ..models.wavenet.model import WaveNet
 from ..utils import round_up
+from .mulaw import is_mulaw_quantize
 
 SQRT_HALF = float(math.sqrt(0.5))
+# most classes of the categorical head: its noise and params are (B, T, Q) tensors, and
+# the kernel gives each class a thread of its 1024
+MAX_CLASSES = 1024
 
-# kernel launches made by generate_ar (the plain version never counts)
+# kernel launches made by generate_ar (the plain version never counts), in all and by
+# instantiation (`variant`)
 LAUNCHES = 0
+LAUNCHES_BY_VARIANT: Dict[str, int] = collections.Counter()
 
 # name -> (dtype, shape) of each packed weight, as pack_params made them, by sizes
 _PACKED_LAYOUTS: Dict[Tuple[int, ...], Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]] = {}
@@ -45,21 +59,24 @@ _PACKED_LAYOUTS: Dict[Tuple[int, ...], Dict[str, Tuple[torch.dtype, Tuple[int, .
 
 def _layout_key(hp) -> Tuple[int, ...]:
     return (hp.layers, hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
-            hp.kernel_size, hp.cin_channels, hp.out_channels)
+            hp.kernel_size, hp.cin_channels, hp.out_channels, int(is_categorical(hp)),
+            int(hp.wavenet_fused_ar))
 
 
 def check_supported(hp) -> None:
-    """Raise unless `hp` is the configuration the port's AR path covers."""
+    """Raise unless `hp` is a configuration the port's AR path covers."""
     problems = []
-    if hp.input_type != 'raw':
-        problems.append(f'input_type={hp.input_type!r} (raw only)')
-    if hp.out_channels != 2 and (hp.out_channels < 3 or hp.out_channels % 3):
+    if is_categorical(hp):
+        if hp.out_channels != hp.quantize_channels:
+            problems.append(f'out_channels={hp.out_channels} != quantize_channels='
+                            f'{hp.quantize_channels} (one logit a class)')
+        if hp.out_channels > MAX_CLASSES:
+            problems.append(f'big-vocab categorical (out_channels={hp.out_channels} > '
+                            f'{MAX_CLASSES}: the variant that draws its noise inside '
+                            'the kernel is not ported)')
+    elif hp.out_channels != 2 and (hp.out_channels < 3 or hp.out_channels % 3):
         problems.append(f'out_channels={hp.out_channels} (Gaussian, 2, or MoL, a '
                         'multiple of 3)')
-    if not hp.wavenet_fused_ar:
-        problems.append('wavenet_fused_ar=False (fused critical path only)')
-    if hp.gin_channels > 0:
-        problems.append('global conditioning (gin_channels > 0)')
     if hp.cin_channels <= 0:
         problems.append('no local conditioning (cin_channels <= 0)')
     if hp.kernel_size < 2:
@@ -69,14 +86,30 @@ def check_supported(hp) -> None:
                                   + ', '.join(problems))
 
 
+def is_categorical(hp) -> bool:
+    """Whether input and output are classes (mulaw-quantize): one-hot input through a
+    (Q, R) first conv, a head of Q logits, class ids as audio."""
+    return is_mulaw_quantize(hp.input_type)
+
+
 def is_mol(hp) -> bool:
-    """Whether the head is the mixture of logistics (out_channels = 3*nr), not the
-    Gaussian (2)."""
-    return hp.out_channels != 2
+    """Whether the head is the mixture of logistics (scalar input, out_channels =
+    3*nr), not the Gaussian (2) or the categorical."""
+    return not is_categorical(hp) and hp.out_channels != 2
+
+
+def variant(hp, has_g: bool = False) -> str:
+    """Name of the kernel instantiation that runs `hp`: head-chain, '+g' with a global
+    conditioning bias."""
+    head = 'categorical' if is_categorical(hp) else 'mol' if is_mol(hp) else 'gaussian'
+    return f"{head}-{'fused' if hp.wavenet_fused_ar else 'plain'}{'+g' if has_g else ''}"
 
 
 def noise_shape(hp, B: int, T: int) -> Tuple[int, ...]:
-    """(B, T) for the Gaussian head, (B, T, nr+1) for MoL."""
+    """(B, T) for the Gaussian head, (B, T, nr+1) for MoL, (B, T, Q) for the
+    categorical."""
+    if is_categorical(hp):
+        return (B, T, hp.out_channels)
     return (B, T, hp.out_channels // 3 + 1) if is_mol(hp) else (B, T)
 
 
@@ -123,16 +156,18 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
     oldest first and the current tap last, `w_os` (L, G/2, R+S) residual and skip
     1x1s side by side, `w_fused` (L, G/2, G) the fold rho * W_out[l-1] @ W_cur[l]
     (zero for layer 0), `w_cond` (cin, L*G) every layer's conditioning 1x1. Weights
-    are bf16 and biases f32, except the first conv and the last head layer (`w_s2`
-    (S, out_channels), 2 or 30 columns), which stay f32 as in the JAX packing.
-    `w_cond` keeps cin rows (no lane padding)."""
+    are bf16 and biases f32, except the first conv (`first_w` (1, R), or (Q, R) for
+    one-hot input) and the last head layer (`w_s2` (S, out_channels): 2, 30 or Q
+    columns), which stay f32 as in the JAX packing up to MAX_CLASSES. `w_cond` keeps
+    cin rows (no lane padding). With wavenet_fused_ar=False there is no fold, and
+    `w_fused` and `b_fused` are left out (the JAX packing ships stubs there)."""
     check_supported(hp)
     L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
     S, k = hp.skip_out_channels, hp.kernel_size
     past = (k - 1) * R
     w = {}
     fc = model.first_conv
-    w['first_w'] = fc.weight.detach().float().t().contiguous()        # (1, R)
+    w['first_w'] = fc.weight.detach().float().t().contiguous()        # (1 or Q, R)
     w['first_b'] = _bias(fc, R)
 
     w_tap, b_tap, w_os, b_os, w_c, b_c = [], [], [], [], [], []
@@ -151,15 +186,16 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
     w['b_os'] = torch.stack(b_os).contiguous()
 
     # fused critical path (wavenet_ar.py:131-151): computed from the f32 weights
-    rho = SQRT_HALF if hp.residual_legacy else 1.0
-    w_fused = [torch.zeros(G // 2, G, device=fc.weight.device)]
-    b_fused = [torch.zeros(G, device=fc.weight.device)]
-    for i in range(1, L):
-        w_cur = w_tap[i][past:]                                        # (R, G)
-        w_fused.append(rho * (w_os[i - 1][:, :R] @ w_cur))
-        b_fused.append(rho * (b_os[i - 1][:R] @ w_cur))
-    w['w_fused'] = torch.stack(w_fused).bfloat16().contiguous()
-    w['b_fused'] = torch.stack(b_fused).contiguous()
+    if hp.wavenet_fused_ar:
+        rho = SQRT_HALF if hp.residual_legacy else 1.0
+        w_fused = [torch.zeros(G // 2, G, device=fc.weight.device)]
+        b_fused = [torch.zeros(G, device=fc.weight.device)]
+        for i in range(1, L):
+            w_cur = w_tap[i][past:]                                    # (R, G)
+            w_fused.append(rho * (w_os[i - 1][:, :R] @ w_cur))
+            b_fused.append(rho * (b_os[i - 1][:R] @ w_cur))
+        w['w_fused'] = torch.stack(w_fused).bfloat16().contiguous()
+        w['b_fused'] = torch.stack(b_fused).contiguous()
 
     w['w_cond'] = torch.stack(w_c, dim=1).reshape(hp.cin_channels, L * G) \
         .bfloat16().contiguous()
@@ -172,14 +208,32 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
     return w
 
 
+@torch.no_grad()
+def pack_global(model: WaveNet, hp, g_emb: Tensor) -> Tensor:
+    """Project the speaker embeddings g_emb (B, gin) through every layer's conv1x1g
+    into one (B, L*G) f32 conditioning bias, constant over time (counterpart of
+    `pack_global`, `wavenet_ar.py:168-179`): an f32 product, outside the kernel there
+    too."""
+    w_g = torch.stack([blk.conv1x1g.weight.detach().float().t()
+                       for blk in model.residual_layers], dim=1)       # (gin, L, G)
+    b_g = torch.cat([_bias(blk.conv1x1g, hp.gate_channels) for blk in model.residual_layers])
+    return (g_emb.float() @ w_g.reshape(hp.gin_channels, -1) + b_g).contiguous()
+
+
 def make_noise(hp, generator: torch.Generator, B: int, T: int,
                device: Optional[torch.device] = None) -> Tensor:
     """Sampling noise drawn from `generator` (counterpart of `make_noise`,
     `wavenet_ar.py:715-733`): standard-normal (B, T) for the Gaussian head; for MoL
     (B, T, nr+1), column 0 logistic noise log u - log(1-u) and columns 1..nr Gumbel
-    noise -log(-log u), u uniform in [1e-5, 1-1e-5]."""
+    noise -log(-log u), u uniform in [1e-5, 1-1e-5]; for the categorical head (B, T, Q)
+    Gumbel noise, u uniform in [1e-9, 1 - 2**-24]. The JAX package asks for u up to
+    1 - 1e-9 there, which is 1.0 in f32 and would give an infinite Gumbel value: the
+    upper end is the largest f32 below 1 instead."""
     dev = generator.device
-    if not is_mol(hp):
+    if is_categorical(hp):
+        u = torch.rand(B, T, hp.out_channels, generator=generator, device=dev)
+        eps = -torch.log(-torch.log(u.clamp_(1e-9, 1.0 - 2.0 ** -24)))
+    elif not is_mol(hp):
         eps = torch.randn(B, T, generator=generator, device=dev)
     else:
         lo, hi = 1e-5, 1.0 - 1e-5
@@ -207,7 +261,11 @@ def mol_sample(params: Tensor, noise: Tensor, hp) -> Tensor:
 def sample(params: Tensor, noise: Tensor, hp) -> Tensor:
     """The head's draw from its params: `mol_sample` for MoL; for the Gaussian, params
     (..., 2) and noise (...), clip(mean + exp(max(log_scale, log_scale_min_gauss)) *
-    eps, -1, 1). Each head has its own floor (`wavenet_ar.py:207`)."""
+    eps, -1, 1), each head with its own floor (`wavenet_ar.py:207`); for the
+    categorical, logits and Gumbel noise (..., Q), the class id (int64) of the largest
+    logit + noise, the first on ties (`wavenet_ar.py:444`)."""
+    if is_categorical(hp):
+        return (params + noise).argmax(-1)
     if is_mol(hp):
         return mol_sample(params, noise, hp)
     logs = torch.clamp(params[..., 1], min=hp.log_scale_min_gauss)
@@ -239,25 +297,34 @@ def _check_state(state_in, hp, B: int, device) -> int:
 def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                           targets: Optional[Tensor] = None, return_params: bool = True,
                           state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
-                          return_state: bool = False):
+                          return_state: bool = False, g_cond: Optional[Tensor] = None):
     """Plain PyTorch AR generation with the kernel's arithmetic.
 
-    Mirrors the fused step of `wavenet_ar.py:303-453` on the packed weights:
-    bf16-rounded matmul operands, f32 products and sums, the same order of
-    operations. `targets` (B, T), when given, replaces each sample fed back (teacher
-    forcing, as `models/wavenet/model.py:285-286`), so per-step params can be
-    compared on an identical history.
+    Mirrors the step of `wavenet_ar.py:303-465` on the packed weights, the fused
+    chain or the plain one (`:342-361`): bf16-rounded matmul operands, f32 products
+    and sums, the same order of operations. `targets` (B, T), when given, replaces
+    each sample fed back (teacher forcing, as `models/wavenet/model.py:285-286`), so
+    per-step params can be compared on an identical history.
+
+    The categorical head starts from the f32 first-conv row of class Q // 2
+    (`:262-265`) and feeds back bf16(one-hot) @ bf16(first_w) + first_b (`:441-448`),
+    the one-hot of every class that ties the largest logit + noise divided by their
+    count; the class id emitted is the first of them.
 
     Args:
         weights: `pack_params` output.
         c_up: (B, T, cin) upsampled conditioning, already rescaled to [0, 1].
-        noise: (B, T) for the Gaussian head, (B, T, nr+1) for MoL (`make_noise`).
+        noise: (B, T) for the Gaussian head, (B, T, nr+1) for MoL, (B, T, Q) for the
+            categorical (`make_noise`).
+        g_cond: (B, L*G) global conditioning bias (`pack_global`) or None; it joins
+            the conditioning row before that row is rounded to bf16, where it is
+            (`:296-301`, `:312-315`).
         state_in: a state a previous call returned (see the module docstring), to
             continue from; None starts fresh (zero rings, h = first_b, t_base 0). The
             state is consumed: its rings are updated in place and returned.
         return_state: also return the state after the last step.
     Returns: (audio (B, T), params (B, T, out_channels) or None[, state]); audio
-        holds the fed-back samples.
+        holds the fed-back samples, floats or int64 class ids.
     """
     B, T, _ = c_up.shape
     L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
@@ -269,9 +336,15 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     dils = dilations(hp)
     layout = ring_layout(hp)
     wins = [win for _, win in layout]
+    categorical = is_categorical(hp)
+    if categorical:
+        Q = hp.out_channels
+        first_wb = _bf(W['first_w'])
     if state_in is None:
         rings = torch.zeros(B, ring_floats(hp), device=dev)
         h = W['first_b'].expand(B, R)
+        if categorical:  # silence is class Q // 2; its row is read in f32
+            h = W['first_w'][Q // 2] + h
         t_base = 0
     else:
         t_base = _check_state(state_in, hp, B, dev)
@@ -279,22 +352,40 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     bufs = [rings[:, off:off + win * R].view(B, win, R) for off, win in layout]
     bases = [t_base % win for win in wins]  # absolute slots, without a growing int
     round_cond = rounds_conditioning(B)
-    audio = torch.empty(B, T, device=dev)
+    audio = torch.empty(B, T, device=dev, dtype=torch.long if categorical else None)
     params = torch.empty(B, T, hp.out_channels, device=dev) if return_params else None
     c_up = c_up.float()
-    for t in range(T):
-        cond = _bf(c_up[:, t]) @ W['w_cond'] + W['b_cond']
-        if round_cond:  # the TPU kernel's bf16 conditioning slab (wavenet_ar.py:292-301)
-            cond = _bf(cond)
+
+    def read_taps(li, t):
+        # tap x(t-m) lives at slot (t_base + t - m) mod win (wavenet_ar.py:317-326)
+        return [bufs[li][:, (bases[li] + t + wins[li] - (k - 1 - j) * dils[li]) % wins[li]]
+                for j in range(k - 1)]
+
+    def plain_chain(h, cond, t):
+        """The layer stack as two serial matmuls per layer (wavenet_ar.py:342-361);
+        returns the skip sum."""
+        skips = torch.zeros(B, S, device=dev)
+        for li in range(L):
+            tap_cat = _bf(torch.cat(read_taps(li, t) + [h], dim=1))
+            # the layer's input overwrites the oldest slot, its taps read (and copied)
+            bufs[li][:, (bases[li] + t) % wins[li]] = h
+            z = tap_cat @ W['w_tap'][li] + W['b_tap'][li]
+            z = z + cond[:, li * G:(li + 1) * G]
+            y = _bf(_glu(z, half)) @ W['w_os'][li] + W['b_os'][li]
+            h = (y[:, :R] + h) * rho
+            skips = skips + y[:, R:]
+            if hp.legacy and li > 0:  # the first skip enters unscaled
+                skips = skips * SQRT_HALF
+        return skips
+
+    def fused_chain(h, cond, t):
+        """The layer stack with one serial matmul per layer (wavenet_ar.py:362-408);
+        returns the skip sum."""
         skips = torch.zeros(B, S, device=dev)
         consts = []
         for li in range(L):
-            # tap x(t-m) lives at slot (t_base + t - m) mod win (wavenet_ar.py:317-326)
-            taps = [bufs[li][:, (bases[li] + t + wins[li] - (k - 1 - j) * dils[li])
-                             % wins[li]]
-                    for j in range(k - 1)]
             p = W['b_tap'][li] + W['b_fused'][li] + cond[:, li * G:(li + 1) * G]
-            consts.append(p + _bf(torch.cat(taps, dim=1)) @ W['w_tap'][li, :past])
+            consts.append(p + _bf(torch.cat(read_taps(li, t), dim=1)) @ W['w_tap'][li, :past])
         z = _glu(_bf(h) @ W['w_tap'][0, past:] + consts[0], half)
         h_prev = h
         hs = [h]
@@ -318,23 +409,42 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
             skips = skips * SQRT_HALF
         for li in range(L):  # overwrite the oldest slot, after every read
             bufs[li][:, (bases[li] + t) % wins[li]] = hs[li]
+        return skips
 
+    layer_stack = fused_chain if hp.wavenet_fused_ar else plain_chain
+    for t in range(T):
+        cond = _bf(c_up[:, t]) @ W['w_cond'] + W['b_cond']
+        if g_cond is not None:
+            cond = cond + g_cond
+        if round_cond:  # the TPU kernel's bf16 conditioning slab (wavenet_ar.py:292-301)
+            cond = _bf(cond)
+        skips = layer_stack(h, cond, t)
         o = torch.relu(skips)
         o = torch.relu(_bf(o) @ W['w_s1'] + W['b_s1'])
         params_t = o @ W['w_s2'] + W['b_s2']
         x = sample(params_t, noise[:, t], hp)
         if targets is not None:
-            x = targets[:, t].float()
+            x = targets[:, t].to(x.dtype)
         audio[:, t] = x
         if params is not None:
             params[:, t] = params_t
-        h = x[:, None] * W['first_w'][0] + W['first_b']
+        if categorical:
+            if targets is not None:
+                onehot = F.one_hot(x, Q).float()
+            else:  # every class that ties the maximum, 1/count each
+                scores = params_t + noise[:, t]
+                onehot = (scores >= scores.max(-1, keepdim=True).values).float()
+                onehot = onehot / onehot.sum(-1, keepdim=True)
+            h = _bf(onehot) @ first_wb + W['first_b']
+        else:
+            h = x[:, None] * W['first_w'][0] + W['first_b']
     if return_state:
         return audio, params, (rings, h.contiguous(), t_base + T)
     return audio, params
 
 
-# the packed weights in the order of the kernel's pointer arguments
+# the packed weights in the order of the kernel's pointer arguments (w_fused and
+# b_fused are null pointers for the plain chain, which packs none)
 KERNEL_WEIGHTS = ('first_w', 'first_b', 'w_tap', 'b_tap', 'w_os', 'b_os', 'w_fused',
                   'b_fused', 'w_cond', 'b_cond', 'w_s1', 'b_s1', 'w_s2', 'b_s2')
 
@@ -348,11 +458,12 @@ def packed_layout(hp) -> Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]:
     return layout
 
 
-def _kernel_fn():
-    """The kernel's C entry; its out_ch argument picks the head's instantiation."""
+def _kernel_fn(library: Optional[ctypes.CDLL] = None):
+    """The kernel's C entry, of the port's library unless another build of the same
+    source is given; its head and fused arguments pick the instantiation."""
     from ._build import load_library
-    fn = load_library().wavenet_ar
-    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 13
+    fn = (library or load_library()).wavenet_ar
+    fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 15
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -378,27 +489,30 @@ def _check_tensor(name: str, t: Tensor, dtype, shape, device, align: int = 0) ->
 def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                 return_params: bool = True,
                 state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
-                return_state: bool = False):
+                return_state: bool = False, g_cond: Optional[Tensor] = None):
     """AR generation (counterpart of `generate_ar`, `wavenet_ar.py:515-712`).
 
     On a CUDA tensor this launches the hand-written kernel once for all T steps; on a
     CPU tensor it runs `generate_ar_reference`. The kernel's limits: one block of 1024
     threads per sequence; R a multiple of 8; G, R+S and S multiples of 8 whose
-    eighths divide 1024; f32 `c_up` (B, T, cin) and `noise` (`noise_shape`: (B, T)
-    Gaussian, (B, T, nr+1) MoL), contiguous.
+    eighths divide 1024; at most MAX_CLASSES classes; f32 `c_up` (B, T, cin), `noise`
+    (`noise_shape`: (B, T) Gaussian, (B, T, nr+1) MoL, (B, T, Q) categorical) and
+    `g_cond` ((B, L*G) from `pack_global`, or None), contiguous.
 
     state_in / return_state: streaming, as in `generate_ar_reference`. The state
     passed in is consumed: the kernel updates its rings in place (no copy) and
     returns that tensor in the new state. Any T may be streamed; the TPU kernel's
     `T % 128 == 0` rule guarded its slab padding, which this kernel does not have.
 
-    Returns: (audio (B, T), params (B, T, out_channels) or None[, state]).
+    Returns: (audio (B, T), params (B, T, out_channels) or None[, state]); the
+        categorical head's audio is int64 class ids (the kernel writes them as floats).
     """
     global LAUNCHES
     check_supported(hp)
     if c_up.device.type == 'cpu':
         return generate_ar_reference(weights, c_up, noise, hp, return_params=return_params,
-                                     state_in=state_in, return_state=return_state)
+                                     state_in=state_in, return_state=return_state,
+                                     g_cond=g_cond)
     if c_up.device.type != 'cuda':
         raise ValueError(f'generate_ar runs on CPU or CUDA tensors, not {c_up.device}')
     device = c_up.device
@@ -412,8 +526,11 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
     layout = packed_layout(hp)
     if set(weights) != set(layout):
         raise ValueError(f'weights hold {sorted(weights)}, pack_params gives {sorted(layout)}')
-    for name in KERNEL_WEIGHTS:
+    for name in layout:
         _check_tensor(name, weights[name], *layout[name], device, align=16)
+    if g_cond is not None:
+        _check_tensor('g_cond', g_cond, torch.float32, (B, hp.layers * hp.gate_channels),
+                      device)
     n_ring = ring_floats(hp)
     if state_in is None:  # fresh: the kernel zeroes the rings and starts from first_b
         rings, h_in, t_base = torch.empty(B, n_ring, device=device), None, 0
@@ -428,18 +545,25 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(c_up.data_ptr(), noise.data_ptr(),
-                 *[weights[name].data_ptr() for name in KERNEL_WEIGHTS],
+                 *[weights[name].data_ptr() if name in weights else None
+                   for name in KERNEL_WEIGHTS],
+                 g_cond.data_ptr() if g_cond is not None else None,
                  rings.data_ptr(), h_in.data_ptr() if h_in is not None else None,
                  h_out.data_ptr() if h_out is not None else None, audio.data_ptr(),
                  params.data_ptr() if params is not None else None,
                  n_ring, t_base, B, T, cin, hp.layers, hp.layers // hp.stacks,
                  hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
-                 hp.kernel_size, hp.out_channels, int(hp.legacy), int(hp.residual_legacy),
+                 hp.kernel_size, hp.out_channels,
+                 2 if is_categorical(hp) else 1 if is_mol(hp) else 0,
+                 int(hp.wavenet_fused_ar), int(hp.legacy), int(hp.residual_legacy),
                  int(rounds_conditioning(B)),
                  float(hp.log_scale_min if is_mol(hp) else hp.log_scale_min_gauss), stream)
     if err != 0:
         raise RuntimeError(f'wavenet_ar launch failed: CUDA error {err}')
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[variant(hp, g_cond is not None)] += 1
+    if is_categorical(hp):
+        audio = audio.long()
     if return_state:
         return audio, params, (rings, h_out, t_base + T)
     return audio, params

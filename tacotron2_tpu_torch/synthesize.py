@@ -1,19 +1,26 @@
-"""Text -> mel -> wav with the port: the counterpart of `synthesize.py --model=Tacotron-2`
-in eval mode (run in memory) and in stream mode.
+"""Synthesis with the port: the counterpart of `synthesize.py --model=Tacotron-2` (text
+-> mel -> wav, in eval mode, run in memory, and in stream mode) and of
+`synthesize.py --model=WaveNet` (the standalone vocoder over a directory of mels).
 
     python -m tacotron2_tpu_torch.synthesize \\
         --tacotron_checkpoint taco.pt --wavenet_checkpoint wavenet.pt \\
         [--mode eval|stream] [--text_list sentences.txt] [--paper_profile] \\
-        [--hparams 'k=v,...'] [--output_dir output/] [--device cuda]
+        [--hparams 'k=v,...'] [--output_dir output/] [--speaker_id 1,3] [--device cuda]
+    python -m tacotron2_tpu_torch.synthesize --model WaveNet \\
+        --wavenet_checkpoint wavenet.pt --mels_dir mels/ [--speaker_id 1,3] \\
+        [--base_dir .] [--hparams 'k=v,...'] [--device cuda]
 
 The checkpoints are the files `convert.save_checkpoint` writes. eval (the default)
 decodes every sentence, vocodes them in batches of wavenet_synthesis_batch_size, and
 writes one wav per sentence and a `map.txt` of `text|wav` lines into --output_dir.
 stream vocodes each sentence in state-carried chunks, prints the time to its first
-chunk, and writes `stream/stream-{i}.wav`. --paper_profile starts from
-`config.paper_hparams()` (MoL-10 WaveNet, 24 layers, 2D upsampler) and --hparams
-applies on top. The device defaults to cuda; on a CUDA device the WaveNet AR loop runs
-in the hand-written kernel.
+chunk, and writes `stream/stream-{i}.wav`. --model WaveNet vocodes the `mel-*.npy`
+files of --mels_dir (or the mels its `map.txt` lists) into
+`<base_dir>/wavenet_output/wavs/wav-*.wav` with a `map.txt` of `text|mel|wav` rows.
+--speaker_id gives a multi-speaker WaveNet (gin_channels > 0) one speaker id for
+each mel or sentence. --paper_profile starts from `config.paper_hparams()` (MoL-10
+WaveNet, 24 layers, 2D upsampler) and --hparams applies on top. The device defaults
+to cuda; on a CUDA device the WaveNet AR loop runs in the hand-written kernel.
 """
 
 import argparse
@@ -25,10 +32,11 @@ import numpy as np
 import torch
 
 from .config import default_hparams, paper_hparams
-from .convert import load_models
+from .convert import load_checkpoint, load_models
 from .inference.streaming import StreamingSynthesizer
 from .inference.tacotron_synthesizer import Synthesizer as TacotronSynthesizer
 from .inference.wavenet_synthesizer import Synthesizer as WaveNetSynthesizer
+from .inference.wavenet_synthesizer import parse_speaker_ids, wavenet_synthesize
 from .models.tacotron.model import Tacotron
 from .models.wavenet.model import WaveNet
 from .ops.audio import save_wav
@@ -48,15 +56,17 @@ def _sync(device: torch.device) -> None:
 
 
 def synthesize(hp, sentences: Sequence[str], taco: Tacotron, wavenet: WaveNet,
-               output_dir: str, device) -> Dict:
+               output_dir: str, device, speaker_id: Optional[str] = None) -> Dict:
     """Decode every sentence in batches of tacotron_synthesis_batch_size, then vocode
     the mels in batches of wavenet_synthesis_batch_size, in sentence order (the
-    grouping of `wavenet_synthesizer.run_synthesis:189-200`).
+    grouping of `wavenet_synthesizer.run_synthesis:189-200`), with the comma-separated
+    `speaker_id`, one id a sentence, where the WaveNet is multi-speaker.
 
     Returns what was written and what it took: wav_paths, wavs (float arrays),
     decoded_frames (mel frames the decoder computed), ar_samples (samples the AR loop
     generated), and host-clock seconds for each stage and in all."""
     device = torch.device(device)
+    speaker_ids = parse_speaker_ids(speaker_id, len(sentences))
     os.makedirs(output_dir, exist_ok=True)
     taco_synth = TacotronSynthesizer(taco, hp, device)
     wave_synth = WaveNetSynthesizer(wavenet, hp)
@@ -76,7 +86,8 @@ def synthesize(hp, sentences: Sequence[str], taco: Tacotron, wavenet: WaveNet,
     t_taco = time.perf_counter()
     for w in range(0, len(mels), wbs):
         part = mels[w:w + wbs]
-        stats['wavs'] += wave_synth.synthesize(part, gen_wave)
+        sids = speaker_ids[w:w + wbs] if speaker_ids is not None else None
+        stats['wavs'] += wave_synth.synthesize(part, gen_wave, sids)
         stats['ar_samples'] += len(part) * max(int(m.shape[0]) for m in part) * hop
     _sync(device)
     stats['tacotron_seconds'] = t_taco - t_start
@@ -127,9 +138,14 @@ def stream_synthesize(hp, sentences: Sequence[str], taco: Tacotron, wavenet: Wav
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     parser = argparse.ArgumentParser(
-        description='Synthesize speech (text -> mel -> wav) with the PyTorch port.')
-    parser.add_argument('--tacotron_checkpoint', required=True,
-                        help='Tacotron state_dict written by convert.save_checkpoint')
+        description='Synthesize speech (text -> mel -> wav, or mel -> wav) with the '
+                    'PyTorch port.')
+    parser.add_argument('--model', default='Tacotron-2', choices=('Tacotron-2', 'WaveNet'),
+                        help='Tacotron-2: text -> mel -> wav (default); WaveNet: the '
+                             'standalone vocoder over --mels_dir')
+    parser.add_argument('--tacotron_checkpoint', default=None,
+                        help='Tacotron state_dict written by convert.save_checkpoint '
+                             '(required unless --model WaveNet)')
     parser.add_argument('--wavenet_checkpoint', required=True,
                         help='WaveNet state_dict written by convert.save_checkpoint')
     parser.add_argument('--hparams', default='',
@@ -140,7 +156,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     parser.add_argument('--text_list', default='',
                         help='file of sentences, one per line (default: hparams.sentences)')
     parser.add_argument('--output_dir', default='output/',
-                        help='where the wavs and map.txt are written')
+                        help='where the wavs and map.txt are written (Tacotron-2)')
+    parser.add_argument('--mels_dir', default='tacotron_output/eval/',
+                        help='dir of mel .npys, or a map.txt, to vocode with --model WaveNet')
+    parser.add_argument('--speaker_id', default=None,
+                        help='comma-separated speaker ids for a multi-speaker WaveNet, '
+                             'one for each mel (or sentence)')
+    parser.add_argument('--base_dir', default='',
+                        help='--model WaveNet writes into <base_dir>/wavenet_output and '
+                             'looks for a relative --mels_dir there too')
     parser.add_argument('--device', default='cuda', help='torch device (default cuda)')
     parser.add_argument('--mode', default='eval', choices=('eval', 'stream'),
                         help='eval: batched text -> wav with map.txt (default); stream: '
@@ -153,6 +177,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                            '(pass --device cpu to run the plain PyTorch path)')
     hp = paper_hparams() if args.paper_profile else default_hparams()
     hp.parse(args.hparams)
+    if args.model == 'WaveNet':
+        if args.mode != 'eval':
+            parser.error('stream mode needs both stages (--model Tacotron-2)')
+        wavenet = WaveNet(hp)
+        wavenet.load_state_dict(load_checkpoint(args.wavenet_checkpoint, 'wavenet'))
+        stats = wavenet_synthesize(args, hp, wavenet.to(device).eval())
+        print(f'wrote {len(stats["wav_paths"])} wavs and map.txt to {stats["output_dir"]}: '
+              f'{stats["audio_seconds"]:.2f} s of audio in {stats["seconds"]:.2f} s')
+        return stats
+    if args.tacotron_checkpoint is None:
+        parser.error('--tacotron_checkpoint is required with --model Tacotron-2')
     taco, wavenet = load_models(args.tacotron_checkpoint, args.wavenet_checkpoint, hp,
                                 device)
     sentences = get_sentences(args.text_list, hp)
@@ -161,7 +196,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print(f'wrote {len(stats["wav_paths"])} streamed wavs to '
               f'{os.path.join(args.output_dir, "stream")}')
         return stats
-    stats = synthesize(hp, sentences, taco, wavenet, args.output_dir, device)
+    stats = synthesize(hp, sentences, taco, wavenet, args.output_dir, device,
+                       args.speaker_id)
     print(f'wrote {len(stats["wav_paths"])} wavs and map.txt to {args.output_dir}: '
           f'{stats["audio_seconds"]:.2f} s of audio in {stats["seconds"]:.2f} s')
     return stats

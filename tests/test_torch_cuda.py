@@ -9,8 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (KERNEL_TOL, MOL_KERNEL_TOL, MOL_NO_FAULT, SAMPLE_TOL,
-                        mol_fault_errors, mol_planted_faults, planted_faults, state_carry)
+import chip_smoke
+from chip_smoke import (CATEGORICAL, FIRST_STEPS_TOL, KERNEL_MUTANTS, KERNEL_TOL,
+                        MOL_KERNEL_TOL, MOL_NO_FAULT, SAMPLE_TOL, SPEAKERS, first_steps_err,
+                        mol_fault_errors, mol_planted_faults, params_err, planted_faults,
+                        speaker_rows, state_carry, vocoder_model)
 from tacotron2_tpu.config import default_hparams
 from tacotron2_tpu_torch.config import paper_hparams
 from tacotron2_tpu_torch import convert, serve, synthesize
@@ -126,8 +129,13 @@ def test_kernel_rejects_what_it_does_not_take(device):
         wavenet_ar.generate_ar(weights, c_up.double(), noise, hp)
     with pytest.raises(ValueError):  # weights left on the CPU
         wavenet_ar.generate_ar({k: v.cpu() for k, v in weights.items()}, c_up, noise, hp)
-    with pytest.raises(NotImplementedError):
-        wavenet_ar.generate_ar(weights, c_up, noise, hp.replace(gin_channels=16))
+    with pytest.raises(NotImplementedError):  # more classes than the kernel takes
+        wavenet_ar.generate_ar(weights, c_up, noise, hp.replace(
+            input_type='mulaw-quantize', quantize_channels=2048, out_channels=2048))
+    with pytest.raises(ValueError):  # g_cond of another batch
+        wavenet_ar.generate_ar(weights, c_up, noise, hp,
+                               g_cond=torch.zeros(3, hp.layers * hp.gate_channels,
+                                                  device=device))
     with pytest.raises(ValueError):  # MoL noise for a Gaussian head
         wavenet_ar.generate_ar(weights, c_up, noise[..., None].expand(-1, -1, 11).contiguous(),
                                hp)
@@ -264,3 +272,118 @@ def test_mol_state_carry_on_the_card(device):
     assert r['max_abs_err'] <= MOL_KERNEL_TOL and r['state_err'] <= MOL_KERNEL_TOL
     assert r['t_base'] == (97, 97)
     assert all(e > MOL_KERNEL_TOL for e in r['faults'].values()), r['faults']
+
+
+# --- the standalone vocoder's instantiations ------------------------------------------
+
+WAVENET_TINY = ("layers=4,stacks=2,residual_channels=8,gate_channels=16,skip_out_channels=8,"
+                "upsample_scales=[4,8],hop_size=32,win_size=128,n_fft=256,num_freq=129")
+VOCODER_VARIANTS = {'gaussian-plain': ('wavenet_fused_ar=False', 3, None),
+                    'categorical-fused': (CATEGORICAL, 3, None),
+                    'categorical-plain': (CATEGORICAL + ',wavenet_fused_ar=False', 3, None),
+                    'gaussian-fused+g': (SPEAKERS, 3, [1, 3, 0]),
+                    'gaussian-plain+g': (SPEAKERS + ',wavenet_fused_ar=False', 3, [1, 3, 0]),
+                    'gaussian-fused+g-b17': (SPEAKERS, 17, [i % 5 for i in range(17)])}
+
+
+def _vocoder_inputs(extra, B, frames, speakers=None, seed=2):
+    """chip_smoke.vocoder_model at the tiny width, its conditioning, noise and g_cond."""
+    hp, model, weights, _ = vocoder_model(WAVENET_TINY + ',' + extra)
+    gen = torch.Generator('cuda').manual_seed(seed)
+    c_up = chip_smoke._conditioning(model, hp, B, frames, gen)
+    noise = wavenet_ar.make_noise(hp, gen, B, c_up.shape[1])
+    g_cond = speaker_rows(model, hp, speakers) if speakers is not None else None
+    return hp, model, weights, c_up, noise, g_cond
+
+
+@pytest.mark.parametrize('variant', list(VOCODER_VARIANTS))
+def test_vocoder_variant_matches_plain_version(device, variant):
+    """Each new instantiation in three state-carried chunks (boundaries 97 and 197): one
+    launch each of that instantiation, bit-identical to one call, params and carried
+    state within KERNEL_TOL of the plain version, both planted state faults seen,
+    samples the draw from the kernel's own params (class ids exactly)."""
+    extra, B, speakers = VOCODER_VARIANTS[variant]
+    hp, _, weights, c_up, noise, g_cond = _vocoder_inputs(extra, B, 8, speakers)
+    name = wavenet_ar.variant(hp, g_cond is not None)
+    assert variant.startswith(name)
+    before = wavenet_ar.LAUNCHES_BY_VARIANT[name]
+    r = state_carry(weights, c_up, noise, hp, (97, 197, 256), g_cond)
+    assert wavenet_ar.LAUNCHES_BY_VARIANT[name] == before + 1 + 3 + 2
+    assert r['bit_identical'] and r['audio_ok']
+    assert r['max_abs_err'] <= KERNEL_TOL and r['state_err'] <= KERNEL_TOL
+    assert all(e > KERNEL_TOL for e in r['faults'].values()), r['faults']
+    drawn = wavenet_ar.sample(r['params'], r['noise'], hp)
+    if wavenet_ar.is_categorical(hp):
+        assert r['audio'].dtype == torch.int64 and torch.equal(drawn, r['audio'])
+    else:
+        assert (drawn - r['audio']).abs().max().item() <= SAMPLE_TOL
+
+
+@pytest.fixture(scope='module')
+def mutants(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return chip_smoke.build_kernels(str(tmp_path_factory.mktemp('mutants')))
+
+
+@pytest.mark.parametrize('fault', list(KERNEL_MUTANTS))
+def test_kernel_mutants_are_seen(device, mutants, fault):
+    """A build of the kernel's source with one planted fault misses the bound of the
+    check that holds the true kernel: the ring fault KERNEL_TOL on the params, the two
+    small ones FIRST_STEPS_TOL over the first steps at B=16."""
+    if 'ring' in fault:
+        hp, _, weights, c_up, noise, g_cond = _vocoder_inputs('wavenet_fused_ar=False', 3, 8)
+        assert params_err(weights, c_up, noise, hp).max().item() <= KERNEL_TOL
+        assert params_err(weights, c_up, noise, hp, library=mutants[fault]).max().item() \
+            > KERNEL_TOL
+        return
+    extra, speakers = ((SPEAKERS, [i % 5 for i in range(16)]) if 'g_cond' in fault
+                       else (CATEGORICAL, None))
+    hp, _, weights, c_up, noise, g_cond = _vocoder_inputs(extra, 16, 1, speakers)
+    assert first_steps_err(weights, c_up, noise, hp, g_cond) <= FIRST_STEPS_TOL
+    assert first_steps_err(weights, c_up, noise, hp, g_cond, library=mutants[fault]) \
+        > FIRST_STEPS_TOL
+
+
+def test_categorical_tie_on_the_card(device):
+    """chip_smoke's forced tie at the tiny width: the lower id, the mean of the two bf16
+    rows fed back (it exits on a miss)."""
+    hp, model, weights, _ = vocoder_model(WAVENET_TINY + ',' + CATEGORICAL)
+    chip_smoke.categorical_tie(hp, model, weights, torch.Generator('cuda').manual_seed(3))
+
+
+@pytest.mark.parametrize('extra,speaker_id', [(SPEAKERS, '1,3'),
+                                              (CATEGORICAL + ',wavenet_fused_ar=False', None)])
+def test_wavenet_cli_on_the_card(device, extra, speaker_id):
+    """`synthesize --model WaveNet` on the card at the tiny width, run and checked by
+    chip_smoke.vocoder_cli: wavs, map.txt, one launch of the right instantiation. Then
+    that launch's own inputs through state_carry: the kernel repeats the entry point's
+    audio bit for bit, and its params are within KERNEL_TOL of the plain version's."""
+    hp, _, weights, state = vocoder_model(WAVENET_TINY + ',' + extra)
+    stats = chip_smoke.vocoder_cli(WAVENET_TINY + ',' + extra, hp, state, speaker_id)
+    assert stats['launches'] == 1 and len(stats['wavs']) == 2
+    call = stats['ar_call']
+    assert (call['g_cond'] is not None) == (speaker_id is not None)
+    r = state_carry(weights, call['c_up'], call['noise'], hp,
+                    (97, 197, call['c_up'].shape[1]), call['g_cond'])
+    assert r['bit_identical'] and torch.equal(r['audio'], call['audio'])
+    assert r['max_abs_err'] <= KERNEL_TOL and r['state_err'] <= KERNEL_TOL
+
+
+def test_big_vocab_raises_on_the_card(device):
+    """More classes than the kernel takes raise on a CUDA model, from the Synthesizer
+    and from generate: the plain PyTorch loop does not stand in for the unported
+    big-vocab kernel."""
+    from tacotron2_tpu_torch.inference import wavenet_synthesizer
+
+    hp, model, _, _ = vocoder_model(WAVENET_TINY + ',wavenet_fused_ar=False')
+    big = default_hparams()
+    big.parse(WAVENET_TINY + ",input_type='mulaw-quantize',quantize_channels=2048,"
+              'out_channels=2048')
+    big_model = WaveNet(big).cuda().eval()
+    c = torch.rand(1, 1, big.num_mels, device='cuda')
+    gen = torch.Generator('cuda').manual_seed(0)
+    with pytest.raises(NotImplementedError, match='big-vocab'):
+        wavenet_synthesizer.Synthesizer(big_model, big)
+    with pytest.raises(NotImplementedError, match='big-vocab'):
+        wavenet_synthesizer.generate(big_model, big, gen, c, return_params=False)

@@ -260,13 +260,41 @@ def test_make_noise_and_ring_sizes():
     assert wavenet_ar.ring_floats(default_hparams()) == 523776
 
 
-@pytest.mark.parametrize('extra', [',gin_channels=16', ',wavenet_fused_ar=False',
-                                   ",input_type='mulaw'",
-                                   ",input_type='mulaw-quantize',out_channels=65536"])
+@pytest.mark.parametrize('extra', [
+    ",input_type='mulaw-quantize',out_channels=65536",
+    ",input_type='mulaw-quantize',quantize_channels=2048,out_channels=2048",
+    ',cin_channels=-1', ',kernel_size=1'])
 def test_unsupported_configs_raise(extra):
-    """Global conditioning, mu-law inputs and the plain chain raise; the MoL head
-    (out_channels=30) is covered (tests/test_torch_paper.py)."""
+    """The big-vocab categorical (more than 1,024 classes: the variant that draws its
+    noise inside the kernel), a model without local conditioning and kernel_size=1 (no
+    ring buffers) raise, the first by its name; the MoL head (out_channels=30) is
+    covered (tests/test_torch_paper.py)."""
     wavenet_ar.check_supported(make_hp(',out_channels=30'))
     hp = make_hp(extra)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match='big-vocab' if 'quantize' in extra else None):
         wavenet_ar.check_supported(hp)
+
+
+@pytest.mark.parametrize('extra,variant', [
+    (',gin_channels=16', 'gaussian-fused'), (',wavenet_fused_ar=False', 'gaussian-plain'),
+    (",input_type='mulaw'", 'gaussian-fused'),
+    (",input_type='mulaw',out_channels=30,wavenet_fused_ar=False", 'mol-plain'),
+    (",input_type='mulaw-quantize',quantize_channels=256,out_channels=256",
+     'categorical-fused'),
+    (",input_type='mulaw-quantize',quantize_channels=1024,out_channels=1024,"
+     "wavenet_fused_ar=False", 'categorical-plain')])
+def test_supported_configs(extra, variant):
+    """Global conditioning, the plain chain, mu-law input and the categorical head up to
+    1,024 classes are covered, each by the kernel instantiation named; the plain chain
+    packs no w_fused."""
+    hp = make_hp(extra)
+    wavenet_ar.check_supported(hp)
+    assert wavenet_ar.variant(hp) == variant
+    assert wavenet_ar.variant(hp, has_g=True) == variant + '+g'
+    weights = wavenet_ar.pack_params(WaveNet(hp), hp)
+    assert ('w_fused' in weights) == ('b_fused' in weights) == hp.wavenet_fused_ar
+    Q = hp.out_channels
+    assert weights['first_w'].shape == ((Q, 8) if 'categorical' in variant else (1, 8))
+    assert weights['w_s2'].shape == (8, Q) and weights['w_s2'].dtype == torch.float32
+    assert wavenet_ar.packed_layout(hp) == {n: (w.dtype, tuple(w.shape))
+                                            for n, w in weights.items()}
