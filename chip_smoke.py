@@ -45,9 +45,10 @@ Phases (one line each; any failure exits nonzero):
      few samples clip: four planted MoL faults, each of which must miss (params beyond
      MOL_KERNEL_TOL or samples beyond SAMPLE_TOL of the MoL draw from the kernel's own
      params); the kernel against the plain version as in phase 3 at the paper batch
-     path's shape (B=2, 8,800 steps; the plain version in the paper service's chunks,
-     PAPER_SERVE_BOUNDS), its samples against the draw from its own params, at most
-     MAX_CLIPPED of them at +-1, with the mixtures chosen differently counted; the
+     path's shape (B=2, 8,800 steps; the plain version over all of them, in the paper
+     service's chunks, PAPER_SERVE_BOUNDS), its samples against the
+     draw from its own params, at most MAX_CLIPPED of them at +-1, with the mixtures
+     chosen differently counted; the
      state carry as in phase 6 at the paper service's shape (B=1 over row 0 of that
      run in its chunks; every ring window divides 4,352, so a reset t_base is no fault
      there and only the fresh start is planted) and at B=1 in chunks ending at odd
@@ -78,10 +79,47 @@ Phases (one line each; any failure exits nonzero):
      five-speaker WaveNet (again with 3,3: the first wav changes, the second does not)
      and by a mu-law-quantized WaveNet with the plain chain; wavs, map.txt, class ids
      and launches checked. The conditioning, noise and g_cond that each of these two
-     launches was given (B=2, 8,800 steps) then go through the same check as above, in
-     chunks ending at VOCODER_CLI_BOUNDS: the kernel's audio must be the entry
-     point's, bit for bit, and its params within KERNEL_TOL of the plain version's
-     over all 8,800 steps.
+     launches was given (B=2, 8,800 steps) then go to the kernel once more, whose audio
+     must be the entry point's, bit for bit, over all 8,800 steps, and through the same
+     check as above over the first 2,200 of them, in chunks ending at
+     VOCODER_CLI_BOUNDS: bit-identical again, and the params within KERNEL_TOL of the
+     plain version's.
+ 10. WaveNet training (`python -m tacotron2_tpu_torch.train --model WaveNet`) and the AR
+     kernel's last two variants, which its natural eval launches: the big-vocab
+     categorical head (1,025 to 65,536 classes: bf16 first conv and last head layer,
+     Gumbel noise drawn inside the kernel by Philox4x32-10, or greedy; no params) and
+     the in-kernel NLL of given class ids (`y_eval`, both categorical heads). At the
+     full default width and Q = 65,536, fused chain, B=2 over 1,100 steps, greedy and
+     sampled, each with y_eval: one launch against state-carried chunks ending at odd
+     BIG_BOUNDS (ids and NLL bit-identical), and against the plain version in the same
+     chunks, teacher-forced on the kernel's ids: the ids it draws (at most
+     MAX_IDS_OFF of the steps may differ: near-ties of the two largest of 65,536
+     scores), the NLL (NLL_TOL: there are no params, so the NLL is the check of the
+     logits) and the carried state (KERNEL_TOL). Shorter runs for the plain chain, for
+     g_cond and for Q = BIG_RAGGED_Q, which no power of two divides. The NLL flag on the
+     small head (Q = 256) against log_softmax of the params a second launch returns on
+     the same noise, and against `cross_entropy` on them, the one library call that
+     computes the NLL alone. The in-kernel noise: with the logits forced flat the ids
+     are uniform over the classes (chi-square over coarse and fine bins), differ between
+     seeds and between sequences, and are the arg-max of `philox_gumbel`, whose values
+     have the Gumbel mean and deviation. Seven planted faults, each of which its check
+     must see miss (big_vocab_faults): four as builds of a changed copy of the kernel's
+     source (BIG_VOCAB_MUTANTS), three through the kernel's inputs, among them a forced
+     tie of two classes. Then the trainer at the default hparams (batch 8, crops of
+     11,000 samples, a corpus made from a seed): 6 steps with an eval at 4 and a
+     checkpoint at 6, the same again from the same seed, a rerun that restores and goes
+     on to 8; losses, the eval's launch (gaussian-fused, with params), the sidecar's
+     records, and the loss of step 7 against an in-process train_step from the
+     checkpoint. Then the trainer on a Q = 65,536 model with weight normalization at the
+     full model width, batch and crop cut (BIG_TRAIN) so that the (B, T, Q) logits
+     fit: its eval launches categorical_big-fused with the NLL flag once. Each trainer's
+     eval launch is then held against the plain version at its own shape and on the
+     inputs it had (the EMA weights it packed, the loader's conditioning, its noise or
+     seed, the batch's class ids as y_eval): a further launch must repeat its outputs
+     bit for bit over all its steps (B=1 over 11,000 at the defaults, over 2,750 at
+     Q = 65,536), and the plain version follows in state-carried chunks at odd ends,
+     the Gaussian one over the first TRAIN_EVAL_BOUNDS[-1] steps, the big-vocab one
+     over all of them.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -92,8 +130,10 @@ import contextlib
 import ctypes
 import http.client
 import importlib.util
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,9 +162,12 @@ SERVE_CHUNKS = [4352, 16512, 14336]  # streaming.py:115-117's rounding of 0.20 s
 # t_base are multiples of 128, so a dropped one shows only in the 512- and 1,024-slot
 # rings at 4,352 (and in the 256-slot rings too at 20,864)
 SERVE_BOUNDS = tuple(int(b) for b in np.cumsum(SERVE_CHUNKS))
-# how far the plain version follows phase 3's B=2 launch of 35,200 steps (48 of its 128
-# mel frames): at 6 to 10 ms a step the whole length takes 4 to 6 minutes of the run
-PLAIN_STEPS = 13200
+# how far the plain version follows phase 3's B=2 launch of 35,200 steps (32 of its 128
+# mel frames: the first served chunk and 4,448 steps of the second, which wrap the
+# largest ring, 1,024 slots, four times from the carried state): its 5 to 19 ms a step
+# are host time, which doubles from one machine to another, and the whole length would
+# take 3 to 11 minutes of the run. Phase 8's follows its launch's whole 8,800 steps
+PLAIN_STEPS = 8800
 FAULT_STEPS = 256  # steps of chunk 2 run from each planted state fault
 # the paper profile (phase 8)
 PAPER_MAX_ITERS = 32  # the paper entry points: 8,800 samples a sentence
@@ -152,7 +195,8 @@ SAMPLE_TOL = 1e-5  # kernel samples against the head's draw from the kernel's ow
 # the standalone vocoder (phase 9): 32 frames a mel (8,800 samples), two mels
 VOCODER_FRAMES = 32
 VOCODER_BOUNDS = PAPER_STATE_BOUNDS  # odd chunk ends: t_base mod win nonzero in every ring
-VOCODER_CLI_BOUNDS = VOCODER_BOUNDS[:2] + (VOCODER_FRAMES * 275,)  # the entry point's length
+# how far the plain version follows each of the entry point's launches of 8,800 steps
+VOCODER_CLI_BOUNDS = VOCODER_BOUNDS[:2] + (VOCODER_FRAMES * 275 // 4,)
 CATEGORICAL = "input_type='mulaw-quantize',quantize_channels=256,out_channels=256"
 SPEAKERS = 'gin_channels=16,n_speakers=5'
 # one-line changes of csrc/wavenet_ar.cu, each a fault that no input of the true kernel
@@ -172,6 +216,59 @@ KERNEL_MUTANTS = {
         '            if (li > 0)\n'
         '              ring[ring_off[li - 1] + ((base[li - 1] + t) % win[li - 1]) * R + c] = hc;\n'
         '            hb[c] = bf16r(hc);\n')}
+# changes of csrc/wavenet_ar.cu for phase 10's faults (as KERNEL_MUTANTS)
+BIG_VOCAB_MUTANTS = {
+    'NLL from the noised scores': (
+        '              lse_merge(lm, ls, lg[i], 1.f);\n'
+        '              if (c == y) sample_s[3] = lg[i];\n',
+        '              lse_merge(lm, ls, sc[i], 1.f);\n'
+        '              if (c == y) sample_s[3] = sc[i];\n'),
+    'log-sum-exp without the maximum taken out': (
+        '  const float mm = fmaxf(m, m2);\n',
+        '  const float mm = 0.f;\n'),
+    'head input not rounded to bf16': (
+        '        skips[s] = bf16r(v);  // the big-vocab head\'s input is bf16\n',
+        '        skips[s] = v;  // (left in f32)\n'),
+    'classes past the last multiple of 1,024 left out': (
+        '      for (int g = tid; g < a.q_ld / COLS; g += NT) {  // the ragged last groups too\n',
+        '      for (int g = tid; g < Q / NT * (NT / COLS); g += NT) {\n')}
+ALL_MUTANTS = {**KERNEL_MUTANTS, **BIG_VOCAB_MUTANTS}
+# phase 10: the big-vocab head and the in-kernel NLL
+BIG_VOCAB = "input_type='mulaw-quantize',quantize_channels=65536,out_channels=65536"
+BIG_RAGGED_Q = 50001  # odd: the last group of 8 classes and the last 1,024 are ragged
+BIG_BOUNDS = PAPER_STATE_BOUNDS        # odd chunk ends over 1,100 steps
+BIG_SHORT_BOUNDS = (77, 150, 275)      # ... and over one frame, for the shorter runs
+# kernel vs plain version in the NLL of seeded class ids, whose logits span about 1.5 and
+# pass one more bf16 rounding (the head's input) than the small head's params: on an H100
+# 1.2e-3 to 1.7e-3 over 200 to 400 steps; the faults that change it miss by 5e-2 and more
+NLL_TOL = 1e-2
+# share of the steps at which the plain version, on the kernel's history, may draw
+# another id than the kernel: a near-tie of the two largest of 65,536 scores flips with
+# a logit error of 1e-3. On an H100 no sampled id of 2,200 differs (the Gumbel noise
+# spreads the two largest scores) and 15 greedy ones do, 0.7%: a frame's 275 steps share
+# their conditioning, so a greedy run sits on a few classes (27 distinct ids) whose
+# logits stay close
+MAX_IDS_OFF = 0.03
+# ... and on the inputs of the Q = 65,536 trainer's own eval launch, whose weights are
+# not the seeded ones but weight-normalized, data-dependently initialized and four steps
+# trained: every conv's output has unit variance there, the NLL of the batch's ids spans
+# 5.9 to 6.2 over the 2,750 steps and the carried state 9.0, and kernel and plain version
+# differ by more for each unit of that span: on an H100 3.1e-2, 3.7e-2 and 4.6e-2 in the
+# NLL in three runs (4.9e-3 to 7.9e-3 a unit; two trainer runs differ in the last places
+# of their weights) and 2.5e-2 in the state (2.8e-3 a unit). The bounds are a unit of
+# span: 2.5x and 3.5x above these readings, and the NLL's below the 3.3e-2 a unit by which
+# the smallest NLL fault misses on the seeded weights
+EVAL_NLL_TOL_PER_SPAN = 2e-2
+EVAL_STATE_TOL_PER_SPAN = KERNEL_TOL
+SMALL_NLL_TOL = 1e-5  # the small head's NLL against log_softmax of the same logits
+# the big-vocab trainer run: batch and crop cut from the defaults' 8 x 11,000 so that
+# the (B, T, Q) logits fit (1.4 GB in f32; with their gradient, the log-softmax and the
+# loss's temporaries several times that), the model's widths and depth as they are
+BIG_TRAIN = 'wavenet_batch_size=2,max_time_steps=2750'
+TRAIN_UTTERANCES = 24  # 16 to train on and one test batch of 8
+# how far the plain version follows the default trainer's eval launch of 11,000 steps
+# (the kernel repeats all of them), in chunks at odd ends
+TRAIN_EVAL_BOUNDS = VOCODER_CLI_BOUNDS
 # the first steps of a fresh call at B=16 (the largest batch whose conditioning row is
 # rounded to bf16): no rounding flip has a history yet, so in most sequences the kernel
 # and its plain version differ by the f32 sum order alone. Over 2 steps on an H100 10 or
@@ -212,8 +309,10 @@ def cuda_ms(fn):
 @contextlib.contextmanager
 def ar_timer(calls=None):
     """Time every AR launch made inside the block with CUDA events: yields the list
-    of (steps, kernel ms), one entry a launch, in order; each launch's c_up, noise,
-    g_cond and audio are appended as a dict to `calls` when that is a list."""
+    of (steps, kernel ms), one entry a launch, in order; each launch's inputs (a copy
+    of the weights, hp, c_up, noise, g_cond, and under 'kw' every keyword it was given: seed, y_eval,
+    return_params) and outputs (audio, and 'second': the params, the NLL or None) are
+    appended as a dict to `calls` when that is a list."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     chunks, generate_ar = [], wavenet_ar.generate_ar
@@ -226,7 +325,11 @@ def ar_timer(calls=None):
         end.synchronize()
         chunks.append((c_up.shape[1], start.elapsed_time(end)))
         if calls is not None:
-            calls.append(dict(c_up=c_up, noise=noise, g_cond=kw.get('g_cond'), audio=out[0]))
+            # a copy of the weights: packed f32 ones may be the model's own tensors,
+            # which a trainer goes on updating in place
+            calls.append(dict(weights={k: w.clone() for k, w in weights.items()}, hp=hp,
+                              c_up=c_up, noise=noise,
+                              g_cond=kw.get('g_cond'), kw=kw, audio=out[0], second=out[1]))
         return out
 
     wavenet_ar.generate_ar = timed
@@ -236,17 +339,20 @@ def ar_timer(calls=None):
         wavenet_ar.generate_ar = generate_ar
 
 
-def ar_bound(hp, weights, B, T, return_params=True, has_g=False):
+def ar_bound(hp, weights, B, T, return_params=True, has_g=False, nll=False, greedy=False):
     """(bound ms, 'operations' or 'bytes') of one fresh AR launch over B sequences of
     T steps: the larger of its bytes over the HBM rate (each input read once: c_up,
-    noise ((B, T, Q) for the categorical head), the packed weights, g_cond with
-    `has_g`; each output written once: audio, params) and its operations over the peak
+    noise ((B, T, Q) for the categorical head, none for the big-vocab one), the packed
+    weights, g_cond with `has_g`, y_eval with `nll`; each output written once: audio,
+    params, the NLL) and its operations over the peak
     rate of their type (per sequence-step the bf16 multiply-adds of every matvec the
     kernel runs: the conditioning row, each layer's taps and current input, the
     residual/skip 1x1s but the last layer's residual, the fused 1x1s but layer 0's
     (none in the plain chain), the head's first 1x1; in f32 the head's last 1x1, S by
     out_channels, and the first conv: one row of R, which for the categorical head is
-    the row of the class drawn)."""
+    the row of the class drawn. The big-vocab head's last 1x1 is bf16, and unless
+    `greedy` each of its Q classes takes a quarter of a Philox4x32-10 block and two
+    logarithms, counted as 32 f32 operations; the NLL one exponential a class)."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     L, R, G, S = hp.layers, hp.residual_channels, hp.gate_channels, hp.skip_out_channels
@@ -254,11 +360,19 @@ def ar_bound(hp, weights, B, T, return_params=True, has_g=False):
     macs_bf16 = (cin * L * G + L * k * R * G + (L - 1) * half * (R + S) + half * S + S * S
                  + ((L - 1) * half * G if hp.wavenet_fused_ar else 0))
     macs_f32 = S * hp.out_channels + R
-    ops_s = 2 * B * T * (macs_bf16 / PEAK_BF16_FLOPS + macs_f32 / PEAK_F32_FLOPS)
-    n_noise = int(np.prod(wavenet_ar.noise_shape(hp, B, T)))
-    n_out = B * T * (1 + (hp.out_channels if return_params else 0))
+    other_f32 = 0
+    if wavenet_ar.is_big_vocab(hp):
+        macs_bf16, macs_f32 = macs_bf16 + S * hp.out_channels, R
+        other_f32 = 0 if greedy else 32 * hp.out_channels
+    other_f32 += hp.out_channels if nll else 0
+    ops_s = B * T * (2 * macs_bf16 / PEAK_BF16_FLOPS
+                     + (2 * macs_f32 + other_f32) / PEAK_F32_FLOPS)
+    n_noise = 0 if wavenet_ar.is_big_vocab(hp) \
+        else int(np.prod(wavenet_ar.noise_shape(hp, B, T)))
+    n_out = B * T * (1 + (hp.out_channels if return_params else 0) + (1 if nll else 0))
     nbytes = (sum(w.numel() * w.element_size() for w in weights.values())
-              + 4 * (B * T * cin + n_noise + n_out + (B * L * G if has_g else 0)))
+              + 4 * (B * T * cin + n_noise + n_out + (B * L * G if has_g else 0)
+                     + (B * T if nll else 0)))
     bytes_s = nbytes / HBM_BYTES_PER_S
     return 1000 * max(ops_s, bytes_s), 'operations' if ops_s >= bytes_s else 'bytes'
 
@@ -441,11 +555,13 @@ def _judge_carry(n, what, r, bounds, tol=KERNEL_TOL):
     phase(n, f'{what}, chunks ending at {list(bounds)}: bit-identical to one call: '
              f'{r["bit_identical"]}; chunked params max_abs_err={r["max_abs_err"]:.3e}, '
              f'state after chunk 1 max_abs_err={r["state_err"]:.3e}, t_base {r["t_base"]} '
-             f'(tol {tol}); planted state faults over {FAULT_STEPS} steps of chunk '
-             f'2: ' + ', '.join(f'{f} {e:.3e}' if e is not None else
-                                f'{f} not planted (every ring window divides t_base)'
-                                for f, e in r['faults'].items())
-             + f' (each must exceed tol); kernel {1000 * r["ms"] / T:.1f} us/step'
+             f'(tol {tol}); '
+             + (f'planted state faults over {FAULT_STEPS} steps of chunk 2: '
+                + ', '.join(f'{f} {e:.3e}' if e is not None else
+                            f'{f} not planted (every ring window divides t_base)'
+                            for f, e in r['faults'].items())
+                + ' (each must exceed tol); ' if r['faults'] else '')
+             + f'kernel {1000 * r["ms"] / T:.1f} us/step'
              + (f', plain {1000 * r["plain_ms"] / T:.1f} us/step' if r['plain_ms'] else ''))
     if not r['bit_identical']:
         fail(f'{what}: chunked kernel output differs from one call')
@@ -459,11 +575,11 @@ def _judge_carry(n, what, r, bounds, tol=KERNEL_TOL):
         fail(f'{what}: the state carry check passes planted faults: {missed}')
 
 
-def state_carry(weights, c_up, noise, hp, bounds, g_cond=None):
+def state_carry(weights, c_up, noise, hp, bounds, g_cond=None, plant=True):
     """The kernel in state-carried chunks ending at `bounds` against one fresh kernel
     call and against the plain version run in the same chunks, teacher-forced on the
-    kernel's audio; then the two planted state faults over the first FAULT_STEPS steps
-    of chunk 2. Returns the readings that _judge_carry checks."""
+    kernel's audio; then, with `plant`, the two planted state faults over the first
+    FAULT_STEPS steps of chunk 2. Returns the readings that _judge_carry checks."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     T = bounds[-1]
@@ -481,7 +597,7 @@ def state_carry(weights, c_up, noise, hp, bounds, g_cond=None):
                 state_err=_state_err(k_after1, r_after1), t_base=(k_after1[2], r_after1[2]),
                 faults=state_faults(weights, c_up[:, lo:hi].contiguous(),
                                     noise[:, lo:hi].contiguous(), hp, k_after1, r_after1,
-                                    g_cond),
+                                    g_cond) if plant else {},
                 ms=kernel_ms, plain_ms=plain_ms, audio=audio, audio_ok=_audio_ok(audio, hp),
                 params=params, ref_params=ref_params, noise=noise)
 
@@ -749,13 +865,14 @@ def mol_vs_plain(weights, model, hp, gen):
                           n=8, tol=MOL_KERNEL_TOL)
     audio, params, noise = mol['audio'], mol['params'], mol['noise']
     draw_err = (audio - wavenet_ar.mol_sample(params, noise, hp)).abs().max().item()
-    switched = int((_mixtures(params, noise, nr)
-                    != _mixtures(mol['ref_params'], noise, nr)).sum())
+    steps = mol['steps']
+    switched = int((_mixtures(params[:, :steps], noise[:, :steps], nr)
+                    != _mixtures(mol['ref_params'], noise[:, :steps], nr)).sum())
     clipped = (audio.abs() >= 1).float().mean().item()
     phase(8, f'MoL samples vs the draw from the kernel\'s params {draw_err:.3e} (tol '
              f'{SAMPLE_TOL}); {clipped:.4f} of them clipped (at most {MAX_CLIPPED}), audio '
              f'std {audio.std().item():.3f}; mixtures chosen differently from the plain '
-             f'version on the same history: {switched} of {audio.numel()} steps')
+             f'version on the same history: {switched} of {MAIN_BATCH * steps} steps')
     if not draw_err <= SAMPLE_TOL:
         fail(f'the MoL kernel\'s samples are not its draw: {draw_err}')
     if not clipped <= MAX_CLIPPED:
@@ -909,29 +1026,30 @@ def paper_profile(gen):
     carry_launches = wavenet_ar.LAUNCHES - launches0
     batch, batch_us = main_path(overrides, hp, wavenet_state, n=8, paper=True)
     served, served_us = paper_service(f'max_iters={PAPER_MAX_ITERS}', hp, wavenet_state)
-    bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, PAPER_SERVE_BOUNDS[-1])
+    bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, mol['steps'])
     return dict(max_abs_err=max(mol['max_abs_err'], served_carry['max_abs_err'],
                                 odd['max_abs_err']),
                 ms=mol['ms'], plain_ms=mol['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
+                steps=mol['steps'], full_ms=mol['full_ms'],
                 batch_launches=batch, serve_launches=served, carry_launches=carry_launches,
                 batch_us_step=batch_us, serve_us_step=served_us, streamed_b1_ms=served_carry['ms'])
 
 def mutated_source(fault):
-    """The text of csrc/wavenet_ar.cu with the one change of KERNEL_MUTANTS[fault]."""
+    """The text of csrc/wavenet_ar.cu with the one change of ALL_MUTANTS[fault]."""
     from tacotron2_tpu_torch.ops import _build
 
-    old, new = KERNEL_MUTANTS[fault]
+    old, new = ALL_MUTANTS[fault]
     with open(os.path.join(_build.CSRC_DIR, 'wavenet_ar.cu'), encoding='utf-8') as f:
         text = f.read()
     if text.count(old) != 1:
         raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times '
-                         'in csrc/wavenet_ar.cu: bring KERNEL_MUTANTS up to date')
+                         'in csrc/wavenet_ar.cu: bring ALL_MUTANTS up to date')
     return text.replace(old, new)
 
 
 def build_kernels(tmp):
     """Phase 2: nvcc builds the port's library and, beside it, one library for each of
-    KERNEL_MUTANTS from a changed copy of the source under `tmp`, all at once. Returns
+    ALL_MUTANTS from a changed copy of the source under `tmp`, all at once. Returns
     fault -> its loaded library."""
     from tacotron2_tpu_torch.ops import _build
 
@@ -945,9 +1063,9 @@ def build_kernels(tmp):
         _build.compile_library([src], lib)
         return fault, ctypes.CDLL(lib)
 
-    with concurrent.futures.ThreadPoolExecutor(1 + len(KERNEL_MUTANTS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(1 + len(ALL_MUTANTS)) as pool:
         main_build = pool.submit(_build.load_library)
-        mutants = dict(pool.map(mutant, enumerate(KERNEL_MUTANTS)))
+        mutants = dict(pool.map(mutant, enumerate(ALL_MUTANTS)))
         main_build.result()
     return mutants
 
@@ -1016,22 +1134,23 @@ def speaker_rows(model, hp, speakers):
     return wavenet_ar.pack_global(model, hp, model.embed_global(g))
 
 
-def variant_vs_plain(hp, weights, c_up, noise, g_cond, bounds, what=''):
-    """Phase 9: one instantiation against its plain version as phase 6 holds the main
-    one (state_carry in chunks ending at `bounds`, with its two planted state faults),
-    and its samples against the draw from its own params: class ids exactly, floats
-    within SAMPLE_TOL. Returns state_carry's readings."""
+def variant_vs_plain(hp, weights, c_up, noise, g_cond, bounds, what='', n=9, plant=True):
+    """Phases 9 and 10: one instantiation against its plain version as phase 6 holds
+    the main one (state_carry in chunks ending at `bounds`, with its two planted state
+    faults unless `plant` is off), and its samples against the draw from its own
+    params: class ids exactly, floats within SAMPLE_TOL. Returns state_carry's
+    readings, and under 'span' that of the plain version's params."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     what = f'{wavenet_ar.variant(hp, g_cond is not None)}, B={c_up.shape[0]}{what}'
-    r = state_carry(weights, c_up, noise, hp, bounds, g_cond)
-    _judge_carry(9, what, r, bounds)
+    r = state_carry(weights, c_up, noise, hp, bounds, g_cond, plant)
+    _judge_carry(n, what, r, bounds)
     drawn = wavenet_ar.sample(r['params'], r['noise'], hp)
     span = (r['ref_params'].max() - r['ref_params'].min()).item()
     if wavenet_ar.is_categorical(hp):
         wrong = int((drawn != r['audio']).sum())
         other = int((wavenet_ar.sample(r['ref_params'], r['noise'], hp) != r['audio']).sum())
-        phase(9, f'{what}: params span {span:.3f}; class ids that are not the first arg-max '
+        phase(n, f'{what}: params span {span:.3f}; class ids that are not the first arg-max '
                  f'of the kernel\'s params + noise: {wrong} of {drawn.numel()} (must be 0); '
                  f'{r["audio"].unique().numel()} distinct ids; the plain version draws '
                  f'another id at {other} steps on the same history')
@@ -1039,10 +1158,11 @@ def variant_vs_plain(hp, weights, c_up, noise, g_cond, bounds, what=''):
             fail(f'{what}: the kernel\'s class ids are not the arg-max of its own scores')
     else:
         draw_err = (drawn - r['audio']).abs().max().item()
-        phase(9, f'{what}: params span {span:.3f}; samples vs the draw from the kernel\'s '
+        phase(n, f'{what}: params span {span:.3f}; samples vs the draw from the kernel\'s '
                  f'params {draw_err:.3e} (tol {SAMPLE_TOL})')
         if not draw_err <= SAMPLE_TOL:
             fail(f'{what}: the kernel\'s samples are not its draw: {draw_err}')
+    r['span'] = span
     return r
 
 
@@ -1265,7 +1385,10 @@ def standalone_vocoder(mutants, gen):
         runs[key] = r = variant_vs_plain(hp_v, weights_v, call['c_up'], call['noise'],
                                          call['g_cond'], VOCODER_CLI_BOUNDS,
                                          ' on the entry point\'s inputs')
-        if not torch.equal(r['audio'], call['audio']):
+        again, _ = wavenet_ar.generate_ar(weights_v, call['c_up'], call['noise'], hp_v,
+                                          return_params=False, g_cond=call['g_cond'])
+        if not torch.equal(again, call['audio']) \
+                or not torch.equal(r['audio'], call['audio'][:, :VOCODER_CLI_BOUNDS[-1]]):
             fail(f'{key}: the check\'s launch does not repeat the entry point\'s audio')
     check_launches += wavenet_ar.LAUNCHES - launches1
 
@@ -1288,6 +1411,680 @@ def standalone_vocoder(mutants, gen):
         speakers_us_step=one_three['us_step'], categorical_us_step=cat['us_step'],
         bound_ms={v: ms for v, (ms, _) in bounds.items()},
         bound_by={v: by for v, (_, by) in bounds.items()})
+
+
+# --- phase 10: the big-vocab head, the in-kernel NLL and the trainer --------------------
+
+def big_vocab_model(Q, extra='', seed=1):
+    """vocoder_model with a categorical head over Q classes. The first conv's rows are
+    scaled to the deviation they have at Q = 256 (seeded weights of variance 1 / fan_in
+    shrink with Q, and the class fed back would then hardly move the next step)."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    hp, model, _, state = vocoder_model(
+        f"input_type='mulaw-quantize',quantize_channels={Q},out_channels={Q}"
+        + (',' + extra if extra else ''), seed)
+    with torch.no_grad():
+        model.first_conv.weight *= (Q / 256) ** 0.5
+    return hp, model, wavenet_ar.pack_params(model, hp), state
+
+
+def _nan_is_inf(x):
+    return x if x == x else float('inf')
+
+
+def run_chunked_big(run, weights, c_up, y, hp, bounds, g_cond=None, targets=None, **kw):
+    """`run` (generate_ar or generate_ar_reference) on a big-vocab model with y_eval in
+    state-carried chunks ending at `bounds`; `targets` teacher-forces the plain version,
+    which then returns the ids it drew. Returns ids, NLL and a copy of the state after
+    chunk 1."""
+    noise = torch.zeros(c_up.shape[0], c_up.shape[1], 1, device=c_up.device)
+    outs, state, after1 = [], None, None
+    for lo, hi in zip((0,) + tuple(bounds[:-1]), bounds):
+        more = dict(kw) if targets is None \
+            else dict(kw, targets=targets[:, lo:hi], return_drawn=True)
+        out = run(weights, c_up[:, lo:hi].contiguous(), noise[:, lo:hi].contiguous(), hp,
+                  return_params=False, y_eval=y[:, lo:hi].contiguous(), g_cond=g_cond,
+                  state_in=state, return_state=hi < bounds[-1], **more)
+        outs.append(out[:2])
+        if hi < bounds[-1]:
+            state = out[2]
+            if after1 is None:
+                after1 = _clone_state(state)
+    return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1), after1
+
+
+def big_vocab_vs_plain(hp, weights, c_up, y, bounds, g_cond=None, seed=None, library=None):
+    """One big-vocab launch (of `library`) with y_eval, greedy or sampled with `seed`,
+    against the same in state-carried chunks ending at `bounds` and against the plain
+    version in those chunks, teacher-forced on the kernel's ids. Returns the readings
+    that _judge_big checks."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    kw = dict(greedy=True) if seed is None else dict(seed=seed)
+    T = bounds[-1]
+    c_up, y = c_up[:, :T].contiguous(), y[:, :T].contiguous()
+    noise = torch.zeros(c_up.shape[0], T, 1, device='cuda')
+    with kernel_library(library):
+        (ids, nll), ms = cuda_ms(lambda: wavenet_ar.generate_ar(
+            weights, c_up, noise, hp, return_params=False, y_eval=y, g_cond=g_cond, **kw))
+        c_ids, c_nll, k_after1 = run_chunked_big(wavenet_ar.generate_ar, weights, c_up, y,
+                                                 hp, bounds, g_cond, **kw)
+    (r_ids, r_nll, r_after1), plain_ms = cuda_ms(lambda: run_chunked_big(
+        wavenet_ar.generate_ar_reference, weights, c_up, y, hp, bounds,
+        g_cond, targets=ids, **kw))
+    return dict(bit_identical=torch.equal(c_ids, ids) and torch.equal(c_nll, nll),
+                nll_err=_nan_is_inf((nll - r_nll).abs().max().item()),
+                ids_off=int((ids != r_ids).sum()), steps=ids.numel(),
+                distinct=ids.unique().numel(), nll_mean=nll.mean().item(),
+                state_err=_state_err(k_after1, r_after1), t_base=(k_after1[2], r_after1[2]),
+                nll_span=(r_nll.max() - r_nll.min()).item(),
+                state_span=max((x.max() - x.min()).item() for x in r_after1[:2]),
+                audio_ok=_audio_ok(ids, hp), ms=ms, plain_ms=plain_ms, ids=ids, nll=nll)
+
+
+def _judge_big(what, r, bounds, nll_tol=NLL_TOL, state_tol=KERNEL_TOL):
+    T = bounds[-1]
+    phase(10, f'{what}, chunks ending at {list(bounds)}: bit-identical to one call: '
+              f'{r["bit_identical"]}; NLL max_abs_err={r["nll_err"]:.3e} (tol {nll_tol:.3g}; mean '
+              f'NLL {r["nll_mean"]:.3f}, span {r["nll_span"]:.3f}), ids the plain version '
+              f'draws otherwise on the same '
+              f'history: {r["ids_off"]} of {r["steps"]} (at most {MAX_IDS_OFF:.0%}), '
+              f'{r["distinct"]} distinct ids, state after chunk 1 max_abs_err='
+              f'{r["state_err"]:.3e} (tol {state_tol:.3g}; the state spans '
+              f'{r["state_span"]:.3f}); kernel {1000 * r["ms"] / T:.1f} '
+              f'us/step, plain {1000 * r["plain_ms"] / T:.1f} us/step')
+    if not r['bit_identical']:
+        fail(f'{what}: chunked kernel output differs from one call')
+    if not (r['nll_err'] <= nll_tol and r['state_err'] <= state_tol) \
+            or r['t_base'] != (bounds[0], bounds[0]):
+        fail(f'{what}: the kernel differs from the plain version')
+    if not r['ids_off'] <= MAX_IDS_OFF * r['steps'] or not r['audio_ok']:
+        fail(f'{what}: the kernel\'s class ids differ from the plain version\'s')
+
+
+def big_vocab_inputs(hp, model, B, frames, gen):
+    """c_up through the model's upsampler and seeded class ids to score."""
+    c_up = _conditioning(model, hp, B, frames, gen)
+    y = torch.randint(0, hp.out_channels, c_up.shape[:2], generator=gen, device='cuda')
+    return c_up, y
+
+
+def small_head_nll(gen):
+    """Phase 10: the NLL flag on the small categorical head (Q = 256) at the default
+    width, B=2 over 1,100 steps with sampling on: against -log_softmax of the params a
+    second launch returns on the same noise (ids equal, NLL within SMALL_NLL_TOL) and
+    against `torch.nn.functional.cross_entropy` on those params, which is timed as the
+    library call that computes the NLL alone; the plain version with y_eval beside it."""
+    import torch.nn.functional as F
+
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    hp, model, weights, _ = vocoder_model(CATEGORICAL)
+    c_up, y = big_vocab_inputs(hp, model, MAIN_BATCH, 4, gen)
+    noise = wavenet_ar.make_noise(hp, gen, MAIN_BATCH, c_up.shape[1])
+    T, Q = c_up.shape[1], hp.out_channels
+    name = wavenet_ar.variant(hp, nll=True)
+    launches0 = wavenet_ar.LAUNCHES_BY_VARIANT[name]
+    (ids, nll), ms = cuda_ms(lambda: wavenet_ar.generate_ar(
+        weights, c_up, noise, hp, return_params=False, y_eval=y))
+    (ids2, params), params_ms = cuda_ms(lambda: wavenet_ar.generate_ar(weights, c_up, noise, hp))
+    want = -torch.log_softmax(params, -1).gather(-1, y[..., None])[..., 0]
+    F.cross_entropy(params.view(-1, Q), y.view(-1), reduction='none')  # warm up
+    ce, library_ms = cuda_ms(lambda: F.cross_entropy(params.view(-1, Q), y.view(-1),
+                                                     reduction='none'))
+    (_, r_nll), plain_ms = cuda_ms(lambda: wavenet_ar.generate_ar_reference(
+        weights, c_up, noise, hp, return_params=False, y_eval=y, targets=ids))
+    err = (nll - want).abs().max().item()
+    ce_err = (nll - ce.view(MAIN_BATCH, T)).abs().max().item()
+    plain_err = (nll - r_nll).abs().max().item()
+    bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, T, False, nll=True)
+    phase(10, f'NLL flag on the small head (categorical-fused+nll, Q={Q}, B={MAIN_BATCH} '
+              f'T={T}): ids equal to a launch with params: {torch.equal(ids, ids2)}; NLL vs '
+              f'-log_softmax of that launch\'s params {err:.3e}, vs cross_entropy on them '
+              f'{ce_err:.3e} (tol {SMALL_NLL_TOL}), vs the plain version {plain_err:.3e} (tol '
+              f'{NLL_TOL}); kernel {1000 * ms / T:.1f} us/step with the NLL, '
+              f'{1000 * params_ms / T:.1f} with params; cross_entropy on the materialised '
+              f'({MAIN_BATCH}, {T}, {Q}) logits {library_ms:.3f} ms; plain '
+              f'{1000 * plain_ms / T:.1f} us/step')
+    if not torch.equal(ids, ids2) or not (err <= SMALL_NLL_TOL and ce_err <= SMALL_NLL_TOL):
+        fail('the small head\'s in-kernel NLL is not -log_softmax of its logits')
+    if not plain_err <= NLL_TOL:
+        fail(f'the small head\'s NLL differs from the plain version by {plain_err}')
+    return dict(max_abs_err=max(err, ce_err), ms=ms, plain_ms=plain_ms, steps=T,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                plain_err=plain_err, with_params_ms=params_ms,
+                check_launches=wavenet_ar.LAUNCHES_BY_VARIANT[name] - launches0)
+
+
+def _chi_square(ids, bins):
+    counts = torch.bincount(ids.flatten(), minlength=bins).double()
+    want = ids.numel() / bins
+    return ((counts - want) ** 2 / want).sum().item()
+
+
+def big_vocab_noise(hp, weights, gen):
+    """Phase 10: the in-kernel noise. With the head's logits forced flat (zero w_s2 and
+    b_s2) the id of a step is the arg-max of its Q Gumbel values alone: over B=8 x 2,048
+    steps the ids are uniform (chi-square over 64 coarse bins, id // (Q / 64), and 64
+    fine ones, id % 64: 63 degrees of freedom, mean 63, deviation 11.2; the run fails
+    past 119, five deviations), equal between two seeds or two sequences no more often
+    than chance (one position in Q; at Q = 65,536 at most 3 of them), and over the first
+    16 steps the arg-max of `philox_gumbel`, the plain version's noise, whose values
+    there (8.4 M at Q = 65,536) have the Gumbel mean 0.5772 and deviation 1.2825."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    B, T, Q, steps = 8, 2048, hp.out_channels, 16
+    flat = dict(weights, w_s2=torch.zeros_like(weights['w_s2']),
+                b_s2=torch.zeros_like(weights['b_s2']))
+    c_up = torch.rand(B, T, hp.cin_channels, generator=gen, device='cuda')
+    noise = torch.zeros(B, T, 1, device='cuda')
+    seeds = (11, 12 + 2 ** 40)
+    ids = [wavenet_ar.generate_ar(flat, c_up, noise, hp, return_params=False, seed=s)[0]
+           for s in seeds]
+    coarse = [_chi_square(i // (Q // 64), 64) for i in ids]
+    fine = [_chi_square(i % 64, 64) for i in ids]
+    same_seed = int((ids[0] == ids[1]).sum())
+    same_seq = int((ids[0][0] == ids[0][1]).sum())
+    gumbel = torch.stack([wavenet_ar.philox_gumbel(seeds[0], B, t, Q, 'cuda')
+                          for t in range(steps)], 1)                     # (B, steps, Q)
+    off = int((gumbel.argmax(-1) != ids[0][:, :steps]).sum())
+    mean, std, n = gumbel.mean().item(), gumbel.std().item(), gumbel.numel()
+    se = 1.2825 / n ** 0.5
+    std_tol = max(0.005, 5 * se)  # the deviation's own standard error is about 1.05 se
+
+    def chance(positions):  # equal ids by chance: the mean, five deviations, and 3
+        return positions / Q + 5 * (positions / Q) ** 0.5 + 3
+    phase(10, f'in-kernel noise, flat logits, B={B} T={T} Q={Q}: chi-square of the ids over '
+              f'64 coarse bins {coarse[0]:.1f} and {coarse[1]:.1f}, over 64 fine bins '
+              f'{fine[0]:.1f} and {fine[1]:.1f} (63 degrees of freedom; at most 119); equal '
+              f'ids between the two seeds {same_seed} of {ids[0].numel()} (at most '
+              f'{chance(ids[0].numel()):.1f}), between sequences 0 and 1 {same_seq} of {T} (at '
+              f'most {chance(T):.1f}); ids that are not the arg-max of philox_gumbel over the '
+              f'first {steps} steps: {off} of {B * steps}; its {n} values: mean {mean:.5f} '
+              f'(0.57722 +- {4 * se:.5f}), deviation {std:.4f} (1.2825 +- {std_tol:.4f})')
+    if max(coarse + fine) > 119:
+        fail('the big-vocab head\'s ids are not uniform under flat logits')
+    if same_seed > chance(ids[0].numel()) or same_seq > chance(T):
+        fail('the in-kernel noise repeats between seeds or sequences')
+    if off:
+        fail('the kernel\'s noise is not philox_gumbel\'s')
+    if not (abs(mean - 0.57722) <= 4 * se and abs(std - 1.2825) <= std_tol):
+        fail('philox_gumbel does not draw Gumbel noise')
+    return flat
+
+
+def first_steps_nll_err(weights, c_up, y, hp, seed, plant=None, library=None):
+    """The first-steps reading for the big-vocab head (see FIRST_STEPS_TOL): the lower
+    quartile over the sequences of each one's max abs NLL error over the first
+    FIRST_STEPS steps of a fresh sampled call (of `library`, from the state `plant`
+    gives it) against the plain version on the true inputs and the kernel's ids."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    c_up, y = c_up[:, :FIRST_STEPS].contiguous(), y[:, :FIRST_STEPS].contiguous()
+    noise = torch.zeros(c_up.shape[0], FIRST_STEPS, 1, device='cuda')
+    with kernel_library(library):
+        ids, nll = wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False,
+                                          y_eval=y, seed=seed, state_in=plant)
+    _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, return_params=False,
+                                              y_eval=y, seed=seed, targets=ids)
+    return torch.quantile((nll - ref).abs().max(1).values, 0.25).item()
+
+
+def big_vocab_tie(hp, weights, c_up):
+    """Two classes of 65,536 tied far above the rest at every step (greedy): the kernel
+    emits the lower id and feeds back bf16(1/2) of each class's bf16 first-conv row, as
+    the plain version. Returns (h error, how far the first row alone is)."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    lo, hi = 3, 40007
+    w = dict(weights, w_s2=weights['w_s2'].clone(), b_s2=weights['b_s2'].clone())
+    w['w_s2'][:, [lo, hi]] = 0.0
+    w['b_s2'][[lo, hi]] = 50.0
+    c_up = c_up[:MAIN_BATCH, :20].contiguous()
+    noise = torch.zeros(MAIN_BATCH, 20, 1, device='cuda')
+    ids, _, state = wavenet_ar.generate_ar(w, c_up, noise, hp, return_params=False,
+                                           greedy=True, return_state=True)
+    r_ids, _, r_state = wavenet_ar.generate_ar_reference(w, c_up, noise, hp,
+                                                         return_params=False, greedy=True,
+                                                         return_state=True)
+    rows = w['first_w'][[lo, hi]].float()
+    h_err = (state[1] - (0.5 * rows[0] + 0.5 * rows[1] + w['first_b'])).abs().max().item()
+    first_only = (state[1] - (rows[0] + w['first_b'])).abs().max().item()
+    s_err = _state_err(state, r_state)
+    phase(10, f'forced tie of classes {lo} and {hi} of {hp.out_channels}, B={MAIN_BATCH} T=20: '
+              f'ids all {lo}: {bool((ids == lo).all())}; next-step h vs the mean of the two '
+              f'bf16 rows {h_err:.3e} (tol 1e-6; the first row alone is {first_only:.3e} '
+              f'away); free-running state vs the plain version {s_err:.3e} (tol {KERNEL_TOL})')
+    if not ((ids == lo).all() and torch.equal(ids, r_ids)) or not h_err <= 1e-6 \
+            or not first_only > 1e-3:
+        fail('the big-vocab kernel does not average tied classes')
+    if not s_err <= KERNEL_TOL:
+        fail(f'the tied big-vocab kernel differs from the plain version by {s_err}')
+    return h_err, first_only
+
+
+def big_vocab_faults(big, ragged, flat, mutants, gen):
+    """Phase 10: the planted faults of the big-vocab head and the NLL, each with the
+    check that must see it miss and that check's reading on the true kernel. `big` and
+    `ragged`: big_vocab_model at Q = 65,536 and BIG_RAGGED_Q; `flat`: the first's
+    weights with flat logits."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    hp, model, weights, _ = big
+    Q, R = hp.out_channels, hp.residual_channels
+    readings = {}  # fault -> (reading, bound, the true kernel's reading)
+
+    # the NLL over one frame at B=2, sampled: NLL_TOL
+    c_up, y = big_vocab_inputs(hp, model, MAIN_BATCH, 1, gen)
+
+    def nll_err(library=None, weights=weights, hp=hp, c_up=c_up, y=y):
+        return big_vocab_vs_plain(hp, weights, c_up, y, BIG_SHORT_BOUNDS, seed=5,
+                                  library=library)['nll_err']
+
+    true = nll_err()
+    fault = 'NLL from the noised scores'
+    readings[fault] = (nll_err(mutants[fault]), NLL_TOL, true)
+    # logits near 100, where exp overflows unless the maximum is taken out first
+    high = dict(weights, b_s2=weights['b_s2'] + 100.0)
+    fault = 'log-sum-exp without the maximum taken out'
+    readings[fault] = (nll_err(mutants[fault], high), NLL_TOL, nll_err(None, high))
+    # a Q that 1,024 does not divide, every fourth id scored in the ragged tail
+    hp_r, model_r, weights_r, _ = ragged
+    c_r, y_r = big_vocab_inputs(hp_r, model_r, MAIN_BATCH, 1, gen)
+    tail = hp_r.out_channels // 1024 * 1024
+    y_r[:, ::4] = torch.randint(tail, hp_r.out_channels, y_r[:, ::4].shape, generator=gen,
+                                device='cuda')
+    fault = 'classes past the last multiple of 1,024 left out'
+    readings[fault] = (nll_err(mutants[fault], weights_r, hp=hp_r, c_up=c_r, y=y_r), NLL_TOL,
+                       nll_err(None, weights_r, hp=hp_r, c_up=c_r, y=y_r))
+
+    # the bf16 roundings: the first steps at B=16
+    NB = FIRST_STEPS_BATCH
+    c16, y16 = big_vocab_inputs(hp, model, NB, 1, gen)
+    true = first_steps_nll_err(weights, c16, y16, hp, 5)
+    fault = 'head input not rounded to bf16'
+    readings[fault] = (first_steps_nll_err(weights, c16, y16, hp, 5, library=mutants[fault]),
+                       FIRST_STEPS_TOL, true)
+    f32_row = model.first_conv.weight.detach().float()[:, Q // 2] + weights['first_b']
+    start = (torch.zeros(NB, wavenet_ar.ring_floats(hp), device='cuda'),
+             f32_row.expand(NB, -1).contiguous(), 0)
+    readings['start row read from an f32 first_w'] = (
+        first_steps_nll_err(weights, c16, y16, hp, 5, plant=start), FIRST_STEPS_TOL, true)
+
+    # the noise counter without t_base: under flat logits the ids are the noise alone,
+    # so chunk 2 from a state whose t_base is reset to 0 repeats chunk 1's ids
+    n = 64
+    c_f = torch.rand(MAIN_BATCH, 2 * n, hp.cin_channels, generator=gen, device='cuda')
+    noise = torch.zeros(MAIN_BATCH, 2 * n, 1, device='cuda')
+    whole, _ = wavenet_ar.generate_ar(flat, c_f, noise, hp, return_params=False, seed=5)
+    first, _, state = wavenet_ar.generate_ar(flat, c_f[:, :n].contiguous(),
+                                             noise[:, :n].contiguous(), hp,
+                                             return_params=False, seed=5, return_state=True)
+    second = {}
+    for name, st in (('true', _clone_state(state)), ('reset', (*_clone_state(state)[:2], 0))):
+        second[name], _ = wavenet_ar.generate_ar(flat, c_f[:, n:].contiguous(),
+                                                 noise[:, n:].contiguous(), hp,
+                                                 return_params=False, seed=5, state_in=st)
+    readings['noise counter without t_base'] = (
+        (second['reset'] != whole[:, n:]).float().mean().item(), 0.5,
+        (second['true'] != whole[:, n:]).float().mean().item())
+    repeats = torch.equal(second['reset'], first)
+
+    phase(10, 'planted faults (reading, its bound, the true kernel\'s reading): '
+              + ', '.join(f'{f} ({e:.3e}, {tol}, {t:.3e})' for f, (e, tol, t) in readings.items())
+              + f'; each fault must exceed its bound and the true kernel stay within it; '
+              f'with t_base reset chunk 2 repeats chunk 1\'s ids: {repeats}')
+    missed = [f for f, (e, tol, _) in readings.items() if not e > tol]
+    wrong = [f for f, (_, tol, t) in readings.items() if not t <= tol]
+    if missed:
+        fail(f'the big-vocab kernel checks pass planted faults: {missed}')
+    if wrong:
+        fail(f'the true kernel misses the bound of the checks for: {wrong}')
+    if not repeats:
+        fail('a reset t_base does not repeat the noise of chunk 1')
+    h_err, first_only = big_vocab_tie(hp, weights, c_up)
+    readings['only the first of two tied classes fed back'] = (first_only, 1e-6, h_err)
+    return readings
+
+
+def big_vocab_head(mutants, gen):
+    """Phase 10, the kernel half (see the module docstring). Returns the readings for
+    the kernels line."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    launches0 = wavenet_ar.LAUNCHES
+    big = big_vocab_model(65536)
+    hp, model, weights, _ = big
+    c_up, y = big_vocab_inputs(hp, model, MAIN_BATCH, 4, gen)
+    runs = {}
+    for how, seed in (('greedy', None), ('sampled', 1234567890123)):
+        key = f'{wavenet_ar.variant(hp, nll=True)}, {how}, B={MAIN_BATCH}'
+        runs[key] = r = big_vocab_vs_plain(hp, weights, c_up, y, BIG_BOUNDS, seed=seed)
+        _judge_big(key, r, BIG_BOUNDS)
+    sampled = r
+    other, _ = wavenet_ar.generate_ar(weights, c_up, torch.zeros(MAIN_BATCH, c_up.shape[1], 1,
+                                                                 device='cuda'),
+                                      hp, return_params=False, seed=7)
+    moved = (other != sampled['ids']).float().mean().item()
+    phase(10, f'another seed draws other ids at {moved:.3f} of the steps (at least 0.9)')
+    if not moved >= 0.9:
+        fail('the seed does not reach the big-vocab head\'s noise')
+
+    ragged = big_vocab_model(BIG_RAGGED_Q, seed=3)
+    for name, (hp_v, model_v, weights_v, _), speakers in (
+            ('plain chain', big_vocab_model(65536, 'wavenet_fused_ar=False', seed=2), None),
+            ('g_cond', big_vocab_model(65536, SPEAKERS, seed=4), [1, 3]),
+            (f'Q={BIG_RAGGED_Q}', ragged, None)):
+        c_v, y_v = big_vocab_inputs(hp_v, model_v, MAIN_BATCH, 1, gen)
+        g_cond = speaker_rows(model_v, hp_v, speakers) if speakers else None
+        key = f'{wavenet_ar.variant(hp_v, g_cond is not None, True)}, sampled, {name}, ' \
+              f'B={MAIN_BATCH}'
+        runs[key] = r = big_vocab_vs_plain(hp_v, weights_v, c_v, y_v, BIG_SHORT_BOUNDS, g_cond,
+                                           seed=99)
+        _judge_big(key, r, BIG_SHORT_BOUNDS)
+
+    # what the NLL flag and the noise cost: the sampled run's launch again, each way
+    noise = torch.zeros(MAIN_BATCH, BIG_BOUNDS[-1], 1, device='cuda')
+    c_t, y_t = c_up[:, :BIG_BOUNDS[-1]].contiguous(), y[:, :BIG_BOUNDS[-1]].contiguous()
+    us = {}
+    for name, kw in (('sampled', dict(seed=5)), ('sampled+nll', dict(seed=5, y_eval=y_t)),
+                     ('greedy', dict(greedy=True)), ('greedy+nll', dict(greedy=True, y_eval=y_t))):
+        _, ms = cuda_ms(lambda: wavenet_ar.generate_ar(weights, c_t, noise, hp,
+                                                       return_params=False, **kw))
+        us[name] = 1000 * ms / BIG_BOUNDS[-1]
+    phase(10, 'categorical_big-fused, B=2 over 1,100 steps, us/step: '
+              + ', '.join(f'{k} {v:.1f}' for k, v in us.items()))
+
+    small = small_head_nll(gen)
+    flat = big_vocab_noise(hp, weights, gen)
+    faults = big_vocab_faults(big, ragged, flat, mutants, gen)
+    bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, BIG_BOUNDS[-1], False, nll=True)
+    return dict(runs=runs, sampled=sampled, small=small, us_step=us,
+                faults={f: e if np.isfinite(e) else 'inf' for f, (e, _, _) in faults.items()},
+                bound_ms=bound_ms, bound_by=bound_by, weights=weights, hp=hp,
+                check_launches=wavenet_ar.LAUNCHES - launches0)
+
+
+STEP_LINE = re.compile(r'Step\s+(\d+) \[([0-9.]+) sec/step, loss=([0-9.]+|nan|inf)')
+
+
+def make_corpus(root, hp, n, seed):
+    """A corpus in the preprocessing layout, made from `seed`: n utterances of 1 to 2 s
+    (80 to 160 mel frames of hop 275) as audio/audio-i.npy (two gliding tones and noise;
+    class ids for a mu-law-quantized model), mels/mel-i.npy (uniform in the mel range)
+    and a train.txt that names them. Returns the path of train.txt."""
+    from tacotron2_tpu_torch.ops.mulaw import is_mulaw_quantize, mulaw_quantize
+
+    rng = np.random.default_rng(seed)
+    hop = hp.get_hop_size()
+    os.makedirs(os.path.join(root, 'audio'))
+    os.makedirs(os.path.join(root, 'mels'))
+    rows = []
+    for i in range(n):
+        frames = int(rng.integers(80, 161))
+        t = np.arange(frames * hop) / hp.sample_rate
+        wav = (0.4 * np.sin(2 * np.pi * (180 + 40 * i) * t * (1 + 0.2 * np.sin(3 * t)))
+               + 0.2 * np.sin(2 * np.pi * (900 + 70 * i) * t)
+               + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+        if is_mulaw_quantize(hp.input_type):
+            wav = mulaw_quantize(wav, hp.quantize_channels)
+        np.save(os.path.join(root, 'audio', f'audio-{i}.npy'), wav)
+        np.save(os.path.join(root, 'mels', f'mel-{i}.npy'),
+                rng.uniform(-hp.max_abs_value, hp.max_abs_value,
+                            (frames, hp.num_mels)).astype(np.float32))
+        rows.append(f'audio-{i}.npy|mel-{i}.npy|_|<no_g>|{len(wav)}|{frames}')
+    path = os.path.join(root, 'train.txt')
+    with open(path, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(rows) + '\n')
+    return path
+
+
+def run_trainer(root, meta, name, hparams, steps, eval_interval, checkpoint_interval,
+                restore=True):
+    """`python -m tacotron2_tpu_torch.train --model WaveNet` on the card, its console
+    output captured. Returns the output, its (step, sec/step, loss) lines, the AR
+    launches by instantiation and each one's inputs and outputs (ar_timer's `calls`),
+    the wall seconds, the peak device memory and the checkpoint directory."""
+    from tacotron2_tpu_torch import train
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    wavenet_ar.LAUNCHES = 0
+    wavenet_ar.LAUNCHES_BY_VARIANT.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out, calls = io.StringIO(), []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), ar_timer(calls):
+        save_dir = train.main(
+            ['--model', 'WaveNet', '--wavenet_input', meta, '--base_dir', root, '--name', name,
+             '--wavenet_train_steps', str(steps), '--eval_interval', str(eval_interval),
+             '--checkpoint_interval', str(checkpoint_interval), '--summary_interval', '2',
+             '--restore', str(restore), '--hparams', hparams, '--device', 'cuda'])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    lines = {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
+             for m in STEP_LINE.finditer(text)}
+    return dict(out=text, steps=lines, launches=dict(wavenet_ar.LAUNCHES_BY_VARIANT),
+                calls=calls, seconds=seconds, peak_bytes=torch.cuda.max_memory_allocated(),
+                save_dir=save_dir)
+
+
+def _check_history(what, save_dir, steps):
+    """The eval-history sidecar holds one finite record for each of `steps`."""
+    from tacotron2_tpu_torch.training import checkpoint_select
+
+    history = checkpoint_select.load_eval_history(save_dir)
+    if [r['step'] for r in history] != list(steps):
+        fail(f'{what}: the sidecar holds records of {[r["step"] for r in history]}, '
+             f'expected {list(steps)}')
+    for r in history:
+        if not {'natural_loss', 'teacher_forced_loss', 'gen_samples_per_sec'} <= set(r) \
+                or not all(np.isfinite(v) for v in r.values()):
+            fail(f'{what}: an eval record lacks a metric or is not finite: {r}')
+    return history
+
+
+def eval_launch_vs_plain(call):
+    """Phase 10: the default trainer's eval launch (gaussian-fused with params, B=1 over
+    the crop of hp.max_time_steps samples) against the plain version on the inputs it
+    had, the EMA weights it packed among them: a further launch over all its steps must
+    repeat its audio and params bit for bit, and over the first TRAIN_EVAL_BOUNDS[-1] of
+    them the kernel goes through variant_vs_plain (chunked bit-identical, params and
+    carried state within KERNEL_TOL, the samples its own draw; no state fault is
+    planted: a few steps from their initial values these weights' params span too
+    little for a fault to pass KERNEL_TOL). Returns the readings."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    hp, weights, c_up, noise = call['hp'], call['weights'], call['c_up'], call['noise']
+    B, T = c_up.shape[:2]
+    if (B, T) != (1, hp.max_time_steps) or call['g_cond'] is not None \
+            or not call['kw'].get('return_params') or call['second'] is None:
+        fail(f'the default trainer\'s eval launch was B={B}, T={T}, {call["kw"]}')
+    (audio, params), ms = cuda_ms(lambda: wavenet_ar.generate_ar(weights, c_up, noise, hp))
+    if not (torch.equal(audio, call['audio']) and torch.equal(params, call['second'])):
+        fail('a launch on the trainer\'s eval inputs does not repeat its audio and params')
+    steps = TRAIN_EVAL_BOUNDS[-1]
+    r = variant_vs_plain(hp, weights, c_up, noise, None, TRAIN_EVAL_BOUNDS,
+                         f' on the inputs of the trainer\'s eval launch (the first {steps} '
+                         f'of its {T} steps; all {T} repeat bit for bit at '
+                         f'{1000 * ms / T:.1f} us/step)', n=10, plant=False)
+    if not (torch.equal(r['audio'], call['audio'][:, :steps])
+            and torch.equal(r['params'], call['second'][:, :steps])):
+        fail('the check\'s chunked launch does not repeat the start of the trainer\'s')
+    return dict(max_abs_err=r['max_abs_err'], state_err=r['state_err'], steps=steps,
+                span=r['span'], full_steps=T, full_us_step=1000 * ms / T,
+                plain_us_step=1000 * r['plain_ms'] / steps)
+
+
+def big_eval_launch_vs_plain(calls):
+    """Phase 10: the Q = 65,536 trainer's eval launches (categorical_big-fused with the
+    NLL flag, sampled, B=1 over the crop's steps, y_eval the batch's own class ids)
+    against the plain version on the inputs they had, the EMA weights and the seed
+    among them: a further launch on each one's inputs must repeat its ids and NLL bit
+    for bit, and the last one goes through big_vocab_vs_plain over all its steps
+    (chunked bit-identical; the plain version in those chunks, teacher-forced on the
+    kernel's ids: ids, NLL, carried state; the bounds of the NLL and the state grow
+    with the span of each, see EVAL_NLL_TOL_PER_SPAN). Returns the readings, with the
+    bound of that launch."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    for i, call in enumerate(calls):
+        hp, c_up, kw = call['hp'], call['c_up'], call['kw']
+        B, T = c_up.shape[:2]
+        if (B, T) != (1, hp.max_time_steps) or kw.get('seed') is None \
+                or kw.get('y_eval') is None or call['g_cond'] is not None:
+            fail(f'the big-vocab trainer\'s eval launch {i} was B={B}, T={T}, {sorted(kw)}')
+        ids, nll = wavenet_ar.generate_ar(call['weights'], c_up, call['noise'], hp, **kw)
+        if not (torch.equal(ids, call['audio']) and torch.equal(nll, call['second'])):
+            fail(f'a launch on the inputs of the big-vocab trainer\'s eval launch {i} does '
+                 'not repeat its ids and NLL')
+    bounds = BIG_BOUNDS[:2] + (T,)
+    what = f'{wavenet_ar.variant(hp, nll=True)}, sampled, B=1, on the inputs of the ' \
+           'trainer\'s last eval launch'
+    r = big_vocab_vs_plain(hp, call['weights'], c_up, kw['y_eval'], bounds, seed=kw['seed'])
+    if not (torch.equal(r['ids'], call['audio']) and torch.equal(r['nll'], call['second'])):
+        fail(f'{what}: the check\'s launch does not repeat the trainer\'s ids and NLL')
+    _judge_big(what, r, bounds, EVAL_NLL_TOL_PER_SPAN * max(1.0, r['nll_span']),
+               EVAL_STATE_TOL_PER_SPAN * max(1.0, r['state_span']))
+    bound_ms, bound_by = ar_bound(hp, call['weights'], B, T, False, nll=True)
+    phase(10, f'{what}: bound {bound_ms:.3f} ms by {bound_by}')
+    return dict(nll_err=r['nll_err'], ids_off=r['ids_off'], state_err=r['state_err'],
+                nll_span=r['nll_span'], state_span=r['state_span'], steps=T, ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=bound_ms,
+                bound_by=bound_by, distinct=r['distinct'], nll_mean=r['nll_mean'])
+
+
+def trainer_default(tmp):
+    """Phase 10: the trainer at the default hparams and full width (see the module
+    docstring). Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.data.wavenet_loader import WaveNetDataset
+    from tacotron2_tpu_torch.training import checkpoint_select
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+    from tacotron2_tpu_torch.training.checkpointing import CheckpointManager
+
+    extra = 'wavenet_natural_eval=True,wavenet_ema_decay=0.5'
+    hp = default_hparams()
+    hp.parse(extra)
+    root = os.path.join(tmp, 'default')
+    os.makedirs(root)
+    meta = make_corpus(root, hp, TRAIN_UTTERANCES, seed=10)
+    first = run_trainer(root, meta, 'a', extra, 6, 4, 6, restore=False)
+    again = run_trainer(root, meta, 'b', extra, 6, 4, 6, restore=False)
+    losses = [first['steps'][i][1] for i in range(1, 7)]
+    losses_again = [again['steps'][i][1] for i in range(1, 7)]
+    drift = max(abs(a - b) for a, b in zip(losses, losses_again))
+    gib = first['peak_bytes'] / 2 ** 30
+    history = _check_history('train (defaults)', first['save_dir'], [4])
+    rec = history[0]
+    phase(10, f'train --model WaveNet, default hparams (batch {hp.wavenet_batch_size} x '
+              f'{hp.max_time_steps} samples, {TRAIN_UTTERANCES} utterances): 6 steps in '
+              f'{first["seconds"]:.1f} s of wall with one eval and one checkpoint; losses '
+              f'{losses}; the same run again from the same seed differs by at most '
+              f'{drift:.2e} (losses logged to 5 places); steps 3 to 6 '
+              f'{np.mean([first["steps"][i][0] for i in range(3, 7)]):.3f} sec/step; peak '
+              f'device memory {gib:.2f} GiB; the eval at step 4: AR launches '
+              f'{first["launches"]}, {rec["gen_samples_per_sec"]:.0f} samples/s, natural loss '
+              f'{rec["natural_loss"]:.4f}, teacher-forced loss {rec["teacher_forced_loss"]:.4f}, '
+              f'ar_conditioning_r {rec.get("ar_conditioning_r")}')
+    if not all(np.isfinite(l) for l in losses) or sorted(first['steps']) != list(range(1, 7)):
+        fail(f'the trainer\'s losses are not finite or a step is missing: {first["steps"]}')
+    if not drift <= 1e-3:
+        fail(f'two runs from the same seed differ by {drift} in a loss')
+    if first['launches'] != {'gaussian-fused': 1}:
+        fail(f'the eval should launch gaussian-fused once, got {first["launches"]}')
+    if 'Eval (natural) loss' not in first['out'] or '(in-kernel)' in first['out']:
+        fail('the default trainer\'s eval did not score the launch\'s params')
+    if 'ar_conditioning_r' not in rec:  # 40 frames of a time-varying mel: never skipped
+        fail('the eval did not record the conditioning correlation')
+    if CheckpointManager(first['save_dir']).all_steps() != [6]:
+        fail('the trainer did not write its checkpoint at step 6')
+    eval_launch = eval_launch_vs_plain(first['calls'][0])
+
+    # a record past the checkpoint, as a run that died after an eval would leave it
+    checkpoint_select.append_eval_record(first['save_dir'],
+                                         dict(step=7, teacher_forced_loss=0.0))
+    resumed = run_trainer(root, meta, 'a', extra, 8, 4, 6)
+    history = _check_history('train (resumed)', first['save_dir'], [4, 8])
+    # step 7 in process: the checkpoint of step 6, the first batch of a fresh iterator,
+    # dropout masks from a generator seeded as the trainer seeds it
+    state = wt.create_train_state(hp, 'cuda')
+    state.load_state_dict(CheckpointManager(first['save_dir']).restore(6))
+    dataset = WaveNetDataset(meta, hp, base_dir=root)
+    batch = wt.to_device(next(dataset.train_batches(seed=hp.wavenet_data_random_state)), 'cuda')
+    generator = torch.Generator('cuda').manual_seed(hp.wavenet_random_seed)
+    loss7 = wt.train_step(state, batch, hp, generator)['loss'].item()
+    logged7 = resumed['steps'][7][1]
+    phase(10, f'resumed from step 6 to 8 in {resumed["seconds"]:.1f} s: restored: '
+              f'{"Restored WaveNet checkpoint at step 6" in resumed["out"]}, dropped the '
+              f'planted record of step 7: '
+              f'{"Dropped 1 eval records past the restored step" in resumed["out"]}; sidecar '
+              f'steps {[r["step"] for r in history]}; AR launches {resumed["launches"]}; step '
+              f'7 logged loss {logged7:.5f}, an in-process train_step from the checkpoint on '
+              f'the same batch {loss7:.5f}')
+    if 'Restored WaveNet checkpoint at step 6' not in resumed['out'] \
+            or 'Dropped 1 eval records past the restored step' not in resumed['out'] \
+            or sorted(resumed['steps']) != [7, 8]:
+        fail('the rerun did not restore step 6, drop the later record and step to 8')
+    if resumed['launches'] != {'gaussian-fused': 1}:
+        fail(f'the resumed run\'s eval should launch gaussian-fused once: {resumed["launches"]}')
+    if not abs(loss7 - logged7) <= 1e-4:
+        fail(f'step 7 of the resumed run logged {logged7}, an in-process step gives {loss7}')
+    if CheckpointManager(first['save_dir']).all_steps() != [6, 8]:
+        fail('the resumed run did not write its checkpoint at step 8')
+    return dict(launches=first['launches']['gaussian-fused']
+                + resumed['launches']['gaussian-fused'],
+                sec_step=float(np.mean([first['steps'][i][0] for i in range(3, 7)])),
+                peak_gib=gib, eval_samples_s=rec['gen_samples_per_sec'], losses=losses,
+                rerun_drift=drift, eval_launch=eval_launch)
+
+
+def trainer_big_vocab(tmp):
+    """Phase 10: the trainer on a Q = 65,536 model with weight normalization (see the
+    module docstring). Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+
+    extra = (f'{BIG_VOCAB},{BIG_TRAIN},wavenet_weight_normalization=True,'
+             'wavenet_natural_eval=True,wavenet_ema_decay=0.5')
+    hp = default_hparams()
+    hp.parse(extra)
+    root = os.path.join(tmp, 'big')
+    os.makedirs(root)
+    meta = make_corpus(root, hp, 8, seed=11)
+    run = run_trainer(root, meta, 'q', extra, 4, 2, 4, restore=False)
+    history = _check_history('train (Q=65,536)', run['save_dir'], [2, 4])
+    losses = [run['steps'][i][1] for i in sorted(run['steps'])]
+    gib = run['peak_bytes'] / 2 ** 30
+    phase(10, f'train --model WaveNet on a Q={hp.out_channels} model with weight '
+              f'normalization, cut to {BIG_TRAIN} (the defaults\' 8 x 11,000 samples would '
+              f'need 23 GB for the f32 logits alone; widths and depth as they are): 4 steps '
+              f'in {run["seconds"]:.1f} s of wall with two evals; losses {losses}; steps 3 to 4 '
+              f'{np.mean([run["steps"][i][0] for i in (3, 4)]):.3f} sec/step; peak device '
+              f'memory {gib:.2f} GiB; AR launches {run["launches"]}; evals: ' + '; '.join(
+                  f'step {r["step"]} natural loss {r["natural_loss"]:.4f} (in-kernel), '
+                  f'teacher-forced {r["teacher_forced_loss"]:.4f}, '
+                  f'{r["gen_samples_per_sec"]:.0f} samples/s' for r in history))
+    if not all(np.isfinite(l) for l in losses) or sorted(run['steps']) != [1, 2, 3, 4]:
+        fail(f'the big-vocab trainer\'s losses are not finite or a step is missing: {losses}')
+    if run['launches'] != {'categorical_big-fused+nll': 2}:
+        fail(f'each eval should launch categorical_big-fused+nll once, got {run["launches"]}')
+    if run['out'].count('(in-kernel)') != 2 \
+            or 'Running weight-norm data-dependent initialization' not in run['out']:
+        fail('the big-vocab trainer did not run the data-dependent init or score in the kernel')
+    eval_launch = big_eval_launch_vs_plain(run['calls'])
+    return dict(launches=run['launches']['categorical_big-fused+nll'],
+                sec_step=float(np.mean([run['steps'][i][0] for i in (3, 4)])), peak_gib=gib,
+                eval_samples_s=history[-1]['gen_samples_per_sec'], losses=losses,
+                eval_launch=eval_launch)
+
+
+def training_slice(mutants, gen):
+    """Phase 10 (see the module docstring). Returns the readings for the kernels line."""
+    head = big_vocab_head(mutants, gen)
+    with tempfile.TemporaryDirectory(prefix='t2torch_train_') as tmp:
+        default = trainer_default(tmp)
+        big = trainer_big_vocab(tmp)
+    return dict(head=head, default=default, big=big)
 
 
 def main():
@@ -1342,7 +2139,16 @@ def main():
     vocoder = standalone_vocoder(mutants, gen)
     phase(9, f'phase 9 took {time.perf_counter() - t9:.1f} s; the whole run '
              f'{time.perf_counter() - t_start:.1f} s')
+    t10 = time.perf_counter()
+    training = training_slice(mutants, gen)
+    phase(10, f'phase 10 took {time.perf_counter() - t10:.1f} s; the whole run '
+              f'{time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
+    head, small = training['head'], training['head']['small']
+    big_runs, sampled = head['runs'], head['sampled']
+    big_eval = training['big']['eval_launch']
+    source = 'tacotron2_tpu_torch/csrc/wavenet_ar.cu'
+    replaces = 'tacotron2_tpu/ops/pallas/wavenet_ar.py:684'
 
     # launches: the main paths' runs, each counted from 0 (the batch CLI, phase 5, and
     # the service, phase 7, at the default profile; both again with --paper_profile,
@@ -1351,22 +2157,35 @@ def main():
     # bound_ms are the default profile's (the times and the bound those of B=2 over the
     # PLAIN_STEPS steps that the plain version followed, phase 3; full_ms the batch
     # path's whole launch of full_steps steps); the mol_ keys are the paper width's (the
-    # times its B=2 run over 8,800 steps, phase 8); the vocoder_ keys are phase 9's, by
+    # times and the bound those of its B=2 run over the mol_steps steps that the plain
+    # version followed, mol_full_ms its whole launch of 8,800, phase 8); the vocoder_ keys
+    # are phase 9's, by
     # instantiation and batch (errors and us/step over vocoder_steps steps: the two that
-    # the entry point launches at its own 8,800; the bounds are those of the two
-    # entry-point launches).
-    # No single PyTorch call computes the AR loop: library_ms is null.
+    # the entry point launches over the first 2,200 of its 8,800; the bounds are those of
+    # the two entry-point launches).
+    # the train_eval_ keys are the default trainer's eval launch against the plain
+    # version on its own inputs (phase 10).
+    # No single PyTorch call computes the AR loop: library_ms is null. The second entry
+    # is the big-vocab head with the NLL flag (the instantiation the Q = 65,536 trainer's
+    # eval launches): max_abs_err is its NLL's against the plain version (it returns no
+    # params), and it, the times and the bound are those of the trainer's last eval
+    # launch run again on its own inputs (B=1 over the crop's 2,750 steps); the b2_ keys
+    # and the dicts by run are phase 10's runs on seeded inputs at B=2. No entry point
+    # launches the NLL flag on the small head, so it has no entry of its own: its check
+    # (against log_softmax of a second launch's params) is under the small_head_ keys
+    # here, with small_head_nll_library_ms, `cross_entropy` on those materialised
+    # params: the one library call that computes the NLL alone, not the loop.
     print(json.dumps({'kernels': [dict(
-        name='wavenet_ar', route='cuda',
-        source='tacotron2_tpu_torch/csrc/wavenet_ar.cu',
-        replaces='tacotron2_tpu/ops/pallas/wavenet_ar.py:684',
+        name='wavenet_ar', route='cuda', source=source, replaces=replaces,
         variants=['gaussian-fresh', 'gaussian-streamed', 'mol-fresh', 'mol-streamed',
                   'gaussian-plain', 'categorical-fused', 'categorical-plain',
                   'gaussian-fused+g'],
         launches=launches_batch + launches_serve + paper['batch_launches']
         + paper['serve_launches'] + vocoder['speakers_launches']
-        + vocoder['categorical_launches'],
+        + vocoder['categorical_launches'] + training['default']['launches'],
         launches_by_path={'synthesize': launches_batch, 'serve': launches_serve,
+                          'train --model WaveNet (natural eval)':
+                              training['default']['launches'],
                           'synthesize --paper_profile': paper['batch_launches'],
                           'serve --paper_profile': paper['serve_launches'],
                           'synthesize --model WaveNet --speaker_id':
@@ -1377,7 +2196,8 @@ def main():
                           'state_carry_check': streamed['launches'],
                           'mol_state_carry_check': paper['carry_launches']},
         max_abs_err=max(kernel['max_abs_err'], wide['max_abs_err'],
-                        streamed['max_abs_err']),
+                        streamed['max_abs_err'],
+                        training['default']['eval_launch']['max_abs_err']),
         ms=kernel['ms'], plain_ms=kernel['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, steps=kernel['steps'], full_ms=kernel['full_ms'],
         full_steps=frames * hp.get_hop_size(),
@@ -1386,7 +2206,8 @@ def main():
         streamed_b1_ms=streamed['served_ms'], synthesize_us_step=batch_us,
         mol_max_abs_err=paper['max_abs_err'], mol_ms=paper['ms'],
         mol_plain_ms=paper['plain_ms'], mol_bound_ms=paper['bound_ms'],
-        mol_bound_by=paper['bound_by'], mol_streamed_b1_ms=paper['streamed_b1_ms'],
+        mol_bound_by=paper['bound_by'], mol_steps=paper['steps'],
+        mol_full_ms=paper['full_ms'], mol_streamed_b1_ms=paper['streamed_b1_ms'],
         paper_synthesize_us_step=paper['batch_us_step'],
         paper_serve_us_step=paper['serve_us_step'],
         vocoder_max_abs_err=vocoder['max_abs_err'], vocoder_state_err=vocoder['state_err'],
@@ -1395,7 +2216,40 @@ def main():
         vocoder_fault_readings=vocoder['faults'],
         vocoder_speakers_us_step=vocoder['speakers_us_step'],
         vocoder_categorical_us_step=vocoder['categorical_us_step'],
-        vocoder_bound_ms=vocoder['bound_ms'], vocoder_bound_by=vocoder['bound_by'])]}))
+        vocoder_bound_ms=vocoder['bound_ms'], vocoder_bound_by=vocoder['bound_by'],
+        train_sec_step=training['default']['sec_step'],
+        train_peak_gib=training['default']['peak_gib'],
+        train_eval_samples_s=training['default']['eval_samples_s'],
+        train_rerun_loss_drift=training['default']['rerun_drift'],
+        **{f'train_eval_{k}': v for k, v in training['default']['eval_launch'].items()}),
+        dict(
+        name='wavenet_ar[categorical_big-fused+nll]', route='cuda', source=source,
+        replaces=replaces, launches=training['big']['launches'],
+        launches_by_path={'train --model WaveNet (Q=65536, natural eval)':
+                              training['big']['launches'],
+                          'big_vocab_checks': head['check_launches'],
+                          'small_head_nll_checks': small['check_launches']},
+        max_abs_err=big_eval['nll_err'], ms=big_eval['ms'], plain_ms=big_eval['plain_ms'],
+        bound_ms=big_eval['bound_ms'], bound_by=big_eval['bound_by'], library_ms=None,
+        steps=big_eval['steps'], ids_off_on_eval_inputs=big_eval['ids_off'],
+        state_err_on_eval_inputs=big_eval['state_err'],
+        nll_span_on_eval_inputs=big_eval['nll_span'],
+        state_span_on_eval_inputs=big_eval['state_span'],
+        b2_ms=sampled['ms'], b2_plain_ms=sampled['plain_ms'], b2_bound_ms=head['bound_ms'],
+        b2_bound_by=head['bound_by'], b2_steps=BIG_BOUNDS[-1],
+        nll_err={k: r['nll_err'] for k, r in big_runs.items()},
+        ids_off={k: r['ids_off'] for k, r in big_runs.items()},
+        state_err={k: r['state_err'] for k, r in big_runs.items()},
+        run_steps={k: r['steps'] for k, r in big_runs.items()},
+        us_step=head['us_step'], fault_readings=head['faults'],
+        train_sec_step=training['big']['sec_step'], train_peak_gib=training['big']['peak_gib'],
+        train_eval_samples_s=training['big']['eval_samples_s'],
+        small_head_max_abs_err=small['max_abs_err'], small_head_ms=small['ms'],
+        small_head_plain_ms=small['plain_ms'], small_head_bound_ms=small['bound_ms'],
+        small_head_bound_by=small['bound_by'],
+        small_head_nll_library_ms=small['library_ms'], small_head_steps=small['steps'],
+        small_head_plain_max_abs_err=small['plain_err'],
+        small_head_with_params_ms=small['with_params_ms'])]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """Map flax parameter trees (numpy) onto the port's state_dicts, and save / load them;
-map the JAX AR kernel's streaming state onto the port's.
+map the JAX AR kernel's streaming state and the JAX WaveNet train state onto the port's.
 
 The trees are what the JAX package's `create_train_state` or a checkpoint restore
 holds, with every leaf turned into a numpy array. The layout changes:
@@ -12,11 +12,15 @@ holds, with every leaf turned into a numpy array. The layout changes:
   - BatchNorm scale/bias + batch_stats mean/var -> BatchNorm1d weight/bias/running_*
   - LSTM `gates` kernels keep their i, g, f, o order (the +1.0 forget bias is applied
     by the cell, not stored)
-  - weight normalization is folded: kernel = g * v / ||v||, the norm over every axis
-    but the last (tacotron2_tpu/ops/pallas/wavenet_ar.py:80-89).
+  - weight normalization is folded for inference: kernel = g * v / ||v||, the norm over
+    every axis but the last (tacotron2_tpu/ops/pallas/wavenet_ar.py:80-89); for
+    training (`fold=False`) it stays apart: `wn_g` -> `<conv>.parametrizations.weight.0.g`
+    and the direction `kernel` -> `<conv>.parametrizations.weight.original`, the
+    parameters of a WaveNet built with wavenet_weight_normalization=True.
 """
 
-from typing import Dict, Mapping, Sequence, Tuple
+import os
+from typing import Callable, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +29,9 @@ from torch import Tensor
 from .models.tacotron.model import Tacotron
 from .models.wavenet.model import WaveNet
 from .ops.wavenet_ar import ring_layout
+from .training import checkpoint_select
+from .training.checkpointing import CheckpointManager
+from .training.wavenet_trainer import WaveNetTrainState, state_from_model
 
 
 def _t(x) -> Tensor:
@@ -40,16 +47,26 @@ def _kernel(conv: Mapping) -> np.ndarray:
     return (np.asarray(conv['wn_g'], np.float32) * v / norm).astype(np.float32)
 
 
-def _dense(sd: Dict[str, Tensor], prefix: str, p: Mapping) -> None:
-    sd[prefix + '.weight'] = _t(_kernel(p).T)
+def _conv(sd: Dict[str, Tensor], prefix: str, p: Mapping,
+          layout: Callable[[np.ndarray], np.ndarray], fold: bool = True) -> None:
+    """One conv's entries: its kernel in torch's layout (weight norm folded in, or g
+    and the direction apart under the parametrization's names) and its bias."""
+    if 'wn_g' in p and not fold:
+        sd[prefix + '.parametrizations.weight.original'] = _t(
+            layout(np.asarray(p['kernel'], np.float32)))
+        sd[prefix + '.parametrizations.weight.0.g'] = _t(p['wn_g'])
+    else:
+        sd[prefix + '.weight'] = _t(layout(_kernel(p)))
     if 'bias' in p:
         sd[prefix + '.bias'] = _t(p['bias'])
 
 
-def _conv1d(sd: Dict[str, Tensor], prefix: str, p: Mapping) -> None:
-    sd[prefix + '.weight'] = _t(_kernel(p).transpose(2, 1, 0))
-    if 'bias' in p:
-        sd[prefix + '.bias'] = _t(p['bias'])
+def _dense(sd: Dict[str, Tensor], prefix: str, p: Mapping, fold: bool = True) -> None:
+    _conv(sd, prefix, p, lambda k: k.T, fold)
+
+
+def _conv1d(sd: Dict[str, Tensor], prefix: str, p: Mapping, fold: bool = True) -> None:
+    _conv(sd, prefix, p, lambda k: k.transpose(2, 1, 0), fold)
 
 
 def _conv_block(sd, prefix: str, p: Mapping, stats: Mapping) -> None:
@@ -99,28 +116,31 @@ def tacotron_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, Tens
     return sd
 
 
-def wavenet_state_dict(params: Mapping) -> Dict[str, Tensor]:
-    """flax WaveNet `params` -> state_dict of models.wavenet.WaveNet (weight norm
-    folded). The first conv is (1, R) for scalar input and (Q, R) for one-hot input;
-    a multi-speaker model also holds the `gc_embedding` table and every block's
+def wavenet_state_dict(params: Mapping, fold: bool = True) -> Dict[str, Tensor]:
+    """flax WaveNet `params` -> state_dict of models.wavenet.WaveNet: with `fold`, of a
+    model built without weight normalization (g * v / ||v|| folded into plain weights:
+    an inference checkpoint); without, of a model built as the params were
+    (`wn_g` and the direction apart where the params hold `wn_g`: a training state).
+    The first conv is (1, R) for scalar input and (Q, R) for one-hot input; a
+    multi-speaker model also holds the `gc_embedding` table and every block's
     `conv1x1g`."""
     sd: Dict[str, Tensor] = {}
-    _dense(sd, 'first_conv', params['first_conv'])
+    _dense(sd, 'first_conv', params['first_conv'], fold)
     if 'gc_embedding' in params:
         sd['gc_embedding.weight'] = _t(params['gc_embedding']['embedding'])
     n = len([k for k in params if k.startswith('residual_block_')])
     for i in range(n):
         blk = params[f'residual_block_{i + 1}']
         pre = f'residual_layers.{i}'
-        _conv1d(sd, pre + '.conv', blk['causal_conv'])
+        _conv1d(sd, pre + '.conv', blk['causal_conv'], fold)
         if 'conv1x1c' in blk:
-            _dense(sd, pre + '.conv1x1c', blk['conv1x1c'])
+            _dense(sd, pre + '.conv1x1c', blk['conv1x1c'], fold)
         if 'conv1x1g' in blk:
-            _dense(sd, pre + '.conv1x1g', blk['conv1x1g'])
-        _dense(sd, pre + '.conv1x1_out', blk['conv1x1_out'])
-        _dense(sd, pre + '.conv1x1_skip', blk['conv1x1_skip'])
-    _dense(sd, 'skip_conv1', params['skip_conv1'])
-    _dense(sd, 'skip_conv2', params['skip_conv2'])
+            _dense(sd, pre + '.conv1x1g', blk['conv1x1g'], fold)
+        _dense(sd, pre + '.conv1x1_out', blk['conv1x1_out'], fold)
+        _dense(sd, pre + '.conv1x1_skip', blk['conv1x1_skip'], fold)
+    _dense(sd, 'skip_conv1', params['skip_conv1'], fold)
+    _dense(sd, 'skip_conv2', params['skip_conv2'], fold)
     ups = params.get('upsample_network', {})
     layouts = {'subpixel_conv': lambda k: k.transpose(3, 2, 0, 1),
                'convt2d': lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1)}
@@ -131,9 +151,29 @@ def wavenet_state_dict(params: Mapping) -> Dict[str, Tensor]:
     for kind in kinds:
         for i in range(len(ups)):
             p = ups[f'{kind}_{i + 1}']
-            sd[f'upsample.convs.{i}.weight'] = _t(layouts[kind](_kernel(p)))
-            sd[f'upsample.convs.{i}.bias'] = _t(p['bias'])
+            _conv(sd, f'upsample.convs.{i}', p, layouts[kind], fold)
     return sd
+
+
+def wavenet_train_state_from_jax(state: Mapping, hp, device='cpu') -> WaveNetTrainState:
+    """The JAX package's `WaveNetTrainState`, given as numpy, -> the port's, on `device`.
+
+    `state` holds `step` (int), `params` and `ema_params` (flax trees, weight norm
+    unfolded) and `mu` and `nu` (Adam's moments out of the optax state: trees of the
+    params' structure). Each tree goes through `wavenet_state_dict(fold=False)`, a
+    permutation of every leaf, so a moment lands on its parameter. One `train_step` of
+    each package from the same state on the same batch can then be compared."""
+    model = WaveNet(hp)
+    model.load_state_dict(wavenet_state_dict(state['params'], fold=False))
+    out = state_from_model(model.to(device), int(state['step']))
+    out.ema_model.load_state_dict(wavenet_state_dict(state['ema_params'], fold=False))
+    names = [n for n, _ in model.named_parameters()]
+    with torch.no_grad():
+        for moments, tree in ((out.exp_avg, state['mu']), (out.exp_avg_sq, state['nu'])):
+            sd = wavenet_state_dict(tree, fold=False)
+            for m, name in zip(moments, names, strict=True):
+                m.copy_(sd[name])
+    return out
 
 
 def stream_state_from_jax(state: Sequence, hp, batch: int) -> Tuple[Tensor, Tensor, int]:
@@ -171,11 +211,51 @@ def load_checkpoint(path: str, kind: str) -> Dict[str, Tensor]:
     return ckpt['state_dict']
 
 
-def load_models(tacotron_checkpoint: str, wavenet_checkpoint: str, hp, device
-                ) -> Tuple[Tacotron, WaveNet]:
-    """Both models from save_checkpoint files, on `device`, in eval mode."""
+def load_wavenet(path: str, hp, step=None) -> WaveNet:
+    """The WaveNet to synthesize with, on the CPU: from a `save_checkpoint` file, or,
+    where `path` is a directory, from the checkpoints the port's trainer wrote there
+    (`logs-<name>/wave_pretrained`), the EMA weights of `step`: None or 'latest', a step
+    number, or 'best', the step whose natural eval scored best in the eval-history
+    sidecar (`checkpoint_select.resolve_best_checkpoint`; the latest, and a message,
+    where there is no history). A file whose weight normalization is folded (what
+    `wavenet_state_dict` makes of a JAX checkpoint by default) loads into a model built
+    without it, whatever hp.wavenet_weight_normalization says. Counterpart of
+    `Synthesizer.load`, `inference/wavenet_synthesizer.py:28-69`."""
+    if not os.path.isdir(path):
+        if step not in (None, 'latest'):
+            raise ValueError(f'--wavenet_checkpoint_step {step} needs a checkpoint '
+                             f'directory of the trainer; {path} is one file')
+        sd = load_checkpoint(path, 'wavenet')
+        folded = not any('.parametrizations.' in k for k in sd)
+        wavenet = WaveNet(hp.replace(wavenet_weight_normalization=False) if folded else hp)
+        wavenet.load_state_dict(sd)
+        return wavenet
+    wavenet = WaveNet(hp)
+    ckpt = CheckpointManager(path)
+    if ckpt.latest_step() is None:
+        raise FileNotFoundError(f'no checkpoint in {path}')
+    if step == 'best':
+        resolved = checkpoint_select.resolve_best_checkpoint(path, ckpt.all_steps())
+        if resolved is None:
+            print(f'No natural-eval history next to {path}: falling back to the latest '
+                  'checkpoint', flush=True)
+            step = None
+        else:
+            step, reason = resolved
+            print(f'Selected WaveNet checkpoint step {step} by natural eval: {reason}',
+                  flush=True)
+    step = None if step in (None, 'latest') else int(step)
+    state = ckpt.restore(step)
+    wavenet.load_state_dict(state['ema_model'])
+    print(f'Loaded WaveNet checkpoint at step {state["step"]} (EMA weights)', flush=True)
+    return wavenet
+
+
+def load_models(tacotron_checkpoint: str, wavenet_checkpoint: str, hp, device,
+                wavenet_step=None) -> Tuple[Tacotron, WaveNet]:
+    """Both models on `device`, in eval mode: Tacotron from a save_checkpoint file, the
+    WaveNet as `load_wavenet` finds it."""
     taco = Tacotron(hp)
     taco.load_state_dict(load_checkpoint(tacotron_checkpoint, 'tacotron'))
-    wavenet = WaveNet(hp)
-    wavenet.load_state_dict(load_checkpoint(wavenet_checkpoint, 'wavenet'))
+    wavenet = load_wavenet(wavenet_checkpoint, hp, wavenet_step)
     return taco.to(device).eval(), wavenet.to(device).eval()

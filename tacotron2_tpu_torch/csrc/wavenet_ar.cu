@@ -3,7 +3,12 @@
 // Replaces tacotron2_tpu/ops/pallas/wavenet_ar.py:generate_ar (the Pallas TPU kernel),
 // in these variants: scalar input with a Gaussian head (out_channels == 2) or a
 // mixture-of-logistics head (out_channels == 3*nr), or one-hot input with a categorical
-// head over Q <= 1024 classes (Gumbel-max from pre-sampled noise); the fused critical
+// head over Q <= 1024 classes (Gumbel-max from pre-sampled noise), or the big-vocab
+// categorical head over up to 65,536 classes (bf16 first conv and last head layer,
+// Gumbel noise drawn inside the kernel from a counter-based generator, or greedy:
+// wavenet_ar.py:67-74, 414-448); for both categorical heads, optionally, the
+// natural-eval NLL of given class ids y_eval computed in place from each step's logits
+// (wavenet_ar.py:470-481) in place of the params; the fused critical
 // path (wavenet_fused_ar=True) or the plain chain of two serial matvecs per layer; head
 // and chain are template parameters, so each pair compiles on its own; local
 // conditioning, with or without a global conditioning row g_cond (B, L*G);
@@ -41,6 +46,26 @@
 //   6. the feedback  h = sample * first_w + first_b;  categorical: the bf16-rounded row
 //      first_w[class] + first_b (each of c tied classes weighs bf16(1/c)); a fresh
 //      categorical call starts from the f32 row of class Q/2 (silence).
+// The big-vocab head. Q logits of 4 bytes do not fit a block's shared memory at
+// Q = 65,536, so no score is stored: a thread walks groups of 8 neighbouring classes
+// (16-byte loads of the bf16 (S, Q) w_s2, consecutive threads on consecutive groups, so
+// a warp reads 512 contiguous bytes of each row), keeps a running (largest score, its
+// first class, how many classes tie it) and, for the NLL, a running (max, scaled sum) of
+// the un-noised logits; the block then reduces both. Only when more than one class ties
+// the maximum does a second pass recompute the scores (logits and noise are functions
+// of the step alone) to mark the tied classes in a bit mask, whose bf16 first-conv rows
+// are averaged in class order. The head's input is rounded to bf16 (wavenet_ar.py:414)
+// and a fresh call starts from the bf16 first-conv row of class Q/2. w_s2 has q_ld >= Q
+// columns, a multiple of 8 (the wrapper pads with zeros), so every row starts on a
+// 16-byte boundary whatever Q is. At Q = 65,536 and S = 128 the head reads 16.8 MB a
+// step (inside the L2 with the 7.4 MB of layer weights) and does 8.4 M multiply-adds.
+// The noise. Philox4x32-10 written out below: key = the wrapper's 64-bit seed, counter
+// = (class / 4, absolute step t_base + t (64 bits), sequence); word class % 4 of the
+// output gives 23 mantissa bits, u = bits as a float in [1, 2) minus 1, and the Gumbel
+// value -log(-log(u + 1e-9) + 1e-9) in f32 (the TPU kernel's transform,
+// wavenet_ar.py:433-440). The absolute step in the counter makes a state-carried
+// stream that keeps its seed bit-identical to one call, and lets the plain PyTorch
+// version compute the same bits.
 // The activations that feed a matmul are rounded to bf16 at the same places the TPU
 // kernel casts them, so the plain PyTorch version (ops/wavenet_ar.py
 // generate_ar_reference) and this kernel compute the same function.
@@ -84,13 +109,15 @@ constexpr int UNROLL = 4;  // weight loads in flight per thread and row slice
 constexpr int COLS = 8;   // bf16 columns per 16-byte load
 constexpr int RED = NT * COLS;  // floats in one partial-sum buffer
 constexpr float SQRT_HALF = 0.70710678118654752f;
-enum Head { GAUSSIAN, MOL, CATEGORICAL };  // out_channels == 2; 3*nr; Q classes
+// out_channels == 2; 3*nr; Q <= NT classes; Q classes, noise drawn in the kernel
+enum Head { GAUSSIAN, MOL, CATEGORICAL, CATEGORICAL_BIG };
 enum Chain { FUSED, PLAIN };  // wavenet_fused_ar on; off
 
 struct Args {
   const float* c_up;       // (B, T, cin)
-  const float* noise;      // (B, T) Gaussian, (B, T, nr+1) MoL, (B, T, Q) categorical
-  const float* first_w;    // (R,); categorical (Q, R)
+  const float* noise;      // (B, T) Gaussian, (B, T, nr+1) MoL, (B, T, Q) categorical;
+                           // unread by the big-vocab head
+  const float* first_w;    // (R,); categorical (Q, R); big-vocab (Q, R) bf16
   const float* first_b;    // (R,)
   const __nv_bfloat16* w_tap;    // (L, k*R, G)
   const float* b_tap;            // (L, G)
@@ -102,7 +129,7 @@ struct Args {
   const float* b_cond;           // (L*G,)
   const __nv_bfloat16* w_s1;     // (S, S)
   const float* b_s1;             // (S,)
-  const float* w_s2;             // (S, out_ch)
+  const float* w_s2;             // (S, out_ch); big-vocab (S, q_ld) bf16
   const float* b_s2;             // (out_ch,)
   const float* g_cond;           // (B, L*G) global conditioning row, or null
   float* rings;                  // (B, ring_floats): zeroed here, or the carried state
@@ -110,6 +137,10 @@ struct Args {
   float* h_out;                  // (B, R) next-step h after the last step, or null
   float* audio;                  // (B, T); categorical: class ids as floats
   float* params;                 // (B, T, out_ch) or null
+  const int* y_eval;             // (B, T) class ids to score, with nll
+  float* nll;                    // (B, T) logsumexp(logits) - logits[y_eval], or null
+  unsigned int seed_lo, seed_hi;  // the Philox key of the big-vocab head's noise
+  int q_ld, greedy;              // columns of the big-vocab w_s2; no noise: arg-max
   long long ring_floats;
   long long t_base;              // absolute step of local step 0
   int T, cin, L, lps, R, G, S, k, out_ch, legacy, residual_legacy, round_cond;
@@ -175,7 +206,146 @@ __device__ __forceinline__ float reduce_slices(const float* red, int N, int n) {
   return s;
 }
 
-template <int HEAD, int CHAIN>
+// --- the big-vocab head's noise: Philox4x32-10 (Salmon et al. 2011) ---
+__device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
+                                              uint32_t c3, uint32_t k0, uint32_t k1,
+                                              uint32_t out[4]) {
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  out[0] = c0; out[1] = c1; out[2] = c2; out[3] = c3;
+}
+
+// 23 random mantissa bits -> u in [0, 1) -> Gumbel noise, all in f32
+__device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
+  const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  return -logf(-logf(u + 1e-9f) + 1e-9f);
+}
+
+// Logits lg and scores sc (logit + noise, or the logit when greedy) of the 8 classes of
+// group g, classes 8g .. 8g+7: o (S) @ w2[:, 8g .. 8g+7] + b_s2 in f32. Columns past Q
+// (the padding of w2) get the logit of their zero weights; the caller skips them.
+__device__ __forceinline__ void big_vocab_scores(const Args& a, const __nv_bfloat16* w2,
+                                                 const float* o, int g, int b,
+                                                 unsigned long long t_abs,
+                                                 float lg[COLS], float sc[COLS]) {
+  const size_t ld = a.q_ld;
+  const __nv_bfloat16* w = w2 + (size_t)g * COLS;
+#pragma unroll
+  for (int i = 0; i < COLS; ++i) lg[i] = 0.f;
+#pragma unroll UNROLL
+  for (int s = 0; s < a.S; ++s)
+    fma8(lg, o[s], __ldg(reinterpret_cast<const uint4*>(w + s * ld)));
+#pragma unroll
+  for (int i = 0; i < COLS; ++i) {
+    const int c = g * COLS + i;
+    lg[i] += c < a.out_ch ? a.b_s2[c] : 0.f;
+    sc[i] = lg[i];
+  }
+  if (!a.greedy) {
+#pragma unroll
+    for (int half8 = 0; half8 < 2; ++half8) {
+      uint32_t bits[4];
+      philox4x32_10((uint32_t)(2 * g + half8), (uint32_t)t_abs, (uint32_t)(t_abs >> 32),
+                    (uint32_t)b, a.seed_lo, a.seed_hi, bits);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[4 * half8 + i] += gumbel_from_bits(bits[i]);
+    }
+  }
+}
+
+// The largest score a thread (then the block) has seen, its lowest class, and how many
+// classes tie it.
+struct Best {
+  float v;
+  int first, count;
+};
+
+__device__ __forceinline__ Best best_merge(Best x, Best y) {
+  if (y.v > x.v) return y;
+  if (y.v == x.v) {
+    x.first = min(x.first, y.first);
+    x.count += y.count;
+  }
+  return x;
+}
+
+__device__ __forceinline__ Best warp_best(Best x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Best y;
+    y.v = __shfl_xor_sync(0xffffffffu, x.v, off);
+    y.first = __shfl_xor_sync(0xffffffffu, x.first, off);
+    y.count = __shfl_xor_sync(0xffffffffu, x.count, off);
+    x = best_merge(x, y);
+  }
+  return x;
+}
+
+// Block-wide best_merge; every thread calls, thread 0 gets the result. scratch: 96
+// words of shared memory.
+__device__ __forceinline__ Best block_best(Best x, float* scratch) {
+  int* si = reinterpret_cast<int*>(scratch);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  x = warp_best(x);
+  if (lane == 0) {
+    scratch[warp] = x.v;
+    si[32 + warp] = x.first;
+    si[64 + warp] = x.count;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    x.v = scratch[lane];
+    x.first = si[32 + lane];
+    x.count = si[64 + lane];
+    x = warp_best(x);
+  }
+  return x;
+}
+
+// Two partial log-sum-exps (max m, sum s of exp(x - m)) into one.
+__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
+  const float mm = fmaxf(m, m2);
+  s = s * (m == mm ? 1.f : expf(m - mm)) + s2 * (m2 == mm ? 1.f : expf(m2 - mm));
+  m = mm;
+}
+
+__device__ __forceinline__ void warp_lse(float& m, float& s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+    lse_merge(m, s, m2, s2);
+  }
+}
+
+// Block-wide log-sum-exp of the threads' partial (m, s); every thread calls, thread 0
+// gets max + log(sum). scratch: 64 floats of shared memory.
+__device__ __forceinline__ float block_lse(float m, float s, float* scratch) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  warp_lse(m, s);
+  if (lane == 0) {
+    scratch[warp] = m;
+    scratch[32 + warp] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    m = scratch[lane];
+    s = scratch[32 + lane];
+    warp_lse(m, s);
+  }
+  return m + logf(s);
+}
+
+template <int HEAD, int CHAIN, bool NLL>
 __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -195,7 +365,7 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
   float* skips = h + R;                  // (S)
   float* xc = skips + S;                 // (cin) bf16-rounded c_t
   float* o = xc + cin;                   // (S)
-  float* sample_s = o + S;               // (4) the sample; categorical: id, max, ties
+  float* sample_s = o + S;  // (4) the sample; categorical: id, max, ties, logit[y_eval]
   int* ring_off = reinterpret_cast<int*>(sample_s + 4);  // (L) float offsets
   int* win = ring_off + L;                                // (L) slots per ring
   int* base = win + L;  // (L) t_base mod win: local step t uses slot (base + t) mod win
@@ -215,6 +385,9 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
     for (int r = tid; r < R; r += NT) {
       if constexpr (HEAD == CATEGORICAL)  // silence: the f32 row of class Q/2
         h[r] = a.first_w[(size_t)(a.out_ch / 2) * R + r] + a.first_b[r];
+      else if constexpr (HEAD == CATEGORICAL_BIG)  // ... read from the bf16 first_w
+        h[r] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                   a.first_w)[(size_t)(a.out_ch / 2) * R + r]) + a.first_b[r];
       else
         h[r] = a.first_b[r];
     }
@@ -389,8 +562,13 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
       matvec_partial(s1, 1, S, red_a);
     }
     __syncthreads();
-    for (int s = tid; s < S; s += NT)
-      skips[s] = fmaxf(a.b_s1[s] + reduce_slices(red_a, S, s), 0.f);
+    for (int s = tid; s < S; s += NT) {
+      const float v = fmaxf(a.b_s1[s] + reduce_slices(red_a, S, s), 0.f);
+      if constexpr (HEAD == CATEGORICAL_BIG)
+        skips[s] = bf16r(v);  // the big-vocab head's input is bf16
+      else
+        skips[s] = v;
+    }
     __syncthreads();
 
     // --- 5. the sample ---
@@ -458,17 +636,25 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
         a.audio[bt] = x;
         sample_s[0] = x;
       }
-    } else {
+    } else if constexpr (HEAD == CATEGORICAL) {
       // categorical: Q logits o @ w_s2 + b_s2 in f32, one class a thread (the block
       // reads each row of the (S, Q) w_s2 coalesced); logit + Gumbel noise into red_a
       const int Q = a.out_ch;
       const size_t bt = (size_t)b * a.T + t;
+      float logit = -INFINITY;  // the thread's un-noised logit, for the NLL
       if (tid < Q) {
         float p = 0.f;
         for (int s = 0; s < S; ++s) p = fmaf(skips[s], a.w_s2[(size_t)s * Q + tid], p);
         p += a.b_s2[tid];
         if (a.params != nullptr) a.params[bt * Q + tid] = p;
         red_a[tid] = p + a.noise[bt * Q + tid];
+        if constexpr (NLL) logit = p;
+      }
+      if constexpr (NLL) {
+        // logsumexp(logits) - logits[y] (wavenet_ar.py:470-481); red_b is free here
+        if (tid == a.y_eval[bt]) sample_s[3] = logit;
+        const float lse = block_lse(logit, tid < Q ? 1.f : 0.f, red_b);
+        if (tid == 0) a.nll[bt] = lse - sample_s[3];
       }
       __syncthreads();
       if (tid < 32) {  // one warp: the largest score, how many classes tie it, the first
@@ -496,6 +682,48 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
           sample_s[2] = (float)count;
         }
       }
+    } else {
+      // big-vocab categorical: no score is stored (see the note at the top)
+      const int Q = a.out_ch;
+      const size_t bt = (size_t)b * a.T + t;
+      const unsigned long long t_abs = (unsigned long long)a.t_base + t;
+      const __nv_bfloat16* w2 = reinterpret_cast<const __nv_bfloat16*>(a.w_s2);
+      Best best = {-INFINITY, Q, 0};
+      float lm = -INFINITY, ls = 0.f;
+      int y = -1;
+      if constexpr (NLL) y = a.y_eval[bt];
+      for (int g = tid; g < a.q_ld / COLS; g += NT) {  // the ragged last groups too
+        float lg[COLS], sc[COLS];
+        big_vocab_scores(a, w2, skips, g, b, t_abs, lg, sc);
+#pragma unroll
+        for (int i = 0; i < COLS; ++i) {
+          const int c = g * COLS + i;
+          if (c < Q) {
+            if constexpr (NLL) {
+              lse_merge(lm, ls, lg[i], 1.f);
+              if (c == y) sample_s[3] = lg[i];
+            }
+            if (sc[i] > best.v) {
+              best.v = sc[i];
+              best.first = c;
+              best.count = 1;
+            } else if (sc[i] == best.v) {
+              ++best.count;
+            }
+          }
+        }
+      }
+      float lse = 0.f;
+      if constexpr (NLL) lse = block_lse(lm, ls, red_b + 128);
+      best = block_best(best, red_b);
+      if (tid == 0) {
+        if (best.count == 0) best.first = 0;  // every score NaN: stay inside first_w
+        a.audio[bt] = (float)best.first;
+        sample_s[0] = (float)best.first;
+        sample_s[1] = best.v;
+        sample_s[2] = (float)best.count;
+        if constexpr (NLL) a.nll[bt] = lse - sample_s[3];
+      }
     }
     __syncthreads();
 
@@ -514,6 +742,45 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
           acc = 0.f;
           for (int j = 0; j < a.out_ch; ++j)
             if (red_a[j] >= m) acc = fmaf(w, bf16r(a.first_w[(size_t)j * R + r]), acc);
+        }
+        h[r] = acc + a.first_b[r];
+      }
+    } else if constexpr (HEAD == CATEGORICAL_BIG) {
+      // the same feedback from the bf16 first_w; on a tie (rare) a second pass marks
+      // the tied classes in a bit mask over red_a, and their rows add up in class order
+      const int Q = a.out_ch, id = (int)sample_s[0];
+      const float m = sample_s[1], count = sample_s[2];
+      const __nv_bfloat16* fw = reinterpret_cast<const __nv_bfloat16*>(a.first_w);
+      unsigned int* tied = reinterpret_cast<unsigned int*>(red_a);
+      const int words = (Q + 31) / 32;
+      if (count > 1.f) {
+        for (int i = tid; i < words; i += NT) tied[i] = 0u;
+        __syncthreads();
+        const __nv_bfloat16* w2 = reinterpret_cast<const __nv_bfloat16*>(a.w_s2);
+        for (int g = tid; g < a.q_ld / COLS; g += NT) {
+          float lg[COLS], sc[COLS];
+          big_vocab_scores(a, w2, skips, g, b, (unsigned long long)a.t_base + t, lg, sc);
+#pragma unroll
+          for (int i = 0; i < COLS; ++i) {
+            const int c = g * COLS + i;
+            if (c < Q && sc[i] >= m) atomicOr(&tied[c / 32], 1u << (c % 32));
+          }
+        }
+        __syncthreads();
+      }
+      for (int r = tid; r < R; r += NT) {
+        float acc;
+        if (count <= 1.f) {
+          acc = __bfloat162float(fw[(size_t)id * R + r]);
+        } else {
+          const float w = bf16r(1.f / count);
+          acc = 0.f;
+          for (int i = 0; i < words; ++i) {
+            for (unsigned int bits = tied[i]; bits != 0u; bits &= bits - 1u) {
+              const int j = i * 32 + __ffs(bits) - 1;
+              acc = fmaf(w, __bfloat162float(fw[(size_t)j * R + r]), acc);
+            }
+          }
         }
         h[r] = acc + a.first_b[r];
       }
@@ -537,42 +804,62 @@ bool tiles(int n) {  // N/8 column groups must divide the block
   return n > 0 && n % COLS == 0 && NT % (n / COLS) == 0;
 }
 
-template <int HEAD, int CHAIN>
+template <int HEAD, int CHAIN, bool NLL>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.cin, a.L, a.R, a.G, a.S, a.k);
   cudaError_t err = cudaFuncSetAttribute(
-      wavenet_ar_kernel<HEAD, CHAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wavenet_ar_kernel<HEAD, CHAIN, NLL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  wavenet_ar_kernel<HEAD, CHAIN><<<B, NT, smem, stream>>>(a);
+  wavenet_ar_kernel<HEAD, CHAIN, NLL><<<B, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int HEAD>
+template <int HEAD, bool NLL = false>
 int launch_chain(const Args& a, int B, bool fused, cudaStream_t stream) {
-  return fused ? launch<HEAD, FUSED>(a, B, stream) : launch<HEAD, PLAIN>(a, B, stream);
+  return fused ? launch<HEAD, FUSED, NLL>(a, B, stream)
+               : launch<HEAD, PLAIN, NLL>(a, B, stream);
+}
+
+// the categorical heads, with the in-kernel NLL when a.nll is given
+template <int HEAD>
+int launch_categorical(const Args& a, int B, bool fused, cudaStream_t stream) {
+  return a.nll != nullptr ? launch_chain<HEAD, true>(a, B, fused, stream)
+                          : launch_chain<HEAD, false>(a, B, fused, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). All pointers are device pointers; the
 // launch goes on `stream`. `head` (0 Gaussian, out_ch == 2; 1 MoL, out_ch == 3*nr; 2
-// categorical, out_ch classes, at most one a thread) and `fused` (the fused critical
-// path, or the plain chain, which takes null w_fused and b_fused) pick the
-// instantiation; g_cond may be null. Returns the cudaError_t of the launch (0 on
-// success).
+// categorical, out_ch classes, at most one a thread; 3 big-vocab categorical, out_ch
+// <= 65,536 classes, bf16 first_w and w_s2 of q_ld columns, noise from `seed` or
+// `greedy`, no params) and `fused` (the fused critical path, or the plain chain, which
+// takes null w_fused and b_fused) pick the instantiation; g_cond may be null. y_eval
+// and nll, given together and only to a categorical head without params, ask for the
+// in-kernel NLL. Returns the cudaError_t of the launch (0 on success).
 extern "C" int wavenet_ar(
     const void* c_up, const void* noise, const void* first_w, const void* first_b,
     const void* w_tap, const void* b_tap, const void* w_os, const void* b_os,
     const void* w_fused, const void* b_fused, const void* w_cond, const void* b_cond,
     const void* w_s1, const void* b_s1, const void* w_s2, const void* b_s2,
     const void* g_cond, void* rings, const void* h_in, void* h_out, void* audio, void* params,
-    long long ring_floats, long long t_base, int B, int T, int cin, int L,
+    const void* y_eval, void* nll, long long ring_floats, long long t_base,
+    unsigned long long seed, int B, int T, int cin, int L,
     int layers_per_stack, int R, int G, int S, int k, int out_ch, int head, int fused,
-    int legacy, int residual_legacy, int round_cond, float log_scale_min, void* stream) {
-  const bool head_ok = head == GAUSSIAN ? out_ch == 2
-                       : head == MOL    ? out_ch >= 3 && out_ch % 3 == 0
-                                        : head == CATEGORICAL && out_ch >= 2 && out_ch <= NT;
-  if (B <= 0 || T <= 0 || cin <= 0 || L <= 0 || layers_per_stack <= 0 || k < 2
+    int legacy, int residual_legacy, int round_cond, int q_ld, int greedy,
+    float log_scale_min, void* stream) {
+  const bool head_ok =
+      head == GAUSSIAN      ? out_ch == 2
+      : head == MOL         ? out_ch >= 3 && out_ch % 3 == 0
+      : head == CATEGORICAL ? out_ch >= 2 && out_ch <= NT
+                            : head == CATEGORICAL_BIG && out_ch >= 2 && out_ch <= 65536
+                                  && q_ld >= out_ch && q_ld % COLS == 0 && q_ld <= 32 * RED
+                                  && params == nullptr;
+  const bool nll_ok = (y_eval == nullptr) == (nll == nullptr)
+                      && (nll == nullptr || ((head == CATEGORICAL || head == CATEGORICAL_BIG)
+                                             && params == nullptr));
+  if (!nll_ok || B <= 0 || T <= 0 || cin <= 0 || L <= 0 || layers_per_stack <= 0 || k < 2
       || G % 2 != 0 || R % COLS != 0 || !tiles(G) || !tiles(R + S) || !tiles(S)
       || t_base < 0 || !head_ok || (fused && (w_fused == nullptr || b_fused == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -599,6 +886,12 @@ extern "C" int wavenet_ar(
   a.h_out = static_cast<float*>(h_out);
   a.audio = static_cast<float*>(audio);
   a.params = static_cast<float*>(params);
+  a.y_eval = static_cast<const int*>(y_eval);
+  a.nll = static_cast<float*>(nll);
+  a.seed_lo = (unsigned int)seed;
+  a.seed_hi = (unsigned int)(seed >> 32);
+  a.q_ld = q_ld;
+  a.greedy = greedy;
   a.ring_floats = ring_floats;
   a.t_base = t_base;
   a.T = T; a.cin = cin; a.L = L; a.lps = layers_per_stack; a.R = R; a.G = G; a.S = S;
@@ -606,7 +899,8 @@ extern "C" int wavenet_ar(
   a.round_cond = round_cond;
   a.log_scale_min = log_scale_min;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head == GAUSSIAN ? launch_chain<GAUSSIAN>(a, B, fused, s)
-         : head == MOL    ? launch_chain<MOL>(a, B, fused, s)
-                          : launch_chain<CATEGORICAL>(a, B, fused, s);
+  return head == GAUSSIAN      ? launch_chain<GAUSSIAN>(a, B, fused, s)
+         : head == MOL         ? launch_chain<MOL>(a, B, fused, s)
+         : head == CATEGORICAL ? launch_categorical<CATEGORICAL>(a, B, fused, s)
+                               : launch_categorical<CATEGORICAL_BIG>(a, B, fused, s);
 }

@@ -35,9 +35,9 @@ class StreamVocoder:
     """Prepared streaming vocoder: the model on its device and the packed kernel
     weights are made once, so a served request pays only the per-chunk AR work.
 
-    Counterpart of `training/wavenet_trainer.py:241-330`; it lives here until the port
-    has a training package. The global conditioning bias of a batch of speaker ids is
-    packed once and kept (`:266-274`)."""
+    Counterpart of `training/wavenet_trainer.py:241-330` of the JAX package; in the port
+    it lives with the streaming code that uses it. The global conditioning bias of a
+    batch of speaker ids is packed once and kept (`:266-274`)."""
 
     def __init__(self, model: WaveNet, hp):
         self._model = model.eval()
@@ -65,7 +65,13 @@ class StreamVocoder:
         Each chunk draws its noise from `generator` and continues from the state the
         previous chunk returned, so the chunks are exactly one long call over the
         same noise. Chunk sizes must be multiples of CHUNK; only the last chunk,
-        which asks for no state, may be ragged."""
+        which asks for no state, may be ragged.
+
+        A big-vocab categorical model draws one seed from `generator` for the whole
+        stream and keeps it over the chunks: its in-kernel noise is a function of
+        (seed, sequence, absolute step, class), so the stream is bit-identical to one
+        call with that seed. (The JAX package draws a fresh seed for every chunk,
+        `wavenet_trainer.py:305-313`, because its kernel seeds one stream a call.)"""
         if chunk_samples % CHUNK or first_chunk_samples % CHUNK \
                 or min(chunk_samples, first_chunk_samples) <= 0:
             raise ValueError(f'chunk sizes must be positive multiples of {CHUNK}, got '
@@ -76,13 +82,15 @@ class StreamVocoder:
         B, T = c_up.shape[0], c_up.shape[1]
         state = None
         pos = 0
+        kw = (dict(seed=wavenet_ar.draw_seed(generator)) if wavenet_ar.is_big_vocab(hp)
+              else {})
         while pos < T:
             n = min(first_chunk_samples if pos == 0 else chunk_samples, T - pos)
             last = pos + n >= T
             noise = wavenet_ar.make_noise(hp, generator, B, n, c_up.device)
             out = wavenet_ar.generate_ar(self._weights, c_up[:, pos:pos + n].contiguous(),
                                          noise, hp, return_params=False, state_in=state,
-                                         return_state=not last, g_cond=g_cond)
+                                         return_state=not last, g_cond=g_cond, **kw)
             if not last:
                 state = out[2]
             pos += n
@@ -108,9 +116,11 @@ class StreamingSynthesizer:
         self._vocoder = StreamVocoder(wavenet, hp)
 
     @classmethod
-    def load(cls, taco_pt: str, wavenet_pt: str, hp, device) -> 'StreamingSynthesizer':
-        """From the files `convert.save_checkpoint` writes."""
-        return cls(*load_models(taco_pt, wavenet_pt, hp, device), hp, device)
+    def load(cls, taco_pt: str, wavenet_pt: str, hp, device, wavenet_step=None
+             ) -> 'StreamingSynthesizer':
+        """From the files `convert.save_checkpoint` writes; the WaveNet also from a
+        trainer's checkpoint directory at `wavenet_step` (`convert.load_wavenet`)."""
+        return cls(*load_models(taco_pt, wavenet_pt, hp, device, wavenet_step), hp, device)
 
     def stream(self, text: str, seed: int = 0, chunk_seconds: float = 0.75,
                first_chunk_seconds: float = 0.20, speaker_id: Optional[int] = None

@@ -7,8 +7,8 @@ map.txt, `python -m tacotron2_tpu_torch.synthesize --model WaveNet`) or follows
 Tacotron in memory. The AR loop runs on the device of the conditioning: on a CUDA
 device through the hand-written kernel, on the CPU through its plain PyTorch version;
 teacher forcing and a model without local conditioning, which the JAX package's kernel
-does not take either, run `WaveNet.incremental`; a configuration whose kernel is not
-ported (more classes than MAX_CLASSES) raises. There is no batch tiling; the kernel
+does not take either, run `WaveNet.incremental`; a configuration the kernel does not
+cover (`wavenet_ar.check_supported`) raises. There is no batch tiling; the kernel
 states its own limits. The waveplots of the JAX package are not written.
 """
 
@@ -50,9 +50,10 @@ def generate(model: WaveNet, hp, generator: torch.Generator, c: Optional[Tensor]
              g: Optional[Tensor] = None, synthesis_length: Optional[int] = None,
              targets: Optional[Tensor] = None, return_params: bool = True,
              use_kernel: Optional[bool] = None,
-             weights: Optional[Dict[str, Tensor]] = None) -> Dict[str, Tensor]:
+             weights: Optional[Dict[str, Tensor]] = None,
+             y_eval: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """Autoregressive generation (counterpart of `generate`,
-    `wavenet_trainer.py:171-238`, without its batch tiling and in-kernel NLL).
+    `wavenet_trainer.py:171-238`, without its batch tiling).
 
     Takes the packed-weight AR path (`wavenet_ar.generate_ar`: the kernel on a CUDA
     device, its plain version on the CPU) when the call is free-running with local
@@ -65,9 +66,23 @@ def generate(model: WaveNet, hp, generator: torch.Generator, c: Optional[Tensor]
         g: (B,) speaker ids, used when the model has global conditioning.
         targets: (B, T) audio or class ids for teacher-forced generation.
         weights: `wavenet_ar.pack_params(model, hp)`, when the caller holds them.
-    Returns: dict with 'audio' (B, T) and, when asked for, 'params' (B, T, out)."""
+        y_eval: (B, T') ground-truth class ids (categorical heads, return_params=False):
+            the AR path scores its own logits against them in place, cut or padded
+            with class 0 to the generated length (`wavenet_trainer.py:145-151`), and the
+            result carries 'nll' (B, T), the per-step -log softmax(logits)[y]. This is
+            how a big-vocab model is scored: its (B, T, Q) params are never built.
+    A big-vocab model (`wavenet_ar.is_big_vocab`) draws its in-kernel noise from a seed
+    taken from `generator`, and raises on return_params=True.
+    Returns: dict with 'audio' (B, T) and, when asked for, 'params' (B, T, out) or 'nll'
+        (B, T)."""
     if g is not None and hp.gin_channels <= 0:
         g = None
+    if y_eval is not None:
+        if not wavenet_ar.is_categorical(hp) or return_params or c is None \
+                or targets is not None:
+            raise ValueError('y_eval is for free-running categorical generation with '
+                             'conditioning and return_params=False')
+        use_kernel = True
     if use_kernel is None:
         use_kernel = targets is None and c is not None
     if not use_kernel:
@@ -79,9 +94,18 @@ def generate(model: WaveNet, hp, generator: torch.Generator, c: Optional[Tensor]
         weights = wavenet_ar.pack_params(model, hp)
     g_cond = (wavenet_ar.pack_global(model, hp, model.embed_global(g))
               if g is not None else None)
-    audio, params = wavenet_ar.generate_ar(weights, c_up, noise, hp,
-                                           return_params=return_params, g_cond=g_cond)
-    return dict(audio=audio, params=params) if return_params else dict(audio=audio)
+    kw = dict(seed=wavenet_ar.draw_seed(generator)) if wavenet_ar.is_big_vocab(hp) else {}
+    if y_eval is not None:
+        T = c_up.shape[1]
+        y = torch.zeros(c_up.shape[0], T, dtype=torch.long, device=c_up.device)
+        n = min(T, y_eval.shape[1])
+        y[:, :n] = y_eval[:, :n].to(c_up.device)
+        kw['y_eval'] = y
+    audio, second = wavenet_ar.generate_ar(weights, c_up, noise, hp,
+                                           return_params=return_params, g_cond=g_cond, **kw)
+    if y_eval is not None:
+        return dict(audio=audio, nll=second)
+    return dict(audio=audio, params=second) if return_params else dict(audio=audio)
 
 
 class Synthesizer:

@@ -1,6 +1,8 @@
 """WaveNet vocoder (counterpart of `tacotron2_tpu/models/wavenet/model.py`).
 
-The teacher-forced forward pass runs the whole utterance in parallel. Autoregressive
+The teacher-forced forward pass runs the whole utterance in parallel, for evaluation
+or, with `train=True`, with dropout for training; `compute_wavenet_loss` scores it
+against the audio one step ahead. Autoregressive
 generation runs on packed weights in `ops/wavenet_ar.py` (the kernel and its plain
 version); `incremental` here is the sample-by-sample loop over the unpacked f32
 modules, which shares no packing with the kernel: its oracle, and the path for what
@@ -10,7 +12,7 @@ mu-law and mu-law-quantized (one-hot) input, local conditioning with the SubPixe
 """
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -35,18 +37,20 @@ class WaveNet(nn.Module):
         self.hp = hp
         lps = hp.layers // hp.stacks
         in_channels = 1 if is_scalar_input(hp.input_type) else hp.quantize_channels
-        self.first_conv = Conv1x1(in_channels, hp.residual_channels, hp.use_bias)
+        wn = hp.wavenet_weight_normalization
+        self.first_conv = Conv1x1(in_channels, hp.residual_channels, hp.use_bias, wn)
         self.residual_layers = nn.ModuleList(
             ResidualConv1DGLU(hp.residual_channels, hp.gate_channels, hp.kernel_size,
                               hp.skip_out_channels, hp.cin_channels, 2 ** (i % lps),
-                              hp.use_bias, hp.residual_legacy, hp.gin_channels)
+                              hp.use_bias, hp.residual_legacy, hp.gin_channels,
+                              hp.wavenet_dropout, wn)
             for i in range(hp.layers))
-        self.skip_conv1 = Conv1x1(hp.skip_out_channels, hp.skip_out_channels, hp.use_bias)
-        self.skip_conv2 = Conv1x1(hp.skip_out_channels, hp.out_channels, hp.use_bias)
+        self.skip_conv1 = Conv1x1(hp.skip_out_channels, hp.skip_out_channels, hp.use_bias, wn)
+        self.skip_conv2 = Conv1x1(hp.skip_out_channels, hp.out_channels, hp.use_bias, wn)
         self.gc_embedding = (Embedding(hp.n_speakers, hp.gin_channels, 0.1)
                              if hp.gin_channels > 0 and hp.use_speaker_embedding else None)
         self.upsample = (UpsampleNetwork(hp.upsample_scales, hp.freq_axis_kernel_size,
-                                         hp.upsample_type)
+                                         hp.upsample_type, wn)
                          if hp.cin_channels > 0 else None)
 
     def embed_global(self, g: Optional[Tensor]) -> Optional[Tensor]:
@@ -79,14 +83,21 @@ class WaveNet(nn.Module):
         return self.skip_conv2(torch.relu(self.skip_conv1(torch.relu(skips))))
 
     def forward(self, x: Tensor, c: Optional[Tensor] = None, g: Optional[Tensor] = None,
-                c_is_upsampled: bool = False) -> Tensor:
+                c_is_upsampled: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Sequence[Tensor]] = None) -> Tensor:
         """Teacher-forced parallel pass.
 
         Args:
             x: (B, T, in_channels) network input (`encode_input` of the audio, one
-                step behind its target).
+                step behind its target); for one-hot input also the (B, T) class ids
+                themselves (an integer tensor), which the first conv looks up without
+                building the (B, T, Q) one-hot tensor.
             c: (B, Tc, cin) mel conditioning, or (B, T, cin) if c_is_upsampled.
             g: (B,) speaker ids or (B, gin) embeddings.
+            train: apply dropout to every layer's input (hp.wavenet_dropout), the keep
+                masks drawn from `generator` (on x's device) or given as
+                `dropout_masks`, one bool (B, T, R) tensor a layer.
         Returns: (B, T, out_channels) distribution params.
         """
         B, T = x.shape[0], x.shape[1]
@@ -99,8 +110,9 @@ class WaveNet(nn.Module):
         g_seq = g_emb[:, None, :].expand(B, T, -1) if g_emb is not None else None
         h = self.first_conv(x)
         skips = None
-        for layer in self.residual_layers:
-            h, s = layer(h, c, g_seq)
+        for i, layer in enumerate(self.residual_layers):
+            h, s = layer(h, c, g_seq, train, generator,
+                         dropout_masks[i] if dropout_masks is not None else None)
             skips = self._skip_sum(skips, s)
         return self._head(skips)
 
@@ -188,3 +200,18 @@ class WaveNet(nn.Module):
             params[:, t] = params_t
             prev = sample
         return dict(audio=audio, params=params)
+
+
+def compute_wavenet_loss(hp, y_hat: Tensor, y: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """One-sample-shifted NLL (counterpart of `compute_wavenet_loss`,
+    `model.py:295-308`): the prediction at t scores target t+1. y_hat (B, T, out); y
+    (B, T) audio or class ids; mask (B, T), shifted with the targets."""
+    y_hat_s, y_s = y_hat[:, :-1], y[:, 1:]
+    mask_s = mask[:, 1:] if mask is not None else None
+    if is_mulaw_quantize(hp.input_type):
+        return dist.masked_cross_entropy_loss(y_hat_s, y_s, mask_s)
+    if hp.out_channels == 2:
+        return dist.gaussian_mle_loss(y_hat_s, y_s, hp.quantize_channels,
+                                      hp.log_scale_min_gauss, hp.cdf_loss, mask_s)
+    return dist.discretized_mix_logistic_loss(y_hat_s, y_s, hp.quantize_channels,
+                                              hp.log_scale_min, mask_s)

@@ -1,9 +1,14 @@
 """WaveNet building blocks, (B, T, C) channels-last at every public boundary
 (counterpart of `tacotron2_tpu/models/wavenet/modules.py`).
 
-Inference only: weight normalization is folded into plain weights by `convert.py`, and
-the upsampler covers the SubPixel variant (the default) and the 2D transpose-conv
-variant (the paper profile).
+Weight normalization (`weight_normalization=True`) makes every conv's weight the
+parametrization g * v / sqrt(sum(v^2) + 1e-8), the sum over every axis but the output
+one, with g and v both trained (`modules.py:25-32`): `module.weight` is then the
+effective weight wherever it is read (the forward pass, `ops/wavenet_ar.pack_params`),
+`module.parametrizations.weight.original` is v and `module.parametrizations.weight[0].g`
+is g. Inference checkpoints may instead carry the folded weight (`convert.py`). The
+upsampler covers the SubPixel variant (the default) and the 2D transpose-conv variant
+(the paper profile).
 """
 
 import math
@@ -12,19 +17,68 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+from torch.nn.utils import parametrize
+
+
+class WeightNorm(nn.Module):
+    """The parametrization weight = g * v / sqrt(sum(v^2) + 1e-8), one g for each output
+    channel (axis `out_dim` of v), the sum over every other axis. The 1e-8 inside the
+    root is the JAX package's (`modules.py:31`); `torch.nn.utils.parametrizations.
+    weight_norm` has none, so this is written out."""
+
+    def __init__(self, features: int, out_dim: int = 0):
+        super().__init__()
+        self.out_dim = out_dim
+        self.g = nn.Parameter(torch.ones(features))
+
+    def forward(self, v: Tensor) -> Tensor:
+        dims = [d for d in range(v.dim()) if d != self.out_dim]
+        shape = [1] * v.dim()
+        shape[self.out_dim] = -1
+        norm = torch.sqrt(v.square().sum(dims, keepdim=True) + 1e-8)
+        return self.g.view(shape) * v / norm
+
+
+def weight_normalize(module: nn.Module, out_dim: int = 0) -> nn.Module:
+    """Register WeightNorm on `module.weight` (v keeps the weight's current value, g
+    starts at 1, as the flax modules' `wn_g`). Returns `module`."""
+    parametrize.register_parametrization(
+        module, 'weight', WeightNorm(module.weight.shape[out_dim], out_dim), unsafe=True)
+    return module
+
+
+def is_weight_normalized(module: nn.Module) -> bool:
+    return parametrize.is_parametrized(module, 'weight')
 
 
 class Conv1x1(nn.Linear):
-    """Pointwise conv == a dense layer over the channel axis of (B, T, C)."""
+    """Pointwise conv == a dense layer over the channel axis of (B, T, C). Class ids
+    (an integer tensor) in place of their one-hot rows select the weight's columns:
+    one_hot(ids) @ W.T adds zeros to one term, so the lookup is the same arithmetic
+    without the (B, T, Q) one-hot tensor."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 weight_normalization: bool = False):
+        super().__init__(in_features, out_features, bias)
+        if weight_normalization:
+            weight_normalize(self)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.is_floating_point():
+            return super().forward(x)
+        y = F.embedding(x, self.weight.t())
+        return y + self.bias if self.bias is not None else y
 
 
 class CausalConv1D(nn.Conv1d):
     """Left-padded dilated conv over (B, T, C); weight (out, in, kernel_size)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 dilation: int = 1, bias: bool = True):
+                 dilation: int = 1, bias: bool = True, weight_normalization: bool = False):
         super().__init__(in_channels, out_channels, kernel_size, dilation=dilation,
                          bias=bias)
+        if weight_normalization:
+            weight_normalize(self)
 
     def forward(self, x: Tensor) -> Tensor:
         pad = (self.kernel_size[0] - 1) * self.dilation[0]
@@ -34,22 +88,35 @@ class CausalConv1D(nn.Conv1d):
 
 class ResidualConv1DGLU(nn.Module):
     """Dilated causal conv + GLU + conditioning 1x1s (local `conv1x1c`, global
-    `conv1x1g`) + residual/skip 1x1s."""
+    `conv1x1g`) + residual/skip 1x1s; in training, dropout on the layer's input
+    (`modules.py:178-190`)."""
 
     def __init__(self, residual_channels: int, gate_channels: int, kernel_size: int,
                  skip_out_channels: int, cin_channels: int = -1, dilation: int = 1,
-                 bias: bool = True, residual_legacy: bool = True, gin_channels: int = -1):
+                 bias: bool = True, residual_legacy: bool = True, gin_channels: int = -1,
+                 dropout: float = 0.05, weight_normalization: bool = False):
         super().__init__()
         self.residual_legacy = residual_legacy
+        self.dropout = dropout
+        wn = weight_normalization
         self.conv = CausalConv1D(residual_channels, gate_channels, kernel_size,
-                                 dilation, bias)
-        self.conv1x1c = (Conv1x1(cin_channels, gate_channels, bias)
+                                 dilation, bias, wn)
+        self.conv1x1c = (Conv1x1(cin_channels, gate_channels, bias, wn)
                          if cin_channels > 0 else None)
-        self.conv1x1g = (Conv1x1(gin_channels, gate_channels, bias)
+        self.conv1x1g = (Conv1x1(gin_channels, gate_channels, bias, wn)
                          if gin_channels > 0 else None)
         half = gate_channels // 2
-        self.conv1x1_out = Conv1x1(half, residual_channels, bias)
-        self.conv1x1_skip = Conv1x1(half, skip_out_channels, bias)
+        self.conv1x1_out = Conv1x1(half, residual_channels, bias, wn)
+        self.conv1x1_skip = Conv1x1(half, skip_out_channels, bias, wn)
+
+    def dropout_mask(self, shape, generator: torch.Generator) -> Tensor:
+        """A keep mask (bool) drawn as the JAX module draws it: 16 random bits an
+        element, kept where they fall below round(keep * 65536), at most 65535, so the
+        keep probability is a multiple of 1/65536."""
+        threshold = min(65535, round((1.0 - self.dropout) * 65536.0))
+        bits = torch.randint(0, 65536, tuple(shape), generator=generator,
+                             device=generator.device)
+        return bits < threshold
 
     def _outputs(self, conv_out: Tensor, c_proj: Optional[Tensor], g_proj: Optional[Tensor],
                  residual: Tensor) -> Tuple[Tensor, Tensor]:
@@ -67,12 +134,23 @@ class ResidualConv1DGLU(nn.Module):
             out = out * math.sqrt(0.5)
         return out, s
 
-    def forward(self, x: Tensor, c: Optional[Tensor], g: Optional[Tensor] = None
-                ) -> Tuple[Tensor, Tensor]:
-        """x (B, T, R); c (B, T, cin) or None; g (B, T, gin) or None. Returns
+    def forward(self, x: Tensor, c: Optional[Tensor], g: Optional[Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        """x (B, T, R); c (B, T, cin) or None; g (B, T, gin) or None. With `train` and
+        dropout > 0 the conv's input (not the residual) keeps the elements of `mask`
+        (bool, x's shape; drawn from `generator` when None), scaled by 1 / keep, the
+        nominal keep probability as in the JAX module (`modules.py:187`). Returns
         (x_out (B, T, R), skip (B, T, S))."""
+        residual = x
+        if train and self.dropout > 0:
+            if mask is None:
+                if generator is None:
+                    raise ValueError('dropout in training needs a generator or a mask')
+                mask = self.dropout_mask(x.shape, generator)
+            x = torch.where(mask, x / (1.0 - self.dropout), torch.zeros((), device=x.device))
         return self._outputs(self.conv(x), self.conv1x1c(c) if c is not None else None,
-                             self.conv1x1g(g) if g is not None else None, x)
+                             self.conv1x1g(g) if g is not None else None, residual)
 
     def incremental_step(self, taps: Tensor, c_proj: Optional[Tensor],
                          g_proj: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
@@ -110,7 +188,7 @@ class UpsampleNetwork(nn.Module):
     unpadded and crops the frequency axis to lax's padding."""
 
     def __init__(self, upsample_scales: Sequence[int], freq_axis_kernel_size: int = 3,
-                 upsample_type: str = 'SubPixel'):
+                 upsample_type: str = 'SubPixel', weight_normalization: bool = False):
         super().__init__()
         if upsample_type not in ('SubPixel', '2D'):
             raise NotImplementedError(f'upsample_type={upsample_type!r}: SubPixel and 2D '
@@ -124,10 +202,19 @@ class UpsampleNetwork(nn.Module):
         else:
             self.convs = nn.ModuleList(nn.Conv2d(1, s, (fk, 3), padding='same')
                                        for s in self.scales)
+        if weight_normalization:  # ConvTranspose2d's weight is (in, out, kh, kw)
+            for conv in self.convs:
+                weight_normalize(conv, out_dim=1 if upsample_type == '2D' else 0)
         # lax's SAME transpose padding in frequency (stride 1) is ceil((fk-1)/2) before
         # and floor((fk-1)/2) after; the unpadded ConvTranspose2d pads fk-1 on each
         # side, so the rest is cropped
         self._crop = ((fk - 1) // 2, fk // 2)
+
+    def crop(self, y: Tensor) -> Tensor:
+        """A 2D layer's output cut to lax's SAME padding; a SubPixel layer's as it is."""
+        if self.upsample_type != '2D':
+            return y
+        return y[:, :, self._crop[0]:y.shape[2] - self._crop[1]]
 
     def forward(self, c: Tensor) -> Tensor:
         B = c.shape[0]
@@ -135,7 +222,7 @@ class UpsampleNetwork(nn.Module):
         for conv, s in zip(self.convs, self.scales):
             y = conv(x)
             if self.upsample_type == '2D':                 # (B, 1, H + fk - 1, W*s)
-                x = torch.relu(y[:, :, self._crop[0]:y.shape[2] - self._crop[1]])
+                x = torch.relu(self.crop(y))
             else:                                          # (B, s, H, W)
                 _, _, H, W = y.shape
                 x = torch.relu(y.permute(0, 2, 3, 1).reshape(B, 1, H, W * s))

@@ -5,19 +5,23 @@ Counterpart of `tacotron2_tpu/ops/pallas/wavenet_ar.py` for these variants: scal
 input (raw or mu-law) with a Gaussian head (`out_channels == 2`) or a mixture of nr
 logistics (MoL, `out_channels == 3*nr`: the paper profile's 30); one-hot input
 (`mulaw-quantize`) with a categorical head over `out_channels == quantize_channels`
-classes, up to MAX_CLASSES; the fused critical path (`wavenet_fused_ar=True`: layer
+classes, up to MAX_CLASSES, the big-vocab variant past SMALL_VOCAB (`is_big_vocab`); the
+in-kernel natural-eval NLL of both categorical heads (`y_eval`); the fused critical path (`wavenet_fused_ar=True`: layer
 l-1's residual 1x1 folded into layer l's current-tap conv, one serial matmul + GLU per
 layer) or the plain chain (two serial matmuls per layer); local conditioning, with or
 without a global conditioning bias `g_cond` (`pack_global`); a fresh call or a
-streamed continuation (`state_in` / `return_state`). Anything else raises: the
-big-vocab categorical (more than MAX_CLASSES classes, noise drawn inside the kernel)
-and the in-kernel evaluation NLL are not ported.
+streamed continuation (`state_in` / `return_state`). Anything else raises.
 
 Noise. The Gaussian head takes (B, T) standard-normal noise. The MoL head takes
 (B, T, nr+1): column 0 logistic noise for the sample, columns 1..nr Gumbel noise for
 the choice of mixture. The categorical head takes (B, T, Q) Gumbel noise, one value a
 class (`make_noise`). Its audio is class ids (int64); `ops/mulaw.inv_mulaw_quantize`
-decodes them.
+decodes them. The big-vocab head (more than SMALL_VOCAB classes) takes no noise tensor,
+which would be (B, T, 65536): it draws its Gumbel noise from `seed`, one value for each
+(sequence, absolute step, class) by Philox4x32-10 (`philox_gumbel`, the same bits in
+the kernel and in the plain version), or none with `greedy`. Its first conv and last
+head layer are packed in bf16, and it returns no params: `y_eval` asks for the per-step
+NLL of given class ids instead.
 
 `generate_ar` dispatches on the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs `generate_ar_reference`.
@@ -33,7 +37,7 @@ multiples of anything: two state-carried calls give exactly the audio of one.
 import collections
 import ctypes
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +48,11 @@ from ..utils import round_up
 from .mulaw import is_mulaw_quantize
 
 SQRT_HALF = float(math.sqrt(0.5))
-# most classes of the categorical head: its noise and params are (B, T, Q) tensors, and
-# the kernel gives each class a thread of its 1024
-MAX_CLASSES = 1024
+# most classes of the small categorical head: its noise and params are (B, T, Q)
+# tensors, and the kernel gives each class a thread of its 1024; past that the big-vocab
+# head, up to MAX_CLASSES (16-bit audio)
+SMALL_VOCAB = 1024
+MAX_CLASSES = 65536
 
 # kernel launches made by generate_ar (the plain version never counts), in all and by
 # instantiation (`variant`)
@@ -60,7 +66,7 @@ _PACKED_LAYOUTS: Dict[Tuple[int, ...], Dict[str, Tuple[torch.dtype, Tuple[int, .
 def _layout_key(hp) -> Tuple[int, ...]:
     return (hp.layers, hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
             hp.kernel_size, hp.cin_channels, hp.out_channels, int(is_categorical(hp)),
-            int(hp.wavenet_fused_ar))
+            int(is_big_vocab(hp)), int(hp.wavenet_fused_ar))
 
 
 def check_supported(hp) -> None:
@@ -71,9 +77,7 @@ def check_supported(hp) -> None:
             problems.append(f'out_channels={hp.out_channels} != quantize_channels='
                             f'{hp.quantize_channels} (one logit a class)')
         if hp.out_channels > MAX_CLASSES:
-            problems.append(f'big-vocab categorical (out_channels={hp.out_channels} > '
-                            f'{MAX_CLASSES}: the variant that draws its noise inside '
-                            'the kernel is not ported)')
+            problems.append(f'out_channels={hp.out_channels} > {MAX_CLASSES} classes')
     elif hp.out_channels != 2 and (hp.out_channels < 3 or hp.out_channels % 3):
         problems.append(f'out_channels={hp.out_channels} (Gaussian, 2, or MoL, a '
                         'multiple of 3)')
@@ -92,22 +96,32 @@ def is_categorical(hp) -> bool:
     return is_mulaw_quantize(hp.input_type)
 
 
+def is_big_vocab(hp) -> bool:
+    """Whether the categorical head has too many classes to take pre-sampled noise and
+    to return params (counterpart of `is_big_vocab`, `wavenet_ar.py:67-69`)."""
+    return is_categorical(hp) and hp.out_channels > SMALL_VOCAB
+
+
 def is_mol(hp) -> bool:
     """Whether the head is the mixture of logistics (scalar input, out_channels =
     3*nr), not the Gaussian (2) or the categorical."""
     return not is_categorical(hp) and hp.out_channels != 2
 
 
-def variant(hp, has_g: bool = False) -> str:
+def variant(hp, has_g: bool = False, nll: bool = False) -> str:
     """Name of the kernel instantiation that runs `hp`: head-chain, '+g' with a global
-    conditioning bias."""
-    head = 'categorical' if is_categorical(hp) else 'mol' if is_mol(hp) else 'gaussian'
-    return f"{head}-{'fused' if hp.wavenet_fused_ar else 'plain'}{'+g' if has_g else ''}"
+    conditioning bias, '+nll' with the in-kernel NLL."""
+    head = ('categorical_big' if is_big_vocab(hp) else 'categorical' if is_categorical(hp)
+            else 'mol' if is_mol(hp) else 'gaussian')
+    return (f"{head}-{'fused' if hp.wavenet_fused_ar else 'plain'}{'+g' if has_g else ''}"
+            f"{'+nll' if nll else ''}")
 
 
 def noise_shape(hp, B: int, T: int) -> Tuple[int, ...]:
     """(B, T) for the Gaussian head, (B, T, nr+1) for MoL, (B, T, Q) for the
-    categorical."""
+    categorical, (B, T, 1) for the big-vocab head (a placeholder: it reads no noise)."""
+    if is_big_vocab(hp):
+        return (B, T, 1)
     if is_categorical(hp):
         return (B, T, hp.out_channels)
     return (B, T, hp.out_channels // 3 + 1) if is_mol(hp) else (B, T)
@@ -158,16 +172,24 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
     (zero for layer 0), `w_cond` (cin, L*G) every layer's conditioning 1x1. Weights
     are bf16 and biases f32, except the first conv (`first_w` (1, R), or (Q, R) for
     one-hot input) and the last head layer (`w_s2` (S, out_channels): 2, 30 or Q
-    columns), which stay f32 as in the JAX packing up to MAX_CLASSES. `w_cond` keeps
-    cin rows (no lane padding). With wavenet_fused_ar=False there is no fold, and
-    `w_fused` and `b_fused` are left out (the JAX packing ships stubs there)."""
+    columns), which stay f32 as in the JAX packing up to SMALL_VOCAB classes; past that
+    both are bf16 (`wavenet_ar.py:107-110, 163`) and `w_s2` is (S, round_up(Q, 8)), its
+    columns zero-padded so that every row starts on a 16-byte boundary. The weights are
+    the modules' effective ones: a weight-normalized module's `.weight` is g * v / ||v||.
+    `w_cond` keeps cin rows (no lane padding). With wavenet_fused_ar=False there is no fold, and
+    `w_fused` and `b_fused` are left out (the JAX packing ships stubs there).
+    What is already f32 and contiguous (the biases of the first conv and the head) is
+    the model's own tensor, not a copy: pack again after the model's weights change."""
     check_supported(hp)
     L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
     S, k = hp.skip_out_channels, hp.kernel_size
     past = (k - 1) * R
     w = {}
     fc = model.first_conv
+    big = is_big_vocab(hp)
     w['first_w'] = fc.weight.detach().float().t().contiguous()        # (1 or Q, R)
+    if big:
+        w['first_w'] = w['first_w'].bfloat16()
     w['first_b'] = _bias(fc, R)
 
     w_tap, b_tap, w_os, b_os, w_c, b_c = [], [], [], [], [], []
@@ -203,6 +225,9 @@ def pack_params(model: WaveNet, hp) -> Dict[str, Tensor]:
     w['w_s1'] = model.skip_conv1.weight.detach().float().t().bfloat16().contiguous()
     w['b_s1'] = _bias(model.skip_conv1, S)
     w['w_s2'] = model.skip_conv2.weight.detach().float().t().contiguous()  # (S, out) f32
+    if big:
+        pad = round_up(hp.out_channels, 8) - hp.out_channels
+        w['w_s2'] = F.pad(w['w_s2'], (0, pad)).bfloat16().contiguous()
     w['b_s2'] = _bias(model.skip_conv2, hp.out_channels)
     _PACKED_LAYOUTS[_layout_key(hp)] = {n: (t.dtype, tuple(t.shape)) for n, t in w.items()}
     return w
@@ -228,9 +253,13 @@ def make_noise(hp, generator: torch.Generator, B: int, T: int,
     noise -log(-log u), u uniform in [1e-5, 1-1e-5]; for the categorical head (B, T, Q)
     Gumbel noise, u uniform in [1e-9, 1 - 2**-24]. The JAX package asks for u up to
     1 - 1e-9 there, which is 1.0 in f32 and would give an infinite Gumbel value: the
-    upper end is the largest f32 below 1 instead."""
+    upper end is the largest f32 below 1 instead. The big-vocab head reads no noise:
+    a (B, T, 1) placeholder of zeros (`wavenet_ar.py:718-720`); give `generate_ar` a seed
+    (`draw_seed`)."""
     dev = generator.device
-    if is_categorical(hp):
+    if is_big_vocab(hp):
+        eps = torch.zeros(B, T, 1, device=dev)
+    elif is_categorical(hp):
         u = torch.rand(B, T, hp.out_channels, generator=generator, device=dev)
         eps = -torch.log(-torch.log(u.clamp_(1e-9, 1.0 - 2.0 ** -24)))
     elif not is_mol(hp):
@@ -242,6 +271,64 @@ def make_noise(hp, generator: torch.Generator, B: int, T: int,
                                          device=dev)
         eps = torch.cat([torch.log(u) - torch.log(1.0 - u), -torch.log(-torch.log(gu))], -1)
     return eps.to(device) if device is not None else eps
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """A seed in [0, 2**63) for the big-vocab head's noise, drawn from `generator`."""
+    return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=generator,
+                             device=generator.device).item())
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # Philox4x32's multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # ... and the key's increments (Weyl sequence)
+_U32 = 0xFFFFFFFF
+
+
+def _mul_hi_lo(m: int, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """(high, low) 32 bits of the product of the 32-bit constant m and the 32-bit
+    values x (int64 tensors): through 16-bit halves of x, so that nothing passes 2**63."""
+    lo16, hi16 = (x & 0xFFFF) * m, (x >> 16) * m
+    return (hi16 + (lo16 >> 16)) >> 16, (((hi16 & 0xFFFF) << 16) + (lo16 & _U32)) & _U32
+
+
+def philox4x32_10(counter: Sequence[Tensor], key: Sequence[int]) -> List[Tensor]:
+    """Philox4x32 with 10 rounds (Salmon et al., "Parallel random numbers: as easy as
+    1, 2, 3", 2011) in integer tensor ops: `counter` four int64 tensors of 32-bit values
+    that broadcast together, `key` two 32-bit ints; returns the four output words as
+    int64 tensors. The kernel (`csrc/wavenet_ar.cu`) holds the same function."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mul_hi_lo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mul_hi_lo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return [c0, c1, c2, c3]
+
+
+def gumbel_from_bits(bits: Tensor) -> Tensor:
+    """32 random bits (int64 tensor) -> Gumbel noise in f32, by the TPU kernel's
+    transform (`wavenet_ar.py:433-440`): the top 23 bits as the mantissa of a float in
+    [1, 2), minus 1, is u in [0, 1); then -log(-log(u + 1e-9) + 1e-9), finite at both
+    ends (-3.03 at u = 0, 15.9 at the largest u)."""
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return -torch.log(-torch.log(u + 1e-9) + 1e-9)
+
+
+def philox_gumbel(seed: int, B: int, t_abs: int, Q: int, device) -> Tensor:
+    """The big-vocab head's Gumbel noise of absolute step t_abs, (B, Q) f32: for
+    sequence b and class c, word c % 4 of Philox4x32-10 with the 64-bit `seed` as its
+    key and (c // 4, t_abs low and high 32 bits, b) as its counter. A function of
+    (seed, sequence, absolute step, class) alone, so a state-carried stream that keeps
+    its seed draws the noise of one call."""
+    n4 = -(-Q // 4)
+    counter = (torch.arange(n4, device=device)[None, :],
+               torch.full((1, 1), t_abs & _U32, device=device),
+               torch.full((1, 1), (t_abs >> 32) & _U32, device=device),
+               torch.arange(B, device=device)[:, None])
+    words = philox4x32_10(counter, (seed & _U32, (seed >> 32) & _U32))
+    bits = torch.stack([w.expand(B, n4) for w in words], dim=-1).reshape(B, 4 * n4)
+    return gumbel_from_bits(bits[:, :Q])
 
 
 def mol_sample(params: Tensor, noise: Tensor, hp) -> Tensor:
@@ -297,7 +384,9 @@ def _check_state(state_in, hp, B: int, device) -> int:
 def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                           targets: Optional[Tensor] = None, return_params: bool = True,
                           state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
-                          return_state: bool = False, g_cond: Optional[Tensor] = None):
+                          return_state: bool = False, g_cond: Optional[Tensor] = None,
+                          seed: Optional[int] = None, greedy: bool = False,
+                          y_eval: Optional[Tensor] = None, return_drawn: bool = False):
     """Plain PyTorch AR generation with the kernel's arithmetic.
 
     Mirrors the step of `wavenet_ar.py:303-465` on the packed weights, the fused
@@ -309,7 +398,12 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     The categorical head starts from the f32 first-conv row of class Q // 2
     (`:262-265`) and feeds back bf16(one-hot) @ bf16(first_w) + first_b (`:441-448`),
     the one-hot of every class that ties the largest logit + noise divided by their
-    count; the class id emitted is the first of them.
+    count; the class id emitted is the first of them. The big-vocab head reads both
+    rows from its bf16 first_w, rounds the head's input to bf16 before the bf16 w_s2
+    (`:414`), and adds `philox_gumbel(seed, ...)` of the absolute step, or nothing with
+    `greedy`; it returns no params. With `y_eval` (B, T) class ids, either categorical
+    head returns, in place of the params, the per-step NLL logsumexp(logits) -
+    logits[y_eval] of its un-noised logits (`:470-481`), (B, T) f32.
 
     Args:
         weights: `pack_params` output.
@@ -323,9 +417,13 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
             continue from; None starts fresh (zero rings, h = first_b, t_base 0). The
             state is consumed: its rings are updated in place and returned.
         return_state: also return the state after the last step.
-    Returns: (audio (B, T), params (B, T, out_channels) or None[, state]); audio
-        holds the fed-back samples, floats or int64 class ids.
+        return_drawn: with `targets`, return as audio what the head drew at each step
+            (the targets are still what is fed back): how a head that returns no
+            params is compared on an identical history.
+    Returns: (audio (B, T), params (B, T, out_channels) or nll (B, T) or None
+        [, state]); audio holds the fed-back samples, floats or int64 class ids.
     """
+    _check_call(hp, return_params, seed, greedy, y_eval)
     B, T, _ = c_up.shape
     L, R, G = hp.layers, hp.residual_channels, hp.gate_channels
     S, k = hp.skip_out_channels, hp.kernel_size
@@ -336,14 +434,16 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     dils = dilations(hp)
     layout = ring_layout(hp)
     wins = [win for _, win in layout]
-    categorical = is_categorical(hp)
+    categorical, big = is_categorical(hp), is_big_vocab(hp)
     if categorical:
         Q = hp.out_channels
         first_wb = _bf(W['first_w'])
+        W['w_s2'] = W['w_s2'][:, :Q]  # the big-vocab packing pads the columns
+    nll = torch.empty(B, T, device=dev) if y_eval is not None else None
     if state_in is None:
         rings = torch.zeros(B, ring_floats(hp), device=dev)
         h = W['first_b'].expand(B, R)
-        if categorical:  # silence is class Q // 2; its row is read in f32
+        if categorical:  # silence is class Q // 2; its row is read in f32 (big: bf16)
             h = W['first_w'][Q // 2] + h
         t_base = 0
     else:
@@ -421,26 +521,72 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
         skips = layer_stack(h, cond, t)
         o = torch.relu(skips)
         o = torch.relu(_bf(o) @ W['w_s1'] + W['b_s1'])
-        params_t = o @ W['w_s2'] + W['b_s2']
-        x = sample(params_t, noise[:, t], hp)
+        params_t = (_bf(o) if big else o) @ W['w_s2'] + W['b_s2']
+        if big:
+            noise_t = 0.0 if greedy else philox_gumbel(seed, B, t_base + t, Q, dev)
+            x = (params_t + noise_t).argmax(-1)
+        else:
+            noise_t = noise[:, t]
+            x = sample(params_t, noise_t, hp)
+        if nll is not None:
+            nll[:, t] = torch.logsumexp(params_t, -1) \
+                - params_t.gather(-1, y_eval[:, t, None].long())[:, 0]
+        drawn = x
         if targets is not None:
             x = targets[:, t].to(x.dtype)
-        audio[:, t] = x
+        audio[:, t] = drawn if return_drawn else x
         if params is not None:
             params[:, t] = params_t
         if categorical:
             if targets is not None:
                 onehot = F.one_hot(x, Q).float()
             else:  # every class that ties the maximum, 1/count each
-                scores = params_t + noise[:, t]
+                scores = params_t + noise_t
                 onehot = (scores >= scores.max(-1, keepdim=True).values).float()
                 onehot = onehot / onehot.sum(-1, keepdim=True)
             h = _bf(onehot) @ first_wb + W['first_b']
         else:
             h = x[:, None] * W['first_w'][0] + W['first_b']
+    second = nll if nll is not None else params
     if return_state:
-        return audio, params, (rings, h.contiguous(), t_base + T)
-    return audio, params
+        return audio, second, (rings, h.contiguous(), t_base + T)
+    return audio, second
+
+
+def _check_call(hp, return_params: bool, seed: Optional[int], greedy: bool,
+                y_eval: Optional[Tensor]) -> None:
+    """The rules of `generate_ar`'s options (the asserts of `wavenet_ar.py:559-574`)."""
+    if y_eval is not None:
+        if not is_categorical(hp):
+            raise ValueError('y_eval (the in-kernel NLL) is for the categorical head')
+        if return_params:
+            raise ValueError('y_eval replaces the params: pass return_params=False')
+    if is_big_vocab(hp):
+        if return_params:
+            raise ValueError('the big-vocab categorical head returns no params (a '
+                             '(B, T, Q) tensor): pass return_params=False, and y_eval '
+                             'for the NLL')
+        if not greedy and seed is None:
+            raise ValueError('the big-vocab categorical head ignores `noise` and draws '
+                             'its own from a seed: pass seed, or greedy=True')
+        if seed is not None and not 0 <= int(seed) < 2 ** 64:
+            raise ValueError(f'seed must be in [0, 2**64), got {seed}')
+    elif greedy:
+        raise ValueError('greedy=True is for the big-vocab categorical head only')
+
+
+def _check_y_eval(y_eval: Tensor, hp, B: int, T: int, device) -> Tensor:
+    """y_eval as the kernel reads it: (B, T) int32 class ids in [0, Q), contiguous."""
+    if y_eval.device != device:
+        raise ValueError(f'y_eval is on {y_eval.device}, expected {device}')
+    if tuple(y_eval.shape) != (B, T) or y_eval.is_floating_point():
+        raise ValueError(f'y_eval must be (B, T) = {(B, T)} class ids, got '
+                         f'{tuple(y_eval.shape)} {y_eval.dtype}')
+    lo, hi = int(y_eval.min()), int(y_eval.max())
+    if lo < 0 or hi >= hp.out_channels:
+        raise ValueError(f'y_eval holds class ids in [{lo}, {hi}], outside '
+                         f'[0, {hp.out_channels})')
+    return y_eval.to(torch.int32).contiguous()
 
 
 # the packed weights in the order of the kernel's pointer arguments (w_fused and
@@ -463,8 +609,8 @@ def _kernel_fn(library: Optional[ctypes.CDLL] = None):
     source is given; its head and fused arguments pick the instantiation."""
     from ._build import load_library
     fn = (library or load_library()).wavenet_ar
-    fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 15
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_longlong] * 2 + [ctypes.c_ulonglong]
+                   + [ctypes.c_int] * 17 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -489,30 +635,44 @@ def _check_tensor(name: str, t: Tensor, dtype, shape, device, align: int = 0) ->
 def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                 return_params: bool = True,
                 state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
-                return_state: bool = False, g_cond: Optional[Tensor] = None):
+                return_state: bool = False, g_cond: Optional[Tensor] = None,
+                seed: Optional[int] = None, greedy: bool = False,
+                y_eval: Optional[Tensor] = None):
     """AR generation (counterpart of `generate_ar`, `wavenet_ar.py:515-712`).
 
     On a CUDA tensor this launches the hand-written kernel once for all T steps; on a
     CPU tensor it runs `generate_ar_reference`. The kernel's limits: one block of 1024
     threads per sequence; R a multiple of 8; G, R+S and S multiples of 8 whose
     eighths divide 1024; at most MAX_CLASSES classes; f32 `c_up` (B, T, cin), `noise`
-    (`noise_shape`: (B, T) Gaussian, (B, T, nr+1) MoL, (B, T, Q) categorical) and
-    `g_cond` ((B, L*G) from `pack_global`, or None), contiguous.
+    (`noise_shape`: (B, T) Gaussian, (B, T, nr+1) MoL, (B, T, Q) categorical, the
+    (B, T, 1) placeholder for the big-vocab head) and `g_cond` ((B, L*G) from
+    `pack_global`, or None), contiguous. Any batch size: a block a sequence (the TPU
+    kernel's cap of 8 at big vocab was its VMEM budget).
+
+    seed / greedy (big-vocab head only, one of them required): the 64-bit key of the
+    in-kernel noise (`philox_gumbel`; keep it over the chunks of a stream), or arg-max
+    without noise. y_eval: (B, T) class ids in [0, Q) (checked: a synchronisation) for a
+    categorical head with return_params=False; the second output is then the per-step
+    NLL (B, T). The rules of `wavenet_ar.py:559-574` raise ValueError here.
 
     state_in / return_state: streaming, as in `generate_ar_reference`. The state
     passed in is consumed: the kernel updates its rings in place (no copy) and
     returns that tensor in the new state. Any T may be streamed; the TPU kernel's
     `T % 128 == 0` rule guarded its slab padding, which this kernel does not have.
 
-    Returns: (audio (B, T), params (B, T, out_channels) or None[, state]); the
-        categorical head's audio is int64 class ids (the kernel writes them as floats).
+    Returns: (audio (B, T), params (B, T, out_channels) or nll (B, T) or None
+        [, state]); the categorical heads' audio is int64 class ids (the kernel writes
+        them as floats).
     """
     global LAUNCHES
     check_supported(hp)
+    _check_call(hp, return_params, seed, greedy, y_eval)
+    if y_eval is not None:
+        y_eval = _check_y_eval(y_eval, hp, c_up.shape[0], c_up.shape[1], c_up.device)
     if c_up.device.type == 'cpu':
         return generate_ar_reference(weights, c_up, noise, hp, return_params=return_params,
                                      state_in=state_in, return_state=return_state,
-                                     g_cond=g_cond)
+                                     g_cond=g_cond, seed=seed, greedy=greedy, y_eval=y_eval)
     if c_up.device.type != 'cuda':
         raise ValueError(f'generate_ar runs on CPU or CUDA tensors, not {c_up.device}')
     device = c_up.device
@@ -542,6 +702,8 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
     audio = torch.empty(B, T, device=device)
     params = torch.empty(B, T, hp.out_channels, device=device) if return_params else None
     h_out = torch.empty(B, hp.residual_channels, device=device) if return_state else None
+    nll = torch.empty(B, T, device=device) if y_eval is not None else None
+    big = is_big_vocab(hp)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(c_up.data_ptr(), noise.data_ptr(),
@@ -551,19 +713,24 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                  rings.data_ptr(), h_in.data_ptr() if h_in is not None else None,
                  h_out.data_ptr() if h_out is not None else None, audio.data_ptr(),
                  params.data_ptr() if params is not None else None,
-                 n_ring, t_base, B, T, cin, hp.layers, hp.layers // hp.stacks,
+                 y_eval.data_ptr() if y_eval is not None else None,
+                 nll.data_ptr() if nll is not None else None,
+                 n_ring, t_base, int(seed or 0), B, T, cin, hp.layers,
+                 hp.layers // hp.stacks,
                  hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
                  hp.kernel_size, hp.out_channels,
-                 2 if is_categorical(hp) else 1 if is_mol(hp) else 0,
+                 3 if big else 2 if is_categorical(hp) else 1 if is_mol(hp) else 0,
                  int(hp.wavenet_fused_ar), int(hp.legacy), int(hp.residual_legacy),
                  int(rounds_conditioning(B)),
+                 weights['w_s2'].shape[1] if big else 0, int(greedy),
                  float(hp.log_scale_min if is_mol(hp) else hp.log_scale_min_gauss), stream)
     if err != 0:
         raise RuntimeError(f'wavenet_ar launch failed: CUDA error {err}')
     LAUNCHES += 1
-    LAUNCHES_BY_VARIANT[variant(hp, g_cond is not None)] += 1
+    LAUNCHES_BY_VARIANT[variant(hp, g_cond is not None, nll is not None)] += 1
     if is_categorical(hp):
         audio = audio.long()
+    second = nll if nll is not None else params
     if return_state:
-        return audio, params, (rings, h_out, t_base + T)
-    return audio, params
+        return audio, second, (rings, h_out, t_base + T)
+    return audio, second

@@ -49,6 +49,11 @@ def build_server(argv: Optional[Sequence[str]] = None) -> TTSServer:
     p.add_argument('--warmup_buckets', type=int, default=1,
                    help="accepted for serve.py's command line and ignored: eager PyTorch "
                         'compiles nothing per text bucket, so one warmup stream serves all')
+    p.add_argument('--wavenet_checkpoint_step', default=None,
+                   help="where the WaveNet checkpoint is a trainer's directory "
+                        "(logs-<name>/wave_pretrained): a step number, 'latest' "
+                        "(default), or 'best' (the step whose natural eval scored "
+                        'best in the eval-history sidecar)')
     p.add_argument('--paper_profile', action='store_true',
                    help='start from the exact-paper hparams profile (reference '
                         'paper_hparams.py swap-in); --hparams applies on top')
@@ -61,7 +66,7 @@ def build_server(argv: Optional[Sequence[str]] = None) -> TTSServer:
     hp = paper_hparams() if args.paper_profile else default_hparams()
     hp.parse(args.hparams)
     synth = StreamingSynthesizer.load(args.taco_checkpoint, args.wave_checkpoint, hp,
-                                      device)
+                                      device, args.wavenet_checkpoint_step)
 
     def stream_fn(text, seed):
         return synth.stream(text, seed=seed, chunk_seconds=args.chunk_seconds,

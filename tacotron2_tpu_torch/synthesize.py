@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .config import default_hparams, paper_hparams
-from .convert import load_checkpoint, load_models
+from .convert import load_models, load_wavenet
 from .inference.streaming import StreamingSynthesizer
 from .inference.tacotron_synthesizer import Synthesizer as TacotronSynthesizer
 from .inference.wavenet_synthesizer import Synthesizer as WaveNetSynthesizer
@@ -147,7 +147,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                         help='Tacotron state_dict written by convert.save_checkpoint '
                              '(required unless --model WaveNet)')
     parser.add_argument('--wavenet_checkpoint', required=True,
-                        help='WaveNet state_dict written by convert.save_checkpoint')
+                        help='WaveNet state_dict written by convert.save_checkpoint, or '
+                             'the checkpoint directory of the port\'s trainer')
+    parser.add_argument('--wavenet_checkpoint_step', default=None,
+                        help="where the WaveNet checkpoint is a trainer's directory "
+                             "(logs-<name>/wave_pretrained): a step number, 'latest' "
+                             "(default), or 'best' (the step whose natural eval scored "
+                             'best in the eval-history sidecar)')
     parser.add_argument('--hparams', default='',
                         help="comma-separated 'name=value' hyperparameter overrides")
     parser.add_argument('--paper_profile', action='store_true',
@@ -180,8 +186,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.model == 'WaveNet':
         if args.mode != 'eval':
             parser.error('stream mode needs both stages (--model Tacotron-2)')
-        wavenet = WaveNet(hp)
-        wavenet.load_state_dict(load_checkpoint(args.wavenet_checkpoint, 'wavenet'))
+        wavenet = load_wavenet(args.wavenet_checkpoint, hp, args.wavenet_checkpoint_step)
         stats = wavenet_synthesize(args, hp, wavenet.to(device).eval())
         print(f'wrote {len(stats["wav_paths"])} wavs and map.txt to {stats["output_dir"]}: '
               f'{stats["audio_seconds"]:.2f} s of audio in {stats["seconds"]:.2f} s')
@@ -189,7 +194,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.tacotron_checkpoint is None:
         parser.error('--tacotron_checkpoint is required with --model Tacotron-2')
     taco, wavenet = load_models(args.tacotron_checkpoint, args.wavenet_checkpoint, hp,
-                                device)
+                                device, args.wavenet_checkpoint_step)
     sentences = get_sentences(args.text_list, hp)
     if args.mode == 'stream':
         stats = stream_synthesize(hp, sentences, taco, wavenet, args.output_dir, device)

@@ -34,6 +34,36 @@ def round_up(x: int, multiple: int) -> int:
     return x if r == 0 else x + multiple - r
 
 
+def round_down(x: int, multiple: int) -> int:
+    return x - (x % multiple)
+
+
+class ValueWindow:
+    """Rolling average over the last `window_size` values."""
+
+    def __init__(self, window_size: int = 100):
+        self._window_size = window_size
+        self._values = []
+
+    def append(self, x: float):
+        self._values = self._values[-(self._window_size - 1):] + [x]
+
+    @property
+    def sum(self):
+        return sum(self._values)
+
+    @property
+    def count(self):
+        return len(self._values)
+
+    @property
+    def average(self):
+        return self.sum / max(1, self.count)
+
+    def reset(self):
+        self._values = []
+
+
 def suppress_stop_tokens(state_dict: Dict[str, Tensor], push: float = -100.0
                          ) -> Dict[str, Tensor]:
     """Push the Tacotron stop-projection bias so stop tokens never fire.

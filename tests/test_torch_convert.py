@@ -86,15 +86,19 @@ def test_wavenet_layouts():
     assert set(sd) == set(WaveNet(hp).state_dict())
 
 
-def test_weight_norm_is_folded():
+def test_weight_norm_is_folded(tmp_path):
     """With weight normalization every kernel becomes g * v / ||v|| (norm over all but
-    the last axis): the plain port model then reproduces the flax forward pass."""
+    the last axis): the plain port model (one built without weight normalization, as
+    `convert.load_wavenet` builds it for a folded checkpoint even where the hparams say
+    the model was trained with it) then reproduces the flax forward pass."""
     hp, p = wavenet_tree(',wavenet_weight_normalization=True', seed=2)
     assert 'wn_g' in p['residual_block_1']['causal_conv']
     sd = convert.wavenet_state_dict(p)
     assert not any('wn_g' in k for k in sd)
-    model = WaveNet(hp)
-    model.load_state_dict(sd)
+    path = str(tmp_path / 'folded.pt')
+    convert.save_checkpoint(path, 'wavenet', sd)
+    model = convert.load_wavenet(path, hp)
+    assert all(torch.equal(v, sd[k]) for k, v in model.state_dict().items())
     rng = np.random.default_rng(3)
     x = rng.uniform(-1, 1, (2, 64, 1)).astype(np.float32)
     c = rng.uniform(0, 1, (2, 2, 80)).astype(np.float32)

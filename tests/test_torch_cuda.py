@@ -131,7 +131,7 @@ def test_kernel_rejects_what_it_does_not_take(device):
         wavenet_ar.generate_ar({k: v.cpu() for k, v in weights.items()}, c_up, noise, hp)
     with pytest.raises(NotImplementedError):  # more classes than the kernel takes
         wavenet_ar.generate_ar(weights, c_up, noise, hp.replace(
-            input_type='mulaw-quantize', quantize_channels=2048, out_channels=2048))
+            input_type='mulaw-quantize', quantize_channels=65537, out_channels=65537))
     with pytest.raises(ValueError):  # g_cond of another batch
         wavenet_ar.generate_ar(weights, c_up, noise, hp,
                                g_cond=torch.zeros(3, hp.layers * hp.gate_channels,
@@ -371,19 +371,161 @@ def test_wavenet_cli_on_the_card(device, extra, speaker_id):
 
 
 def test_big_vocab_raises_on_the_card(device):
-    """More classes than the kernel takes raise on a CUDA model, from the Synthesizer
-    and from generate: the plain PyTorch loop does not stand in for the unported
-    big-vocab kernel."""
+    """A big-vocab model (2,048 classes) runs on a CUDA model through the kernel, from
+    the Synthesizer and from generate, and returns no params; more classes than the
+    kernel takes (65,537) raise from both: the plain PyTorch loop stands in for no
+    kernel."""
     from tacotron2_tpu_torch.inference import wavenet_synthesizer
 
-    hp, model, _, _ = vocoder_model(WAVENET_TINY + ',wavenet_fused_ar=False')
     big = default_hparams()
     big.parse(WAVENET_TINY + ",input_type='mulaw-quantize',quantize_channels=2048,"
               'out_channels=2048')
     big_model = WaveNet(big).cuda().eval()
     c = torch.rand(1, 1, big.num_mels, device='cuda')
     gen = torch.Generator('cuda').manual_seed(0)
-    with pytest.raises(NotImplementedError, match='big-vocab'):
-        wavenet_synthesizer.Synthesizer(big_model, big)
-    with pytest.raises(NotImplementedError, match='big-vocab'):
-        wavenet_synthesizer.generate(big_model, big, gen, c, return_params=False)
+    before = wavenet_ar.LAUNCHES_BY_VARIANT['categorical_big-fused']
+    out = wavenet_synthesizer.generate(big_model, big, gen, c, return_params=False)
+    assert out['audio'].shape == (1, 32) and out['audio'].dtype == torch.int64
+    wavs = wavenet_synthesizer.Synthesizer(big_model, big).synthesize(
+        [torch.zeros(2, 80, device='cuda')], gen)
+    assert [len(w) for w in wavs] == [64]
+    assert wavenet_ar.LAUNCHES_BY_VARIANT['categorical_big-fused'] == before + 2
+    with pytest.raises(ValueError, match='no params'):
+        wavenet_synthesizer.generate(big_model, big, gen, c)
+    over = big.replace(quantize_channels=65537, out_channels=65537)
+    with pytest.raises(NotImplementedError, match='65536 classes'):
+        wavenet_synthesizer.Synthesizer(big_model, over)
+    with pytest.raises(NotImplementedError, match='65536 classes'):
+        wavenet_synthesizer.generate(big_model, over, gen, c, return_params=False)
+
+
+# --- the big-vocab head, the in-kernel NLL and the trainer ----------------------------
+
+BIG_VARIANTS = {'fused-greedy': (2048, '', None, False), 'fused-sampled': (2048, '', 77, False),
+                'plain-sampled': (2048, 'wavenet_fused_ar=False', 77, False),
+                'fused-sampled+g': (2048, SPEAKERS, 77, True),
+                'fused-sampled-q1025': (1025, '', 77, False),
+                'fused-sampled-q65536': (65536, '', 77, False)}
+
+
+@pytest.mark.parametrize('variant', list(BIG_VARIANTS))
+def test_big_vocab_kernel_matches_plain_version(device, variant):
+    """The big-vocab head with the NLL flag at the tiny width, B=3 in three
+    state-carried chunks (boundaries 97 and 197): bit-identical to one call, the NLL
+    within NLL_TOL and the carried state within KERNEL_TOL of the plain version
+    teacher-forced on the kernel's ids, which draws another id at no more than
+    MAX_IDS_OFF of the steps (chip_smoke.py's bounds)."""
+    Q, extra, seed, speakers = BIG_VARIANTS[variant]
+    hp, model, weights, _ = chip_smoke.big_vocab_model(Q, WAVENET_TINY + (',' + extra if extra
+                                                                         else ''))
+    gen = torch.Generator('cuda').manual_seed(4)
+    c_up, y = chip_smoke.big_vocab_inputs(hp, model, 3, 8, gen)
+    g_cond = speaker_rows(model, hp, [1, 3, 0]) if speakers else None
+    name = wavenet_ar.variant(hp, speakers, True)
+    before = wavenet_ar.LAUNCHES_BY_VARIANT[name]
+    r = chip_smoke.big_vocab_vs_plain(hp, weights, c_up, y, (97, 197, 256), g_cond, seed)
+    assert wavenet_ar.LAUNCHES_BY_VARIANT[name] == before + 1 + 3
+    assert r['bit_identical'] and r['audio_ok'] and r['t_base'] == (97, 97)
+    assert r['nll_err'] <= chip_smoke.NLL_TOL and r['state_err'] <= KERNEL_TOL
+    assert r['ids_off'] <= chip_smoke.MAX_IDS_OFF * r['steps']
+    assert r['distinct'] > (3 if seed is None else 100)
+
+
+def test_small_head_nll_on_the_card(device):
+    """The NLL flag on the small head (Q = 256) at the tiny width: the ids of a launch
+    with params on the same noise, and -log_softmax of those params to 1e-5."""
+    hp, model, weights, c_up, noise, _ = _vocoder_inputs(CATEGORICAL, 3, 8)
+    y = torch.randint(0, 256, c_up.shape[:2], device='cuda')
+    ids, nll = wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False, y_eval=y)
+    ids2, params = wavenet_ar.generate_ar(weights, c_up, noise, hp)
+    want = -torch.log_softmax(params, -1).gather(-1, y[..., None])[..., 0]
+    assert torch.equal(ids, ids2) and (nll - want).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match='outside'):
+        wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False, y_eval=y + 200)
+
+
+def test_big_vocab_noise_on_the_card(device):
+    """chip_smoke's check of the in-kernel noise at the tiny width and Q = 2,048: uniform
+    ids under flat logits, other ids for another seed or sequence, the arg-max of
+    philox_gumbel (it exits on a miss)."""
+    hp, _, weights, _ = chip_smoke.big_vocab_model(2048, WAVENET_TINY)
+    chip_smoke.big_vocab_noise(hp, weights, torch.Generator('cuda').manual_seed(5))
+
+
+TRAIN_TINY = WAVENET_TINY + ',wavenet_batch_size=2,wavenet_dropout=0.0,wavenet_ema_decay=0.9'
+
+
+@pytest.mark.parametrize('extra', ['', ',out_channels=30', ",wavenet_weight_normalization=True,"
+                                   "input_type='mulaw-quantize',quantize_channels=2048,"
+                                   'out_channels=2048'],
+                         ids=['gaussian', 'mol', 'categorical_big-wn'])
+def test_train_steps_cuda_vs_cpu(device, extra):
+    """Three train steps from the same seeded state on the same batch, dropout 0, on the
+    card and on the CPU: loss and grad_norm within 1e-4 relative, every parameter, EMA
+    value and Adam moment within 1e-3 of its tensor's largest magnitude (f32 on both,
+    TF32 off; only the order of the sums differs, but Adam's division by sqrt(nu)
+    amplifies that where a gradient is near zero, read 2e-4 on a bias, and the MoL
+    loss's log(sigmoid(a) - sigmoid(b)) keeps few digits at its 1e-5 threshold, read
+    1.2e-4 on a moment)."""
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+
+    hp = default_hparams()
+    hp.parse(TRAIN_TINY + extra)
+    rng = np.random.default_rng(0)
+    T = 4 * hp.get_hop_size()
+    audio = (rng.integers(0, hp.quantize_channels, (2, T)) if 'quantize' in extra
+             else rng.uniform(-1, 1, (2, T)).astype(np.float32))
+    batch = dict(audio=audio, input_lengths=np.array([T, T - 40]),
+                 mel_conditions=rng.uniform(0, 1, (2, 4, hp.num_mels)).astype(np.float32))
+    states = {d: wt.create_train_state(hp, d, seed=3) for d in ('cpu', 'cuda')}
+    for _ in range(3):
+        m = {d: wt.train_step(st, wt.to_device(batch, d), hp) for d, st in states.items()}
+        for key in ('loss', 'grad_norm'):
+            a, b = m['cpu'][key].item(), m['cuda'][key].item()
+            assert abs(a - b) <= 1e-4 * abs(a), key
+    for kind in ('model', 'ema_model'):
+        for (n, a), (_, b) in zip(getattr(states['cpu'], kind).named_parameters(),
+                                  getattr(states['cuda'], kind).named_parameters()):
+            assert (a - b.cpu()).abs().max().item() <= 1e-3 * max(a.abs().max().item(), 1e-3), n
+    for kind in ('exp_avg', 'exp_avg_sq'):
+        for a, b in zip(getattr(states['cpu'], kind), getattr(states['cuda'], kind)):
+            assert (a - b.cpu()).abs().max().item() <= 1e-3 * max(a.abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize('head', ['gaussian', 'categorical_big'])
+def test_train_cli_on_the_card(device, tmp_path, head):
+    """`python -m tacotron2_tpu_torch.train --model WaveNet` on the card at the tiny
+    width, run by chip_smoke.run_trainer: 4 steps with evals at 2 and 4, each of which
+    launches the AR kernel once (with params, or with the NLL flag for a big-vocab
+    model); the evals' launches through chip_smoke's checks on their own inputs (a
+    further launch repeats each bit for bit, the plain version follows in chunks; they
+    exit on a miss); then a rerun that restores step 4 and goes on to 6."""
+    from tacotron2_tpu_torch.training import checkpoint_select
+
+    extra = TRAIN_TINY.replace('upsample_scales=[4,8],hop_size=32,win_size=128,n_fft=256,'
+                               'num_freq=129', 'upsample_scales=[5,55]') \
+        + ',max_time_steps=2200,wavenet_natural_eval=True,wavenet_ema_decay=0.5'
+    if head == 'categorical_big':
+        extra += ",input_type='mulaw-quantize',quantize_channels=2048,out_channels=2048"
+    hp = default_hparams()
+    hp.parse(extra)
+    meta = chip_smoke.make_corpus(str(tmp_path), hp, 8, seed=1)
+    run = chip_smoke.run_trainer(str(tmp_path), meta, 'run', extra, 4, 2, 4, restore=False)
+    variant = 'categorical_big-fused+nll' if head == 'categorical_big' else 'gaussian-fused'
+    assert run['launches'] == {variant: 2} and sorted(run['steps']) == [1, 2, 3, 4]
+    assert all(np.isfinite(loss) for _, loss in run['steps'].values())
+    assert ('(in-kernel)' in run['out']) == (head == 'categorical_big')
+    history = checkpoint_select.load_eval_history(run['save_dir'])
+    assert [r['step'] for r in history] == [2, 4]
+    assert all(np.isfinite(r['natural_loss']) for r in history)
+    assert len(run['calls']) == 2
+    if head == 'categorical_big':
+        r = chip_smoke.big_eval_launch_vs_plain(run['calls'])
+        assert r['steps'] == 2200 and r['nll_err'] <= (
+            chip_smoke.EVAL_NLL_TOL_PER_SPAN * max(1.0, r['nll_span']))
+    else:
+        r = chip_smoke.eval_launch_vs_plain(run['calls'][-1])
+        assert r['full_steps'] == 2200 and r['max_abs_err'] <= KERNEL_TOL
+    again = chip_smoke.run_trainer(str(tmp_path), meta, 'run', extra, 6, 2, 4)
+    assert 'Restored WaveNet checkpoint at step 4' in again['out']
+    assert sorted(again['steps']) == [5, 6] and again['launches'] == {variant: 1}

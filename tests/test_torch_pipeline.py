@@ -150,7 +150,8 @@ def test_utils():
 
 GUARD = """
 import importlib, importlib.util, json, pkgutil, sys
-for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint'):
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint', 'sklearn',
+             'sklearn.model_selection'):
     sys.modules[name] = None  # any import of these now raises ImportError
 import tacotron2_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tacotron2_tpu_torch.__path__,
@@ -166,21 +167,30 @@ print(json.dumps([names, jax_pkg]))
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the streaming service among them, and chip_smoke.py
-    import with jax, flax, optax and orbax unavailable, and load no module of the JAX
-    package: neither `tacotron2_tpu` nor any `tacotron2_tpu.*` (the port keeps its own
-    copies of config and text)."""
+    """Every module of the port, the streaming service and the trainer among them, and
+    chip_smoke.py import with jax, flax, optax, orbax and scikit-learn unavailable, and
+    load no module of the JAX package: neither `tacotron2_tpu` nor any `tacotron2_tpu.*`
+    (the port keeps its own copies of config, text and the DSP helpers)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, '-c', GUARD], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     names, loaded = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(names) >= 27
+    assert len(names) >= 43
     assert {'tacotron2_tpu_torch.inference.streaming', 'tacotron2_tpu_torch.inference.server',
             'tacotron2_tpu_torch.serve', 'tacotron2_tpu_torch.synthesize',
             'tacotron2_tpu_torch.config', 'tacotron2_tpu_torch.text.frontend',
             'tacotron2_tpu_torch.ops.mulaw', 'tacotron2_tpu_torch.models.wavenet.distributions',
-            'tacotron2_tpu_torch.inference.wavenet_synthesizer'} <= set(names)
+            'tacotron2_tpu_torch.inference.wavenet_synthesizer',
+            'tacotron2_tpu_torch.train', 'tacotron2_tpu_torch.training.wavenet_train',
+            'tacotron2_tpu_torch.training.wavenet_trainer',
+            'tacotron2_tpu_torch.training.weight_norm_init',
+            'tacotron2_tpu_torch.training.checkpointing',
+            'tacotron2_tpu_torch.training.checkpoint_select',
+            'tacotron2_tpu_torch.training.schedules',
+            'tacotron2_tpu_torch.data.wavenet_loader', 'tacotron2_tpu_torch.data.loader',
+            'tacotron2_tpu_torch.ops.audio', 'tacotron2_tpu_torch.ops.stft_common',
+            'tacotron2_tpu_torch.ops.mcd', 'tacotron2_tpu_torch.infolog'} <= set(names)
     assert loaded == []
     # imports inside functions too (chip_smoke.py imports in its phases)
     paths = [os.path.join(REPO, 'chip_smoke.py')] + [
@@ -193,4 +203,5 @@ def test_port_imports_no_jax():
             mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
                     else [node.module or ''] if isinstance(node, ast.ImportFrom) else [])
             for mod in mods:
-                assert mod.split('.')[0] not in ('tacotron2_tpu', 'jax', 'flax'), (path, mod)
+                assert mod.split('.')[0] not in ('tacotron2_tpu', 'jax', 'flax', 'optax',
+                                                 'orbax', 'sklearn'), (path, mod)

@@ -404,15 +404,17 @@ def test_mulaw_copy_matches_reference(x):
 
 
 def test_kernel_mutants_apply_to_the_source():
-    """Each planted fault of chip_smoke.KERNEL_MUTANTS changes exactly one place of
-    csrc/wavenet_ar.cu (the card's smoke run builds these copies beside the kernel)."""
+    """Each planted fault of chip_smoke.ALL_MUTANTS (KERNEL_MUTANTS and the big-vocab
+    head's BIG_VOCAB_MUTANTS) changes exactly one place of csrc/wavenet_ar.cu (the
+    card's smoke run builds these copies beside the kernel)."""
     with open(os.path.join(os.path.dirname(wavenet_ar.__file__), '..', 'csrc',
                            'wavenet_ar.cu'), encoding='utf-8') as f:
         source = f.read()
-    texts = {fault: chip_smoke.mutated_source(fault) for fault in chip_smoke.KERNEL_MUTANTS}
-    assert len(texts) == 3 and len(set(texts.values())) == 3
+    assert len(chip_smoke.KERNEL_MUTANTS) == 3 and len(chip_smoke.BIG_VOCAB_MUTANTS) == 4
+    texts = {fault: chip_smoke.mutated_source(fault) for fault in chip_smoke.ALL_MUTANTS}
+    assert len(texts) == 7 and len(set(texts.values())) == 7
     for fault, text in texts.items():
-        old, new = chip_smoke.KERNEL_MUTANTS[fault]
+        old, new = chip_smoke.ALL_MUTANTS[fault]
         assert text != source and text.replace(new, old) == source, fault
 
 
@@ -625,9 +627,10 @@ def test_synth_debug_teacher_forces_through_incremental(tmp_path, monkeypatch, p
 def test_generate_dispatch(monkeypatch, pairs):
     """generate takes the packed-weight path when free-running with conditioning on a
     supported config, and WaveNet.incremental for teacher forcing and on request;
-    speaker ids reach both. More classes than the kernel takes raise, from generate and
-    from the Synthesizer, whatever the device: no plain version stands in for the
-    big-vocab kernel."""
+    speaker ids reach both. A big-vocab model (2,048 classes) takes the packed-weight
+    path too, from generate and from the Synthesizer, and returns no params; more
+    classes than the kernel takes (65,537) raise from both, whatever the device: no
+    plain version stands in for a kernel."""
     hp, _, model = pairs(GIN)
     calls = _record(monkeypatch, wavenet_ar)
     c = torch.from_numpy(np.random.default_rng(8).uniform(0, 1, (B, 1, 80)).astype(np.float32))
@@ -649,11 +652,20 @@ def test_generate_dispatch(monkeypatch, pairs):
     big = default_hparams()
     big.parse(TINY + ",input_type='mulaw-quantize',quantize_channels=2048,out_channels=2048")
     big_model = WaveNet(big).eval()
-    with pytest.raises(NotImplementedError, match='big-vocab'):
-        wave_synth.generate(big_model, big, gen, c[:, :1], return_params=False)
-    with pytest.raises(NotImplementedError, match='big-vocab'):
-        wave_synth.Synthesizer(big_model, big)
-    assert len(calls) == 2
+    out = wave_synth.generate(big_model, big, gen, c[:, :1], return_params=False)
+    assert len(calls) == 3 and out['audio'].shape == (B, 32)
+    assert out['audio'].dtype == torch.int64 and 0 <= out['audio'].min() \
+        and out['audio'].max() < 2048
+    with pytest.raises(ValueError, match='no params'):
+        wave_synth.generate(big_model, big, gen, c[:, :1])
+    wavs = wave_synth.Synthesizer(big_model, big).synthesize([torch.zeros(2, 80)], gen)
+    assert len(calls) == 4 and [len(w) for w in wavs] == [64]
+    over = big.replace(quantize_channels=65537, out_channels=65537)
+    with pytest.raises(NotImplementedError, match='65536 classes'):
+        wave_synth.generate(big_model, over, gen, c[:, :1], return_params=False)
+    with pytest.raises(NotImplementedError, match='65536 classes'):
+        wave_synth.Synthesizer(big_model, over)
+    assert len(calls) == 4
     ids = wave_synth.generate(big_model, big, gen, c[:, :1], use_kernel=False)
     assert ids['audio'].dtype == torch.int64
 

@@ -261,17 +261,18 @@ def test_make_noise_and_ring_sizes():
 
 
 @pytest.mark.parametrize('extra', [
-    ",input_type='mulaw-quantize',out_channels=65536",
-    ",input_type='mulaw-quantize',quantize_channels=2048,out_channels=2048",
+    ",input_type='mulaw-quantize',quantize_channels=65537,out_channels=65537",
+    ",input_type='mulaw-quantize',quantize_channels=131072,out_channels=131072",
     ',cin_channels=-1', ',kernel_size=1'])
 def test_unsupported_configs_raise(extra):
-    """The big-vocab categorical (more than 1,024 classes: the variant that draws its
-    noise inside the kernel), a model without local conditioning and kernel_size=1 (no
-    ring buffers) raise, the first by its name; the MoL head (out_channels=30) is
-    covered (tests/test_torch_paper.py)."""
+    """More classes than 65,536 (16-bit audio, the most the big-vocab head takes: one
+    more, and twice as many), a model without local conditioning and kernel_size=1 (no
+    ring buffers) raise, the first two by what is wrong; the MoL head (out_channels=30)
+    is covered (tests/test_torch_paper.py)."""
     wavenet_ar.check_supported(make_hp(',out_channels=30'))
     hp = make_hp(extra)
-    with pytest.raises(NotImplementedError, match='big-vocab' if 'quantize' in extra else None):
+    match = '65536 classes' if 'quantize' in extra else None
+    with pytest.raises(NotImplementedError, match=match):
         wavenet_ar.check_supported(hp)
 
 
@@ -282,11 +283,19 @@ def test_unsupported_configs_raise(extra):
     (",input_type='mulaw-quantize',quantize_channels=256,out_channels=256",
      'categorical-fused'),
     (",input_type='mulaw-quantize',quantize_channels=1024,out_channels=1024,"
-     "wavenet_fused_ar=False", 'categorical-plain')])
+     "wavenet_fused_ar=False", 'categorical-plain'),
+    (",input_type='mulaw-quantize',quantize_channels=2048,out_channels=2048",
+     'categorical_big-fused'),
+    (",input_type='mulaw-quantize',out_channels=65536,wavenet_fused_ar=False",
+     'categorical_big-plain'),
+    (",input_type='mulaw-quantize',quantize_channels=1025,out_channels=1025",
+     'categorical_big-fused')])
 def test_supported_configs(extra, variant):
-    """Global conditioning, the plain chain, mu-law input and the categorical head up to
-    1,024 classes are covered, each by the kernel instantiation named; the plain chain
-    packs no w_fused."""
+    """Global conditioning, the plain chain, mu-law input, the categorical head up to
+    1,024 classes and the big-vocab categorical head from 1,025 to 65,536 classes are
+    covered, each by the kernel instantiation named; the plain chain packs no w_fused.
+    The big-vocab packing holds the first conv and the last head layer in bf16, w_s2's
+    columns padded to a multiple of 8."""
     hp = make_hp(extra)
     wavenet_ar.check_supported(hp)
     assert wavenet_ar.variant(hp) == variant
@@ -295,6 +304,11 @@ def test_supported_configs(extra, variant):
     assert ('w_fused' in weights) == ('b_fused' in weights) == hp.wavenet_fused_ar
     Q = hp.out_channels
     assert weights['first_w'].shape == ((Q, 8) if 'categorical' in variant else (1, 8))
-    assert weights['w_s2'].shape == (8, Q) and weights['w_s2'].dtype == torch.float32
+    if 'big' in variant:
+        assert weights['w_s2'].shape == (8, -(-Q // 8) * 8)
+        assert weights['w_s2'].dtype == weights['first_w'].dtype == torch.bfloat16
+        assert wavenet_ar.noise_shape(hp, 2, 5) == (2, 5, 1)
+    else:
+        assert weights['w_s2'].shape == (8, Q) and weights['w_s2'].dtype == torch.float32
     assert wavenet_ar.packed_layout(hp) == {n: (w.dtype, tuple(w.shape))
                                             for n, w in weights.items()}
