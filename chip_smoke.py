@@ -5,7 +5,8 @@
 
 Phases (one line each; any failure exits nonzero):
   1. torch, CUDA and the card (nvidia-smi name and power limit);
-  2. build the hand-written kernels from tacotron2_tpu_torch/csrc;
+  2. build the hand-written kernels from tacotron2_tpu_torch/csrc (the probes' from
+     csrc/probes into a library of their own), with the planted-fault copies;
   3. the WaveNet AR kernel against its plain PyTorch version at the default width, on
      a WaveNet whose seeded random weights give params of order 1: the kernel runs
      free with its params, the plain version runs on the same CUDA tensors
@@ -120,6 +121,19 @@ Phases (one line each; any failure exits nonzero):
      Q = 65,536), and the plain version follows in state-carried chunks at odd ends,
      the Gaussian one over the first TRAIN_EVAL_BOUNDS[-1] steps, the big-vocab one
      over all of them.
+ 11. the probes, the counterparts of the JAX package's four measurement scripts
+     (tacotron2_tpu_torch/probes/, kernels in csrc/probes/, built in phase 2 into a
+     library of their own with one planted-fault copy each, PROBE_MUTANTS), each
+     kernel against its plain version at full width on the same CUDA tensors: B12
+     (prng_probe) at B=8, Q=65,536, ids exact and Gumbel stats within GUMBEL_STATS_TOL,
+     the mean within GUMBEL_MEAN_TOL of 0.5772, on random scores at most one row off
+     and only at a near-tie (TIE_GAP), a forced tie of two classes; B9 (ar_critpath)
+     all six variants; B10 (matmul_probe) all seven, with the last step's whole product;
+     B11 (microbench) all three, `lstm` from a seeded nonzero state, the accumulated
+     alignments too; over PROBE_STEPS steps, relative to the plain version's largest
+     value (PROBE_TOL); each planted fault must miss its check. No entry point runs a
+     probe: their launches on the main paths are 0. The probes' full readings come from
+     `python -m tacotron2_tpu_torch.probes.<name>`, not from this run.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -1048,25 +1062,29 @@ def mutated_source(fault):
 
 
 def build_kernels(tmp):
-    """Phase 2: nvcc builds the port's library and, beside it, one library for each of
-    ALL_MUTANTS from a changed copy of the source under `tmp`, all at once. Returns
-    fault -> its loaded library."""
+    """Phase 2: nvcc builds the port's library, the probes' library and, beside them, one
+    library for each of ALL_MUTANTS and PROBE_MUTANTS from a changed copy of its source
+    under `tmp`, all at once (one nvcc a library). Returns fault -> its loaded library."""
     from tacotron2_tpu_torch.ops import _build
 
     def mutant(item):
         i, fault = item
-        src = os.path.join(tmp, f'mutant{i}', 'wavenet_ar.cu')
+        name, text = (mutated_probe_source(fault) if fault in PROBE_MUTANTS
+                      else ('wavenet_ar.cu', mutated_source(fault)))
+        src = os.path.join(tmp, f'mutant{i}', name)
         os.makedirs(os.path.dirname(src))
         with open(src, 'w', encoding='utf-8') as f:
-            f.write(mutated_source(fault))
+            f.write(text)
         lib = os.path.join(tmp, f'mutant{i}', 'libmutant.so')
-        _build.compile_library([src], lib)
+        _build.compile_library([src], lib, include_dirs=(_build.PROBES_DIR,))
         return fault, ctypes.CDLL(lib)
 
-    with concurrent.futures.ThreadPoolExecutor(1 + len(ALL_MUTANTS)) as pool:
-        main_build = pool.submit(_build.load_library)
-        mutants = dict(pool.map(mutant, enumerate(ALL_MUTANTS)))
-        main_build.result()
+    faults = list(ALL_MUTANTS) + list(PROBE_MUTANTS)
+    with concurrent.futures.ThreadPoolExecutor(2 + len(faults)) as pool:
+        builds = [pool.submit(_build.load_library), pool.submit(_build.load_probe_library)]
+        mutants = dict(pool.map(mutant, enumerate(faults)))
+        for b in builds:
+            b.result()
     return mutants
 
 
@@ -2087,6 +2105,254 @@ def training_slice(mutants, gen):
     return dict(head=head, default=default, big=big)
 
 
+# --- phase 11: the probes (B12, B9, B10, B11) ---------------------------------------------
+
+# changes of csrc/probes/*.cu, one planted fault a probe kernel, each built beside the
+# probes' library in phase 2: file, the line as it stands there once, the line changed
+PROBE_MUTANTS = {
+    'prng_probe: the last id taken on a tie': (
+        'prng_probe.cu', '  return v > bv || (v == bv && id < bid);\n',
+        '  return v > bv || (v == bv && id > bid);\n'),
+    'ar_critpath: a tap slot off by one': (
+        'ar_critpath.cu', '  return (t + win - m) % win;\n',
+        '  return (t + win - m + 1) % win;\n'),
+    'matmul_probe: the dependency dropped': (
+        'matmul_probe.cu', '        xn[(size_t)r * IN1 + c] = __float2bfloat16(v);\n',
+        '        xn[(size_t)r * IN1 + c] = xc[(size_t)r * IN1 + c];\n'),
+    'microbench: the alignment not accumulated into the state': (
+        'microbench.cu', '    if (a.variant == ATT) st[64 + tid] = st[64 + tid] + al;\n',
+        '    if (a.variant == ATT) st[64 + tid] = st[64 + tid];\n')}
+# steps a launch of each probe here (the CLIs run the scripts' 2,048 / 512 / 512)
+PROBE_STEPS = {'ar_critpath': 64, 'matmul_probe': 16, 'microbench': 16}
+# kernel against plain version, max abs error over the plain version's max |value|:
+# B9's output is of order 1e-5 and B11's 1e-2, so an absolute bound would pass zeros.
+# The bf16 roundings of the kernel and of torch's ops agree but where an f32 sum in
+# another order lands on the other side of a bf16 step (3.9e-3 of a value)
+PROBE_TOL = {'ar_critpath': 1e-2, 'matmul_probe': 1e-2, 'microbench': 2e-2}
+# B10's whole f32 product of a first step (a bf16 step for dep_bf16, whose product is
+# bf16); after 16 steps x may differ by a bf16 step, and the product by PROBE_TOL
+PRODUCT_TOL = 1e-5
+STATE_TOL = 1e-5    # B11's accumulated alignments (sums of f32 softmaxes)
+GUMBEL_STATS_TOL = 1e-5
+EULER_GAMMA = 0.5772156649  # the Gumbel mean
+GUMBEL_MEAN_TOL = 0.01
+# B12 on random scores: a row's id may differ only where its top two scores are this close
+TIE_GAP = 1e-6
+PROBE_REPS = 5
+PROBE_REPLACES = {'prng_probe': 'scripts/dev_prng_probe.py:32',
+                  'ar_critpath': 'scripts/dev_pallas_ar_critpath.py:197',
+                  'matmul_probe': 'scripts/dev_pallas_matmul_probe.py:72',
+                  'microbench': 'scripts/dev_pallas_microbench.py:99'}
+
+
+def mutated_probe_source(fault):
+    """(file name, text) of csrc/probes/<file> with the one change of PROBE_MUTANTS[fault]."""
+    from tacotron2_tpu_torch.ops import _build
+
+    name, old, new = PROBE_MUTANTS[fault]
+    with open(os.path.join(_build.PROBES_DIR, name), encoding='utf-8') as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times '
+                         f'in csrc/probes/{name}: bring PROBE_MUTANTS up to date')
+    return name, text.replace(old, new)
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|; fails where want is all zeros."""
+    want = want.double()
+    scale = want.abs().max().item()
+    if scale == 0:
+        fail('a probe\'s plain output is all zeros: its check would pass a kernel that does '
+             'nothing')
+    return (got.double() - want).abs().max().item() / scale
+
+
+def probe_prng(mutants):
+    """Phase 11, B12: ids and Gumbel stats against the plain version at B=8, Q=65,536 on
+    the planted scores and on random ones, the Gumbel mean, the forced tie and its fault,
+    times at B = 8, 1, 2."""
+    from tacotron2_tpu_torch.probes import best_ms, prng_probe as m
+
+    dev, v = torch.device('cuda'), m.VARIANTS[0]
+    inp = m.make_inputs(device=dev)
+    (ids, stats), (pids, pstats) = m.kernel(v, inp), m.plain(v, inp)
+    stats_err = (stats - pstats).abs().max().item()
+    mean = stats[0, 0].item()
+    if not torch.equal(ids, pids) or stats_err > GUMBEL_STATS_TOL \
+            or abs(mean - EULER_GAMMA) > GUMBEL_MEAN_TOL:
+        fail(f'prng_probe: ids {ids.ravel().tolist()} against {pids.ravel().tolist()}, stats '
+             f'{stats_err:.3e} off (tol {GUMBEL_STATS_TOL}), Gumbel mean {mean:.5f}')
+    rnd = m.make_inputs(seed=1, random_scores=True, device=dev)
+    rids, _ = m.kernel(v, rnd)
+    prids, _ = m.plain(v, rnd)
+    noised = rnd['scores'] + m.gumbel_from_bits(m.philox_bits(rnd['seed'], m.B, 0, m.Q, dev))
+    top2 = noised.topk(2, dim=1).values
+    off = (rids != prids).ravel().nonzero().ravel().tolist()
+    if len(off) > 1 or any(top2[r, 0] - top2[r, 1] > TIE_GAP for r in off):
+        fail(f'prng_probe on random scores: rows {off} differ (gaps '
+             f'{[float(top2[r, 0] - top2[r, 1]) for r in off]})')
+    # a forced tie: classes 5 and 9 at 1e30 in every row (the noise does not move them)
+    tie = dict(inp, scores=torch.zeros_like(inp['scores']))
+    tie['scores'][:, [5, 9]] = 1e30
+    tie_ids, _ = m.kernel(v, tie)
+    fault = 'prng_probe: the last id taken on a tie'
+    fault_ids, _ = m.kernel(v, tie, library=mutants[fault])
+    if not (tie_ids == 5).all() or torch.equal(fault_ids, m.plain(v, tie)[0]):
+        fail(f'prng_probe tie: ids {tie_ids.ravel().tolist()}, the fault {fault!r} gave '
+             f'{fault_ids.ravel().tolist()}')
+    times = {}
+    for b in (8, 1, 2):
+        bi = m.make_inputs(B=b, device=dev)
+        times[b] = dict(ms=best_ms(m.launcher(v, bi), PROBE_REPS, m.CALLS),
+                        plain_ms=best_ms(lambda: m.plain(v, bi), PROBE_REPS),
+                        bound_ms=m.bound(v, dict(B=b))[0])
+    bound_ms, bound_by = m.bound(v, dict(B=m.B))
+    phase(11, f'prng_probe (B12), B=8, Q={m.Q}: ids exact, stats {stats_err:.3e} (tol '
+              f'{GUMBEL_STATS_TOL}), Gumbel mean {mean:.5f}; random scores: rows {off} differ; '
+              f'forced tie: ids 5, the fault {fault!r} ids {fault_ids.ravel().tolist()[:2]}; '
+              'us a call (kernel / plain / bound): ' + ', '.join(
+                  f'B={b} {1e3 * t["ms"]:.2f} / {1e3 * t["plain_ms"]:.1f} / '
+                  f'{1e3 * t["bound_ms"]:.3f}' for b, t in times.items()))
+    return dict(max_abs_err=stats_err, ms=times[8]['ms'], plain_ms=times[8]['plain_ms'],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, by_batch=times,
+                random_rows_off=off, fault_ids=fault_ids.ravel().tolist())
+
+
+def _kernel_ms(m, v, inputs, steps, **kw):
+    """One launch of `steps` steps of probe `m`'s kernel, the best of PROBE_REPS after a
+    warm-up, in ms (CUDA events)."""
+    from tacotron2_tpu_torch.probes import best_ms
+
+    return best_ms(lambda: m.kernel(v, inputs, steps, **kw), PROBE_REPS)
+
+
+def _probe_line(name, tag, steps, tol, rows, fault, seen):
+    phase(11, f'{name} ({tag}), {steps} steps, error / tol {tol} (relative to the plain '
+              'version\'s max |value|), us/step kernel / plain / bound: ' + '; '.join(
+                  f'{v} {r["err"]:.3e} {1e3 * r["ms"] / steps:.2f} / '
+                  f'{1e3 * r["plain_ms"] / steps:.1f} / {1e3 * r["bound_ms"] / steps:.4f}'
+                  for v, r in rows.items()) + f'; the fault {fault!r}: {seen}')
+
+
+def _probe_entry(rows, name, steps, library_ms=None):
+    """The kernels-line readings of a probe of several variants: the first variant's times
+    and bound at the top, every variant's under `variants`."""
+    first = rows[next(iter(rows))]
+    return dict(max_abs_err=max(r['abs_err'] for r in rows.values()),
+                max_rel_err=max(r['err'] for r in rows.values()), ms=first['ms'],
+                plain_ms=first['plain_ms'], bound_ms=first['bound_ms'],
+                bound_by=first['bound_by'], library_ms=library_ms, steps=steps,
+                variants=rows)
+
+
+def probe_critpath(mutants):
+    """Phase 11, B9: the six variants against the plain version at full width over
+    PROBE_STEPS steps (every ring up to 64 slots wraps), and the tap-slot fault on both
+    chains."""
+    from tacotron2_tpu_torch.probes import ar_critpath as m
+
+    name, steps = 'ar_critpath', PROBE_STEPS['ar_critpath']
+    inp = m.make_inputs(device=torch.device('cuda'))
+    rows = {}
+    for v in m.VARIANTS:
+        got = m.kernel(v, inp, steps)
+        want, plain_ms = cuda_ms(lambda: m.plain(v, inp, steps))
+        err = rel_err(got, want)
+        if err > PROBE_TOL[name]:
+            fail(f'{name} {v}: {err:.3e} beyond {PROBE_TOL[name]}')
+        ms = _kernel_ms(m, v, inp, steps)
+        bound_ms, bound_by = m.bound(v, m.dims_of(inp), steps)
+        rows[v] = dict(err=err, abs_err=(got - want).abs().max().item(), ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    fault = 'ar_critpath: a tap slot off by one'
+    seen = {v: rel_err(m.kernel(v, inp, steps, library=mutants[fault]), m.plain(v, inp, steps))
+            for v in ('base', 'fused')}
+    if min(seen.values()) <= PROBE_TOL[name]:
+        fail(f'{name}: the fault {fault!r} was not seen: {seen}')
+    _probe_line(name, 'B9', steps, PROBE_TOL[name], rows, fault,
+                {v: f'{e:.3e}' for v, e in seen.items()})
+    return dict(_probe_entry(rows, name, steps), fault_readings=seen)
+
+
+def probe_matmul(mutants):
+    """Phase 11, B10: the seven variants against the plain version at full width over
+    PROBE_STEPS steps, the output and the last step's whole product, the library's
+    torch.matmul of the same product, and the fault that drops the dependency."""
+    from tacotron2_tpu_torch.probes import matmul_probe as m
+
+    name, steps = 'matmul_probe', PROBE_STEPS['matmul_probe']
+    inp = m.make_inputs(device=torch.device('cuda'))
+    rows = {}
+    for v in m.VARIANTS:
+        (got, prod), ((want, want_prod), plain_ms) = (m.kernel(v, inp, steps),
+                                                      cuda_ms(lambda: m.plain(v, inp, steps)))
+        err, prod_err = rel_err(got, want), rel_err(prod, want_prod)
+        # the whole product of step 1, before x can differ by a bf16 step
+        first_err = rel_err(m.kernel(v, inp, 1)[1], m.plain(v, inp, 1)[1])
+        first_tol = PROBE_TOL[name] if v == 'dep_bf16' else PRODUCT_TOL
+        if err > PROBE_TOL[name] or prod_err > PROBE_TOL[name] or first_err > first_tol:
+            fail(f'{name} {v}: output {err:.3e}, last product {prod_err:.3e} (tol '
+                 f'{PROBE_TOL[name]}), first product {first_err:.3e} (tol {first_tol})')
+        ms = _kernel_ms(m, v, inp, steps)
+        bound_ms, bound_by = m.bound(v, {}, steps)
+        rows[v] = dict(err=err, product_err=prod_err, first_product_err=first_err,
+                       abs_err=(got - want).abs().max().item(),
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    fault = 'matmul_probe: the dependency dropped'
+    seen = rel_err(m.kernel('dep_f32', inp, steps, library=mutants[fault])[0],
+                   m.plain('dep_f32', inp, steps)[0])
+    if seen <= PROBE_TOL[name]:
+        fail(f'{name}: the fault {fault!r} was not seen: {seen:.3e}')
+    library_ms = m.library_ms(inp, steps, reps=PROBE_REPS)
+    _probe_line(name, 'B10', steps, PROBE_TOL[name], rows, fault, f'{seen:.3e} on dep_f32')
+    phase(11, f'{name}: library, torch.matmul of the same bf16 product, '
+              f'{1e3 * library_ms / steps:.2f} us/step')
+    return dict(_probe_entry(rows, name, steps, library_ms), fault_readings={'dep_f32': seen})
+
+
+def probe_microbench(mutants):
+    """Phase 11, B11: the three variants against the plain version at full width over
+    PROBE_STEPS steps, `lstm` from a seeded nonzero state (from zeros it stays at zero):
+    h2, both cells and for `att` the accumulated alignments; then the fault that drops
+    the accumulation."""
+    from tacotron2_tpu_torch.probes import microbench as m
+
+    name, steps = 'microbench', PROBE_STEPS['microbench']
+    inp = m.make_inputs(device=torch.device('cuda'))
+    rows = {}
+    for v in m.VARIANTS:
+        start = m.random_state(inp) if v == 'lstm' else None
+        (got, fin), ((want, pfin), plain_ms) = (
+            m.kernel(v, inp, steps, start=start),
+            cuda_ms(lambda: m.plain(v, inp, steps, start=start)))
+        err = rel_err(got, want)
+        cells = max(rel_err(fin[k].float(), pfin[k].float()) for k in ('c1', 'c2'))
+        state = rel_err(fin['state'], pfin['state']) if v == 'att' else 0.0
+        if err > PROBE_TOL[name] or cells > PROBE_TOL[name] or state > STATE_TOL:
+            fail(f'{name} {v}: h2 {err:.3e}, cells {cells:.3e} (tol {PROBE_TOL[name]}), '
+                 f'state {state:.3e} (tol {STATE_TOL})')
+        ms = _kernel_ms(m, v, inp, steps, start=start)
+        bound_ms, bound_by = m.bound(v, {}, steps)
+        rows[v] = dict(err=err, cells_err=cells, state_err=state,
+                       abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+    fault = 'microbench: the alignment not accumulated into the state'
+    _, fin = m.kernel('att', inp, steps, library=mutants[fault])
+    seen = rel_err(fin['state'], m.plain('att', inp, steps)[1]['state'])
+    if seen <= STATE_TOL:
+        fail(f'{name}: the fault {fault!r} was not seen: {seen:.3e}')
+    _probe_line(name, 'B11', steps, PROBE_TOL[name], rows, fault,
+                f'state {seen:.3e} on att (tol {STATE_TOL})')
+    return dict(_probe_entry(rows, name, steps), fault_readings={'att': seen})
+
+
+def probes(mutants):
+    """Phase 11 (see the module docstring). Returns the readings for the kernels line."""
+    return dict(prng_probe=probe_prng(mutants), ar_critpath=probe_critpath(mutants),
+                matmul_probe=probe_matmul(mutants), microbench=probe_microbench(mutants))
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2094,6 +2360,7 @@ def main():
     from tacotron2_tpu_torch.config import default_hparams
     from tacotron2_tpu_torch.models.wavenet.model import WaveNet
     from tacotron2_tpu_torch.ops import _build, wavenet_ar
+    from tacotron2_tpu_torch.probes import ar_critpath, matmul_probe, microbench, prng_probe
     from tacotron2_tpu_torch.utils import randomize_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2108,8 +2375,13 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix='t2torch_mutants_') as tmp:
         mutants = build_kernels(tmp)
-    phase(2, f'built and loaded the CUDA kernels, and {len(mutants)} copies with one planted '
-             f'fault each, in {time.perf_counter() - t0:.1f} s')
+    phase(2, f'built and loaded the CUDA kernels and the probes\' kernels, and '
+             f'{len(mutants)} copies with one planted fault each, in '
+             f'{time.perf_counter() - t0:.1f} s')
+    probe_modules = {'prng_probe': prng_probe, 'ar_critpath': ar_critpath,
+                     'matmul_probe': matmul_probe, 'microbench': microbench}
+    for module in probe_modules.values():
+        module.LAUNCHES = 0  # no main path launches a probe: read after phase 10
 
     # one WaveNet with seeded random weights of order 1 for the kernel checks and the
     # main path; the checks run at the main path's batch and length too
@@ -2142,6 +2414,11 @@ def main():
     t10 = time.perf_counter()
     training = training_slice(mutants, gen)
     phase(10, f'phase 10 took {time.perf_counter() - t10:.1f} s; the whole run '
+              f'{time.perf_counter() - t_start:.1f} s')
+    probe_launches = {k: module.LAUNCHES for k, module in probe_modules.items()}
+    t11 = time.perf_counter()
+    probe_readings = probes(mutants)
+    phase(11, f'phase 11 took {time.perf_counter() - t11:.1f} s; the whole run '
               f'{time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']
@@ -2249,7 +2526,13 @@ def main():
         small_head_bound_by=small['bound_by'],
         small_head_nll_library_ms=small['library_ms'], small_head_steps=small['steps'],
         small_head_plain_max_abs_err=small['plain_err'],
-        small_head_with_params_ms=small['with_params_ms'])]}))
+        small_head_with_params_ms=small['with_params_ms'])] + [
+        # the probes (phase 11): no entry point runs them, so no main path launches
+        # them (launches, counted from 0 over phases 3-10); check_launches are phase 11's
+        dict(name=name, route='cuda', source=f'tacotron2_tpu_torch/csrc/probes/{name}.cu',
+             replaces=PROBE_REPLACES[name], launches=probe_launches[name],
+             check_launches=probe_modules[name].LAUNCHES, **probe_readings[name])
+        for name in probe_modules]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}))

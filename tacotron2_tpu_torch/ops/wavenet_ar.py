@@ -315,12 +315,8 @@ def gumbel_from_bits(bits: Tensor) -> Tensor:
     return -torch.log(-torch.log(u + 1e-9) + 1e-9)
 
 
-def philox_gumbel(seed: int, B: int, t_abs: int, Q: int, device) -> Tensor:
-    """The big-vocab head's Gumbel noise of absolute step t_abs, (B, Q) f32: for
-    sequence b and class c, word c % 4 of Philox4x32-10 with the 64-bit `seed` as its
-    key and (c // 4, t_abs low and high 32 bits, b) as its counter. A function of
-    (seed, sequence, absolute step, class) alone, so a state-carried stream that keeps
-    its seed draws the noise of one call."""
+def philox_bits(seed: int, B: int, t_abs: int, Q: int, device) -> Tensor:
+    """The random bits of `philox_gumbel`, (B, Q) int64 tensor of 32-bit values."""
     n4 = -(-Q // 4)
     counter = (torch.arange(n4, device=device)[None, :],
                torch.full((1, 1), t_abs & _U32, device=device),
@@ -328,7 +324,16 @@ def philox_gumbel(seed: int, B: int, t_abs: int, Q: int, device) -> Tensor:
                torch.arange(B, device=device)[:, None])
     words = philox4x32_10(counter, (seed & _U32, (seed >> 32) & _U32))
     bits = torch.stack([w.expand(B, n4) for w in words], dim=-1).reshape(B, 4 * n4)
-    return gumbel_from_bits(bits[:, :Q])
+    return bits[:, :Q]
+
+
+def philox_gumbel(seed: int, B: int, t_abs: int, Q: int, device) -> Tensor:
+    """The big-vocab head's Gumbel noise of absolute step t_abs, (B, Q) f32: for
+    sequence b and class c, word c % 4 of Philox4x32-10 with the 64-bit `seed` as its
+    key and (c // 4, t_abs low and high 32 bits, b) as its counter. A function of
+    (seed, sequence, absolute step, class) alone, so a state-carried stream that keeps
+    its seed draws the noise of one call."""
+    return gumbel_from_bits(philox_bits(seed, B, t_abs, Q, device))
 
 
 def mol_sample(params: Tensor, noise: Tensor, hp) -> Tensor:

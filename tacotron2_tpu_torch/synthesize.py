@@ -43,10 +43,11 @@ from .ops.audio import save_wav
 
 
 def get_sentences(text_list: str, hp) -> List[str]:
-    """`text_list` file (one sentence per line), or hp.sentences."""
+    """`text_list` file (one sentence per line, blank lines kept as empty sentences,
+    as `synthesize.py:23-28` keeps them), or hp.sentences."""
     if text_list:
         with open(text_list, encoding='utf-8') as f:
-            return [line.rstrip('\n') for line in f if line.strip()]
+            return [line.rstrip('\n') for line in f]
     return list(hp.sentences)
 
 

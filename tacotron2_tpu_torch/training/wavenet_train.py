@@ -212,6 +212,10 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
             log('Dropped {} eval records past the restored step'.format(dropped))
     else:
         log('Starting new WaveNet training!')
+        # a fresh run's records start at step 0: none of an earlier run may win `best`
+        dropped = checkpoint_select.truncate_eval_history(save_dir, 0)
+        if dropped:
+            log('Dropped {} eval records of an earlier run'.format(dropped))
         if hp.wavenet_weight_normalization:
             log('Running weight-norm data-dependent initialization..')
             example = next(dataset.train_batches(seed=hp.wavenet_data_random_state,
@@ -223,7 +227,7 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
     time_window, loss_window = ValueWindow(100), ValueWindow(100)
     batches = Prefetcher(dataset.train_batches(seed=hp.wavenet_data_random_state), depth=8)
     test_batches = [wt.to_device(b, device) for b in dataset.test_batches()]
-    generator = torch.Generator(device).manual_seed(hp.wavenet_random_seed)
+    generator = torch.Generator(device)  # reseeded each step by (seed, step)
 
     step = state.step
     pending = None  # (step, metrics, start time) of the step whose loss is not read yet
@@ -243,6 +247,7 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
         while step < args.wavenet_train_steps:
             start = time.time()
             batch = wt.to_device(next(batches), device)
+            generator.manual_seed(wt.step_seed(hp.wavenet_random_seed, state.step))
             metrics = wt.train_step(state, batch, hp, generator)
             step = state.step
             if pending is not None:

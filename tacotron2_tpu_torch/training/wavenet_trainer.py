@@ -153,6 +153,14 @@ def clip_gradients(grads: Sequence[Tensor], hp) -> List[Tensor]:
     return out
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of the dropout masks of the update from `step`: a function of (seed,
+    step) alone, as `fold_in(rng, state.step)` keys them (`wavenet_trainer.py:81`), so
+    that a run resumed at step N draws at N + 1 the masks an uninterrupted run draws
+    there. The bits are not JAX's."""
+    return (seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)
+
+
 def train_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
                generator: Optional[torch.Generator] = None,
                dropout_masks: Optional[Sequence[Tensor]] = None) -> Dict[str, Any]:

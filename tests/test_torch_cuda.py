@@ -529,3 +529,99 @@ def test_train_cli_on_the_card(device, tmp_path, head):
     again = chip_smoke.run_trainer(str(tmp_path), meta, 'run', extra, 6, 2, 4)
     assert 'Restored WaveNet checkpoint at step 4' in again['out']
     assert sorted(again['steps']) == [5, 6] and again['launches'] == {variant: 1}
+
+
+# ---------------------------------------------------------------- the probes (B9-B12)
+
+def test_prng_probe_kernel_matches_plain_version(device):
+    """B12 at a small odd size (Q = 1,001: the last Philox block is ragged): ids exact,
+    stats within GUMBEL_STATS_TOL; on a forced tie the first class."""
+    from tacotron2_tpu_torch.probes import prng_probe as m
+
+    inp = m.make_inputs(seed=2, B=3, Q=1001, random_scores=True, device=device)
+    ids, stats = m.kernel('gumbel_argmax', inp)
+    pids, pstats = m.plain('gumbel_argmax', inp)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, pids)
+    assert (stats - pstats).abs().max().item() <= chip_smoke.GUMBEL_STATS_TOL
+    inp['scores'][:, [4, 700]] = 1e30
+    assert m.kernel('gumbel_argmax', inp)[0].ravel().tolist() == [4, 4, 4]
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        m.kernel('gumbel_argmax', m.make_inputs(B=1, Q=8))
+
+
+@pytest.mark.parametrize('variant', ['base', 'fused', 'fused_bf16glu', 'fused_tanhsig',
+                                     'fused_tanhfold', 'fused_tf_bf16o'])
+def test_ar_critpath_kernel_matches_plain_version(device, variant):
+    """B9 at L=4, B=2 and full widths over 9 steps (every ring wraps)."""
+    from tacotron2_tpu_torch.probes import ar_critpath as m
+
+    inp = m.make_inputs(L=4, B=2, device=device)
+    got, want = m.kernel(variant, inp, 9), m.plain(variant, inp, 9)
+    torch.cuda.synchronize()
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.PROBE_TOL['ar_critpath']
+
+
+@pytest.mark.parametrize('variant', ['indep', 'dep_f32', 'dep_bf16', 'dep_T', 'ksplit',
+                                     'k4split', 'nsplit'])
+def test_matmul_probe_kernel_matches_plain_version(device, variant):
+    """B10 at U=64, IN1=128 (8 co-resident blocks) over 3 steps: the output and the last
+    step's whole product."""
+    from tacotron2_tpu_torch.probes import matmul_probe as m
+
+    inp = m.make_inputs(U=64, IN1=128, device=device)
+    (got, prod), (want, want_prod) = m.kernel(variant, inp, 3), m.plain(variant, inp, 3)
+    first, want_first = m.kernel(variant, inp, 1)[1], m.plain(variant, inp, 1)[1]
+    torch.cuda.synchronize()
+    tol = chip_smoke.PROBE_TOL['matmul_probe']
+    assert chip_smoke.rel_err(got, want) <= tol and chip_smoke.rel_err(prod, want_prod) <= tol
+    assert chip_smoke.rel_err(first, want_first) <= (
+        tol if variant == 'dep_bf16' else chip_smoke.PRODUCT_TOL)
+
+
+@pytest.mark.parametrize('variant', ['lstm', 'attlite', 'att'])
+def test_microbench_kernel_matches_plain_version(device, variant):
+    """B11 at U=256 (32 blocks, one an attention row) over 3 steps, `lstm` from a seeded
+    nonzero state: h2, the cells and the accumulated alignments."""
+    from tacotron2_tpu_torch.probes import microbench as m
+
+    inp = m.make_inputs(U=256, device=device)
+    start = m.random_state(inp) if variant == 'lstm' else None
+    (got, fin), (want, pfin) = m.kernel(variant, inp, 3, start=start), \
+        m.plain(variant, inp, 3, start=start)
+    torch.cuda.synchronize()
+    tol = chip_smoke.PROBE_TOL['microbench']
+    assert chip_smoke.rel_err(got, want) <= tol
+    for k in ('c1', 'c2', 'h1', 'ctx'):
+        assert chip_smoke.rel_err(fin[k].float(), pfin[k].float()) <= tol, k
+    assert (fin['state'] - pfin['state']).abs().max().item() <= chip_smoke.STATE_TOL
+
+
+@pytest.mark.parametrize('fault', list(chip_smoke.PROBE_MUTANTS))
+def test_probe_mutants_are_seen(device, mutants, fault):
+    """Each probe kernel's planted fault, built in the phase-2 pool, misses the check that
+    holds the true kernel (small sizes as above)."""
+    from tacotron2_tpu_torch.probes import ar_critpath, matmul_probe, microbench, prng_probe
+
+    lib = mutants[fault]
+    if fault.startswith('prng_probe'):
+        inp = prng_probe.make_inputs(B=2, Q=64, device=device)
+        inp['scores'][:, [5, 9]] = 1e30
+        assert prng_probe.kernel('gumbel_argmax', inp)[0].ravel().tolist() == [5, 5]
+        assert prng_probe.kernel('gumbel_argmax', inp, library=lib)[0].ravel().tolist() == [9, 9]
+    elif fault.startswith('ar_critpath'):
+        inp = ar_critpath.make_inputs(L=4, B=2, device=device)
+        want = ar_critpath.plain('base', inp, 9)
+        tol = chip_smoke.PROBE_TOL['ar_critpath']
+        assert chip_smoke.rel_err(ar_critpath.kernel('base', inp, 9), want) <= tol
+        assert chip_smoke.rel_err(ar_critpath.kernel('base', inp, 9, library=lib), want) > tol
+    elif fault.startswith('matmul_probe'):
+        inp = matmul_probe.make_inputs(U=64, IN1=128, device=device)
+        want = matmul_probe.plain('dep_f32', inp, 3)[0]
+        got = matmul_probe.kernel('dep_f32', inp, 3, library=lib)[0]
+        assert chip_smoke.rel_err(got, want) > chip_smoke.PROBE_TOL['matmul_probe']
+    else:
+        inp = microbench.make_inputs(U=256, device=device)
+        want = microbench.plain('att', inp, 3)[1]['state']
+        got = microbench.kernel('att', inp, 3, library=lib)[1]['state']
+        assert chip_smoke.rel_err(got, want) > chip_smoke.STATE_TOL

@@ -4,6 +4,7 @@ and the rule that the port imports no JAX.
 """
 
 import ast
+import importlib.util
 import json
 import os
 import subprocess
@@ -69,6 +70,46 @@ def test_synthesize_cli_on_cpu(tmp_path):
         assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
     assert stats['decoded_frames'] == 2 * 2 * frames  # two batches of two rows
     assert stats['ar_samples'] == 3 * frames * hp.get_hop_size()
+
+
+def test_blank_lines_are_sentences_as_in_jax(tmp_path):
+    """A text list with a blank line in the middle: the port's get_sentences keeps the
+    empty sentence as the JAX CLI's does (`synthesize.py:23-28`), so the wavs'
+    `wav-batch_i_sentence_j` names and the map.txt rows follow the JAX list; the empty
+    sentence, whose ids are the EOS alone, goes through the Tacotron-2 path."""
+    from tacotron2_tpu.text import text_to_sequence as j_text_to_sequence
+    from tacotron2_tpu_torch.text import text_to_sequence
+
+    spec = importlib.util.spec_from_file_location('jax_synthesize_cli',
+                                                  os.path.join(REPO, 'synthesize.py'))
+    jsynth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jsynth)
+    hp = tiny_hp()
+    torch.manual_seed(0)
+    taco_path, wave_path = str(tmp_path / 'taco.pt'), str(tmp_path / 'wavenet.pt')
+    convert.save_checkpoint(taco_path, 'tacotron',
+                            suppress_stop_tokens(Tacotron(hp).state_dict()))
+    convert.save_checkpoint(wave_path, 'wavenet', WaveNet(hp).state_dict())
+    text_list = tmp_path / 'texts.txt'
+    text_list.write_text('Hello world.\n\nHe reads books.\n', encoding='utf-8')
+    want = jsynth.get_sentences(types.SimpleNamespace(text_list=str(text_list)), hp)
+    assert want == ['Hello world.', '', 'He reads books.']
+    assert synthesize.get_sentences(str(text_list), hp) == want
+    assert text_to_sequence('', ['english_cleaners']) == \
+        j_text_to_sequence('', ['english_cleaners']) and \
+        len(text_to_sequence('', ['english_cleaners'])) == 1
+    out_dir = tmp_path / 'out'
+    stats = synthesize.main(['--tacotron_checkpoint', taco_path,
+                             '--wavenet_checkpoint', wave_path, '--hparams', TINY,
+                             '--text_list', str(text_list), '--output_dir', str(out_dir),
+                             '--device', 'cpu'])
+    bs = hp.tacotron_synthesis_batch_size
+    rows = (out_dir / 'map.txt').read_text(encoding='utf-8').splitlines()
+    assert rows == [f'{text}|{out_dir / f"wav-batch_{n // bs}_sentence_{n % bs}.wav"}'
+                    for n, text in enumerate(want)]
+    frames = hp.max_iters * hp.outputs_per_step
+    assert [len(w) for w in stats['wavs']] == [frames * hp.get_hop_size()] * 3
+    assert all(np.isfinite(w).all() for w in stats['wavs'])
 
 
 def test_wavenet_batches_follow_run_synthesis(tmp_path, monkeypatch):
@@ -176,7 +217,7 @@ def test_port_imports_no_jax():
                          cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     names, loaded = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(names) >= 43
+    assert len(names) >= 50
     assert {'tacotron2_tpu_torch.inference.streaming', 'tacotron2_tpu_torch.inference.server',
             'tacotron2_tpu_torch.serve', 'tacotron2_tpu_torch.synthesize',
             'tacotron2_tpu_torch.config', 'tacotron2_tpu_torch.text.frontend',
@@ -190,7 +231,10 @@ def test_port_imports_no_jax():
             'tacotron2_tpu_torch.training.schedules',
             'tacotron2_tpu_torch.data.wavenet_loader', 'tacotron2_tpu_torch.data.loader',
             'tacotron2_tpu_torch.ops.audio', 'tacotron2_tpu_torch.ops.stft_common',
-            'tacotron2_tpu_torch.ops.mcd', 'tacotron2_tpu_torch.infolog'} <= set(names)
+            'tacotron2_tpu_torch.ops.mcd', 'tacotron2_tpu_torch.infolog',
+            'tacotron2_tpu_torch.probes', 'tacotron2_tpu_torch.probes.prng_probe',
+            'tacotron2_tpu_torch.probes.ar_critpath', 'tacotron2_tpu_torch.probes.matmul_probe',
+            'tacotron2_tpu_torch.probes.microbench'} <= set(names)
     assert loaded == []
     # imports inside functions too (chip_smoke.py imports in its phases)
     paths = [os.path.join(REPO, 'chip_smoke.py')] + [

@@ -765,6 +765,62 @@ def test_train_cli_on_cpu_with_resume(tmp_path, capsys, head):
         assert 'Step       6' in f.read()
 
 
+def test_resumed_run_draws_the_masks_of_its_steps(tmp_path, monkeypatch):
+    """A step's dropout masks are keyed by (seed, step), as `fold_in(rng, state.step)`
+    keys them in the JAX trainer: a run resumed at step 2 draws at step 3 the masks
+    an uninterrupted run draws there (the generator's state as train_step gets it),
+    and not those of step 1."""
+    hp = default_hparams()
+    hp.parse(VERIFY_TINY)
+    meta = _corpus(str(tmp_path), hp, n=8)
+    states = {}
+    train_step = wavenet_train.wt.train_step
+
+    def recording(state, batch, hp_, generator):
+        states.setdefault(run, {})[state.step + 1] = generator.get_state()
+        return train_step(state, batch, hp_, generator)
+
+    monkeypatch.setattr(wavenet_train.wt, 'train_step', recording)
+
+    def main(name, steps):
+        train.main(['--model', 'WaveNet', '--wavenet_input', meta, '--base_dir',
+                    str(tmp_path), '--name', name, '--wavenet_train_steps', str(steps),
+                    '--eval_interval', '100', '--checkpoint_interval', '2',
+                    '--summary_interval', '100', '--device', 'cpu', '--hparams', VERIFY_TINY])
+
+    run = 'whole'
+    main('whole', 3)
+    run = 'resumed'
+    main('resumed', 2)
+    main('resumed', 3)
+    assert sorted(states['whole']) == sorted(states['resumed']) == [1, 2, 3]
+    for step in (1, 2, 3):
+        assert torch.equal(states['whole'][step], states['resumed'][step]), step
+    assert not torch.equal(states['whole'][3], states['whole'][1])
+
+
+def test_fresh_start_drops_every_earlier_eval_record(tmp_path, capsys):
+    """A fresh start (no checkpoint, or --restore False) truncates the eval-history
+    sidecar at step 0: a stale record of an earlier run can no longer win `best`."""
+    hp = default_hparams()
+    hp.parse(VERIFY_TINY)
+    meta = _corpus(str(tmp_path), hp, n=8)
+    save_dir = os.path.join(str(tmp_path), 'logs-run', 'wave_pretrained')
+    os.makedirs(save_dir)
+    base = ['--model', 'WaveNet', '--wavenet_input', meta, '--base_dir', str(tmp_path),
+            '--name', 'run', '--wavenet_train_steps', '1', '--eval_interval', '100',
+            '--checkpoint_interval', '1', '--summary_interval', '100', '--device', 'cpu',
+            '--hparams', VERIFY_TINY]
+    for restore in ('True', 'False'):  # no checkpoint yet; then one that is ignored
+        checkpoint_select.append_eval_record(save_dir, dict(step=1, ar_conditioning_r=0.99))
+        train.main(base + ['--restore', restore])
+        out = capsys.readouterr().out
+        assert 'Starting new WaveNet training!' in out
+        assert 'Dropped 1 eval records of an earlier run' in out
+        assert checkpoint_select.load_eval_history(save_dir) == []
+        assert checkpoint_select.resolve_best_checkpoint(save_dir, [1]) is None
+
+
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     """Tacotron and the combined pipeline raise, naming the roadmap item; without a
     card and without --device cpu the trainer raises instead of falling back."""
