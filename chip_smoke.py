@@ -19,7 +19,15 @@ Phases (one line each; any failure exits nonzero):
      start of the first, is the one timed beside it), and at B=20 over 10 frames (the
      default WaveNet batch, whose conditioning row stays f32); before that, five
      planted faults (packed weights as a kernel with one bug would read them) must
-     each miss the plain version by more than KERNEL_TOL;
+     each miss the plain version by more than KERNEL_TOL; the kernel forced onto every
+     cluster size (1, 2, 4, 8 and 16 CTAs a sequence) at B=2 over CLUSTER_STEPS steps,
+     bit-identical across N in audio, params and carried state, within KERNEL_TOL of
+     one run of the plain version, and within FIRST_STEPS_TOL over the first steps at
+     B=16 at each N; two planted faults of the cluster layout (CLUSTER_MUTANTS: a
+     CTA's slice of z shared at the next rank's offset, the rings written by rank 0
+     alone), each of which must miss KERNEL_TOL on the cluster that B=2 gets; and the
+     kernel's us/step over SWEEP_BATCHES with the cluster size each batch gets (phase
+     8 repeats the sweep at the paper width);
   4. the Tacotron half on the card against the same model on the CPU (explicit prenet
      masks, 16 steps, max abs 1e-3 with TF32 off);
   5. the main path, text -> mel -> wav, at full width with the same WaveNet through
@@ -139,6 +147,7 @@ the HBM rate and its operations over the peak rate of their type, for the run ti
 the card's nvidia-smi line, and the result line.
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import ctypes
@@ -213,40 +222,53 @@ VOCODER_BOUNDS = PAPER_STATE_BOUNDS  # odd chunk ends: t_base mod win nonzero in
 VOCODER_CLI_BOUNDS = VOCODER_BOUNDS[:2] + (VOCODER_FRAMES * 275 // 4,)
 CATEGORICAL = "input_type='mulaw-quantize',quantize_channels=256,out_channels=256"
 SPEAKERS = 'gin_channels=16,n_speakers=5'
+VOCODER_SPEAKERS_PATH = 'synthesize --model WaveNet --speaker_id'
+VOCODER_CATEGORICAL_PATH = 'synthesize --model WaveNet (mulaw-quantize, plain chain)'
 # one-line changes of csrc/wavenet_ar.cu, each a fault that no input of the true kernel
 # reproduces: name -> (the line as it stands, the line with the fault)
 KERNEL_MUTANTS = {
     'g_cond added after the bf16 rounding': (
-        '        if (a.g_cond != nullptr) v += a.g_cond[(size_t)b * LG + g * COLS + q];\n'
-        '        cond[g * COLS + q] = a.round_cond ? bf16r(v) : v;\n',
-        '        cond[g * COLS + q] = (a.round_cond ? bf16r(v) : v) + (a.g_cond != nullptr\n'
-        '            ? a.g_cond[(size_t)b * LG + g * COLS + q] : 0.f);\n'),
+        '          if (a.g_cond != nullptr) v += a.g_cond[(size_t)b * LG + g];\n'
+        '          v = a.round_cond ? bf16r(v) : v;\n',
+        '          v = (a.round_cond ? bf16r(v) : v) + (a.g_cond != nullptr\n'
+        '              ? a.g_cond[(size_t)b * LG + g] : 0.f);\n'),
     'feedback from the f32 first_w row': (
         '          acc = bf16r(a.first_w[(size_t)id * R + r]);\n',
         '          acc = a.first_w[(size_t)id * R + r];\n'),
     'plain chain ring written with the layer\'s output': (
-        '            ring[ring_off[li] + slot * R + c] = hc;\n'
-        '            hb[c] = bf16r(hc);\n',
-        '            if (li > 0)\n'
-        '              ring[ring_off[li - 1] + ((base[li - 1] + t) % win[li - 1]) * R + c] = hc;\n'
-        '            hb[c] = bf16r(hc);\n')}
+        '        write_ring(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN);  '
+        '// layer li\'s input\n',
+        '        if (li > 0) write_ring(ring + ring_off[li - 1], h, (base[li - 1] + t) % '
+        'win[li - 1], R, r0, RN);\n')}
 # changes of csrc/wavenet_ar.cu for phase 10's faults (as KERNEL_MUTANTS)
 BIG_VOCAB_MUTANTS = {
     'NLL from the noised scores': (
-        '              lse_merge(lm, ls, lg[i], 1.f);\n'
-        '              if (c == y) sample_s[3] = lg[i];\n',
-        '              lse_merge(lm, ls, sc[i], 1.f);\n'
-        '              if (c == y) sample_s[3] = sc[i];\n'),
+        '                lse_merge(lm, ls, lg[i], 1.f);\n'
+        '                if (c == y) sample_s[3] = lg[i];\n',
+        '                lse_merge(lm, ls, sc[i], 1.f);\n'
+        '                if (c == y) sample_s[3] = sc[i];\n'),
     'log-sum-exp without the maximum taken out': (
         '  const float mm = fmaxf(m, m2);\n',
         '  const float mm = 0.f;\n'),
     'head input not rounded to bf16': (
-        '        skips[s] = bf16r(v);  // the big-vocab head\'s input is bf16\n',
-        '        skips[s] = v;  // (left in f32)\n'),
+        '      share(cluster, P, s0 + s, HEAD == CATEGORICAL_BIG ? bf16r(v) : v, N);\n',
+        '      share(cluster, P, s0 + s, v, N);  // (left in f32)\n'),
     'classes past the last multiple of 1,024 left out': (
-        '      for (int g = tid; g < a.q_ld / COLS; g += NT) {  // the ragged last groups too\n',
-        '      for (int g = tid; g < Q / NT * (NT / COLS); g += NT) {\n')}
+        '        if (g < ngrp) {  // the ragged last groups too\n',
+        '        if (g < Q / 1024 * 128) {\n')}
 ALL_MUTANTS = {**KERNEL_MUTANTS, **BIG_VOCAB_MUTANTS}
+# changes of csrc/wavenet_ar.cu that only a cluster of more than one CTA shows (phase 3,
+# at the main path's B=2, where the cluster is 16 CTAs): a CTA's slice of z shared at the
+# next rank's offset, and the rings written by rank 0 alone (its residual columns only)
+CLUSTER_MUTANTS = {
+    'a peer\'s slice written at the wrong rank\'s offset': (
+        '  share(cluster, zb, n0 + c, bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);\n',
+        '  share(cluster, zb, (n0 + hN) % (hN * N) + c,\n'
+        '        bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);\n'),
+    'the ring slice written by rank 0 only': (
+        '  for (int c = threadIdx.x; c < RN; c += nt()) ring[slot * R + r0 + c] = h[r0 + c];\n',
+        '  for (int c = threadIdx.x; c < (r0 == 0 ? RN : 0); c += nt())\n'
+        '    ring[slot * R + r0 + c] = h[r0 + c];\n')}
 # phase 10: the big-vocab head and the in-kernel NLL
 BIG_VOCAB = "input_type='mulaw-quantize',quantize_channels=65536,out_channels=65536"
 BIG_RAGGED_Q = 50001  # odd: the last group of 8 classes and the last 1,024 are ragged
@@ -279,6 +301,12 @@ SMALL_NLL_TOL = 1e-5  # the small head's NLL against log_softmax of the same log
 # the (B, T, Q) logits fit (1.4 GB in f32; with their gradient, the log-softmax and the
 # loss's temporaries several times that), the model's widths and depth as they are
 BIG_TRAIN = 'wavenet_batch_size=2,max_time_steps=2750'
+TRAIN_PATH = 'train --model WaveNet (natural eval)'
+BIG_TRAIN_PATH = 'train --model WaveNet (Q=65536, natural eval)'
+# the main paths of the kernels line's wavenet_ar entry, at the default width and at the
+# paper width (its big-vocab entry's is BIG_TRAIN_PATH)
+AR_PATHS = ('synthesize', 'serve', TRAIN_PATH, VOCODER_SPEAKERS_PATH, VOCODER_CATEGORICAL_PATH)
+PAPER_PATHS = ('synthesize --paper_profile', 'serve --paper_profile')
 TRAIN_UTTERANCES = 24  # 16 to train on and one test batch of 8
 # how far the plain version follows the default trainer's eval launch of 11,000 steps
 # (the kernel repeats all of them), in chunks at odd ends
@@ -318,6 +346,37 @@ def cuda_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+# the AR kernel's launches on each main path by cluster size, {path: {N: launches}}, the
+# counts set to 0 just before each run of a path (reset_counts) and read just after it
+# (read_counts); the checks' launches are not in it
+CLUSTERS_BY_PATH = collections.defaultdict(collections.Counter)
+
+
+def reset_counts():
+    """Sets the AR kernel's launch counts to 0, just before a run of a main path."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    wavenet_ar.LAUNCHES = 0
+    wavenet_ar.LAUNCHES_BY_VARIANT.clear()
+    wavenet_ar.LAUNCHES_BY_CLUSTER.clear()
+
+
+def read_counts(path):
+    """The AR launches since reset_counts, read just after a run of the main path
+    `path`: adds them by cluster size to CLUSTERS_BY_PATH[path] (path None: a check's
+    run, counted nowhere); returns their number."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    if path is not None:
+        CLUSTERS_BY_PATH[path].update(wavenet_ar.LAUNCHES_BY_CLUSTER)
+    return wavenet_ar.LAUNCHES
+
+
+def path_clusters(*paths):
+    """The cluster sizes the runs of `paths` launched the AR kernel on, in order."""
+    return sorted({n for p in paths for n in CLUSTERS_BY_PATH[p]})
 
 
 @contextlib.contextmanager
@@ -530,6 +589,122 @@ def check_faults(weights, model, hp, gen):
         fail(f'the kernel check passes planted faults: {missed}')
 
 
+# phase 3's check of every cluster size: B=2 over this many steps (4 mel frames)
+CLUSTER_STEPS = 1100
+# the batch sweep of the AR kernel's time, with the cluster size each batch gets (phase 3
+# at the default width, phase 8 at the paper width), over this many steps a launch
+SWEEP_BATCHES = (1, 2, 8, 20, 66, 132)
+SWEEP_STEPS = 1100
+
+
+def occupancy(hp, B=MAIN_BATCH, nll=False):
+    """(the occupancy table of the instantiation that runs `hp`, the N that B gets)."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    head = 3 if wavenet_ar.is_big_vocab(hp) else 2 if wavenet_ar.is_categorical(hp) \
+        else 1 if wavenet_ar.is_mol(hp) else 0
+    table = wavenet_ar.occupancy_table(
+        (hp.cin_channels, hp.layers, hp.residual_channels, hp.gate_channels,
+         hp.skip_out_channels, hp.kernel_size), head, bool(hp.wavenet_fused_ar), nll,
+        torch.cuda.current_device())
+    return table, wavenet_ar.cluster_size(B, table)
+
+
+def cluster_sweep(weights, model, hp, gen):
+    """Phase 3: the kernel forced onto every cluster size at the main path's B=2 over
+    CLUSTER_STEPS steps: audio, params and carried state bit-identical across N, the
+    params within KERNEL_TOL of one run of the plain version (teacher-forced on the
+    N = 16 audio), and the first-steps reading (FIRST_STEPS_TOL) at each N."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    table, auto = occupancy(hp)
+    missing = [n for n in wavenet_ar.CLUSTER_SIZES if table[n] == 0]
+    if missing:
+        fail(f'clusters of {missing} CTAs are not admitted at the default width: {table}')
+    c_up = _conditioning(model, hp, MAIN_BATCH, CLUSTER_STEPS // hp.get_hop_size(), gen)
+    noise = wavenet_ar.make_noise(hp, gen, MAIN_BATCH, c_up.shape[1])
+    runs = {}
+    for n in wavenet_ar.CLUSTER_SIZES:
+        out, ms = cuda_ms(lambda: wavenet_ar.generate_ar(weights, c_up, noise, hp,
+                                                         return_state=True, cluster=n))
+        runs[n] = (*out, ms)
+    audio, params, state, _ = runs[16]
+    same = {n: torch.equal(a, audio) and torch.equal(p, params) and torch.equal(st[0], state[0])
+            and torch.equal(st[1], state[1]) for n, (a, p, st, _) in runs.items()}
+    (_, ref_params), plain_ms = cuda_ms(lambda: wavenet_ar.generate_ar_reference(
+        weights, c_up, noise, hp, targets=audio))
+    err = (params - ref_params).abs().max().item()
+    NB = FIRST_STEPS_BATCH
+    c16 = _conditioning(model, hp, NB, 1, gen)
+    n16 = wavenet_ar.make_noise(hp, gen, NB, c16.shape[1])
+    first = {n: first_steps_err(weights, c16, n16, hp, cluster=n)
+             for n in wavenet_ar.CLUSTER_SIZES}
+    T = c_up.shape[1]
+    us = {n: 1000 * r[3] / T for n, r in runs.items()}
+    phase(3, f'every cluster size, B={MAIN_BATCH} T={T} (clusters resident by size {table}; '
+             f'B={MAIN_BATCH} gets {auto}): bit-identical to N=16 (audio, params, state): '
+             f'{same}; params max_abs_err={err:.3e} against one plain run (tol {KERNEL_TOL}); '
+             'first-steps reading at B=16 by N: '
+             + ', '.join(f'{n}: {e:.3e}' for n, e in first.items())
+             + f' (tol {FIRST_STEPS_TOL}); us/step by N: '
+             + ', '.join(f'{n}: {u:.1f}' for n, u in us.items())
+             + f'; plain {1000 * plain_ms / T:.1f} us/step')
+    if not all(same.values()):
+        fail(f'the kernel\'s outputs depend on the cluster size: {same}')
+    if not err <= KERNEL_TOL:
+        fail(f'the kernel differs from the plain version by {err}')
+    wrong = [n for n, e in first.items() if not e <= FIRST_STEPS_TOL]
+    if wrong:
+        fail(f'the first-steps reading misses its bound at N = {wrong}: {first}')
+    return dict(occupancy=table, max_abs_err=err, us_step_by_cluster=us,
+                first_steps_by_cluster=first, steps=T, plain_ms=plain_ms)
+
+
+def cluster_faults(weights, model, hp, gen, mutants):
+    """Phase 3: the two planted faults of the cluster layout (CLUSTER_MUTANTS), each a
+    build of a changed copy of the kernel's source, at the main path's B=2 over one
+    frame on the cluster that B=2 gets: each must miss KERNEL_TOL."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    _, auto = occupancy(hp)
+    if auto == 1:
+        fail('B=2 gets no cluster of more than one CTA: the cluster faults cannot show')
+    c_up = _conditioning(model, hp, MAIN_BATCH, 1, gen)
+    noise = wavenet_ar.make_noise(hp, gen, MAIN_BATCH, c_up.shape[1])
+    true = params_err(weights, c_up, noise, hp).max().item()
+    seen = {f: params_err(weights, c_up, noise, hp, library=mutants[f]).max().item()
+            for f in CLUSTER_MUTANTS}
+    phase(3, f'planted cluster faults, B={MAIN_BATCH} T={c_up.shape[1]} on clusters of '
+             f'{auto}: max_abs_err ' + ', '.join(f'{f} {e:.3e}' for f, e in seen.items())
+             + f' (each must exceed tol {KERNEL_TOL}; the true kernel {true:.3e})')
+    missed = [f for f, e in seen.items() if not e > KERNEL_TOL]
+    if missed or not true <= KERNEL_TOL:
+        fail(f'the cluster checks pass planted faults {missed}, or the true kernel misses '
+             f'({true})')
+    return seen
+
+
+def batch_sweep(weights, model, hp, gen, n):
+    """Phase n: the kernel's us/step over SWEEP_STEPS steps at each of SWEEP_BATCHES,
+    with the cluster size each batch's launch ran on (CUDA events, no params)."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    out = {}
+    frames = -(-SWEEP_STEPS // hp.get_hop_size())
+    for B in SWEEP_BATCHES:
+        c_up = _conditioning(model, hp, B, frames, gen)[:, :SWEEP_STEPS].contiguous()
+        noise = wavenet_ar.make_noise(hp, gen, B, SWEEP_STEPS)
+        wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False)  # warm
+        wavenet_ar.LAUNCHES_BY_CLUSTER.clear()
+        _, ms = cuda_ms(lambda: wavenet_ar.generate_ar(weights, c_up, noise, hp,
+                                                       return_params=False))
+        (n_launched,) = wavenet_ar.LAUNCHES_BY_CLUSTER  # the size this launch ran on
+        out[B] = dict(us_step=1000 * ms / SWEEP_STEPS, cluster=n_launched)
+    phase(n, f'batch sweep over {SWEEP_STEPS} steps, us/step (cluster): '
+             + ', '.join(f'B={B} {r["us_step"]:.1f} ({r["cluster"]})' for B, r in out.items()))
+    return out
+
+
 def state_faults(weights, c2, n2, hp, k_after1, r_after1, g_cond=None):
     """Chunk 2's first steps (c2, n2) on the kernel from two planted faults of its
     state after chunk 1 (t_base reset to 0; a fresh start, rings zeroed and h =
@@ -696,7 +871,6 @@ def main_path(hp_overrides, hp, wavenet_state, n=5, paper=False):
     Returns the launches and the AR kernel's us/step (CUDA events)."""
     from tacotron2_tpu_torch import convert, synthesize
     from tacotron2_tpu_torch.models.tacotron.model import Tacotron
-    from tacotron2_tpu_torch.ops import wavenet_ar
     from tacotron2_tpu_torch.utils import suppress_stop_tokens
 
     with open(os.path.join(REPO, 'sentences.txt'), encoding='utf-8') as f:
@@ -711,23 +885,23 @@ def main_path(hp_overrides, hp, wavenet_state, n=5, paper=False):
         text_list = os.path.join(tmp, 'texts.txt')
         with open(text_list, 'w', encoding='utf-8') as f:
             f.write('\n'.join(sentences) + '\n')
+        what = 'synthesize --paper_profile' if paper else 'synthesize'
         with ar_timer() as chunks:
-            wavenet_ar.LAUNCHES = 0
+            reset_counts()
             stats = synthesize.main((['--paper_profile'] if paper else [])
                                     + ['--tacotron_checkpoint', taco_path,
                                        '--wavenet_checkpoint', wave_path,
                                        '--hparams', hp_overrides, '--text_list', text_list,
                                        '--output_dir', os.path.join(tmp, 'out'),
                                        '--device', 'cuda'])
-            launches = wavenet_ar.LAUNCHES
+            launches = read_counts(what)
         n_rows = len(open(os.path.join(tmp, 'out', 'map.txt'), encoding='utf-8')
                      .read().splitlines())
     want_len = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
     lens = [len(w) for w in stats['wavs']]
     us_step = 1000 * sum(ms for _, ms in chunks) / sum(steps for steps, _ in chunks)
-    what = 'synthesize --paper_profile' if paper else 'main path'
     phase(n, f'{what}: {len(lens)} wavs of {lens} samples, AR kernel launches={launches} '
-             f'at {us_step:.1f} us/step; '
+             f'(by cluster size {dict(CLUSTERS_BY_PATH[what])}) at {us_step:.1f} us/step; '
              f'{stats["decoded_frames"] / stats["tacotron_seconds"]:.1f} mel frames/s, '
              f'{stats["ar_samples"] / stats["wavenet_seconds"]:.0f} AR samples/s, '
              f'wall RTF {stats["seconds"] / stats["audio_seconds"]:.3f} '
@@ -766,7 +940,6 @@ def service(hp_overrides, hp, wavenet_state):
     """Phase 7: the streaming service through serve.build_server on the card."""
     from tacotron2_tpu_torch import convert, serve
     from tacotron2_tpu_torch.models.tacotron.model import Tacotron
-    from tacotron2_tpu_torch.ops import wavenet_ar
     from tacotron2_tpu_torch.utils import suppress_stop_tokens
 
     spec = importlib.util.spec_from_file_location(
@@ -791,7 +964,7 @@ def service(hp_overrides, hp, wavenet_state):
                                          '--warmup_buckets', '1', '--hparams', hp_overrides])
             startup = time.perf_counter() - t0
             chunks.clear()
-            wavenet_ar.LAUNCHES = 0
+            reset_counts()
             server.start()
             try:
                 addr = server.address
@@ -812,7 +985,7 @@ def service(hp_overrides, hp, wavenet_state):
                 health = json.loads(fetch(addr, 'GET', '/healthz')[1])
             finally:
                 server.close()
-            launches = wavenet_ar.LAUNCHES
+            launches = read_counts('serve')
 
     want = {'GET wav': 44 + 2 * n, 'POST f32 seed=7': 4 * n,
             'GET pcm16 #0 (concurrent)': 2 * n, 'GET pcm16 #1 (concurrent)': 2 * n}
@@ -970,7 +1143,6 @@ def paper_service(hp_overrides, hp, wavenet_state):
     warmup stream): f32 bytes of one stream, finite, in two AR launches."""
     from tacotron2_tpu_torch import convert, serve
     from tacotron2_tpu_torch.models.tacotron.model import Tacotron
-    from tacotron2_tpu_torch.ops import wavenet_ar
     from tacotron2_tpu_torch.utils import suppress_stop_tokens
 
     n = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
@@ -988,14 +1160,14 @@ def paper_service(hp_overrides, hp, wavenet_state):
                                          '--port', '0', '--hparams', hp_overrides])
             startup = time.perf_counter() - t0
             chunks.clear()
-            wavenet_ar.LAUNCHES = 0
+            reset_counts()
             server.start()
             try:
                 status, data, first, wall = fetch(
                     server.address, 'GET', '/tts?text=The+paper+profile,+served.&format=f32')
             finally:
                 server.close()
-            launches = wavenet_ar.LAUNCHES
+            launches = read_counts('serve --paper_profile')
     audio_s = n / hp.sample_rate
     us_step = 1000 * sum(ms for _, ms in chunks) / sum(steps for steps, _ in chunks)
     phase(8, f'serve --paper_profile: up in {startup:.1f} s (load + 1 warmup stream); one '
@@ -1040,30 +1212,35 @@ def paper_profile(gen):
     carry_launches = wavenet_ar.LAUNCHES - launches0
     batch, batch_us = main_path(overrides, hp, wavenet_state, n=8, paper=True)
     served, served_us = paper_service(f'max_iters={PAPER_MAX_ITERS}', hp, wavenet_state)
+    sweep = batch_sweep(weights, model, hp, gen, 8)
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, mol['steps'])
     return dict(max_abs_err=max(mol['max_abs_err'], served_carry['max_abs_err'],
                                 odd['max_abs_err']),
                 ms=mol['ms'], plain_ms=mol['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
                 steps=mol['steps'], full_ms=mol['full_ms'],
                 batch_launches=batch, serve_launches=served, carry_launches=carry_launches,
-                batch_us_step=batch_us, serve_us_step=served_us, streamed_b1_ms=served_carry['ms'])
+                batch_us_step=batch_us, serve_us_step=served_us, streamed_b1_ms=served_carry['ms'],
+                sweep=sweep)
 
 def mutated_source(fault):
-    """The text of csrc/wavenet_ar.cu with the one change of ALL_MUTANTS[fault]."""
+    """The text of csrc/wavenet_ar.cu with the one change of ALL_MUTANTS[fault] (or of
+    CLUSTER_MUTANTS[fault])."""
     from tacotron2_tpu_torch.ops import _build
 
-    old, new = ALL_MUTANTS[fault]
+    old, new = {**ALL_MUTANTS, **CLUSTER_MUTANTS}[fault]
     with open(os.path.join(_build.CSRC_DIR, 'wavenet_ar.cu'), encoding='utf-8') as f:
         text = f.read()
     if text.count(old) != 1:
         raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times '
-                         'in csrc/wavenet_ar.cu: bring ALL_MUTANTS up to date')
+                         'in csrc/wavenet_ar.cu: bring ALL_MUTANTS and CLUSTER_MUTANTS up '
+                         'to date')
     return text.replace(old, new)
 
 
 def build_kernels(tmp):
     """Phase 2: nvcc builds the port's library, the probes' library and, beside them, one
-    library for each of ALL_MUTANTS and PROBE_MUTANTS from a changed copy of its source
+    library for each of ALL_MUTANTS, CLUSTER_MUTANTS and PROBE_MUTANTS from a changed
+    copy of its source
     under `tmp`, all at once (one nvcc a library). Returns fault -> its loaded library."""
     from tacotron2_tpu_torch.ops import _build
 
@@ -1079,7 +1256,7 @@ def build_kernels(tmp):
         _build.compile_library([src], lib, include_dirs=(_build.PROBES_DIR,))
         return fault, ctypes.CDLL(lib)
 
-    faults = list(ALL_MUTANTS) + list(PROBE_MUTANTS)
+    faults = list(ALL_MUTANTS) + list(CLUSTER_MUTANTS) + list(PROBE_MUTANTS)
     with concurrent.futures.ThreadPoolExecutor(2 + len(faults)) as pool:
         builds = [pool.submit(_build.load_library), pool.submit(_build.load_probe_library)]
         mutants = dict(pool.map(mutant, enumerate(faults)))
@@ -1103,28 +1280,32 @@ def kernel_library(library):
         wavenet_ar._kernel_fn = kernel_fn
 
 
-def params_err(weights, c_up, noise, hp, g_cond=None, plant=None, library=None):
+def params_err(weights, c_up, noise, hp, g_cond=None, plant=None, library=None,
+               cluster=None):
     """Max abs params error, a sequence, of the kernel (of `library`, on the inputs
-    `plant` makes of the true ones: a dict of generate_ar's weights / g_cond / state_in)
-    against the plain version on the true inputs, teacher-forced on the kernel's
-    audio: (B,)."""
+    `plant` makes of the true ones: a dict of generate_ar's weights / g_cond / state_in;
+    on clusters of `cluster` CTAs, else the wrapper's choice) against the plain version
+    on the true inputs, teacher-forced on the kernel's audio: (B,)."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     kw = dict(weights=weights, g_cond=g_cond, state_in=None)
     kw.update(plant or {})
     with kernel_library(library):
         audio, params = wavenet_ar.generate_ar(kw['weights'], c_up, noise, hp,
-                                               state_in=kw['state_in'], g_cond=kw['g_cond'])
+                                               state_in=kw['state_in'], g_cond=kw['g_cond'],
+                                               cluster=cluster)
     _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, targets=audio,
                                               g_cond=g_cond)
     return (params - ref).abs().flatten(1).max(1).values
 
 
-def first_steps_err(weights, c_up, noise, hp, g_cond=None, plant=None, library=None):
+def first_steps_err(weights, c_up, noise, hp, g_cond=None, plant=None, library=None,
+                    cluster=None):
     """The first-steps reading (see FIRST_STEPS_TOL): the lower quartile over the
     sequences of params_err over the first FIRST_STEPS steps of a fresh call."""
     err = params_err(weights, c_up[:, :FIRST_STEPS].contiguous(),
-                     noise[:, :FIRST_STEPS].contiguous(), hp, g_cond, plant, library)
+                     noise[:, :FIRST_STEPS].contiguous(), hp, g_cond, plant, library,
+                     cluster)
     return torch.quantile(err, 0.25).item()
 
 
@@ -1287,10 +1468,11 @@ def categorical_tie(hp, model, weights, gen):
         fail(f'the tied categorical kernel differs from the plain version by {err}, {s_err}')
 
 
-def vocoder_cli(extra, hp, wavenet_state, speaker_id=None):
+def vocoder_cli(extra, hp, wavenet_state, speaker_id=None, path=None):
     """Phase 9: `python -m tacotron2_tpu_torch.synthesize --model WaveNet` over two seeded
-    mels of VOCODER_FRAMES frames written as mel-*.npy with a map.txt. Checks the wavs on
-    disk, the map.txt rows and the launches. Returns the run's stats with launches,
+    mels of VOCODER_FRAMES frames written as mel-*.npy with a map.txt, a run of the main
+    path `path` (read_counts; without one, counted nowhere). Checks the wavs on disk, the
+    map.txt rows and the launches. Returns the run's stats with launches,
     us_step and, under 'ar_call', the AR launch's inputs (c_up, noise, g_cond) and
     audio."""
     from scipy.io import wavfile
@@ -1314,13 +1496,13 @@ def vocoder_cli(extra, hp, wavenet_state, speaker_id=None):
                 f.write(f'{text}|mel-{i}.npy\n')
         calls = []
         with ar_timer(calls) as chunks:
-            wavenet_ar.LAUNCHES = 0
-            wavenet_ar.LAUNCHES_BY_VARIANT.clear()
+            reset_counts()
             stats = synthesize.main(
                 ['--model', 'WaveNet', '--wavenet_checkpoint', wave_path, '--mels_dir',
                  mels_dir, '--base_dir', tmp, '--hparams', extra, '--device', 'cuda']
                 + (['--speaker_id', speaker_id] if speaker_id else []))
-            launches, by_variant = wavenet_ar.LAUNCHES, dict(wavenet_ar.LAUNCHES_BY_VARIANT)
+            by_variant = dict(wavenet_ar.LAUNCHES_BY_VARIANT)
+            launches = read_counts(path)
         out = os.path.join(tmp, 'wavenet_output')
         with open(os.path.join(out, 'map.txt'), encoding='utf-8') as f:
             rows = [line.rstrip('\n').split('|') for line in f]
@@ -1377,8 +1559,8 @@ def standalone_vocoder(mutants, gen):
     check_launches = wavenet_ar.LAUNCHES - launches0
 
     hp, model_g, weights_g, state = models['speakers']
-    one_three = vocoder_cli(SPEAKERS, hp, state, '1,3')
-    three_three = vocoder_cli(SPEAKERS, hp, state, '3,3')
+    one_three = vocoder_cli(SPEAKERS, hp, state, '1,3', VOCODER_SPEAKERS_PATH)
+    three_three = vocoder_cli(SPEAKERS, hp, state, '3,3', VOCODER_SPEAKERS_PATH)
     moved = np.abs(one_three['wavs'][0] - three_three['wavs'][0]).max()
     same = np.array_equal(one_three['wavs'][1], three_three['wavs'][1])
     phase(9, f'--speaker_id 1,3 against 3,3 on the same mels and noise: the first wav moves '
@@ -1387,7 +1569,7 @@ def standalone_vocoder(mutants, gen):
         fail('--speaker_id does not reach the kernel sequence by sequence')
     quantized = CATEGORICAL + ',wavenet_fused_ar=False'
     hp_q, _, weights_q, state_q = models['categorical-plain']
-    cat = vocoder_cli(quantized, hp_q, state_q)
+    cat = vocoder_cli(quantized, hp_q, state_q, path=VOCODER_CATEGORICAL_PATH)
     ids = cat['ar_call']['audio']
     phase(9, f'the mu-law-quantized run drew {ids.unique().numel()} distinct class ids in '
              f'[{ids.min().item()}, {ids.max().item()}]')
@@ -1859,16 +2041,16 @@ def make_corpus(root, hp, n, seed):
 
 
 def run_trainer(root, meta, name, hparams, steps, eval_interval, checkpoint_interval,
-                restore=True):
+                restore=True, path=None):
     """`python -m tacotron2_tpu_torch.train --model WaveNet` on the card, its console
     output captured. Returns the output, its (step, sec/step, loss) lines, the AR
     launches by instantiation and each one's inputs and outputs (ar_timer's `calls`),
-    the wall seconds, the peak device memory and the checkpoint directory."""
+    the wall seconds, the peak device memory and the checkpoint directory. A run of the
+    main path `path` (read_counts), or without one a check's run, counted nowhere."""
     from tacotron2_tpu_torch import train
     from tacotron2_tpu_torch.ops import wavenet_ar
 
-    wavenet_ar.LAUNCHES = 0
-    wavenet_ar.LAUNCHES_BY_VARIANT.clear()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     out, calls = io.StringIO(), []
     t0 = time.perf_counter()
@@ -1880,6 +2062,7 @@ def run_trainer(root, meta, name, hparams, steps, eval_interval, checkpoint_inte
              '--restore', str(restore), '--hparams', hparams, '--device', 'cuda'])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    read_counts(path)
     text = out.getvalue()
     lines = {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
              for m in STEP_LINE.finditer(text)}
@@ -1987,7 +2170,7 @@ def trainer_default(tmp):
     root = os.path.join(tmp, 'default')
     os.makedirs(root)
     meta = make_corpus(root, hp, TRAIN_UTTERANCES, seed=10)
-    first = run_trainer(root, meta, 'a', extra, 6, 4, 6, restore=False)
+    first = run_trainer(root, meta, 'a', extra, 6, 4, 6, restore=False, path=TRAIN_PATH)
     again = run_trainer(root, meta, 'b', extra, 6, 4, 6, restore=False)
     losses = [first['steps'][i][1] for i in range(1, 7)]
     losses_again = [again['steps'][i][1] for i in range(1, 7)]
@@ -2022,7 +2205,7 @@ def trainer_default(tmp):
     # a record past the checkpoint, as a run that died after an eval would leave it
     checkpoint_select.append_eval_record(first['save_dir'],
                                          dict(step=7, teacher_forced_loss=0.0))
-    resumed = run_trainer(root, meta, 'a', extra, 8, 4, 6)
+    resumed = run_trainer(root, meta, 'a', extra, 8, 4, 6, path=TRAIN_PATH)
     history = _check_history('train (resumed)', first['save_dir'], [4, 8])
     # step 7 in process: the checkpoint of step 6, the first batch of a fresh iterator,
     # dropout masks from a generator seeded as the trainer seeds it
@@ -2069,7 +2252,7 @@ def trainer_big_vocab(tmp):
     root = os.path.join(tmp, 'big')
     os.makedirs(root)
     meta = make_corpus(root, hp, 8, seed=11)
-    run = run_trainer(root, meta, 'q', extra, 4, 2, 4, restore=False)
+    run = run_trainer(root, meta, 'q', extra, 4, 2, 4, restore=False, path=BIG_TRAIN_PATH)
     history = _check_history('train (Q=65,536)', run['save_dir'], [2, 4])
     losses = [run['steps'][i][1] for i in sorted(run['steps'])]
     gib = run['peak_bytes'] / 2 ** 30
@@ -2394,6 +2577,9 @@ def main():
     weights = wavenet_ar.pack_params(model, hp)
     gen = torch.Generator('cuda').manual_seed(2)
     check_faults(weights, model, hp, gen)
+    clusters = cluster_sweep(weights, model, hp, gen)
+    cluster_seen = cluster_faults(weights, model, hp, gen, mutants)
+    sweep = batch_sweep(weights, model, hp, gen, 3)
     kernel_vs_plain(weights, model, hp, 8, 10, gen)
     frames = MAX_ITERS * hp.outputs_per_step
     kernel = kernel_vs_plain(weights, model, hp, MAIN_BATCH, frames, gen, SERVE_BOUNDS,
@@ -2430,7 +2616,9 @@ def main():
     # launches: the main paths' runs, each counted from 0 (the batch CLI, phase 5, and
     # the service, phase 7, at the default profile; both again with --paper_profile,
     # phase 8; the standalone vocoder on a five-speaker and on a mu-law-quantized WaveNet,
-    # phase 9); the checks' launches are listed apart. max_abs_err, ms, plain_ms and
+    # phase 9); the checks' launches are listed apart; launches_by_cluster counts each
+    # main path's launches by the cluster size they ran on, and cluster (mol_cluster at
+    # the paper width) lists those sizes. max_abs_err, ms, plain_ms and
     # bound_ms are the default profile's (the times and the bound those of B=2 over the
     # PLAIN_STEPS steps that the plain version followed, phase 3; full_ms the batch
     # path's whole launch of full_steps steps); the mol_ keys are the paper width's (the
@@ -2461,14 +2649,11 @@ def main():
         + paper['serve_launches'] + vocoder['speakers_launches']
         + vocoder['categorical_launches'] + training['default']['launches'],
         launches_by_path={'synthesize': launches_batch, 'serve': launches_serve,
-                          'train --model WaveNet (natural eval)':
-                              training['default']['launches'],
+                          TRAIN_PATH: training['default']['launches'],
                           'synthesize --paper_profile': paper['batch_launches'],
                           'serve --paper_profile': paper['serve_launches'],
-                          'synthesize --model WaveNet --speaker_id':
-                              vocoder['speakers_launches'],
-                          'synthesize --model WaveNet (mulaw-quantize, plain chain)':
-                              vocoder['categorical_launches'],
+                          VOCODER_SPEAKERS_PATH: vocoder['speakers_launches'],
+                          VOCODER_CATEGORICAL_PATH: vocoder['categorical_launches'],
                           'vocoder_checks': vocoder['check_launches'],
                           'state_carry_check': streamed['launches'],
                           'mol_state_carry_check': paper['carry_launches']},
@@ -2478,6 +2663,14 @@ def main():
         ms=kernel['ms'], plain_ms=kernel['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, steps=kernel['steps'], full_ms=kernel['full_ms'],
         full_steps=frames * hp.get_hop_size(),
+        cluster=path_clusters(*AR_PATHS), mol_cluster=path_clusters(*PAPER_PATHS),
+        occupancy=clusters['occupancy'],
+        launches_by_cluster={p: dict(CLUSTERS_BY_PATH[p]) for p in AR_PATHS + PAPER_PATHS},
+        cluster_check_max_abs_err=clusters['max_abs_err'],
+        cluster_check_us_step=clusters['us_step_by_cluster'],
+        cluster_check_first_steps=clusters['first_steps_by_cluster'],
+        cluster_fault_readings=cluster_seen,
+        batch_sweep=sweep, mol_batch_sweep=paper['sweep'],
         b20_ms=wide['ms'], b20_plain_ms=wide['plain_ms'],
         streamed_ms=streamed['ms'], streamed_plain_ms=streamed['plain_ms'],
         streamed_b1_ms=streamed['served_ms'], synthesize_us_step=batch_us,
@@ -2502,13 +2695,14 @@ def main():
         dict(
         name='wavenet_ar[categorical_big-fused+nll]', route='cuda', source=source,
         replaces=replaces, launches=training['big']['launches'],
-        launches_by_path={'train --model WaveNet (Q=65536, natural eval)':
-                              training['big']['launches'],
+        launches_by_path={BIG_TRAIN_PATH: training['big']['launches'],
                           'big_vocab_checks': head['check_launches'],
                           'small_head_nll_checks': small['check_launches']},
         max_abs_err=big_eval['nll_err'], ms=big_eval['ms'], plain_ms=big_eval['plain_ms'],
         bound_ms=big_eval['bound_ms'], bound_by=big_eval['bound_by'], library_ms=None,
-        steps=big_eval['steps'], ids_off_on_eval_inputs=big_eval['ids_off'],
+        steps=big_eval['steps'], cluster=path_clusters(BIG_TRAIN_PATH),
+        launches_by_cluster={BIG_TRAIN_PATH: dict(CLUSTERS_BY_PATH[BIG_TRAIN_PATH])},
+        ids_off_on_eval_inputs=big_eval['ids_off'],
         state_err_on_eval_inputs=big_eval['state_err'],
         nll_span_on_eval_inputs=big_eval['nll_span'],
         state_span_on_eval_inputs=big_eval['state_span'],

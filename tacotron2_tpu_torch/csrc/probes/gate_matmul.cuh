@@ -1,4 +1,5 @@
-// The gate product of the decoder probes (matmul_probe.cu, microbench.cu): 32 rows of
+// The gate product of the decoder-step probe (microbench.cu; B10's matmul_probe.cu runs
+// its own on the tensor cores): 32 rows of
 // bf16 activations times a bf16 weight matrix (K, 4U), for the 32 columns one block
 // owns, with f32 accumulation. Block j owns columns q*U + 8j + i, q < 4 (the four gates
 // of units 8j .. 8j+7), i < 8: whole units, so an LSTM's cell update stays in the block.

@@ -1,4 +1,5 @@
-// WaveNet autoregressive generation on Hopper: the whole sample loop in one launch.
+// WaveNet autoregressive generation on Hopper: the whole sample loop in one launch, one
+// thread-block cluster of N CTAs a sequence.
 //
 // Replaces tacotron2_tpu/ops/pallas/wavenet_ar.py:generate_ar (the Pallas TPU kernel),
 // in these variants: scalar input with a Gaussian head (out_channels == 2) or a
@@ -17,27 +18,18 @@
 // previous call (the TPU kernel's state_in / return_state, wavenet_ar.py:249-271,
 // 504-511) and hands h back at the end; the rings are updated in place.
 //
-// Design. One thread block per sequence (grid = B), NT = 1024 threads. Blocks never talk
-// to each other. Each block runs all T steps; per step, with __syncthreads() between
-// dependent stages and f32 accumulation:
+// The step (f32 accumulation; activations rounded to bf16 where the TPU kernel casts
+// them, so that the plain PyTorch version, ops/wavenet_ar.py generate_ar_reference,
+// computes the same function):
 //   1. the conditioning row  bf16(c_t) @ w_cond + b_cond (+ g_cond[b], the speaker's
-//      bias, wavenet_ar.py:299-300, 314-315),  rounded to bf16 where the TPU kernel keeps
-//      a bf16 per-chunk slab (padded batch <= 16 rows; the wrapper passes round_cond)
-//      and f32 where it does not; g_cond joins before that rounding, as it does there;
-//   2. per layer l: consts = b_tap + b_fused + cond_l + bf16(past taps) @ w_tap[l][:past];
-//   3. the fused chain  z_l = GLU(z_{l-1} @ w_fused[l] + sqrt(1/2) h_{l-1} @ w_cur[l]
-//      + consts)  with the residual/skip 1x1 of layer l-1 computed beside it;
-//      The plain chain (wavenet_ar.py:342-361) runs instead, per layer,
-//      z_l = GLU([bf16 taps | bf16 h] @ w_tap[l] + b_tap + cond_l), then
-//      bf16(z_l) @ w_os[l] + b_os for the residual and the skip: two dependent matvecs
-//      and four barriers a layer where the fused chain has one and two; it reads no
-//      w_fused. The layer's input h goes into its ring after its taps were read.
-//      Measured on an H100 SXM (700 W) at the default sizes, B=2: 185.4 us/step with
-//      the Gaussian head against 179.4-180.2 for the fused chain, but 179.7 against
-//      184.2 with the categorical head: the chains differ by less than the
-//      instantiations do, since the fused chain trades its barriers for G/2 more
-//      weight rows a layer;
-//   4. the head  relu -> 1x1 -> relu -> 1x1 (the last 1x1 in f32);
+//      bias, wavenet_ar.py:299-300, 314-315), rounded to bf16 where the TPU kernel keeps
+//      a bf16 per-chunk slab (padded batch <= 16 rows; the wrapper passes round_cond);
+//   2. per layer l: consts = b_tap (+ b_fused) + cond_l + bf16(past taps) @ w_tap[l][:past];
+//   3. the fused chain  z_l = GLU(z_{l-1} @ w_fused[l] + rho bf16(h_{l-1}) @ w_cur[l]
+//      + consts) with the residual/skip 1x1 of layer l-1 beside it; or the plain chain
+//      (wavenet_ar.py:342-361)  z_l = GLU(bf16(h) @ w_cur[l] + consts), then
+//      bf16(z_l) @ w_os[l] + b_os: two dependent matvecs a layer;
+//   4. the head  relu -> 1x1 -> relu -> 1x1 (the last 1x1 in f32; bf16 for the big head);
 //   5. the sample: Gaussian  clip(mean + exp(max(logs, log_scale_min)) * eps, -1, 1);
 //      MoL (wavenet_ar.py:455-464)  the mixture of largest logit + Gumbel noise, ties
 //      averaged, then clip(mean + exp(max(logs, log_scale_min)) * logistic, -1, 1);
@@ -45,71 +37,91 @@
 //      the first on ties, written as a float;
 //   6. the feedback  h = sample * first_w + first_b;  categorical: the bf16-rounded row
 //      first_w[class] + first_b (each of c tied classes weighs bf16(1/c)); a fresh
-//      categorical call starts from the f32 row of class Q/2 (silence).
-// The big-vocab head. Q logits of 4 bytes do not fit a block's shared memory at
-// Q = 65,536, so no score is stored: a thread walks groups of 8 neighbouring classes
-// (16-byte loads of the bf16 (S, Q) w_s2, consecutive threads on consecutive groups, so
-// a warp reads 512 contiguous bytes of each row), keeps a running (largest score, its
-// first class, how many classes tie it) and, for the NLL, a running (max, scaled sum) of
-// the un-noised logits; the block then reduces both. Only when more than one class ties
-// the maximum does a second pass recompute the scores (logits and noise are functions
-// of the step alone) to mark the tied classes in a bit mask, whose bf16 first-conv rows
-// are averaged in class order. The head's input is rounded to bf16 (wavenet_ar.py:414)
-// and a fresh call starts from the bf16 first-conv row of class Q/2. w_s2 has q_ld >= Q
-// columns, a multiple of 8 (the wrapper pads with zeros), so every row starts on a
-// 16-byte boundary whatever Q is. At Q = 65,536 and S = 128 the head reads 16.8 MB a
-// step (inside the L2 with the 7.4 MB of layer weights) and does 8.4 M multiply-adds.
-// The noise. Philox4x32-10 written out below: key = the wrapper's 64-bit seed, counter
-// = (class / 4, absolute step t_base + t (64 bits), sequence); word class % 4 of the
-// output gives 23 mantissa bits, u = bits as a float in [1, 2) minus 1, and the Gumbel
-// value -log(-log(u + 1e-9) + 1e-9) in f32 (the TPU kernel's transform,
-// wavenet_ar.py:433-440). The absolute step in the counter makes a state-carried
-// stream that keeps its seed bit-identical to one call, and lets the plain PyTorch
-// version compute the same bits.
-// The activations that feed a matmul are rounded to bf16 at the same places the TPU
-// kernel casts them, so the plain PyTorch version (ops/wavenet_ar.py
-// generate_ar_reference) and this kernel compute the same function.
+//      categorical call starts from the f32 row of class Q/2 (silence; the big head
+//      reads it from its bf16 first_w).
 //
-// Where the data lives. The packed weights (bf16, 3.70 M values = 7.4 MB at the default
-// L=20, R=128, G=256, S=128) stay in global memory, which the 50 MB L2 holds across
-// steps. The per-layer ring buffers ((k-1)*dilation slots of R floats, 523,776 floats =
-// 2.1 MB per sequence) are an f32 scratch tensor the wrapper allocates. h, z, the skip
-// sum, the conditioning row and the matmul partial sums live in shared memory (~90 KB).
+// Design. A sequence runs on a cluster of N CTAs (grid B*N), N in {1, 2, 4, 8, 16}, chosen
+// by the wrapper (ops/wavenet_ar.py cluster_size): the largest N of which the card keeps
+// at least B clusters resident (cudaOccupancyMaxActiveClusters, wavenet_ar_occupancy
+// below), else 1; N = 1 is the one-SM-a-sequence layout of a large batch. A CTA takes an
+// SM of its own (it asks for at least 117 KB of shared memory) and threads_for(N)
+// threads: 1,024 on one or two CTAs, 256 on eight or sixteen, where a CTA has little
+// work and idle warps would only take issue slots from the chain.
+//  - The outputs are split over the cluster, never K: CTA r owns the gate pairs (n,
+//    n + G/2) for n in [r G/(2N), (r+1) G/(2N)) of every layer, so it runs its GLU
+//    itself, the residual columns [r R/N, (r+1) R/N), the skip columns [r S/N, (r+1)
+//    S/N), and the matching columns of the conditioning row.
+//  - Off the chain, at the start of each step, every CTA stages all layers' past taps
+//    from the rings (each written at an earlier step) and computes, for its columns of
+//    every layer, the conditioning row and the past-tap product into consts.
+//  - On the chain, after each layer, every CTA writes its slice of z and of rho bf16(h)
+//    into every peer's shared memory (distributed shared memory, double-buffered by
+//    layer parity) and the cluster meets at one barrier (barrier.cluster arrive.release
+//    / wait.acquire): one exchange a layer in the fused chain, two in the plain one.
+//    Each CTA then runs the next layer's matvecs over the whole K from its own copy,
+//    the matvecs of a layer side by side on different threads.
+//  - Where a CTA's slice of a layer's chain weights is whole 16-byte rows and two
+//    slices fit (wpre: N >= 4 at the defaults, 16 at the paper width), the next layer's
+//    slice is staged with cp.async into the other of two slots in shared memory while
+//    this layer runs, so the chain's matvecs read shared memory, not L2.
+//  - The skip sum meets the same way, then the head's first 1x1 (split by columns).
+//    The Gaussian, MoL and small categorical heads run in every CTA on the same values
+//    (every CTA draws the same sample and feedback; rank 0 writes the outputs). The big
+//    head splits its classes over the cluster in blocks of 256; each CTA's (largest
+//    score, first class, tie count) meets the others' in every CTA through distributed
+//    shared memory, merged in rank order (exact in any order); tied classes' bits too,
+//    and every CTA feeds back their rows in class order. Philox stays keyed by (class,
+//    step, sequence), so ids do not depend on N.
 //
-// What bounds it. Every step reads all 7.4 MB of weights once per block and does about
-// 3.7 M multiply-adds, so a step is bound by the L2 -> SM bandwidth of the one SM that
-// runs the sequence (shared memory holds about 3% of the weights). The design answers
-// with wide loads and many of them in flight: a warp reads a full 512-byte weight row as
-// 16-byte vectors (8 bf16 columns per thread), and the 32 warps split the rows of each
-// matmul between them; partial sums meet in shared memory. Measured on an H100 SXM
-// (700 W): one SM streams about 239 GB/s from L2, a floor of ~31 us/step for this
-// traffic, while a step takes ~178 us: the loads of each layer are drained at its
-// barriers, so load latency, not bandwidth, sets the pace of this first design.
-// Sharing weight reads across sequences (tensor-core mma over batched rows), clusters
-// with distributed shared memory, and fp8 weights are left for later work.
+// A fixed sum order. Each output column's sum is split into a fixed number of K-slices
+// (KS_CHAIN for the chain and the head, KS_START for the step's start), slice ks summing
+// rows ks, ks + KS, ... in order, the slices then added in slice order, whatever N is
+// and whichever thread runs a slice. The NLL's log-sum-exp is merged within fixed
+// blocks of classes (a lane's classes in order, then a fixed shuffle tree), then over
+// the blocks in order. So audio, params, NLL, state and ids are bit-identical across N.
 //
-// At the paper profile's widths (L=24 in 4 stacks, R=256, G=512, S=256, MoL-30) the
-// same design holds: 16.78 M bf16 weight values (33.6 MB, inside the 50 MB L2), 64
-// column groups and 16 row slices per G-wide matvec, so a thread walks 64 weight rows
-// per layer where it walks 16 at the defaults, and 122 KB of shared memory. The MoL
-// head adds 30 f32 columns of S, one warp per column, and the choice of mixture in
-// one thread: small next to the layer stack.
+// State. The rings are one (B, ring_floats) f32 tensor, layer l's (k-1)*dilation slots
+// of R floats each; CTA r writes its residual columns of each layer's input into the
+// ring after that layer's barrier, and reads the whole tap rows (plain loads, not
+// __ldg: a peer wrote them at an earlier step, ordered by the cluster barriers). Rank
+// 0 writes h_out.
+//
+// Where the data lives. The packed bf16 weights (7.4 MB at the default L=20, R=128,
+// G=256, S=128; 33.6 MB at the paper profile's L=24, R=256, G=512, S=256) stay in global
+// memory, which the 50 MB L2 holds across steps; a CTA reads its own slice of them each
+// step (about 3.9 MB / N on the chain at the defaults). Taps (bf16), consts, the
+// exchanged activations, the partial sums and the weight slots live in shared memory
+// (at most 215 KB: N = 1 at the paper width).
+//
+// What bounds it. A step's arithmetic is about 3.7 M multiply-adds at the defaults
+// (0.0148 us of tensor-core time at B=2): the step is bound by latency, the chain of 20
+// dependent layers, each a round of loads, a block barrier and a cluster exchange.
+// Spreading a sequence over N SMs cuts each layer's work per SM by N and brings N SMs'
+// load slots to it; what stays on the chain is, a layer, a few shared-memory rounds, one
+// block barrier and one cluster barrier, and at the step's start the off-chain work
+// (staging the taps, the conditioning row, the past taps), which still sits on the
+// step's timeline (probes/ar_split.py measures the split). Computing the next step's
+// consts on idle threads during this step, and tensor-core mma over batched rows, are
+// left for later work.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// 1024 threads: measured on an H100 SXM (700 W), 179 us/step at the default sizes
-// against 223 us with 512 threads and 356 us with 256; unrolling further did not help.
-constexpr int NT = 1024;  // threads per block
-constexpr int UNROLL = 4;  // weight loads in flight per thread and row slice
-constexpr int COLS = 8;   // bf16 columns per 16-byte load
-constexpr int RED = NT * COLS;  // floats in one partial-sum buffer
+constexpr int NT_MAX = 1024;   // threads per CTA, at most (threads_for)
+constexpr int UNROLL = 4;      // weight loads in flight per thread and row slice
+constexpr int KS_CHAIN = 32;   // K-slices of each chain and head matvec column
+constexpr int KS_START = 16;   // ... of each conditioning-row and past-tap column
+constexpr int MAX_CLUSTER = 16;
 constexpr float SQRT_HALF = 0.70710678118654752f;
-// out_channels == 2; 3*nr; Q <= NT classes; Q classes, noise drawn in the kernel
+// out_channels == 2; 3*nr; Q <= 1024 classes; Q classes, noise drawn in the kernel
 enum Head { GAUSSIAN, MOL, CATEGORICAL, CATEGORICAL_BIG };
 enum Chain { FUSED, PLAIN };  // wavenet_fused_ar on; off
 
@@ -144,6 +156,8 @@ struct Args {
   long long ring_floats;
   long long t_base;              // absolute step of local step 0
   int T, cin, L, lps, R, G, S, k, out_ch, legacy, residual_legacy, round_cond;
+  int N;                         // CTAs a cluster (a sequence)
+  int wpre;                      // stage the chain's weights a layer ahead (prefetches)
   float log_scale_min;
 };
 
@@ -151,59 +165,221 @@ __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-__device__ __forceinline__ void fma8(float acc[COLS], float a, uint4 w) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w);
+// The split of a step inside the kernel (built with -DT2_PROFILE by probes/ar_split.py):
+// thread 0 of CTA 0 adds the %globaltimer nanoseconds since its last mark to slot s of
+// g_prof; wavenet_ar_profile reads the slots out. Without T2_PROFILE, nothing.
+enum ProfSlot { P_STAGE, P_COND, P_TAPS, P_GATE0, P_LAYER_WORK, P_ARRIVE, P_WAIT,
+                P_MATVEC, P_HEAD_SKIP, P_HEAD_S1, P_SAMPLE, P_FEEDBACK, P_SLOTS };
+#ifdef T2_PROFILE
+__device__ unsigned long long g_prof[P_SLOTS];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PROF(slot)                                                  \
+  do {                                                              \
+    if (threadIdx.x == 0 && blockIdx.x == 0) {                      \
+      const unsigned long long t_ = now_ns();                       \
+      g_prof[slot] += t_ - prof_t;                                  \
+      prof_t = t_;                                                  \
+    }                                                               \
+  } while (0)
+#else
+#define PROF(slot) \
+  do {             \
+  } while (0)
+#endif
+
+// the CTA's threads (threads_for: fewer on larger clusters, where each CTA has less
+// work and idle warps would only take issue slots from the chain)
+__device__ __forceinline__ int nt() { return (int)blockDim.x; }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// V (8 or 1) consecutive bf16 weights as floats (one 16- or 2-byte load; from shared
+// memory with SM, else read-only from global memory)
+template <int V, bool SM = false>
+__device__ __forceinline__ void load_w(const __nv_bfloat16* p, float f[V]) {
+  if constexpr (V == 8) {
+    const uint4 u = SM ? *reinterpret_cast<const uint4*>(p)
+                       : __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(p[i]);
-    acc[2 * i] = fmaf(a, f.x, acc[2 * i]);
-    acc[2 * i + 1] = fmaf(a, f.y, acc[2 * i + 1]);
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  } else {
+    f[0] = __bfloat162float(p[0]);
   }
 }
 
-// One operand of a block matvec: rows [0, rows) of a bf16 matrix with leading
-// dimension ld, times act[0, rows) from shared memory.
-struct Seg {
-  const __nv_bfloat16* w;
-  int ld;
-  int rows;
-  const float* act;
+// One matvec job: the CTA's owned columns times a K of one or two row segments.
+// Owned column c (c < nrange * cw) lies in range q = c / cw: layer l = q / rpl (rpl
+// ranges a layer), column col0 + (q % rpl) * col_step + c % cw of the layer's matrix,
+// which starts w_lstride elements after the previous layer's; its activations
+// act_lstride floats after. Segment s: rows [0, rows[s]) of w[s] (leading dimension
+// ld[s]) times act[s].
+struct Job {
+  const __nv_bfloat16* w[2];  // in global memory, or in shared memory with sm
+  const void* act[2];  // f32, or bf16 (the taps): job_run's A
+  bool sm;
+  int ld[2], rows[2], nseg;
+  int nrange, cw, rpl, col0, col_step;
+  long long w_lstride;
+  int act_lstride;
 };
 
-// Partial sums of out[n] = sum over segments of act . W[:, n], n in [0, N).
-// Thread tid owns column group g = tid % (N/8) and row slice ks = tid / (N/8)
-// (rows ks, ks + KS, ...), KS = NT / (N/8); it writes red[ks*N + 8g .. 8g+7].
-// The caller synchronises and sums the KS slices. Needs N % 8 == 0, NT % (N/8) == 0.
-__device__ __forceinline__ void matvec_partial(const Seg* segs, int nseg, int N,
-                                               float* red) {
-  const int ng = N / COLS;
-  const int ks_n = NT / ng;
-  const int g = threadIdx.x % ng;
-  const int ks = threadIdx.x / ng;
-  float acc[COLS];
-#pragma unroll
-  for (int i = 0; i < COLS; ++i) acc[i] = 0.f;
-  for (int s = 0; s < nseg; ++s) {
-    const __nv_bfloat16* w = segs[s].w + g * COLS;
-    const size_t ld = segs[s].ld;
-    const float* act = segs[s].act;
-    const int rows = segs[s].rows;
-#pragma unroll UNROLL
-    for (int r = ks; r < rows; r += ks_n) {
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(w + r * ld));
-      fma8(acc, act[r], wv);
-    }
-  }
-  float* out = red + ks * N + g * COLS;
-#pragma unroll
-  for (int i = 0; i < COLS; ++i) out[i] = acc[i];
+__device__ __forceinline__ Job job1(const __nv_bfloat16* w, int ld, int rows,
+                                    const void* act, int nrange, int cw, int rpl,
+                                    int col0, int col_step, long long w_lstride = 0,
+                                    int act_lstride = 0) {
+  Job j;
+  j.w[0] = w; j.ld[0] = ld; j.rows[0] = rows; j.act[0] = act;
+  j.w[1] = nullptr; j.ld[1] = 0; j.rows[1] = 0; j.act[1] = nullptr;
+  j.nseg = 1; j.sm = false;
+  j.nrange = nrange; j.cw = cw; j.rpl = rpl; j.col0 = col0; j.col_step = col_step;
+  j.w_lstride = w_lstride; j.act_lstride = act_lstride;
+  return j;
 }
 
-__device__ __forceinline__ float reduce_slices(const float* red, int N, int n) {
-  const int ks_n = NT / (N / COLS);
+// the thread index counted from thread `first` of the CTA: jobs that run side by side
+// start at different threads
+__device__ __forceinline__ int spread(int first) {
+  return (threadIdx.x + nt() - first % nt()) % nt();
+}
+
+// One item of a job: column group gi (V columns from owned column clo + gi V) and
+// slice ks, into red[ks * cc + gi V ..]: the sum over rows r = ks, ks + KS, ... of each
+// segment in turn (in row order) of act[r] * W[r][col(c)].
+template <int V, typename A, bool SM>
+__device__ __forceinline__ void job_item(const Job& j, int clo, int cc, int gi, int ks,
+                                         int KS, float* red) {
+  const int c = clo + gi * V;
+  const int q = c / j.cw, l = q / j.rpl;
+  const int col = j.col0 + (q % j.rpl) * j.col_step + c % j.cw;
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int s = 0; s < j.nseg; ++s) {
+    const __nv_bfloat16* w = j.w[s] + l * j.w_lstride + col;
+    const A* act = static_cast<const A*>(j.act[s]) + l * j.act_lstride;
+    const size_t ld = j.ld[s];
+    const int rows = j.rows[s];
+#pragma unroll UNROLL
+    for (int r = ks; r < rows; r += KS) {
+      float f[V];
+      load_w<V, SM>(w + r * ld, f);
+      const float x = to_f(act[r]);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = fmaf(x, f[v], acc[v]);
+    }
+  }
+  float* out = red + ks * cc + gi * V;
+#pragma unroll
+  for (int v = 0; v < V; ++v) out[v] = acc[v];
+}
+
+// Partial sums of owned columns [clo, chi) of job j over KS slices, every item
+// (column group, slice) of job_item once: item i on thread first + i (mod the CTA's
+// threads). The caller synchronises and adds the KS slices in order (reduce_slices).
+template <int V, typename A, bool SM>
+__device__ __forceinline__ void job_partials_v(const Job& j, int clo, int chi, int KS,
+                                               float* red, int first) {
+  const int cc = chi - clo, ng = cc / V, i0 = spread(first);
+  if (nt() % ng == 0) {  // a thread keeps its column group: one division, not one an item
+    for (int ks = i0 / ng; ks < KS; ks += nt() / ng)
+      job_item<V, A, SM>(j, clo, cc, i0 % ng, ks, KS, red);
+  } else {
+    for (int it = i0; it < ng * KS; it += nt())
+      job_item<V, A, SM>(j, clo, cc, it % ng, it / ng, KS, red);
+  }
+}
+
+// 8 where 8 divides the job's column widths, offsets and strides (16-byte loads, all
+// aligned), else 1 (the widths a small test model splits into)
+__device__ __forceinline__ int job_width(const Job& j) {
+  int m = j.cw | j.col0 | j.col_step | (int)(j.w_lstride & 0xffff) | j.ld[0]
+          | (j.nseg > 1 ? j.ld[1] : 0);
+  return (m & 7) == 0 ? 8 : 1;
+}
+
+// job_partials_v at the job's width, with activations of type A (the taps are bf16), the
+// weights in shared memory with SM (the staged chain: 16-byte rows); returns the thread
+// after its last item, where a job that runs beside it may start. Each call site
+// names its A and SM, so that it inlines only the widths it can meet.
+template <typename A, bool SM = false>
+__device__ __forceinline__ int job_run(const Job& j, int clo, int chi, int KS, float* red,
+                                       int first = 0) {
+  const int V = SM ? 8 : job_width(j);
+  if (V == 8)
+    job_partials_v<8, A, SM>(j, clo, chi, KS, red, first);
+  else
+    job_partials_v<1, A, false>(j, clo, chi, KS, red, first);
+  return first + (chi - clo) / V * KS;
+}
+
+// a chain job, on the staged slot or on global memory
+__device__ __forceinline__ int chain_run(const Job& j, int clo, int chi, float* red,
+                                         int first = 0) {
+  return j.sm ? job_run<float, true>(j, clo, chi, KS_CHAIN, red, first)
+              : job_run<float>(j, clo, chi, KS_CHAIN, red, first);
+}
+
+// the sum of column c's KS slices, in slice order (the loads all issued first)
+template <int KS>
+__device__ __forceinline__ float reduce_slices(const float* red, int cc, int c) {
+  float v[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) v[ks] = red[ks * cc + c];
   float s = 0.f;
-  for (int ks = 0; ks < ks_n; ++ks) s += red[ks * N + n];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) s += v[ks];
   return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// rows [0, rows) of the bf16 matrix at w (leading dimension ld), the columns of nrange
+// ranges of cw (range q at col0 + q col_step), into rows of dld at column dcol of dst
+// in shared memory: 16-byte cp.async copies, threads from `first` on; returns the
+// thread after the last copy
+__device__ __forceinline__ int stage_cols(__nv_bfloat16* dst, int dld, int dcol,
+                                          const __nv_bfloat16* w, int ld, int rows,
+                                          int nrange, int cw, int col0, int col_step,
+                                          int first) {
+  const int per_row = nrange * cw / 8, i0 = spread(first);
+  if (nt() % per_row == 0) {  // a thread keeps its 16-byte column: its offsets once
+    const int c = (i0 % per_row) * 8, q = c / cw;
+    const __nv_bfloat16* src = w + col0 + q * col_step + c % cw;
+    for (int r = i0 / per_row; r < rows; r += nt() / per_row)
+      cp_async16(dst + r * dld + dcol + c, src + (size_t)r * ld);
+  } else {
+    for (int i = i0; i < rows * per_row; i += nt()) {
+      const int r = i / per_row, c = (i % per_row) * 8, q = c / cw;
+      cp_async16(dst + r * dld + dcol + c, w + (size_t)r * ld + col0 + q * col_step + c % cw);
+    }
+  }
+  return first + rows * per_row;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 // --- the big-vocab head's noise: Philox4x32-10 (Salmon et al. 2011) ---
@@ -236,17 +412,21 @@ __device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
 __device__ __forceinline__ void big_vocab_scores(const Args& a, const __nv_bfloat16* w2,
                                                  const float* o, int g, int b,
                                                  unsigned long long t_abs,
-                                                 float lg[COLS], float sc[COLS]) {
+                                                 float lg[8], float sc[8]) {
   const size_t ld = a.q_ld;
-  const __nv_bfloat16* w = w2 + (size_t)g * COLS;
+  const __nv_bfloat16* w = w2 + (size_t)g * 8;
 #pragma unroll
-  for (int i = 0; i < COLS; ++i) lg[i] = 0.f;
+  for (int i = 0; i < 8; ++i) lg[i] = 0.f;
 #pragma unroll UNROLL
-  for (int s = 0; s < a.S; ++s)
-    fma8(lg, o[s], __ldg(reinterpret_cast<const uint4*>(w + s * ld)));
+  for (int s = 0; s < a.S; ++s) {
+    float f[8];
+    load_w<8>(w + s * ld, f);
 #pragma unroll
-  for (int i = 0; i < COLS; ++i) {
-    const int c = g * COLS + i;
+    for (int i = 0; i < 8; ++i) lg[i] = fmaf(o[s], f[i], lg[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = g * 8 + i;
     lg[i] += c < a.out_ch ? a.b_s2[c] : 0.f;
     sc[i] = lg[i];
   }
@@ -262,8 +442,8 @@ __device__ __forceinline__ void big_vocab_scores(const Args& a, const __nv_bfloa
   }
 }
 
-// The largest score a thread (then the block) has seen, its lowest class, and how many
-// classes tie it.
+// The largest score a thread (then the CTA, then the cluster) has seen, its lowest
+// class, and how many classes tie it: merged exactly in any order.
 struct Best {
   float v;
   int first, count;
@@ -290,7 +470,7 @@ __device__ __forceinline__ Best warp_best(Best x) {
   return x;
 }
 
-// Block-wide best_merge; every thread calls, thread 0 gets the result. scratch: 96
+// CTA-wide best_merge; every thread calls, thread 0 gets the result. scratch: 96
 // words of shared memory.
 __device__ __forceinline__ Best block_best(Best x, float* scratch) {
   int* si = reinterpret_cast<int*>(scratch);
@@ -303,9 +483,10 @@ __device__ __forceinline__ Best block_best(Best x, float* scratch) {
   }
   __syncthreads();
   if (warp == 0) {
-    x.v = scratch[lane];
-    x.first = si[32 + lane];
-    x.count = si[64 + lane];
+    const bool w = lane < nt() / 32;
+    x.v = w ? scratch[lane] : -INFINITY;
+    x.first = w ? si[32 + lane] : INT_MAX;
+    x.count = w ? si[64 + lane] : 0;
     x = warp_best(x);
   }
   return x;
@@ -327,48 +508,84 @@ __device__ __forceinline__ void warp_lse(float& m, float& s) {
   }
 }
 
-// Block-wide log-sum-exp of the threads' partial (m, s); every thread calls, thread 0
-// gets max + log(sum). scratch: 64 floats of shared memory.
-__device__ __forceinline__ float block_lse(float m, float s, float* scratch) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  warp_lse(m, s);
-  if (lane == 0) {
-    scratch[warp] = m;
-    scratch[32 + warp] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    m = scratch[lane];
-    s = scratch[32 + lane];
-    warp_lse(m, s);
-  }
-  return m + logf(s);
+// Shared-memory floats of a CTA's partial sums: the chain's three matvecs (gate,
+// residual, skip) side by side, and at least 8,192 (the chunks of the step's start).
+__host__ __device__ __forceinline__ int red_floats(int R, int G, int S, int N) {
+  const int chain = KS_CHAIN * (G / N + R / N + S / N);
+  return chain > 8192 ? chain : 8192;
+}
+
+// v into element idx of `local` (a shared-memory array) in every CTA of the cluster
+__device__ __forceinline__ void share(cg::cluster_group& cluster, float* local, int idx,
+                                      float v, int N) {
+  for (int q = 0; q < N; ++q) cluster.map_shared_rank(local, q)[idx] = v;
+}
+
+// The GLU of the CTA's unit c (gate pair n0 + c, half + n0 + c) of a layer from its
+// consts and the partial sums of its chain matvec, shared as z into every CTA's zb.
+__device__ __forceinline__ void glu_unit(cg::cluster_group& cluster, const float* lconsts,
+                                         const float* red_b, float* zb, int c, int hN,
+                                         int n0, int N) {
+  const float za = lconsts[c] + reduce_slices<KS_CHAIN>(red_b, 2 * hN, c);
+  const float zg = lconsts[hN + c] + reduce_slices<KS_CHAIN>(red_b, 2 * hN, hN + c);
+  share(cluster, zb, n0 + c, bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);
+}
+
+// the CTA's residual columns [r0, r0 + RN) of a layer's input h into slot `slot` of
+// that layer's ring
+__device__ __forceinline__ void write_ring(float* ring, const float* h, int slot, int R,
+                                           int r0, int RN) {
+  for (int c = threadIdx.x; c < RN; c += nt()) ring[slot * R + r0 + c] = h[r0 + c];
 }
 
 template <int HEAD, int CHAIN, bool NLL>
-__global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
+__global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
   extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, N = a.N;
+  const int rank = (int)cluster.block_rank(), b = blockIdx.x / N;
   const int R = a.R, G = a.G, S = a.S, L = a.L, k = a.k, cin = a.cin;
   const int half = G / 2, past = (k - 1) * R, LG = L * G, RS = R + S;
+  const int hN = half / N, RN = R / N, SN = S / N, CG = 2 * hN;
+  const int n0 = rank * hN, r0 = rank * RN, s0 = rank * SN;
+  const int XW = R + half;
+  // the first threads of the skip and GLU columns in a layer's work: whole warps after
+  // the residual columns
+  const int w_skip = (RN + 31) / 32 * 32, w_glu = w_skip + (SN + 31) / 32 * 32;
   const float rho = a.residual_legacy ? SQRT_HALF : 1.f;
 
-  float* cond = smem;                   // (L*G)  bf16-rounded conditioning row
-  float* act = cond + LG;               // [taps (past) | h (R) | z (G/2)], bf16-rounded
-  float* taps = act;
-  float* hb = act + past;
-  float* zb = act + past + R;
-  float* red_a = act + past + R + half;  // residual/skip and head partial sums
-  float* red_b = red_a + RED;            // gate partial sums
-  float* h = red_b + RED;                // (R) f32 input of the current layer
-  float* skips = h + R;                  // (S)
-  float* xc = skips + S;                 // (cin) bf16-rounded c_t
-  float* o = xc + cin;                   // (S)
-  float* sample_s = o + S;  // (4) the sample; categorical: id, max, ties, logit[y_eval]
-  int* ring_off = reinterpret_cast<int*>(sample_s + 4);  // (L) float offsets
-  int* win = ring_off + L;                                // (L) slots per ring
+  float* consts = smem;                 // (L, CG) the owned gate columns' step constants
+  // (L, past) every layer's past taps, in bf16
+  __nv_bfloat16* taps = reinterpret_cast<__nv_bfloat16*>(consts + L * CG);
+  float* xc = consts + L * CG + L * past / 2;  // (cin) bf16-rounded c_t
+  float* h = xc + cin;                  // (R) f32 h: the CTA's columns on the chain
+  float* X = h + R;                     // 2 x [hb (R) | zb (G/2)]: the exchanged inputs
+  float* skips = X + 2 * XW;            // (SN) the CTA's skip sums
+  float* O = skips + SN;                // (S) bf16 relu(skip sum), exchanged
+  float* P = O + S;                     // (S) the head's last input, exchanged
+  // (L, RN + SN) the CTA's columns of b_os, residual then skip; on a cluster of one,
+  // where they would take 48 KB at the paper width, read from global memory instead
+  const bool sbos = N > 1;
+  float* bos = P + S;
+  float* bs1 = bos + (sbos ? L * (RN + SN) : 0);  // (SN) the CTA's columns of b_s1
+  float* sample_s = bs1 + SN;  // (8) the sample; categorical: id, max, ties, logit[y_eval]
+  float* merge = sample_s + 8;          // (MAX_CLUSTER, 8) the big head's partials
+  float* blk_lse = merge + MAX_CLUSTER * 8;  // (256, 2) the big head's log-sum-exps a block
+  float* scr = blk_lse + 512;           // (96) scratch of block_best
+  int* ring_off = reinterpret_cast<int*>(scr + 96);  // (L) float offsets
+  int* win = ring_off + L;                             // (L) slots per ring
   int* base = win + L;  // (L) t_base mod win: local step t uses slot (base + t) mod win
+  float* red = reinterpret_cast<float*>(base + L);
+  const int n_red = red_floats(R, G, S, N);
+  float* red_b = red;                        // gate partials (KS_CHAIN, CG)
+  float* red_r = red_b + KS_CHAIN * CG;      // residual partials (KS_CHAIN, RN)
+  float* red_s = red_r + KS_CHAIN * RN;      // skip partials (KS_CHAIN, SN)
+  // with wpre, two slots of the chain's weights, each a layer's gate rows (CG columns:
+  // w_cur, then w_fused in the fused chain) and 1x1 rows (RN + SN columns)
+  const int WS = (R + half) * CG + half * (RN + SN);
+  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(red + n_red) + 15) & ~(uintptr_t)15);  // 16-byte rows
+  int ws = 0;  // the slots used so far: slot ws & 1 holds the current layer's weights
 
   float* ring = a.rings + (size_t)b * a.ring_floats;
   if (tid == 0) {
@@ -380,9 +597,63 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
       off += win[l] * R;
     }
   }
+  auto bos_at = [&](int l, int c) {
+    return sbos ? bos[l * (RN + SN) + c] : a.b_os[l * RS + (c < RN ? r0 + c : R + s0 + c - RN)];
+  };
+  if (sbos)
+    for (int i = tid; i < L * (RN + SN); i += nt()) {
+      const int l = i / (RN + SN), c = i % (RN + SN);
+      bos[i] = a.b_os[l * RS + (c < RN ? r0 + c : R + s0 + c - RN)];
+    }
+
+  // The chain's weights of layer li (fused: layer li+1's gates, layer li's 1x1s; plain:
+  // layer li's both) into slot `buf`, one commit group (prefetches); and the chain's
+  // jobs, on the current slot with wpre, else on global memory.
+  auto stage_slot = [&](int li, int buf) {
+    __nv_bfloat16* d = wbuf + buf * WS;
+    const int gl = CHAIN == FUSED ? li + 1 : li;
+    int first = 0;
+    if (gl < L) {
+      first = stage_cols(d, CG, 0, a.w_tap + (size_t)gl * k * R * G + (size_t)past * G, G,
+                         R, 2, hN, n0, half, first);
+      if (CHAIN == FUSED)
+        first = stage_cols(d + R * CG, CG, 0, a.w_fused + (size_t)gl * half * G, G, half, 2,
+                           hN, n0, half, first);
+    }
+    const __nv_bfloat16* wos = a.w_os + (size_t)li * half * RS;
+    first = stage_cols(d + (R + half) * CG, RN + SN, 0, wos, RS, half, 1, RN, r0, 0, first);
+    stage_cols(d + (R + half) * CG, RN + SN, RN, wos, RS, half, 1, SN, R + s0, 0, first);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto gate_job = [&](int gl, const float* act) {
+    const __nv_bfloat16* slot = wbuf + (ws & 1) * WS;
+    Job j = a.wpre ? job1(slot, CG, R, act, 2, hN, 2, 0, hN)
+                   : job1(a.w_tap + (size_t)gl * k * R * G + (size_t)past * G, G, R, act, 2,
+                          hN, 2, n0, half);
+    if (CHAIN == FUSED) {
+      j.w[1] = a.wpre ? slot + R * CG : a.w_fused + (size_t)gl * half * G;
+      j.ld[1] = a.wpre ? CG : G;
+      j.rows[1] = half;
+      j.act[1] = act + R;
+      j.nseg = 2;
+    }
+    j.sm = a.wpre;
+    return j;
+  };
+  auto os_job = [&](int li, bool skip, const float* zb) {
+    const __nv_bfloat16* slot = wbuf + (ws & 1) * WS + (R + half) * CG;
+    Job j = a.wpre ? job1(slot, RN + SN, half, zb, 1, skip ? SN : RN, 1, skip ? RN : 0, 0)
+                   : job1(a.w_os + (size_t)li * half * RS, RS, half, zb, 1, skip ? SN : RN, 1,
+                          skip ? R + s0 : r0, 0);
+    j.sm = a.wpre;
+    return j;
+  };
+  if (a.wpre) stage_slot(0, 0);
+  for (int s = tid; s < SN; s += nt()) bs1[s] = a.b_s1[s0 + s];
   if (a.h_in == nullptr) {
-    for (long long i = tid; i < a.ring_floats; i += NT) ring[i] = 0.f;
-    for (int r = tid; r < R; r += NT) {
+    const long long lo = a.ring_floats * rank / N, hi = a.ring_floats * (rank + 1) / N;
+    for (long long i = lo + tid; i < hi; i += nt()) ring[i] = 0.f;
+    for (int r = tid; r < R; r += nt()) {
       if constexpr (HEAD == CATEGORICAL)  // silence: the f32 row of class Q/2
         h[r] = a.first_w[(size_t)(a.out_ch / 2) * R + r] + a.first_b[r];
       else if constexpr (HEAD == CATEGORICAL_BIG)  // ... read from the bf16 first_w
@@ -392,192 +663,195 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
         h[r] = a.first_b[r];
     }
   } else {
-    for (int r = tid; r < R; r += NT) h[r] = a.h_in[(size_t)b * R + r];
+    for (int r = tid; r < R; r += nt()) h[r] = a.h_in[(size_t)b * R + r];
   }
   __syncthreads();
+  cluster_barrier();  // the zeroed rings, before any CTA reads a tap
+#ifdef T2_PROFILE
+  unsigned long long prof_t = now_ns();
+#endif
 
+  const int chunk = n_red / KS_START / 8 * 8;  // columns a pass of the step's start
   for (int t = 0; t < a.T; ++t) {
-    // --- the step's inputs: c_t, layer 0's taps and input, a cleared skip sum ---
+    // --- the step's inputs: c_t, every layer's past taps, layer 0's input h ---
     const float* ct = a.c_up + ((size_t)b * a.T + t) * cin;
-    for (int i = tid; i < cin; i += NT) xc[i] = bf16r(ct[i]);
-    for (int i = tid; i < past; i += NT) {
-      const int j = i / R, r = i % R;
-      const int w0 = win[0], m = (k - 1 - j) * (w0 / (k - 1));
-      taps[i] = bf16r(ring[ring_off[0] + ((base[0] + t + w0 - m) % w0) * R + r]);
+    for (int i = tid; i < cin; i += nt()) xc[i] = bf16r(ct[i]);
+    for (int row = tid / 32; row < L * (k - 1); row += nt() / 32) {  // a warp a tap row
+      const int l = row / (k - 1), j = row % (k - 1);
+      const int w = win[l], m = (k - 1 - j) * (w / (k - 1));
+      const float* src = ring + ring_off[l] + ((base[l] + t + w - m) % w) * R;
+      __nv_bfloat16* dst = taps + l * past + j * R;
+#pragma unroll 4
+      for (int r = tid % 32; r < R; r += 32) dst[r] = __float2bfloat16(src[r]);
     }
-    for (int r = tid; r < R; r += NT) hb[r] = bf16r(h[r]);
-    for (int s = tid; s < S; s += NT) skips[s] = 0.f;
+    for (int r = tid; r < R; r += nt()) X[r] = bf16r(h[r]);
+    for (int s = tid; s < SN; s += nt()) skips[s] = 0.f;
     __syncthreads();
+    PROF(P_STAGE);
 
-    // --- 1. conditioning row for every layer: (cin) @ (cin, L*G) ---
-    for (int g = tid; g < LG / COLS; g += NT) {
-      float acc[COLS];
-#pragma unroll
-      for (int q = 0; q < COLS; ++q) acc[q] = 0.f;
-      const __nv_bfloat16* w = a.w_cond + g * COLS;
-#pragma unroll UNROLL
-      for (int i = 0; i < cin; ++i)
-        fma8(acc, xc[i], __ldg(reinterpret_cast<const uint4*>(w + (size_t)i * LG)));
-#pragma unroll
-      for (int q = 0; q < COLS; ++q) {
-        float v = acc[q] + a.b_cond[g * COLS + q];
-        if (a.g_cond != nullptr) v += a.g_cond[(size_t)b * LG + g * COLS + q];
-        cond[g * COLS + q] = a.round_cond ? bf16r(v) : v;
+    // --- 1-2. off the chain: consts = b_tap (+ b_fused) + cond + past taps @ w_tap ---
+    {
+      const Job cond = job1(a.w_cond, LG, cin, xc, 2 * L, hN, 2, n0, half, G, 0);
+      for (int clo = 0; clo < L * CG; clo += chunk) {
+        const int chi = min(L * CG, clo + chunk);
+        job_run<float>(cond, clo, chi, KS_START, red);
+        __syncthreads();
+        for (int c = clo + tid; c < chi; c += nt()) {
+          const int q = c / hN, g = (q / 2) * G + n0 + (q % 2) * half + c % hN;
+          float v = reduce_slices<KS_START>(red, chi - clo, c - clo) + a.b_cond[g];
+          if (a.g_cond != nullptr) v += a.g_cond[(size_t)b * LG + g];
+          v = a.round_cond ? bf16r(v) : v;
+          const float bias = CHAIN == FUSED ? a.b_tap[g] + a.b_fused[g] : a.b_tap[g];
+          consts[c] = bias + v;
+        }
+        __syncthreads();
       }
+      PROF(P_COND);
+      const Job tap = job1(a.w_tap, G, past, taps, 2 * L, hN, 2, n0, half,
+                           (long long)k * R * G, past);
+      for (int clo = 0; clo < L * CG; clo += chunk) {
+        const int chi = min(L * CG, clo + chunk);
+        job_run<__nv_bfloat16>(tap, clo, chi, KS_START, red);
+        __syncthreads();
+        for (int c = clo + tid; c < chi; c += nt())
+          consts[c] += reduce_slices<KS_START>(red, chi - clo, c - clo);
+        __syncthreads();
+      }
+      PROF(P_TAPS);
     }
-    __syncthreads();
 
     if constexpr (CHAIN == FUSED) {
-      // --- layer 0 gates: [taps | h] @ w_tap[0] ---
-      {
-        Seg segs[1] = {{a.w_tap, G, past + R, act}};
-        matvec_partial(segs, 1, G, red_b);
-      }
+      // --- layer 0's gates: bf16(h) @ w_cur[0] ---
+      job_run<float>(job1(a.w_tap + (size_t)past * G, G, R, X, 2, hN, 2, n0, half), 0, CG,
+                     KS_CHAIN, red_b);
       __syncthreads();
+      PROF(P_GATE0);
 
-      // --- 2-3. the layer stack ---
+      // --- 3. the layer stack: one exchange and cluster barrier a layer ---
       for (int li = 0; li < L; ++li) {
-        // residual and skip outputs of layer li-1 (partials in red_a); h becomes the
-        // input of layer li and goes into its ring (its taps were staged already)
-        const int slot = (base[li] + t) % win[li];
-        for (int c = tid; c < RS; c += NT) {
-          if (c < R) {
-            float hc = h[c];
-            if (li > 0) {
-              hc = (hc + a.b_os[(li - 1) * RS + c] + reduce_slices(red_a, RS, c)) * rho;
-              h[c] = hc;
-            }
-            ring[ring_off[li] + slot * R + c] = hc;
-            hb[c] = bf16r(hc) * rho;  // h term of layer li+1's fused gates
-          } else if (li > 0) {
-            const int s = c - R;
-            float sk = skips[s] + a.b_os[(li - 1) * RS + c] + reduce_slices(red_a, RS, c);
+        float* Xp = X + ((li + 1) & 1) * XW;
+        // the next layer's weights (after the last, the next step's first) into the other
+        // slot, while this layer runs
+        if (a.wpre) stage_slot(li + 1 < L ? li + 1 : 0, (ws + 1) & 1);
+        // h, the input of layer li (its residual partials in red_r), as rho bf16(h) for
+        // layer li+1's gates; the skip of layer li-1
+        // (the residual, skip and GLU columns on warps of their own: no branch between
+        // them inside a warp)
+        for (int c = tid; c < RN; c += nt()) {
+          const int col = r0 + c;
+          float hc = h[col];
+          if (li > 0) {
+            hc = (hc + bos_at(li - 1, c) + reduce_slices<KS_CHAIN>(red_r, RN, c)) * rho;
+            h[col] = hc;
+          }
+          share(cluster, Xp, col, bf16r(hc) * rho, N);
+        }
+        if (li > 0)
+          for (int s = spread(w_skip); s < SN; s += nt()) {
+            float sk = skips[s] + bos_at(li - 1, RN + s) + reduce_slices<KS_CHAIN>(red_s, SN, s);
             if (a.legacy && li - 1 > 0) sk *= SQRT_HALF;
             skips[s] = sk;
           }
-        }
-        // GLU of layer li (gate partials in red_b)
-        for (int n = tid; n < half; n += NT) {
-          const int base = li * G;
-          const float za = a.b_tap[base + n] + a.b_fused[base + n] + cond[base + n]
-                           + reduce_slices(red_b, G, n);
-          const float zg = a.b_tap[base + n + half] + a.b_fused[base + n + half]
-                           + cond[base + n + half] + reduce_slices(red_b, G, n + half);
-          zb[n] = bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg)));
-        }
-        // taps of layer li+1 (its ring is not written before the step's layer li+1)
-        if (li + 1 < L) {
-          const int w1 = win[li + 1], d1 = w1 / (k - 1);
-          for (int i = tid; i < past; i += NT) {
-            const int j = i / R, r = i % R;
-            const int m = (k - 1 - j) * d1;
-            taps[i] = bf16r(ring[ring_off[li + 1] + ((base[li + 1] + t + w1 - m) % w1) * R + r]);
-          }
-        }
-        __syncthreads();
+        for (int c = spread(w_glu); c < hN; c += nt())
+          glu_unit(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
+        // this layer's slot is in (the barrier below shows it to every thread)
+        if (a.wpre) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        PROF(P_LAYER_WORK);
+        cluster_arrive();
+        PROF(P_ARRIVE);
+        cluster_wait();
+        PROF(P_WAIT);
+        write_ring(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN);
 
+        int first = 0;  // the jobs side by side, each from its own threads
         if (li + 1 < L) {
-          // gates of layer li+1: [taps | rho*h | z] @ [w_tap[li+1] ; w_fused[li+1]]
-          Seg gate[2] = {{a.w_tap + (size_t)(li + 1) * k * R * G, G, past + R, act},
-                         {a.w_fused + (size_t)(li + 1) * half * G, G, half, zb}};
-          matvec_partial(gate, 2, G, red_b);
-          // residual and skip 1x1s of layer li: z @ w_os[li]
-          Seg os[1] = {{a.w_os + (size_t)li * half * RS, RS, half, zb}};
-          matvec_partial(os, 1, RS, red_a);
-        } else {
-          // last layer: only its skip output is used
-          Seg os[1] = {{a.w_os + (size_t)li * half * RS + R, RS, half, zb}};
-          matvec_partial(os, 1, S, red_a);
+          // gates of layer li+1: [rho bf16(h) | z] @ [w_cur[li+1] ; w_fused[li+1]], and
+          // the residual 1x1 of layer li
+          first = chain_run(gate_job(li + 1, Xp), 0, CG, red_b);
+          first = chain_run(os_job(li, false, Xp + R), 0, RN, red_r, first);
         }
+        // skip 1x1 of layer li
+        chain_run(os_job(li, true, Xp + R), 0, SN, red_s, first);
         __syncthreads();
+        ++ws;
+        PROF(P_MATVEC);
       }
     } else {
-      // --- 2-3. the layer stack, plain chain: two dependent matvecs a layer ---
+      // --- 3. the layer stack, plain chain: two exchanges a layer ---
       for (int li = 0; li < L; ++li) {
-        // residual and skip outputs of layer li-1 (partials in red_a); h becomes the
-        // input of layer li and goes into its ring (its taps were staged already)
-        const int slot = (base[li] + t) % win[li];
-        for (int c = tid; c < RS; c += NT) {
-          if (c < R) {
-            float hc = h[c];
-            if (li > 0) {
-              hc = (a.b_os[(li - 1) * RS + c] + reduce_slices(red_a, RS, c) + hc) * rho;
-              h[c] = hc;
-            }
-            ring[ring_off[li] + slot * R + c] = hc;
-            hb[c] = bf16r(hc);
-          } else if (li > 0) {
-            const int s = c - R;
-            float sk = skips[s] + a.b_os[(li - 1) * RS + c] + reduce_slices(red_a, RS, c);
+        float* Xp = X + ((li + 1) & 1) * XW;
+        if (a.wpre) stage_slot(li + 1 < L ? li + 1 : 0, (ws + 1) & 1);
+        for (int c = tid; c < RN; c += nt()) {
+          const int col = r0 + c;
+          float hc = h[col];
+          if (li > 0) {
+            hc = (bos_at(li - 1, c) + reduce_slices<KS_CHAIN>(red_r, RN, c) + hc) * rho;
+            h[col] = hc;
+          }
+          share(cluster, Xp, col, bf16r(hc), N);
+        }
+        if (li > 0)
+          for (int s = spread(w_skip); s < SN; s += nt()) {
+            float sk = skips[s] + bos_at(li - 1, RN + s) + reduce_slices<KS_CHAIN>(red_s, SN, s);
             if (a.legacy && li - 1 > 0) sk *= SQRT_HALF;
             skips[s] = sk;
           }
-        }
+        if (a.wpre) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        PROF(P_LAYER_WORK);
+        cluster_arrive();
+        PROF(P_ARRIVE);
+        cluster_wait();
+        PROF(P_WAIT);
+        write_ring(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN);  // layer li's input
+        // gates of layer li: bf16(h) @ w_cur[li]
+        chain_run(gate_job(li, Xp), 0, CG, red_b);
         __syncthreads();
-        // gates of layer li: [taps | h] @ w_tap[li]
-        {
-          Seg gate[1] = {{a.w_tap + (size_t)li * k * R * G, G, past + R, act}};
-          matvec_partial(gate, 1, G, red_b);
-        }
-        __syncthreads();
-        // GLU of layer li
-        for (int n = tid; n < half; n += NT) {
-          const int base = li * G;
-          const float za = reduce_slices(red_b, G, n) + a.b_tap[base + n] + cond[base + n];
-          const float zg = reduce_slices(red_b, G, n + half) + a.b_tap[base + n + half]
-                           + cond[base + n + half];
-          zb[n] = bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg)));
-        }
-        // taps of layer li+1 (its ring is not written before the step's layer li+1)
-        if (li + 1 < L) {
-          const int w1 = win[li + 1], d1 = w1 / (k - 1);
-          for (int i = tid; i < past; i += NT) {
-            const int j = i / R, r = i % R;
-            const int m = (k - 1 - j) * d1;
-            taps[i] = bf16r(ring[ring_off[li + 1] + ((base[li + 1] + t + w1 - m) % w1) * R + r]);
-          }
-        }
-        __syncthreads();
+        PROF(P_MATVEC);
+        for (int c = tid; c < hN; c += nt())
+          glu_unit(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
+        PROF(P_LAYER_WORK);
+        cluster_arrive();
+        PROF(P_ARRIVE);
+        cluster_wait();
+        PROF(P_WAIT);
         // residual and skip 1x1s of layer li: z @ w_os[li]; the last layer's skip only
-        if (li + 1 < L) {
-          Seg os[1] = {{a.w_os + (size_t)li * half * RS, RS, half, zb}};
-          matvec_partial(os, 1, RS, red_a);
-        } else {
-          Seg os[1] = {{a.w_os + (size_t)li * half * RS + R, RS, half, zb}};
-          matvec_partial(os, 1, S, red_a);
-        }
+        const int first = li + 1 < L ? chain_run(os_job(li, false, Xp + R), 0, RN, red_r) : 0;
+        chain_run(os_job(li, true, Xp + R), 0, SN, red_s, first);
         __syncthreads();
+        ++ws;
+        PROF(P_MATVEC);
       }
     }
 
-    // --- 4. head: skip sum -> relu -> 1x1 -> relu -> 1x1 ---
-    for (int s = tid; s < S; s += NT) {
-      float sk = skips[s] + a.b_os[(L - 1) * RS + R + s] + reduce_slices(red_a, S, s);
+    // --- 4. head: skip sum -> relu -> 1x1 -> relu (exchanged), then the last 1x1 ---
+    for (int s = tid; s < SN; s += nt()) {
+      float sk = skips[s] + bos_at(L - 1, RN + s)
+                 + reduce_slices<KS_CHAIN>(red_s, SN, s);
       if (a.legacy && L > 1) sk *= SQRT_HALF;
-      o[s] = bf16r(fmaxf(sk, 0.f));
+      share(cluster, O, s0 + s, bf16r(fmaxf(sk, 0.f)), N);
     }
+    cluster_barrier();
+    PROF(P_HEAD_SKIP);
+    job_run<float>(job1(a.w_s1, S, S, O, 1, SN, 1, s0, 0), 0, SN, KS_CHAIN, red);
     __syncthreads();
-    {
-      Seg s1[1] = {{a.w_s1, S, S, o}};
-      matvec_partial(s1, 1, S, red_a);
+    for (int s = tid; s < SN; s += nt()) {
+      const float v = fmaxf(bs1[s] + reduce_slices<KS_CHAIN>(red, SN, s), 0.f);
+      // the big-vocab head's input is bf16
+      share(cluster, P, s0 + s, HEAD == CATEGORICAL_BIG ? bf16r(v) : v, N);
     }
-    __syncthreads();
-    for (int s = tid; s < S; s += NT) {
-      const float v = fmaxf(a.b_s1[s] + reduce_slices(red_a, S, s), 0.f);
-      if constexpr (HEAD == CATEGORICAL_BIG)
-        skips[s] = bf16r(v);  // the big-vocab head's input is bf16
-      else
-        skips[s] = v;
-    }
-    __syncthreads();
+    cluster_barrier();
+    PROF(P_HEAD_S1);
 
-    // --- 5. the sample ---
+    // --- 5. the sample: every CTA draws the same one (the big head: from its classes
+    // and the others' partials); rank 0 writes the outputs ---
+    const size_t bt = (size_t)b * a.T + t;
+    const bool out0 = rank == 0;
     if constexpr (HEAD == GAUSSIAN) {
       if (tid < 32) {  // one warp
         float p0 = 0.f, p1 = 0.f;
         for (int s = tid; s < S; s += 32) {
-          p0 = fmaf(skips[s], a.w_s2[2 * s], p0);
-          p1 = fmaf(skips[s], a.w_s2[2 * s + 1], p1);
+          p0 = fmaf(P[s], a.w_s2[2 * s], p0);
+          p1 = fmaf(P[s], a.w_s2[2 * s + 1], p1);
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
@@ -587,84 +861,85 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
         if (tid == 0) {
           p0 += a.b_s2[0];
           p1 += a.b_s2[1];
-          const size_t bt = (size_t)b * a.T + t;
           const float logs = fmaxf(p1, a.log_scale_min);
           const float x = fminf(fmaxf(p0 + expf(logs) * a.noise[bt], -1.f), 1.f);
-          a.audio[bt] = x;
-          if (a.params != nullptr) {
-            a.params[2 * bt] = p0;
-            a.params[2 * bt + 1] = p1;
+          if (out0) {
+            a.audio[bt] = x;
+            if (a.params != nullptr) {
+              a.params[2 * bt] = p0;
+              a.params[2 * bt + 1] = p1;
+            }
           }
           sample_s[0] = x;
         }
       }
     } else if constexpr (HEAD == MOL) {
-      // MoL: the out_ch head outputs o @ w_s2 + b_s2 in f32, one warp per column, into
-      // red_a (its partial sums were reduced above; the next step writes it again)
+      // MoL: the out_ch head outputs P @ w_s2 + b_s2 in f32, one warp per column, into red
       const int warp = tid / 32, lane = tid % 32, oc = a.out_ch, nr = oc / 3;
-      const size_t bt = (size_t)b * a.T + t;
-      for (int j = warp; j < oc; j += NT / 32) {
+      for (int j = warp; j < oc; j += nt() / 32) {
         float p = 0.f;
-        for (int s = lane; s < S; s += 32)
-          p = fmaf(skips[s], a.w_s2[(size_t)s * oc + j], p);
+        for (int s = lane; s < S; s += 32) p = fmaf(P[s], a.w_s2[(size_t)s * oc + j], p);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
         if (lane == 0) {
           p += a.b_s2[j];
-          red_a[j] = p;
-          if (a.params != nullptr) a.params[bt * oc + j] = p;
+          red[j] = p;
+          if (out0 && a.params != nullptr) a.params[bt * oc + j] = p;
         }
       }
       __syncthreads();
       if (tid == 0) {
         // the mixture of largest logit + Gumbel; tied mixtures each weigh 1/count
         const float* nz = a.noise + bt * (nr + 1);
-        float kmax = red_a[0] + nz[1];
-        for (int i = 1; i < nr; ++i) kmax = fmaxf(kmax, red_a[i] + nz[1 + i]);
+        float kmax = red[0] + nz[1];
+        for (int i = 1; i < nr; ++i) kmax = fmaxf(kmax, red[i] + nz[1 + i]);
         float count = 0.f;
-        for (int i = 0; i < nr; ++i) count += red_a[i] + nz[1 + i] >= kmax ? 1.f : 0.f;
+        for (int i = 0; i < nr; ++i) count += red[i] + nz[1 + i] >= kmax ? 1.f : 0.f;
         const float w = 1.f / count;
         float mean = 0.f, ls = 0.f;
         for (int i = 0; i < nr; ++i) {
-          if (red_a[i] + nz[1 + i] >= kmax) {
-            mean += red_a[nr + i] * w;
-            ls += red_a[2 * nr + i] * w;
+          if (red[i] + nz[1 + i] >= kmax) {
+            mean += red[nr + i] * w;
+            ls += red[2 * nr + i] * w;
           }
         }
         const float logs = fmaxf(ls, a.log_scale_min);
         const float x = fminf(fmaxf(mean + expf(logs) * nz[0], -1.f), 1.f);
-        a.audio[bt] = x;
+        if (out0) a.audio[bt] = x;
         sample_s[0] = x;
       }
     } else if constexpr (HEAD == CATEGORICAL) {
-      // categorical: Q logits o @ w_s2 + b_s2 in f32, one class a thread (the block
-      // reads each row of the (S, Q) w_s2 coalesced); logit + Gumbel noise into red_a
+      // categorical: Q logits P @ w_s2 + b_s2 in f32, a class a thread in turn (the CTA
+      // reads each row of the (S, Q) w_s2 coalesced); logit + Gumbel noise into red
+      // (the logits themselves into red[Q + c], for the NLL)
       const int Q = a.out_ch;
-      const size_t bt = (size_t)b * a.T + t;
-      float logit = -INFINITY;  // the thread's un-noised logit, for the NLL
-      if (tid < Q) {
+      for (int c = tid; c < Q; c += nt()) {
         float p = 0.f;
-        for (int s = 0; s < S; ++s) p = fmaf(skips[s], a.w_s2[(size_t)s * Q + tid], p);
-        p += a.b_s2[tid];
-        if (a.params != nullptr) a.params[bt * Q + tid] = p;
-        red_a[tid] = p + a.noise[bt * Q + tid];
-        if constexpr (NLL) logit = p;
-      }
-      if constexpr (NLL) {
-        // logsumexp(logits) - logits[y] (wavenet_ar.py:470-481); red_b is free here
-        if (tid == a.y_eval[bt]) sample_s[3] = logit;
-        const float lse = block_lse(logit, tid < Q ? 1.f : 0.f, red_b);
-        if (tid == 0) a.nll[bt] = lse - sample_s[3];
+        for (int s = 0; s < S; ++s) p = fmaf(P[s], a.w_s2[(size_t)s * Q + c], p);
+        p += a.b_s2[c];
+        if (out0 && a.params != nullptr) a.params[bt * Q + c] = p;
+        red[c] = p + a.noise[bt * Q + c];
+        if constexpr (NLL) red[Q + c] = p;
       }
       __syncthreads();
+      if constexpr (NLL) {
+        // logsumexp(logits) - logits[y] (wavenet_ar.py:470-481), in one warp in class
+        // order, whatever the CTA's threads
+        if (tid < 32) {
+          float lm = -INFINITY, ls = 0.f;
+          for (int c = tid; c < Q; c += 32) lse_merge(lm, ls, red[Q + c], 1.f);
+          warp_lse(lm, ls);
+          if (tid == 0 && out0) a.nll[bt] = lm + logf(ls) - red[Q + a.y_eval[bt]];
+        }
+      }
       if (tid < 32) {  // one warp: the largest score, how many classes tie it, the first
         float m = -INFINITY;
-        for (int j = tid; j < Q; j += 32) m = fmaxf(m, red_a[j]);
+        for (int j = tid; j < Q; j += 32) m = fmaxf(m, red[j]);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
         int count = 0, first = Q;
         for (int j = tid; j < Q; j += 32) {
-          if (red_a[j] >= m) {
+          if (red[j] >= m) {
             ++count;
             first = min(first, j);
           }
@@ -676,64 +951,102 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
         }
         if (tid == 0) {
           if (count == 0) first = 0;  // every score NaN: stay inside first_w
-          a.audio[bt] = (float)first;
+          if (out0) a.audio[bt] = (float)first;
           sample_s[0] = (float)first;
           sample_s[1] = m;
           sample_s[2] = (float)count;
         }
       }
     } else {
-      // big-vocab categorical: no score is stored (see the note at the top)
-      const int Q = a.out_ch;
-      const size_t bt = (size_t)b * a.T + t;
+      // big-vocab categorical: no score is stored. Classes go in blocks of 256 (32 groups
+      // of 8, 16-byte loads of the bf16 w_s2); CTA r scores blocks [b0, b1), a warp a
+      // block at a time, lane l its group 32 b + l. The NLL's log-sum-exp is merged
+      // within each block (each lane over its classes in order, then a fixed shuffle
+      // tree), the blocks' pairs shared into every CTA and merged in block order there:
+      // the same sums whatever N and the CTA's threads are.
+      const int Q = a.out_ch, ngrp = a.q_ld / 8, nblk = (ngrp + 31) / 32;
+      const int b0 = rank * nblk / N, b1 = (rank + 1) * nblk / N;
+      const int warp = tid / 32, lane = tid % 32;
       const unsigned long long t_abs = (unsigned long long)a.t_base + t;
       const __nv_bfloat16* w2 = reinterpret_cast<const __nv_bfloat16*>(a.w_s2);
       Best best = {-INFINITY, Q, 0};
-      float lm = -INFINITY, ls = 0.f;
       int y = -1;
       if constexpr (NLL) y = a.y_eval[bt];
-      for (int g = tid; g < a.q_ld / COLS; g += NT) {  // the ragged last groups too
-        float lg[COLS], sc[COLS];
-        big_vocab_scores(a, w2, skips, g, b, t_abs, lg, sc);
+      for (int blk = b0 + warp; blk < b1; blk += nt() / 32) {
+        const int g = 32 * blk + lane;
+        float lm = -INFINITY, ls = 0.f;
+        if (g < ngrp) {  // the ragged last groups too
+          float lg[8], sc[8];
+          big_vocab_scores(a, w2, P, g, b, t_abs, lg, sc);
 #pragma unroll
-        for (int i = 0; i < COLS; ++i) {
-          const int c = g * COLS + i;
-          if (c < Q) {
-            if constexpr (NLL) {
-              lse_merge(lm, ls, lg[i], 1.f);
-              if (c == y) sample_s[3] = lg[i];
-            }
-            if (sc[i] > best.v) {
-              best.v = sc[i];
-              best.first = c;
-              best.count = 1;
-            } else if (sc[i] == best.v) {
-              ++best.count;
+          for (int i = 0; i < 8; ++i) {
+            const int c = g * 8 + i;
+            if (c < Q) {
+              if constexpr (NLL) {
+                lse_merge(lm, ls, lg[i], 1.f);
+                if (c == y) sample_s[3] = lg[i];
+              }
+              if (sc[i] > best.v) {
+                best.v = sc[i];
+                best.first = c;
+                best.count = 1;
+              } else if (sc[i] == best.v) {
+                ++best.count;
+              }
             }
           }
         }
+        if constexpr (NLL) {
+          warp_lse(lm, ls);
+          if (lane == 0) {
+            share(cluster, blk_lse, 2 * blk, lm, N);
+            share(cluster, blk_lse, 2 * blk + 1, ls, N);
+          }
+        }
       }
-      float lse = 0.f;
-      if constexpr (NLL) lse = block_lse(lm, ls, red_b + 128);
-      best = block_best(best, red_b);
-      if (tid == 0) {
-        if (best.count == 0) best.first = 0;  // every score NaN: stay inside first_w
-        a.audio[bt] = (float)best.first;
-        sample_s[0] = (float)best.first;
-        sample_s[1] = best.v;
-        sample_s[2] = (float)best.count;
-        if constexpr (NLL) a.nll[bt] = lse - sample_s[3];
+      best = block_best(best, scr);
+      if (tid == 0) {  // this CTA's partials into every CTA's merge row `rank`
+        const bool has_y = NLL && y >= 256 * b0 && y < 256 * b1;
+        const float part[5] = {best.v, __int_as_float(best.first), __int_as_float(best.count),
+                               has_y ? sample_s[3] : 0.f, has_y ? 1.f : 0.f};
+        for (int i = 0; i < 5; ++i) share(cluster, merge, rank * 8 + i, part[i], N);
+      }
+      cluster_barrier();
+      if (tid < 32) {  // merged in rank and block order: the same in every CTA
+        float m = -INFINITY, s = 0.f;
+        if constexpr (NLL) {
+          for (int q = tid; q < nblk; q += 32) lse_merge(m, s, blk_lse[2 * q], blk_lse[2 * q + 1]);
+          warp_lse(m, s);
+        }
+        if (tid == 0) {
+          Best all = {-INFINITY, Q, 0};
+          float ly = 0.f;
+          for (int q = 0; q < N; ++q) {
+            const float* p = merge + q * 8;
+            all = best_merge(all, Best{p[0], __float_as_int(p[1]), __float_as_int(p[2])});
+            if (p[4] != 0.f) ly = p[3];
+          }
+          if (all.count == 0) all.first = 0;  // every score NaN: stay inside first_w
+          if (out0) {
+            a.audio[bt] = (float)all.first;
+            if constexpr (NLL) a.nll[bt] = m + logf(s) - ly;
+          }
+          sample_s[0] = (float)all.first;
+          sample_s[1] = all.v;
+          sample_s[2] = (float)all.count;
+        }
       }
     }
     __syncthreads();
+    PROF(P_SAMPLE);
 
-    // --- 6. feedback through the first 1x1 conv ---
+    // --- 6. feedback through the first 1x1 conv, the whole h in every CTA ---
     if constexpr (HEAD == CATEGORICAL) {
       // bf16(one-hot / count) @ bf16(first_w) + first_b over the classes that tie the
       // maximum (wavenet_ar.py:441-448); one class, as good as always: its bf16 row
       const int id = (int)sample_s[0];
       const float m = sample_s[1], count = sample_s[2];
-      for (int r = tid; r < R; r += NT) {
+      for (int r = tid; r < R; r += nt()) {
         float acc;
         if (count == 1.f) {
           acc = bf16r(a.first_w[(size_t)id * R + r]);
@@ -741,34 +1054,41 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
           const float w = bf16r(1.f / count);
           acc = 0.f;
           for (int j = 0; j < a.out_ch; ++j)
-            if (red_a[j] >= m) acc = fmaf(w, bf16r(a.first_w[(size_t)j * R + r]), acc);
+            if (red[j] >= m) acc = fmaf(w, bf16r(a.first_w[(size_t)j * R + r]), acc);
         }
         h[r] = acc + a.first_b[r];
       }
     } else if constexpr (HEAD == CATEGORICAL_BIG) {
-      // the same feedback from the bf16 first_w; on a tie (rare) a second pass marks
-      // the tied classes in a bit mask over red_a, and their rows add up in class order
+      // the same feedback from the bf16 first_w; on a tie (rare, and seen alike by every
+      // CTA) a second pass marks each CTA's tied classes in a bit mask over red, shared
+      // into every CTA, and the tied rows add up in class order
       const int Q = a.out_ch, id = (int)sample_s[0];
       const float m = sample_s[1], count = sample_s[2];
       const __nv_bfloat16* fw = reinterpret_cast<const __nv_bfloat16*>(a.first_w);
-      unsigned int* tied = reinterpret_cast<unsigned int*>(red_a);
-      const int words = (Q + 31) / 32;
+      unsigned int* tied = reinterpret_cast<unsigned int*>(red);
+      const int words = (Q + 31) / 32, nw = (a.q_ld + 31) / 32;
       if (count > 1.f) {
-        for (int i = tid; i < words; i += NT) tied[i] = 0u;
+        const int nblk = (a.q_ld / 8 + 31) / 32;
+        const int w0 = 8 * (rank * nblk / N), w1 = min(8 * ((rank + 1) * nblk / N), nw);
+        const int g0 = 4 * w0, g1 = min(4 * w1, a.q_ld / 8);
+        for (int i = w0 + tid; i < w1; i += nt()) tied[i] = 0u;
         __syncthreads();
         const __nv_bfloat16* w2 = reinterpret_cast<const __nv_bfloat16*>(a.w_s2);
-        for (int g = tid; g < a.q_ld / COLS; g += NT) {
-          float lg[COLS], sc[COLS];
-          big_vocab_scores(a, w2, skips, g, b, (unsigned long long)a.t_base + t, lg, sc);
+        for (int g = g0 + tid; g < g1; g += nt()) {
+          float lg[8], sc[8];
+          big_vocab_scores(a, w2, P, g, b, (unsigned long long)a.t_base + t, lg, sc);
 #pragma unroll
-          for (int i = 0; i < COLS; ++i) {
-            const int c = g * COLS + i;
+          for (int i = 0; i < 8; ++i) {
+            const int c = g * 8 + i;
             if (c < Q && sc[i] >= m) atomicOr(&tied[c / 32], 1u << (c % 32));
           }
         }
         __syncthreads();
+        for (int i = w0 + tid; i < w1; i += nt())
+          share(cluster, red, i, __uint_as_float(tied[i]), N);
+        cluster_barrier();
       }
-      for (int r = tid; r < R; r += NT) {
+      for (int r = tid; r < R; r += nt()) {
         float acc;
         if (count <= 1.f) {
           acc = __bfloat162float(fw[(size_t)id * R + r]);
@@ -786,49 +1106,166 @@ __global__ void __launch_bounds__(NT) wavenet_ar_kernel(Args a) {
       }
     } else {
       const float x = sample_s[0];
-      for (int r = tid; r < R; r += NT) h[r] = fmaf(x, a.first_w[r], a.first_b[r]);
+      for (int r = tid; r < R; r += nt()) h[r] = fmaf(x, a.first_w[r], a.first_b[r]);
     }
     __syncthreads();
+    PROF(P_FEEDBACK);
   }
-  if (a.h_out != nullptr)
-    for (int r = tid; r < R; r += NT) a.h_out[(size_t)b * R + r] = h[r];
+  if (a.wpre) asm volatile("cp.async.wait_all;\n" ::: "memory");  // the unused last slot
+  if (a.h_out != nullptr && rank == 0)
+    for (int r = tid; r < R; r += nt()) a.h_out[(size_t)b * R + r] = h[r];
+  cluster_barrier();  // no CTA leaves while a peer may still write its shared memory
 }
 
-size_t smem_bytes(int cin, int L, int R, int G, int S, int k) {
-  const size_t floats = (size_t)L * G + (size_t)(k - 1) * R + R + G / 2 + 2 * RED
-                        + R + S + cin + S + 4;
-  return floats * sizeof(float) + 3 * (size_t)L * sizeof(int);
+constexpr size_t SMEM_MAX = 232448;  // a CTA's shared memory on Hopper (227 KB)
+
+size_t smem_bytes(int cin, int L, int R, int G, int S, int k, int N, bool wpre) {
+  const size_t floats = (size_t)L * G / N + (size_t)L * (k - 1) * R / 2 + cin + R
+                        + 2 * ((size_t)R + G / 2) + S / N + 2 * (size_t)S
+                        + (N > 1 ? (size_t)L * (R / N + S / N) : 0) + S / N + 8
+                        + MAX_CLUSTER * 8 + 512 + 96 + 3 * (size_t)L
+                        + red_floats(R, G, S, N);
+  const size_t slots = wpre ? 2 * ((size_t)(R + G / 2) * (G / N) + (G / 2) * (R / N + S / N))
+                            : 0;  // bf16, after up to 12 bytes that align them to 16
+  return floats * sizeof(float) + (wpre ? 16 + slots * 2 : 0);
 }
 
-bool tiles(int n) {  // N/8 column groups must divide the block
-  return n > 0 && n % COLS == 0 && NT % (n / COLS) == 0;
+// Whether a cluster of N stages the chain's weights a layer ahead (wpre): where each
+// CTA's slice is whole 16-byte rows and two slices fit beside the rest.
+bool prefetches(int cin, int L, int R, int G, int S, int k, int N) {
+  return (G / 2 / N) % 8 == 0 && (R / N) % 8 == 0 && (S / N) % 8 == 0
+         && smem_bytes(cin, L, R, G, S, k, N, true) <= SMEM_MAX;
+}
+
+// What a launch asks for: at least 117 KB, so that no two CTAs share an SM (the design
+// gives each CTA an SM's load slots and L2 bandwidth; clusters then count SMs).
+size_t smem_bytes(int cin, int L, int R, int G, int S, int k, int N) {
+  const size_t bytes = smem_bytes(cin, L, R, G, S, k, N, prefetches(cin, L, R, G, S, k, N));
+  return bytes > 117 * 1024 ? bytes : 117 * 1024;
+}
+
+// threads a CTA on a cluster of N: 1,024 for one or two CTAs a sequence, 512 for four,
+// 256 for eight or sixteen; the outputs do not depend on it
+int threads_for(int N) {
+  return N <= 2 ? 1024 : N == 4 ? 512 : 256;
+}
+
+// whether a cluster of N CTAs can split these widths (every CTA an equal, nonempty
+// slice of the gate pairs, residual and skip columns)
+bool splits(int R, int G, int S, int N) {
+  return N >= 1 && N <= MAX_CLUSTER && (G / 2) % N == 0 && R % N == 0 && S % N == 0;
+}
+
+template <int HEAD, int CHAIN, bool NLL>
+cudaError_t configure(int N, size_t smem) {
+  auto kern = wavenet_ar_kernel<HEAD, CHAIN, NLL>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err == cudaSuccess && N > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// the launch configuration of B clusters of N CTAs (attr: its one attribute)
+cudaLaunchConfig_t cluster_config(int B, int N, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * N);
+  cfg.blockDim = dim3(threads_for(N));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = N;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int HEAD, int CHAIN, bool NLL>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.cin, a.L, a.R, a.G, a.S, a.k);
-  cudaError_t err = cudaFuncSetAttribute(
-      wavenet_ar_kernel<HEAD, CHAIN, NLL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t smem = smem_bytes(a.cin, a.L, a.R, a.G, a.S, a.k, a.N);
+  cudaError_t err = configure<HEAD, CHAIN, NLL>(a.N, smem);
   if (err != cudaSuccess) return (int)err;
-  wavenet_ar_kernel<HEAD, CHAIN, NLL><<<B, NT, smem, stream>>>(a);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(B, a.N, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, wavenet_ar_kernel<HEAD, CHAIN, NLL>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int HEAD, bool NLL = false>
-int launch_chain(const Args& a, int B, bool fused, cudaStream_t stream) {
-  return fused ? launch<HEAD, FUSED, NLL>(a, B, stream)
-               : launch<HEAD, PLAIN, NLL>(a, B, stream);
+// clusters of N CTAs the card keeps resident at once (0: none fits)
+template <int HEAD, int CHAIN, bool NLL>
+int occupancy(int N, size_t smem) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, N, smem, nullptr, &attr);
+  int clusters = 0;
+  if (configure<HEAD, CHAIN, NLL>(N, smem) != cudaSuccess
+      || cudaOccupancyMaxActiveClusters(&clusters, wavenet_ar_kernel<HEAD, CHAIN, NLL>, &cfg)
+             != cudaSuccess) {
+    cudaGetLastError();  // clear the refusal: the caller reads 0
+    return 0;
+  }
+  return clusters;
 }
 
-// the categorical heads, with the in-kernel NLL when a.nll is given
-template <int HEAD>
-int launch_categorical(const Args& a, int B, bool fused, cudaStream_t stream) {
-  return a.nll != nullptr ? launch_chain<HEAD, true>(a, B, fused, stream)
-                          : launch_chain<HEAD, false>(a, B, fused, stream);
+// the instantiation of (head, fused, nll), handed to F as template arguments
+template <template <int, int, bool> class F, typename... T>
+int dispatch(int head, bool fused, bool nll, T... args) {
+#define T2_CHAIN(H, NL) \
+  return fused ? F<H, FUSED, NL>::run(args...) : F<H, PLAIN, NL>::run(args...)
+  switch (head) {
+    case GAUSSIAN: T2_CHAIN(GAUSSIAN, false);
+    case MOL: T2_CHAIN(MOL, false);
+    case CATEGORICAL:
+      if (nll) T2_CHAIN(CATEGORICAL, true);
+      T2_CHAIN(CATEGORICAL, false);
+    default:
+      if (nll) T2_CHAIN(CATEGORICAL_BIG, true);
+      T2_CHAIN(CATEGORICAL_BIG, false);
+  }
+#undef T2_CHAIN
 }
+
+template <int H, int C, bool NL>
+struct Launch {
+  static int run(const Args& a, int B, cudaStream_t s) { return launch<H, C, NL>(a, B, s); }
+};
+
+template <int H, int C, bool NL>
+struct Occupancy {
+  static int run(int N, size_t smem) { return occupancy<H, C, NL>(N, smem); }
+};
 
 }  // namespace
+
+#ifdef T2_PROFILE
+// the split's P_SLOTS sums (ns) into out, then zeroed
+extern "C" int wavenet_ar_profile(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+  if (err == cudaSuccess) {
+    const unsigned long long zero[P_SLOTS] = {};
+    err = cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
+  }
+  return (int)err;
+}
+#endif
+
+// Clusters of N = 1, 2, 4, 8, 16 CTAs that the card keeps resident at once for the
+// instantiation (head, fused, nll) at these widths, into occ[0..4]; 0 where N does not
+// split the widths or the shared memory does not fit (a refusal reads as 0). Returns 0.
+extern "C" int wavenet_ar_occupancy(int cin, int L, int R, int G, int S, int k, int head,
+                                    int fused, int nll, int* occ) {
+  for (int i = 0; i < 5; ++i) {
+    const int N = 1 << i;
+    occ[i] = splits(R, G, S, N)
+                 ? dispatch<Occupancy>(head, fused != 0, nll != 0, N,
+                                       smem_bytes(cin, L, R, G, S, k, N))
+                 : 0;
+  }
+  return 0;
+}
 
 // Plain C entry point (loaded with ctypes). All pointers are device pointers; the
 // launch goes on `stream`. `head` (0 Gaussian, out_ch == 2; 1 MoL, out_ch == 3*nr; 2
@@ -837,7 +1274,8 @@ int launch_categorical(const Args& a, int B, bool fused, cudaStream_t stream) {
 // `greedy`, no params) and `fused` (the fused critical path, or the plain chain, which
 // takes null w_fused and b_fused) pick the instantiation; g_cond may be null. y_eval
 // and nll, given together and only to a categorical head without params, ask for the
-// in-kernel NLL. Returns the cudaError_t of the launch (0 on success).
+// in-kernel NLL. `cluster`: the CTAs a sequence (1, 2, 4, 8 or 16; it must split G/2,
+// R and S). Returns the cudaError_t of the launch (0 on success).
 extern "C" int wavenet_ar(
     const void* c_up, const void* noise, const void* first_w, const void* first_b,
     const void* w_tap, const void* b_tap, const void* w_os, const void* b_os,
@@ -847,21 +1285,24 @@ extern "C" int wavenet_ar(
     const void* y_eval, void* nll, long long ring_floats, long long t_base,
     unsigned long long seed, int B, int T, int cin, int L,
     int layers_per_stack, int R, int G, int S, int k, int out_ch, int head, int fused,
-    int legacy, int residual_legacy, int round_cond, int q_ld, int greedy,
+    int legacy, int residual_legacy, int round_cond, int q_ld, int greedy, int cluster,
     float log_scale_min, void* stream) {
   const bool head_ok =
       head == GAUSSIAN      ? out_ch == 2
       : head == MOL         ? out_ch >= 3 && out_ch % 3 == 0
-      : head == CATEGORICAL ? out_ch >= 2 && out_ch <= NT
+      : head == CATEGORICAL ? out_ch >= 2 && out_ch <= NT_MAX
                             : head == CATEGORICAL_BIG && out_ch >= 2 && out_ch <= 65536
-                                  && q_ld >= out_ch && q_ld % COLS == 0 && q_ld <= 32 * RED
+                                  && q_ld >= out_ch && q_ld % 8 == 0
+                                  && (q_ld + 31) / 32 <= red_floats(R, G, S, cluster)
                                   && params == nullptr;
   const bool nll_ok = (y_eval == nullptr) == (nll == nullptr)
                       && (nll == nullptr || ((head == CATEGORICAL || head == CATEGORICAL_BIG)
                                              && params == nullptr));
-  if (!nll_ok || B <= 0 || T <= 0 || cin <= 0 || L <= 0 || layers_per_stack <= 0 || k < 2
-      || G % 2 != 0 || R % COLS != 0 || !tiles(G) || !tiles(R + S) || !tiles(S)
-      || t_base < 0 || !head_ok || (fused && (w_fused == nullptr || b_fused == nullptr)))
+  const bool pow2 = cluster > 0 && (cluster & (cluster - 1)) == 0;
+  if (!nll_ok || !pow2 || !splits(R, G, S, cluster) || B <= 0 || T <= 0 || cin <= 0
+      || L <= 0 || layers_per_stack <= 0 || k < 2 || G % 8 != 0 || R % 8 != 0
+      || S % 8 != 0 || t_base < 0 || !head_ok
+      || (fused && (w_fused == nullptr || b_fused == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.c_up = static_cast<const float*>(c_up);
@@ -897,10 +1338,9 @@ extern "C" int wavenet_ar(
   a.T = T; a.cin = cin; a.L = L; a.lps = layers_per_stack; a.R = R; a.G = G; a.S = S;
   a.k = k; a.out_ch = out_ch; a.legacy = legacy; a.residual_legacy = residual_legacy;
   a.round_cond = round_cond;
+  a.N = cluster;
+  a.wpre = prefetches(cin, L, R, G, S, k, cluster);
   a.log_scale_min = log_scale_min;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head == GAUSSIAN      ? launch_chain<GAUSSIAN>(a, B, fused, s)
-         : head == MOL         ? launch_chain<MOL>(a, B, fused, s)
-         : head == CATEGORICAL ? launch_categorical<CATEGORICAL>(a, B, fused, s)
-                               : launch_categorical<CATEGORICAL_BIG>(a, B, fused, s);
+  return dispatch<Launch>(head, fused != 0, y_eval != nullptr, a, B,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -43,12 +43,14 @@ def _nvcc() -> str:
                        'port\'s CUDA kernels are built from source at first use')
 
 
-def compile_library(srcs, lib_path: str, include_dirs=()) -> None:
+def compile_library(srcs, lib_path: str, include_dirs=(), defines=()) -> None:
     """Compile the CUDA sources `srcs` with nvcc into the shared library `lib_path`,
-    with `include_dirs` searched for headers."""
+    with `include_dirs` searched for headers and the macros `defines` ('NAME' or
+    'NAME=value') set."""
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     tmp = f'{lib_path}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, *[f'-I{d}' for d in include_dirs], '-o', tmp, *srcs]
+    cmd = [_nvcc(), *NVCC_FLAGS, *[f'-I{d}' for d in include_dirs],
+           *[f'-D{d}' for d in defines], '-o', tmp, *srcs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f'nvcc failed ({res.returncode}):\n{" ".join(cmd)}\n'

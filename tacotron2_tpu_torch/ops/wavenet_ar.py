@@ -36,6 +36,7 @@ multiples of anything: two state-carried calls give exactly the audio of one.
 
 import collections
 import ctypes
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -54,10 +55,13 @@ SQRT_HALF = float(math.sqrt(0.5))
 SMALL_VOCAB = 1024
 MAX_CLASSES = 65536
 
-# kernel launches made by generate_ar (the plain version never counts), in all and by
-# instantiation (`variant`)
+# kernel launches made by generate_ar (the plain version never counts), in all, by
+# instantiation (`variant`) and by cluster size (CTAs a sequence)
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT: Dict[str, int] = collections.Counter()
+LAUNCHES_BY_CLUSTER: Dict[int, int] = collections.Counter()
+# the cluster sizes the kernel takes, largest first (`cluster_size`)
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
 
 # name -> (dtype, shape) of each packed weight, as pack_params made them, by sizes
 _PACKED_LAYOUTS: Dict[Tuple[int, ...], Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]] = {}
@@ -615,9 +619,37 @@ def _kernel_fn(library: Optional[ctypes.CDLL] = None):
     from ._build import load_library
     fn = (library or load_library()).wavenet_ar
     fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_longlong] * 2 + [ctypes.c_ulonglong]
-                   + [ctypes.c_int] * 17 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 18 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def cluster_size(B: int, occupancy: Dict[int, int]) -> int:
+    """The CTAs that run each of B sequences: the largest N in CLUSTER_SIZES of which
+    the card keeps at least B clusters resident at once (`occupancy`: N -> clusters,
+    0 where N does not split the widths or the shared memory does not fit), so that
+    every sequence of the batch runs at once on N SMs; else 1, one SM a sequence,
+    the layout of a large batch (clusters of one need not be resident together)."""
+    for n in CLUSTER_SIZES:
+        if occupancy.get(n, 0) >= B:
+            return n
+    return 1
+
+
+@functools.cache
+def occupancy_table(hp_key: Tuple[int, ...], head: int, fused: bool, nll: bool,
+                    device_index: int) -> Dict[int, int]:
+    """N -> clusters of N CTAs that the card keeps resident for this instantiation at
+    these widths (`hp_key`: cin, L, R, G, S, k), asked of the kernel's library
+    (cudaOccupancyMaxActiveClusters); 0 where N does not split the widths."""
+    from ._build import load_library
+    fn = load_library().wavenet_ar_occupancy
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    occ = (ctypes.c_int * 5)()
+    with torch.cuda.device(device_index):
+        fn(*hp_key, head, int(fused), int(nll), ctypes.addressof(occ))
+    return {1 << i: int(occ[i]) for i in range(5)}
 
 
 def _check_tensor(name: str, t: Tensor, dtype, shape, device, align: int = 0) -> None:
@@ -642,17 +674,20 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                 state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
                 return_state: bool = False, g_cond: Optional[Tensor] = None,
                 seed: Optional[int] = None, greedy: bool = False,
-                y_eval: Optional[Tensor] = None):
+                y_eval: Optional[Tensor] = None, cluster: Optional[int] = None):
     """AR generation (counterpart of `generate_ar`, `wavenet_ar.py:515-712`).
 
     On a CUDA tensor this launches the hand-written kernel once for all T steps; on a
-    CPU tensor it runs `generate_ar_reference`. The kernel's limits: one block of 1024
-    threads per sequence; R a multiple of 8; G, R+S and S multiples of 8 whose
-    eighths divide 1024; at most MAX_CLASSES classes; f32 `c_up` (B, T, cin), `noise`
+    CPU tensor it runs `generate_ar_reference`. The kernel runs each sequence on a
+    cluster of N CTAs, N = `cluster_size(B, occupancy_table(...))`
+    unless `cluster` forces one of CLUSTER_SIZES (raising if the card keeps no such
+    cluster resident or N does not split G/2, R and S); the outputs do not depend on N
+    (bit for bit). Its limits: R, G and S
+    multiples of 8; at most MAX_CLASSES classes; f32 `c_up` (B, T, cin), `noise`
     (`noise_shape`: (B, T) Gaussian, (B, T, nr+1) MoL, (B, T, Q) categorical, the
     (B, T, 1) placeholder for the big-vocab head) and `g_cond` ((B, L*G) from
-    `pack_global`, or None), contiguous. Any batch size: a block a sequence (the TPU
-    kernel's cap of 8 at big vocab was its VMEM budget).
+    `pack_global`, or None), contiguous. Any batch size (the TPU kernel's cap of 8 at
+    big vocab was its VMEM budget).
 
     seed / greedy (big-vocab head only, one of them required): the 64-bit key of the
     in-kernel noise (`philox_gumbel`; keep it over the chunks of a stream), or arg-max
@@ -674,6 +709,8 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
     _check_call(hp, return_params, seed, greedy, y_eval)
     if y_eval is not None:
         y_eval = _check_y_eval(y_eval, hp, c_up.shape[0], c_up.shape[1], c_up.device)
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f'cluster must be one of {CLUSTER_SIZES}, got {cluster}')
     if c_up.device.type == 'cpu':
         return generate_ar_reference(weights, c_up, noise, hp, return_params=return_params,
                                      state_in=state_in, return_state=return_state,
@@ -703,12 +740,22 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
         t_base = _check_state(state_in, hp, B, device)
         rings, h_in = state_in[0], state_in[1]
 
+    big = is_big_vocab(hp)
+    head = 3 if big else 2 if is_categorical(hp) else 1 if is_mol(hp) else 0
+    occupancy = occupancy_table(
+        (cin, hp.layers, hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
+         hp.kernel_size), head, bool(hp.wavenet_fused_ar), y_eval is not None,
+        device.index if device.index is not None else torch.cuda.current_device())
+    if cluster is None:
+        cluster = cluster_size(B, occupancy)
+    elif occupancy[cluster] == 0:
+        raise ValueError(f'a cluster of {cluster} CTAs is not admitted here: clusters '
+                         f'resident by size {occupancy}')
     fn = _kernel_fn()
     audio = torch.empty(B, T, device=device)
     params = torch.empty(B, T, hp.out_channels, device=device) if return_params else None
     h_out = torch.empty(B, hp.residual_channels, device=device) if return_state else None
     nll = torch.empty(B, T, device=device) if y_eval is not None else None
-    big = is_big_vocab(hp)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(c_up.data_ptr(), noise.data_ptr(),
@@ -723,16 +770,17 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                  n_ring, t_base, int(seed or 0), B, T, cin, hp.layers,
                  hp.layers // hp.stacks,
                  hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
-                 hp.kernel_size, hp.out_channels,
-                 3 if big else 2 if is_categorical(hp) else 1 if is_mol(hp) else 0,
+                 hp.kernel_size, hp.out_channels, head,
                  int(hp.wavenet_fused_ar), int(hp.legacy), int(hp.residual_legacy),
                  int(rounds_conditioning(B)),
-                 weights['w_s2'].shape[1] if big else 0, int(greedy),
+                 weights['w_s2'].shape[1] if big else 0, int(greedy), cluster,
                  float(hp.log_scale_min if is_mol(hp) else hp.log_scale_min_gauss), stream)
     if err != 0:
-        raise RuntimeError(f'wavenet_ar launch failed: CUDA error {err}')
+        raise RuntimeError(f'wavenet_ar launch failed: CUDA error {err} (B={B}, a cluster '
+                           f'of {cluster} CTAs; clusters resident by size {occupancy})')
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant(hp, g_cond is not None, nll is not None)] += 1
+    LAUNCHES_BY_CLUSTER[cluster] += 1
     if is_categorical(hp):
         audio = audio.long()
     second = nll if nll is not None else params

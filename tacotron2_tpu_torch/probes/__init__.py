@@ -16,6 +16,9 @@ generator, order, shapes and bf16 rounding), `plain(variant, inputs, steps)`,
 `main()`, run as `python -m tacotron2_tpu_torch.probes.<name>` (on the card by default;
 `--device cpu` runs the plain version, there is no silent fallback).
 
+`ar_split` is no counterpart: it times builds of the port's own AR kernel
+(`csrc/wavenet_ar.cu`) and reads the split of its step by phase.
+
 This module holds what they share: the card's peaks for the bounds, the launch of a C
 entry point, CUDA-event timing and the command line.
 """

@@ -117,6 +117,46 @@ def test_state_carry_on_the_card(device):
     assert all(e > KERNEL_TOL for e in r['faults'].values()), r['faults']
 
 
+@pytest.mark.parametrize('config', ['', 'wavenet_fused_ar=False', CATEGORICAL, TINY],
+                         ids=['gaussian-fused', 'gaussian-plain', 'categorical-fused', 'tiny'])
+def test_every_cluster_size_gives_the_same_outputs(device, config):
+    """The kernel forced onto each cluster size the widths admit (at the default width
+    all of 1-16; the tiny one's 8 gate pairs stop at 8), B=2 over one frame: audio,
+    params and carried state bit-identical across N, and within KERNEL_TOL of the plain
+    version."""
+    hp = default_hparams()
+    hp.parse(config)
+    weights, c_up, noise = _wavenet_inputs(hp, 2, 1 if config != TINY else 8, device)
+    table, auto = chip_smoke.occupancy(hp)
+    sizes = [n for n in wavenet_ar.CLUSTER_SIZES if table[n] > 0]
+    assert sizes[0] == (8 if config == TINY else 16) and auto == sizes[0]
+    runs = {n: wavenet_ar.generate_ar(weights, c_up, noise, hp, return_state=True, cluster=n)
+            for n in sizes}
+    audio, params, state = runs[sizes[0]]
+    for n, (a, p, st) in runs.items():
+        assert torch.equal(a, audio) and torch.equal(p, params), n
+        assert torch.equal(st[0], state[0]) and torch.equal(st[1], state[1]), n
+    _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, targets=audio)
+    assert (params - ref).abs().max().item() <= KERNEL_TOL
+
+
+def test_first_steps_at_every_cluster_size(device):
+    """The first-steps reading (FIRST_STEPS_TOL: the lower quartile over B=16 sequences
+    of the params error over the first two steps) holds at every cluster size."""
+    hp = default_hparams()
+    weights, c_up, noise = _wavenet_inputs(hp, chip_smoke.FIRST_STEPS_BATCH, 1, device)
+    for n in wavenet_ar.CLUSTER_SIZES:
+        assert first_steps_err(weights, c_up, noise, hp, cluster=n) <= FIRST_STEPS_TOL, n
+
+
+def test_a_cluster_the_widths_do_not_split_raises(device):
+    hp = default_hparams()
+    hp.parse(TINY)
+    weights, c_up, noise = _wavenet_inputs(hp, 2, 8, device)
+    with pytest.raises(ValueError, match='not admitted'):
+        wavenet_ar.generate_ar(weights, c_up, noise, hp, cluster=16)
+
+
 def test_kernel_rejects_what_it_does_not_take(device):
     hp = default_hparams()
     hp.parse(TINY)
@@ -326,6 +366,18 @@ def mutants(tmp_path_factory):
     return chip_smoke.build_kernels(str(tmp_path_factory.mktemp('mutants')))
 
 
+@pytest.mark.parametrize('fault', list(chip_smoke.CLUSTER_MUTANTS))
+def test_cluster_mutants_are_seen(device, mutants, fault):
+    """A build with a planted fault of the cluster layout misses KERNEL_TOL at the
+    default width, B=2 over one frame (clusters of 16), where the true kernel holds."""
+    hp = default_hparams()
+    weights, c_up, noise = _wavenet_inputs(hp, 2, 1, device)
+    assert chip_smoke.occupancy(hp)[1] > 1
+    assert params_err(weights, c_up, noise, hp).max().item() <= KERNEL_TOL
+    assert params_err(weights, c_up, noise, hp, library=mutants[fault]).max().item() \
+        > KERNEL_TOL
+
+
 @pytest.mark.parametrize('fault', list(KERNEL_MUTANTS))
 def test_kernel_mutants_are_seen(device, mutants, fault):
     """A build of the kernel's source with one planted fault misses the bound of the
@@ -360,8 +412,12 @@ def test_wavenet_cli_on_the_card(device, extra, speaker_id):
     that launch's own inputs through state_carry: the kernel repeats the entry point's
     audio bit for bit, and its params are within KERNEL_TOL of the plain version's."""
     hp, _, weights, state = vocoder_model(WAVENET_TINY + ',' + extra)
-    stats = chip_smoke.vocoder_cli(WAVENET_TINY + ',' + extra, hp, state, speaker_id)
+    path = f'synthesize --model WaveNet ({extra})'
+    chip_smoke.CLUSTERS_BY_PATH.pop(path, None)
+    stats = chip_smoke.vocoder_cli(WAVENET_TINY + ',' + extra, hp, state, speaker_id, path)
     assert stats['launches'] == 1 and len(stats['wavs']) == 2
+    # the path's one launch (B=2) counted by the cluster size the rule gives it
+    assert dict(chip_smoke.CLUSTERS_BY_PATH[path]) == {chip_smoke.occupancy(hp, 2)[1]: 1}
     call = stats['ar_call']
     assert (call['g_cond'] is not None) == (speaker_id is not None)
     r = state_carry(weights, call['c_up'], call['noise'], hp,
@@ -429,6 +485,26 @@ def test_big_vocab_kernel_matches_plain_version(device, variant):
     assert r['nll_err'] <= chip_smoke.NLL_TOL and r['state_err'] <= KERNEL_TOL
     assert r['ids_off'] <= chip_smoke.MAX_IDS_OFF * r['steps']
     assert r['distinct'] > (3 if seed is None else 100)
+
+
+def test_big_vocab_cluster_sizes(device):
+    """The big-vocab head with the NLL flag, Q = 65,536, split over each cluster size
+    the tiny width admits, B=2: ids, NLL and carried state bit-identical across N (the
+    NLL's log-sum-exp is merged in fixed blocks of classes; the bound of 1e-6 would
+    allow one f32 step at an NLL of 11)."""
+    hp, model, weights, _ = chip_smoke.big_vocab_model(65536, WAVENET_TINY)
+    gen = torch.Generator('cuda').manual_seed(4)
+    c_up, y = chip_smoke.big_vocab_inputs(hp, model, 2, 4, gen)
+    noise = torch.zeros(2, c_up.shape[1], 1, device=device)
+    table, _ = chip_smoke.occupancy(hp, nll=True)
+    runs = {n: wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False, seed=5,
+                                      y_eval=y, return_state=True, cluster=n)
+            for n in wavenet_ar.CLUSTER_SIZES if table[n] > 0}
+    assert len(runs) == 4
+    ids, nll, state = runs[8]
+    for n, (i, e, st) in runs.items():
+        assert torch.equal(i, ids) and torch.equal(st[0], state[0]), n
+        assert torch.equal(e, nll), n
 
 
 def test_small_head_nll_on_the_card(device):
