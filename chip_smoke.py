@@ -23,11 +23,13 @@ Phases (one line each; any failure exits nonzero):
      cluster size (1, 2, 4, 8 and 16 CTAs a sequence) at B=2 over CLUSTER_STEPS steps,
      bit-identical across N in audio, params and carried state, within KERNEL_TOL of
      one run of the plain version, and within FIRST_STEPS_TOL over the first steps at
-     B=16 at each N; two planted faults of the cluster layout (CLUSTER_MUTANTS: a
+     B=16 at each N; three planted faults of the cluster layout (CLUSTER_MUTANTS: a
      CTA's slice of z shared at the next rank's offset, the rings written by rank 0
-     alone), each of which must miss KERNEL_TOL on the cluster that B=2 gets; and the
-     kernel's us/step over SWEEP_BATCHES with the cluster size each batch gets (phase
-     8 repeats the sweep at the paper width);
+     alone, each of which must miss KERNEL_TOL on the cluster that B=2 gets; and, in
+     the large batch's own instantiation, a cluster of one halving what it shares into
+     its own shared memory, which must miss it on a cluster of one, FAULT_CLUSTER); and
+     the kernel's us/step over SWEEP_BATCHES with the cluster size each batch gets,
+     B=66 and B=132 among them (phase 8 repeats the sweep at the paper width);
   4. the Tacotron half on the card against the same model on the CPU (explicit prenet
      masks, 16 steps, max abs 1e-3 with TF32 off);
   5. the main path, text -> mel -> wav, at full width with the same WaveNet through
@@ -138,8 +140,10 @@ Phases (one line each; any failure exits nonzero):
      and only at a near-tie (TIE_GAP), a forced tie of two classes; B9 (ar_critpath)
      all six variants; B10 (matmul_probe) all seven, with the last step's whole product;
      B11 (microbench) all three, `lstm` from a seeded nonzero state, the accumulated
-     alignments too; over PROBE_STEPS steps, relative to the plain version's largest
-     value (PROBE_TOL); each planted fault must miss its check. No entry point runs a
+     alignments too, and beside each the plain version's step captured in a CUDA graph
+     (the yardstick `graph_ms`); over PROBE_STEPS steps, relative to the plain version's
+     largest value (PROBE_TOL); each planted fault must miss its check (B11 has two: the
+     accumulation dropped, and a k-tile of its tensor-core product). No entry point runs a
      probe: their launches on the main paths are 0. The probes' full readings come from
      `python -m tacotron2_tpu_torch.probes.<name>`, not from this run.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
@@ -251,24 +255,31 @@ BIG_VOCAB_MUTANTS = {
         '  const float mm = fmaxf(m, m2);\n',
         '  const float mm = 0.f;\n'),
     'head input not rounded to bf16': (
-        '      share(cluster, P, s0 + s, HEAD == CATEGORICAL_BIG ? bf16r(v) : v, N);\n',
-        '      share(cluster, P, s0 + s, v, N);  // (left in f32)\n'),
+        '      share<SMALL>(cluster, P, s0 + s, HEAD == CATEGORICAL_BIG ? bf16r(v) : v, N);\n',
+        '      share<SMALL>(cluster, P, s0 + s, v, N);  // (left in f32)\n'),
     'classes past the last multiple of 1,024 left out': (
         '        if (g < ngrp) {  // the ragged last groups too\n',
         '        if (g < Q / 1024 * 128) {\n')}
 ALL_MUTANTS = {**KERNEL_MUTANTS, **BIG_VOCAB_MUTANTS}
-# changes of csrc/wavenet_ar.cu that only a cluster of more than one CTA shows (phase 3,
-# at the main path's B=2, where the cluster is 16 CTAs): a CTA's slice of z shared at the
-# next rank's offset, and the rings written by rank 0 alone (its residual columns only)
+# changes of csrc/wavenet_ar.cu that only one cluster size shows (phase 3): at the main
+# path's B=2, where the cluster is 16 CTAs, a CTA's slice of z shared at the next rank's
+# offset, and the rings written by rank 0 alone (its residual columns only); on a cluster
+# of one (FAULT_CLUSTER), in the large batch's own instantiation (SMALL), what a CTA
+# shares into its own shared memory halved
 CLUSTER_MUTANTS = {
     'a peer\'s slice written at the wrong rank\'s offset': (
-        '  share(cluster, zb, n0 + c, bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);\n',
-        '  share(cluster, zb, (n0 + hN) % (hN * N) + c,\n'
-        '        bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);\n'),
+        '  share<SMALL>(cluster, zb, n0 + c, bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), '
+        'N);\n',
+        '  share<SMALL>(cluster, zb, (n0 + hN) % (hN * N) + c,\n'
+        '               bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);\n'),
     'the ring slice written by rank 0 only': (
         '  for (int c = threadIdx.x; c < RN; c += nt()) ring[slot * R + r0 + c] = h[r0 + c];\n',
         '  for (int c = threadIdx.x; c < (r0 == 0 ? RN : 0); c += nt())\n'
-        '    ring[slot * R + r0 + c] = h[r0 + c];\n')}
+        '    ring[slot * R + r0 + c] = h[r0 + c];\n'),
+    'a cluster of one halves what it shares (N = 1)': (
+        '      local[idx] = v;\n',
+        '      local[idx] = 0.5f * v;\n')}
+FAULT_CLUSTER = {'a cluster of one halves what it shares (N = 1)': 1}
 # phase 10: the big-vocab head and the in-kernel NLL
 BIG_VOCAB = "input_type='mulaw-quantize',quantize_channels=65536,out_channels=65536"
 BIG_RAGGED_Q = 50001  # odd: the last group of 8 classes and the last 1,024 are ragged
@@ -661,9 +672,9 @@ def cluster_sweep(weights, model, hp, gen):
 
 
 def cluster_faults(weights, model, hp, gen, mutants):
-    """Phase 3: the two planted faults of the cluster layout (CLUSTER_MUTANTS), each a
-    build of a changed copy of the kernel's source, at the main path's B=2 over one
-    frame on the cluster that B=2 gets: each must miss KERNEL_TOL."""
+    """Phase 3: the planted faults of the cluster layout (CLUSTER_MUTANTS), each a build
+    of a changed copy of the kernel's source, at the main path's B=2 over one frame on the
+    cluster that B=2 gets, or on the one FAULT_CLUSTER names: each must miss KERNEL_TOL."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     _, auto = occupancy(hp)
@@ -671,14 +682,18 @@ def cluster_faults(weights, model, hp, gen, mutants):
         fail('B=2 gets no cluster of more than one CTA: the cluster faults cannot show')
     c_up = _conditioning(model, hp, MAIN_BATCH, 1, gen)
     noise = wavenet_ar.make_noise(hp, gen, MAIN_BATCH, c_up.shape[1])
-    true = params_err(weights, c_up, noise, hp).max().item()
-    seen = {f: params_err(weights, c_up, noise, hp, library=mutants[f]).max().item()
+    sizes = sorted({auto, *FAULT_CLUSTER.values()})
+    true = {n: params_err(weights, c_up, noise, hp, cluster=n).max().item() for n in sizes}
+    seen = {f: params_err(weights, c_up, noise, hp, library=mutants[f],
+                          cluster=FAULT_CLUSTER.get(f, auto)).max().item()
             for f in CLUSTER_MUTANTS}
     phase(3, f'planted cluster faults, B={MAIN_BATCH} T={c_up.shape[1]} on clusters of '
-             f'{auto}: max_abs_err ' + ', '.join(f'{f} {e:.3e}' for f, e in seen.items())
-             + f' (each must exceed tol {KERNEL_TOL}; the true kernel {true:.3e})')
+             f'{auto} (or as FAULT_CLUSTER says): max_abs_err '
+             + ', '.join(f'{f} {e:.3e}' for f, e in seen.items())
+             + f' (each must exceed tol {KERNEL_TOL}; the true kernel by cluster size '
+             + ', '.join(f'{n}: {e:.3e}' for n, e in true.items()) + ')')
     missed = [f for f, e in seen.items() if not e > KERNEL_TOL]
-    if missed or not true <= KERNEL_TOL:
+    if missed or not max(true.values()) <= KERNEL_TOL:
         fail(f'the cluster checks pass planted faults {missed}, or the true kernel misses '
              f'({true})')
     return seen
@@ -1253,7 +1268,7 @@ def build_kernels(tmp):
         with open(src, 'w', encoding='utf-8') as f:
             f.write(text)
         lib = os.path.join(tmp, f'mutant{i}', 'libmutant.so')
-        _build.compile_library([src], lib, include_dirs=(_build.PROBES_DIR,))
+        _build.compile_library([src], lib)
         return fault, ctypes.CDLL(lib)
 
     faults = list(ALL_MUTANTS) + list(CLUSTER_MUTANTS) + list(PROBE_MUTANTS)
@@ -2303,8 +2318,13 @@ PROBE_MUTANTS = {
         'matmul_probe.cu', '        xn[(size_t)r * IN1 + c] = __float2bfloat16(v);\n',
         '        xn[(size_t)r * IN1 + c] = xc[(size_t)r * IN1 + c];\n'),
     'microbench: the alignment not accumulated into the state': (
-        'microbench.cu', '    if (a.variant == ATT) st[64 + tid] = st[64 + tid] + al;\n',
-        '    if (a.variant == ATT) st[64 + tid] = st[64 + tid];\n')}
+        'microbench.cu',
+        '      if (a.variant == ATT && tid < TPC) st[64 + t0 + tid] = st[64 + t0 + tid] + '
+        'AL[t0 + tid];\n',
+        '      if (a.variant == ATT && tid < TPC) st[64 + t0 + tid] = st[64 + t0 + tid];\n'),
+    'microbench: the last k-tile of the ctx rows dropped': (
+        'microbench.cu', '    mma_tiles(d1, X, LDX, 0, W1C, CK, mt, q, lane);\n',
+        '    mma_tiles(d1, X, LDX, 0, W1C, CK - 1, mt, q, lane);\n')}
 # steps a launch of each probe here (the CLIs run the scripts' 2,048 / 512 / 512)
 PROBE_STEPS = {'ar_critpath': 64, 'matmul_probe': 16, 'microbench': 16}
 # kernel against plain version, max abs error over the plain version's max |value|:
@@ -2497,8 +2517,9 @@ def probe_matmul(mutants):
 def probe_microbench(mutants):
     """Phase 11, B11: the three variants against the plain version at full width over
     PROBE_STEPS steps, `lstm` from a seeded nonzero state (from zeros it stays at zero):
-    h2, both cells and for `att` the accumulated alignments; then the fault that drops
-    the accumulation."""
+    h2, both cells and for `att` the accumulated alignments; the plain version's step as a
+    CUDA graph beside them (`graph_ms`, held to the plain version too); then the faults
+    that drop the accumulation and a k-tile of the tensor-core product."""
     from tacotron2_tpu_torch.probes import microbench as m
 
     name, steps = 'microbench', PROBE_STEPS['microbench']
@@ -2516,18 +2537,35 @@ def probe_microbench(mutants):
             fail(f'{name} {v}: h2 {err:.3e}, cells {cells:.3e} (tol {PROBE_TOL[name]}), '
                  f'state {state:.3e} (tol {STATE_TOL})')
         ms = _kernel_ms(m, v, inp, steps, start=start)
+        graph_h2, _, graph_ms = m.graph(v, inp, steps, start=start, reps=PROBE_REPS)
+        graph_err = rel_err(graph_h2, want)
+        if graph_err > PROBE_TOL[name]:
+            fail(f'{name} {v}: the plain step as a CUDA graph differs by {graph_err:.3e}')
         bound_ms, bound_by = m.bound(v, {}, steps)
         rows[v] = dict(err=err, cells_err=cells, state_err=state,
                        abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
+                       graph_ms=graph_ms, graph_us_step=1e3 * graph_ms / steps,
+                       graph_err=graph_err,
                        bound_ms=bound_ms, bound_by=bound_by)
     fault = 'microbench: the alignment not accumulated into the state'
     _, fin = m.kernel('att', inp, steps, library=mutants[fault])
     seen = rel_err(fin['state'], m.plain('att', inp, steps)[1]['state'])
     if seen <= STATE_TOL:
         fail(f'{name}: the fault {fault!r} was not seen: {seen:.3e}')
+    k_fault = 'microbench: the last k-tile of the ctx rows dropped'
+    start = m.random_state(inp)
+    k_seen = rel_err(m.kernel('lstm', inp, steps, start=start, library=mutants[k_fault])[0],
+                     m.plain('lstm', inp, steps, start=start)[0])
+    if k_seen <= PROBE_TOL[name]:
+        fail(f'{name}: the fault {k_fault!r} was not seen: {k_seen:.3e}')
     _probe_line(name, 'B11', steps, PROBE_TOL[name], rows, fault,
-                f'state {seen:.3e} on att (tol {STATE_TOL})')
-    return dict(_probe_entry(rows, name, steps), fault_readings={'att': seen})
+                f'state {seen:.3e} on att (tol {STATE_TOL}); the fault {k_fault!r}: h2 '
+                f'{k_seen:.3e} on lstm (tol {PROBE_TOL[name]})')
+    phase(11, f'{name}: the plain step as a CUDA graph, us/step: ' + ', '.join(
+        f'{v} {1e3 * r["graph_ms"] / steps:.2f}' for v, r in rows.items()))
+    return dict(_probe_entry(rows, name, steps), graph_ms=rows['lstm']['graph_ms'],
+                graph_us_step=rows['lstm']['graph_us_step'],
+                fault_readings={'att': seen, 'lstm': k_seen})
 
 
 def probes(mutants):

@@ -44,9 +44,9 @@
 // by the wrapper (ops/wavenet_ar.py cluster_size): the largest N of which the card keeps
 // at least B clusters resident (cudaOccupancyMaxActiveClusters, wavenet_ar_occupancy
 // below), else 1; N = 1 is the one-SM-a-sequence layout of a large batch. A CTA takes an
-// SM of its own (it asks for at least 117 KB of shared memory) and threads_for(N)
-// threads: 1,024 on one or two CTAs, 256 on eight or sixteen, where a CTA has little
-// work and idle warps would only take issue slots from the chain.
+// SM of its own (it asks for at least 117 KB of shared memory) and threads_for threads:
+// 1,024 on one or two CTAs, 256 on eight or sixteen, where a CTA has little work and idle
+// warps would only take issue slots from the chain; 512 in the SMALL layout below.
 //  - The outputs are split over the cluster, never K: CTA r owns the gate pairs (n,
 //    n + G/2) for n in [r G/(2N), (r+1) G/(2N)) of every layer, so it runs its GLU
 //    itself, the residual columns [r R/N, (r+1) R/N), the skip columns [r S/N, (r+1)
@@ -64,6 +64,15 @@
 //    slices fit (wpre: N >= 4 at the defaults, 16 at the paper width), the next layer's
 //    slice is staged with cp.async into the other of two slots in shared memory while
 //    this layer runs, so the chain's matvecs read shared memory, not L2.
+//  - A large batch (one or two CTAs a sequence) at the defaults' widths, with any head
+//    but the big one (small_layout: where it was measured faster), runs an instantiation
+//    of its own (SMALL): 512 threads of up to 128 registers, where 1,024 threads at 64
+//    spill (in 9 of the 12 general instantiations) and every SM streams all its chain
+//    weights from L2 each step; a cluster of one meets at block barriers, not
+//    barrier.cluster, and writes its own shared memory directly. Compiled apart, it
+//    leaves the other clusters' code as it was. At the paper width (768 KB of chain
+//    weights a CTA and layer at N = 1) 512 threads were too few to keep the loads in
+//    flight, and the big head's class scan on 512 threads was slower: both stay on 1,024.
 //  - The skip sum meets the same way, then the head's first 1x1 (split by columns).
 //    The Gaussian, MoL and small categorical heads run in every CTA on the same values
 //    (every CTA draws the same sample and feedback; rank 0 writes the outputs). The big
@@ -116,6 +125,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NT_MAX = 1024;   // threads per CTA, at most (threads_for)
+constexpr int SMALL_NT = 512;  // ... in the SMALL layout (small_layout)
 constexpr int UNROLL = 4;      // weight loads in flight per thread and row slice
 constexpr int KS_CHAIN = 32;   // K-slices of each chain and head matvec column
 constexpr int KS_START = 16;   // ... of each conditioning-row and past-tap column
@@ -515,20 +525,29 @@ __host__ __device__ __forceinline__ int red_floats(int R, int G, int S, int N) {
   return chain > 8192 ? chain : 8192;
 }
 
-// v into element idx of `local` (a shared-memory array) in every CTA of the cluster
+// v into element idx of `local` (a shared-memory array) in every CTA of the cluster; in
+// the SMALL instantiation a cluster of one writes its own shared memory directly
+template <bool SMALL>
 __device__ __forceinline__ void share(cg::cluster_group& cluster, float* local, int idx,
                                       float v, int N) {
+  if constexpr (SMALL) {
+    if (N == 1) {
+      local[idx] = v;
+      return;
+    }
+  }
   for (int q = 0; q < N; ++q) cluster.map_shared_rank(local, q)[idx] = v;
 }
 
 // The GLU of the CTA's unit c (gate pair n0 + c, half + n0 + c) of a layer from its
 // consts and the partial sums of its chain matvec, shared as z into every CTA's zb.
+template <bool SMALL>
 __device__ __forceinline__ void glu_unit(cg::cluster_group& cluster, const float* lconsts,
                                          const float* red_b, float* zb, int c, int hN,
                                          int n0, int N) {
   const float za = lconsts[c] + reduce_slices<KS_CHAIN>(red_b, 2 * hN, c);
   const float zg = lconsts[hN + c] + reduce_slices<KS_CHAIN>(red_b, 2 * hN, hN + c);
-  share(cluster, zb, n0 + c, bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);
+  share<SMALL>(cluster, zb, n0 + c, bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), N);
 }
 
 // the CTA's residual columns [r0, r0 + RN) of a layer's input h into slot `slot` of
@@ -538,11 +557,30 @@ __device__ __forceinline__ void write_ring(float* ring, const float* h, int slot
   for (int c = threadIdx.x; c < RN; c += nt()) ring[slot * R + r0 + c] = h[r0 + c];
 }
 
-template <int HEAD, int CHAIN, bool NLL>
-__global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
+// SMALL: the instantiation of small_layout (512 threads, 128 registers), compiled apart
+// so that what it changes leaves the other layouts' code as it is (at 1,024 threads the
+// kernel runs at 64 registers and spills, and a change to shared code moves every
+// instantiation's spills): a cluster of one meets at block barriers and writes its own
+// shared memory.
+template <int HEAD, int CHAIN, bool NLL, bool SMALL>
+__global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(Args a) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, N = a.N;
+  // the cluster's barrier (a block barrier on a cluster of one, in SMALL)
+  auto arrive = [&]() {
+    if (!SMALL || N > 1) cluster_arrive();
+  };
+  auto wait = [&]() {
+    if (!SMALL || N > 1)
+      cluster_wait();
+    else
+      __syncthreads();
+  };
+  auto barrier = [&]() {
+    arrive();
+    wait();
+  };
   const int rank = (int)cluster.block_rank(), b = blockIdx.x / N;
   const int R = a.R, G = a.G, S = a.S, L = a.L, k = a.k, cin = a.cin;
   const int half = G / 2, past = (k - 1) * R, LG = L * G, RS = R + S;
@@ -666,7 +704,7 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
     for (int r = tid; r < R; r += nt()) h[r] = a.h_in[(size_t)b * R + r];
   }
   __syncthreads();
-  cluster_barrier();  // the zeroed rings, before any CTA reads a tap
+  barrier();  // the zeroed rings, before any CTA reads a tap
 #ifdef T2_PROFILE
   unsigned long long prof_t = now_ns();
 #endif
@@ -744,7 +782,7 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
             hc = (hc + bos_at(li - 1, c) + reduce_slices<KS_CHAIN>(red_r, RN, c)) * rho;
             h[col] = hc;
           }
-          share(cluster, Xp, col, bf16r(hc) * rho, N);
+          share<SMALL>(cluster, Xp, col, bf16r(hc) * rho, N);
         }
         if (li > 0)
           for (int s = spread(w_skip); s < SN; s += nt()) {
@@ -753,13 +791,13 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
             skips[s] = sk;
           }
         for (int c = spread(w_glu); c < hN; c += nt())
-          glu_unit(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
+          glu_unit<SMALL>(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
         // this layer's slot is in (the barrier below shows it to every thread)
         if (a.wpre) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
         PROF(P_LAYER_WORK);
-        cluster_arrive();
+        arrive();
         PROF(P_ARRIVE);
-        cluster_wait();
+        wait();
         PROF(P_WAIT);
         write_ring(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN);
 
@@ -788,7 +826,7 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
             hc = (bos_at(li - 1, c) + reduce_slices<KS_CHAIN>(red_r, RN, c) + hc) * rho;
             h[col] = hc;
           }
-          share(cluster, Xp, col, bf16r(hc), N);
+          share<SMALL>(cluster, Xp, col, bf16r(hc), N);
         }
         if (li > 0)
           for (int s = spread(w_skip); s < SN; s += nt()) {
@@ -798,9 +836,9 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
           }
         if (a.wpre) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
         PROF(P_LAYER_WORK);
-        cluster_arrive();
+        arrive();
         PROF(P_ARRIVE);
-        cluster_wait();
+        wait();
         PROF(P_WAIT);
         write_ring(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN);  // layer li's input
         // gates of layer li: bf16(h) @ w_cur[li]
@@ -808,11 +846,11 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
         __syncthreads();
         PROF(P_MATVEC);
         for (int c = tid; c < hN; c += nt())
-          glu_unit(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
+          glu_unit<SMALL>(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
         PROF(P_LAYER_WORK);
-        cluster_arrive();
+        arrive();
         PROF(P_ARRIVE);
-        cluster_wait();
+        wait();
         PROF(P_WAIT);
         // residual and skip 1x1s of layer li: z @ w_os[li]; the last layer's skip only
         const int first = li + 1 < L ? chain_run(os_job(li, false, Xp + R), 0, RN, red_r) : 0;
@@ -828,18 +866,18 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
       float sk = skips[s] + bos_at(L - 1, RN + s)
                  + reduce_slices<KS_CHAIN>(red_s, SN, s);
       if (a.legacy && L > 1) sk *= SQRT_HALF;
-      share(cluster, O, s0 + s, bf16r(fmaxf(sk, 0.f)), N);
+      share<SMALL>(cluster, O, s0 + s, bf16r(fmaxf(sk, 0.f)), N);
     }
-    cluster_barrier();
+    barrier();
     PROF(P_HEAD_SKIP);
     job_run<float>(job1(a.w_s1, S, S, O, 1, SN, 1, s0, 0), 0, SN, KS_CHAIN, red);
     __syncthreads();
     for (int s = tid; s < SN; s += nt()) {
       const float v = fmaxf(bs1[s] + reduce_slices<KS_CHAIN>(red, SN, s), 0.f);
       // the big-vocab head's input is bf16
-      share(cluster, P, s0 + s, HEAD == CATEGORICAL_BIG ? bf16r(v) : v, N);
+      share<SMALL>(cluster, P, s0 + s, HEAD == CATEGORICAL_BIG ? bf16r(v) : v, N);
     }
-    cluster_barrier();
+    barrier();
     PROF(P_HEAD_S1);
 
     // --- 5. the sample: every CTA draws the same one (the big head: from its classes
@@ -999,8 +1037,8 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
         if constexpr (NLL) {
           warp_lse(lm, ls);
           if (lane == 0) {
-            share(cluster, blk_lse, 2 * blk, lm, N);
-            share(cluster, blk_lse, 2 * blk + 1, ls, N);
+            share<SMALL>(cluster, blk_lse, 2 * blk, lm, N);
+            share<SMALL>(cluster, blk_lse, 2 * blk + 1, ls, N);
           }
         }
       }
@@ -1009,9 +1047,9 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
         const bool has_y = NLL && y >= 256 * b0 && y < 256 * b1;
         const float part[5] = {best.v, __int_as_float(best.first), __int_as_float(best.count),
                                has_y ? sample_s[3] : 0.f, has_y ? 1.f : 0.f};
-        for (int i = 0; i < 5; ++i) share(cluster, merge, rank * 8 + i, part[i], N);
+        for (int i = 0; i < 5; ++i) share<SMALL>(cluster, merge, rank * 8 + i, part[i], N);
       }
-      cluster_barrier();
+      barrier();
       if (tid < 32) {  // merged in rank and block order: the same in every CTA
         float m = -INFINITY, s = 0.f;
         if constexpr (NLL) {
@@ -1085,8 +1123,8 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
         }
         __syncthreads();
         for (int i = w0 + tid; i < w1; i += nt())
-          share(cluster, red, i, __uint_as_float(tied[i]), N);
-        cluster_barrier();
+          share<SMALL>(cluster, red, i, __uint_as_float(tied[i]), N);
+        barrier();
       }
       for (int r = tid; r < R; r += nt()) {
         float acc;
@@ -1114,7 +1152,7 @@ __global__ void __launch_bounds__(NT_MAX) wavenet_ar_kernel(Args a) {
   if (a.wpre) asm volatile("cp.async.wait_all;\n" ::: "memory");  // the unused last slot
   if (a.h_out != nullptr && rank == 0)
     for (int r = tid; r < R; r += nt()) a.h_out[(size_t)b * R + r] = h[r];
-  cluster_barrier();  // no CTA leaves while a peer may still write its shared memory
+  barrier();  // no CTA leaves while a peer may still write its shared memory
 }
 
 constexpr size_t SMEM_MAX = 232448;  // a CTA's shared memory on Hopper (227 KB)
@@ -1144,10 +1182,21 @@ size_t smem_bytes(int cin, int L, int R, int G, int S, int k, int N) {
   return bytes > 117 * 1024 ? bytes : 117 * 1024;
 }
 
-// threads a CTA on a cluster of N: 1,024 for one or two CTAs a sequence, 512 for four,
-// 256 for eight or sixteen; the outputs do not depend on it
-int threads_for(int N) {
-  return N <= 2 ? 1024 : N == 4 ? 512 : 256;
+// Whether a cluster of N runs the SMALL layout: one or two CTAs a sequence at the
+// defaults' widths (R, G, S) = (128, 256, 128), with any head but the big one. That is
+// where it was measured faster (probes/ar_split.py, an H100 SXM at 700 W, B=66 and 132,
+// us a step against 1,024 threads): the Gaussian head on either chain, MoL and the small
+// categorical head with and without the NLL 16-26% faster (B=132: 209.7 against 243.3);
+// the big head with the NLL slower (B=132: 577.3 against 488.9-493.5), its class scan on
+// half the threads; the paper width, N = 1 and 2, slower on 512 threads.
+bool small_layout(int head, int R, int G, int S, int N) {
+  return N <= 2 && head != CATEGORICAL_BIG && R == 128 && G == 256 && S == 128;
+}
+
+// threads a CTA on a cluster of N: 512 in the SMALL layout, else 1,024 for one or two
+// CTAs a sequence, 512 for four, 256 for eight or sixteen; the outputs do not depend on it
+int threads_for(bool small, int N) {
+  return small ? SMALL_NT : N <= 2 ? 1024 : N == 4 ? 512 : 256;
 }
 
 // whether a cluster of N CTAs can split these widths (every CTA an equal, nonempty
@@ -1156,9 +1205,9 @@ bool splits(int R, int G, int S, int N) {
   return N >= 1 && N <= MAX_CLUSTER && (G / 2) % N == 0 && R % N == 0 && S % N == 0;
 }
 
-template <int HEAD, int CHAIN, bool NLL>
+template <int HEAD, int CHAIN, bool NLL, bool SMALL>
 cudaError_t configure(int N, size_t smem) {
-  auto kern = wavenet_ar_kernel<HEAD, CHAIN, NLL>;
+  auto kern = wavenet_ar_kernel<HEAD, CHAIN, NLL, SMALL>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err == cudaSuccess && N > 8)
@@ -1167,11 +1216,11 @@ cudaError_t configure(int N, size_t smem) {
 }
 
 // the launch configuration of B clusters of N CTAs (attr: its one attribute)
-cudaLaunchConfig_t cluster_config(int B, int N, size_t smem, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t cluster_config(int B, int N, int threads, size_t smem,
+                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * N);
-  cfg.blockDim = dim3(threads_for(N));
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1183,26 +1232,28 @@ cudaLaunchConfig_t cluster_config(int B, int N, size_t smem, cudaStream_t stream
   return cfg;
 }
 
-template <int HEAD, int CHAIN, bool NLL>
+template <int HEAD, int CHAIN, bool NLL, bool SMALL>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.cin, a.L, a.R, a.G, a.S, a.k, a.N);
-  cudaError_t err = configure<HEAD, CHAIN, NLL>(a.N, smem);
+  cudaError_t err = configure<HEAD, CHAIN, NLL, SMALL>(a.N, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(B, a.N, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, wavenet_ar_kernel<HEAD, CHAIN, NLL>, a);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(B, a.N, threads_for(SMALL, a.N), smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, wavenet_ar_kernel<HEAD, CHAIN, NLL, SMALL>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // clusters of N CTAs the card keeps resident at once (0: none fits)
-template <int HEAD, int CHAIN, bool NLL>
-int occupancy(int N, size_t smem) {
+template <int HEAD, int CHAIN, bool NLL, bool SMALL>
+int occupancy(int N, int threads, size_t smem) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(1, N, smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(1, N, threads, smem, nullptr, &attr);
   int clusters = 0;
-  if (configure<HEAD, CHAIN, NLL>(N, smem) != cudaSuccess
-      || cudaOccupancyMaxActiveClusters(&clusters, wavenet_ar_kernel<HEAD, CHAIN, NLL>, &cfg)
+  if (configure<HEAD, CHAIN, NLL, SMALL>(N, smem) != cudaSuccess
+      || cudaOccupancyMaxActiveClusters(&clusters,
+                                        wavenet_ar_kernel<HEAD, CHAIN, NLL, SMALL>, &cfg)
              != cudaSuccess) {
     cudaGetLastError();  // clear the refusal: the caller reads 0
     return 0;
@@ -1210,11 +1261,17 @@ int occupancy(int N, size_t smem) {
   return clusters;
 }
 
-// the instantiation of (head, fused, nll), handed to F as template arguments
-template <template <int, int, bool> class F, typename... T>
-int dispatch(int head, bool fused, bool nll, T... args) {
-#define T2_CHAIN(H, NL) \
-  return fused ? F<H, FUSED, NL>::run(args...) : F<H, PLAIN, NL>::run(args...)
+// the instantiation of (head, fused, nll, small), handed to F as template arguments;
+// the big head has no SMALL one (small_layout)
+template <template <int, int, bool, bool> class F, typename... T>
+int dispatch(int head, bool fused, bool nll, bool small, T... args) {
+#define T2_CHAIN(H, NL)                                                          \
+  return fused ? (small ? F<H, FUSED, NL, true>::run(args...)                   \
+                        : F<H, FUSED, NL, false>::run(args...))                 \
+               : (small ? F<H, PLAIN, NL, true>::run(args...)                   \
+                        : F<H, PLAIN, NL, false>::run(args...))
+#define T2_GENERAL(H, NL)                                                        \
+  return fused ? F<H, FUSED, NL, false>::run(args...) : F<H, PLAIN, NL, false>::run(args...)
   switch (head) {
     case GAUSSIAN: T2_CHAIN(GAUSSIAN, false);
     case MOL: T2_CHAIN(MOL, false);
@@ -1222,20 +1279,23 @@ int dispatch(int head, bool fused, bool nll, T... args) {
       if (nll) T2_CHAIN(CATEGORICAL, true);
       T2_CHAIN(CATEGORICAL, false);
     default:
-      if (nll) T2_CHAIN(CATEGORICAL_BIG, true);
-      T2_CHAIN(CATEGORICAL_BIG, false);
+      if (nll) T2_GENERAL(CATEGORICAL_BIG, true);
+      T2_GENERAL(CATEGORICAL_BIG, false);
   }
+#undef T2_GENERAL
 #undef T2_CHAIN
 }
 
-template <int H, int C, bool NL>
+template <int H, int C, bool NL, bool SM>
 struct Launch {
-  static int run(const Args& a, int B, cudaStream_t s) { return launch<H, C, NL>(a, B, s); }
+  static int run(const Args& a, int B, cudaStream_t s) { return launch<H, C, NL, SM>(a, B, s); }
 };
 
-template <int H, int C, bool NL>
+template <int H, int C, bool NL, bool SM>
 struct Occupancy {
-  static int run(int N, size_t smem) { return occupancy<H, C, NL>(N, smem); }
+  static int run(int N, int threads, size_t smem) {
+    return occupancy<H, C, NL, SM>(N, threads, smem);
+  }
 };
 
 }  // namespace
@@ -1260,7 +1320,9 @@ extern "C" int wavenet_ar_occupancy(int cin, int L, int R, int G, int S, int k, 
   for (int i = 0; i < 5; ++i) {
     const int N = 1 << i;
     occ[i] = splits(R, G, S, N)
-                 ? dispatch<Occupancy>(head, fused != 0, nll != 0, N,
+                 ? dispatch<Occupancy>(head, fused != 0, nll != 0,
+                                       small_layout(head, R, G, S, N), N,
+                                       threads_for(small_layout(head, R, G, S, N), N),
                                        smem_bytes(cin, L, R, G, S, k, N))
                  : 0;
   }
@@ -1341,6 +1403,7 @@ extern "C" int wavenet_ar(
   a.N = cluster;
   a.wpre = prefetches(cin, L, R, G, S, k, cluster);
   a.log_scale_min = log_scale_min;
-  return dispatch<Launch>(head, fused != 0, y_eval != nullptr, a, B,
+  return dispatch<Launch>(head, fused != 0, y_eval != nullptr,
+                          small_layout(head, R, G, S, cluster), a, B,
                           static_cast<cudaStream_t>(stream));
 }

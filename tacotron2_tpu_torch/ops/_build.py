@@ -43,14 +43,12 @@ def _nvcc() -> str:
                        'port\'s CUDA kernels are built from source at first use')
 
 
-def compile_library(srcs, lib_path: str, include_dirs=(), defines=()) -> None:
+def compile_library(srcs, lib_path: str, defines=()) -> None:
     """Compile the CUDA sources `srcs` with nvcc into the shared library `lib_path`,
-    with `include_dirs` searched for headers and the macros `defines` ('NAME' or
-    'NAME=value') set."""
+    with the macros `defines` ('NAME' or 'NAME=value') set."""
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     tmp = f'{lib_path}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, *[f'-I{d}' for d in include_dirs],
-           *[f'-D{d}' for d in defines], '-o', tmp, *srcs]
+    cmd = [_nvcc(), *NVCC_FLAGS, *[f'-D{d}' for d in defines], '-o', tmp, *srcs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f'nvcc failed ({res.returncode}):\n{" ".join(cmd)}\n'
@@ -59,13 +57,11 @@ def compile_library(srcs, lib_path: str, include_dirs=(), defines=()) -> None:
 
 
 def _load(src_dir: str, stem: str) -> ctypes.CDLL:
-    """Compile the sources of `src_dir` (if they or its headers changed) into
-    `<stem>-<hash>.so`, and load it."""
+    """Compile the sources of `src_dir` (if they changed) into `<stem>-<hash>.so`, and
+    load it. The sources include no header of their own."""
     srcs = _sources(src_dir)
-    headers = sorted(os.path.join(src_dir, f) for f in os.listdir(src_dir)
-                     if f.endswith('.cuh'))
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for path in srcs + headers:
+    for path in srcs:
         with open(path, 'rb') as f:
             digest.update(f.read())
     lib_path = os.path.join(BUILD_DIR, f'{stem}-{digest.hexdigest()[:16]}.so')

@@ -5,12 +5,18 @@ variant `profile` is the kernel's source built with -DT2_PROFILE into a library 
 own (`ops._build.compile_library`), which adds up, in thread 0 of the first CTA, the
 %globaltimer nanoseconds of each phase of the step (the slots of `SLOTS`, in the order
 the step runs them; the layer phases summed over the layers), read out after the
-launch; `base` is the port's own build. Both are launched through `generate_ar` on
-seeded random weights at full width, timed side by side, and the profile build's
-outputs are held to the port's own (bit for bit: the macro changes no sum):
+launch; `base` is the port's own build; `--source NAME=PATH` adds a variant NAME built
+from another copy of the kernel's source, such as a parent checkout's, to time two
+versions in one run (a name may repeat in `--variants`: each is timed in turn). All are
+launched through `generate_ar` on seeded random weights at full width, timed side by
+side, and each variant's outputs are held to the port's own build (bit for bit: the
+profile macro changes no sum). A config names a head and chain at the defaults' widths
+(`default` the Gaussian head on the fused chain), or the paper profile (`paper`); the
+categorical heads in NLL_CONFIGS run with the in-kernel NLL of class ids 0:
 
     python -m tacotron2_tpu_torch.probes.ar_split [--variants base,profile]
         [--configs default,paper,big] [--batch 2] [--steps 1100] [--cluster N]
+        [--source NAME=PATH ...]
 """
 
 import argparse
@@ -29,21 +35,29 @@ VARIANTS = {'base': (), 'profile': ('T2_PROFILE',)}
 # the profile's slots (csrc/wavenet_ar.cu ProfSlot), in the order a step runs them
 SLOTS = ('stage', 'cond', 'taps', 'gate0', 'layer_work', 'arrive', 'wait', 'matvec',
          'head_skip', 'head_s1', 'sample', 'feedback')
-CONFIGS = {'default': '', 'paper': None,
+CATEGORICAL = "input_type='mulaw-quantize',quantize_channels=256,out_channels=256"
+CONFIGS = {'default': '', 'paper': None, 'plain': 'wavenet_fused_ar=False',
+           'mol': 'out_channels=30', 'categorical': CATEGORICAL,
+           'categorical_nll': CATEGORICAL,
            'big': "input_type='mulaw-quantize',quantize_channels=65536,out_channels=65536"}
+NLL_CONFIGS = ('categorical_nll', 'big')  # the big head always runs with it here
 
 
-def build(variants, tmp: str) -> Dict[str, ctypes.CDLL]:
-    """The library of each variant (the port's own for `base`), built at once."""
+def build(variants, tmp: str, sources: Optional[Dict[str, str]] = None
+          ) -> Dict[str, ctypes.CDLL]:
+    """The library of each variant (the port's own for `base`; those of `sources`
+    built from the source file each names), built at once."""
     from ..ops import _build
 
+    sources = sources or {}
+
     def one(name):
-        macros = VARIANTS[name]
-        if not macros:
+        macros = VARIANTS.get(name, ())
+        if not macros and name not in sources:
             return name, _build.load_library()
         lib = os.path.join(tmp, f'libar_{name}.so')
-        _build.compile_library([os.path.join(_build.CSRC_DIR, 'wavenet_ar.cu')], lib,
-                               defines=macros)
+        src = sources.get(name, os.path.join(_build.CSRC_DIR, 'wavenet_ar.cu'))
+        _build.compile_library([src], lib, defines=macros)
         return name, ctypes.CDLL(lib)
 
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
@@ -64,18 +78,17 @@ def model(config: str, seed: int = 1):
     return hp, wavenet_ar.pack_params(net, hp), net
 
 
-def run(library, hp, weights, c_up, noise, cluster: Optional[int]):
-    """One launch of `library`'s kernel through generate_ar (no params; the big head
-    sampled with the NLL of class ids 0)."""
+def run(library, hp, weights, c_up, noise, cluster: Optional[int], nll: bool = False):
+    """One launch of `library`'s kernel through generate_ar (no params; with `nll`, a
+    categorical head with the NLL of class ids 0; the big head sampled from seed 5)."""
     from ..ops import wavenet_ar
 
     kernel_fn = wavenet_ar._kernel_fn
     wavenet_ar._kernel_fn = lambda: kernel_fn(library)
     try:
-        kw = {}
-        if wavenet_ar.is_big_vocab(hp):
-            kw = dict(seed=5, y_eval=torch.zeros(c_up.shape[:2], dtype=torch.long,
-                                                 device=c_up.device))
+        kw = dict(seed=5) if wavenet_ar.is_big_vocab(hp) else {}
+        if nll:
+            kw['y_eval'] = torch.zeros(c_up.shape[:2], dtype=torch.long, device=c_up.device)
         return wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False,
                                       cluster=cluster, **kw)
     finally:
@@ -96,12 +109,15 @@ def profile_split(library, T: int, L: int) -> Dict[str, float]:
 def main(argv: Optional[list] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--variants', default=','.join(VARIANTS),
-                   help=f'comma-separated, of {", ".join(VARIANTS)}')
+                   help=f'comma-separated, of {", ".join(VARIANTS)} or a --source name')
     p.add_argument('--configs', default=','.join(CONFIGS))
     p.add_argument('--batch', default='2', help='batch size(s), comma-separated')
     p.add_argument('--steps', type=int, default=1100)
     p.add_argument('--cluster', type=int, default=None, help='force a cluster size')
+    p.add_argument('--source', action='append', default=[], metavar='NAME=PATH',
+                   help='a variant NAME built from the kernel source at PATH')
     args = p.parse_args(argv)
+    sources = dict(item.split('=', 1) for item in args.source)
     if not torch.cuda.is_available():
         raise RuntimeError('ar_split times the kernel on a CUDA card; torch finds none')
     from ..ops import wavenet_ar
@@ -109,11 +125,12 @@ def main(argv: Optional[list] = None) -> Dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     variants = args.variants.split(',')
     with tempfile.TemporaryDirectory(prefix='t2_ar_split_') as tmp:
-        libs = build(sorted(set(variants) | {'base'}), tmp)
+        libs = build(sorted(set(variants) | {'base'}), tmp, sources)
     results = {}
     gen = torch.Generator('cuda').manual_seed(2)
     for config in args.configs.split(','):
         hp, weights, net = model(config)
+        nll = config in NLL_CONFIGS
         for B in (int(b) for b in args.batch.split(',')):
             T = args.steps
             mel = torch.rand(B, -(-T // hp.get_hop_size()), hp.num_mels, generator=gen,
@@ -121,20 +138,22 @@ def main(argv: Optional[list] = None) -> Dict:
             with torch.no_grad():
                 c_up = net.upsample_conditioning(mel)[:, :T].contiguous()
             noise = wavenet_ar.make_noise(hp, gen, B, T)
-            ref = run(libs['base'], hp, weights, c_up, noise, args.cluster)[0]
-            for name in variants:
+            ref = run(libs['base'], hp, weights, c_up, noise, args.cluster, nll)[0]
+            for i, name in enumerate(variants):
                 lib = libs[name]
-                out = run(lib, hp, weights, c_up, noise, args.cluster)[0]
+                out = run(lib, hp, weights, c_up, noise, args.cluster, nll)[0]
                 same = torch.equal(out, ref)
                 if name == 'profile':
                     profile_split(lib, T, hp.layers)  # zero the slots
-                    run(lib, hp, weights, c_up, noise, args.cluster)
+                    run(lib, hp, weights, c_up, noise, args.cluster, nll)
                     torch.cuda.synchronize()
                     split = profile_split(lib, T, hp.layers)
                 else:
                     split = None
-                ms = best_ms(lambda: run(lib, hp, weights, c_up, noise, args.cluster), 2)
+                ms = best_ms(lambda: run(lib, hp, weights, c_up, noise, args.cluster, nll), 2)
                 key = f'{config} B={B} {name}'
+                if variants[:i].count(name):
+                    key += f' ({variants[:i].count(name) + 1})'
                 results[key] = dict(us_step=1000 * ms / T, same_as_base=same, split=split,
                                     clusters=dict(wavenet_ar.LAUNCHES_BY_CLUSTER))
                 print(f'{key}: {1000 * ms / T:.2f} us/step, ids/audio as the port\'s build: '

@@ -17,6 +17,8 @@ in bf16; then, by variant:
               in all F columns, @ lk; e = sum_D tanh(keys + pq + pl); masked softmax;
               state[:, 64:64+T_in] += align; ctx = bf16(sum align * values)
 The output is h2 as (B, U) f32; `plain` and `kernel` also return the final state.
+`graph` replays the plain version's step captured in a CUDA graph: the yardstick of a
+decoder that runs its eager step as a graph (`graph_us_step`), not used by any entry point.
 
     python -m tacotron2_tpu_torch.probes.microbench [--device cpu] [--variants att]
 """
@@ -34,6 +36,7 @@ from . import best_ms, bound_ms, cuda_device, device_of, entry, launch, parser
 DIMS = dict(B=32, U=1024, T_in=128, E=512, D=128, F=32, K=31)
 T = 512
 VARIANTS = ('lstm', 'attlite', 'att')
+KERNEL_UNITS = (256, 512, 1024)  # U the kernel takes (csrc/probes/microbench.cu)
 REPS = 4
 LAUNCHES = 0  # kernel launches, counted where the wrapper launches
 bf16, f32 = torch.bfloat16, torch.float32
@@ -94,65 +97,119 @@ def _lstm(x: Tensor, g: Tensor, c: Tensor):
     return cn, _sigmoid(o) * torch.tanh(cn)
 
 
+def _step(variant: str, w: Dict[str, Tensor], s: Dict[str, Tensor], zeros: Tensor) -> None:
+    """One step of the plain version on the state s: its entries replaced, the
+    accumulated alignments `state` updated in place."""
+    B, T_in, E = w['values'].shape
+    U, D = w['qk'].shape
+    dev = w['values'].device
+    s['c1'], s['h1'] = _lstm(torch.cat([zeros, s['ctx'], s['h1']], -1), w['g1'], s['c1'])
+    s['c2'], s['h2'] = _lstm(torch.cat([s['h1'], s['h2']], -1), w['g2'], s['c2'])
+    if variant != 'lstm':
+        pq = s['h2'].to(f32) @ w['qk'].to(f32)
+    if variant == 'att':
+        st = s['state']
+        fc = torch.zeros(B, T_in, device=dev)
+        for j in range(DIMS['K']):
+            off = 64 - 15 + j
+            fc = fc + st[:, off:off + T_in] * 0.01
+        fconv = fc.to(bf16)[:, :, None].expand(B, T_in, w['lk'].shape[0])
+        pl = (fconv.reshape(B * T_in, -1).to(f32) @ w['lk'].to(f32)).reshape(B, T_in, D)
+        u = w['keys'].to(f32) + pq[:, None, :] + pl
+        e = torch.tanh(u).sum(-1)
+        e = torch.where(w['mask'] > 0, e, torch.full_like(e, -1e9))
+        ex = torch.exp(e - e.max(-1, keepdim=True).values)
+        align = ex / ex.sum(-1, keepdim=True)
+        st[:, 64:64 + T_in] = st[:, 64:64 + T_in] + align
+    elif variant == 'attlite':
+        m = w['keys'].reshape(-1, T_in)[:D]
+        e = pq.to(bf16).to(f32) @ m.to(f32)
+        ex = torch.exp(e - e.max(-1, keepdim=True).values)
+        align = ex / ex.sum(-1, keepdim=True)
+    if variant != 'lstm':
+        s['ctx'] = (align[:, :, None] * w['values']).sum(1).to(bf16)
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f'unknown variant {variant!r}; one of {VARIANTS}')
+
+
 def plain(variant: str, inputs: Dict[str, Tensor], steps: int = T,
           start: Optional[Dict[str, Tensor]] = None):
     """The plain PyTorch version from the probe's zero state, or from `start`:
     (h2 (B, U) f32, the final state)."""
-    if variant not in VARIANTS:
-        raise ValueError(f'unknown variant {variant!r}; one of {VARIANTS}')
+    _check_variant(variant)
     w = inputs
     B, T_in, E = w['values'].shape
-    U, D = w['qk'].shape
+    U = w['qk'].shape[0]
     dev = w['values'].device
     s = {k: v.clone() for k, v in (start or zero_state(B, U, E, T_in, dev)).items()}
     zeros = torch.zeros(B, 256, dtype=bf16, device=dev)
     for _ in range(steps):
-        s['c1'], s['h1'] = _lstm(torch.cat([zeros, s['ctx'], s['h1']], -1), w['g1'], s['c1'])
-        s['c2'], s['h2'] = _lstm(torch.cat([s['h1'], s['h2']], -1), w['g2'], s['c2'])
-        if variant == 'lstm':
-            continue
-        pq = s['h2'].to(f32) @ w['qk'].to(f32)
-        if variant == 'att':
-            st = s['state']
-            fc = torch.zeros(B, T_in, device=dev)
-            for j in range(DIMS['K']):
-                off = 64 - 15 + j
-                fc = fc + st[:, off:off + T_in] * 0.01
-            fconv = fc.to(bf16)[:, :, None].expand(B, T_in, w['lk'].shape[0])
-            pl = (fconv.reshape(B * T_in, -1).to(f32) @ w['lk'].to(f32)).reshape(B, T_in, D)
-            u = w['keys'].to(f32) + pq[:, None, :] + pl
-            e = torch.tanh(u).sum(-1)
-            e = torch.where(w['mask'] > 0, e, torch.full_like(e, -1e9))
-            ex = torch.exp(e - e.max(-1, keepdim=True).values)
-            align = ex / ex.sum(-1, keepdim=True)
-            st[:, 64:64 + T_in] = st[:, 64:64 + T_in] + align
-        else:
-            m = w['keys'].reshape(-1, T_in)[:D]
-            e = pq.to(bf16).to(f32) @ m.to(f32)
-            ex = torch.exp(e - e.max(-1, keepdim=True).values)
-            align = ex / ex.sum(-1, keepdim=True)
-        s['ctx'] = (align[:, :, None] * w['values']).sum(1).to(bf16)
+        _step(variant, w, s, zeros)
     return s['h2'].to(f32), s
+
+
+def graph(variant: str, inputs: Dict[str, Tensor], steps: int = T,
+          start: Optional[Dict[str, Tensor]] = None, reps: int = REPS):
+    """The plain version's step captured once in a CUDA graph (torch.cuda.graphs) and
+    replayed `steps` times from the zero state or `start`, the way a decoder would run its
+    eager step as a graph: (h2 (B, U) f32, the final state, the best of `reps` runs in ms,
+    CUDA events). No entry point runs it: it is the yardstick of the hand-written kernel
+    (`graph_us_step`)."""
+    _check_variant(variant)
+    w = inputs
+    device = cuda_device(w['values'])
+    B, T_in, E = w['values'].shape
+    U = w['qk'].shape[0]
+    s0 = start or zero_state(B, U, E, T_in, device)
+    static = {k: v.clone() for k, v in s0.items()}
+    zeros = torch.zeros(B, 256, dtype=bf16, device=device)
+
+    def step():
+        s = dict(static)
+        _step(variant, w, s, zeros)
+        for k, v in s.items():
+            if v is not static[k]:
+                static[k].copy_(v)
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        step()
+
+    def run():
+        for k, v in s0.items():
+            static[k].copy_(v)
+        for _ in range(steps):
+            g.replay()
+
+    ms = best_ms(run, reps)
+    run()
+    return static['h2'].to(f32), {k: v.clone() for k, v in static.items()}, ms
 
 
 def kernel(variant: str, inputs: Dict[str, Tensor], steps: int = T,
            start: Optional[Dict[str, Tensor]] = None, library=None):
-    """The kernel (`csrc/probes/microbench.cu`) on CUDA tensors, one cooperative launch
-    of `steps` steps from the zero state or `start`: (h2 (B, U) f32, the final state) as
-    `plain`. `library`: another build of the same source (a planted fault), else the
-    probes' library. Raises if the grid (U/8 blocks) cannot be co-resident."""
+    """The kernel (`csrc/probes/microbench.cu`) on CUDA tensors, one launch of `steps`
+    steps from the zero state or `start`: (h2 (B, U) f32, the final state) as `plain`.
+    `library`: another build of the same source (a planted fault), else the probes'
+    library. Raises if the grid (U/16 clusters of 2 CTAs) cannot be co-resident."""
     global LAUNCHES
-    if variant not in VARIANTS:
-        raise ValueError(f'unknown variant {variant!r}; one of {VARIANTS}')
+    _check_variant(variant)
     w = inputs
     device = cuda_device(w['values'])
     B, T_in, E = w['values'].shape
     U, D = w['qk'].shape
     F = w['lk'].shape[0]
-    if (B, T_in, E, D, F) != (32, 128, 512, 128, 32) or U % 64 or not 256 <= U <= 1024:
-        raise ValueError(f'the kernel takes the probe\'s sizes {DIMS} but U, a multiple '
-                         f'of 64 from 256 to 1,024; got B={B}, U={U}, T_in={T_in}, E={E}, '
-                         f'D={D}, F={F}')
+    if (B, T_in, E, D, F) != (32, 128, 512, 128, 32) or U not in KERNEL_UNITS:
+        raise ValueError(f'the kernel takes the probe\'s sizes {DIMS} but U, one of '
+                         f'{KERNEL_UNITS}; got B={B}, U={U}, T_in={T_in}, E={E}, D={D}, F={F}')
     for name, dtype, shape in (('g1', bf16, (256 + E + U, 4 * U)), ('g2', bf16, (2 * U, 4 * U)),
                                ('qk', bf16, (U, D)), ('lk', bf16, (F, D)),
                                ('keys', bf16, (B, T_in, D)), ('values', f32, (B, T_in, E)),
@@ -169,16 +226,21 @@ def kernel(variant: str, inputs: Dict[str, Tensor], steps: int = T,
                                   ('h1', h1, bf16, (2, B, U)), ('h2', h2, bf16, (2, B, U))):
         check_tensor(name, t, dtype, shape, device)
     out = torch.empty(B, U, device=device)
-    info = torch.zeros(2, dtype=torch.int32)  # blocks per SM, SMs: filled when too few
-    fn = entry('probe_microbench', 18, library)
+    # scratch: g1's streamed B fragments (each CTA's slice, written by the kernel), the
+    # clusters' pq partials, the grid barrier's arrival count
+    w1s = torch.empty(U // 8, 8 + U // 32, 8 * 32 * 8, dtype=torch.uint8, device=device)
+    pqs = torch.empty(U // 16, B, D, device=device)
+    bar = torch.zeros(1, dtype=torch.int32, device=device)
+    info = torch.zeros(2, dtype=torch.int32)  # clusters resident, needed: filled when too few
+    fn = entry('probe_microbench', 21, library)
     try:
         launch('microbench', fn, [w['g1'], w['g2'], w['qk'], w['lk'], w['keys'], w['values'],
-                                  w['mask'], c1, h1, c2, h2, ctx, state, out, U, steps,
-                                  VARIANTS.index(variant), info], device)
+                                  w['mask'], c1, h1, c2, h2, ctx, state, out, w1s, pqs, bar,
+                                  U, steps, VARIANTS.index(variant), info], device)
     except RuntimeError as e:
         if info[0] or info[1]:
-            raise RuntimeError(f'{e}: {U // 8} blocks cannot be co-resident: '
-                               f'{int(info[0])} a SM x {int(info[1])} SMs') from None
+            raise RuntimeError(f'{e}: the card keeps {int(info[0])} clusters of 2 resident, '
+                               f'the grid needs {int(info[1])}') from None
         raise
     LAUNCHES += 1
     final = dict(c1=c1, h1=h1[steps % 2], c2=c2, h2=h2[steps % 2], ctx=ctx, state=state)
@@ -225,11 +287,14 @@ def main(argv: Optional[list] = None) -> Dict:
         k_ms = best_ms(lambda: kernel(v, inputs, args.steps), REPS)
         p_steps = args.steps
         p_ms = best_ms(lambda: plain(v, inputs, p_steps), 1)
+        g_ms = graph(v, inputs, args.steps)[2]
         out[v] = dict(us_step=1e3 * k_ms / args.steps, plain_us_step=1e3 * p_ms / p_steps,
+                      graph_us_step=1e3 * g_ms / args.steps,
                       bound_us_step=1e3 * b_ms / args.steps, bound_by=by)
         print(f'{v}: {k_ms:.2f} ms total, {out[v]["us_step"]:.2f} us/step; bound '
               f'{out[v]["bound_us_step"]:.3f} us/step ({by}); plain version '
-              f'{out[v]["plain_us_step"]:.2f} us/step over {p_steps} steps')
+              f'{out[v]["plain_us_step"]:.2f} us/step over {p_steps} steps, its step as a '
+              f'CUDA graph {out[v]["graph_us_step"]:.2f} us/step')
     return out
 
 

@@ -1,6 +1,7 @@
-"""The AR kernel's cluster-size rule and the tensor-core B10's fragment layout, on the
-CPU: the choices the wrappers make for the card, held on given occupancy tables, and
-the planted faults of the cluster layout applying to the kernel's source."""
+"""The AR kernel's cluster-size rule and the tensor-core fragment layouts of B10 and B11,
+on the CPU: the choices the wrappers make for the card, held on given occupancy tables,
+the layouts written out and held to the mma's operands, and the planted faults of the
+cluster layout applying to the kernel's source."""
 
 import numpy as np
 import pytest
@@ -142,8 +143,138 @@ def test_ar_split_slots_follow_the_kernel_source():
                 f'#ifndef {m.split("=")[0]}' in source, m
 
 
+def test_ar_split_configs_name_their_heads():
+    """Each of the timing probe's configs at the defaults' widths runs the head and
+    chain its name says, and the NLL runs only on a categorical head."""
+    from tacotron2_tpu_torch.probes import ar_split
+    heads = {}
+    for name, extra in ar_split.CONFIGS.items():
+        if extra is None:
+            continue
+        hp = default_hparams()
+        if extra:
+            hp.parse(extra)
+        assert (hp.residual_channels, hp.gate_channels, hp.skip_out_channels) == (128, 256, 128)
+        heads[name] = ('big' if wavenet_ar.is_big_vocab(hp) else 'categorical'
+                       if wavenet_ar.is_categorical(hp) else 'mol' if wavenet_ar.is_mol(hp)
+                       else 'gaussian', bool(hp.wavenet_fused_ar))
+    assert heads == {'default': ('gaussian', True), 'plain': ('gaussian', False),
+                     'mol': ('mol', True), 'categorical': ('categorical', True),
+                     'categorical_nll': ('categorical', True), 'big': ('big', True)}
+    assert all(heads[c][0] in ('categorical', 'big') for c in ar_split.NLL_CONFIGS)
+
+
 def test_ar_split_raises_without_a_card():
     from tacotron2_tpu_torch.probes import ar_split
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='torch finds none'):
             ar_split.main(['--steps', '1'])
+
+
+# ---------------------------------------------------------------- B11's fragments
+
+B11_CL = 2  # CTAs a cluster of csrc/probes/microbench.cu (CL): the K-split
+
+
+def b11_k_tiles(U: int, rank: int):
+    """The global k-tiles of the B fragments of CTA `rank` of a cluster
+    (`csrc/probes/microbench.cu`: kt1s, kt1c, kt2), in its local order: g1's streamed
+    ones (zeros, then h1), g1's resident ctx ones, g2's (h1', then h2)."""
+    zk, ck, hk = 16 // B11_CL, 32 // B11_CL, U // (16 * B11_CL)
+    streamed = [zk * rank + i for i in range(zk)] + [48 + hk * rank + i for i in range(hk)]
+    ctx = [16 + ck * rank + i for i in range(ck)]
+    g2 = [hk * rank + i for i in range(hk)] + [U // 16 + hk * rank + i for i in range(hk)]
+    return streamed, ctx, g2
+
+
+def b11_staged_rows(U: int, rank: int):
+    """The input row (of x0 = [zeros | ctx | h1], or of [h1' | h2]) that each column of
+    CTA `rank`'s staged x holds, in each of its stagings (the kernel's `stage` calls),
+    listed k-tile by k-tile as the products read them: x0's zero rows are not staged (their
+    A fragments are zero registers), then the h1 part; the ctx part; the h1' part, then h2."""
+    kq = U // B11_CL
+    streamed = [None] * (256 // B11_CL) + [768 + kq * rank + j for j in range(kq)]
+    ctx = [256 + 512 // B11_CL * rank + j for j in range(512 // B11_CL)]
+    h1n = [kq * rank + j for j in range(kq)]
+    h2 = [U + kq * rank + j for j in range(kq)]
+    return streamed, ctx, h1n + h2
+
+
+def b11_fragment_index(U: int, cluster: int, k_tiles):
+    """(k, column) of each bf16 of cluster `cluster`'s B fragments over `k_tiles`, shaped
+    (k-tiles, 4 CL tiles, 32 lanes, 4): tile n holds columns (n / CL) U + 8 CL cluster +
+    8 (n % CL) + lane / 4 (gate n / CL, unit group n % CL), rows 16 kt + 2 (lane % 4) +
+    FRAGMENT_ROWS (`fragment`; the index i of W2, W1C and w1s is (kt, n, lane) =
+    (i / (128 CL), i / 32 % (4 CL), i % 32))."""
+    kt = torch.tensor(k_tiles)[:, None, None, None]
+    n = torch.arange(4 * B11_CL)[None, :, None, None]
+    lane = torch.arange(32)[None, None, :, None]
+    e = torch.tensor(FRAGMENT_ROWS)[None, None, None, :]
+    k = 16 * kt + 2 * (lane % 4) + e
+    col = (n // B11_CL) * U + 8 * B11_CL * cluster + 8 * (n % B11_CL) + lane // 4
+    return torch.broadcast_tensors(k, col)
+
+
+@pytest.mark.parametrize('U', [256, 1024])
+def test_microbench_fragments_hold_each_weight_once(U):
+    """Over the U/(8 CL) clusters, the fragments of g1 (streamed and resident) and of g2
+    hold every weight exactly once: the K-split over ranks and the columns over clusters
+    partition both matrices."""
+    for which, rows in (('g1', 256 + 512 + U), ('g2', 2 * U)):
+        seen = torch.zeros(rows, 4 * U, dtype=torch.int32)
+        for c in range(U // (8 * B11_CL)):
+            for r in range(B11_CL):
+                streamed, ctx, g2 = b11_k_tiles(U, r)
+                for kts in ((streamed, ctx) if which == 'g1' else (g2,)):
+                    k, col = b11_fragment_index(U, c, kts)
+                    seen.index_put_((k.reshape(-1), col.reshape(-1)),
+                                    torch.ones(k.numel(), dtype=torch.int32), accumulate=True)
+        assert torch.equal(seen, torch.ones_like(seen)), which
+
+
+@pytest.mark.parametrize('U', [256, 1024])
+def test_microbench_staged_x_lines_up_with_the_k_tiles(U):
+    """Local k-tile i of each product multiplies the staged columns 16 i .. 16 i + 15,
+    which hold the input rows of its fragments' k rows: A and B meet on the same k (the
+    zero rows of x0, unstaged, are the first k-tiles of the streamed product and fall in
+    x0's zero segment)."""
+    for r in range(B11_CL):
+        for kts, staged in zip(b11_k_tiles(U, r), b11_staged_rows(U, r)):
+            for i, kt in enumerate(kts):
+                rows = staged[16 * i:16 * i + 16]
+                if rows[0] is None:
+                    assert 16 * kt + 15 < 256 and all(x is None for x in rows)
+                else:
+                    assert rows == list(range(16 * kt, 16 * kt + 16))
+
+
+def test_microbench_fragments_are_mma_b_tiles():
+    """Lane l's fragment of local k-tile i and tile n is what mma.sync.m16n8k16 takes as B
+    of the 16 x 8 tile of g2 at rows 16 kt, columns (n / CL) U + 8 CL c + 8 (n % CL); and
+    the ranks' K-split products of a cluster add up to x @ g2 over its columns."""
+    U, CL = 256, B11_CL
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.normal(0, 1, (2 * U, 4 * U)))
+    x = torch.from_numpy(rng.normal(0, 1, (32, 2 * U)))
+    a = torch.from_numpy(rng.normal(0, 1, (16, 16)))
+    c = 3
+    cols = torch.tensor([(n // CL) * U + 8 * CL * c + 8 * (n % CL) + j
+                         for n in range(4 * CL) for j in range(8)])
+    total = torch.zeros(32, 32 * CL, dtype=torch.float64)
+    for r in range(CL):
+        kts = b11_k_tiles(U, r)[2]
+        k, col = b11_fragment_index(U, c, kts)
+        frags = w[k, col]
+        for i, kt in enumerate(kts):
+            for n in range(4 * CL):
+                tile = torch.empty(16, 8, dtype=torch.float64)
+                for lane in range(32):
+                    for e, row in enumerate(FRAGMENT_ROWS):
+                        tile[2 * (lane % 4) + row, lane // 4] = frags[i, n, lane, e]
+                c0 = (n // CL) * U + 8 * CL * c + 8 * (n % CL)
+                want = w[16 * kt:16 * kt + 16, c0:c0 + 8]
+                assert torch.equal(tile, want)
+                assert torch.allclose(a @ tile, a @ want)
+        rows = torch.tensor([16 * kt + j for kt in kts for j in range(16)])
+        total += x[:, rows] @ w[rows][:, cols]
+    assert torch.allclose(total, x @ w[:, cols])

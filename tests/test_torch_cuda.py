@@ -369,13 +369,16 @@ def mutants(tmp_path_factory):
 @pytest.mark.parametrize('fault', list(chip_smoke.CLUSTER_MUTANTS))
 def test_cluster_mutants_are_seen(device, mutants, fault):
     """A build with a planted fault of the cluster layout misses KERNEL_TOL at the
-    default width, B=2 over one frame (clusters of 16), where the true kernel holds."""
+    default width, B=2 over one frame, on the clusters B=2 gets (16) or on the size
+    chip_smoke.FAULT_CLUSTER names (one, for the large batch's instantiation), where the
+    true kernel holds."""
     hp = default_hparams()
     weights, c_up, noise = _wavenet_inputs(hp, 2, 1, device)
-    assert chip_smoke.occupancy(hp)[1] > 1
-    assert params_err(weights, c_up, noise, hp).max().item() <= KERNEL_TOL
-    assert params_err(weights, c_up, noise, hp, library=mutants[fault]).max().item() \
-        > KERNEL_TOL
+    cluster = chip_smoke.FAULT_CLUSTER.get(fault)
+    assert cluster is not None or chip_smoke.occupancy(hp)[1] > 1
+    assert params_err(weights, c_up, noise, hp, cluster=cluster).max().item() <= KERNEL_TOL
+    assert params_err(weights, c_up, noise, hp, library=mutants[fault],
+                      cluster=cluster).max().item() > KERNEL_TOL
 
 
 @pytest.mark.parametrize('fault', list(KERNEL_MUTANTS))
@@ -657,8 +660,8 @@ def test_matmul_probe_kernel_matches_plain_version(device, variant):
 
 @pytest.mark.parametrize('variant', ['lstm', 'attlite', 'att'])
 def test_microbench_kernel_matches_plain_version(device, variant):
-    """B11 at U=256 (32 blocks, one an attention row) over 3 steps, `lstm` from a seeded
-    nonzero state: h2, the cells and the accumulated alignments."""
+    """B11 at U=256 (16 clusters of 2 CTAs, 2 attention rows a cluster) over 3 steps, `lstm`
+    from a seeded nonzero state: h2, the cells and the accumulated alignments."""
     from tacotron2_tpu_torch.probes import microbench as m
 
     inp = m.make_inputs(U=256, device=device)
@@ -676,7 +679,9 @@ def test_microbench_kernel_matches_plain_version(device, variant):
 @pytest.mark.parametrize('fault', list(chip_smoke.PROBE_MUTANTS))
 def test_probe_mutants_are_seen(device, mutants, fault):
     """Each probe kernel's planted fault, built in the phase-2 pool, misses the check that
-    holds the true kernel (small sizes as above)."""
+    holds the true kernel (small sizes as above; B11's dropped k-tile at phase 11's size,
+    U=1,024 over 16 steps, where it moves h2 by 0.17 of its largest value: at U=256 over
+    3 steps it stays inside PROBE_TOL)."""
     from tacotron2_tpu_torch.probes import ar_critpath, matmul_probe, microbench, prng_probe
 
     lib = mutants[fault]
@@ -696,6 +701,12 @@ def test_probe_mutants_are_seen(device, mutants, fault):
         want = matmul_probe.plain('dep_f32', inp, 3)[0]
         got = matmul_probe.kernel('dep_f32', inp, 3, library=lib)[0]
         assert chip_smoke.rel_err(got, want) > chip_smoke.PROBE_TOL['matmul_probe']
+    elif 'k-tile' in fault:
+        inp = microbench.make_inputs(device=device)
+        steps, start = chip_smoke.PROBE_STEPS['microbench'], microbench.random_state(inp)
+        want = microbench.plain('lstm', inp, steps, start=start)[0]
+        got = microbench.kernel('lstm', inp, steps, start=start, library=lib)[0]
+        assert chip_smoke.rel_err(got, want) > chip_smoke.PROBE_TOL['microbench']
     else:
         inp = microbench.make_inputs(U=256, device=device)
         want = microbench.plain('att', inp, 3)[1]['state']

@@ -261,7 +261,8 @@ def test_probe_entry_points_run_plain_on_the_cpu_and_raise_without_a_card():
 @pytest.mark.parametrize('fault', ['prng_probe: the last id taken on a tie',
                                    'ar_critpath: a tap slot off by one',
                                    'matmul_probe: the dependency dropped',
-                                   'microbench: the alignment not accumulated into the state'])
+                                   'microbench: the alignment not accumulated into the state',
+                                   'microbench: the last k-tile of the ctx rows dropped'])
 def test_probe_mutants_apply_to_the_sources(fault):
     """Each planted fault of chip_smoke.PROBE_MUTANTS changes exactly one line of its
     probe's source (the card's smoke run builds these copies beside the probes)."""
