@@ -27,9 +27,14 @@ Phases (one line each; any failure exits nonzero):
      CTA's slice of z shared at the next rank's offset, the rings written by rank 0
      alone, each of which must miss KERNEL_TOL on the cluster that B=2 gets; and, in
      the large batch's own instantiation, a cluster of one halving what it shares into
-     its own shared memory, which must miss it on a cluster of one, FAULT_CLUSTER); and
-     the kernel's us/step over SWEEP_BATCHES with the cluster size each batch gets,
-     B=66 and B=132 among them (phase 8 repeats the sweep at the paper width);
+     its own shared memory, which must miss it on a cluster of one, FAULT_CLUSTER, and
+     the second of two sequences on a cluster of two reading the first's taps, which
+     must miss it there, FAULT_SEQUENCES); two sequences a cluster of two (P = 2, the
+     large batch's layout) against one (P = 1) at B=132 and 131 over CLUSTER_STEPS
+     steps, bit for bit in audio, params and carried state; and the kernel's us/step
+     over SWEEP_BATCHES with the layout (N CTAs a cluster, P sequences a cluster) each
+     batch gets, B=66, 98, 131 and 132 among them (phase 8 repeats the sweep at the
+     paper width);
   4. the Tacotron half on the card against the same model on the CPU (explicit prenet
      masks, 16 steps, max abs 1e-3 with TF32 off);
   5. the main path, text -> mel -> wav, at full width with the same WaveNet through
@@ -261,11 +266,12 @@ BIG_VOCAB_MUTANTS = {
         '        if (g < ngrp) {  // the ragged last groups too\n',
         '        if (g < Q / 1024 * 128) {\n')}
 ALL_MUTANTS = {**KERNEL_MUTANTS, **BIG_VOCAB_MUTANTS}
-# changes of csrc/wavenet_ar.cu that only one cluster size shows (phase 3): at the main
+# changes of csrc/wavenet_ar.cu that only one cluster layout shows (phase 3): at the main
 # path's B=2, where the cluster is 16 CTAs, a CTA's slice of z shared at the next rank's
 # offset, and the rings written by rank 0 alone (its residual columns only); on a cluster
 # of one (FAULT_CLUSTER), in the large batch's own instantiation (SMALL), what a CTA
-# shares into its own shared memory halved
+# shares into its own shared memory halved; on a cluster of two that runs two sequences
+# (FAULT_SEQUENCES), the second sequence's taps read from the first's ring
 CLUSTER_MUTANTS = {
     'a peer\'s slice written at the wrong rank\'s offset': (
         '  share<SMALL>(cluster, zb, n0 + c, bf16r(tanhf(za) * (0.5f + 0.5f * tanhf(0.5f * zg))), '
@@ -278,8 +284,15 @@ CLUSTER_MUTANTS = {
         '    ring[slot * R + r0 + c] = h[r0 + c];\n'),
     'a cluster of one halves what it shares (N = 1)': (
         '      local[idx] = v;\n',
-        '      local[idx] = 0.5f * v;\n')}
-FAULT_CLUSTER = {'a cluster of one halves what it shares (N = 1)': 1}
+        '      local[idx] = 0.5f * v;\n'),
+    'the second sequence reads the first\'s taps (P = 2)': (
+        '      const float* src = ring + q * RF + ring_off[l] + ((base[l] + t + w - m) % w) * '
+        'R;\n',
+        '      const float* src = ring + 0 * RF + ring_off[l] + ((base[l] + t + w - m) % w) * '
+        'R;\n')}
+FAULT_CLUSTER = {'a cluster of one halves what it shares (N = 1)': 1,
+                 'the second sequence reads the first\'s taps (P = 2)': 2}
+FAULT_SEQUENCES = {'the second sequence reads the first\'s taps (P = 2)': 2}
 # phase 10: the big-vocab head and the in-kernel NLL
 BIG_VOCAB = "input_type='mulaw-quantize',quantize_channels=65536,out_channels=65536"
 BIG_RAGGED_Q = 50001  # odd: the last group of 8 classes and the last 1,024 are ragged
@@ -359,10 +372,10 @@ def cuda_ms(fn):
     return out, start.elapsed_time(end)
 
 
-# the AR kernel's launches on each main path by cluster size, {path: {N: launches}}, the
+# the AR kernel's launches on each main path by layout, {path: {(N, P): launches}}, the
 # counts set to 0 just before each run of a path (reset_counts) and read just after it
-# (read_counts); the checks' launches are not in it
-CLUSTERS_BY_PATH = collections.defaultdict(collections.Counter)
+# (read_counts); the checks' launches are not in them
+LAYOUTS_BY_PATH = collections.defaultdict(collections.Counter)
 
 
 def reset_counts():
@@ -371,23 +384,36 @@ def reset_counts():
 
     wavenet_ar.LAUNCHES = 0
     wavenet_ar.LAUNCHES_BY_VARIANT.clear()
-    wavenet_ar.LAUNCHES_BY_CLUSTER.clear()
+    wavenet_ar.LAUNCHES_BY_LAYOUT.clear()
 
 
 def read_counts(path):
     """The AR launches since reset_counts, read just after a run of the main path
-    `path`: adds them by cluster size to CLUSTERS_BY_PATH[path] (path None: a check's
-    run, counted nowhere); returns their number."""
+    `path`: adds them by layout to LAYOUTS_BY_PATH[path] (path None: a check's run,
+    counted nowhere); returns their number."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     if path is not None:
-        CLUSTERS_BY_PATH[path].update(wavenet_ar.LAUNCHES_BY_CLUSTER)
+        LAYOUTS_BY_PATH[path].update(wavenet_ar.LAUNCHES_BY_LAYOUT)
     return wavenet_ar.LAUNCHES
+
+
+def cluster_counts(path):
+    """{N: launches} of the main path `path`: its launches by layout, summed over P."""
+    out = collections.Counter()
+    for (n, _), c in LAYOUTS_BY_PATH[path].items():
+        out[n] += c
+    return dict(out)
 
 
 def path_clusters(*paths):
     """The cluster sizes the runs of `paths` launched the AR kernel on, in order."""
-    return sorted({n for p in paths for n in CLUSTERS_BY_PATH[p]})
+    return sorted({n for p in paths for n, _ in LAYOUTS_BY_PATH[p]})
+
+
+def layout_counts(path):
+    """{'N,P': launches} of the main path `path` (JSON keys)."""
+    return {f'{n},{p}': c for (n, p), c in sorted(LAYOUTS_BY_PATH[path].items())}
 
 
 @contextlib.contextmanager
@@ -604,7 +630,10 @@ def check_faults(weights, model, hp, gen):
 CLUSTER_STEPS = 1100
 # the batch sweep of the AR kernel's time, with the cluster size each batch gets (phase 3
 # at the default width, phase 8 at the paper width), over this many steps a launch
-SWEEP_BATCHES = (1, 2, 8, 20, 66, 132)
+SWEEP_BATCHES = (1, 2, 8, 20, 66, 98, 131, 132)
+# phase 3's check of two sequences a cluster against one: these batches (even, and odd:
+# the last cluster runs one sequence) over CLUSTER_STEPS steps
+PAIR_BATCHES = (132, 131)
 SWEEP_STEPS = 1100
 
 
@@ -674,7 +703,8 @@ def cluster_sweep(weights, model, hp, gen):
 def cluster_faults(weights, model, hp, gen, mutants):
     """Phase 3: the planted faults of the cluster layout (CLUSTER_MUTANTS), each a build
     of a changed copy of the kernel's source, at the main path's B=2 over one frame on the
-    cluster that B=2 gets, or on the one FAULT_CLUSTER names: each must miss KERNEL_TOL."""
+    cluster that B=2 gets, or on the one FAULT_CLUSTER names (with FAULT_SEQUENCES
+    sequences a cluster): each must miss KERNEL_TOL."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     _, auto = occupancy(hp)
@@ -682,15 +712,18 @@ def cluster_faults(weights, model, hp, gen, mutants):
         fail('B=2 gets no cluster of more than one CTA: the cluster faults cannot show')
     c_up = _conditioning(model, hp, MAIN_BATCH, 1, gen)
     noise = wavenet_ar.make_noise(hp, gen, MAIN_BATCH, c_up.shape[1])
-    sizes = sorted({auto, *FAULT_CLUSTER.values()})
-    true = {n: params_err(weights, c_up, noise, hp, cluster=n).max().item() for n in sizes}
+    layouts = sorted({(auto, 1)} | {(FAULT_CLUSTER[f], FAULT_SEQUENCES.get(f, 1))
+                                    for f in FAULT_CLUSTER})
+    true = {f'{n},{p}': params_err(weights, c_up, noise, hp, cluster=n,
+                                   sequences=p).max().item() for n, p in layouts}
     seen = {f: params_err(weights, c_up, noise, hp, library=mutants[f],
-                          cluster=FAULT_CLUSTER.get(f, auto)).max().item()
+                          cluster=FAULT_CLUSTER.get(f, auto),
+                          sequences=FAULT_SEQUENCES.get(f, 1)).max().item()
             for f in CLUSTER_MUTANTS}
     phase(3, f'planted cluster faults, B={MAIN_BATCH} T={c_up.shape[1]} on clusters of '
              f'{auto} (or as FAULT_CLUSTER says): max_abs_err '
              + ', '.join(f'{f} {e:.3e}' for f, e in seen.items())
-             + f' (each must exceed tol {KERNEL_TOL}; the true kernel by cluster size '
+             + f' (each must exceed tol {KERNEL_TOL}; the true kernel by (N, P) '
              + ', '.join(f'{n}: {e:.3e}' for n, e in true.items()) + ')')
     missed = [f for f, e in seen.items() if not e > KERNEL_TOL]
     if missed or not max(true.values()) <= KERNEL_TOL:
@@ -701,7 +734,7 @@ def cluster_faults(weights, model, hp, gen, mutants):
 
 def batch_sweep(weights, model, hp, gen, n):
     """Phase n: the kernel's us/step over SWEEP_STEPS steps at each of SWEEP_BATCHES,
-    with the cluster size each batch's launch ran on (CUDA events, no params)."""
+    with the layout each batch's launch ran on (CUDA events, no params)."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     out = {}
@@ -710,14 +743,48 @@ def batch_sweep(weights, model, hp, gen, n):
         c_up = _conditioning(model, hp, B, frames, gen)[:, :SWEEP_STEPS].contiguous()
         noise = wavenet_ar.make_noise(hp, gen, B, SWEEP_STEPS)
         wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False)  # warm
-        wavenet_ar.LAUNCHES_BY_CLUSTER.clear()
+        wavenet_ar.LAUNCHES_BY_LAYOUT.clear()
         _, ms = cuda_ms(lambda: wavenet_ar.generate_ar(weights, c_up, noise, hp,
                                                        return_params=False))
-        (n_launched,) = wavenet_ar.LAUNCHES_BY_CLUSTER  # the size this launch ran on
-        out[B] = dict(us_step=1000 * ms / SWEEP_STEPS, cluster=n_launched)
-    phase(n, f'batch sweep over {SWEEP_STEPS} steps, us/step (cluster): '
-             + ', '.join(f'B={B} {r["us_step"]:.1f} ({r["cluster"]})' for B, r in out.items()))
+        ((n_launched, p_launched),) = wavenet_ar.LAUNCHES_BY_LAYOUT  # this launch's layout
+        out[B] = dict(us_step=1000 * ms / SWEEP_STEPS, cluster=n_launched,
+                      sequences=p_launched)
+    phase(n, f'batch sweep over {SWEEP_STEPS} steps, us/step (N CTAs, P sequences a '
+             'cluster): ' + ', '.join(f'B={B} {r["us_step"]:.1f} ({r["cluster"]}, '
+                                     f'{r["sequences"]})' for B, r in out.items()))
     return out
+
+
+def pair_check(weights, model, hp, gen):
+    """Phase 3: two sequences a cluster of two (P = 2) against one a cluster (P = 1, the
+    cluster size the batch then gets) at each of PAIR_BATCHES over CLUSTER_STEPS steps:
+    audio, params and carried state bit for bit, and the layout of the automatic choice."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    out = {}
+    frames = -(-CLUSTER_STEPS // hp.get_hop_size())
+    for B in PAIR_BATCHES:
+        c_up = _conditioning(model, hp, B, frames, gen)[:, :CLUSTER_STEPS].contiguous()
+        noise = wavenet_ar.make_noise(hp, gen, B, CLUSTER_STEPS)
+        runs, layouts = {}, {}
+        for p in (None, 1, 2):
+            wavenet_ar.LAUNCHES_BY_LAYOUT.clear()
+            runs[p] = wavenet_ar.generate_ar(weights, c_up, noise, hp, return_state=True,
+                                             sequences=p)
+            (layouts[p],) = wavenet_ar.LAUNCHES_BY_LAYOUT
+        (a1, p1, s1), (a2, p2, s2) = runs[1], runs[2]
+        same = (torch.equal(a1, a2) and torch.equal(p1, p2) and torch.equal(s1[0], s2[0])
+                and torch.equal(s1[1], s2[1]) and torch.equal(runs[None][1], p2))
+        out[B] = dict(same=same, auto=layouts[None], one=layouts[1], two=layouts[2])
+    phase(3, f'two sequences a cluster against one, over {CLUSTER_STEPS} steps: ' + ', '.join(
+        f'B={B} (N, P) {r["two"]} vs {r["one"]}: bit-identical {r["same"]} (the automatic '
+        f'choice {r["auto"]})' for B, r in out.items()))
+    bad = {B: r for B, r in out.items() if not r['same'] or r['auto'] != (2, 2)
+           or r['two'] != (2, 2) or r['one'][1] != 1}
+    if bad:
+        fail(f'two sequences a cluster differ from one, or the layout is not (2, 2): {bad}')
+    return {B: dict(r, auto=list(r['auto']), one=list(r['one']), two=list(r['two']))
+            for B, r in out.items()}
 
 
 def state_faults(weights, c2, n2, hp, k_after1, r_after1, g_cond=None):
@@ -916,7 +983,7 @@ def main_path(hp_overrides, hp, wavenet_state, n=5, paper=False):
     lens = [len(w) for w in stats['wavs']]
     us_step = 1000 * sum(ms for _, ms in chunks) / sum(steps for steps, _ in chunks)
     phase(n, f'{what}: {len(lens)} wavs of {lens} samples, AR kernel launches={launches} '
-             f'(by cluster size {dict(CLUSTERS_BY_PATH[what])}) at {us_step:.1f} us/step; '
+             f'(by cluster size {cluster_counts(what)}) at {us_step:.1f} us/step; '
              f'{stats["decoded_frames"] / stats["tacotron_seconds"]:.1f} mel frames/s, '
              f'{stats["ar_samples"] / stats["wavenet_seconds"]:.0f} AR samples/s, '
              f'wall RTF {stats["seconds"] / stats["audio_seconds"]:.3f} '
@@ -1296,11 +1363,12 @@ def kernel_library(library):
 
 
 def params_err(weights, c_up, noise, hp, g_cond=None, plant=None, library=None,
-               cluster=None):
+               cluster=None, sequences=None):
     """Max abs params error, a sequence, of the kernel (of `library`, on the inputs
     `plant` makes of the true ones: a dict of generate_ar's weights / g_cond / state_in;
-    on clusters of `cluster` CTAs, else the wrapper's choice) against the plain version
-    on the true inputs, teacher-forced on the kernel's audio: (B,)."""
+    on clusters of `cluster` CTAs running `sequences` sequences each, else the wrapper's
+    choice) against the plain version on the true inputs, teacher-forced on the
+    kernel's audio: (B,)."""
     from tacotron2_tpu_torch.ops import wavenet_ar
 
     kw = dict(weights=weights, g_cond=g_cond, state_in=None)
@@ -1308,7 +1376,7 @@ def params_err(weights, c_up, noise, hp, g_cond=None, plant=None, library=None,
     with kernel_library(library):
         audio, params = wavenet_ar.generate_ar(kw['weights'], c_up, noise, hp,
                                                state_in=kw['state_in'], g_cond=kw['g_cond'],
-                                               cluster=cluster)
+                                               cluster=cluster, sequences=sequences)
     _, ref = wavenet_ar.generate_ar_reference(weights, c_up, noise, hp, targets=audio,
                                               g_cond=g_cond)
     return (params - ref).abs().flatten(1).max(1).values
@@ -2379,13 +2447,16 @@ def probe_prng(mutants):
 
     dev, v = torch.device('cuda'), m.VARIANTS[0]
     inp = m.make_inputs(device=dev)
-    (ids, stats), (pids, pstats) = m.kernel(v, inp), m.plain(v, inp)
+    (ids, stats), (pids, pstats) = [x.clone() for x in m.kernel(v, inp)], m.plain(v, inp)
+    again = m.kernel(v, inp)
+    twice = torch.equal(ids, again[0]) and torch.equal(stats, again[1])
     stats_err = (stats - pstats).abs().max().item()
     mean = stats[0, 0].item()
     if not torch.equal(ids, pids) or stats_err > GUMBEL_STATS_TOL \
-            or abs(mean - EULER_GAMMA) > GUMBEL_MEAN_TOL:
+            or abs(mean - EULER_GAMMA) > GUMBEL_MEAN_TOL or not twice:
         fail(f'prng_probe: ids {ids.ravel().tolist()} against {pids.ravel().tolist()}, stats '
-             f'{stats_err:.3e} off (tol {GUMBEL_STATS_TOL}), Gumbel mean {mean:.5f}')
+             f'{stats_err:.3e} off (tol {GUMBEL_STATS_TOL}), Gumbel mean {mean:.5f}, the '
+             f'same bits twice: {twice}')
     rnd = m.make_inputs(seed=1, random_scores=True, device=dev)
     rids, _ = m.kernel(v, rnd)
     prids, _ = m.plain(v, rnd)
@@ -2407,17 +2478,24 @@ def probe_prng(mutants):
     times = {}
     for b in (8, 1, 2):
         bi = m.make_inputs(B=b, device=dev)
-        times[b] = dict(ms=best_ms(m.launcher(v, bi), PROBE_REPS, m.CALLS),
+        if b != 8 and not torch.equal(m.kernel(v, bi)[0], m.plain(v, bi)[0]):
+            fail(f'prng_probe at B={b}: the ids are not the plain version\'s')
+        times[b] = dict(ms=m.call_ms(v, bi, PROBE_REPS),
+                        graph_ms=m.graph_call_ms(v, bi, PROBE_REPS),
                         plain_ms=best_ms(lambda: m.plain(v, bi), PROBE_REPS),
-                        bound_ms=m.bound(v, dict(B=b))[0])
+                        bound_ms=m.bound(v, dict(B=b))[0], cluster=m.cluster_of(b))
     bound_ms, bound_by = m.bound(v, dict(B=m.B))
     phase(11, f'prng_probe (B12), B=8, Q={m.Q}: ids exact, stats {stats_err:.3e} (tol '
               f'{GUMBEL_STATS_TOL}), Gumbel mean {mean:.5f}; random scores: rows {off} differ; '
-              f'forced tie: ids 5, the fault {fault!r} ids {fault_ids.ravel().tolist()[:2]}; '
-              'us a call (kernel / plain / bound): ' + ', '.join(
-                  f'B={b} {1e3 * t["ms"]:.2f} / {1e3 * t["plain_ms"]:.1f} / '
-                  f'{1e3 * t["bound_ms"]:.3f}' for b, t in times.items()))
-    return dict(max_abs_err=stats_err, ms=times[8]['ms'], plain_ms=times[8]['plain_ms'],
+              f'the same bits twice; forced tie: ids 5, the fault {fault!r} ids '
+              f'{fault_ids.ravel().tolist()[:2]}; '
+              'us a call (kernel / as a CUDA graph / plain / bound): ' + ', '.join(
+                  f'B={b} {1e3 * t["ms"]:.2f} / {1e3 * t["graph_ms"]:.2f} / '
+                  f'{1e3 * t["plain_ms"]:.1f} / '
+                  f'{1e3 * t["bound_ms"]:.3f} ({t["cluster"]} CTAs a row)'
+                  for b, t in times.items()))
+    return dict(max_abs_err=stats_err, ms=times[8]['ms'], graph_ms=times[8]['graph_ms'],
+                plain_ms=times[8]['plain_ms'],
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, by_batch=times,
                 random_rows_off=off, fault_ids=fault_ids.ravel().tolist())
 
@@ -2459,11 +2537,13 @@ def probe_critpath(mutants):
     inp = m.make_inputs(device=torch.device('cuda'))
     rows = {}
     for v in m.VARIANTS:
-        got = m.kernel(v, inp, steps)
+        got = m.kernel(v, inp, steps).clone()
+        twice = torch.equal(got, m.kernel(v, inp, steps))
         want, plain_ms = cuda_ms(lambda: m.plain(v, inp, steps))
         err = rel_err(got, want)
-        if err > PROBE_TOL[name]:
-            fail(f'{name} {v}: {err:.3e} beyond {PROBE_TOL[name]}')
+        if err > PROBE_TOL[name] or not twice:
+            fail(f'{name} {v}: {err:.3e} beyond {PROBE_TOL[name]}, or not the same bits '
+                 f'twice ({twice})')
         ms = _kernel_ms(m, v, inp, steps)
         bound_ms, bound_by = m.bound(v, m.dims_of(inp), steps)
         rows[v] = dict(err=err, abs_err=(got - want).abs().max().item(), ms=ms,
@@ -2617,6 +2697,7 @@ def main():
     check_faults(weights, model, hp, gen)
     clusters = cluster_sweep(weights, model, hp, gen)
     cluster_seen = cluster_faults(weights, model, hp, gen, mutants)
+    pairs = pair_check(weights, model, hp, gen)
     sweep = batch_sweep(weights, model, hp, gen, 3)
     kernel_vs_plain(weights, model, hp, 8, 10, gen)
     frames = MAX_ITERS * hp.outputs_per_step
@@ -2703,7 +2784,9 @@ def main():
         full_steps=frames * hp.get_hop_size(),
         cluster=path_clusters(*AR_PATHS), mol_cluster=path_clusters(*PAPER_PATHS),
         occupancy=clusters['occupancy'],
-        launches_by_cluster={p: dict(CLUSTERS_BY_PATH[p]) for p in AR_PATHS + PAPER_PATHS},
+        launches_by_cluster={p: cluster_counts(p) for p in AR_PATHS + PAPER_PATHS},
+        launches_by_layout={p: layout_counts(p) for p in AR_PATHS + PAPER_PATHS},
+        pair_check=pairs,
         cluster_check_max_abs_err=clusters['max_abs_err'],
         cluster_check_us_step=clusters['us_step_by_cluster'],
         cluster_check_first_steps=clusters['first_steps_by_cluster'],
@@ -2739,7 +2822,8 @@ def main():
         max_abs_err=big_eval['nll_err'], ms=big_eval['ms'], plain_ms=big_eval['plain_ms'],
         bound_ms=big_eval['bound_ms'], bound_by=big_eval['bound_by'], library_ms=None,
         steps=big_eval['steps'], cluster=path_clusters(BIG_TRAIN_PATH),
-        launches_by_cluster={BIG_TRAIN_PATH: dict(CLUSTERS_BY_PATH[BIG_TRAIN_PATH])},
+        launches_by_cluster={BIG_TRAIN_PATH: cluster_counts(BIG_TRAIN_PATH)},
+        launches_by_layout={BIG_TRAIN_PATH: layout_counts(BIG_TRAIN_PATH)},
         ids_off_on_eval_inputs=big_eval['ids_off'],
         state_err_on_eval_inputs=big_eval['state_err'],
         nll_span_on_eval_inputs=big_eval['nll_span'],

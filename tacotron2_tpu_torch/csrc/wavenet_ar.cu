@@ -73,6 +73,19 @@
 //    leaves the other clusters' code as it was. At the paper width (768 KB of chain
 //    weights a CTA and layer at N = 1) 512 threads were too few to keep the loads in
 //    flight, and the big head's class scan on 512 threads was slower: both stay on 1,024.
+//  - In the SMALL layout a cluster of two may run two sequences (NQ = 2; the wrapper's
+//    cluster_layout takes it on the fused chain where a cluster of one would be the
+//    choice, as at B=132, and it was measured faster there): each CTA
+//    owns half the columns, as at N = 2, and computes them for both sequences from each
+//    weight it loads (two accumulators a column, job_run_seqs), so that every SM streams
+//    half the layer weights a step where a cluster of one streams them all. Each
+//    sequence keeps its own copy of the per-sequence shared memory (consts, taps,
+//    activations, partial sums: the region up to the end of red, SQ floats, repeated),
+//    its own ring, inputs and outputs; both exchange at the same barriers. The last
+//    cluster of an odd batch runs its one sequence alone (np = 1). Each sequence sums in
+//    its own K-slice order, so the outputs are the same bits as one sequence a cluster.
+//    This code sits in `if constexpr (SMALL)` branches beside the other layouts' code,
+//    which stays as it was.
 //  - The skip sum meets the same way, then the head's first 1x1 (split by columns).
 //    The Gaussian, MoL and small categorical heads run in every CTA on the same values
 //    (every CTA draws the same sample and feedback; rank 0 writes the outputs). The big
@@ -169,6 +182,7 @@ struct Args {
   int N;                         // CTAs a cluster (a sequence)
   int wpre;                      // stage the chain's weights a layer ahead (prefetches)
   float log_scale_min;
+  int NQ, B;  // sequences a cluster (2 only in SMALL), of the batch's B
 };
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -337,6 +351,80 @@ __device__ __forceinline__ int chain_run(const Job& j, int clo, int chi, float* 
                                          int first = 0) {
   return j.sm ? job_run<float, true>(j, clo, chi, KS_CHAIN, red, first)
               : job_run<float>(j, clo, chi, KS_CHAIN, red, first);
+}
+
+// SMALL: job_item for NQ sequences from each weight row loaded (16-byte column groups,
+// weights in global memory): sequence e's activations lie e sq floats after sequence
+// 0's (2 e sq bf16 taps), its partial sums e sq floats after red; each sequence sums its
+// rows in the order job_item does for one. Two sequences keep U loads in flight.
+template <int NQ, typename A, int U>
+__device__ __forceinline__ void job_item_seqs(const Job& j, int l, int col, int cc, int gi,
+                                              int ks, int KS, float* red, int sq) {
+  const int asq = sq * (int)(sizeof(float) / sizeof(A));
+  float acc[NQ][8];
+#pragma unroll
+  for (int e = 0; e < NQ; ++e)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) acc[e][v] = 0.f;
+  for (int s = 0; s < j.nseg; ++s) {
+    const __nv_bfloat16* w = j.w[s] + l * j.w_lstride + col;
+    const A* act = static_cast<const A*>(j.act[s]) + l * j.act_lstride;
+    const size_t ld = j.ld[s];
+    const int rows = j.rows[s];
+#pragma unroll(NQ == 2 ? U : UNROLL)
+    for (int r = ks; r < rows; r += KS) {
+      float f[8];
+      load_w<8>(w + r * ld, f);
+#pragma unroll
+      for (int e = 0; e < NQ; ++e) {
+        const float x = to_f(act[e * asq + r]);
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[e][v] = fmaf(x, f[v], acc[e][v]);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < NQ; ++e) {
+    float* out = red + e * sq + ks * cc + gi * 8;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) out[v] = acc[e][v];
+  }
+}
+
+template <int NQ, typename A, int U>
+__device__ __forceinline__ void job_partials_seqs(const Job& j, int clo, int chi, int KS,
+                                                  float* red, int first, int sq) {
+  const int cc = chi - clo, ng = cc / 8, i0 = spread(first);
+  // an item's layer and column (job_item's, by shifts and masks: small_layout's widths
+  // make every range width a power of two and give a layer one or two ranges)
+  auto at = [&](int gi, int& l, int& col) {
+    const int c = clo + gi * 8, q = c >> (__ffs(j.cw) - 1);
+    l = q >> (j.rpl - 1);
+    col = j.col0 + (q & (j.rpl - 1)) * j.col_step + (c & (j.cw - 1));
+  };
+  int l, col;
+  if (nt() % ng == 0) {  // a thread keeps its column group: its column once
+    at(i0 % ng, l, col);
+    for (int ks = i0 / ng; ks < KS; ks += nt() / ng)
+      job_item_seqs<NQ, A, U>(j, l, col, cc, i0 % ng, ks, KS, red, sq);
+  } else {
+    for (int it = i0; it < ng * KS; it += nt()) {
+      at(it % ng, l, col);
+      job_item_seqs<NQ, A, U>(j, l, col, cc, it % ng, it / ng, KS, red, sq);
+    }
+  }
+}
+
+// job_run of np (1 or 2) sequences, sq floats apart (SMALL: small_layout's widths are
+// whole 16-byte column groups, and its chain weights are never staged)
+template <typename A, int U>
+__device__ __forceinline__ int job_run_seqs(const Job& j, int clo, int chi, int KS, float* red,
+                                            int first, int np, int sq) {
+  if (np == 2)
+    job_partials_seqs<2, A, U>(j, clo, chi, KS, red, first, sq);
+  else
+    job_partials_seqs<1, A, U>(j, clo, chi, KS, red, first, 0);
+  return first + (chi - clo) / 8 * KS;
 }
 
 // the sum of column c's KS slices, in slice order (the loads all issued first)
@@ -557,13 +645,24 @@ __device__ __forceinline__ void write_ring(float* ring, const float* h, int slot
   for (int c = threadIdx.x; c < RN; c += nt()) ring[slot * R + r0 + c] = h[r0 + c];
 }
 
+// write_ring of np sequences, their rings rs floats apart, their h sq (SMALL)
+__device__ __forceinline__ void write_ring_seqs(float* ring, const float* h, int slot, int R,
+                                                int r0, int RN, int np, long long rs, int sq) {
+  for (int i = threadIdx.x; i < np * RN; i += nt())
+    ring[i / RN * rs + slot * R + r0 + i % RN] = h[i / RN * sq + r0 + i % RN];
+}
+
 // SMALL: the instantiation of small_layout (512 threads, 128 registers), compiled apart
 // so that what it changes leaves the other layouts' code as it is (at 1,024 threads the
 // kernel runs at 64 registers and spills, and a change to shared code moves every
 // instantiation's spills): a cluster of one meets at block barriers and writes its own
 // shared memory.
+// SMALL asks for one CTA an SM (up to 128 registers; without it ptxas held the
+// categorical plain chain to 64 and spilled); the other layouts ask for nothing more, so
+// their code stays as it was.
 template <int HEAD, int CHAIN, bool NLL, bool SMALL>
-__global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(Args a) {
+__global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX, SMALL ? 1 : 0)
+    wavenet_ar_kernel(Args a) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, N = a.N;
@@ -581,7 +680,13 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
     arrive();
     wait();
   };
-  const int rank = (int)cluster.block_rank(), b = blockIdx.x / N;
+  // b: the cluster's first sequence; SMALL: np of its NQ sequences present (the second
+  // is absent in the last cluster of an odd batch)
+  const int rank = (int)cluster.block_rank(), b = blockIdx.x / N * (SMALL ? a.NQ : 1);
+  const int np = SMALL ? min(a.NQ, a.B - b) : 1;
+  // SMALL, two sequences: weight loads in flight a thread (fewer on the plain chain, whose
+  // instantiations spill at 4)
+  constexpr int U2 = CHAIN == FUSED ? UNROLL : 2;
   const int R = a.R, G = a.G, S = a.S, L = a.L, k = a.k, cin = a.cin;
   const int half = G / 2, past = (k - 1) * R, LG = L * G, RS = R + S;
   const int hN = half / N, RN = R / N, SN = S / N, CG = 2 * hN;
@@ -589,7 +694,8 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
   const int XW = R + half;
   // the first threads of the skip and GLU columns in a layer's work: whole warps after
   // the residual columns
-  const int w_skip = (RN + 31) / 32 * 32, w_glu = w_skip + (SN + 31) / 32 * 32;
+  const int w_skip = ((SMALL ? np : 1) * RN + 31) / 32 * 32;
+  const int w_glu = w_skip + ((SMALL ? np : 1) * SN + 31) / 32 * 32;
   const float rho = a.residual_legacy ? SQRT_HALF : 1.f;
 
   float* consts = smem;                 // (L, CG) the owned gate columns' step constants
@@ -618,6 +724,10 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
   float* red_b = red;                        // gate partials (KS_CHAIN, CG)
   float* red_r = red_b + KS_CHAIN * CG;      // residual partials (KS_CHAIN, RN)
   float* red_s = red_r + KS_CHAIN * RN;      // skip partials (KS_CHAIN, SN)
+  // SMALL: the per-sequence floats (all up to the end of red); sequence e's copy of
+  // consts, taps, xc, h, X, skips, O, P, sample_s and red lies e SQ floats on
+  const int SQ = SMALL ? (int)(red + n_red - smem) : 0;
+  const long long RF = a.ring_floats;
   // with wpre, two slots of the chain's weights, each a layer's gate rows (CG columns:
   // w_cur, then w_fused in the fused chain) and 1x1 rows (RN + SN columns)
   const int WS = (R + half) * CG + half * (RN + SN);
@@ -688,6 +798,22 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
   };
   if (a.wpre) stage_slot(0, 0);
   for (int s = tid; s < SN; s += nt()) bs1[s] = a.b_s1[s0 + s];
+  if constexpr (SMALL) {
+  if (a.h_in == nullptr) {
+    const long long lo = a.ring_floats * rank / N, hi = a.ring_floats * (rank + 1) / N;
+    for (int e = 0; e < np; ++e)
+      for (long long i = lo + tid; i < hi; i += nt()) ring[e * RF + i] = 0.f;
+    for (int i = tid; i < np * R; i += nt()) {
+      const int r = i % R;
+      if constexpr (HEAD == CATEGORICAL)  // silence: the f32 row of class Q/2
+        h[i / R * SQ + r] = a.first_w[(size_t)(a.out_ch / 2) * R + r] + a.first_b[r];
+      else
+        h[i / R * SQ + r] = a.first_b[r];
+    }
+  } else {
+    for (int i = tid; i < np * R; i += nt()) h[i / R * SQ + i % R] = a.h_in[(size_t)b * R + i];
+  }
+  } else {
   if (a.h_in == nullptr) {
     const long long lo = a.ring_floats * rank / N, hi = a.ring_floats * (rank + 1) / N;
     for (long long i = lo + tid; i < hi; i += nt()) ring[i] = 0.f;
@@ -703,6 +829,7 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
   } else {
     for (int r = tid; r < R; r += nt()) h[r] = a.h_in[(size_t)b * R + r];
   }
+  }
   __syncthreads();
   barrier();  // the zeroed rings, before any CTA reads a tap
 #ifdef T2_PROFILE
@@ -712,6 +839,20 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
   const int chunk = n_red / KS_START / 8 * 8;  // columns a pass of the step's start
   for (int t = 0; t < a.T; ++t) {
     // --- the step's inputs: c_t, every layer's past taps, layer 0's input h ---
+    if constexpr (SMALL) {
+    for (int i = tid; i < np * cin; i += nt())
+      xc[i / cin * SQ + i % cin] = bf16r(a.c_up[((size_t)(b + i / cin) * a.T + t) * cin + i % cin]);
+    for (int row = tid / 32; row < np * L * (k - 1); row += nt() / 32) {  // a warp a tap row
+      const int q = row / (L * (k - 1)), l = row % (L * (k - 1)) / (k - 1), j = row % (k - 1);
+      const int w = win[l], m = (k - 1 - j) * (w / (k - 1));
+      const float* src = ring + q * RF + ring_off[l] + ((base[l] + t + w - m) % w) * R;
+      __nv_bfloat16* dst = taps + 2 * q * SQ + l * past + j * R;
+#pragma unroll 4
+      for (int r = tid % 32; r < R; r += 32) dst[r] = __float2bfloat16(src[r]);
+    }
+    for (int i = tid; i < np * R; i += nt()) X[i / R * SQ + i % R] = bf16r(h[i / R * SQ + i % R]);
+    for (int i = tid; i < np * SN; i += nt()) skips[i / SN * SQ + i % SN] = 0.f;
+    } else {
     const float* ct = a.c_up + ((size_t)b * a.T + t) * cin;
     for (int i = tid; i < cin; i += nt()) xc[i] = bf16r(ct[i]);
     for (int row = tid / 32; row < L * (k - 1); row += nt() / 32) {  // a warp a tap row
@@ -724,6 +865,7 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
     }
     for (int r = tid; r < R; r += nt()) X[r] = bf16r(h[r]);
     for (int s = tid; s < SN; s += nt()) skips[s] = 0.f;
+    }
     __syncthreads();
     PROF(P_STAGE);
 
@@ -732,6 +874,19 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
       const Job cond = job1(a.w_cond, LG, cin, xc, 2 * L, hN, 2, n0, half, G, 0);
       for (int clo = 0; clo < L * CG; clo += chunk) {
         const int chi = min(L * CG, clo + chunk);
+        if constexpr (SMALL) {
+        job_run_seqs<float, U2>(cond, clo, chi, KS_START, red, 0, np, SQ);
+        __syncthreads();
+        for (int i = tid; i < np * (chi - clo); i += nt()) {
+          const int e = i / (chi - clo), c = clo + i % (chi - clo);
+          const int q = c / hN, g = (q / 2) * G + n0 + (q % 2) * half + c % hN;
+          float v = reduce_slices<KS_START>(red + e * SQ, chi - clo, c - clo) + a.b_cond[g];
+          if (a.g_cond != nullptr) v += a.g_cond[(size_t)(b + e) * LG + g];
+          v = a.round_cond ? bf16r(v) : v;
+          const float bias = CHAIN == FUSED ? a.b_tap[g] + a.b_fused[g] : a.b_tap[g];
+          consts[e * SQ + c] = bias + v;
+        }
+        } else {
         job_run<float>(cond, clo, chi, KS_START, red);
         __syncthreads();
         for (int c = clo + tid; c < chi; c += nt()) {
@@ -742,6 +897,7 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
           const float bias = CHAIN == FUSED ? a.b_tap[g] + a.b_fused[g] : a.b_tap[g];
           consts[c] = bias + v;
         }
+        }
         __syncthreads();
       }
       PROF(P_COND);
@@ -749,10 +905,19 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
                            (long long)k * R * G, past);
       for (int clo = 0; clo < L * CG; clo += chunk) {
         const int chi = min(L * CG, clo + chunk);
+        if constexpr (SMALL) {
+        job_run_seqs<__nv_bfloat16, U2>(tap, clo, chi, KS_START, red, 0, np, SQ);
+        __syncthreads();
+        for (int i = tid; i < np * (chi - clo); i += nt()) {
+          const int e = i / (chi - clo), c = clo + i % (chi - clo);
+          consts[e * SQ + c] += reduce_slices<KS_START>(red + e * SQ, chi - clo, c - clo);
+        }
+        } else {
         job_run<__nv_bfloat16>(tap, clo, chi, KS_START, red);
         __syncthreads();
         for (int c = clo + tid; c < chi; c += nt())
           consts[c] += reduce_slices<KS_START>(red, chi - clo, c - clo);
+        }
         __syncthreads();
       }
       PROF(P_TAPS);
@@ -760,8 +925,13 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
 
     if constexpr (CHAIN == FUSED) {
       // --- layer 0's gates: bf16(h) @ w_cur[0] ---
+      if constexpr (SMALL) {
+      job_run_seqs<float, U2>(job1(a.w_tap + (size_t)past * G, G, R, X, 2, hN, 2, n0, half), 0,
+                          CG, KS_CHAIN, red_b, 0, np, SQ);
+      } else {
       job_run<float>(job1(a.w_tap + (size_t)past * G, G, R, X, 2, hN, 2, n0, half), 0, CG,
                      KS_CHAIN, red_b);
+      }
       __syncthreads();
       PROF(P_GATE0);
 
@@ -775,6 +945,28 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
         // layer li+1's gates; the skip of layer li-1
         // (the residual, skip and GLU columns on warps of their own: no branch between
         // them inside a warp)
+        if constexpr (SMALL) {
+        for (int i = tid; i < np * RN; i += nt()) {
+          const int e = i / RN, c = i % RN, col = r0 + c;
+          float hc = h[e * SQ + col];
+          if (li > 0) {
+            hc = (hc + bos_at(li - 1, c) + reduce_slices<KS_CHAIN>(red_r + e * SQ, RN, c)) * rho;
+            h[e * SQ + col] = hc;
+          }
+          share<SMALL>(cluster, Xp + e * SQ, col, bf16r(hc) * rho, N);
+        }
+        if (li > 0)
+          for (int i = spread(w_skip); i < np * SN; i += nt()) {
+            const int e = i / SN, s = i % SN;
+            float sk = skips[e * SQ + s] + bos_at(li - 1, RN + s)
+                       + reduce_slices<KS_CHAIN>(red_s + e * SQ, SN, s);
+            if (a.legacy && li - 1 > 0) sk *= SQRT_HALF;
+            skips[e * SQ + s] = sk;
+          }
+        for (int i = spread(w_glu); i < np * hN; i += nt())
+          glu_unit<SMALL>(cluster, consts + i / hN * SQ + li * CG, red_b + i / hN * SQ,
+                          Xp + i / hN * SQ + R, i % hN, hN, n0, N);
+        } else {
         for (int c = tid; c < RN; c += nt()) {
           const int col = r0 + c;
           float hc = h[col];
@@ -792,6 +984,7 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
           }
         for (int c = spread(w_glu); c < hN; c += nt())
           glu_unit<SMALL>(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
+        }
         // this layer's slot is in (the barrier below shows it to every thread)
         if (a.wpre) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
         PROF(P_LAYER_WORK);
@@ -799,6 +992,16 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
         PROF(P_ARRIVE);
         wait();
         PROF(P_WAIT);
+        if constexpr (SMALL) {
+        write_ring_seqs(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN, np, RF, SQ);
+        int first = 0;  // the jobs side by side, as below, np sequences each
+        if (li + 1 < L) {
+          first = job_run_seqs<float, U2>(gate_job(li + 1, Xp), 0, CG, KS_CHAIN, red_b, 0, np, SQ);
+          first = job_run_seqs<float, U2>(os_job(li, false, Xp + R), 0, RN, KS_CHAIN, red_r, first,
+                                      np, SQ);
+        }
+        job_run_seqs<float, U2>(os_job(li, true, Xp + R), 0, SN, KS_CHAIN, red_s, first, np, SQ);
+        } else {
         write_ring(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN);
 
         int first = 0;  // the jobs side by side, each from its own threads
@@ -810,6 +1013,7 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
         }
         // skip 1x1 of layer li
         chain_run(os_job(li, true, Xp + R), 0, SN, red_s, first);
+        }
         __syncthreads();
         ++ws;
         PROF(P_MATVEC);
@@ -819,6 +1023,25 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
       for (int li = 0; li < L; ++li) {
         float* Xp = X + ((li + 1) & 1) * XW;
         if (a.wpre) stage_slot(li + 1 < L ? li + 1 : 0, (ws + 1) & 1);
+        if constexpr (SMALL) {
+        for (int i = tid; i < np * RN; i += nt()) {
+          const int e = i / RN, c = i % RN, col = r0 + c;
+          float hc = h[e * SQ + col];
+          if (li > 0) {
+            hc = (bos_at(li - 1, c) + reduce_slices<KS_CHAIN>(red_r + e * SQ, RN, c) + hc) * rho;
+            h[e * SQ + col] = hc;
+          }
+          share<SMALL>(cluster, Xp + e * SQ, col, bf16r(hc), N);
+        }
+        if (li > 0)
+          for (int i = spread(w_skip); i < np * SN; i += nt()) {
+            const int e = i / SN, s = i % SN;
+            float sk = skips[e * SQ + s] + bos_at(li - 1, RN + s)
+                       + reduce_slices<KS_CHAIN>(red_s + e * SQ, SN, s);
+            if (a.legacy && li - 1 > 0) sk *= SQRT_HALF;
+            skips[e * SQ + s] = sk;
+          }
+        } else {
         for (int c = tid; c < RN; c += nt()) {
           const int col = r0 + c;
           float hc = h[col];
@@ -834,12 +1057,23 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
             if (a.legacy && li - 1 > 0) sk *= SQRT_HALF;
             skips[s] = sk;
           }
+        }
         if (a.wpre) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
         PROF(P_LAYER_WORK);
         arrive();
         PROF(P_ARRIVE);
         wait();
         PROF(P_WAIT);
+        if constexpr (SMALL) {
+        write_ring_seqs(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN, np, RF,
+                        SQ);
+        job_run_seqs<float, U2>(gate_job(li, Xp), 0, CG, KS_CHAIN, red_b, 0, np, SQ);
+        __syncthreads();
+        PROF(P_MATVEC);
+        for (int i = tid; i < np * hN; i += nt())
+          glu_unit<SMALL>(cluster, consts + i / hN * SQ + li * CG, red_b + i / hN * SQ,
+                          Xp + i / hN * SQ + R, i % hN, hN, n0, N);
+        } else {
         write_ring(ring + ring_off[li], h, (base[li] + t) % win[li], R, r0, RN);  // layer li's input
         // gates of layer li: bf16(h) @ w_cur[li]
         chain_run(gate_job(li, Xp), 0, CG, red_b);
@@ -847,14 +1081,21 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
         PROF(P_MATVEC);
         for (int c = tid; c < hN; c += nt())
           glu_unit<SMALL>(cluster, consts + li * CG, red_b, Xp + R, c, hN, n0, N);
+        }
         PROF(P_LAYER_WORK);
         arrive();
         PROF(P_ARRIVE);
         wait();
         PROF(P_WAIT);
         // residual and skip 1x1s of layer li: z @ w_os[li]; the last layer's skip only
+        if constexpr (SMALL) {
+        const int first = li + 1 < L ? job_run_seqs<float, U2>(os_job(li, false, Xp + R), 0, RN,
+                                                           KS_CHAIN, red_r, 0, np, SQ) : 0;
+        job_run_seqs<float, U2>(os_job(li, true, Xp + R), 0, SN, KS_CHAIN, red_s, first, np, SQ);
+        } else {
         const int first = li + 1 < L ? chain_run(os_job(li, false, Xp + R), 0, RN, red_r) : 0;
         chain_run(os_job(li, true, Xp + R), 0, SN, red_s, first);
+        }
         __syncthreads();
         ++ws;
         PROF(P_MATVEC);
@@ -862,20 +1103,41 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
     }
 
     // --- 4. head: skip sum -> relu -> 1x1 -> relu (exchanged), then the last 1x1 ---
+    if constexpr (SMALL) {
+    for (int i = tid; i < np * SN; i += nt()) {
+      const int e = i / SN, s = i % SN;
+      float sk = skips[e * SQ + s] + bos_at(L - 1, RN + s)
+                 + reduce_slices<KS_CHAIN>(red_s + e * SQ, SN, s);
+      if (a.legacy && L > 1) sk *= SQRT_HALF;
+      share<SMALL>(cluster, O + e * SQ, s0 + s, bf16r(fmaxf(sk, 0.f)), N);
+    }
+    } else {
     for (int s = tid; s < SN; s += nt()) {
       float sk = skips[s] + bos_at(L - 1, RN + s)
                  + reduce_slices<KS_CHAIN>(red_s, SN, s);
       if (a.legacy && L > 1) sk *= SQRT_HALF;
       share<SMALL>(cluster, O, s0 + s, bf16r(fmaxf(sk, 0.f)), N);
     }
+    }
     barrier();
     PROF(P_HEAD_SKIP);
+    if constexpr (SMALL) {
+    job_run_seqs<float, U2>(job1(a.w_s1, S, S, O, 1, SN, 1, s0, 0), 0, SN, KS_CHAIN, red, 0, np,
+                        SQ);
+    __syncthreads();
+    for (int i = tid; i < np * SN; i += nt()) {
+      const int e = i / SN, s = i % SN;
+      share<SMALL>(cluster, P + e * SQ, s0 + s,
+                   fmaxf(bs1[s] + reduce_slices<KS_CHAIN>(red + e * SQ, SN, s), 0.f), N);
+    }
+    } else {
     job_run<float>(job1(a.w_s1, S, S, O, 1, SN, 1, s0, 0), 0, SN, KS_CHAIN, red);
     __syncthreads();
     for (int s = tid; s < SN; s += nt()) {
       const float v = fmaxf(bs1[s] + reduce_slices<KS_CHAIN>(red, SN, s), 0.f);
       // the big-vocab head's input is bf16
       share<SMALL>(cluster, P, s0 + s, HEAD == CATEGORICAL_BIG ? bf16r(v) : v, N);
+    }
     }
     barrier();
     PROF(P_HEAD_S1);
@@ -885,6 +1147,36 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
     const size_t bt = (size_t)b * a.T + t;
     const bool out0 = rank == 0;
     if constexpr (HEAD == GAUSSIAN) {
+      if constexpr (SMALL) {
+      const int e = tid / 32, lane = tid % 32;
+      if (e < np) {  // one warp a sequence
+        float p0 = 0.f, p1 = 0.f;
+        for (int s = lane; s < S; s += 32) {
+          p0 = fmaf(P[e * SQ + s], a.w_s2[2 * s], p0);
+          p1 = fmaf(P[e * SQ + s], a.w_s2[2 * s + 1], p1);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          p0 += __shfl_xor_sync(0xffffffffu, p0, off);
+          p1 += __shfl_xor_sync(0xffffffffu, p1, off);
+        }
+        if (lane == 0) {
+          const size_t be = bt + (size_t)e * a.T;
+          p0 += a.b_s2[0];
+          p1 += a.b_s2[1];
+          const float logs = fmaxf(p1, a.log_scale_min);
+          const float x = fminf(fmaxf(p0 + expf(logs) * a.noise[be], -1.f), 1.f);
+          if (out0) {
+            a.audio[be] = x;
+            if (a.params != nullptr) {
+              a.params[2 * be] = p0;
+              a.params[2 * be + 1] = p1;
+            }
+          }
+          sample_s[e * SQ] = x;
+        }
+      }
+      } else {
       if (tid < 32) {  // one warp
         float p0 = 0.f, p1 = 0.f;
         for (int s = tid; s < S; s += 32) {
@@ -911,8 +1203,46 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
           sample_s[0] = x;
         }
       }
+      }
     } else if constexpr (HEAD == MOL) {
       // MoL: the out_ch head outputs P @ w_s2 + b_s2 in f32, one warp per column, into red
+      if constexpr (SMALL) {
+      const int warp = tid / 32, lane = tid % 32, oc = a.out_ch, nr = oc / 3;
+      for (int wj = warp; wj < np * oc; wj += nt() / 32) {
+        const int e = wj / oc, j = wj % oc;
+        float p = 0.f;
+        for (int s = lane; s < S; s += 32) p = fmaf(P[e * SQ + s], a.w_s2[(size_t)s * oc + j], p);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+        if (lane == 0) {
+          p += a.b_s2[j];
+          red[e * SQ + j] = p;
+          if (out0 && a.params != nullptr) a.params[(bt + (size_t)e * a.T) * oc + j] = p;
+        }
+      }
+      __syncthreads();
+      if (lane == 0 && warp < np) {  // a warp's first thread a sequence, as above
+        const float* lg = red + warp * SQ;
+        const size_t be = bt + (size_t)warp * a.T;
+        const float* nz = a.noise + be * (nr + 1);
+        float kmax = lg[0] + nz[1];
+        for (int i = 1; i < nr; ++i) kmax = fmaxf(kmax, lg[i] + nz[1 + i]);
+        float count = 0.f;
+        for (int i = 0; i < nr; ++i) count += lg[i] + nz[1 + i] >= kmax ? 1.f : 0.f;
+        const float w = 1.f / count;
+        float mean = 0.f, ls = 0.f;
+        for (int i = 0; i < nr; ++i) {
+          if (lg[i] + nz[1 + i] >= kmax) {
+            mean += lg[nr + i] * w;
+            ls += lg[2 * nr + i] * w;
+          }
+        }
+        const float logs = fmaxf(ls, a.log_scale_min);
+        const float x = fminf(fmaxf(mean + expf(logs) * nz[0], -1.f), 1.f);
+        if (out0) a.audio[be] = x;
+        sample_s[warp * SQ] = x;
+      }
+      } else {
       const int warp = tid / 32, lane = tid % 32, oc = a.out_ch, nr = oc / 3;
       for (int j = warp; j < oc; j += nt() / 32) {
         float p = 0.f;
@@ -946,10 +1276,62 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
         if (out0) a.audio[bt] = x;
         sample_s[0] = x;
       }
+      }
     } else if constexpr (HEAD == CATEGORICAL) {
       // categorical: Q logits P @ w_s2 + b_s2 in f32, a class a thread in turn (the CTA
       // reads each row of the (S, Q) w_s2 coalesced); logit + Gumbel noise into red
       // (the logits themselves into red[Q + c], for the NLL)
+      if constexpr (SMALL) {
+      const int Q = a.out_ch;
+      for (int i = tid; i < np * Q; i += nt()) {
+        const int e = i / Q, c = i % Q;
+        const size_t be = bt + (size_t)e * a.T;
+        float p = 0.f;
+        for (int s = 0; s < S; ++s) p = fmaf(P[e * SQ + s], a.w_s2[(size_t)s * Q + c], p);
+        p += a.b_s2[c];
+        if (out0 && a.params != nullptr) a.params[be * Q + c] = p;
+        red[e * SQ + c] = p + a.noise[be * Q + c];
+        if constexpr (NLL) red[e * SQ + Q + c] = p;
+      }
+      __syncthreads();
+      // as below, warp e for sequence e: its scores at sc, its logits at sc + Q
+      const int e = tid / 32, lane = tid % 32;
+      const float* sc = red + e * SQ;
+      const size_t be = bt + (size_t)e * a.T;
+      if constexpr (NLL) {
+        if (e < np) {
+          float lm = -INFINITY, ls = 0.f;
+          for (int c = lane; c < Q; c += 32) lse_merge(lm, ls, sc[Q + c], 1.f);
+          warp_lse(lm, ls);
+          if (lane == 0 && out0) a.nll[be] = lm + logf(ls) - sc[Q + a.y_eval[be]];
+        }
+      }
+      if (e < np) {
+        float m = -INFINITY;
+        for (int j = lane; j < Q; j += 32) m = fmaxf(m, sc[j]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        int count = 0, first = Q;
+        for (int j = lane; j < Q; j += 32) {
+          if (sc[j] >= m) {
+            ++count;
+            first = min(first, j);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          count += __shfl_xor_sync(0xffffffffu, count, off);
+          first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+        }
+        if (lane == 0) {
+          if (count == 0) first = 0;
+          if (out0) a.audio[be] = (float)first;
+          sample_s[e * SQ] = (float)first;
+          sample_s[e * SQ + 1] = m;
+          sample_s[e * SQ + 2] = (float)count;
+        }
+      }
+      } else {
       const int Q = a.out_ch;
       for (int c = tid; c < Q; c += nt()) {
         float p = 0.f;
@@ -994,6 +1376,7 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
           sample_s[1] = m;
           sample_s[2] = (float)count;
         }
+      }
       }
     } else {
       // big-vocab categorical: no score is stored. Classes go in blocks of 256 (32 groups
@@ -1082,6 +1465,23 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
     if constexpr (HEAD == CATEGORICAL) {
       // bf16(one-hot / count) @ bf16(first_w) + first_b over the classes that tie the
       // maximum (wavenet_ar.py:441-448); one class, as good as always: its bf16 row
+      if constexpr (SMALL) {
+      for (int i = tid; i < np * R; i += nt()) {
+        const int e = i / R, r = i % R;
+        const float* ss = sample_s + e * SQ;
+        const float m = ss[1], count = ss[2];
+        float acc;
+        if (count == 1.f) {  // the id's bf16 row
+          acc = bf16r(a.first_w[(size_t)ss[0] * R + r]);
+        } else {
+          const float w = bf16r(1.f / count);
+          acc = 0.f;
+          for (int j = 0; j < a.out_ch; ++j)
+            if (red[e * SQ + j] >= m) acc = fmaf(w, bf16r(a.first_w[(size_t)j * R + r]), acc);
+        }
+        h[e * SQ + r] = acc + a.first_b[r];
+      }
+      } else {
       const int id = (int)sample_s[0];
       const float m = sample_s[1], count = sample_s[2];
       for (int r = tid; r < R; r += nt()) {
@@ -1095,6 +1495,7 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
             if (red[j] >= m) acc = fmaf(w, bf16r(a.first_w[(size_t)j * R + r]), acc);
         }
         h[r] = acc + a.first_b[r];
+      }
       }
     } else if constexpr (HEAD == CATEGORICAL_BIG) {
       // the same feedback from the bf16 first_w; on a tie (rare, and seen alike by every
@@ -1143,15 +1544,24 @@ __global__ void __launch_bounds__(SMALL ? SMALL_NT : NT_MAX) wavenet_ar_kernel(A
         h[r] = acc + a.first_b[r];
       }
     } else {
+      if constexpr (SMALL) {
+      for (int i = tid; i < np * R; i += nt())
+        h[i / R * SQ + i % R] = fmaf(sample_s[i / R * SQ], a.first_w[i % R], a.first_b[i % R]);
+      } else {
       const float x = sample_s[0];
       for (int r = tid; r < R; r += nt()) h[r] = fmaf(x, a.first_w[r], a.first_b[r]);
+      }
     }
     __syncthreads();
     PROF(P_FEEDBACK);
   }
   if (a.wpre) asm volatile("cp.async.wait_all;\n" ::: "memory");  // the unused last slot
   if (a.h_out != nullptr && rank == 0)
+    if constexpr (SMALL) {
+    for (int i = tid; i < np * R; i += nt()) a.h_out[(size_t)b * R + i] = h[i / R * SQ + i % R];
+    } else {
     for (int r = tid; r < R; r += nt()) a.h_out[(size_t)b * R + r] = h[r];
+    }
   barrier();  // no CTA leaves while a peer may still write its shared memory
 }
 
@@ -1176,9 +1586,14 @@ bool prefetches(int cin, int L, int R, int G, int S, int k, int N) {
 }
 
 // What a launch asks for: at least 117 KB, so that no two CTAs share an SM (the design
-// gives each CTA an SM's load slots and L2 bandwidth; clusters then count SMs).
-size_t smem_bytes(int cin, int L, int R, int G, int S, int k, int N) {
-  const size_t bytes = smem_bytes(cin, L, R, G, S, k, N, prefetches(cin, L, R, G, S, k, N));
+// gives each CTA an SM's load slots and L2 bandwidth; clusters then count SMs). The SMALL
+// layout (`small`) never stages the chain's weights and runs NQ sequences a cluster: NQ
+// copies of its per-sequence floats.
+size_t launch_smem_bytes(int cin, int L, int R, int G, int S, int k, int N, int NQ,
+                         bool small) {
+  const size_t bytes =
+      small ? NQ * smem_bytes(cin, L, R, G, S, k, N, false)
+            : smem_bytes(cin, L, R, G, S, k, N, prefetches(cin, L, R, G, S, k, N));
   return bytes > 117 * 1024 ? bytes : 117 * 1024;
 }
 
@@ -1191,6 +1606,12 @@ size_t smem_bytes(int cin, int L, int R, int G, int S, int k, int N) {
 // half the threads; the paper width, N = 1 and 2, slower on 512 threads.
 bool small_layout(int head, int R, int G, int S, int N) {
   return N <= 2 && head != CATEGORICAL_BIG && R == 128 && G == 256 && S == 128;
+}
+
+// Whether a cluster of N may run two sequences: N = 2 in the SMALL layout, where the
+// chain's weights are not staged (cluster_layout in ops/wavenet_ar.py picks it).
+bool pairs(int cin, int L, int R, int G, int S, int k, int head, int N) {
+  return N == 2 && small_layout(head, R, G, S, N) && !prefetches(cin, L, R, G, S, k, N);
 }
 
 // threads a CTA on a cluster of N: 512 in the SMALL layout, else 1,024 for one or two
@@ -1234,12 +1655,12 @@ cudaLaunchConfig_t cluster_config(int B, int N, int threads, size_t smem,
 
 template <int HEAD, int CHAIN, bool NLL, bool SMALL>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.cin, a.L, a.R, a.G, a.S, a.k, a.N);
+  const size_t smem = launch_smem_bytes(a.cin, a.L, a.R, a.G, a.S, a.k, a.N, a.NQ, SMALL);
   cudaError_t err = configure<HEAD, CHAIN, NLL, SMALL>(a.N, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(B, a.N, threads_for(SMALL, a.N), smem, stream, &attr);
+  cudaLaunchAttribute attr;  // a cluster every NQ sequences
+  const cudaLaunchConfig_t cfg = cluster_config((B + a.NQ - 1) / a.NQ, a.N,
+                                                threads_for(SMALL, a.N), smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, wavenet_ar_kernel<HEAD, CHAIN, NLL, SMALL>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -1313,18 +1734,21 @@ extern "C" int wavenet_ar_profile(unsigned long long* out) {
 #endif
 
 // Clusters of N = 1, 2, 4, 8, 16 CTAs that the card keeps resident at once for the
-// instantiation (head, fused, nll) at these widths, into occ[0..4]; 0 where N does not
-// split the widths or the shared memory does not fit (a refusal reads as 0). Returns 0.
+// instantiation (head, fused, nll) at these widths, into occ[0..4], and clusters of 2
+// running two sequences each (at their shared-memory size) into occ[5]; 0 where N does
+// not split the widths, two sequences are not admitted (pairs) or the shared memory
+// does not fit (a refusal reads as 0). Returns 0.
 extern "C" int wavenet_ar_occupancy(int cin, int L, int R, int G, int S, int k, int head,
                                     int fused, int nll, int* occ) {
-  for (int i = 0; i < 5; ++i) {
-    const int N = 1 << i;
-    occ[i] = splits(R, G, S, N)
-                 ? dispatch<Occupancy>(head, fused != 0, nll != 0,
-                                       small_layout(head, R, G, S, N), N,
-                                       threads_for(small_layout(head, R, G, S, N), N),
-                                       smem_bytes(cin, L, R, G, S, k, N))
-                 : 0;
+  for (int i = 0; i < 6; ++i) {
+    const int N = i < 5 ? 1 << i : 2, NQ = i < 5 ? 1 : 2;
+    const bool ok = splits(R, G, S, N) && (NQ == 1 || pairs(cin, L, R, G, S, k, head, N));
+    occ[i] = ok ? dispatch<Occupancy>(head, fused != 0, nll != 0,
+                                      small_layout(head, R, G, S, N), N,
+                                      threads_for(small_layout(head, R, G, S, N), N),
+                                      launch_smem_bytes(cin, L, R, G, S, k, N, NQ,
+                                                        small_layout(head, R, G, S, N)))
+                : 0;
   }
   return 0;
 }
@@ -1336,8 +1760,9 @@ extern "C" int wavenet_ar_occupancy(int cin, int L, int R, int G, int S, int k, 
 // `greedy`, no params) and `fused` (the fused critical path, or the plain chain, which
 // takes null w_fused and b_fused) pick the instantiation; g_cond may be null. y_eval
 // and nll, given together and only to a categorical head without params, ask for the
-// in-kernel NLL. `cluster`: the CTAs a sequence (1, 2, 4, 8 or 16; it must split G/2,
-// R and S). Returns the cudaError_t of the launch (0 on success).
+// in-kernel NLL. `cluster`: the CTAs a cluster (1, 2, 4, 8 or 16; it must split G/2,
+// R and S); `sequences`: the sequences a cluster, 1, or 2 where `pairs` admits it.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int wavenet_ar(
     const void* c_up, const void* noise, const void* first_w, const void* first_b,
     const void* w_tap, const void* b_tap, const void* w_os, const void* b_os,
@@ -1348,7 +1773,7 @@ extern "C" int wavenet_ar(
     unsigned long long seed, int B, int T, int cin, int L,
     int layers_per_stack, int R, int G, int S, int k, int out_ch, int head, int fused,
     int legacy, int residual_legacy, int round_cond, int q_ld, int greedy, int cluster,
-    float log_scale_min, void* stream) {
+    int sequences, float log_scale_min, void* stream) {
   const bool head_ok =
       head == GAUSSIAN      ? out_ch == 2
       : head == MOL         ? out_ch >= 3 && out_ch % 3 == 0
@@ -1361,7 +1786,9 @@ extern "C" int wavenet_ar(
                       && (nll == nullptr || ((head == CATEGORICAL || head == CATEGORICAL_BIG)
                                              && params == nullptr));
   const bool pow2 = cluster > 0 && (cluster & (cluster - 1)) == 0;
-  if (!nll_ok || !pow2 || !splits(R, G, S, cluster) || B <= 0 || T <= 0 || cin <= 0
+  const bool nq_ok = sequences == 1
+                     || (sequences == 2 && pairs(cin, L, R, G, S, k, head, cluster));
+  if (!nll_ok || !pow2 || !nq_ok || !splits(R, G, S, cluster) || B <= 0 || T <= 0 || cin <= 0
       || L <= 0 || layers_per_stack <= 0 || k < 2 || G % 8 != 0 || R % 8 != 0
       || S % 8 != 0 || t_base < 0 || !head_ok
       || (fused && (w_fused == nullptr || b_fused == nullptr)))
@@ -1403,6 +1830,8 @@ extern "C" int wavenet_ar(
   a.N = cluster;
   a.wpre = prefetches(cin, L, R, G, S, k, cluster);
   a.log_scale_min = log_scale_min;
+  a.NQ = sequences;
+  a.B = B;
   return dispatch<Launch>(head, fused != 0, y_eval != nullptr,
                           small_layout(head, R, G, S, cluster), a, B,
                           static_cast<cudaStream_t>(stream));

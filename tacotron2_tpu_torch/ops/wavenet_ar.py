@@ -56,12 +56,14 @@ SMALL_VOCAB = 1024
 MAX_CLASSES = 65536
 
 # kernel launches made by generate_ar (the plain version never counts), in all, by
-# instantiation (`variant`) and by cluster size (CTAs a sequence)
+# instantiation (`variant`) and by layout (N CTAs a cluster, P sequences a cluster)
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT: Dict[str, int] = collections.Counter()
-LAUNCHES_BY_CLUSTER: Dict[int, int] = collections.Counter()
+LAUNCHES_BY_LAYOUT: Dict[Tuple[int, int], int] = collections.Counter()
 # the cluster sizes the kernel takes, largest first (`cluster_size`)
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
+# the occupancy table's key of clusters of 2 CTAs that run two sequences each
+PAIRS = 'pairs'
 
 # name -> (dtype, shape) of each packed weight, as pack_params made them, by sizes
 _PACKED_LAYOUTS: Dict[Tuple[int, ...], Dict[str, Tuple[torch.dtype, Tuple[int, ...]]]] = {}
@@ -619,7 +621,7 @@ def _kernel_fn(library: Optional[ctypes.CDLL] = None):
     from ._build import load_library
     fn = (library or load_library()).wavenet_ar
     fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_longlong] * 2 + [ctypes.c_ulonglong]
-                   + [ctypes.c_int] * 18 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 19 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -636,20 +638,39 @@ def cluster_size(B: int, occupancy: Dict[int, int]) -> int:
     return 1
 
 
+def cluster_layout(B: int, occupancy: Dict, fused: bool) -> Tuple[int, int]:
+    """(N, P): the CTAs a cluster and the sequences a cluster for B sequences. Where
+    `cluster_size` would run one SM a sequence (N = 1) on the fused chain, two sequences
+    share each cluster of two (N = 2, P = 2: each CTA half the columns of both, each
+    weight loaded once for both), if the card keeps ceil(B/2) such clusters resident
+    (`occupancy[PAIRS]`, asked at their shared-memory size; 0 where the kernel admits
+    none: off its SMALL layout, the defaults' widths with any head but the big one);
+    else (cluster_size(B), 1). The fused chain only: there two sequences were measured
+    faster than one SM a sequence (an H100 SXM at 700 W, B=132, `probes/ar_split.py`
+    beside the one-sequence build: Gaussian 187.2 against 208.7 µs a step, MoL 190.2
+    against 218.3, categorical with the NLL 191.1 against 213.8), on the plain chain
+    slower (195.9 against 192.0); a forced `sequences=2` runs either chain."""
+    n = cluster_size(B, occupancy)
+    if n == 1 and fused and occupancy.get(PAIRS, 0) >= -(-B // 2):
+        return 2, 2
+    return n, 1
+
+
 @functools.cache
 def occupancy_table(hp_key: Tuple[int, ...], head: int, fused: bool, nll: bool,
                     device_index: int) -> Dict[int, int]:
     """N -> clusters of N CTAs that the card keeps resident for this instantiation at
     these widths (`hp_key`: cin, L, R, G, S, k), asked of the kernel's library
-    (cudaOccupancyMaxActiveClusters); 0 where N does not split the widths."""
+    (cudaOccupancyMaxActiveClusters); 0 where N does not split the widths. Under PAIRS,
+    clusters of 2 CTAs that run two sequences each (0 where the kernel admits none)."""
     from ._build import load_library
     fn = load_library().wavenet_ar_occupancy
     fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    occ = (ctypes.c_int * 5)()
+    occ = (ctypes.c_int * 6)()
     with torch.cuda.device(device_index):
         fn(*hp_key, head, int(fused), int(nll), ctypes.addressof(occ))
-    return {1 << i: int(occ[i]) for i in range(5)}
+    return {**{1 << i: int(occ[i]) for i in range(5)}, PAIRS: int(occ[5])}
 
 
 def _check_tensor(name: str, t: Tensor, dtype, shape, device, align: int = 0) -> None:
@@ -674,15 +695,18 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                 state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
                 return_state: bool = False, g_cond: Optional[Tensor] = None,
                 seed: Optional[int] = None, greedy: bool = False,
-                y_eval: Optional[Tensor] = None, cluster: Optional[int] = None):
+                y_eval: Optional[Tensor] = None, cluster: Optional[int] = None,
+                sequences: Optional[int] = None):
     """AR generation (counterpart of `generate_ar`, `wavenet_ar.py:515-712`).
 
     On a CUDA tensor this launches the hand-written kernel once for all T steps; on a
-    CPU tensor it runs `generate_ar_reference`. The kernel runs each sequence on a
-    cluster of N CTAs, N = `cluster_size(B, occupancy_table(...))`
-    unless `cluster` forces one of CLUSTER_SIZES (raising if the card keeps no such
-    cluster resident or N does not split G/2, R and S); the outputs do not depend on N
-    (bit for bit). Its limits: R, G and S
+    CPU tensor it runs `generate_ar_reference`. The kernel runs P sequences on each
+    cluster of N CTAs, (N, P) = `cluster_layout(B, occupancy_table(...), fused)`
+    unless `cluster` forces N, one of CLUSTER_SIZES (then P = 1; raising if the card
+    keeps no such cluster resident or N does not split G/2, R and S), or `sequences`
+    forces P: 1 (with N as `cluster_size` gives it, or `cluster`), or 2 (N = 2; raising
+    where the widths, the head or the card do not admit two sequences a cluster). The
+    outputs do not depend on N or P (bit for bit). Its limits: R, G and S
     multiples of 8; at most MAX_CLASSES classes; f32 `c_up` (B, T, cin), `noise`
     (`noise_shape`: (B, T) Gaussian, (B, T, nr+1) MoL, (B, T, Q) categorical, the
     (B, T, 1) placeholder for the big-vocab head) and `g_cond` ((B, L*G) from
@@ -711,6 +735,9 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
         y_eval = _check_y_eval(y_eval, hp, c_up.shape[0], c_up.shape[1], c_up.device)
     if cluster is not None and cluster not in CLUSTER_SIZES:
         raise ValueError(f'cluster must be one of {CLUSTER_SIZES}, got {cluster}')
+    if sequences not in (None, 1, 2) or (sequences == 2 and cluster not in (None, 2)):
+        raise ValueError(f'sequences must be 1, or 2 on a cluster of 2 CTAs, got '
+                         f'sequences={sequences}, cluster={cluster}')
     if c_up.device.type == 'cpu':
         return generate_ar_reference(weights, c_up, noise, hp, return_params=return_params,
                                      state_in=state_in, return_state=return_state,
@@ -746,11 +773,19 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
         (cin, hp.layers, hp.residual_channels, hp.gate_channels, hp.skip_out_channels,
          hp.kernel_size), head, bool(hp.wavenet_fused_ar), y_eval is not None,
         device.index if device.index is not None else torch.cuda.current_device())
-    if cluster is None:
+    if sequences == 2:
+        if occupancy[PAIRS] == 0:
+            raise ValueError('two sequences a cluster are not admitted here (the large '
+                             f'batch\'s layout only): clusters resident {occupancy}')
+        cluster = 2
+    elif cluster is None and sequences is None:
+        cluster, sequences = cluster_layout(B, occupancy, bool(hp.wavenet_fused_ar))
+    elif cluster is None:
         cluster = cluster_size(B, occupancy)
     elif occupancy[cluster] == 0:
         raise ValueError(f'a cluster of {cluster} CTAs is not admitted here: clusters '
                          f'resident by size {occupancy}')
+    sequences = sequences or 1
     fn = _kernel_fn()
     audio = torch.empty(B, T, device=device)
     params = torch.empty(B, T, hp.out_channels, device=device) if return_params else None
@@ -773,14 +808,15 @@ def generate_ar(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                  hp.kernel_size, hp.out_channels, head,
                  int(hp.wavenet_fused_ar), int(hp.legacy), int(hp.residual_legacy),
                  int(rounds_conditioning(B)),
-                 weights['w_s2'].shape[1] if big else 0, int(greedy), cluster,
+                 weights['w_s2'].shape[1] if big else 0, int(greedy), cluster, sequences,
                  float(hp.log_scale_min if is_mol(hp) else hp.log_scale_min_gauss), stream)
     if err != 0:
         raise RuntimeError(f'wavenet_ar launch failed: CUDA error {err} (B={B}, a cluster '
-                           f'of {cluster} CTAs; clusters resident by size {occupancy})')
+                           f'of {cluster} CTAs, {sequences} sequence(s) a cluster; '
+                           f'clusters resident {occupancy})')
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant(hp, g_cond is not None, nll is not None)] += 1
-    LAUNCHES_BY_CLUSTER[cluster] += 1
+    LAUNCHES_BY_LAYOUT[cluster, sequences] += 1
     if is_categorical(hp):
         audio = audio.long()
     second = nll if nll is not None else params

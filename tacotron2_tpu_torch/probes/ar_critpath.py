@@ -47,6 +47,17 @@ REPS = 5
 PLAIN_STEPS = 64  # the plain version runs 8-15 ms a step on the card: timed over these
 LAUNCHES = 0  # kernel launches, counted where the wrapper launches
 bf16, f32 = torch.bfloat16, torch.float32
+# the kernel's layout (csrc/probes/ar_critpath.cu): 8 batch rows a cluster (the mma's n),
+# R/8 CTAs a cluster, each owning 16 output columns (one M-tile) of every product
+ROWS = 8
+# the fields of a phase record of `schedule`, in the kernel's order (its enum Field)
+RECORD = ('gate_layer', 'gate_z_tiles', 'gate_h_tiles', 'os_layer', 'os_last',
+          'consts_layer', 'consts_next_step', 'ring_layer', 'hb_send', 'tile_off',
+          'tile_count')
+# (row, column) of the A fragment of mma.sync.m16n8k16 that element e of lane l holds:
+# row l // 4 + A_ROW[e], column 2 (l % 4) + A_COL[e]
+A_ROW = (0, 0, 8, 8, 0, 0, 8, 8)
+A_COL = (0, 1, 0, 1, 8, 9, 8, 9)
 
 
 def dilations(L: int) -> List[int]:
@@ -156,10 +167,139 @@ def plain(variant: str, inputs: Dict[str, Tensor], steps: int = T) -> Tensor:
     return prev
 
 
+def schedule(chain: str, L: int) -> List[Dict[str, int]]:
+    """The phases of a step of the kernel, each ended by one cluster barrier, as records
+    of RECORD (but the tile fields, `pack`'s): `fused` L+1 phases (phase p: the gates of
+    layer p, from z_{p-1} (p >= 1) and h_{p-1}; the residual and skip of layer p-1 (p >=
+    1), the last one turning h and the skip sum into `prev`; h_p into ring p and every
+    CTA; the consts of the next phase's gates: layer p+1, or layer 0 of the next step),
+    `base` 2L (phase 2l: the gates of layer l from h_l, h_l into ring l; phase 2l+1: the
+    residual and skip of layer l, h_{l+1} into every CTA, the consts of layer l+1 or of
+    the next step's layer 0). A phase's gates read what the phase before exchanged and
+    start from the consts computed in it."""
+    def rec(**kw):
+        r = dict(gate_layer=-1, gate_z_tiles=0, gate_h_tiles=0, os_layer=-1, os_last=0,
+                 consts_layer=-1, consts_next_step=0, ring_layer=-1, hb_send=0)
+        r.update(kw)
+        return r
+    if chain == 'fused':
+        out = []
+        for p in range(L + 1):
+            r = rec(hb_send=1)
+            if p < L:
+                r.update(gate_layer=p, gate_z_tiles=int(p > 0), gate_h_tiles=1, ring_layer=p)
+            if p > 0:
+                r.update(os_layer=p - 1, os_last=int(p == L))
+            if p + 1 < L:
+                r.update(consts_layer=p + 1)
+            elif p == L:
+                r.update(consts_layer=0, consts_next_step=1)
+            out.append(r)
+        return out
+    out = []
+    for l in range(L):
+        out.append(rec(gate_layer=l, gate_h_tiles=1, ring_layer=l))
+        out.append(rec(os_layer=l, os_last=int(l == L - 1), hb_send=1,
+                       consts_layer=(l + 1) % L, consts_next_step=int(l == L - 1)))
+    return out
+
+
+def fragment_index(kt: int = 1):
+    """(k, m) of each bf16 of `kt` k-tiles' A fragments, shaped (kt, 32 lanes, 8): element
+    e of lane l of k-tile i holds A[m][16 i + k'] at m = l // 4 + A_ROW[e],
+    k' = 2 (l % 4) + A_COL[e]."""
+    lane = torch.arange(32)[None, :, None]
+    m = lane // 4 + torch.tensor(A_ROW)[None, None, :]
+    k = 16 * torch.arange(kt)[:, None, None] + 2 * (lane % 4) + torch.tensor(A_COL)
+    return torch.broadcast_tensors(k, m)
+
+
+def owned_columns(r: int, width: int) -> Tensor:
+    """The 16 output columns of CTA r, M-tile row m: 8r + m (m < 8), else width + 8r +
+    m - 8 (the gates' sigmoid half, width G/2; w_os's skip part, width R)."""
+    m = torch.arange(16)
+    return torch.where(m < 8, 8 * r + m, width + 8 * r + m - 8)
+
+
+def a_tiles(w: Tensor, rows: slice, r: int, width: int) -> Tensor:
+    """The A tiles of CTA r for the product of rows `rows` of w (K, N): A[m][k] =
+    w[rows][k, owned_columns(r, width)[m]], fragment-ordered, (k-tiles, 32, 8)."""
+    sub = w[rows][:, owned_columns(r, width).to(w.device)]
+    k, m = fragment_index(sub.shape[0] // 16)
+    return sub[k.to(w.device), m.to(w.device)]
+
+
+def _phase_mats(chain: str, inputs: Dict[str, Tensor], rec: Dict[str, int], K: int, R: int):
+    """The weight row blocks a phase reads, in the kernel's order: (matrix, rows, width of
+    the columns' first half) for the gates (z part, then h part), the residual and skip,
+    the past taps of the consts."""
+    out = []
+    gl, ol, cl = rec['gate_layer'], rec['os_layer'], rec['consts_layer']
+    if gl >= 0:
+        if rec['gate_z_tiles']:
+            out.append((inputs['w_fused'][gl], slice(None), 'G'))
+        out.append((inputs['w_cur'][gl] if chain == 'fused'
+                    else inputs['w_tap'][gl][(K - 1) * R:], slice(None), 'G'))
+    if ol >= 0:
+        w = (torch.cat([inputs['w_out'][ol], inputs['w_skip'][ol]], dim=1)
+             if chain == 'fused' else inputs['w_os'][ol])
+        out.append((w, slice(None), 'R'))
+    if cl >= 0:
+        out.append((inputs['w_tap'][cl], slice(0, (K - 1) * R), 'G'))
+    return out
+
+
+_PACKED: Dict[tuple, tuple] = {}
+
+
+def pack(variant: str, inputs: Dict[str, Tensor]):
+    """The kernel's inputs that `inputs` give: (tiles (C, total, 32, 8) bf16, table (PH,
+    11) int32, slot_tiles): for each CTA r of a cluster of C = R/8, every phase's A
+    tiles (`a_tiles`, its 16 columns) in `schedule` order, the phases one after another,
+    and the table with each phase's first tile and count; slot_tiles the largest block.
+    Made once per inputs (cached by the weights' storage and versions)."""
+    chain = 'base' if variant == 'base' else 'fused'
+    d = dims_of(inputs)
+    L, R, G, K = d['L'], d['R'], d['G'], d['K']
+    key = (chain, d['B'], *((inputs[n].data_ptr(), inputs[n]._version, inputs[n].device)
+                            for n in WEIGHTS))
+    if key in _PACKED:
+        return _PACKED[key]
+    half, C = G // 2, R // 8
+    recs = schedule(chain, L)
+    per_cta, table, off = [[] for _ in range(C)], [], 0
+    for rec in recs:
+        count = 0
+        for w, rows, width in _phase_mats(chain, inputs, rec, K, R):
+            for r in range(C):
+                per_cta[r].append(a_tiles(w, rows, r, half if width == 'G' else R))
+            count += per_cta[0][-1].shape[0]
+        rec = dict(rec, gate_z_tiles=rec['gate_z_tiles'] * half // 16,
+                   gate_h_tiles=rec['gate_h_tiles'] * R // 16, tile_off=off, tile_count=count)
+        table.append([rec[f] for f in RECORD])
+        off += count
+    tiles = torch.stack([torch.cat(t) for t in per_cta]).contiguous()
+    table_t = torch.tensor(table, dtype=torch.int32, device=tiles.device)
+    out = (tiles, table_t, max(row[RECORD.index('tile_count')] for row in table))
+    _PACKED.clear()  # one packing kept: the inputs being timed
+    _PACKED[key] = out
+    return out
+
+
+def check_sizes(d: Dict[str, int]) -> None:
+    """Raise unless the kernel takes these sizes: R = S = G/2 = 8 C for a cluster of C
+    in 2 .. 16 CTAs, L even and at least 4, K >= 2."""
+    L, R, G, S, K = (d[k] for k in ('L', 'R', 'G', 'S', 'K'))
+    if not (R == S == G // 2 and G % 2 == 0 and R % 8 == 0 and 2 <= R // 8 <= 16
+            and L % 2 == 0 and L >= 4 and K >= 2 and (K - 1) * R % 32 == 0):
+        raise ValueError(f'the kernel does not take these sizes: {d} (it takes R = S = '
+                         'G/2 = 8 C, C = 2 .. 16 CTAs a cluster, L even and >= 4, K >= 2)')
+
+
 def kernel(variant: str, inputs: Dict[str, Tensor], steps: int = T, library=None) -> Tensor:
     """The kernel (`csrc/probes/ar_critpath.cu`) on CUDA tensors: `prev` (B, R) f32 after
-    `steps` steps, one launch. `library`: another build of the same source (a planted
-    fault), else the probes' library."""
+    `steps` steps, one launch (the weights packed once per inputs, `pack`). `library`:
+    another build of the same source (a planted fault), else the probes' library."""
     global LAUNCHES
     if variant not in VARIANTS:
         raise ValueError(f'unknown variant {variant!r}; one of {VARIANTS}')
@@ -172,15 +312,15 @@ def kernel(variant: str, inputs: Dict[str, Tensor], steps: int = T, library=None
     for name, shape in shapes.items():
         check_tensor(name, inputs[name], bf16, shape, device)
     check_tensor('cond', inputs['cond'], f32, (B, L * G), device)
-    if L % 2 or R % 8 or G % 16 or S % 8 or S < R or K < 2 or 1024 % (G // 8) \
-            or 1024 % (R // 8) or 1024 % ((R + S) // 8):
-        raise ValueError(f'the kernel does not take these sizes: {d}')
+    check_sizes(d)
+    tiles, table, slot_tiles = pack(variant, inputs)
     ring_slots = sum((K - 1) * dl for dl in dilations(L))
     rings = torch.empty(B, ring_slots * R, device=device)
     out = torch.empty(B, R, device=device)
-    launch('ar_critpath', entry('probe_ar_critpath', 18, library),
-           [*(inputs[n] for n in WEIGHTS), inputs['cond'], rings, out, L, R, G, S, K, B,
-            steps, int(variant != 'base'), GLU[variant]], device)
+    launch('ar_critpath', entry('probe_ar_critpath', 17, library),
+           [tiles, table, inputs['cond'], rings, out, L, R, G, S, K, B, steps,
+            int(variant != 'base'), GLU[variant], table.shape[0], tiles.shape[1],
+            slot_tiles], device)
     LAUNCHES += 1
     return out
 

@@ -12,17 +12,21 @@ launched through `generate_ar` on seeded random weights at full width, timed sid
 side, and each variant's outputs are held to the port's own build (bit for bit: the
 profile macro changes no sum). A config names a head and chain at the defaults' widths
 (`default` the Gaussian head on the fused chain), or the paper profile (`paper`); the
-categorical heads in NLL_CONFIGS run with the in-kernel NLL of class ids 0:
+categorical heads in NLL_CONFIGS run with the in-kernel NLL of class ids 0.
+`--registers` prints instead each template instantiation's registers, stack and spills
+(`nvcc -Xptxas -v`) of the port's source and of each --source, side by side:
 
     python -m tacotron2_tpu_torch.probes.ar_split [--variants base,profile]
         [--configs default,paper,big] [--batch 2] [--steps 1100] [--cluster N]
-        [--source NAME=PATH ...]
+        [--sequences P] [--source NAME=PATH ...] [--registers]
 """
 
 import argparse
 import concurrent.futures
 import ctypes
 import os
+import re
+import subprocess
 import tempfile
 from typing import Dict, Optional
 
@@ -78,7 +82,48 @@ def model(config: str, seed: int = 1):
     return hp, wavenet_ar.pack_params(net, hp), net
 
 
-def run(library, hp, weights, c_up, noise, cluster: Optional[int], nll: bool = False):
+def registers(sources: Dict[str, str]) -> Dict[str, Dict[tuple, str]]:
+    """{variant: {(head, chain, nll, small): 'R regs, S bytes stack, X spill stores, Y
+    spill loads'}} of the port's source (`base`) and of each of `sources`, from
+    `nvcc -Xptxas -v` (the head and chain enums of csrc/wavenet_ar.cu), printed side by
+    side."""
+    from ..ops import _build
+
+    paths = {'base': os.path.join(_build.CSRC_DIR, 'wavenet_ar.cu'), **sources}
+
+    def one(item):
+        name, path = item
+        with tempfile.TemporaryDirectory(prefix='t2_ptxas_') as tmp:
+            res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-Xptxas', '-v', '-o',
+                                  os.path.join(tmp, 'lib.so'), path],
+                                 capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {path}:\n{res.stderr[-3000:]}')
+        out, kernel, props = {}, None, ''
+        for line in (res.stdout + res.stderr).splitlines():
+            m = re.search(r'Function properties for \S*wavenet_ar_kernel'
+                          r'ILi(\d)ELi(\d)ELb(\d)ELb(\d)E', line)
+            if m:
+                kernel = tuple(int(g) for g in m.groups())
+                continue
+            if kernel and 'stack frame' in line:
+                props = line.strip()
+            m = re.search(r'Used (\d+) registers', line)
+            if kernel and m:
+                out[kernel] = f'{m.group(1)} regs, {props}'
+                kernel = None
+        return name, out
+
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        table = dict(pool.map(one, paths.items()))
+    for key in sorted(table['base']):
+        print(f'head {key[0]} chain {key[1]} nll {key[2]} small {key[3]}: ' + ' | '.join(
+            f'{name} {table[name].get(key, "-")}' for name in table), flush=True)
+    return table
+
+
+def run(library, hp, weights, c_up, noise, cluster: Optional[int], nll: bool = False,
+        sequences: Optional[int] = None):
     """One launch of `library`'s kernel through generate_ar (no params; with `nll`, a
     categorical head with the NLL of class ids 0; the big head sampled from seed 5)."""
     from ..ops import wavenet_ar
@@ -87,6 +132,8 @@ def run(library, hp, weights, c_up, noise, cluster: Optional[int], nll: bool = F
     wavenet_ar._kernel_fn = lambda: kernel_fn(library)
     try:
         kw = dict(seed=5) if wavenet_ar.is_big_vocab(hp) else {}
+        if sequences:
+            kw['sequences'] = sequences
         if nll:
             kw['y_eval'] = torch.zeros(c_up.shape[:2], dtype=torch.long, device=c_up.device)
         return wavenet_ar.generate_ar(weights, c_up, noise, hp, return_params=False,
@@ -114,10 +161,16 @@ def main(argv: Optional[list] = None) -> Dict:
     p.add_argument('--batch', default='2', help='batch size(s), comma-separated')
     p.add_argument('--steps', type=int, default=1100)
     p.add_argument('--cluster', type=int, default=None, help='force a cluster size')
+    p.add_argument('--sequences', type=int, default=None,
+                   help='force the sequences a cluster (1, or 2 on a cluster of 2)')
     p.add_argument('--source', action='append', default=[], metavar='NAME=PATH',
                    help='a variant NAME built from the kernel source at PATH')
+    p.add_argument('--registers', action='store_true',
+                   help="print each instantiation's registers and spills (nvcc -Xptxas -v)")
     args = p.parse_args(argv)
     sources = dict(item.split('=', 1) for item in args.source)
+    if args.registers:
+        return registers(sources)
     if not torch.cuda.is_available():
         raise RuntimeError('ar_split times the kernel on a CUDA card; torch finds none')
     from ..ops import wavenet_ar
@@ -138,30 +191,34 @@ def main(argv: Optional[list] = None) -> Dict:
             with torch.no_grad():
                 c_up = net.upsample_conditioning(mel)[:, :T].contiguous()
             noise = wavenet_ar.make_noise(hp, gen, B, T)
-            ref = run(libs['base'], hp, weights, c_up, noise, args.cluster, nll)[0]
+            ref = run(libs['base'], hp, weights, c_up, noise, args.cluster, nll,
+                      sequences=args.sequences)[0]
             for i, name in enumerate(variants):
                 lib = libs[name]
-                out = run(lib, hp, weights, c_up, noise, args.cluster, nll)[0]
+                kw = dict(sequences=args.sequences)
+                wavenet_ar.LAUNCHES_BY_LAYOUT.clear()
+                out = run(lib, hp, weights, c_up, noise, args.cluster, nll, **kw)[0]
+                (layout,) = wavenet_ar.LAUNCHES_BY_LAYOUT
                 same = torch.equal(out, ref)
                 if name == 'profile':
                     profile_split(lib, T, hp.layers)  # zero the slots
-                    run(lib, hp, weights, c_up, noise, args.cluster, nll)
+                    run(lib, hp, weights, c_up, noise, args.cluster, nll, **kw)
                     torch.cuda.synchronize()
                     split = profile_split(lib, T, hp.layers)
                 else:
                     split = None
-                ms = best_ms(lambda: run(lib, hp, weights, c_up, noise, args.cluster, nll), 2)
+                ms = best_ms(lambda: run(lib, hp, weights, c_up, noise, args.cluster, nll,
+                                         **kw), 2)
                 key = f'{config} B={B} {name}'
                 if variants[:i].count(name):
                     key += f' ({variants[:i].count(name) + 1})'
                 results[key] = dict(us_step=1000 * ms / T, same_as_base=same, split=split,
-                                    clusters=dict(wavenet_ar.LAUNCHES_BY_CLUSTER))
-                print(f'{key}: {1000 * ms / T:.2f} us/step, ids/audio as the port\'s build: '
-                      f'{same}' + ('; split us/step: ' + ', '.join(
+                                    layout=layout)
+                print(f'{key}: {1000 * ms / T:.2f} us/step (N, P) = {layout}, ids/audio as '
+                      f'the port\'s build: {same}' + ('; split us/step: ' + ', '.join(
                           f'{k} {v:.2f}' for k, v in split.items())
                           + f' (sum {sum(split.values()):.2f})' if split else ''), flush=True)
-    print(f'{torch.cuda.get_device_name(0)}; launches by cluster size '
-          f'{dict(wavenet_ar.LAUNCHES_BY_CLUSTER)}')
+    print(torch.cuda.get_device_name(0))
     return results
 
 

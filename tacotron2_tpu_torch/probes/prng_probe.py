@@ -18,6 +18,7 @@ its noise and arg-max alone, without the 16.8 MB of head weights.
     python -m tacotron2_tpu_torch.probes.prng_probe [--device cpu] [--batch 8,1,2]
 """
 
+import ctypes
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -33,7 +34,7 @@ B, Q, SEED = 8, 65536, 1234
 PLANTED = (7, 130, 1024, 9999, 65535, 0, 32768, 50000)  # the script's clear winners
 VARIANTS = ('gumbel_argmax',)
 REPS = 5
-CALLS = 100  # back-to-back launches a timed run (one is shorter than its host set-up)
+CALLS = 100  # launches back to back a timed run, from one host call (`launcher`)
 LAUNCHES = 0  # kernel launches, counted where the wrapper launches
 
 
@@ -68,12 +69,9 @@ def plain(variant: str, inputs: Dict, steps: int = 1):
     return from_bits(scores, philox_bits(inputs['seed'], Bn, 0, Qn, scores.device))
 
 
-def launcher(variant: str, inputs: Dict,
-             library=None) -> Callable[[], Tuple[Tensor, Tensor]]:
-    """The kernel (`csrc/probes/prng_probe.cu`) on CUDA tensors, as a callable that
-    launches it and returns (ids, stats). The outputs are allocated, and the entry
-    resolved, here, once: calls back to back time the card, not the host's set-up.
-    `library`: another build of the same source (a planted fault), else the probes'."""
+def _bind(variant: str, inputs: Dict, library, launches: int):
+    """(go, ids, stats): the kernel's entry bound to its outputs, scratch and arrival
+    counter, allocated here once; go() launches it `launches` times and counts nothing."""
     if variant not in VARIANTS:
         raise ValueError(f'unknown variant {variant!r}; one of {VARIANTS}')
     scores = inputs['scores']
@@ -82,23 +80,70 @@ def launcher(variant: str, inputs: Dict,
     check_tensor('scores', scores, torch.float32, (Bn, Qn), device)
     ids = torch.empty(Bn, 1, device=device)
     stats = torch.empty(1, 8, device=device)
-    partial = torch.empty(Bn, 3, device=device)
+    partial = torch.empty(Bn, 3, dtype=torch.float64, device=device)
+    arrived = torch.zeros(1, dtype=torch.int32, device=device)  # each launch leaves it 0
     seed = inputs['seed']
-    go = bind('prng_probe', entry('probe_prng', 8, library),
-              [scores, ids, stats, partial, Bn, Qn, seed & 0xFFFFFFFF,
-               (seed >> 32) & 0xFFFFFFFF], device)
+    go = bind('prng_probe', entry('probe_prng', 10, library),
+              [scores, ids, stats, partial, arrived, Bn, Qn, seed & 0xFFFFFFFF,
+               (seed >> 32) & 0xFFFFFFFF, launches], device)
+    return go, ids, stats
+
+
+def launcher(variant: str, inputs: Dict, library=None,
+             launches: int = 1) -> Callable[[], Tuple[Tensor, Tensor]]:
+    """The kernel (`csrc/probes/prng_probe.cu`) on CUDA tensors, as a callable that
+    launches it `launches` times back to back from one host call and returns (ids,
+    stats). The outputs, the scratch and the arrival counter are allocated, and the
+    entry resolved, here, once: calls time the card, not the host's set-up. `library`:
+    another build of the same source (a planted fault), else the probes'."""
+    go, ids, stats = _bind(variant, inputs, library, launches)
 
     def run():
         global LAUNCHES
         go()
-        LAUNCHES += 1
+        LAUNCHES += launches
         return ids, stats
     return run
+
+
+def cluster_of(B: int, library=None) -> int:
+    """The CTAs a row that the kernel takes at batch B (16, or 8 where the card keeps
+    fewer than B clusters of 16 resident)."""
+    if library is None:
+        from ..ops._build import load_probe_library
+        library = load_probe_library()
+    fn = library.probe_prng_cluster
+    fn.argtypes = [ctypes.c_longlong]
+    fn.restype = ctypes.c_int
+    return int(fn(B))
 
 
 def kernel(variant: str, inputs: Dict, steps: int = 1, library=None):
     """One launch of the kernel on CUDA tensors (`launcher`): (ids, stats)."""
     return launcher(variant, inputs, library)()
+
+
+def call_ms(variant: str, inputs: Dict, reps: int = REPS) -> float:
+    """ms a call: the best of `reps` runs of CALLS launches back to back from one host
+    call, between two CUDA events, over CALLS."""
+    return best_ms(launcher(variant, inputs, launches=CALLS), reps) / CALLS
+
+
+def graph_call_ms(variant: str, inputs: Dict, reps: int = REPS) -> float:
+    """ms a call with the host's launch calls out of the timing: CALLS launches captured
+    once in a CUDA graph (outputs, scratch and counter allocated in it; the CTAs a row
+    chosen before, so that the capture makes no other CUDA call), the graph replayed
+    between two CUDA events; the best of `reps` replays over CALLS."""
+    cluster_of(inputs['scores'].shape[0])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _bind(variant, inputs, None, CALLS)[0]()  # captured: nothing runs, nothing counts
+
+    def replay():
+        global LAUNCHES
+        graph.replay()
+        LAUNCHES += CALLS
+    return best_ms(replay, reps) / CALLS
 
 
 def bound(variant: str, dims: Dict, steps: int = 1):
@@ -125,11 +170,14 @@ def main(argv: Optional[list] = None) -> Dict:
             ms, by = bound(VARIANTS[0], dict(B=b, Q=Q))
             print(f'B={b}: bound {ms * 1e3:.3f} us ({by}); {torch.cuda.get_device_name(0)}')
             ids, stats = kernel(VARIANTS[0], inputs)
-            k_ms = best_ms(launcher(VARIANTS[0], inputs), REPS, CALLS)
+            k_ms = call_ms(VARIANTS[0], inputs)
+            g_ms = graph_call_ms(VARIANTS[0], inputs)
             p_ms = best_ms(lambda: plain(VARIANTS[0], inputs), REPS)
-            print(f'gumbel_argmax B={b}: {k_ms * 1e3:.3f} us/call ({CALLS} back to back)   '
+            print(f'gumbel_argmax B={b}: {k_ms * 1e3:.3f} us/call ({CALLS} back to back, '
+                  f'{cluster_of(b)} CTAs a row), {g_ms * 1e3:.3f} replayed as a CUDA graph   '
                   f'plain version {p_ms * 1e3:.3f} us/call')
-            out[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=ms, bound_by=by)
+            out[b] = dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms, bound_ms=ms, bound_by=by,
+                          cluster=cluster_of(b))
         print('ids:', ids.cpu().numpy().ravel().astype(int))
         print('gumbel mean/max/min:', stats.cpu().numpy().ravel()[:3], '(expect mean~0.577)')
     return out

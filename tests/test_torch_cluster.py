@@ -278,3 +278,142 @@ def test_microbench_fragments_are_mma_b_tiles():
         rows = torch.tensor([16 * kt + j for kt in kts for j in range(16)])
         total += x[:, rows] @ w[rows][:, cols]
     assert torch.allclose(total, x @ w[:, cols])
+
+
+# ---------------------------------------------------------------- C4: two sequences a cluster
+
+H100_PAIRS = {**H100_LIKE, wavenet_ar.PAIRS: 66}
+
+
+@pytest.mark.parametrize('B,fused,want', [
+    (1, True, (16, 1)), (2, True, (16, 1)), (66, True, (2, 1)), (67, True, (2, 2)),
+    (98, True, (2, 2)), (131, True, (2, 2)), (132, True, (2, 2)), (264, True, (1, 1)),
+    (1, False, (16, 1)), (2, False, (16, 1)), (66, False, (2, 1)), (67, False, (1, 1)),
+    (98, False, (1, 1)), (131, False, (1, 1)), (132, False, (1, 1)), (264, False, (1, 1))])
+def test_cluster_layout_pairs_sequences_where_one_sm_a_sequence_would_run(B, fused, want):
+    """(N, P): two sequences on each cluster of 2 where cluster_size gives 1 on the fused
+    chain, if the card keeps ceil(B/2) such clusters resident; else P = 1."""
+    assert wavenet_ar.cluster_layout(B, H100_PAIRS, fused) == want
+
+
+@pytest.mark.parametrize('B', [67, 132])
+def test_cluster_layout_without_pairs_resident(B):
+    """No cluster of 2 running two sequences resident (or the kernel admits none): one
+    SM a sequence, as before."""
+    assert wavenet_ar.cluster_layout(B, {**H100_LIKE, wavenet_ar.PAIRS: 0}, True) == (1, 1)
+    assert wavenet_ar.cluster_layout(B, {**H100_PAIRS, 2: 0}, True) == (2, 2)
+
+
+def test_pairs_are_chosen_on_the_fused_chain_of_the_small_layout():
+    """Two sequences a cluster are the automatic choice only where they were measured
+    faster: the fused chain, and only where the kernel admits them (its SMALL layout, the
+    defaults' widths with any head but the big one), which the occupancy table says:
+    PAIRS is 0 there off SMALL."""
+    for B in (67, 132):
+        assert wavenet_ar.cluster_layout(B, H100_PAIRS, True) == (2, 2)
+        assert wavenet_ar.cluster_layout(B, H100_PAIRS, False) == (1, 1)
+        off_small = {**H100_PAIRS, wavenet_ar.PAIRS: 0}
+        assert wavenet_ar.cluster_layout(B, off_small, True) == (1, 1)
+
+
+def _owners(B: int, N: int, P: int, R=128, G=256, S=128):
+    """A numpy model of csrc/wavenet_ar.cu's ownership: for each CTA of the grid (cluster
+    `blockIdx.x / N`, rank `blockIdx.x % N`), its first sequence b = cluster P, the
+    sequences present np = min(P, B - b), and the (sequence, kind, column) it writes:
+    gate pairs [rank G/(2N), ...), residual [rank R/N, ...), skip [rank S/N, ...).
+    Returns (writes by (sequence, column), the clusters' absent sequences)."""
+    hN, RN, SN = G // 2 // N, R // N, S // N
+    writes = np.zeros((B, G // 2 + R + S), dtype=np.int64)
+    absent = 0
+    for cta in range(-(-B // P) * N):
+        cl, rank = cta // N, cta % N
+        b = cl * P
+        n_present = min(P, B - b)
+        absent += (P - n_present) if rank == 0 else 0
+        for e in range(n_present):
+            writes[b + e, rank * hN:(rank + 1) * hN] += 1
+            writes[b + e, G // 2 + rank * RN:G // 2 + (rank + 1) * RN] += 1
+            writes[b + e, G // 2 + R + rank * SN:G // 2 + R + (rank + 1) * SN] += 1
+    return writes, absent
+
+
+@pytest.mark.parametrize('B', [1, 2, 131, 132])
+def test_two_sequences_a_cluster_own_each_column_once(B):
+    """At P = 2 on clusters of 2 every (sequence, column) is written by exactly one CTA, as
+    at P = 1 on a cluster of one; the odd last cluster's absent sequence writes nothing."""
+    for N, P in ((2, 2), (1, 1), (2, 1)):
+        writes, absent = _owners(B, N, P)
+        assert (writes == 1).all(), (N, P)
+        assert absent == (-B % 2 if P == 2 else 0)
+
+
+def _job_item(w, acts, ks, KS, nq):
+    """A numpy model of job_item: the partial sums of one column group and slice ks for nq
+    sequences from each weight row loaded, f32, rows ks, ks + KS, ... in order."""
+    acc = np.zeros((nq, w.shape[1]), np.float32)
+    for r in range(ks, w.shape[0], KS):
+        for e in range(nq):
+            acc[e] = np.float32(acc[e] + np.float32(acts[e, r]) * w[r])
+    return acc
+
+
+def test_each_sequence_sums_its_k_slices_as_one_sequence_alone():
+    """Two sequences from each load give each sequence the same f32 partial sums, slice by
+    slice, as the sequence run alone (the outputs' bit-identity at P = 2)."""
+    rng = np.random.default_rng(9)
+    w = rng.normal(0, 1, (384, 8)).astype(np.float32)
+    acts = rng.normal(0, 1, (2, 384)).astype(np.float32)
+    for ks in (0, 5, 31):
+        two = _job_item(w, acts, ks, 32, 2)
+        for e in range(2):
+            assert np.array_equal(two[e], _job_item(w, acts[e:e + 1], ks, 32, 1)[0])
+
+
+# ---------------------------------------------------------------- B9's fragments
+
+def test_critpath_tiles_are_mma_a_fragments():
+    """Element e of lane l of a packed A tile is A[m][k] = w[16 kt + k][owned column m] at
+    the row and column mma.sync.m16n8k16 gives register e of lane l (rows l/4, l/4 + 8;
+    columns 2 (l % 4) + {0, 1, 8, 9}); the product of the tile rebuilt from the lanes
+    with a B tile is w's tile's transpose times it."""
+    from tacotron2_tpu_torch.probes import ar_critpath as m
+
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.normal(0, 1, (64, 256))).float()
+    x = torch.from_numpy(rng.normal(0, 1, (64, 8))).float()
+    for r in (0, 5, 15):
+        tiles = m.a_tiles(w, slice(None), r, 128)
+        cols = m.owned_columns(r, 128)
+        assert tiles.shape == (4, 32, 8)
+        total = torch.zeros(16, 8)
+        for kt in range(4):
+            a = torch.empty(16, 16)
+            for lane in range(32):
+                for e in range(8):
+                    a[lane // 4 + m.A_ROW[e], 2 * (lane % 4) + m.A_COL[e]] = tiles[kt, lane, e]
+            assert torch.equal(a, w[16 * kt:16 * kt + 16][:, cols].T)
+            total += a @ x[16 * kt:16 * kt + 16]
+        assert torch.allclose(total, w[:, cols].T @ x, atol=1e-4)
+
+
+@pytest.mark.parametrize('variant', ['base', 'fused'])
+def test_critpath_blocks_follow_the_schedule(variant):
+    """Each phase's block in the packed stream starts where the one before ends, holds the
+    gate, residual and past-tap tiles its record names, in that order, and fits a slot;
+    every CTA's 16 columns of every matrix are packed, each column by one CTA."""
+    from tacotron2_tpu_torch.probes import ar_critpath as m
+
+    inp = m.make_inputs(L=4, B=2)
+    tiles, table, slot_tiles = m.pack(variant, inp)
+    recs = [dict(zip(m.RECORD, row)) for row in table.tolist()]
+    assert len(recs) == (5 if variant == 'fused' else 8)
+    off = 0
+    for rec in recs:
+        gate = rec['gate_z_tiles'] + rec['gate_h_tiles'] if rec['gate_layer'] >= 0 else 0
+        want = gate + (8 if rec['os_layer'] >= 0 else 0) \
+            + (16 if rec['consts_layer'] >= 0 else 0)
+        assert (rec['tile_off'], rec['tile_count']) == (off, want)
+        off += want
+    assert tiles.shape == (16, off, 32, 8) and slot_tiles == max(r['tile_count'] for r in recs)
+    cols = torch.cat([m.owned_columns(r, 128) for r in range(16)])
+    assert torch.equal(cols.sort().values, torch.arange(256))

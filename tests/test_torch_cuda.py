@@ -140,6 +140,49 @@ def test_every_cluster_size_gives_the_same_outputs(device, config):
     assert (params - ref).abs().max().item() <= KERNEL_TOL
 
 
+PAIR_CONFIGS = {'gaussian-fused': ('', False), 'gaussian-plain': ('wavenet_fused_ar=False', False),
+                'mol': ('out_channels=30', False), 'categorical': (CATEGORICAL, False),
+                'categorical+nll': (CATEGORICAL, True)}
+
+
+@pytest.mark.parametrize('B', [132, 131])
+@pytest.mark.parametrize('config', list(PAIR_CONFIGS))
+def test_two_sequences_a_cluster_are_bit_identical_to_one(device, config, B):
+    """At the defaults' widths two sequences a cluster of two (P = 2: the choice at B=132
+    and 131 on the fused chain, forced here) give the audio, the params (or the NLL) and
+    the carried state of one sequence a cluster (P = 1, forced) bit for bit over 300
+    steps, for every head of the large batch's layout and both chains; B=131 leaves the
+    last cluster one sequence."""
+    extra, nll = PAIR_CONFIGS[config]
+    hp = default_hparams()
+    hp.parse(extra)
+    weights, c_up, noise = _wavenet_inputs(hp, B, 2, device)
+    c_up, noise = c_up[:, :300].contiguous(), noise[:, :300].contiguous()
+    kw = dict(return_params=not nll, return_state=True)
+    if nll:
+        kw['y_eval'] = torch.randint(0, hp.out_channels, c_up.shape[:2], device=device,
+                                     generator=torch.Generator(device).manual_seed(3))
+    table, _ = chip_smoke.occupancy(hp, B, nll)
+    fused = bool(hp.wavenet_fused_ar)  # the plain chain takes two only when forced
+    assert wavenet_ar.cluster_layout(B, table, fused) == \
+        ((2, 2) if fused else (1, 1))
+    wavenet_ar.LAUNCHES_BY_LAYOUT.clear()
+    one = wavenet_ar.generate_ar(weights, c_up, noise, hp, sequences=1, **kw)
+    two = wavenet_ar.generate_ar(weights, c_up, noise, hp, sequences=2, **kw)
+    assert dict(wavenet_ar.LAUNCHES_BY_LAYOUT) == {(1, 1): 1, (2, 2): 1}
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    assert torch.equal(one[2][0], two[2][0]) and torch.equal(one[2][1], two[2][1])
+
+
+def test_two_sequences_a_cluster_raise_where_not_admitted(device):
+    """The paper width and the big head have no layout of two sequences a cluster."""
+    hp = default_hparams()
+    hp.parse(PAPER_TINY)
+    weights, c_up, noise = _wavenet_inputs(hp, 2, 1, device)
+    with pytest.raises(ValueError, match='two sequences a cluster are not admitted'):
+        wavenet_ar.generate_ar(weights, c_up, noise, hp, sequences=2)
+
+
 def test_first_steps_at_every_cluster_size(device):
     """The first-steps reading (FIRST_STEPS_TOL: the lower quartile over B=16 sequences
     of the params error over the first two steps) holds at every cluster size."""
@@ -370,15 +413,17 @@ def mutants(tmp_path_factory):
 def test_cluster_mutants_are_seen(device, mutants, fault):
     """A build with a planted fault of the cluster layout misses KERNEL_TOL at the
     default width, B=2 over one frame, on the clusters B=2 gets (16) or on the size
-    chip_smoke.FAULT_CLUSTER names (one, for the large batch's instantiation), where the
-    true kernel holds."""
+    chip_smoke.FAULT_CLUSTER names (one, for the large batch's instantiation; two with
+    two sequences a cluster, FAULT_SEQUENCES), where the true kernel holds."""
     hp = default_hparams()
     weights, c_up, noise = _wavenet_inputs(hp, 2, 1, device)
     cluster = chip_smoke.FAULT_CLUSTER.get(fault)
+    sequences = chip_smoke.FAULT_SEQUENCES.get(fault)
     assert cluster is not None or chip_smoke.occupancy(hp)[1] > 1
-    assert params_err(weights, c_up, noise, hp, cluster=cluster).max().item() <= KERNEL_TOL
-    assert params_err(weights, c_up, noise, hp, library=mutants[fault],
-                      cluster=cluster).max().item() > KERNEL_TOL
+    assert params_err(weights, c_up, noise, hp, cluster=cluster,
+                      sequences=sequences).max().item() <= KERNEL_TOL
+    assert params_err(weights, c_up, noise, hp, library=mutants[fault], cluster=cluster,
+                      sequences=sequences).max().item() > KERNEL_TOL
 
 
 @pytest.mark.parametrize('fault', list(KERNEL_MUTANTS))
@@ -416,11 +461,11 @@ def test_wavenet_cli_on_the_card(device, extra, speaker_id):
     audio bit for bit, and its params are within KERNEL_TOL of the plain version's."""
     hp, _, weights, state = vocoder_model(WAVENET_TINY + ',' + extra)
     path = f'synthesize --model WaveNet ({extra})'
-    chip_smoke.CLUSTERS_BY_PATH.pop(path, None)
+    chip_smoke.LAYOUTS_BY_PATH.pop(path, None)
     stats = chip_smoke.vocoder_cli(WAVENET_TINY + ',' + extra, hp, state, speaker_id, path)
     assert stats['launches'] == 1 and len(stats['wavs']) == 2
     # the path's one launch (B=2) counted by the cluster size the rule gives it
-    assert dict(chip_smoke.CLUSTERS_BY_PATH[path]) == {chip_smoke.occupancy(hp, 2)[1]: 1}
+    assert chip_smoke.cluster_counts(path) == {chip_smoke.occupancy(hp, 2)[1]: 1}
     call = stats['ar_call']
     assert (call['g_cond'] is not None) == (speaker_id is not None)
     r = state_carry(weights, call['c_up'], call['noise'], hp,
@@ -674,6 +719,43 @@ def test_microbench_kernel_matches_plain_version(device, variant):
     for k in ('c1', 'c2', 'h1', 'ctx'):
         assert chip_smoke.rel_err(fin[k].float(), pfin[k].float()) <= tol, k
     assert (fin['state'] - pfin['state']).abs().max().item() <= chip_smoke.STATE_TOL
+
+
+@pytest.mark.parametrize('B', [1, 2, 8])
+def test_prng_probe_kernel_at_each_batch_gives_the_same_bits_twice(device, B):
+    """B12 at Q = 65,536 on the script's scores and on random ones at B = 1, 2, 8: ids
+    exactly the plain version's (on random scores but at a near-tie, TIE_GAP), stats
+    within GUMBEL_STATS_TOL, and the same bits on a second launch."""
+    from tacotron2_tpu_torch.probes import prng_probe as m
+
+    for rnd in (False, True):
+        inp = m.make_inputs(seed=4, B=B, random_scores=rnd, device=device)
+        (ids, stats), (ids2, stats2) = [tuple(x.clone() for x in m.kernel('gumbel_argmax', inp))
+                                        for _ in range(2)]
+        pids, pstats = m.plain('gumbel_argmax', inp)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, ids2) and torch.equal(stats, stats2)
+        assert (stats - pstats).abs().max().item() <= chip_smoke.GUMBEL_STATS_TOL
+        noised = inp['scores'] + m.gumbel_from_bits(m.philox_bits(inp['seed'], B, 0, m.Q, device))
+        top2 = noised.topk(2, dim=1).values
+        for row in (ids != pids).ravel().nonzero().ravel().tolist():
+            assert rnd and top2[row, 0] - top2[row, 1] <= chip_smoke.TIE_GAP
+
+
+@pytest.mark.parametrize('B', [1, 2, 8])
+@pytest.mark.parametrize('variant', ['base', 'fused', 'fused_bf16glu', 'fused_tanhsig',
+                                     'fused_tanhfold', 'fused_tf_bf16o'])
+def test_ar_critpath_kernel_at_each_batch_gives_the_same_bits_twice(device, variant, B):
+    """B9 at full width, L=20, over 16 steps at B = 1, 2, 8 (one cluster of 16 CTAs):
+    within PROBE_TOL of the plain version, and the same bits on a second launch."""
+    from tacotron2_tpu_torch.probes import ar_critpath as m
+
+    inp = m.make_inputs(B=B, device=device)
+    got, again = m.kernel(variant, inp, 16).clone(), m.kernel(variant, inp, 16)
+    want = m.plain(variant, inp, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.PROBE_TOL['ar_critpath']
 
 
 @pytest.mark.parametrize('fault', list(chip_smoke.PROBE_MUTANTS))

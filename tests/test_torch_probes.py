@@ -145,6 +145,57 @@ def test_prng_probe_random_bits_match_the_script_lines():
     assert abs(stats[0, 0].item() - 0.5772) < 0.01 and stats[0, 1] > 10 and stats[0, 2] < -2
 
 
+def _cta_best(v, lo, hi):
+    """(largest score, lowest class) of classes [lo, hi) of one row, as a CTA keeps it."""
+    if lo >= hi:
+        return -np.inf, 2 ** 31 - 1
+    i = lo + int(np.argmax(v[lo:hi]))
+    return v[i], i
+
+
+@pytest.mark.parametrize('Q', [prng_probe.Q, 1001])
+@pytest.mark.parametrize('C', [1, 2, 8, 16])
+def test_prng_probe_partition_and_rank_merge_give_the_argmax(C, Q):
+    """B12's cluster of C CTAs a row (`csrc/probes/prng_probe.cu`): CTA r takes Philox
+    groups [r n4 / C, (r+1) n4 / C) of n4 = ceil(Q/4), so each class falls to one CTA;
+    each keeps its best (score, lowest class), merged at rank 0 in rank order by
+    `better` (a larger score, or the same at a lower class): the arg-max of the plain
+    version's scores + noise, for every C; a forced tie across the boundary of CTA 0 and
+    CTA 1 gives the first class, as jnp.argmax. The stats, per CTA, then in rank order
+    and over rows, stay within GUMBEL_STATS_TOL of the plain version's."""
+    import chip_smoke
+    from tacotron2_tpu_torch.ops.wavenet_ar import gumbel_from_bits, philox_bits
+
+    inp = prng_probe.make_inputs(seed=3, B=2, Q=Q, random_scores=True)
+    g = gumbel_from_bits(philox_bits(inp['seed'], 2, 0, Q, torch.device('cpu'))).numpy()
+    v = inp['scores'].numpy() + g
+    n4 = -(-Q // 4)
+    bounds = [(min(4 * (r * n4 // C), Q), min(4 * ((r + 1) * n4 // C), Q)) for r in range(C)]
+    owned = np.zeros(Q, np.int64)
+    for lo, hi in bounds:
+        owned[lo:hi] += 1
+    assert (owned == 1).all()
+
+    def merged(row):
+        bv, bid = -np.inf, 2 ** 31 - 1
+        for lo, hi in bounds:  # rank order
+            cv, cid = _cta_best(row, lo, hi)
+            if cv > bv or (cv == bv and cid < bid):
+                bv, bid = cv, cid
+        return bid
+    want_ids, want_stats = prng_probe.plain('gumbel_argmax', inp)
+    for b in range(2):
+        assert merged(v[b]) == int(want_ids[b, 0]) == int(np.argmax(v[b]))
+    if C > 1:
+        tie = v[0].copy()
+        edge = bounds[0][1]
+        tie[[edge - 1, edge]] = tie.max() + 1.0
+        assert merged(tie) == edge - 1 == int(np.argmax(tie))
+    sums = [sum(float(np.float32(g[b, lo:hi].sum(dtype=np.float32))) for lo, hi in bounds)
+            for b in range(2)]
+    assert abs(sum(sums) / (2 * Q) - want_stats[0, 0].item()) <= chip_smoke.GUMBEL_STATS_TOL
+
+
 # ---------------------------------------------------------------- B9: ar_critpath
 
 @pytest.mark.parametrize('variant', ar_critpath.VARIANTS)
@@ -163,6 +214,111 @@ def test_ar_critpath_inputs_are_the_scripts_draws():
     want = jnp.asarray(np.random.default_rng(0).normal(0, 0.05, (2, 3 * 128, 256)),
                        jnp.bfloat16)
     np.testing.assert_array_equal(w_tap.float().numpy(), np.asarray(want, np.float32))
+
+
+def _simulate_critpath(variant, inputs, steps, loads_first=True):
+    """A model of `csrc/probes/ar_critpath.cu` on the CPU: one cluster of R/8 CTAs over
+    the 8 batch rows, walking `schedule`'s table as the kernel does, each CTA's products
+    from the packed A tiles (unpacked by `fragment_index`) on its 16 columns: the gates
+    from the phase before's exchanged z and h, starting from the consts computed in it;
+    the residual and skip into h and the skip sum; h into its ring and every CTA; the
+    next consts from the taps staged two phases before into four buffers. The loads of
+    a phase run before its ring writes, or after them (`loads_first`): the two orders
+    agree only where no phase reads a ring slot that it also writes."""
+    m = ar_critpath
+    tiles, table, _ = m.pack(variant, inputs)
+    d = m.dims_of(inputs)
+    L, R, G, K, B = d['L'], d['R'], d['G'], d['K'], d['B']
+    half, C, PH, n = G // 2, R // 8, table.shape[0], m.ROWS
+    recs = [dict(zip(m.RECORD, row)) for row in table.tolist()]
+    dils = m.dilations(L)
+    wins = [(K - 1) * dl for dl in dils]
+    offs = [sum(wins[:l]) for l in range(L)]
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    cond = torch.zeros(n, L * G)
+    cond[:B] = inputs['cond']
+    rings = torch.zeros(n, sum(wins) * R)
+    xz, xh = torch.zeros(2, n, half), torch.zeros(2, n, R)
+    taps = torch.zeros(4, n, (K - 1) * R)
+    h, sk = torch.full((n, R), 0.01), torch.zeros(n, R)
+    xh[1] = bf(h)
+
+    def cond_of(r, l):  # (16, n) the owned columns' conditioning of layer l
+        return cond[:, l * G + m.owned_columns(r, half)].T
+
+    def a_mat(r, off, count):  # the CTA's A (16, 16 count) from its fragments
+        k, mm = m.fragment_index(count)
+        a = torch.zeros(16, 16 * count)
+        a[mm, k] = tiles[r, off:off + count].float()
+        return a
+
+    cst = [cond_of(r, 0) for r in range(C)]
+    for t in range(steps):
+        for p in range(PH):
+            g, rec = t * PH + p, recs[p]
+            zin, hin = xz[(g + 1) % 2].clone(), xh[(g + 1) % 2].clone()
+
+            def loads():
+                q, tq = (p + 2) % PH, t + (p + 2) // PH
+                lay, ts = recs[q]['consts_layer'], tq + recs[q]['consts_next_step']
+                if lay >= 0:
+                    for j in range(K - 1):
+                        slot = (ts + wins[lay] - (K - 1 - j) * dils[lay]) % wins[lay]
+                        taps[(g + 2) % 4, :, j * R:(j + 1) * R] = \
+                            rings[:, (offs[lay] + slot) * R:(offs[lay] + slot + 1) * R]
+            if loads_first:
+                loads()
+            new_cst = list(cst)
+            for r in range(C):
+                off, gl = rec['tile_off'], rec['gate_layer']
+                gate = rec['gate_z_tiles'] + rec['gate_h_tiles'] if gl >= 0 else 0
+                cols = slice(8 * r, 8 * r + 8)
+                if gl >= 0:
+                    x = torch.cat(([zin.T] if rec['gate_z_tiles'] else []) + [hin.T])
+                    z = cst[r] + a_mat(r, off, gate) @ x
+                    xz[g % 2][:, cols] = bf(m.glu(torch.cat([z[:8].T, z[8:].T], 1), variant))
+                if rec['os_layer'] >= 0:
+                    y = a_mat(r, off + gate, half // 16) @ zin.T
+                    h[:, cols] += y[:8].T
+                    sk[:, cols] += y[8:].T
+                    if rec['os_last']:
+                        h[:, cols] = h[:, cols] * 1e-4 + sk[:, cols] * 1e-6
+                        sk[:, cols] = 0
+                if rec['ring_layer'] >= 0:
+                    lay = rec['ring_layer']
+                    at = (offs[lay] + t % wins[lay]) * R
+                    rings[:, at + 8 * r:at + 8 * r + 8] = h[:, cols]
+                if rec['hb_send']:
+                    xh[g % 2][:, cols] = bf(h[:, cols])
+                if rec['consts_layer'] >= 0:
+                    past = a_mat(r, off + gate + (half // 16 if rec['os_layer'] >= 0 else 0),
+                                 (K - 1) * R // 16)
+                    new_cst[r] = cond_of(r, rec['consts_layer']) + past @ bf(taps[g % 4]).T
+            cst = new_cst
+            if not loads_first:
+                loads()
+    return h[:B]
+
+
+@pytest.mark.parametrize('variant', ['base', 'fused', 'fused_tanhfold'])
+def test_ar_critpath_kernel_schedule_computes_the_plain_version(variant):
+    """The kernel's dataflow (`_simulate_critpath`: the phase table, the packed tiles, the
+    exchange parities, the four tap buffers two phases ahead) computes the plain
+    version's `prev` at L=4, T=9 (every ring wraps), B=2, within REL_B9 (the sums run in
+    another order); and no phase's loads race its ring writes."""
+    inputs = ar_critpath.make_inputs(L=4, B=2)
+    want = ar_critpath.plain(variant, inputs, 9)
+    got = _simulate_critpath(variant, inputs, 9)
+    assert _rel(got.numpy(), want.numpy()) < REL_B9
+    assert torch.equal(got, _simulate_critpath(variant, inputs, 9, loads_first=False))
+
+
+def test_ar_critpath_kernel_raises_on_sizes_it_does_not_take():
+    d = dict(ar_critpath.DIMS)
+    ar_critpath.check_sizes(dict(d, L=4))
+    for bad in (dict(L=2), dict(L=5), dict(S=64), dict(R=256, G=512, S=256), dict(G=512)):
+        with pytest.raises(ValueError, match='does not take these sizes'):
+            ar_critpath.check_sizes(dict(d, **bad))
 
 
 # ---------------------------------------------------------------- B10: matmul_probe
