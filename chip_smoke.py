@@ -151,6 +151,26 @@ Phases (one line each; any failure exits nonzero):
      accumulation dropped, and a k-tile of its tensor-core product). No entry point runs a
      probe: their launches on the main paths are 0. The probes' full readings come from
      `python -m tacotron2_tpu_torch.probes.<name>`, not from this run.
+ 12. Tacotron training (`python -m tacotron2_tpu_torch.train --model Tacotron`) at the
+     default hparams and full width (batch 32, outputs_per_step 1, the CBHG linear
+     post-net), overriding only tacotron_test_size=None and tacotron_test_batches=1: a
+     corpus of TACO_UTTERANCES utterances of 1-2 s made from a seed (mels and linear
+     spectrograms of gliding tones by the port's ops/audio, texts from sentences.txt);
+     6 steps with an eval at 4 (its Griffin-Lim wavs from mel and linear, on the
+     device, finite) and a checkpoint at 6, a rerun that restores and goes on to 8,
+     whose step-7 loss must be an in-process train_step's from the step-6 checkpoint; the
+     log's step times (each from the start of a step to the start of the next, or to the
+     read of its loss) must add up to no more than the run's wall; five more steps on
+     the corpus, each between two synchronizes; one train step on the card against the
+     same step on the CPU at full width and TACO_CPU_BATCH rows (the same state, batch,
+     masks and coins; TACO_STEP_TOL, TACO_GRAD_TOL, TACO_PARAM_TOL, TACO_SMALL_GRAD);
+     and steps at B=32 x TIMED_FRAMES frames: three between synchronizes (sec/step), peak
+     device memory, and three split at module boundaries by CUDA events that hooks
+     record inside the real step (`StepMarks`: the decoder's, the encoder LSTM's and the
+     CBHG GRUs' forward and backward), each reading the median of three with its range.
+     With TACO_UTTERANCES / 2 utterances to train on and bucket_group_batches=64, the
+     feeder's bucketing (the JAX one's) fills each batch of 32 with copies of one
+     utterance. The phase launches no hand-written kernel.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -2092,6 +2112,28 @@ def big_vocab_head(mutants, gen):
 STEP_LINE = re.compile(r'Step\s+(\d+) \[([0-9.]+) sec/step, loss=([0-9.]+|nan|inf)')
 
 
+def logged_step_times(steps, first):
+    """Each step's own time from a trainer's log lines, {step: (the running average of
+    the step times, loss)}, of a run whose first step is `first`: n times the average
+    after its n-th step less n - 1 times the one before. The log prints the average to
+    three places, so a step's time is within 0.0005 (2n - 1) s."""
+    times = {}
+    for step in sorted(steps):
+        n = step - first + 1
+        if n == 1:
+            times[step] = steps[step][0]
+        elif step - 1 in steps:
+            times[step] = n * steps[step][0] - (n - 1) * steps[step - 1][0]
+    return times
+
+
+def fmt_times(times, steps):
+    """'median M sec/step (min-max)' of times[s] over `steps`, and each."""
+    ts = [times[s] for s in steps]
+    return (f'median {np.median(ts):.3f} sec/step ({min(ts):.3f}-{max(ts):.3f}; '
+            + ', '.join(f'{t:.3f}' for t in ts) + ')')
+
+
 def make_corpus(root, hp, n, seed):
     """A corpus in the preprocessing layout, made from `seed`: n utterances of 1 to 2 s
     (80 to 160 mel frames of hop 275) as audio/audio-i.npy (two gliding tones and noise;
@@ -2246,6 +2288,7 @@ def trainer_default(tmp):
     from tacotron2_tpu_torch.training import checkpoint_select
     from tacotron2_tpu_torch.training import wavenet_trainer as wt
     from tacotron2_tpu_torch.training.checkpointing import CheckpointManager
+    from tacotron2_tpu_torch.training.common import to_device
 
     extra = 'wavenet_natural_eval=True,wavenet_ema_decay=0.5'
     hp = default_hparams()
@@ -2265,8 +2308,8 @@ def trainer_default(tmp):
               f'{hp.max_time_steps} samples, {TRAIN_UTTERANCES} utterances): 6 steps in '
               f'{first["seconds"]:.1f} s of wall with one eval and one checkpoint; losses '
               f'{losses}; the same run again from the same seed differs by at most '
-              f'{drift:.2e} (losses logged to 5 places); steps 3 to 6 '
-              f'{np.mean([first["steps"][i][0] for i in range(3, 7)]):.3f} sec/step; peak '
+              f'{drift:.2e} (losses logged to 5 places); steps 3 to 6 (each from the log) '
+              f'{fmt_times(logged_step_times(first["steps"], 1), range(3, 7))}; peak '
               f'device memory {gib:.2f} GiB; the eval at step 4: AR launches '
               f'{first["launches"]}, {rec["gen_samples_per_sec"]:.0f} samples/s, natural loss '
               f'{rec["natural_loss"]:.4f}, teacher-forced loss {rec["teacher_forced_loss"]:.4f}, '
@@ -2295,7 +2338,7 @@ def trainer_default(tmp):
     state = wt.create_train_state(hp, 'cuda')
     state.load_state_dict(CheckpointManager(first['save_dir']).restore(6))
     dataset = WaveNetDataset(meta, hp, base_dir=root)
-    batch = wt.to_device(next(dataset.train_batches(seed=hp.wavenet_data_random_state)), 'cuda')
+    batch = to_device(next(dataset.train_batches(seed=hp.wavenet_data_random_state)), 'cuda')
     generator = torch.Generator('cuda').manual_seed(hp.wavenet_random_seed)
     loss7 = wt.train_step(state, batch, hp, generator)['loss'].item()
     logged7 = resumed['steps'][7][1]
@@ -2318,7 +2361,8 @@ def trainer_default(tmp):
         fail('the resumed run did not write its checkpoint at step 8')
     return dict(launches=first['launches']['gaussian-fused']
                 + resumed['launches']['gaussian-fused'],
-                sec_step=float(np.mean([first['steps'][i][0] for i in range(3, 7)])),
+                sec_step=float(np.median([logged_step_times(first['steps'], 1)[i]
+                                          for i in range(3, 7)])),
                 peak_gib=gib, eval_samples_s=rec['gen_samples_per_sec'], losses=losses,
                 rerun_drift=drift, eval_launch=eval_launch)
 
@@ -2343,7 +2387,7 @@ def trainer_big_vocab(tmp):
               f'normalization, cut to {BIG_TRAIN} (the defaults\' 8 x 11,000 samples would '
               f'need 23 GB for the f32 logits alone; widths and depth as they are): 4 steps '
               f'in {run["seconds"]:.1f} s of wall with two evals; losses {losses}; steps 3 to 4 '
-              f'{np.mean([run["steps"][i][0] for i in (3, 4)]):.3f} sec/step; peak device '
+              f'{fmt_times(logged_step_times(run["steps"], 1), (3, 4))}; peak device '
               f'memory {gib:.2f} GiB; AR launches {run["launches"]}; evals: ' + '; '.join(
                   f'step {r["step"]} natural loss {r["natural_loss"]:.4f} (in-kernel), '
                   f'teacher-forced {r["teacher_forced_loss"]:.4f}, '
@@ -2357,7 +2401,8 @@ def trainer_big_vocab(tmp):
         fail('the big-vocab trainer did not run the data-dependent init or score in the kernel')
     eval_launch = big_eval_launch_vs_plain(run['calls'])
     return dict(launches=run['launches']['categorical_big-fused+nll'],
-                sec_step=float(np.mean([run['steps'][i][0] for i in (3, 4)])), peak_gib=gib,
+                sec_step=float(np.median([logged_step_times(run['steps'], 1)[i]
+                                          for i in (3, 4)])), peak_gib=gib,
                 eval_samples_s=history[-1]['gen_samples_per_sec'], losses=losses,
                 eval_launch=eval_launch)
 
@@ -2654,6 +2699,387 @@ def probes(mutants):
                 matmul_probe=probe_matmul(mutants), microbench=probe_microbench(mutants))
 
 
+# --- phase 12: Tacotron training -----------------------------------------------------
+
+TACO_UTTERANCES = 64   # 32 to train on and one test batch of 32
+TACO_OVERRIDES = 'tacotron_test_size=None,tacotron_test_batches=1'
+TACO_PATH = 'train --model Tacotron'
+TACO_CPU_BATCH = 4     # the card-vs-CPU step: full width, the batch cut
+TIMED_FRAMES = 512     # the timed step: B=32 x 512 mel frames, a typical LJSpeech utterance
+TIMED_CHARS = 100      # ... and its characters
+# the card's step against the CPU's on the same state, batch and draws (f32, TF32 off),
+# read on an H100 80GB HBM3 at 700 W over three of the corpus's batches cut to 4 rows:
+# the loss within 7.5e-8 and the grad norm 4.5e-7 relative: TACO_STEP_TOL. The
+# gradients (Adam's first moment over 1 - beta1 after the first step) 1.1e-5 to 1.3e-4
+# apart in relative L2 norm: a 128-step recurrence and BatchNorm's near-cancelling sums
+# carry the devices' rounding apart: TACO_GRAD_TOL. A parameter after the first Adam
+# step moves by lr * g / (|g| + eps), about lr for every entry whose gradient is not
+# near zero; where |g| is a few eps, rounding moves it by up to 2 lr: the parameters are
+# held to TACO_PARAM_TOL (2.5 lr) at most, and every entry more than TACO_PARAM_CLOSE
+# apart must have a gradient under TACO_SMALL_GRAD (144 to 43,058 such entries of
+# 29,015,826 a batch, each with |g| at most 7.1e-6)
+TACO_STEP_TOL = 1e-5
+TACO_GRAD_TOL = 5e-4
+TACO_PARAM_TOL = 2.5e-3
+TACO_PARAM_CLOSE = 1e-5
+TACO_SMALL_GRAD = 1e-4
+
+
+def make_taco_corpus(root, hp, n, seed):
+    """A Tacotron corpus in the preprocessing layout, made from `seed`: n utterances of
+    1 to 2 s (two gliding tones and noise) with mels/mel-i.npy and linear/linear-i.npy
+    from the port's ops/audio (frames x num_mels, frames x num_freq), texts from
+    sentences.txt, and a train.txt of audio|mel|linear|samples|frames|text rows.
+    Returns the path of train.txt."""
+    from tacotron2_tpu_torch.ops import audio
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(REPO, 'sentences.txt'), encoding='utf-8') as f:
+        texts = [line.strip() for line in f if line.strip()]
+    for d in ('mels', 'linear'):
+        os.makedirs(os.path.join(root, d))
+    rows = []
+    for i in range(n):
+        t = np.arange(int(rng.uniform(1.0, 2.0) * hp.sample_rate)) / hp.sample_rate
+        wav = (0.4 * np.sin(2 * np.pi * (180 + 20 * i) * t * (1 + 0.2 * np.sin(3 * t)))
+               + 0.2 * np.sin(2 * np.pi * (900 + 35 * i) * t)
+               + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+        mel = audio.melspectrogram(wav, hp).astype(np.float32).T
+        linear = audio.linearspectrogram(wav, hp).astype(np.float32).T
+        np.save(os.path.join(root, 'mels', f'mel-{i}.npy'), mel)
+        np.save(os.path.join(root, 'linear', f'linear-{i}.npy'), linear)
+        rows.append(f'audio-{i}.npy|mel-{i}.npy|linear-{i}.npy|{len(wav)}|{len(mel)}|'
+                    f'{texts[i % len(texts)]}')
+    path = os.path.join(root, 'train.txt')
+    with open(path, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(rows) + '\n')
+    return path
+
+
+def run_taco_trainer(root, name, steps, eval_interval, checkpoint_interval, restore=True):
+    """`python -m tacotron2_tpu_torch.train --model Tacotron` on the card at the default
+    hparams (but TACO_OVERRIDES), its console output captured. Returns the output, its
+    (step, sec/step, loss) lines, the wall seconds, the peak device memory and the
+    checkpoint directory."""
+    from tacotron2_tpu_torch import train
+
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        save_dir = train.main(
+            ['--model', 'Tacotron', '--tacotron_input', 'train.txt', '--base_dir', root,
+             '--name', name, '--tacotron_train_steps', str(steps), '--eval_interval',
+             str(eval_interval), '--checkpoint_interval', str(checkpoint_interval),
+             '--summary_interval', '2', '--restore', str(restore), '--hparams',
+             TACO_OVERRIDES, '--device', 'cuda'])
+    torch.cuda.synchronize()
+    text = out.getvalue()
+    lines = {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
+             for m in STEP_LINE.finditer(text)}
+    return dict(out=text, steps=lines, seconds=time.perf_counter() - t0,
+                peak_bytes=torch.cuda.max_memory_allocated(), save_dir=save_dir)
+
+
+def _wav_ok(path):
+    from scipy.io import wavfile
+
+    _, w = wavfile.read(path)
+    return len(w) > 0 and bool(np.isfinite(np.asarray(w, np.float64)).all())
+
+
+def taco_cpu_vs_card(hp, batch):
+    """One train step at full width on the card and on the CPU from the same fresh
+    state, on the first TACO_CPU_BATCH rows of `batch` with the same draws (made on the
+    CPU and copied). Returns the readings."""
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    small = {k: v[:TACO_CPU_BATCH] for k, v in batch.items()}
+    states = {d: tt.create_train_state(hp, d, seed=3) for d in ('cpu', 'cuda')}
+    B, T_in = small['inputs'].shape
+    noise = states['cpu'].model.draw_noise(B, T_in, small['mel_targets'].shape[1],
+                                           torch.Generator().manual_seed(4), False, 'cpu')
+
+    def on(device, x):
+        if isinstance(x, list):
+            return [on(device, y) for y in x]
+        return x.to(device)
+
+    metrics, secs = {}, {}
+    for d, state in states.items():
+        t0 = time.perf_counter()
+        m = tt.train_step(state, {k: v.to(d) for k, v in small.items()}, hp,
+                          noise={k: on(d, v) for k, v in noise.items()})
+        metrics[d] = {k: float(m[k]) for k in ('loss', 'grad_norm')}
+        secs[d] = time.perf_counter() - t0
+    loss_err = abs(metrics['cuda']['loss'] - metrics['cpu']['loss']) / abs(metrics['cpu']['loss'])
+    norm_err = abs(metrics['cuda']['grad_norm'] - metrics['cpu']['grad_norm']) \
+        / metrics['cpu']['grad_norm']
+    b1 = hp.tacotron_adam_beta1
+    worst, off, off_large, total, g_err2, g_norm2 = 0.0, 0, 0, 0, 0.0, 0.0
+    for a, b, ma, mb in zip(states['cpu'].model.parameters(), states['cuda'].model.parameters(),
+                            states['cpu'].exp_avg, states['cuda'].exp_avg):
+        g = ma / (1 - b1)
+        g_err2 += float(((ma - mb.cpu()).double() / (1 - b1)).square().sum())
+        g_norm2 += float(g.double().square().sum())
+        diff = (a.detach() - b.detach().cpu()).abs()
+        worst = max(worst, float(diff.max()))
+        far = diff > TACO_PARAM_CLOSE
+        off += int(far.sum())
+        off_large += int((far & (g.abs() >= TACO_SMALL_GRAD)).sum())
+        total += diff.numel()
+    grad_err = (g_err2 / g_norm2) ** 0.5
+    phase(12, f'one train step at full width, B={B} (T_in={T_in}, '
+              f'{small["mel_targets"].shape[1]} frames), card vs CPU from the same state and '
+              f'draws: loss {metrics["cuda"]["loss"]:.6f} vs {metrics["cpu"]["loss"]:.6f} '
+              f'(rel err {loss_err:.2e}, tol {TACO_STEP_TOL}), grad norm rel err '
+              f'{norm_err:.2e}; the gradients {grad_err:.2e} apart in relative L2 norm (tol '
+              f'{TACO_GRAD_TOL}); parameters after the step: max abs err {worst:.2e} (tol '
+              f'{TACO_PARAM_TOL}), {off} of {total} entries off by more than '
+              f'{TACO_PARAM_CLOSE}, {off_large} of them with a gradient of {TACO_SMALL_GRAD} '
+              f'or more (tol 0); {secs["cuda"]:.2f} s on the card, {secs["cpu"]:.2f} s on the CPU')
+    if not (loss_err <= TACO_STEP_TOL and norm_err <= TACO_STEP_TOL and grad_err <= TACO_GRAD_TOL
+            and worst <= TACO_PARAM_TOL and off_large == 0):
+        fail('the card\'s Tacotron train step disagrees with the CPU\'s')
+    return dict(loss_rel_err=loss_err, grad_norm_rel_err=norm_err, grad_rel_err=grad_err,
+                param_max_abs_err=worst, params_off=off, card_s=secs['cuda'], cpu_s=secs['cpu'])
+
+
+# the modules whose boundaries StepMarks marks inside the real train step: each one's
+# forward start and end, and the start and end of its backward (the gradient of its
+# outputs ready, then that of its inputs)
+MARKED = ('encoder_convolutions', 'encoder_lstm', 'postnet_convolutions', 'cbhg_postnet',
+          'cbhg_postnet.gru_fw', 'cbhg_postnet.gru_bw')
+
+
+class StepMarks:
+    """Marks at module boundaries inside a Tacotron train step, from forward hooks and
+    full backward hooks on MARKED: a CUDA event on the card, the host clock on the CPU.
+    `mark` adds one by name; `offsets` gives each in ms after the mark 'start'."""
+
+    def __init__(self, model, device):
+        self.cuda = torch.device(device).type == 'cuda'
+        self.marks = {}
+        self.handles = []
+        for path in MARKED:
+            m, name = model.get_submodule(path), path.rpartition('.')[2]
+            self.handles += [
+                m.register_forward_pre_hook(lambda *a, n=name: self.mark(n + '.fwd_pre')),
+                m.register_forward_hook(lambda *a, n=name: self.mark(n + '.fwd')),
+                m.register_full_backward_pre_hook(lambda *a, n=name: self.mark(n + '.bwd_pre')),
+                m.register_full_backward_hook(lambda *a, n=name: self.mark(n + '.bwd'))]
+
+    def mark(self, name):
+        if self.cuda:
+            self.marks[name] = torch.cuda.Event(enable_timing=True)
+            self.marks[name].record()
+        else:
+            self.marks[name] = time.perf_counter()
+
+    def offsets(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+            return {k: self.marks['start'].elapsed_time(e) for k, e in self.marks.items()}
+        return {k: (t - self.marks['start']) * 1e3 for k, t in self.marks.items()}
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def step_segments(o):
+    """A train step's ms by part from StepMarks offsets `o` of one step, the parts in
+    the order they run and tiling the step from 'start' to 'end'. 'losses' is the loss
+    terms' forward and backward; the decoder's forward holds the memory layer, its
+    backward all of the decoder's step loop. Raises if the marks are not in that order."""
+    gru = [min(o['gru_fw.fwd_pre'], o['gru_bw.fwd_pre']), max(o['gru_fw.fwd'], o['gru_bw.fwd']),
+           min(o['gru_fw.bwd_pre'], o['gru_bw.bwd_pre']), max(o['gru_fw.bwd'], o['gru_bw.bwd'])]
+    order = [('fwd: embedding, encoder convs', o['encoder_lstm.fwd_pre']),
+             ('fwd: encoder LSTM', o['encoder_lstm.fwd']),
+             ('fwd: decoder', o['postnet_convolutions.fwd_pre']),
+             ('fwd: post-net', o['cbhg_postnet.fwd_pre']),
+             ('fwd: CBHG bank to highways', gru[0]),
+             ('fwd: CBHG GRUs', gru[1]),
+             ('fwd: CBHG rest', o['cbhg_postnet.fwd']),
+             ('losses', o['cbhg_postnet.bwd_pre']),
+             ('bwd: CBHG rest', gru[2]),
+             ('bwd: CBHG GRUs', gru[3]),
+             ('bwd: CBHG bank to highways', o['cbhg_postnet.bwd']),
+             ('bwd: post-net', o['postnet_convolutions.bwd']),
+             ('bwd: decoder', o['encoder_lstm.bwd_pre']),
+             ('bwd: encoder LSTM', o['encoder_lstm.bwd']),
+             ('bwd: encoder convs', o['encoder_convolutions.bwd']),
+             ('embedding grad, clip, Adam', o['end'])]
+    seg, t = {}, 0.0
+    for name, end in order:
+        if end < t:
+            raise ValueError(f'the step\'s marks are out of order at {name!r}: {o}')
+        seg[name], t = end - t, end
+    return seg
+
+
+def taco_timed_step(hp, reps=3):
+    """A train step at B=32 x TIMED_FRAMES mel frames (TIMED_CHARS characters), after one
+    untimed step: `reps` steps each between two synchronizes (sec/step), then `reps`
+    steps split by StepMarks into their parts (CUDA events on the real step), and the
+    peak device memory. Returns the readings: each the median of the reps, with its
+    range."""
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    B, T = hp.tacotron_batch_size, TIMED_FRAMES
+    g = torch.Generator('cuda').manual_seed(5)
+    batch = dict(
+        inputs=torch.randint(2, 60, (B, TIMED_CHARS), device='cuda', generator=g),
+        input_lengths=torch.full((B,), TIMED_CHARS, device='cuda'),
+        mel_targets=torch.rand(B, T, hp.num_mels, device='cuda', generator=g) * 8 - 4,
+        stop_token_targets=torch.zeros(B, T, device='cuda'),
+        targets_lengths=torch.full((B,), T, device='cuda'),
+        linear_targets=torch.rand(B, T, hp.num_freq, device='cuda', generator=g) * 8 - 4)
+    batch['stop_token_targets'][:, -1] = 1.0
+    state = tt.create_train_state(hp, 'cuda')
+    tt.train_step(state, batch, hp, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tt.train_step(state, batch, hp, g)['loss'].item())
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    marks = StepMarks(state.model, 'cuda')
+    parts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        marks.marks.clear()
+        marks.mark('start')
+        tt.train_step(state, batch, hp, g)
+        marks.mark('end')
+        parts.append(step_segments(marks.offsets()))
+    marks.remove()
+    med = {k: float(np.median([p[k] for p in parts])) for k in parts[0]}
+    rng = {k: (min(p[k] for p in parts), max(p[k] for p in parts)) for k in parts[0]}
+    step_ms = [sum(p.values()) for p in parts]
+    fwd = [sum(v for k, v in p.items() if k.startswith('fwd')) for p in parts]
+    bwd = [sum(v for k, v in p.items() if k.startswith('bwd')) for p in parts]
+    share = [p['bwd: decoder'] / b for p, b in zip(parts, bwd)]
+    phase(12, f'timed train step, B={B} x {T} frames ({TIMED_CHARS} characters, default '
+              f'hparams), {reps} steps each: median {np.median(secs):.3f} sec/step '
+              f'({min(secs):.3f}-{max(secs):.3f}; losses {[round(x, 4) for x in losses]}); '
+              f'peak device memory {peak:.2f} GiB')
+    phase(12, f'the same step split at module boundaries (CUDA events from hooks on the '
+              f'real step; ms, median of {reps} (range)): step {np.median(step_ms):.1f} '
+              f'({min(step_ms):.1f}-{max(step_ms):.1f}), forward {np.median(fwd):.1f} '
+              f'({min(fwd):.1f}-{max(fwd):.1f}), backward {np.median(bwd):.1f} '
+              f'({min(bwd):.1f}-{max(bwd):.1f}); the decoder\'s backward '
+              f'{np.median(share):.0%} of the backward ({min(share):.0%}-{max(share):.0%}); '
+              + '; '.join(f'{k} {med[k]:.1f} ({rng[k][0]:.1f}-{rng[k][1]:.1f})' for k in med))
+    if not all(np.isfinite(x) for x in losses):
+        fail(f'the timed Tacotron steps gave losses of {losses}')
+    return dict(sec_step=float(np.median(secs)), sec_step_range=(min(secs), max(secs)),
+                step_ms=float(np.median(step_ms)), fwd_ms=float(np.median(fwd)),
+                bwd_ms=float(np.median(bwd)), decoder_bwd_share=float(np.median(share)),
+                parts=med, part_ranges=rng, peak_gib=peak)
+
+
+def tacotron_training():
+    """Phase 12 (see the module docstring). Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.data.loader import TacotronDataset
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+    from tacotron2_tpu_torch.training.checkpointing import CheckpointManager
+    from tacotron2_tpu_torch.training.common import step_seed, to_device
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    with tempfile.TemporaryDirectory(prefix='t2torch_taco_') as root:
+        t0 = time.perf_counter()
+        meta = make_taco_corpus(root, hp, TACO_UTTERANCES, seed=12)
+        with open(meta, encoding='utf-8') as f:
+            frames = [int(line.split('|')[4]) for line in f]
+        phase(12, f'corpus of {TACO_UTTERANCES} utterances ({min(frames)} to {max(frames)} '
+                  f'frames) in {time.perf_counter() - t0:.1f} s')
+        first = run_taco_trainer(root, 'a', 6, 4, 6, restore=False)
+        log_dir = os.path.join(root, 'logs-a')
+        losses = [first['steps'].get(i, (0, float('nan')))[1] for i in range(1, 7)]
+        evals = re.findall(r'Eval losses: (.*)', first['out'])
+        wavs = ['eval-dir/wavs/step-4-eval-wave-from-mel.wav',
+                'eval-dir/wavs/step-4-eval-wave-from-linear.wav', 'wavs/step-6-wave-from-mel.wav']
+        wav_ok = {w: os.path.isfile(os.path.join(log_dir, w))
+                  and _wav_ok(os.path.join(log_dir, w)) for w in wavs}
+        gib = first['peak_bytes'] / 2 ** 30
+        logged = logged_step_times(first['steps'], 1)
+        phase(12, f'train --model Tacotron, default hparams (batch {hp.tacotron_batch_size}, '
+                  f'{TACO_UTTERANCES} utterances of 1-2 s, one test batch): 6 steps in '
+                  f'{first["seconds"]:.1f} s of wall with one eval and one checkpoint; losses '
+                  f'{losses}; the log\'s step times {sum(logged.values()):.3f} s in all, '
+                  f'steps 3 to 6 {fmt_times(logged, range(3, 7))}; peak device memory '
+                  f'{gib:.2f} GiB; eval at step 4: {evals}; wavs finite: {wav_ok}')
+        if not sum(logged.values()) <= first['seconds']:
+            fail('the Tacotron trainer\'s logged step times add up to more than its wall')
+        if not all(np.isfinite(l) for l in losses) or sorted(first['steps']) != list(range(1, 7)):
+            fail(f'the Tacotron trainer\'s losses are not finite or a step is missing: '
+                 f'{first["steps"]}')
+        if len(evals) != 1 or not all(wav_ok.values()):
+            fail('the Tacotron trainer did not evaluate once or its wavs are not finite')
+        if CheckpointManager(first['save_dir']).all_steps() != [6]:
+            fail('the Tacotron trainer did not write its checkpoint at step 6')
+        if not os.path.isfile(os.path.join(log_dir, 'mel-spectrograms',
+                                           'mel-prediction-step-6.npy')):
+            fail('the Tacotron trainer did not save the mel of step 6')
+
+        resumed = run_taco_trainer(root, 'a', 8, 4, 6)
+        state = tt.create_train_state(hp, 'cuda')
+        state.load_state_dict(CheckpointManager(first['save_dir']).restore(6))
+        dataset = TacotronDataset(meta, hp, base_dir=root)
+        batch = to_device(next(dataset.train_batches(seed=hp.tacotron_data_random_state)),
+                          'cuda')
+        gen = torch.Generator('cuda').manual_seed(step_seed(hp.tacotron_random_seed, 6))
+        loss7 = tt.train_step(state, batch, hp, gen)['loss'].item()
+        logged7 = resumed['steps'].get(7, (0, float('nan')))[1]
+        phase(12, f'resumed from step 6 to 8 in {resumed["seconds"]:.1f} s: restored: '
+                  f'{"Loading checkpoint at step 6" in resumed["out"]}; step 7 logged loss '
+                  f'{logged7:.5f}, an in-process train_step from the checkpoint on the same '
+                  f'batch {loss7:.5f}')
+        if 'Loading checkpoint at step 6' not in resumed['out'] \
+                or sorted(resumed['steps']) != [7, 8]:
+            fail('the Tacotron rerun did not restore step 6 and step to 8')
+        if not abs(loss7 - logged7) <= 1e-4:
+            fail(f'step 7 of the resumed Tacotron run logged {logged7}, an in-process step '
+                 f'gives {loss7}')
+        if CheckpointManager(first['save_dir']).all_steps() != [6, 8]:
+            fail('the resumed Tacotron run did not write its checkpoint at step 8')
+        synced = taco_synced_steps(state, dataset, hp)
+        cpu = taco_cpu_vs_card(hp, batch)
+    timed = taco_timed_step(hp)
+    return dict(sec_step=float(np.median(list(synced.values()))), peak_gib=gib,
+                losses=losses, loss7=loss7, logged7=logged7, cpu_vs_card=cpu, timed=timed)
+
+
+def taco_synced_steps(state, dataset, hp, n=5):
+    """n train steps of `state` on the corpus's batches (1-2 s utterances, B=32), each
+    between two synchronizes. Returns {frames of the batch: seconds} in step order."""
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+    from tacotron2_tpu_torch.training.common import to_device
+
+    batches = dataset.train_batches(seed=hp.tacotron_data_random_state + 1)
+    gen = torch.Generator('cuda').manual_seed(7)
+    secs, frames = [], []
+    for _ in range(n):
+        batch = to_device(next(batches), 'cuda')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt.train_step(state, batch, hp, gen)['loss'].item()
+        secs.append(time.perf_counter() - t0)
+        frames.append(batch['mel_targets'].shape[1])
+    phase(12, f'{n} more train steps on the corpus\'s batches (B={hp.tacotron_batch_size}, '
+              f'{frames} frames), each between two synchronizes: median '
+              f'{np.median(secs):.3f} sec/step ({min(secs):.3f}-{max(secs):.3f}; '
+              + ', '.join(f'{t:.3f}' for t in secs) + ')')
+    return dict(zip(range(n), secs))
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2724,6 +3150,10 @@ def main():
     t11 = time.perf_counter()
     probe_readings = probes(mutants)
     phase(11, f'phase 11 took {time.perf_counter() - t11:.1f} s; the whole run '
+              f'{time.perf_counter() - t_start:.1f} s')
+    t12 = time.perf_counter()
+    tacotron_training()
+    phase(12, f'phase 12 took {time.perf_counter() - t12:.1f} s; the whole run '
               f'{time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']

@@ -12,6 +12,8 @@ holds, with every leaf turned into a numpy array. The layout changes:
   - BatchNorm scale/bias + batch_stats mean/var -> BatchNorm1d weight/bias/running_*
   - LSTM `gates` kernels keep their i, g, f, o order (the +1.0 forget bias is applied
     by the cell, not stored)
+  - a GRUCell's six Dense layers -> the port's GRU: ir, iz, in (kernels side by side,
+    with their biases) -> `input`, hr, hz, hn -> `hidden`, hn's bias -> `bias_hn`
   - weight normalization is folded for inference: kernel = g * v / ||v||, the norm over
     every axis but the last (tacotron2_tpu/ops/pallas/wavenet_ar.py:80-89); for
     training (`fold=False`) it stays apart: `wn_g` -> `<conv>.parametrizations.weight.0.g`
@@ -26,11 +28,14 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from .models.tacotron.flax_names import GRU_GROUPS, port_name
 from .models.tacotron.model import Tacotron
 from .models.wavenet.model import WaveNet
 from .ops.wavenet_ar import ring_layout
 from .training import checkpoint_select
 from .training.checkpointing import CheckpointManager
+from .training.tacotron_trainer import TacotronTrainState
+from .training.tacotron_trainer import state_from_model as tacotron_state_from_model
 from .training.wavenet_trainer import WaveNetTrainState, state_from_model
 
 
@@ -69,51 +74,72 @@ def _conv1d(sd: Dict[str, Tensor], prefix: str, p: Mapping, fold: bool = True) -
     _conv(sd, prefix, p, lambda k: k.transpose(2, 1, 0), fold)
 
 
-def _conv_block(sd, prefix: str, p: Mapping, stats: Mapping) -> None:
-    _conv1d(sd, prefix + '.conv', p['conv'])
-    sd[prefix + '.bn.weight'] = _t(p['bn']['scale'])
-    sd[prefix + '.bn.bias'] = _t(p['bn']['bias'])
-    sd[prefix + '.bn.running_mean'] = _t(stats['bn']['mean'])
-    sd[prefix + '.bn.running_var'] = _t(stats['bn']['var'])
-    sd[prefix + '.bn.num_batches_tracked'] = torch.tensor(0, dtype=torch.long)
+def _flatten(tree: Mapping, prefix: str = ''):
+    """(flax path, leaf) of every leaf of a flax tree, the path '/'-joined."""
+    for k, v in tree.items():
+        path = f'{prefix}/{k}' if prefix else str(k)
+        if isinstance(v, Mapping):
+            yield from _flatten(v, path)
+        else:
+            yield path, v
 
 
-def _conv_stack(sd, prefix: str, params: Mapping, stats: Mapping) -> None:
-    n = len([k for k in params if k.startswith('conv_')])
-    for i in range(n):
-        name = f'conv_{i + 1}'
-        _conv_block(sd, f'{prefix}.convs.{i}', params[name], stats[name])
+def _join_gru(leaves: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`leaves` with the layers of each GRU_GROUPS group of a GRU joined side by side
+    under the group's name: the three kernels, and the input side's three biases (hn's
+    bias stays apart)."""
+    out = dict(leaves)
+    for group in GRU_GROUPS:
+        for path in leaves:
+            parent, sep, leaf = path.rpartition(f'/{group[0]}/')
+            names = [f'{parent}/{g}/{leaf}' for g in group]
+            if sep and '/' not in leaf and all(n in leaves for n in names):
+                out[f'{parent}/{"+".join(group)}/{leaf}'] = np.concatenate(
+                    [np.asarray(leaves[n]) for n in names], axis=-1)
+                for n in names:
+                    del out[n]
+    return out
 
 
 def tacotron_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, Tensor]:
-    """flax Tacotron `params` + `batch_stats` -> state_dict of models.tacotron.Tacotron.
-    CBHG parameters (predict_linear) are not part of the port and are ignored."""
+    """flax Tacotron `params` + `batch_stats` -> state_dict of models.tacotron.Tacotron,
+    the CBHG linear post-net included where the tree holds it (predict_linear); of a
+    subtree, the state_dict of the port module it stands for. Each leaf lands on the
+    port tensor `flax_names.port_name` names; a kernel in torch's layout. A tree of Adam
+    moments (the params' structure) converts the same way."""
     sd: Dict[str, Tensor] = {}
-    sd['inputs_embedding.weight'] = _t(params['inputs_embedding'])
-    _conv_stack(sd, 'encoder_convolutions', params['encoder_convolutions'],
-                batch_stats['encoder_convolutions'])
-    for d in ('fw', 'bw'):
-        _dense(sd, f'encoder_lstm.{d}.gates', params['encoder_lstm'][d]['gates'])
-    _dense(sd, 'attention_memory_layer', params['attention_memory_layer'])
-
-    dec = params['decoder']
-    _dense(sd, 'decoder.prenet.layers.0', dec['prenet']['dense_1'])
-    _dense(sd, 'decoder.prenet.layers.1', dec['prenet']['dense_2'])
-    _dense(sd, 'decoder.lstm_1.gates', dec['lstm_1']['gates'])
-    _dense(sd, 'decoder.lstm_2.gates', dec['lstm_2']['gates'])
-    att = dec['attention']
-    _dense(sd, 'decoder.attention.query_layer', att['query_layer'])
-    _conv1d(sd, 'decoder.attention.location_convolution', att['location_convolution'])
-    _dense(sd, 'decoder.attention.location_layer', att['location_layer'])
-    sd['decoder.attention.v_a'] = _t(att['attention_variable_projection'])
-    sd['decoder.attention.b_a'] = _t(att['attention_bias'])
-    _dense(sd, 'decoder.frame_projection', dec['frame_projection'])
-    _dense(sd, 'decoder.stop_projection', dec['stop_projection'])
-
-    _conv_stack(sd, 'postnet_convolutions', params['postnet_convolutions'],
-                batch_stats['postnet_convolutions'])
-    _dense(sd, 'postnet_projection', params['postnet_projection'])
+    for path, x in _join_gru(dict(_flatten(params))).items():
+        x = np.asarray(x, np.float32)
+        if path.endswith('kernel'):
+            x = x.T if x.ndim == 2 else x.transpose(2, 1, 0)
+        sd[port_name(path)] = _t(x)
+    for path, x in _flatten(batch_stats):
+        name = port_name(path)
+        sd[name] = _t(x)
+        if name.endswith('running_mean'):
+            sd[name.replace('running_mean', 'num_batches_tracked')] = torch.tensor(
+                0, dtype=torch.long)
     return sd
+
+
+def tacotron_train_state_from_jax(state: Mapping, hp, device='cpu') -> TacotronTrainState:
+    """The JAX package's Tacotron `TrainState`, given as numpy, -> the port's, on
+    `device`.
+
+    `state` holds `step` (int), `params` and `batch_stats` (flax trees) and `mu` and
+    `nu` (Adam's moments out of the optax state: trees of the params' structure). Each
+    moment tree goes through `tacotron_state_dict`, a permutation of every leaf, so a
+    moment lands on its parameter."""
+    model = Tacotron(hp)
+    model.load_state_dict(tacotron_state_dict(state['params'], state['batch_stats']))
+    out = tacotron_state_from_model(model.to(device), int(state['step']))
+    names = [n for n, _ in model.named_parameters()]
+    with torch.no_grad():
+        for moments, tree in ((out.exp_avg, state['mu']), (out.exp_avg_sq, state['nu'])):
+            sd = tacotron_state_dict(tree, state['batch_stats'])
+            for m, name in zip(moments, names, strict=True):
+                m.copy_(sd[name])
+    return out
 
 
 def wavenet_state_dict(params: Mapping, fold: bool = True) -> Dict[str, Tensor]:
@@ -251,11 +277,39 @@ def load_wavenet(path: str, hp, step=None) -> WaveNet:
     return wavenet
 
 
+def tacotron_model(state_dict: Mapping[str, Tensor], hp) -> Tacotron:
+    """A Tacotron of `hp` holding `state_dict`, loaded strictly: with the CBHG linear
+    post-net where `state_dict` holds it, without it where it does not (a network
+    converted for synthesis alone), whatever hp.predict_linear says."""
+    linear = any(k.startswith('cbhg_') for k in state_dict)
+    taco = Tacotron(hp if bool(hp.predict_linear) == linear
+                    else hp.replace(predict_linear=linear))
+    taco.load_state_dict(state_dict)
+    return taco
+
+
+def load_tacotron(path: str, hp, step=None) -> Tacotron:
+    """The Tacotron to synthesize with, on the CPU (`tacotron_model`): from a
+    `save_checkpoint` file, or, where `path` is a directory, from the checkpoints the
+    port's trainer wrote there (`logs-<name>/taco_pretrained`), those of `step`: None or
+    'latest', or a step number."""
+    if not os.path.isdir(path):
+        if step not in (None, 'latest'):
+            raise ValueError(f'--tacotron_checkpoint_step {step} needs a checkpoint '
+                             f'directory of the trainer; {path} is one file')
+        return tacotron_model(load_checkpoint(path, 'tacotron'), hp)
+    ckpt = CheckpointManager(path)
+    if ckpt.latest_step() is None:
+        raise FileNotFoundError(f'no checkpoint in {path}')
+    state = ckpt.restore(None if step in (None, 'latest') else int(step))
+    print(f'Loaded Tacotron checkpoint at step {state["step"]}', flush=True)
+    return tacotron_model(state['model'], hp)
+
+
 def load_models(tacotron_checkpoint: str, wavenet_checkpoint: str, hp, device,
-                wavenet_step=None) -> Tuple[Tacotron, WaveNet]:
-    """Both models on `device`, in eval mode: Tacotron from a save_checkpoint file, the
-    WaveNet as `load_wavenet` finds it."""
-    taco = Tacotron(hp)
-    taco.load_state_dict(load_checkpoint(tacotron_checkpoint, 'tacotron'))
+                wavenet_step=None, tacotron_step=None) -> Tuple[Tacotron, WaveNet]:
+    """Both models on `device`, in eval mode: Tacotron as `load_tacotron` finds it, the
+    WaveNet as `load_wavenet` does."""
+    taco = load_tacotron(tacotron_checkpoint, hp, tacotron_step)
     wavenet = load_wavenet(wavenet_checkpoint, hp, wavenet_step)
     return taco.to(device).eval(), wavenet.to(device).eval()

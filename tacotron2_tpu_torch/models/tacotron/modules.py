@@ -1,8 +1,11 @@
-"""Tacotron building blocks in their synthesis (eval) form
-(counterpart of `tacotron2_tpu/models/tacotron/modules.py`).
+"""Tacotron building blocks (counterpart of `tacotron2_tpu/models/tacotron/modules.py`).
 
-Zoneout uses its expectation form, BatchNorm its running statistics, and the prenet
-dropout, which stays on at synthesis, takes explicit pre-scaled masks.
+Each block runs in its synthesis form (zoneout's expectation, BatchNorm over running
+statistics, no dropout but the prenet's) or, with `train=True` or explicit masks, in
+its training form: dropout and zoneout from keep-masks given as bool tensors in the
+layout of the JAX draws (batch-major (B, T, C) for convolutions, time-major (T, B, U)
+for recurrences), BatchNorm over the batch statistics with flax's running update. Masks
+are drawn by the model from a torch.Generator, or passed in where they must be shared.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -10,6 +13,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+BN_MOMENTUM = 0.99
+BN_EPS = 1e-3
 
 
 def lstm_gates(z: Tensor, c_prev: Tensor) -> Tuple[Tensor, Tensor]:
@@ -21,10 +27,27 @@ def lstm_gates(z: Tensor, c_prev: Tensor) -> Tuple[Tensor, Tensor]:
     return c_new, h_new
 
 
+def dropout(x: Tensor, rate: float, keep: Tensor) -> Tensor:
+    """x / (1 - rate) where `keep` (bool) holds, 0 elsewhere (`modules.py:56-61`)."""
+    if rate == 0.0:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
+
+
+def zoneout(new: Tensor, old: Tensor, rate: float, keep: Optional[Tensor]) -> Tensor:
+    """A recurrent state under zoneout. Training, with the bool keep-mask `keep`: the
+    state takes `new` where `keep` holds and keeps `old` elsewhere (the JAX cells'
+    (1 - z) * dropout(new - old, z) + old but for rounding, and the fused decoder's
+    keep-gates). Where `keep` is None, its expectation (1 - z) * new + z * old."""
+    if keep is None:
+        return (1.0 - rate) * new + rate * old
+    return torch.where(keep, new, old)
+
+
 class ZoneoutLSTMCell(nn.Module):
-    """LSTM cell with zoneout on c and h, expectation form:
-    c = (1 - z) * c_new + z * c_prev (the same for h). The step's output is h_new,
-    not the zoned h. `gates` maps [x, h] to the i, g, f, o pre-activations."""
+    """LSTM cell with zoneout on c and h (`zoneout`: the expectation, or with keep-masks
+    the training form). The step's output is h_new, not the zoned h. `gates` maps
+    [x, h] to the i, g, f, o pre-activations."""
 
     def __init__(self, input_size: int, units: int, zoneout_cell: float = 0.1,
                  zoneout_output: float = 0.1):
@@ -34,13 +57,13 @@ class ZoneoutLSTMCell(nn.Module):
         self.zoneout_output = zoneout_output
         self.gates = nn.Linear(input_size + units, 4 * units)
 
-    def forward(self, state: Tuple[Tensor, Tensor], x: Tensor
+    def forward(self, state: Tuple[Tensor, Tensor], x: Tensor,
+                keep_c: Optional[Tensor] = None, keep_h: Optional[Tensor] = None
                 ) -> Tuple[Tuple[Tensor, Tensor], Tensor]:
         c_prev, h_prev = state
         c_new, h_new = lstm_gates(self.gates(torch.cat([x, h_prev], dim=-1)), c_prev)
-        zc, zh = self.zoneout_cell, self.zoneout_output
-        c = (1.0 - zc) * c_new + zc * c_prev
-        h = (1.0 - zh) * h_new + zh * h_prev
+        c = zoneout(c_new, c_prev, self.zoneout_cell, keep_c)
+        h = zoneout(h_new, h_prev, self.zoneout_output, keep_h)
         return (c, h), h_new
 
     def initial_state(self, batch: int, device=None) -> Tuple[Tensor, Tensor]:
@@ -65,18 +88,24 @@ class Prenet(nn.Module):
 
 class ConvBlock(nn.Module):
     """conv1d (SAME) -> activation -> BatchNorm for bnorm='after', BatchNorm ->
-    activation for 'before'; BatchNorm eps 1e-3 over running statistics.
-    Works on (B, C, T)."""
+    activation for 'before', then dropout in training. Works on (B, C, T).
+
+    BatchNorm (eps 1e-3) normalizes over the running statistics, or with `train` over
+    the batch's: the mean and the biased variance mean(x^2) - mean^2 over (B, T),
+    padded frames included, each running statistic then moved to
+    0.99 * itself + 0.01 * the batch's (flax's BatchNorm, `modules.py:99-106`)."""
 
     def __init__(self, in_channels: int, kernel_size: int, channels: int,
-                 activation: Optional[str] = 'relu', bnorm: str = 'after'):
+                 activation: Optional[str] = 'relu', bnorm: str = 'after',
+                 drop_rate: float = 0.0):
         super().__init__()
         if bnorm not in ('before', 'after'):
             raise ValueError(f'unknown batch_norm_position {bnorm!r}')
         self.activation = activation
         self.bnorm = bnorm
+        self.drop_rate = drop_rate
         self.conv = nn.Conv1d(in_channels, channels, kernel_size, padding='same')
-        self.bn = nn.BatchNorm1d(channels, eps=1e-3)
+        self.bn = nn.BatchNorm1d(channels, eps=BN_EPS)
 
     def _act(self, y: Tensor) -> Tensor:
         if self.activation == 'relu':
@@ -85,33 +114,65 @@ class ConvBlock(nn.Module):
             return torch.tanh(y)
         return y
 
-    def _bn(self, y: Tensor) -> Tensor:
+    def _bn(self, y: Tensor, train: bool) -> Tensor:
         bn = self.bn
-        return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                            training=False, eps=bn.eps)
+        if not train:
+            return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                training=False, eps=bn.eps)
+        mean = y.mean(dim=(0, 2))
+        var = torch.clamp(torch.square(y).mean(dim=(0, 2)) - torch.square(mean), min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return (y - mean[:, None]) * mul[:, None] + bn.bias[:, None]
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False, keep: Optional[Tensor] = None
+                ) -> Tensor:
+        """`keep`: the dropout keep-mask (B, T, C), needed with `train` when the
+        block's dropout rate is nonzero."""
         y = self.conv(x)
         if self.bnorm == 'after':
-            return self._bn(self._act(y))
-        return self._act(self._bn(y))
+            y = self._bn(self._act(y), train)
+        else:
+            y = self._act(self._bn(y, train))
+        if train and self.drop_rate > 0.0:
+            y = dropout(y, self.drop_rate, keep.transpose(1, 2))
+        return y
 
 
-class EncoderConvolutions(nn.Module):
+class _ConvStack(nn.Module):
+    """Conv blocks over (B, T, C); `keeps` holds one dropout keep-mask a block."""
+
+    def forward(self, x: Tensor, train: bool = False,
+                keeps: Optional[Sequence[Tensor]] = None) -> Tensor:
+        x = x.transpose(1, 2)
+        for i, conv in enumerate(self.convs):
+            x = conv(x, train, keeps[i] if keeps is not None else None)
+        return x.transpose(1, 2)
+
+
+class EncoderConvolutions(_ConvStack):
     """enc_conv_num_layers ReLU conv blocks over (B, T, C)."""
 
     def __init__(self, in_channels: int, num_layers: int = 3, kernel_size: int = 5,
-                 channels: int = 512, bnorm: str = 'after'):
+                 channels: int = 512, bnorm: str = 'after', drop_rate: float = 0.0):
         super().__init__()
         self.convs = nn.ModuleList(
             ConvBlock(in_channels if i == 0 else channels, kernel_size, channels,
-                      'relu', bnorm) for i in range(num_layers))
+                      'relu', bnorm, drop_rate) for i in range(num_layers))
 
-    def forward(self, x: Tensor) -> Tensor:
-        x = x.transpose(1, 2)
-        for conv in self.convs:
-            x = conv(x)
-        return x.transpose(1, 2)
+
+class Postnet(_ConvStack):
+    """num_layers conv blocks over (B, T, C), tanh on all but the last."""
+
+    def __init__(self, in_channels: int, num_layers: int = 5, kernel_size: int = 5,
+                 channels: int = 512, bnorm: str = 'after', drop_rate: float = 0.0):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            ConvBlock(in_channels if i == 0 else channels, kernel_size, channels,
+                      'tanh' if i < num_layers - 1 else None, bnorm, drop_rate)
+            for i in range(num_layers))
 
 
 def reverse_sequences(x: Tensor, lengths: Tensor) -> Tensor:
@@ -121,6 +182,12 @@ def reverse_sequences(x: Tensor, lengths: Tensor) -> Tensor:
     lens = lengths.to(x.device)[:, None]
     rev = torch.where(pos < lens, lens - 1 - pos, pos)
     return torch.gather(x, 1, rev[..., None].expand(-1, -1, x.shape[2]))
+
+
+def length_mask(lengths: Tensor, T: int, device) -> Tensor:
+    """(B, T) float mask of each row's first lengths[b] steps."""
+    return (torch.arange(T, device=device)[None, :]
+            < lengths.to(device)[:, None]).float()
 
 
 class BiZoneoutLSTM(nn.Module):
@@ -134,7 +201,8 @@ class BiZoneoutLSTM(nn.Module):
         self.bw = ZoneoutLSTMCell(input_size, units, zoneout, zoneout)
 
     @staticmethod
-    def _run(cell: ZoneoutLSTMCell, seq: Tensor, mask: Tensor) -> Tensor:
+    def _run(cell: ZoneoutLSTMCell, seq: Tensor, mask: Tensor,
+             keeps: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
         B, T, C = seq.shape
         K = cell.gates.weight.t()                       # (C+U, 4U)
         xp = seq @ K[:C] + cell.gates.bias              # input half, hoisted: (B, T, 4U)
@@ -144,35 +212,117 @@ class BiZoneoutLSTM(nn.Module):
         outs = []
         for t in range(T):
             c_new, h_new = lstm_gates(xp[:, t] + h @ Kh, c)
+            kc, kh = (None, None) if keeps is None else (keeps[0][t], keeps[1][t])
             m = mask[:, t, None] > 0
-            c = torch.where(m, (1.0 - zc) * c_new + zc * c, c)
-            h = torch.where(m, (1.0 - zh) * h_new + zh * h, h)
+            c = torch.where(m, zoneout(c_new, c, zc, kc), c)
+            h = torch.where(m, zoneout(h_new, h, zh, kh), h)
             outs.append(h_new * mask[:, t, None])
         return torch.stack(outs, dim=1)
 
-    def forward(self, x: Tensor, lengths: Tensor) -> Tensor:
+    def forward(self, x: Tensor, lengths: Tensor,
+                keeps: Optional[Sequence[Tensor]] = None) -> Tensor:
+        """`keeps`: None (zoneout's expectation) or the four zoneout keep-masks
+        (T, B, U) of training, forward c and h, then backward c and h, each indexed by
+        the step of its own direction's scan."""
         T = x.shape[1]
-        mask = (torch.arange(T, device=x.device)[None, :]
-                < lengths.to(x.device)[:, None]).to(x.dtype)
-        fw = self._run(self.fw, x, mask)
-        bw = reverse_sequences(self._run(self.bw, reverse_sequences(x, lengths), mask),
-                               lengths)
+        mask = length_mask(lengths, T, x.device)
+        fw_keeps, bw_keeps = (None, None) if keeps is None else (keeps[:2], keeps[2:])
+        fw = self._run(self.fw, x, mask, fw_keeps)
+        bw = reverse_sequences(self._run(self.bw, reverse_sequences(x, lengths), mask,
+                                         bw_keeps), lengths)
         return torch.cat([fw, bw], dim=-1)
 
 
-class Postnet(nn.Module):
-    """num_layers conv blocks over (B, T, C), tanh on all but the last."""
+class HighwayNet(nn.Module):
+    """H * T + x * (1 - T), H = relu(dense(x)), T = sigmoid(dense(x)) whose bias starts
+    at -1 (`modules.py:228-239`)."""
 
-    def __init__(self, in_channels: int, num_layers: int = 5, kernel_size: int = 5,
-                 channels: int = 512, bnorm: str = 'after'):
+    def __init__(self, units: int):
         super().__init__()
-        self.convs = nn.ModuleList(
-            ConvBlock(in_channels if i == 0 else channels, kernel_size, channels,
-                      'tanh' if i < num_layers - 1 else None, bnorm)
-            for i in range(num_layers))
+        self.H = nn.Linear(units, units)
+        self.T = nn.Linear(units, units)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = x.transpose(1, 2)
-        for conv in self.convs:
-            x = conv(x)
-        return x.transpose(1, 2)
+        H = torch.relu(self.H(x))
+        T = torch.sigmoid(self.T(x))
+        return H * T + x * (1.0 - T)
+
+
+class GRU(nn.Module):
+    """One direction of flax's GRUCell scanned over (B, T, C) (`modules.py:280-311`):
+    r = sigmoid(W_ir x + b_ir + W_hr h), z = sigmoid(W_iz x + b_iz + W_hz h),
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), h' = (1 - z) * n + z * h.
+    `input` holds W_ir, W_iz, W_in and their biases, `hidden` W_hr, W_hz, W_hn, and
+    `bias_hn` b_hn, the one hidden-side bias. Padded steps freeze the state and output
+    zero."""
+
+    def __init__(self, input_size: int, units: int):
+        super().__init__()
+        self.units = units
+        self.input = nn.Linear(input_size, 3 * units)
+        self.hidden = nn.Linear(units, 3 * units, bias=False)
+        self.bias_hn = nn.Parameter(torch.zeros(units))
+
+    def forward(self, seq: Tensor, mask: Tensor) -> Tensor:
+        B, T, _ = seq.shape
+        H = self.units
+        ip = self.input(seq)                            # (B, T, 3H), hoisted
+        Kh = self.hidden.weight.t()
+        h = torch.zeros(B, H, device=seq.device)
+        outs = []
+        for t in range(T):
+            ip_t, hh = ip[:, t], h @ Kh
+            r = torch.sigmoid(ip_t[:, :H] + hh[:, :H])
+            z = torch.sigmoid(ip_t[:, H:2 * H] + hh[:, H:2 * H])
+            n = torch.tanh(ip_t[:, 2 * H:] + r * (hh[:, 2 * H:] + self.bias_hn))
+            new_h = (1.0 - z) * n + z * h
+            m = mask[:, t, None]
+            h = torch.where(m > 0, new_h, h)
+            outs.append(h * m)
+        return torch.stack(outs, dim=1)
+
+
+class CBHG(nn.Module):
+    """Conv bank (widths 1..K, ReLU, BatchNorm, no dropout) -> max-pool (width
+    pool_size, stride 1, SAME: flax pads -inf on the right for a width of 2) -> two
+    projection convs -> residual -> optional dense to the highway width -> highway
+    layers -> bidirectional GRU (`modules.py:242-317`). Works on (B, T, C)."""
+
+    def __init__(self, in_channels: int, K: int = 8, conv_channels: int = 128,
+                 pool_size: int = 2, projections: Sequence[int] = (256, 80),
+                 projection_kernel_size: int = 3, highway_layers: int = 4,
+                 highway_units: int = 128, rnn_units: int = 128, bnorm: str = 'after'):
+        super().__init__()
+        self.pool_size = pool_size
+        self.bank = nn.ModuleList(ConvBlock(in_channels, k, conv_channels, 'relu', bnorm)
+                                  for k in range(1, K + 1))
+        self.proj1 = ConvBlock(K * conv_channels, projection_kernel_size, projections[0],
+                               'relu', bnorm)
+        self.proj2 = ConvBlock(projections[0], projection_kernel_size, projections[1],
+                               None, bnorm)
+        self.highway_in = (nn.Linear(projections[1], highway_units)
+                           if projections[1] != highway_units else None)
+        self.highways = nn.ModuleList(HighwayNet(highway_units)
+                                      for _ in range(highway_layers))
+        self.gru_fw = GRU(highway_units, rnn_units)
+        self.gru_bw = GRU(highway_units, rnn_units)
+
+    def forward(self, x: Tensor, lengths: Optional[Tensor] = None,
+                train: bool = False) -> Tensor:
+        B, T, _ = x.shape
+        xt = x.transpose(1, 2)
+        y = torch.cat([conv(xt, train) for conv in self.bank], dim=1)
+        lo = (self.pool_size - 1) // 2
+        y = F.max_pool1d(F.pad(y, (lo, self.pool_size - 1 - lo), value=float('-inf')),
+                         self.pool_size, stride=1)
+        y = self.proj2(self.proj1(y, train), train).transpose(1, 2) + x
+        if self.highway_in is not None:
+            y = self.highway_in(y)
+        for highway in self.highways:
+            y = highway(y)
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.long, device=x.device)
+        mask = length_mask(lengths, T, x.device)
+        fw = self.gru_fw(y, mask)
+        bw = reverse_sequences(self.gru_bw(reverse_sequences(y, lengths), mask), lengths)
+        return torch.cat([fw, bw], dim=-1)

@@ -10,7 +10,10 @@
         --wavenet_checkpoint wavenet.pt --mels_dir mels/ [--speaker_id 1,3] \\
         [--base_dir .] [--hparams 'k=v,...'] [--device cuda]
 
-The checkpoints are the files `convert.save_checkpoint` writes. eval (the default)
+The checkpoints are the files `convert.save_checkpoint` writes, or the checkpoint
+directories of the port's trainers (`logs-<name>/taco_pretrained` with
+--tacotron_checkpoint_step, `logs-<name>/wave_pretrained` with
+--wavenet_checkpoint_step). eval (the default)
 decodes every sentence, vocodes them in batches of wavenet_synthesis_batch_size, and
 writes one wav per sentence and a `map.txt` of `text|wav` lines into --output_dir.
 stream vocodes each sentence in state-carried chunks, prints the time to its first
@@ -145,8 +148,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                         help='Tacotron-2: text -> mel -> wav (default); WaveNet: the '
                              'standalone vocoder over --mels_dir')
     parser.add_argument('--tacotron_checkpoint', default=None,
-                        help='Tacotron state_dict written by convert.save_checkpoint '
+                        help='Tacotron state_dict written by convert.save_checkpoint, or '
+                             'the checkpoint directory of the port\'s trainer '
                              '(required unless --model WaveNet)')
+    parser.add_argument('--tacotron_checkpoint_step', default=None,
+                        help="where the Tacotron checkpoint is a trainer's directory "
+                             "(logs-<name>/taco_pretrained): a step number or 'latest' "
+                             '(default)')
     parser.add_argument('--wavenet_checkpoint', required=True,
                         help='WaveNet state_dict written by convert.save_checkpoint, or '
                              'the checkpoint directory of the port\'s trainer')
@@ -195,7 +203,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.tacotron_checkpoint is None:
         parser.error('--tacotron_checkpoint is required with --model Tacotron-2')
     taco, wavenet = load_models(args.tacotron_checkpoint, args.wavenet_checkpoint, hp,
-                                device, args.wavenet_checkpoint_step)
+                                device, args.wavenet_checkpoint_step,
+                                args.tacotron_checkpoint_step)
     sentences = get_sentences(args.text_list, hp)
     if args.mode == 'stream':
         stats = stream_synthesize(hp, sentences, taco, wavenet, args.output_dir, device)

@@ -12,8 +12,8 @@ profiler trace, the multi-process batch shard and the Slack webhook.
 The loss of a step is read one step late, after the next step is dispatched, as the JAX
 loop does (`wavenet_train.py:272-317`): the read then waits for a step that has long
 finished while the device works on the next. It is read at once where an interval
-(summary, eval, checkpoint, the last step) needs it. Nothing else in the step loop
-reads a device value.
+(summary, eval, checkpoint, the last step) needs it (`common.StepLog`, which also says
+what a step's logged time covers). Nothing else in the step loop reads a device value.
 """
 
 import os
@@ -33,10 +33,10 @@ from ..models.wavenet import distributions as dist_mod
 from ..ops import audio, wavenet_ar
 from ..ops.mcd import mel_centroids
 from ..ops.mulaw import inv_mulaw, inv_mulaw_quantize, is_mulaw, is_mulaw_quantize
-from ..utils import ValueWindow
 from . import checkpoint_select, weight_norm_init
 from . import wavenet_trainer as wt
 from .checkpointing import CheckpointManager
+from .common import StepLog, step_seed, to_device
 
 
 def _to_waveform(y: np.ndarray, hp: Hparams) -> np.ndarray:
@@ -220,45 +220,30 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
             log('Running weight-norm data-dependent initialization..')
             example = next(dataset.train_batches(seed=hp.wavenet_data_random_state,
                                                  group_batches=2))
-            weight_norm_init.data_dependent_init(state.model, wt.to_device(example, device),
+            weight_norm_init.data_dependent_init(state.model, to_device(example, device),
                                                  hp)
             state = wt.state_from_model(state.model)
 
-    time_window, loss_window = ValueWindow(100), ValueWindow(100)
     batches = Prefetcher(dataset.train_batches(seed=hp.wavenet_data_random_state), depth=8)
-    test_batches = [wt.to_device(b, device) for b in dataset.test_batches()]
+    test_batches = [to_device(b, device) for b in dataset.test_batches()]
     generator = torch.Generator(device)  # reseeded each step by (seed, step)
 
     step = state.step
-    pending = None  # (step, metrics, start time) of the step whose loss is not read yet
-
-    def resolve(p):
-        p_step, p_metrics, p_start = p
-        loss = float(p_metrics['loss'])
-        time_window.append(time.time() - p_start)
-        loss_window.append(loss)
-        log('Step {:7d} [{:.3f} sec/step, loss={:.5f}, avg_loss={:.5f}]'.format(
-            p_step, time_window.average, loss, loss_window.average), end='\r')
-        if np.isnan(loss) or loss > 100.0:
-            log('Loss exploded to {:.5f} at step {}'.format(loss, p_step))
-            raise RuntimeError('Loss exploded')
+    step_log = StepLog()
 
     try:
         while step < args.wavenet_train_steps:
             start = time.time()
-            batch = wt.to_device(next(batches), device)
-            generator.manual_seed(wt.step_seed(hp.wavenet_random_seed, state.step))
+            batch = to_device(next(batches), device)
+            generator.manual_seed(step_seed(hp.wavenet_random_seed, state.step))
             metrics = wt.train_step(state, batch, hp, generator)
             step = state.step
-            if pending is not None:
-                resolve(pending)
-            pending = (step, metrics, start)
+            step_log.add(step, metrics, start)
             if (step % args.summary_interval == 0
                     or (test_batches and step % args.eval_interval == 0)
                     or step % args.checkpoint_interval == 0
                     or step == args.wavenet_train_steps):
-                resolve(pending)
-                pending = None
+                step_log.flush()
 
             if step % args.summary_interval == 0:
                 log('\nStep {}: loss={:.5f}, grad_norm={:.5f}, learning_rate={:.3e}'.format(
@@ -284,8 +269,7 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
                 m = wt.eval_teacher_forced_step(state, batch, hp)
                 save_log(step, batch, m['y_hat'], hp, wav_dir)
 
-        if pending is not None:
-            resolve(pending)
+        step_log.flush()
         log('WaveNet training complete after {} global steps!'.format(
             args.wavenet_train_steps))
         return save_dir

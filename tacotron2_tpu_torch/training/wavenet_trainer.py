@@ -18,7 +18,6 @@ import copy
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 from torch import Tensor, nn
 
@@ -26,6 +25,7 @@ from ..models.wavenet.model import WaveNet, compute_wavenet_loss
 from ..models.wavenet.modules import is_weight_normalized
 from ..ops.mulaw import is_mulaw_quantize
 from . import schedules
+from .common import adam_update_, lecun_normal_
 
 
 @dataclasses.dataclass
@@ -58,13 +58,6 @@ class WaveNetTrainState:
                     mine.copy_(theirs)
 
 
-def _lecun_normal_(w: Tensor, generator: torch.Generator) -> None:
-    # flax's lecun_normal: a normal truncated at two deviations whose variance after
-    # the cut is 1 / fan_in
-    std = (1.0 / w[0].numel()) ** 0.5 / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
 @torch.no_grad()
 def init_parameters(model: WaveNet, hp, generator: torch.Generator) -> WaveNet:
     """Initialize `model` in place as the flax modules do: truncated-normal kernels of
@@ -80,9 +73,9 @@ def init_parameters(model: WaveNet, hp, generator: torch.Generator) -> WaveNet:
                  else module.weight)
             fresh = torch.empty(w.shape)
             if isinstance(module, nn.ConvTranspose2d):  # (in, out, kh, kw): fan_in by out
-                _lecun_normal_(fresh.transpose(0, 1), generator)
+                lecun_normal_(fresh.transpose(0, 1), generator)
             else:
-                _lecun_normal_(fresh, generator)
+                lecun_normal_(fresh, generator)
             w.copy_(fresh)
             if module.bias is not None:
                 module.bias.zero_()
@@ -120,11 +113,6 @@ def state_from_model(model: WaveNet, step: int = 0) -> WaveNetTrainState:
                              exp_avg_sq=[torch.zeros_like(p) for p in params])
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Tensor]:
-    """A loader batch (numpy) as tensors on `device`."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
-
-
 def _batch_mask(batch: Dict[str, Tensor]) -> Tensor:
     T = batch['audio'].shape[1]
     steps = torch.arange(T, device=batch['audio'].device)
@@ -153,14 +141,6 @@ def clip_gradients(grads: Sequence[Tensor], hp) -> List[Tensor]:
     return out
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of the dropout masks of the update from `step`: a function of (seed,
-    step) alone, as `fold_in(rng, state.step)` keys them (`wavenet_trainer.py:81`), so
-    that a run resumed at step N draws at N + 1 the masks an uninterrupted run draws
-    there. The bits are not JAX's."""
-    return (seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)
-
-
 def train_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
                generator: Optional[torch.Generator] = None,
                dropout_masks: Optional[Sequence[Tensor]] = None) -> Dict[str, Any]:
@@ -181,16 +161,9 @@ def train_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
         if hp.wavenet_clip_gradients:
             grads = clip_gradients(grads, hp)
         lr = schedules.wavenet_learning_rate(hp, state.step)
-        b1, b2 = hp.wavenet_adam_beta1, hp.wavenet_adam_beta2
         t = state.step + 1
-        torch._foreach_mul_(state.exp_avg, b1)
-        torch._foreach_add_(state.exp_avg, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(state.exp_avg_sq, b2)
-        torch._foreach_addcmul_(state.exp_avg_sq, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_div(state.exp_avg_sq, 1.0 - b2 ** t)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, hp.wavenet_adam_epsilon)
-        torch._foreach_addcdiv_(params, state.exp_avg, denom, value=-lr / (1.0 - b1 ** t))
+        adam_update_(params, grads, state.exp_avg, state.exp_avg_sq, lr,
+                     hp.wavenet_adam_beta1, hp.wavenet_adam_beta2, hp.wavenet_adam_epsilon, t)
         # the EMA after the update, as ema.apply chained after Adam
         decay = hp.wavenet_ema_decay
         ema = list(state.ema_model.parameters())

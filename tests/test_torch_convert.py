@@ -118,7 +118,8 @@ def test_no_bias_config():
 
 def test_tacotron_layouts(taco_tree):
     """BatchNorm scale/bias + batch_stats go to weight/bias/running stats; LSTM gate
-    kernels keep the i, g, f, o order; CBHG leaves (predict_linear) are left out."""
+    kernels keep the i, g, f, o order; the CBHG leaves (predict_linear) go to the port's
+    linear post-net, a GRU's three input and three hidden kernels side by side."""
     hp, v = taco_tree
     p, s = v['params'], v['batch_stats']
     assert 'cbhg_postnet' in p
@@ -138,6 +139,13 @@ def test_tacotron_layouts(taco_tree):
         hp.attention_filters, 1, hp.attention_kernel[0])
     assert np.array_equal(sd['decoder.attention.location_convolution.weight'][:, 0].numpy(),
                           loc[:, 0].T)
+    gru = p['cbhg_postnet']['gru_fw']
+    H = hp.cbhg_rnn_units
+    assert np.array_equal(sd['cbhg_postnet.gru_fw.input.weight'][H:2 * H].numpy(),
+                          gru['iz']['kernel'].T)
+    assert np.array_equal(sd['cbhg_postnet.gru_fw.hidden.weight'][2 * H:].numpy(),
+                          gru['hn']['kernel'].T)
+    assert np.array_equal(sd['cbhg_postnet.gru_fw.bias_hn'].numpy(), gru['hn']['bias'])
 
 
 def test_checkpoint_round_trip(tmp_path, taco_tree):

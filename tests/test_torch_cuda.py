@@ -592,6 +592,7 @@ def test_train_steps_cuda_vs_cpu(device, extra):
     loss's log(sigmoid(a) - sigmoid(b)) keeps few digits at its 1e-5 threshold, read
     1.2e-4 on a moment)."""
     from tacotron2_tpu_torch.training import wavenet_trainer as wt
+    from tacotron2_tpu_torch.training.common import to_device
 
     hp = default_hparams()
     hp.parse(TRAIN_TINY + extra)
@@ -603,7 +604,7 @@ def test_train_steps_cuda_vs_cpu(device, extra):
                  mel_conditions=rng.uniform(0, 1, (2, 4, hp.num_mels)).astype(np.float32))
     states = {d: wt.create_train_state(hp, d, seed=3) for d in ('cpu', 'cuda')}
     for _ in range(3):
-        m = {d: wt.train_step(st, wt.to_device(batch, d), hp) for d, st in states.items()}
+        m = {d: wt.train_step(st, to_device(batch, d), hp) for d, st in states.items()}
         for key in ('loss', 'grad_norm'):
             a, b = m['cpu'][key].item(), m['cuda'][key].item()
             assert abs(a - b) <= 1e-4 * abs(a), key

@@ -36,7 +36,6 @@ from tacotron2_tpu.ops import fused_decoder as jfd
 from tacotron2_tpu.ops.pallas import wavenet_ar as jar
 from tacotron2_tpu.training import wavenet_trainer as wt
 from tacotron2_tpu_torch import config, convert, serve, synthesize, text
-from tacotron2_tpu_torch.models.tacotron.model import Tacotron
 from tacotron2_tpu_torch.models.wavenet.model import WaveNet
 from tacotron2_tpu_torch.models.wavenet.modules import UpsampleNetwork
 from tacotron2_tpu_torch.ops import fused_decoder as tfd
@@ -366,9 +365,8 @@ def paper_tacotron():
         init, {'params': k, 'dropout': k, 'zoneout': k, 'teacher': k}, inputs,
         jnp.full((B,), 16, jnp.int32)), rng)
     variables = dict(variables, params=push_stop_bias(variables['params'], -100.0))
-    model = Tacotron(hp)
-    model.load_state_dict(convert.tacotron_state_dict(variables['params'],
-                                                      variables['batch_stats']))
+    model = convert.tacotron_model(convert.tacotron_state_dict(variables['params'],
+                                                               variables['batch_stats']), hp)
     return hj, hp, variables, model.eval()
 
 
@@ -400,8 +398,8 @@ def test_tacotron_clip_outputs_false_matches_apply(paper_tacotron, monkeypatch):
     params = jax.tree_util.tree_map(lambda x: x, variables['params'])
     params['postnet_projection']['bias'] = params['postnet_projection']['bias'] + 5.0
     variables = dict(variables, params=params)
-    model = Tacotron(hp)
-    model.load_state_dict(convert.tacotron_state_dict(params, variables['batch_stats']))
+    model = convert.tacotron_model(convert.tacotron_state_dict(params, variables['batch_stats']),
+                                   hp)
     inputs = np.random.default_rng(7).integers(2, 60, (B, 12)).astype(np.int32)
     lengths = np.asarray([12, 7], np.int32)
     inputs[1, 7:] = 0

@@ -224,6 +224,11 @@ def test_port_imports_no_jax():
             'tacotron2_tpu_torch.ops.mulaw', 'tacotron2_tpu_torch.models.wavenet.distributions',
             'tacotron2_tpu_torch.inference.wavenet_synthesizer',
             'tacotron2_tpu_torch.train', 'tacotron2_tpu_torch.training.wavenet_train',
+            'tacotron2_tpu_torch.training.tacotron_train',
+            'tacotron2_tpu_torch.training.tacotron_trainer',
+            'tacotron2_tpu_torch.models.tacotron.losses', 'tacotron2_tpu_torch.ops.dsp',
+            'tacotron2_tpu_torch.models.tacotron.flax_names',
+            'tacotron2_tpu_torch.training.common',
             'tacotron2_tpu_torch.training.wavenet_trainer',
             'tacotron2_tpu_torch.training.weight_norm_init',
             'tacotron2_tpu_torch.training.checkpointing',

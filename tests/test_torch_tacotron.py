@@ -25,7 +25,6 @@ from tacotron2_tpu.ops import fused_decoder as jfd
 from tacotron2_tpu_torch import convert
 from tacotron2_tpu_torch.models.tacotron import modules as tmod
 from tacotron2_tpu_torch.models.tacotron.attention import LocationSensitiveAttention
-from tacotron2_tpu_torch.models.tacotron.model import Tacotron
 from tacotron2_tpu_torch.ops import fused_decoder as tfd
 from tacotron2_tpu_torch.utils import suppress_stop_tokens
 
@@ -80,9 +79,8 @@ def taco():
     variables = randomize(jax.eval_shape(
         init, {'params': k, 'dropout': k, 'zoneout': k, 'teacher': k},
         jnp.asarray(inputs), jnp.asarray(LENGTHS)), rng)
-    model = Tacotron(hp)
-    model.load_state_dict(convert.tacotron_state_dict(variables['params'],
-                                                      variables['batch_stats']))
+    model = convert.tacotron_model(convert.tacotron_state_dict(variables['params'],
+                                                               variables['batch_stats']), hp)
     return hp, variables, model.eval(), inputs
 
 
@@ -131,10 +129,8 @@ def test_conv_block(bnorm):
     v = randomize(jax.eval_shape(partial(jblock.init, train=False),
                                  jax.random.PRNGKey(0), x), rng)
     want = jblock.apply(v, x, False)
-    sd = {}
-    convert._conv_block(sd, 'b', v['params'], v['batch_stats'])
     block = tmod.ConvBlock(6, 5, 8, 'relu', bnorm)
-    block.load_state_dict({k[2:]: t for k, t in sd.items()})
+    block.load_state_dict(convert.tacotron_state_dict(v['params'], v['batch_stats']))
     with torch.no_grad():
         got = block(torch.from_numpy(x).transpose(1, 2)).transpose(1, 2)
     assert _max_abs(want, got.numpy()) <= MODULE_TOL
@@ -239,8 +235,7 @@ def test_synthesis_scan(taco, case):
     want = jfd.synthesis_scan(jfd.config_from_hp(hp, jnp.float32, True),
                               params['decoder'], keys, values, mask, MAX_ITERS, chunk,
                               hp.tacotron_dropout_rate, dropout_rng, constraint)
-    port = Tacotron(hp)
-    port.load_state_dict(convert.tacotron_state_dict(params, v['batch_stats']))
+    port = convert.tacotron_model(convert.tacotron_state_dict(params, v['batch_stats']), hp)
     masks = jax_prenet_masks(hp, dropout_rng, B, MAX_ITERS // chunk, chunk)
     got = tfd.synthesis_scan(port.decoder, torch.from_numpy(keys),
                              torch.from_numpy(values), torch.from_numpy(mask), MAX_ITERS,
@@ -275,8 +270,7 @@ def test_tacotron_matches_apply(taco, monkeypatch):
     chunk = hp.decoder_chunk_size
     masks = jax_prenet_masks(hp, seen['rng'], B, MAX_ITERS // chunk, chunk)
     sd = suppress_stop_tokens(convert.tacotron_state_dict(v['params'], v['batch_stats']))
-    model = Tacotron(hp)
-    model.load_state_dict(sd)
+    model = convert.tacotron_model(sd, hp)
     got = model.eval()(torch.from_numpy(inputs), torch.from_numpy(LENGTHS),
                        max_iters=MAX_ITERS, masks=masks)
     for key in ('decoder_output', 'mel_outputs', 'stop_token_prediction', 'alignments'):

@@ -46,6 +46,7 @@ from tacotron2_tpu_torch.training import checkpoint_select, schedules, weight_no
 from tacotron2_tpu_torch.training import wavenet_train
 from tacotron2_tpu_torch.training import wavenet_trainer as wt
 from tacotron2_tpu_torch.training.checkpointing import CheckpointManager
+from tacotron2_tpu_torch.training.common import to_device
 from tacotron2_tpu_torch.utils import ValueWindow
 
 from test_torch_wavenet import TINY, randomize
@@ -90,7 +91,7 @@ def flax_params(hp, seed=0):
 
 
 def port_batch(batch):
-    return wt.to_device(batch, 'cpu')
+    return to_device(batch, 'cpu')
 
 
 def _max_abs(a, b):
@@ -822,14 +823,15 @@ def test_fresh_start_drops_every_earlier_eval_record(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    """Tacotron and the combined pipeline raise, naming the roadmap item; without a
-    card and without --device cpu the trainer raises instead of falling back."""
-    for model in ('Tacotron', 'Tacotron-2'):
-        with pytest.raises(NotImplementedError, match='A9'):
-            train.main(['--model', model, '--device', 'cpu'])
+    """The combined pipeline raises, naming the roadmap items (A6, the GTA bridge, and
+    A11, the 3-phase machine); without a card and without --device cpu each trainer
+    raises instead of falling back."""
+    with pytest.raises(NotImplementedError, match='A6 and A11'):
+        train.main(['--model', 'Tacotron-2', '--device', 'cpu'])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match='no CUDA device'):
-            train.main(['--model', 'WaveNet', '--base_dir', str(tmp_path)])
+        for model in ('WaveNet', 'Tacotron'):
+            with pytest.raises(RuntimeError, match='no CUDA device'):
+                train.main(['--model', model, '--base_dir', str(tmp_path)])
 
 
 def test_short_run_ema_warning(tmp_path, capsys):
