@@ -171,6 +171,22 @@ Phases (one line each; any failure exits nonzero):
      With TACO_UTTERANCES / 2 utterances to train on and bucket_group_batches=64, the
      feeder's bucketing (the JAX one's) fills each batch of 32 with copies of one
      utterance. The phase launches no hand-written kernel.
+ 13. The Tacotron-2 pipeline at the default hparams and full width, through the port's
+     entry points: PIPE_UTTERANCES wavs of 1-2 s made from a seed in the LJSpeech layout
+     through `python -m tacotron2_tpu_torch.preprocess` (every row's audio exactly its
+     mel frames x hop) and `python -m tacotron2_tpu_torch.wavenet_preprocess` (its
+     validate_alignment on its own output); `python -m tacotron2_tpu_torch.train --model
+     Tacotron-2` with 2 steps of each trainer and an eval at step 2 (PIPE_OVERRIDES: the
+     test split and the natural eval alone): state_log `1|1|1|<map>`, a GTA mel for every
+     train.txt row of its target's frame count inside the output range, the WaveNet
+     trained on the GTA map with one natural eval; a rerun that returns at once; one GTA
+     batch on the card against the CPU (PIPE_GTA_TOL); the eval launch, recorded by
+     ar_timer, against the plain version on its own inputs over PIPE_EVAL_BOUNDS with
+     PIPE_FAULTS planted (PIPE_EVAL_TOL_PER_SPAN); then the JAX command lines with run
+     names only (`synthesize --model Tacotron --mode eval`, `--model WaveNet --mels_dir
+     tacotron_output/eval`, `--model Tacotron-2`) at max_iters=PIPE_CLI_MAX_ITERS, stop
+     tokens suppressed, their AR launches counted by path. Each step's wall seconds,
+     the phase's and the whole run's.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -3080,6 +3096,361 @@ def taco_synced_steps(state, dataset, hp, n=5):
     return dict(zip(range(n), secs))
 
 
+# --- phase 13: the Tacotron-2 pipeline ----------------------------------------------
+
+PIPE_UTTERANCES = 64   # 32 to train the Tacotron on and its one test batch of 32
+# the eval settings of both trainers: phase 12's Tacotron test split, and the WaveNet's
+# autoregressive natural eval on the EMA weights (off by default), which launches the
+# AR kernel; EMA decay 0.5 so that the eval's weights are the trained ones after 2 steps
+PIPE_OVERRIDES = TACO_OVERRIDES + ',wavenet_natural_eval=True,wavenet_ema_decay=0.5'
+PIPE_PATH = 'train --model Tacotron-2 (natural eval)'
+PIPE_WAVENET_PATH = 'synthesize --model WaveNet --name'
+PIPE_TACOTRON2_PATH = 'synthesize --model Tacotron-2 --name'
+PIPE_PATHS = (PIPE_PATH, PIPE_WAVENET_PATH, PIPE_TACOTRON2_PATH)
+# the eval launch against the plain version over its first PIPE_EVAL_BOUNDS[-1] steps,
+# in state-carried chunks at odd ends (the plain version takes 5-19 ms a step of host
+# time): a cut of the launch's hp.max_time_steps = 11,000
+PIPE_EVAL_BOUNDS = (377, 731, 1100)
+# a WaveNet two steps from its initial weights gives params that span less than the
+# seeded weights' (about 1) that KERNEL_TOL was read on: the eval launch's params are
+# held to PIPE_EVAL_TOL_PER_SPAN of their span, the same share, and each planted fault
+# (weights as a kernel with one bug would read them, over the first PIPE_FAULT_STEPS
+# steps) must move them further than that. Read on an H100 80GB HBM3 at 700 W: span
+# 0.621, the kernel 1.1e-3 from the plain version (tol 6.2e-3), the faults 0.413 and
+# 1.9e-2
+PIPE_EVAL_TOL_PER_SPAN = KERNEL_TOL
+PIPE_FAULTS = ('conditioning dropped', 'past ring taps swapped')
+PIPE_FAULT_STEPS = 275
+PIPE_SENTENCES = ('Scientists at the CERN laboratory say they have discovered a new '
+                  'particle.', 'He reads books.')
+PIPE_CLI_MAX_ITERS = 128
+# one GTA batch on the card against the CPU on the same weights, targets and prenet
+# masks (f32, TF32 off), read on an H100 80GB HBM3 at 700 W: the mels (span 8.1, 192
+# frames, a 192-step recurrence) 4.3e-6 apart at most; bounded at about 25x that
+PIPE_GTA_TOL = 1e-4
+
+
+def make_ljspeech(base, hp, n, seed):
+    """`base/LJSpeech-1.1/{metadata.csv,wavs/*.wav}` made from `seed`: n utterances of
+    1 to 2 s, int16 at hp.sample_rate (two gliding tones and noise, as
+    make_taco_corpus makes them), `name|text|text` rows with texts from sentences.txt."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(REPO, 'sentences.txt'), encoding='utf-8') as f:
+        texts = [line.strip() for line in f if line.strip()]
+    root = os.path.join(base, 'LJSpeech-1.1')
+    os.makedirs(os.path.join(root, 'wavs'))
+    rows = []
+    for i in range(n):
+        t = np.arange(int(rng.uniform(1.0, 2.0) * hp.sample_rate)) / hp.sample_rate
+        wav = (0.4 * np.sin(2 * np.pi * (180 + 20 * i) * t * (1 + 0.2 * np.sin(3 * t)))
+               + 0.2 * np.sin(2 * np.pi * (900 + 35 * i) * t)
+               + 0.02 * rng.standard_normal(len(t)))
+        wavfile.write(os.path.join(root, 'wavs', f'LJ-{i:04d}.wav'), hp.sample_rate,
+                      (wav * 32767 / max(1.0, np.abs(wav).max())).astype(np.int16))
+        text = texts[i % len(texts)]
+        rows.append(f'LJ-{i:04d}|{text}|{text}')
+    with open(os.path.join(root, 'metadata.csv'), 'w', encoding='utf-8') as f:
+        f.write('\n'.join(rows) + '\n')
+
+
+def run_module(module, args, cwd):
+    """`python -m <module> <args>` from `cwd` with the repo on the path; fails with its
+    output unless it exits 0. Returns (stdout, seconds)."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, '-m', module, *args], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f'python -m {module} exited {res.returncode}:\n{res.stdout[-3000:]}\n'
+             f'{res.stderr[-3000:]}')
+    return res.stdout, time.perf_counter() - t0
+
+
+def pipe_preprocess(base, hp):
+    """Step 1: the corpus through `python -m tacotron2_tpu_torch.preprocess` and
+    `python -m tacotron2_tpu_torch.wavenet_preprocess` (whose validate_alignment checks
+    its own output). Returns the train.txt rows and the seconds."""
+    t0 = time.perf_counter()
+    make_ljspeech(base, hp, PIPE_UTTERANCES, seed=13)
+    made = time.perf_counter() - t0
+    out, secs = run_module('tacotron2_tpu_torch.preprocess', ['--base_dir', base], base)
+    with open(os.path.join(base, 'training_data', 'train.txt'), encoding='utf-8') as f:
+        rows = [line.rstrip('\n').split('|') for line in f]
+    hop = hp.get_hop_size()
+    bad = [r[0] for r in rows if len(np.load(os.path.join(base, 'training_data', 'audio', r[0])))
+           != int(r[4]) * hop or int(r[3]) != int(r[4]) * hop]
+    wn_out, wn_secs = run_module(
+        'tacotron2_tpu_torch.wavenet_preprocess',
+        ['--base_dir', base, '--input_dir', 'LJSpeech-1.1/wavs', '--output', 'wavenet_data'],
+        base)
+    frames = [int(r[4]) for r in rows]
+    phase(13, f'corpus of {PIPE_UTTERANCES} wavs of 1-2 s made in {made:.1f} s; '
+              f'python -m tacotron2_tpu_torch.preprocess: {len(rows)} rows ({min(frames)} to '
+              f'{max(frames)} frames) in {secs:.1f} s ({out.strip().splitlines()[0]}); audio '
+              f'of frames x hop samples in every row: {not bad}; python -m '
+              f'tacotron2_tpu_torch.wavenet_preprocess in {wn_secs:.1f} s: '
+              f'{wn_out.strip().splitlines()[-1]}')
+    if len(rows) != PIPE_UTTERANCES or bad:
+        fail(f'preprocessing wrote {len(rows)} rows, misaligned: {bad}')
+    if f'alignment validated for {PIPE_UTTERANCES} examples' not in wn_out:
+        fail('wavenet_preprocess did not validate its alignment')
+    return rows, made + secs + wn_secs
+
+
+def run_pipeline_cli(base, calls=None, path=None):
+    """`python -m tacotron2_tpu_torch.train --model Tacotron-2` on the card: 2 steps of
+    each trainer with an eval at step 2, console captured, the AR launches recorded by
+    ar_timer into `calls` and counted for `path`. Returns (output, seconds)."""
+    from tacotron2_tpu_torch import train
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), ar_timer(calls):
+        train.main(['--model', 'Tacotron-2', '--base_dir', base, '--name', 'pipe',
+                    '--tacotron_train_steps', '2', '--wavenet_train_steps', '2',
+                    '--eval_interval', '2', '--checkpoint_interval', '2',
+                    '--summary_interval', '1', '--hparams', PIPE_OVERRIDES,
+                    '--device', 'cuda'])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    read_counts(path)
+    return out.getvalue(), seconds
+
+
+def pipe_gta_cpu_vs_card(base, hp, row):
+    """One GTA batch (the pipeline's: tacotron_synthesis_batch_size rows) on the card
+    against the CPU, the trained checkpoint on both, the same targets and prenet masks
+    (drawn on the CPU and copied). Returns the readings."""
+    from tacotron2_tpu_torch.convert import load_tacotron
+    from tacotron2_tpu_torch.inference.tacotron_synthesizer import Synthesizer
+
+    ckpt = os.path.join(base, 'logs-pipe', 'taco_pretrained')
+    synths = {d: Synthesizer(load_tacotron(ckpt, hp).to(d), hp, d, gta=True)
+              for d in ('cpu', 'cuda')}
+    _, inputs, lengths = synths['cpu']._prepare_text_batch([row[5]])
+    targets, _ = synths['cpu'].gta_targets(
+        [os.path.join(base, 'training_data', 'mels', row[1])] * len(inputs))
+    B, T_in = inputs.shape
+    noise = synths['cpu']._model.draw_noise(B, T_in, targets.shape[1],
+                                            torch.Generator().manual_seed(hp.tacotron_random_seed),
+                                            True, 'cpu')
+    mels, secs = {}, {}
+    for d, s in synths.items():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = s._model.teacher_forced(
+                torch.from_numpy(inputs).to(d), torch.from_numpy(lengths).to(d),
+                torch.from_numpy(targets).to(d), {k: v.to(d) for k, v in noise.items()},
+                deterministic=True, teacher_forcing_ratio=1.0, predict_linear=False)
+        mels[d] = out['mel_outputs'].cpu()
+        secs[d] = time.perf_counter() - t0
+    err = (mels['cuda'] - mels['cpu']).abs().max().item()
+    span = (mels['cpu'].max() - mels['cpu'].min()).item()
+    phase(13, f'one GTA batch, card vs CPU (B={B}, T_in={T_in}, {targets.shape[1]} frames, '
+              f'the trained checkpoint, the same targets and prenet masks, TF32 off): mel '
+              f'max abs err {err:.3e} (tol {PIPE_GTA_TOL}, mels span {span:.3f}); '
+              f'{secs["cuda"]:.3f} s on the card, {secs["cpu"]:.3f} s on the CPU')
+    if not err <= PIPE_GTA_TOL:
+        fail('the card\'s GTA batch disagrees with the CPU\'s')
+    return dict(max_abs_err=err, span=span, card_s=secs['cuda'], cpu_s=secs['cpu'])
+
+
+def pipe_eval_vs_plain(call):
+    """Step 3: the pipeline's eval launch (gaussian-fused with params, B=1 over
+    hp.max_time_steps) on the inputs it had: a further launch repeats its audio and
+    params bit for bit; over its first PIPE_EVAL_BOUNDS[-1] steps, in state-carried
+    chunks, the kernel against the plain version teacher-forced on the kernel's audio
+    (params within PIPE_EVAL_TOL_PER_SPAN of their span, the carried state within
+    KERNEL_TOL, as phase 10 holds it); and PIPE_FAULTS planted in the weights over the
+    first PIPE_FAULT_STEPS steps, each of which the check must see. Returns the
+    readings."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    hp, weights, c_up, noise = call['hp'], call['weights'], call['c_up'], call['noise']
+    B, T = c_up.shape[:2]
+    if (B, T) != (1, hp.max_time_steps) or call['g_cond'] is not None \
+            or not call['kw'].get('return_params') or call['second'] is None:
+        fail(f'the pipeline\'s eval launch was B={B}, T={T}, {call["kw"]}')
+    (audio, params), ms = cuda_ms(lambda: wavenet_ar.generate_ar(weights, c_up, noise, hp))
+    if not (torch.equal(audio, call['audio']) and torch.equal(params, call['second'])):
+        fail('a launch on the pipeline\'s eval inputs does not repeat its audio and params')
+    steps = PIPE_EVAL_BOUNDS[-1]
+    r = state_carry(weights, c_up, noise, hp, PIPE_EVAL_BOUNDS, plant=False)
+    if not (torch.equal(r['audio'], audio[:, :steps])
+            and torch.equal(r['params'], params[:, :steps])):
+        fail('the check\'s chunked launch does not repeat the start of the pipeline\'s')
+    span = (r['ref_params'].max() - r['ref_params'].min()).item()
+    tol = PIPE_EVAL_TOL_PER_SPAN * span
+    faults = {}
+    for fault in PIPE_FAULTS:
+        name, plant = planted_faults(hp)[fault]
+        faults[fault] = params_err(
+            weights, c_up[:, :PIPE_FAULT_STEPS].contiguous(),
+            noise[:, :PIPE_FAULT_STEPS].contiguous(), hp,
+            plant=dict(weights={**weights, name: plant(weights[name])})).max().item()
+    what = f'{wavenet_ar.variant(hp)}, B=1, on the inputs of the pipeline\'s eval launch'
+    phase(13, f'{what} (all {T} steps repeat bit for bit at {1000 * ms / T:.1f} us/step), '
+              f'the first {steps} in chunks ending at {list(PIPE_EVAL_BOUNDS)}: bit-identical '
+              f'to one call: {r["bit_identical"]}; params max_abs_err={r["max_abs_err"]:.3e} '
+              f'(params span {span:.4f}, tol {PIPE_EVAL_TOL_PER_SPAN} of it = {tol:.3e}); '
+              f'state after chunk 1 {r["state_err"]:.3e} (tol {KERNEL_TOL}); planted faults '
+              f'over {PIPE_FAULT_STEPS} steps: '
+              + ', '.join(f'{f} {e:.3e}' for f, e in faults.items())
+              + f' (each must exceed {tol:.3e}); kernel {1000 * r["ms"] / steps:.1f} us/step '
+              f'chunked, plain {1000 * r["plain_ms"] / steps:.1f} us/step')
+    if not (r['bit_identical'] and r['audio_ok']):
+        fail(f'{what}: chunked kernel output differs from one call or leaves its range')
+    if not (r['max_abs_err'] <= tol and r['state_err'] <= KERNEL_TOL):
+        fail(f'{what}: the kernel differs from the plain version')
+    missed = [f for f, e in faults.items() if not e > tol]
+    if missed:
+        fail(f'{what}: the check passes planted faults: {missed}')
+    bound_ms, bound_by = ar_bound(hp, weights, B, T)
+    return dict(max_abs_err=r['max_abs_err'], state_err=r['state_err'], span=span, tol=tol,
+                steps=steps, full_steps=T, ms=ms, full_us_step=1000 * ms / T,
+                plain_ms=r['plain_ms'], plain_us_step=1000 * r['plain_ms'] / steps,
+                faults=faults, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def cli_run(base, argv, path=None):
+    """`python -m tacotron2_tpu_torch.synthesize <argv>` on the card in process, its
+    AR launches counted for `path`. Returns (what main returns, launches, seconds)."""
+    from tacotron2_tpu_torch import synthesize
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = synthesize.main(argv + ['--base_dir', base, '--device', 'cuda'])
+    torch.cuda.synchronize()
+    return out, read_counts(path), time.perf_counter() - t0
+
+
+def pipe_cli(base, hp):
+    """Step 4: the JAX command lines with run names only, on a run `cli` that holds the
+    pipeline's checkpoints, its Tacotron's stop tokens suppressed (random weights two
+    steps trained: the decode must run max_iters steps). Returns the readings."""
+    from tacotron2_tpu_torch.training.checkpointing import CheckpointManager
+    from tacotron2_tpu_torch.utils import suppress_stop_tokens
+
+    src = CheckpointManager(os.path.join(base, 'logs-pipe', 'taco_pretrained'))
+    state = src.restore()
+    state['model'] = suppress_stop_tokens(state['model'])
+    CheckpointManager(os.path.join(base, 'logs-cli', 'taco_pretrained')).save(state['step'], state)
+    wave = CheckpointManager(os.path.join(base, 'logs-pipe', 'wave_pretrained'))
+    CheckpointManager(os.path.join(base, 'logs-cli', 'wave_pretrained')).save(
+        wave.latest_step(), wave.restore())
+    texts = os.path.join(base, 'sentences.txt')
+    with open(texts, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(PIPE_SENTENCES) + '\n')
+    common = ['--name', 'cli', '--text_list', texts, '--hparams',
+              f'max_iters={PIPE_CLI_MAX_ITERS},tacotron_synthesis_batch_size=2']
+    eval_dir, taco_launches, taco_s = cli_run(
+        base, ['--model', 'Tacotron', '--mode', 'eval'] + common)
+    with open(os.path.join(eval_dir, 'map.txt'), encoding='utf-8') as f:
+        rows = [line.rstrip('\n').split('|') for line in f]
+    mels = [np.load(r[1]) for r in rows]
+    wav_dir = os.path.join(base, 'tacotron_output', 'logs-eval', 'wavs')
+    wavs = sorted(os.listdir(wav_dir))
+    frames = PIPE_CLI_MAX_ITERS * hp.outputs_per_step
+    lo, hi = -hp.max_abs_value, hp.max_abs_value
+    ok = ([r[0] for r in rows] == list(PIPE_SENTENCES)
+          and all(m.shape == (frames, hp.num_mels) and np.isfinite(m).all()
+                  and m.min() >= lo and m.max() <= hi for m in mels)
+          and wavs == sorted(f'wav-batch_0_sentence_{j}-{k}.wav' for j in range(2)
+                             for k in ('mel', 'linear'))
+          and all(_wav_ok(os.path.join(wav_dir, w)) for w in wavs))
+    vocoded, wave_launches, wave_s = cli_run(
+        base, ['--model', 'WaveNet', '--name', 'cli', '--mels_dir', 'tacotron_output/eval'],
+        PIPE_WAVENET_PATH)
+    hop = hp.get_hop_size()
+    ok_wave = ([len(w) for w in vocoded['wavs']] == [frames * hop] * 2
+               and all(np.isfinite(w).all() and np.abs(w).max() <= 1.0 for w in vocoded['wavs']))
+    e2e, e2e_launches, e2e_s = cli_run(
+        base, ['--model', 'Tacotron-2', '--output_dir', os.path.join(base, 'e2e')] + common,
+        PIPE_TACOTRON2_PATH)
+    ok_e2e = [len(w) for w in e2e['wavs']] == [frames * hop] * 2 \
+        and all(np.isfinite(w).all() for w in e2e['wavs'])
+    phase(13, f'synthesize --model Tacotron --mode eval --name cli ({len(rows)} sentences, '
+              f'max_iters={PIPE_CLI_MAX_ITERS}): {len(mels)} mels of {frames} frames, map.txt, '
+              f'{len(wavs)} Griffin-Lim wavs in {taco_s:.1f} s, AR launches {taco_launches}; '
+              f'--model WaveNet --mels_dir tacotron_output/eval: {len(vocoded["wavs"])} wavs '
+              f'in {wave_s:.1f} s, AR launches {wave_launches}; --model Tacotron-2: '
+              f'{len(e2e["wavs"])} wavs in {e2e_s:.1f} s, AR launches {e2e_launches}; '
+              f'outputs as expected: {ok}, {ok_wave}, {ok_e2e}')
+    if not (ok and ok_wave and ok_e2e):
+        fail('a run-name command line wrote the wrong outputs')
+    if (taco_launches, wave_launches, e2e_launches) != (0, 1, 1):
+        fail('the run-name command lines should launch the AR kernel 0, 1 and 1 times')
+    return dict(wavenet_launches=wave_launches, tacotron2_launches=e2e_launches,
+                seconds=taco_s + wave_s + e2e_s, taco_s=taco_s, wave_s=wave_s, e2e_s=e2e_s)
+
+
+def tacotron2_pipeline(t_start):
+    """Phase 13 (see the module docstring). Returns the readings."""
+    from tacotron2_tpu_torch import train
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    hp = default_hparams()
+    hp.parse(PIPE_OVERRIDES)
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='t2torch_pipe_') as base:
+        rows, pre_s = pipe_preprocess(base, hp)
+        calls = []
+        out, pipe_s = run_pipeline_cli(base, calls, PIPE_PATH)
+        launches = dict(wavenet_ar.LAUNCHES_BY_VARIANT)
+        state_file = os.path.join(base, 'logs-pipe', 'state_log')
+        gta_map = os.path.join(base, 'tacotron_output', 'gta', 'map.txt')
+        with open(state_file, encoding='utf-8') as f:
+            state = f.read()
+        with open(gta_map, encoding='utf-8') as f:
+            gta_rows = [line.rstrip('\n').split('|') for line in f]
+        lo, hi = -hp.max_abs_value, hp.max_abs_value
+        bad = []
+        for row, g in zip(rows, gta_rows):
+            mel = np.load(g[2])
+            if mel.shape != (int(row[4]), hp.num_mels) or not np.isfinite(mel).all() \
+                    or mel.min() < lo or mel.max() > hi:
+                bad.append(g[2])
+        gta_lines = re.findall(r'Synthesized batch \d+/\d+ in ([0-9.]+) sec', out)
+        gta_s = sum(float(x) for x in gta_lines)
+        phase(13, f'python -m tacotron2_tpu_torch.train --model Tacotron-2 (default hparams, '
+                  f'{PIPE_OVERRIDES}; 2 steps of each trainer, an eval at step 2) in '
+                  f'{pipe_s:.1f} s: state_log {state!r}; GTA map rows {len(gta_rows)} for '
+                  f'{len(rows)} train.txt rows, each mel of its target\'s frame count and in '
+                  f'[{lo}, {hi}]: {not bad}; GTA {gta_s:.1f} s for {len(gta_lines)} batches of '
+                  f'{hp.tacotron_synthesis_batch_size} ({gta_s / max(1, len(gta_rows)):.3f} s '
+                  f'an utterance); AR launches {launches}')
+        if state != f'1|1|1|{gta_map}' or len(gta_rows) != len(rows) or bad \
+                or [g[1] for g in gta_rows] != [os.path.join(base, 'training_data', 'mels', r[1])
+                                                for r in rows]:
+            fail(f'the pipeline\'s state_log or GTA map is wrong: {state!r}, {bad}')
+        if f'Loading training data from: {gta_map}' not in out \
+                or 'Eval (natural) loss' not in out or launches != {'gaussian-fused': 1}:
+            fail('the WaveNet phase did not train on the GTA map or launch one natural eval')
+        again, again_s = run_pipeline_cli(base)
+        phase(13, f'rerun in {again_s:.2f} s: '
+                  f'{"nothing to do" in again and "# Phase" not in again}')
+        if 'nothing to do' not in again or '# Phase' in again:
+            fail('a rerun of the finished pipeline did not return at once')
+        gta = pipe_gta_cpu_vs_card(base, hp, rows[0])
+        t_eval = time.perf_counter()
+        eval_launch = pipe_eval_vs_plain(calls[0])
+        eval_s = time.perf_counter() - t_eval
+        cli = pipe_cli(base, hp)
+    total = time.perf_counter() - t13
+    phase(13, f'steps, wall seconds: preprocessing {pre_s:.1f}, the pipeline {pipe_s:.1f} (GTA '
+              f'{gta_s:.1f}), its rerun {again_s:.2f}, the eval launch vs plain {eval_s:.1f}, the '
+              f'run-name command lines {cli["seconds"]:.1f}; phase 13 took {total:.1f} s; the '
+              f'whole run {time.perf_counter() - t_start:.1f} s')
+    return dict(launches=launches['gaussian-fused'], eval_launch=eval_launch, gta=gta, cli=cli,
+                seconds=total, pipe_s=pipe_s, gta_s_per_utterance=gta_s / len(gta_rows),
+                pre_s=pre_s)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3155,6 +3526,8 @@ def main():
     tacotron_training()
     phase(12, f'phase 12 took {time.perf_counter() - t12:.1f} s; the whole run '
               f'{time.perf_counter() - t_start:.1f} s')
+    pipeline = tacotron2_pipeline(t_start)
+    pipe_eval, pipe_cli_runs = pipeline['eval_launch'], pipeline['cli']
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']
     big_runs, sampled = head['runs'], head['sampled']
@@ -3178,7 +3551,9 @@ def main():
     # the entry point launches over the first 2,200 of its 8,800; the bounds are those of
     # the two entry-point launches).
     # the train_eval_ keys are the default trainer's eval launch against the plain
-    # version on its own inputs (phase 10).
+    # version on its own inputs (phase 10), the pipeline_eval_ keys the Tacotron-2
+    # pipeline's (phase 13: its WaveNet trained on GTA mels; its bound that of the whole
+    # launch); the pipeline's run-name command lines launch it too (phase 13).
     # No single PyTorch call computes the AR loop: library_ms is null. The second entry
     # is the big-vocab head with the NLL flag (the instantiation the Q = 65,536 trainer's
     # eval launches): max_abs_err is its NLL's against the plain version (it returns no
@@ -3196,9 +3571,14 @@ def main():
                   'gaussian-fused+g'],
         launches=launches_batch + launches_serve + paper['batch_launches']
         + paper['serve_launches'] + vocoder['speakers_launches']
-        + vocoder['categorical_launches'] + training['default']['launches'],
+        + vocoder['categorical_launches'] + training['default']['launches']
+        + pipeline['launches'] + pipe_cli_runs['wavenet_launches']
+        + pipe_cli_runs['tacotron2_launches'],
         launches_by_path={'synthesize': launches_batch, 'serve': launches_serve,
                           TRAIN_PATH: training['default']['launches'],
+                          PIPE_PATH: pipeline['launches'],
+                          PIPE_WAVENET_PATH: pipe_cli_runs['wavenet_launches'],
+                          PIPE_TACOTRON2_PATH: pipe_cli_runs['tacotron2_launches'],
                           'synthesize --paper_profile': paper['batch_launches'],
                           'serve --paper_profile': paper['serve_launches'],
                           VOCODER_SPEAKERS_PATH: vocoder['speakers_launches'],
@@ -3208,14 +3588,15 @@ def main():
                           'mol_state_carry_check': paper['carry_launches']},
         max_abs_err=max(kernel['max_abs_err'], wide['max_abs_err'],
                         streamed['max_abs_err'],
-                        training['default']['eval_launch']['max_abs_err']),
+                        training['default']['eval_launch']['max_abs_err'],
+                        pipe_eval['max_abs_err']),
         ms=kernel['ms'], plain_ms=kernel['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, steps=kernel['steps'], full_ms=kernel['full_ms'],
         full_steps=frames * hp.get_hop_size(),
         cluster=path_clusters(*AR_PATHS), mol_cluster=path_clusters(*PAPER_PATHS),
         occupancy=clusters['occupancy'],
-        launches_by_cluster={p: cluster_counts(p) for p in AR_PATHS + PAPER_PATHS},
-        launches_by_layout={p: layout_counts(p) for p in AR_PATHS + PAPER_PATHS},
+        launches_by_cluster={p: cluster_counts(p) for p in AR_PATHS + PAPER_PATHS + PIPE_PATHS},
+        launches_by_layout={p: layout_counts(p) for p in AR_PATHS + PAPER_PATHS + PIPE_PATHS},
         pair_check=pairs,
         cluster_check_max_abs_err=clusters['max_abs_err'],
         cluster_check_us_step=clusters['us_step_by_cluster'],
@@ -3242,7 +3623,10 @@ def main():
         train_peak_gib=training['default']['peak_gib'],
         train_eval_samples_s=training['default']['eval_samples_s'],
         train_rerun_loss_drift=training['default']['rerun_drift'],
-        **{f'train_eval_{k}': v for k, v in training['default']['eval_launch'].items()}),
+        **{f'train_eval_{k}': v for k, v in training['default']['eval_launch'].items()},
+        **{f'pipeline_eval_{k}': v for k, v in pipe_eval.items()},
+        pipeline_gta_cpu_vs_card=pipeline['gta'],
+        pipeline_gta_s_per_utterance=pipeline['gta_s_per_utterance']),
         dict(
         name='wavenet_ar[categorical_big-fused+nll]', route='cuda', source=source,
         replaces=replaces, launches=training['big']['launches'],

@@ -5,7 +5,8 @@ inputs (B, T_in) -> embedding -> encoder convs -> BiZoneoutLSTM -> memory mask a
 attention keys -> decoder -> clip -> postnet + projection -> clip (-> CBHG -> linear
 projection -> clip, with predict_linear).
 
-`forward` is synthesis: the free-running decoder, no gradient, no linear outputs.
+`forward` is synthesis: the free-running decoder, no gradient, linear outputs only on
+request (the eval and live modes of a model with the CBHG).
 `teacher_forced` is the branch of training, evaluation and GTA (`model.py:176-254,
 301-337`): the decoder reads the target frames with the step's coins, and every
 random draw (dropout and zoneout keep-masks, prenet masks, coins) comes in through
@@ -121,11 +122,20 @@ class Tacotron(nn.Module):
             mel_outputs = _clip_outputs(mel_outputs, hp)
         return decoder_output, mel_outputs
 
+    def _linear(self, mel_outputs: Tensor, train: bool = False) -> Tensor:
+        """(B, T, num_freq) linear spectrogram of the CBHG post-net over the mels."""
+        linear_outputs = self.cbhg_linear_specs_projection(
+            self.cbhg_postnet(mel_outputs, None, train))
+        if self.hp.clip_outputs:
+            linear_outputs = _clip_outputs(linear_outputs, self.hp)
+        return linear_outputs
+
     @torch.no_grad()
     def forward(self, inputs: Tensor, input_lengths: Tensor,
                 max_iters: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                masks: Optional[Tuple[Tensor, Tensor]] = None) -> Dict[str, Tensor]:
+                masks: Optional[Tuple[Tensor, Tensor]] = None,
+                predict_linear: bool = False) -> Dict[str, Tensor]:
         """Free-running synthesis.
 
         Args:
@@ -134,8 +144,10 @@ class Tacotron(nn.Module):
             max_iters: decoder steps (default hp.max_iters).
             generator: draws the prenet dropout masks.
             masks: optional explicit prenet masks, see fused_decoder.synthesis_scan.
+            predict_linear: also run the CBHG post-net (the model must hold it).
         Returns: dict with decoder_output and mel_outputs (B, T*r, num_mels),
-            stop_token_prediction (B, T*r), alignments (B, T_in, T), stop_finished (B,).
+            stop_token_prediction (B, T*r), alignments (B, T_in, T), stop_finished (B,),
+            and linear_outputs (B, T*r, num_freq) with predict_linear.
         """
         hp = self.hp
         B = inputs.shape[0]
@@ -151,9 +163,12 @@ class Tacotron(nn.Module):
             hp.tacotron_dropout_rate, generator, constraint, masks)
         T_steps = frames.shape[0]
         decoder_output, mel_outputs = self._postnet(frames)
-        return dict(decoder_output=decoder_output, mel_outputs=mel_outputs,
-                    stop_token_prediction=stop_logits.transpose(0, 1).reshape(B, T_steps * r),
-                    alignments=alignments.permute(1, 2, 0), stop_finished=finished)
+        out = dict(decoder_output=decoder_output, mel_outputs=mel_outputs,
+                   stop_token_prediction=stop_logits.transpose(0, 1).reshape(B, T_steps * r),
+                   alignments=alignments.permute(1, 2, 0), stop_finished=finished)
+        if predict_linear:
+            out['linear_outputs'] = self._linear(mel_outputs)
+        return out
 
     def draw_noise(self, B: int, T_in: int, T_mel: int, generator: torch.Generator,
                    deterministic: bool, device) -> Dict:
@@ -240,9 +255,5 @@ class Tacotron(nn.Module):
                    stop_token_prediction=stop_logits.transpose(0, 1).reshape(B, T_steps * r),
                    alignments=alignments.permute(1, 2, 0), stop_finished=hit.any(dim=0))
         if predict_linear:
-            post = self.cbhg_postnet(mel_outputs, None, train)
-            linear_outputs = self.cbhg_linear_specs_projection(post)
-            if hp.clip_outputs:
-                linear_outputs = _clip_outputs(linear_outputs, hp)
-            out['linear_outputs'] = linear_outputs
+            out['linear_outputs'] = self._linear(mel_outputs, train)
         return out

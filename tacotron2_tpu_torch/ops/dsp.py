@@ -3,12 +3,15 @@ centered STFT, its inverse with the window-sum normalization, and the mel and li
 inversions the Tacotron trainer's eval wavs use when hp.GL_on_GPU. torch ops on the
 spectrogram's device; the windows and filterbanks are `stft_common`'s. Like the JAX
 functions these do not invert the preemphasis: the host does (`audio.inv_preemphasis`).
-The numpy path of `audio.py` serves GL_on_GPU=False."""
+The numpy path of `audio.py` serves GL_on_GPU=False; `gl_invert` picks one of the two by
+hp.GL_on_GPU and inverts the preemphasis."""
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from . import audio
 from . import stft_common as sc
 
 
@@ -82,3 +85,14 @@ def inv_mel_spectrogram(mel: Tensor, hp) -> Tensor:
 def inv_linear_spectrogram(spec: Tensor, hp) -> Tensor:
     """linear (num_freq, frames) -> waveform (`inv_linear_spectrogram_jax`)."""
     return griffin_lim(_amplitude(spec.float(), hp) ** hp.power, hp)
+
+
+def gl_invert(spec: Tensor, hp, linear: bool = False) -> np.ndarray:
+    """(frames, bins) mel or linear spectrogram -> wav: Griffin-Lim on the tensor's
+    device with hp.GL_on_GPU, else on the host in numpy."""
+    if hp.GL_on_GPU:
+        invert = inv_linear_spectrogram if linear else inv_mel_spectrogram
+        wav = invert(spec.T.contiguous(), hp).cpu().numpy()
+        return audio.inv_preemphasis(wav, hp.preemphasis, hp.preemphasize)
+    invert = audio.inv_linear_spectrogram if linear else audio.inv_mel_spectrogram
+    return invert(spec.float().cpu().numpy().T, hp)

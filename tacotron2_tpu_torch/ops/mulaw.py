@@ -1,19 +1,28 @@
 """Mu-law companding and quantization on numpy arrays and torch tensors alike
 (counterpart of `tacotron2_tpu/ops/mulaw.py:22-63`), and the input-type predicates.
+
+The module imports no torch: a tensor exists only once its caller has imported torch,
+and the preprocessing workers (`data/preprocessor.py`), which use the numpy forms, never
+do.
 """
 
 import math
+import sys
 from typing import Union
 
 import numpy as np
-import torch
 
-Array = Union[np.ndarray, torch.Tensor, float]
+Array = Union[np.ndarray, 'torch.Tensor', float]
+
+
+def _torch_of(x):
+    """torch where x is a tensor, else None (numpy arrays and python scalars)."""
+    torch = sys.modules.get('torch')
+    return torch if torch is not None and isinstance(x, torch.Tensor) else None
 
 
 def _xp(x):
-    # tensors use torch; numpy arrays and python scalars use numpy
-    return torch if isinstance(x, torch.Tensor) else np
+    return _torch_of(x) or np
 
 
 def mulaw(x: Array, mu: int = 256) -> Array:
@@ -30,11 +39,13 @@ def inv_mulaw(y: Array, mu: int = 256) -> Array:
 def mulaw_quantize(x: Array, mu: int = 256) -> Array:
     """Mu-law companding + quantize: [-1, 1] -> [0, mu] (int32, truncated)."""
     y = (mulaw(x, mu) + 1) / 2 * mu
-    return y.to(torch.int32) if isinstance(y, torch.Tensor) else np.asarray(y).astype(np.int32)
+    torch = _torch_of(y)
+    return y.to(torch.int32) if torch is not None else np.asarray(y).astype(np.int32)
 
 
 def inv_mulaw_quantize(y: Array, mu: int = 256) -> Array:
-    if isinstance(y, torch.Tensor):
+    torch = _torch_of(y)
+    if torch is not None:
         yf = 2.0 * y.to(torch.float32) / mu - 1.0
     else:
         yf = 2.0 * np.asarray(y, dtype=np.float32) / mu - 1.0

@@ -1,5 +1,10 @@
-"""Training with the port: the counterpart of `train.py --model=Tacotron` and
-`--model=WaveNet`.
+"""Training with the port: the counterpart of `train.py`: `--model Tacotron`,
+`--model WaveNet` and the 3-phase `--model Tacotron-2` pipeline (the default).
+
+    python -m tacotron2_tpu_torch.train [--model Tacotron-2] --base_dir . --name run1 \
+        [--tacotron_input training_data/train.txt] [--input_dir training_data] \
+        [--output_dir output] [--GTA True] [--tacotron_train_steps 100000] \
+        [--wavenet_train_steps 500000] [--hparams 'k=v,...'] [--device cuda]
 
     python -m tacotron2_tpu_torch.train --model Tacotron \
         --tacotron_input training_data/train.txt --base_dir . --name run1 \
@@ -29,9 +34,18 @@ rerun with --restore True continues from the latest), `wave_pretrained_eval_hist
 (one record an eval: teacher-forced loss, and from the autoregressive eval on the EMA
 weights samples/s, the natural loss with wavenet_natural_eval=True, the conditioning
 correlation), `wavs/` and `eval-dir/wavs/` (pred / real wavs), `Terminal_train_log`.
+Tacotron-2 runs three phases in order into `<base_dir>/logs-<name>/`: Tacotron training
+on --tacotron_input, GTA synthesis (`synthesize --model Tacotron --mode synthesis`) of
+`<input_dir>/train.txt` into `<base_dir>/tacotron_<output_dir>/gta/` with its map.txt
+(natural mels with --GTA False), then WaveNet training on that map. Progress lives in
+`logs-<name>/state_log`, byte-compatible with `train.py`'s (`<t>|<g>|<w>|<map_path>`,
+three 0/1 flags and the GTA map's path, no newline), so a rerun resumes at the first
+unfinished phase, whichever package wrote it; with all three done it returns.
+--profile_step, --slack_url and --tf_log_level are accepted for `train.py`'s command
+line and ignored.
+
 The device defaults to cuda, where the WaveNet natural eval's AR loop runs in the
-hand-written kernel; without a CUDA device pass --device cpu. The combined Tacotron-2
-pipeline (Tacotron, GTA synthesis, WaveNet) is not ported yet.
+hand-written kernel; without a CUDA device pass --device cpu.
 """
 
 import argparse
@@ -42,6 +56,23 @@ import torch
 
 from . import infolog
 from .config import default_hparams, paper_hparams
+from .infolog import log
+
+
+def write_state(path: str, done_flags, gta_map_path: str) -> None:
+    """Persist pipeline progress: '<t>|<g>|<w>|<map_path>' (train.py:25-30)."""
+    fields = [str(int(bool(f))) for f in done_flags]
+    with open(path, 'w') as f:
+        f.write('|'.join(fields + [gta_map_path]))
+
+
+def read_state(path: str):
+    """Load pipeline progress written by write_state; fresh state if absent."""
+    if not os.path.isfile(path):
+        return [False, False, False], ''
+    with open(path, 'r') as f:
+        fields = f.read().split('|')
+    return [bool(int(x)) for x in fields[:-1]], fields[-1]
 
 
 def str2bool(v) -> bool:
@@ -53,6 +84,54 @@ def str2bool(v) -> bool:
     if v.lower() in ('false', '0', 'no', 'n'):
         return False
     raise argparse.ArgumentTypeError(f'expected a boolean, got {v!r}')
+
+
+def _banner(title: str) -> None:
+    rule = '#' * 64
+    log('\n{}\n# {}\n{}\n'.format(rule, title, rule))
+
+
+def run_pipeline(args, log_dir: str, hparams, device) -> str:
+    """The resumable 3-phase Tacotron-2 pipeline (train.py:69-113). Returns the path of
+    the state_log."""
+    from .inference.tacotron_synthesizer import tacotron_synthesize
+    from .training import tacotron_train, wavenet_train
+
+    state_file = os.path.join(log_dir, 'state_log')
+    done, gta_map = read_state(state_file)
+
+    if all(done):
+        log('Pipeline state shows all three phases finished; nothing to do. '
+            'Delete {} to retrain.'.format(state_file))
+        return state_file
+
+    if not done[0]:
+        _banner('Phase 1/3: Tacotron training')
+        checkpoint = tacotron_train.train(log_dir, args, hparams, device)
+        done[0] = True
+        write_state(state_file, done, gta_map)
+    else:
+        checkpoint = os.path.join(log_dir, 'taco_pretrained')
+
+    if not done[1]:
+        _banner('Phase 2/3: ground-truth-aligned synthesis')
+        args.mode = 'synthesis'
+        gta_map = tacotron_synthesize(args, hparams, checkpoint, device=device)
+        done[1] = True
+        write_state(state_file, done, gta_map)
+
+    if not gta_map:
+        raise RuntimeError('No GTA map path recorded after phase 2; cannot start '
+                           'WaveNet training. state_log may be corrupt: ' + state_file)
+
+    if not done[2]:
+        _banner('Phase 3/3: WaveNet training')
+        wavenet_train.train(log_dir, args, hparams, gta_map, device)
+        done[2] = True
+        write_state(state_file, done, gta_map)
+
+    log('Pipeline complete: all three phases finished.')
+    return state_file
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
@@ -68,6 +147,16 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     parser.add_argument('--name', help='Name of logging directory.')
     parser.add_argument('--model', default='Tacotron-2',
                         choices=('Tacotron', 'WaveNet', 'Tacotron-2'))
+    parser.add_argument('--input_dir', default='training_data',
+                        help='folder to contain inputs sentences/targets (the GTA '
+                             'synthesis of the Tacotron-2 pipeline reads its train.txt)')
+    parser.add_argument('--output_dir', default='output',
+                        help='folder to contain synthesized mel spectrograms')
+    parser.add_argument('--mode', default='synthesis',
+                        help='mode for synthesis of tacotron after training')
+    parser.add_argument('--GTA', default='True',
+                        help='Ground truth aligned synthesis, defaults to True, only '
+                             'considered in Tacotron synthesis mode')
     parser.add_argument('--restore', type=str2bool, default=True,
                         help='Set this to False to do a fresh training')
     parser.add_argument('--summary_interval', type=int, default=250,
@@ -83,14 +172,17 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                         help='total number of tacotron training steps')
     parser.add_argument('--wavenet_train_steps', type=int, default=500000,
                         help='total number of wavenet training steps')
+    parser.add_argument('--tf_log_level', type=int, default=1,
+                        help='accepted for train.py\'s command line; ignored')
+    parser.add_argument('--slack_url', default=None,
+                        help='accepted for train.py\'s command line; ignored (the port '
+                             'sends no notification)')
+    parser.add_argument('--profile_step', type=int, default=0,
+                        help='accepted for train.py\'s command line; ignored (the port '
+                             'captures no profiler trace)')
     parser.add_argument('--device', default='cuda', help='torch device (default cuda)')
     args = parser.parse_args(argv)
 
-    if args.model == 'Tacotron-2':
-        raise NotImplementedError(
-            '--model Tacotron-2: the GTA synthesis between the two trainers and the '
-            '3-phase pipeline are not ported yet (ROADMAP.md, open items A6 and A11); '
-            'train each model with --model Tacotron and --model WaveNet')
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda, but torch finds no CUDA device '
@@ -105,8 +197,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if args.model == 'Tacotron':
         from .training.tacotron_train import train as tacotron_train
         return tacotron_train(log_dir, args, hp, device)
-    from .training.wavenet_train import train
-    return train(log_dir, args, hp, args.wavenet_input, device)
+    if args.model == 'WaveNet':
+        from .training.wavenet_train import train
+        return train(log_dir, args, hp, args.wavenet_input, device)
+    return run_pipeline(args, log_dir, hp, device)
 
 
 if __name__ == '__main__':

@@ -51,17 +51,6 @@ def add_embedding_tsv(log_dir: str) -> str:
     return path
 
 
-def gl_invert(spec: torch.Tensor, hp: Hparams, linear: bool = False) -> np.ndarray:
-    """(frames, bins) mel or linear spectrogram -> wav: Griffin-Lim on the tensor's
-    device with hp.GL_on_GPU, else on the host in numpy."""
-    if hp.GL_on_GPU:
-        invert = dsp.inv_linear_spectrogram if linear else dsp.inv_mel_spectrogram
-        wav = invert(spec.T.contiguous(), hp).cpu().numpy()
-        return audio.inv_preemphasis(wav, hp.preemphasis, hp.preemphasize)
-    invert = audio.inv_linear_spectrogram if linear else audio.inv_mel_spectrogram
-    return invert(spec.float().cpu().numpy().T, hp)
-
-
 def run_eval(state, test_batches, hp: Hparams, step: int, eval_wav_dir: str,
              generator: torch.Generator) -> Dict[str, float]:
     """The eval losses averaged over the test batches, and the wavs of sample 0 of the
@@ -76,11 +65,11 @@ def run_eval(state, test_batches, hp: Hparams, step: int, eval_wav_dir: str,
     avgs = {k: v / len(test_batches) for k, v in sums.items()}
     log('Eval losses: ' + ', '.join(f'{k}={v:.5f}' for k, v in avgs.items()))
     mel_len = int(tb['targets_lengths'][0])
-    audio.save_wav(gl_invert(m['mel_outputs'][0][:mel_len], hp),
+    audio.save_wav(dsp.gl_invert(m['mel_outputs'][0][:mel_len], hp),
                    os.path.join(eval_wav_dir, f'step-{step}-eval-wave-from-mel.wav'),
                    sr=hp.sample_rate)
     if 'linear_outputs' in m:
-        audio.save_wav(gl_invert(m['linear_outputs'][0][:mel_len], hp, linear=True),
+        audio.save_wav(dsp.gl_invert(m['linear_outputs'][0][:mel_len], hp, linear=True),
                        os.path.join(eval_wav_dir, f'step-{step}-eval-wave-from-linear.wav'),
                        sr=hp.sample_rate)
     return avgs
@@ -98,7 +87,7 @@ def save_checkpoint_artifacts(state, ckpt: CheckpointManager, batch, hp: Hparams
     mel_pred = m['mel_outputs'][0][:mel_len]
     np.save(os.path.join(mel_dir, f'mel-prediction-step-{step}.npy'),
             mel_pred.cpu().numpy(), allow_pickle=False)
-    audio.save_wav(gl_invert(mel_pred, hp),
+    audio.save_wav(dsp.gl_invert(mel_pred, hp),
                    os.path.join(wav_dir, f'step-{step}-wave-from-mel.wav'), sr=hp.sample_rate)
     log('Input at step {}: {}'.format(step, sequence_to_text(batch['inputs'][0].tolist())))
 

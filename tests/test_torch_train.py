@@ -823,13 +823,13 @@ def test_fresh_start_drops_every_earlier_eval_record(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    """The combined pipeline raises, naming the roadmap items (A6, the GTA bridge, and
-    A11, the 3-phase machine); without a card and without --device cpu each trainer
-    raises instead of falling back."""
-    with pytest.raises(NotImplementedError, match='A6 and A11'):
-        train.main(['--model', 'Tacotron-2', '--device', 'cpu'])
+    """An unknown --model is refused by the parser; without a card and without --device
+    cpu every model raises instead of falling back: each trainer and the 3-phase
+    Tacotron-2 pipeline (ported: tests/test_torch_tacotron2_pipeline.py)."""
+    with pytest.raises(SystemExit):
+        train.main(['--model', 'Tacotron3', '--device', 'cpu', '--base_dir', str(tmp_path)])
     if not torch.cuda.is_available():
-        for model in ('WaveNet', 'Tacotron'):
+        for model in ('WaveNet', 'Tacotron', 'Tacotron-2'):
             with pytest.raises(RuntimeError, match='no CUDA device'):
                 train.main(['--model', model, '--base_dir', str(tmp_path)])
 

@@ -714,7 +714,7 @@ def test_wavenet_cli_on_cpu(tmp_path, monkeypatch, vocoder_checkpoint, config):
         assert np.array_equal(other['wavs'][1], stats['wavs'][1])
         with pytest.raises(ValueError, match='speaker_id'):
             synthesize.main(argv + ['--speaker_id', '1', '--device', 'cpu'])
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match='stream mode needs both stages'):
         synthesize.main(argv + ['--mode', 'stream', '--device', 'cpu'])
     with pytest.raises(SystemExit):  # the default model needs a Tacotron checkpoint
         synthesize.main(['--wavenet_checkpoint', vocoder_checkpoint[config], '--device', 'cpu'])
