@@ -14,7 +14,7 @@ Phases (one line each; any failure exits nonzero):
      KERNEL_TOL; at B=8 over 10 mel frames, at the batch path's shape (B=2, 128
      frames, 35,200 steps, through the real conditioning preparation and upsampler;
      here the plain version, at 6 to 10 ms a step, follows the kernel over the first
-     PLAIN_STEPS steps only, in the state-carried chunks of one served request,
+     PLAIN_STEPS (5,500) steps only, in the state-carried chunks of one served request,
      SERVE_BOUNDS, and a second kernel launch over those steps, bit-identical to the
      start of the first, is the one timed beside it), and at B=20 over 10 frames (the
      default WaveNet batch, whose conditioning row stays f32); before that, five
@@ -61,8 +61,9 @@ Phases (one line each; any failure exits nonzero):
      few samples clip: four planted MoL faults, each of which must miss (params beyond
      MOL_KERNEL_TOL or samples beyond SAMPLE_TOL of the MoL draw from the kernel's own
      params); the kernel against the plain version as in phase 3 at the paper batch
-     path's shape (B=2, 8,800 steps; the plain version over all of them, in the paper
-     service's chunks, PAPER_SERVE_BOUNDS), its samples against the
+     path's shape (B=2, 8,800 steps; the plain version over the first
+     PAPER_PLAIN_STEPS, 5,500, in the paper service's chunks, PAPER_SERVE_BOUNDS, a second
+     launch over those steps bit-identical to the first's start), its samples against the
      draw from its own params, at most MAX_CLIPPED of them at +-1, with the mixtures
      chosen differently counted; the
      state carry as in phase 6 at the paper service's shape (B=1 over row 0 of that
@@ -97,7 +98,7 @@ Phases (one line each; any failure exits nonzero):
      and launches checked. The conditioning, noise and g_cond that each of these two
      launches was given (B=2, 8,800 steps) then go to the kernel once more, whose audio
      must be the entry point's, bit for bit, over all 8,800 steps, and through the same
-     check as above over the first 2,200 of them, in chunks ending at
+     check as above over the first 1,100 of them, in chunks ending at
      VOCODER_CLI_BOUNDS: bit-identical again, and the params within KERNEL_TOL of the
      plain version's.
  10. WaveNet training (`python -m tacotron2_tpu_torch.train --model WaveNet`) and the AR
@@ -135,7 +136,9 @@ Phases (one line each; any failure exits nonzero):
      bit for bit over all its steps (B=1 over 11,000 at the defaults, over 2,750 at
      Q = 65,536), and the plain version follows in state-carried chunks at odd ends,
      the Gaussian one over the first TRAIN_EVAL_BOUNDS[-1] steps, the big-vocab one
-     over all of them.
+     over all of them. The trainers step in bf16, the card's default compute dtype
+     (`training/common.resolve_compute_dtype`), the in-process step 7 as well; their
+     eval launches run in f32.
  11. the probes, the counterparts of the JAX package's four measurement scripts
      (tacotron2_tpu_torch/probes/, kernels in csrc/probes/, built in phase 2 into a
      library of their own with one planted-fault copy each, PROBE_MUTANTS), each
@@ -157,11 +160,13 @@ Phases (one line each; any failure exits nonzero):
      corpus of TACO_UTTERANCES utterances of 1-2 s made from a seed (mels and linear
      spectrograms of gliding tones by the port's ops/audio, texts from sentences.txt);
      6 steps with an eval at 4 (its Griffin-Lim wavs from mel and linear, on the
-     device, finite) and a checkpoint at 6, a rerun that restores and goes on to 8,
-     whose step-7 loss must be an in-process train_step's from the step-6 checkpoint; the
+     device, finite) and a checkpoint at 6, all in bf16 (the card's default compute
+     dtype), a rerun that restores and goes on to 8, whose step-7 loss must be an
+     in-process train_step's (bf16 too) from the step-6 checkpoint; the
      log's step times (each from the start of a step to the start of the next, or to the
-     read of its loss) must add up to no more than the run's wall; five more steps on
-     the corpus, each between two synchronizes; one train step on the card against the
+     read of its loss) must add up to no more than the run's wall; then, with the
+     compute dtype pinned to f32: five more steps on the corpus, each between two
+     synchronizes; one train step on the card against the
      same step on the CPU at full width and TACO_CPU_BATCH rows (the same state, batch,
      masks and coins; TACO_STEP_TOL, TACO_GRAD_TOL, TACO_PARAM_TOL, TACO_SMALL_GRAD);
      and steps at B=32 x TIMED_FRAMES frames: three between synchronizes (sec/step), peak
@@ -180,13 +185,35 @@ Phases (one line each; any failure exits nonzero):
      test split and the natural eval alone): state_log `1|1|1|<map>`, a GTA mel for every
      train.txt row of its target's frame count inside the output range, the WaveNet
      trained on the GTA map with one natural eval; a rerun that returns at once; one GTA
-     batch on the card against the CPU (PIPE_GTA_TOL); the eval launch, recorded by
+     batch on the card against the CPU in f32 (PIPE_GTA_TOL); the eval launch, recorded by
      ar_timer, against the plain version on its own inputs over PIPE_EVAL_BOUNDS with
      PIPE_FAULTS planted (PIPE_EVAL_TOL_PER_SPAN); then the JAX command lines with run
      names only (`synthesize --model Tacotron --mode eval`, `--model WaveNet --mels_dir
      tacotron_output/eval`, `--model Tacotron-2`) at max_iters=PIPE_CLI_MAX_ITERS, stop
      tokens suppressed, their AR launches counted by path. Each step's wall seconds,
-     the phase's and the whole run's.
+     the phase's and the whole run's. Both trainers step in bf16.
+ 14. The JAX package's remaining configurations. bf16 training: one Tacotron
+     train step at B=32 x TIMED_FRAMES and one WaveNet step at BF16_WAVENET_BATCH (8 x
+     11,000), each in bf16 and in f32 on the card from the same seeded state, batch and
+     draws (losses BF16_LOSS_TOL, gradients BF16_GRAD_TOL, all finite); a Tacotron bf16
+     step whose decoder weights, cast once a scan, sum their gradient in bf16
+     (precast_fault) must miss BF16_GRAD_TOL; each step again on a batch cut for the
+     CPU (BF16_TACO_CUT, BF16_WAVENET_CUT): each module of BF16_MODULES in the card's
+     bf16 step run again on the CPU in bf16 on the inputs it had, within
+     BF16_MODULE_TOL of the card's output, printed beside the module's bf16-f32 gap, and
+     a copy of the step with one module left in f32 (BF16_FAULTS) must miss that bound;
+     the whole cut step on both devices is printed, not bound; the Tacotron's bf16
+     sec/step and peak memory (phase 12 reads the f32 ones), the WaveNet's in both
+     dtypes. The upsamplers: `synthesize --model WaveNet` on seeded mels with each of
+     UPSAMPLERS (NearestNeighbor, 1D, Resize, 2D with LeakyRelu); the UPSAMPLER_FULL
+     run's launch held to the plain version on its own inputs over its first
+     UPSAMPLER_BOUNDS[-1] steps in state-carried chunks with the two planted state
+     faults, the others' over UPSAMPLER_SHORT_BOUNDS[-1] steps in chunks (KERNEL_TOL);
+     each upsampler's output on the card to its CPU output (UPSAMPLER_TOL). Depth 3
+     (DEPTH3): one GTA batch card vs CPU (PIPE_GTA_TOL), one f32 train step card vs CPU
+     at phase 12's tolerances, and one step at DEPTH3_REMAT with and without
+     remat_decoder: the gradients within REMAT_TOL, beside the same step run twice;
+     peak memory of each. The seconds of each part.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -230,12 +257,15 @@ SERVE_CHUNKS = [4352, 16512, 14336]  # streaming.py:115-117's rounding of 0.20 s
 # t_base are multiples of 128, so a dropped one shows only in the 512- and 1,024-slot
 # rings at 4,352 (and in the 256-slot rings too at 20,864)
 SERVE_BOUNDS = tuple(int(b) for b in np.cumsum(SERVE_CHUNKS))
-# how far the plain version follows phase 3's B=2 launch of 35,200 steps (32 of its 128
-# mel frames: the first served chunk and 4,448 steps of the second, which wrap the
-# largest ring, 1,024 slots, four times from the carried state): its 5 to 19 ms a step
-# are host time, which doubles from one machine to another, and the whole length would
-# take 3 to 11 minutes of the run. Phase 8's follows its launch's whole 8,800 steps
-PLAIN_STEPS = 8800
+# how far the plain version follows phase 3's B=2 launch of 35,200 steps (20 of its 128
+# mel frames: the first served chunk and 1,148 steps of the second, which wrap the
+# largest ring, 1,024 slots, from the carried state): its 5 to 19 ms a step are host
+# time, which doubles from one machine to another, and the whole length would take 3
+# to 11 minutes of the run. Phase 8's follows the first PAPER_PLAIN_STEPS of its
+# launch's 8,800. Both were once 8,800, then 6,600: phase 14 needed the time, and the
+# whole run read 1,068-1,115 s of its 1,200 on an H100 80GB HBM3 at 700 W at 6,600
+PLAIN_STEPS = 5500
+PAPER_PLAIN_STEPS = 5500
 FAULT_STEPS = 256  # steps of chunk 2 run from each planted state fault
 # the paper profile (phase 8)
 PAPER_MAX_ITERS = 32  # the paper entry points: 8,800 samples a sentence
@@ -264,7 +294,8 @@ SAMPLE_TOL = 1e-5  # kernel samples against the head's draw from the kernel's ow
 VOCODER_FRAMES = 32
 VOCODER_BOUNDS = PAPER_STATE_BOUNDS  # odd chunk ends: t_base mod win nonzero in every ring
 # how far the plain version follows each of the entry point's launches of 8,800 steps
-VOCODER_CLI_BOUNDS = VOCODER_BOUNDS[:2] + (VOCODER_FRAMES * 275 // 4,)
+# (2,200 until the whole run's length left too little margin of its 1,200 s)
+VOCODER_CLI_BOUNDS = VOCODER_BOUNDS
 CATEGORICAL = "input_type='mulaw-quantize',quantize_channels=256,out_channels=256"
 SPEAKERS = 'gin_channels=16,n_speakers=5'
 VOCODER_SPEAKERS_PATH = 'synthesize --model WaveNet --speaker_id'
@@ -1167,7 +1198,7 @@ def mol_vs_plain(weights, model, hp, gen):
     nr = hp.out_channels // 3
     frames = PAPER_MAX_ITERS * hp.outputs_per_step
     mol = kernel_vs_plain(weights, model, hp, MAIN_BATCH, frames, gen, PAPER_SERVE_BOUNDS,
-                          n=8, tol=MOL_KERNEL_TOL)
+                          n=8, tol=MOL_KERNEL_TOL, plain_steps=PAPER_PLAIN_STEPS)
     audio, params, noise = mol['audio'], mol['params'], mol['noise']
     draw_err = (audio - wavenet_ar.mol_sample(params, noise, hp)).abs().max().item()
     steps = mol['steps']
@@ -1587,7 +1618,7 @@ def categorical_tie(hp, model, weights, gen):
         fail(f'the tied categorical kernel differs from the plain version by {err}, {s_err}')
 
 
-def vocoder_cli(extra, hp, wavenet_state, speaker_id=None, path=None):
+def vocoder_cli(extra, hp, wavenet_state, speaker_id=None, path=None, n=9):
     """Phase 9: `python -m tacotron2_tpu_torch.synthesize --model WaveNet` over two seeded
     mels of VOCODER_FRAMES frames written as mel-*.npy with a map.txt, a run of the main
     path `path` (read_counts; without one, counted nowhere). Checks the wavs on disk, the
@@ -1631,7 +1662,7 @@ def vocoder_cli(extra, hp, wavenet_state, speaker_id=None, path=None):
     us_step = 1000 * sum(ms for _, ms in chunks) / sum(steps for steps, _ in chunks)
     what = f'synthesize --model WaveNet ({extra}' \
         + (f', --speaker_id {speaker_id})' if speaker_id else ')')
-    phase(9, f'{what}: {len(stats["wavs"])} wavs of {[len(w) for w in stats["wavs"]]} samples, '
+    phase(n, f'{what}: {len(stats["wavs"])} wavs of {[len(w) for w in stats["wavs"]]} samples, '
              f'AR kernel launches {by_variant} at {us_step:.1f} us/step; '
              f'{stats["ar_samples"] / stats["seconds"]:.0f} AR samples/s of wall, wall RTF '
              f'{stats["seconds"] / stats["audio_seconds"]:.3f} ({stats["seconds"]:.2f} s for '
@@ -2804,10 +2835,11 @@ def _wav_ok(path):
     return len(w) > 0 and bool(np.isfinite(np.asarray(w, np.float64)).all())
 
 
-def taco_cpu_vs_card(hp, batch):
-    """One train step at full width on the card and on the CPU from the same fresh
-    state, on the first TACO_CPU_BATCH rows of `batch` with the same draws (made on the
-    CPU and copied). Returns the readings."""
+def taco_cpu_vs_card(hp, batch, n=12, what=''):
+    """One f32 train step (compute_dtype pinned: the card's default is bf16) at full
+    width on the card and on the CPU from the same fresh state, on the first
+    TACO_CPU_BATCH rows of `batch` with the same draws (made on the CPU and copied).
+    Returns the readings."""
     from tacotron2_tpu_torch.training import tacotron_trainer as tt
 
     small = {k: v[:TACO_CPU_BATCH] for k, v in batch.items()}
@@ -2825,7 +2857,7 @@ def taco_cpu_vs_card(hp, batch):
     for d, state in states.items():
         t0 = time.perf_counter()
         m = tt.train_step(state, {k: v.to(d) for k, v in small.items()}, hp,
-                          noise={k: on(d, v) for k, v in noise.items()})
+                          noise={k: on(d, v) for k, v in noise.items()}, dtype=torch.float32)
         metrics[d] = {k: float(m[k]) for k in ('loss', 'grad_norm')}
         secs[d] = time.perf_counter() - t0
     loss_err = abs(metrics['cuda']['loss'] - metrics['cpu']['loss']) / abs(metrics['cpu']['loss'])
@@ -2845,7 +2877,7 @@ def taco_cpu_vs_card(hp, batch):
         off_large += int((far & (g.abs() >= TACO_SMALL_GRAD)).sum())
         total += diff.numel()
     grad_err = (g_err2 / g_norm2) ** 0.5
-    phase(12, f'one train step at full width, B={B} (T_in={T_in}, '
+    phase(n, f'one f32 train step at full width{what}, B={B} (T_in={T_in}, '
               f'{small["mel_targets"].shape[1]} frames), card vs CPU from the same state and '
               f'draws: loss {metrics["cuda"]["loss"]:.6f} vs {metrics["cpu"]["loss"]:.6f} '
               f'(rel err {loss_err:.2e}, tol {TACO_STEP_TOL}), grad norm rel err '
@@ -2934,35 +2966,52 @@ def step_segments(o):
     return seg
 
 
-def taco_timed_step(hp, reps=3):
-    """A train step at B=32 x TIMED_FRAMES mel frames (TIMED_CHARS characters), after one
-    untimed step: `reps` steps each between two synchronizes (sec/step), then `reps`
-    steps split by StepMarks into their parts (CUDA events on the real step), and the
-    peak device memory. Returns the readings: each the median of the reps, with its
-    range."""
-    from tacotron2_tpu_torch.training import tacotron_trainer as tt
-
-    B, T = hp.tacotron_batch_size, TIMED_FRAMES
+def taco_timed_batch(hp, B, T, chars):
+    """A seeded Tacotron batch on the card: B rows of `chars` characters and T frames."""
     g = torch.Generator('cuda').manual_seed(5)
     batch = dict(
-        inputs=torch.randint(2, 60, (B, TIMED_CHARS), device='cuda', generator=g),
-        input_lengths=torch.full((B,), TIMED_CHARS, device='cuda'),
+        inputs=torch.randint(2, 60, (B, chars), device='cuda', generator=g),
+        input_lengths=torch.full((B,), chars, device='cuda'),
         mel_targets=torch.rand(B, T, hp.num_mels, device='cuda', generator=g) * 8 - 4,
         stop_token_targets=torch.zeros(B, T, device='cuda'),
         targets_lengths=torch.full((B,), T, device='cuda'),
         linear_targets=torch.rand(B, T, hp.num_freq, device='cuda', generator=g) * 8 - 4)
     batch['stop_token_targets'][:, -1] = 1.0
+    return batch
+
+
+def taco_timed_step(hp, reps=3, dtype=torch.float32, n=12, split=True):
+    """A train step in `dtype` at B=32 x TIMED_FRAMES mel frames (TIMED_CHARS
+    characters), after one untimed step: `reps` steps each between two synchronizes
+    (sec/step), then, with `split`, `reps` steps split by StepMarks into their parts
+    (CUDA events on the real step), and the peak device memory. Returns the readings:
+    each the median of the reps, with its range."""
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    B, T = hp.tacotron_batch_size, TIMED_FRAMES
+    batch = taco_timed_batch(hp, B, T, TIMED_CHARS)
+    g = torch.Generator('cuda').manual_seed(6)
     state = tt.create_train_state(hp, 'cuda')
-    tt.train_step(state, batch, hp, g)
+    tt.train_step(state, batch, hp, g, dtype=dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     secs, losses = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(tt.train_step(state, batch, hp, g)['loss'].item())
+        losses.append(tt.train_step(state, batch, hp, g, dtype=dtype)['loss'].item())
         secs.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = dict(sec_step=float(np.median(secs)), sec_step_range=(min(secs), max(secs)),
+                 peak_gib=peak)
+    if not all(np.isfinite(x) for x in losses):
+        fail(f'the timed Tacotron steps gave losses of {losses}')
+    phase(n, f'timed train step in {dtype}, B={B} x {T} frames ({TIMED_CHARS} characters, '
+             f'default hparams), {reps} steps each: median {np.median(secs):.3f} sec/step '
+             f'({min(secs):.3f}-{max(secs):.3f}; losses {[round(x, 4) for x in losses]}); '
+             f'peak device memory {peak:.2f} GiB')
+    if not split:
+        return timed
 
     marks = StepMarks(state.model, 'cuda')
     parts = []
@@ -2970,7 +3019,7 @@ def taco_timed_step(hp, reps=3):
         torch.cuda.synchronize()
         marks.marks.clear()
         marks.mark('start')
-        tt.train_step(state, batch, hp, g)
+        tt.train_step(state, batch, hp, g, dtype=dtype)
         marks.mark('end')
         parts.append(step_segments(marks.offsets()))
     marks.remove()
@@ -2980,23 +3029,16 @@ def taco_timed_step(hp, reps=3):
     fwd = [sum(v for k, v in p.items() if k.startswith('fwd')) for p in parts]
     bwd = [sum(v for k, v in p.items() if k.startswith('bwd')) for p in parts]
     share = [p['bwd: decoder'] / b for p, b in zip(parts, bwd)]
-    phase(12, f'timed train step, B={B} x {T} frames ({TIMED_CHARS} characters, default '
-              f'hparams), {reps} steps each: median {np.median(secs):.3f} sec/step '
-              f'({min(secs):.3f}-{max(secs):.3f}; losses {[round(x, 4) for x in losses]}); '
-              f'peak device memory {peak:.2f} GiB')
-    phase(12, f'the same step split at module boundaries (CUDA events from hooks on the '
+    phase(n, f'the same step split at module boundaries (CUDA events from hooks on the '
               f'real step; ms, median of {reps} (range)): step {np.median(step_ms):.1f} '
               f'({min(step_ms):.1f}-{max(step_ms):.1f}), forward {np.median(fwd):.1f} '
               f'({min(fwd):.1f}-{max(fwd):.1f}), backward {np.median(bwd):.1f} '
               f'({min(bwd):.1f}-{max(bwd):.1f}); the decoder\'s backward '
               f'{np.median(share):.0%} of the backward ({min(share):.0%}-{max(share):.0%}); '
               + '; '.join(f'{k} {med[k]:.1f} ({rng[k][0]:.1f}-{rng[k][1]:.1f})' for k in med))
-    if not all(np.isfinite(x) for x in losses):
-        fail(f'the timed Tacotron steps gave losses of {losses}')
-    return dict(sec_step=float(np.median(secs)), sec_step_range=(min(secs), max(secs)),
-                step_ms=float(np.median(step_ms)), fwd_ms=float(np.median(fwd)),
+    return dict(timed, step_ms=float(np.median(step_ms)), fwd_ms=float(np.median(fwd)),
                 bwd_ms=float(np.median(bwd)), decoder_bwd_share=float(np.median(share)),
-                parts=med, part_ranges=rng, peak_gib=peak)
+                parts=med, part_ranges=rng)
 
 
 def tacotron_training():
@@ -3086,10 +3128,10 @@ def taco_synced_steps(state, dataset, hp, n=5):
         batch = to_device(next(batches), 'cuda')
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tt.train_step(state, batch, hp, gen)['loss'].item()
+        tt.train_step(state, batch, hp, gen, dtype=torch.float32)['loss'].item()
         secs.append(time.perf_counter() - t0)
         frames.append(batch['mel_targets'].shape[1])
-    phase(12, f'{n} more train steps on the corpus\'s batches (B={hp.tacotron_batch_size}, '
+    phase(12, f'{n} more f32 train steps on the corpus\'s batches (B={hp.tacotron_batch_size}, '
               f'{frames} frames), each between two synchronizes: median '
               f'{np.median(secs):.3f} sec/step ({min(secs):.3f}-{max(secs):.3f}; '
               + ', '.join(f'{t:.3f}' for t in secs) + ')')
@@ -3244,7 +3286,8 @@ def pipe_gta_cpu_vs_card(base, hp, row):
             out = s._model.teacher_forced(
                 torch.from_numpy(inputs).to(d), torch.from_numpy(lengths).to(d),
                 torch.from_numpy(targets).to(d), {k: v.to(d) for k, v in noise.items()},
-                deterministic=True, teacher_forcing_ratio=1.0, predict_linear=False)
+                deterministic=True, teacher_forcing_ratio=1.0, predict_linear=False,
+                dtype=torch.float32)
         mels[d] = out['mel_outputs'].cpu()
         secs[d] = time.perf_counter() - t0
     err = (mels['cuda'] - mels['cpu']).abs().max().item()
@@ -3451,6 +3494,545 @@ def tacotron2_pipeline(t_start):
                 pre_s=pre_s)
 
 
+# --- phase 14: bf16 training, the remaining upsamplers, any decoder depth ---------------
+
+# the card's bf16 train step against the port's own bf16 step on the CPU: the batch cut
+# so that the CPU's eager bf16 step fits the time (full width, depth and vocabulary)
+BF16_TACO_CUT = (4, 16, 30)        # rows, mel frames, characters
+BF16_WAVENET_CUT = (1, 2750)       # rows, samples
+BF16_WAVENET_BATCH = (8, 11000)    # the trainer's default batch and crop
+# bf16 against f32 on the card, the same state, batch and draws: the losses within
+# BF16_LOSS_TOL relative and the gradients (Adam's first moment) within BF16_GRAD_TOL in
+# relative L2 norm. The card's bf16 step against the port's bf16 on the CPU, the check
+# with teeth, module by module: each module of BF16_MODULES, run on the CPU in bf16 on
+# the inputs it had in the card's step, must give the card's output within
+# BF16_MODULE_TOL in relative L2, where that module's own bf16-f32 gap is printed
+# beside it (BF16_EVAL_FORM: in eval form); a copy of the step with one module left in
+# f32 (BF16_FAULTS) must miss it.
+# The whole step cannot be the check: read on an H100 80GB HBM3 at 700 W, the two
+# devices' bf16 outputs of the cut step are 1.8e-2 (Tacotron) and
+# 7.8e-3 (WaveNet) apart where the bf16-f32 gap is 2.4e-2 and 9.6e-3: each bf16 product
+# rounds differently in 1e-4 of its elements on the two devices (a reduction order of
+# its own), and every later layer's rounding carries a flip further, until the two
+# differ as much as any two bf16 runs. Those whole-step readings are printed.
+# The bf16 backward is held by BF16_GRAD_TOL: the sound step reads 2.35e-2 against f32
+# (Tacotron; WaveNet 3.7e-3), and a decoder whose weights, cast once a scan, sum their
+# steps' gradients in bf16 read 1.07e-1 (an H100 80GB HBM3 at 700 W); the bound sits
+# about 2x from each, and that fault is planted (precast_fault)
+BF16_LOSS_TOL = 2e-2
+BF16_GRAD_TOL = 5e-2
+BF16_MODULE_TOL = 1e-3
+BF16_MODULES = {'tacotron': ('encoder_convolutions.convs.0', 'encoder_lstm', 'decoder.prenet',
+                             'decoder.lstm_1', 'decoder.lstm_2', 'decoder.attention',
+                             'postnet_convolutions.convs.0', 'postnet_convolutions.convs.4',
+                             'cbhg_postnet.bank.3', 'cbhg_postnet.proj1',
+                             'cbhg_postnet.highways.0'),
+                'wavenet': ('upsample', 'first_conv', 'residual_layers.0',
+                            'residual_layers.10', 'residual_layers.19', 'skip_conv1',
+                            'skip_conv2')}
+# The modules are single layers: within a stack of layers the flips compound from the
+# second layer on (each output sums thousands of inputs, a few of them flipped), as they
+# do over the whole step (read on whole stacks in eval form on an H100 80GB HBM3 at
+# 700 W: the encoder convs 1.2e-3, the post-net 2.4e-3, the CBHG 4.1e-3, where their
+# bf16-f32 gaps are 4.6e-3 to 7.7e-3). The conv blocks, whose BatchNorm runs over the batch in training,
+# are compared in their eval form, over running statistics: over the cut batch's 64-120
+# samples a channel the ReLU leaves nearly dead has a variance near zero, and dividing
+# by it carries one flipped rounding as far as bf16 itself goes
+BF16_EVAL_FORM = ('encoder_convolutions.convs.0', 'postnet_convolutions.convs.0',
+                  'postnet_convolutions.convs.4', 'cbhg_postnet.bank.3', 'cbhg_postnet.proj1')
+BF16_FAULTS = {'tacotron': 'the decoder\'s LSTM gate products left in f32',
+               'wavenet': 'the 1x1 convs left in f32'}
+# each new upsampler through the AR kernel by `synthesize --model WaveNet`, the launch
+# held to the plain version in state-carried chunks (KERNEL_TOL): UPSAMPLER_FULL's over
+# its first UPSAMPLER_BOUNDS[-1] steps with the two planted state faults, the others'
+# over UPSAMPLER_SHORT_BOUNDS[-1] (each launch runs the same instantiation, and the
+# plain version's 6-11 ms a step of host time set phase 14's length: 63.8 s and 204.5 s
+# for four upsamplers over 1,100 steps each, in two runs on an H100 80GB HBM3 at 700 W);
+# the upsampler's output on the card to its CPU output
+UPSAMPLERS = {'NearestNeighbor': "upsample_type='NearestNeighbor'",
+              '1D': "upsample_type='1D'",
+              'Resize': "upsample_type='Resize'",
+              '2D, LeakyRelu': "upsample_type='2D',upsample_activation='LeakyRelu'"}
+UPSAMPLER_FULL = 'Resize'
+UPSAMPLER_BOUNDS = VOCODER_BOUNDS
+UPSAMPLER_SHORT_BOUNDS = (131, 253, 377)
+UPSAMPLER_TOL = 1e-4               # the upsampler's card output against its CPU output
+UPSAMPLER_PATHS = tuple(f'synthesize --model WaveNet ({k})' for k in UPSAMPLERS)
+DEPTH3 = 'prenet_layers=[256,256,256],decoder_layers=3'
+DEPTH3_GTA = (2, 128, 60)          # the GTA batch: rows, mel frames, characters
+DEPTH3_STEP = (4, 128, 60)         # the card-vs-CPU f32 step: rows, frames, characters
+DEPTH3_REMAT = (32, 64, 60)        # the remat step: rows, frames, characters
+# remat against no remat on the card: the gradients within REMAT_TOL in relative L2, f32
+# rounding (on the CPU they are bit-identical, tests/test_torch_decoder_depth.py; the
+# card's backward is not run-to-run bit-identical: on an H100 80GB HBM3 at 700 W 6.8e-7
+# in relative L2 with remat, and 6.8e-7 without it run twice)
+REMAT_TOL = 1e-6
+
+
+def _grads(state, beta1):
+    """The gradients of a state one step old, from Adam's first moment."""
+    return torch.cat([m.flatten().double().cpu() for m in state.exp_avg]) / (1 - beta1)
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def _on(device, x):
+    if isinstance(x, (list, tuple)):
+        return [_on(device, y) for y in x]
+    return x.to(device)
+
+
+def _move(x, device):
+    """Every tensor in x (nested lists, tuples, dicts) detached and copied to `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, copy=True)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_move(y, device) for y in x)
+    if isinstance(x, dict):
+        return {k: _move(v, device) for k, v in x.items()}
+    return x
+
+
+def _floats(x):
+    """The float tensors of a module's output, flattened, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x.double().flatten()] if x.is_floating_point() else []
+    return [t for y in (x if isinstance(x, (list, tuple)) else []) for t in _floats(y)]
+
+
+@contextlib.contextmanager
+def module_calls(model, names):
+    """Record the inputs and output of the last call of each module `names` of `model`
+    (on the CPU, detached): {name: (args, kwargs, output)}."""
+    rec, handles = {}, []
+    for name in names:
+        handles.append(model.get_submodule(name).register_forward_hook(
+            lambda m, args, kwargs, out, name=name: rec.__setitem__(
+                name, (_move(args, 'cpu'), _move(kwargs, 'cpu'), _move(out, 'cpu'))),
+            with_kwargs=True))
+    try:
+        yield rec
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _fresh_model(kind, hp, device):
+    """The seeded fresh model of a bf16 step (taco_bf16_step, wavenet_bf16_step) on
+    `device`."""
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+
+    if kind == 'tacotron':
+        return tt.create_train_state(hp, device, seed=3).model
+    return wt.create_train_state(hp, device, seed=4).model
+
+
+def replay_on_cpu(models, rec):
+    """{name: relative L2 of the CPU's bf16 output against the card's} of each module of
+    `rec` (module_calls' record of a step on the card) run on the CPU in bf16 on its
+    recorded inputs (every dtype argument set to bf16), in `models`, the seeded fresh
+    model (_fresh_model) on the CPU and on the card. A module of BF16_EVAL_FORM is
+    compared in its eval form (`train` off: BatchNorm over running statistics) on both
+    devices, the card's run again in the recorded dtype."""
+    cpu, card = models
+    errs = {}
+    with torch.no_grad():
+        for name, (args, kwargs, out) in rec.items():
+            if name in BF16_EVAL_FORM:
+                args = tuple(False if a is True else a for a in args)
+                out = _move(card.get_submodule(name)(*_move(args, 'cuda'),
+                                                     **_move(kwargs, 'cuda')), 'cpu')
+            bf16 = tuple(torch.bfloat16 if isinstance(a, torch.dtype) else a for a in args)
+            kw = {k: torch.bfloat16 if isinstance(v, torch.dtype) else v
+                  for k, v in kwargs.items()}
+            got = cpu.get_submodule(name)(*bf16, **kw)
+            errs[name] = _rel(torch.cat(_floats(got)), torch.cat(_floats(out)))
+    return errs
+
+
+@contextlib.contextmanager
+def bf16_fault(model_kind):
+    """BF16_FAULTS[model_kind] planted: the module runs in f32 where flax casts to
+    bf16."""
+    from tacotron2_tpu_torch.models.tacotron.modules import ZoneoutLSTMCell
+    from tacotron2_tpu_torch.models.wavenet.modules import Conv1x1
+
+    cls = ZoneoutLSTMCell if model_kind == 'tacotron' else Conv1x1
+    forward = cls.forward
+    if model_kind == 'tacotron':
+        cls.forward = lambda self, state, x, kc=None, kh=None, dtype=None: forward(
+            self, state, x, kc, kh, torch.float32)
+    else:
+        cls.forward = lambda self, x, dtype=None: forward(self, x, torch.float32)
+    try:
+        yield
+    finally:
+        cls.forward = forward
+
+
+@contextlib.contextmanager
+def precast_fault():
+    """The decoder's weights cast once a scan (`models/precision.precast`) held in bf16
+    itself, each step's use widened again: autograd then rounds each step's gradient of
+    a weight to bf16 and sums the steps in bf16, where the port sums them in f32."""
+    from tacotron2_tpu_torch.models import precision
+    from tacotron2_tpu_torch.ops import fused_decoder
+
+    sound, apply = fused_decoder.precast, precision._apply
+
+    @contextlib.contextmanager
+    def bf16_sum(module, dtype):
+        with sound(module, dtype):
+            for m in module.modules():
+                if hasattr(m, '_precast'):
+                    m._precast = (dtype, m.weight.to(dtype),
+                                  None if m.bias is None else m.bias.to(dtype))
+            yield
+
+    fused_decoder.precast = bf16_sum
+    precision._apply = lambda module, x, w, b: apply(
+        module, x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    try:
+        yield
+    finally:
+        fused_decoder.precast, precision._apply = sound, apply
+
+
+def taco_bf16_step(hp, batch, device, dtype, noise, fault=False, step=True, rec=None,
+                   grad_fault=False):
+    """One Tacotron pass in `dtype` on `device` from the seeded fresh state, on `batch`
+    with the draws `noise` (made on the CPU): (metrics, gradients) of a train step, or
+    with `step` off the training pass's outputs (mels before and after the post-net,
+    linear outputs, stop logits, alignments) flattened into one tensor. With `rec` (a
+    dict) the step records BF16_MODULES' calls into it; `fault` plants
+    BF16_FAULTS['tacotron'], `grad_fault` precast_fault."""
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    state = tt.create_train_state(hp, device, seed=3)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    noise = {k: _on(device, v) for k, v in noise.items()}
+    calls = (module_calls(state.model, BF16_MODULES['tacotron']) if rec is not None
+             else contextlib.nullcontext({}))
+    with bf16_fault('tacotron') if fault else contextlib.nullcontext(), \
+            precast_fault() if grad_fault else contextlib.nullcontext(), calls as got:
+        if not step:
+            with torch.no_grad():
+                out = state.model.teacher_forced(
+                    batch['inputs'], batch['input_lengths'], batch['mel_targets'], noise,
+                    deterministic=False, dtype=dtype)
+            return torch.cat([out[k].flatten().double().cpu() for k in sorted(out)
+                              if k != 'stop_finished'])
+        m = tt.train_step(state, batch, hp, noise=noise, dtype=dtype)
+    if rec is not None:
+        rec.update(got)
+    return {k: float(m[k]) for k in ('loss', 'grad_norm')}, _grads(state, hp.tacotron_adam_beta1)
+
+
+def wavenet_bf16_step(hp, batch, device, dtype, masks, fault=False, step=True, rec=None):
+    """One WaveNet pass in `dtype` on `device` from the seeded fresh state, on `batch`
+    with the dropout masks `masks`: (metrics, gradients) of a train step, or with `step`
+    off the training pass's output params. With `rec` (a dict) the step records
+    BF16_MODULES' calls into it."""
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+
+    state = wt.create_train_state(hp, device, seed=4)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    calls = (module_calls(state.model, BF16_MODULES['wavenet']) if rec is not None
+             else contextlib.nullcontext({}))
+    with bf16_fault('wavenet') if fault else contextlib.nullcontext(), calls as got:
+        if not step:
+            with torch.no_grad():
+                return wt._forward_loss(state.model, batch, hp, train=True,
+                                        dropout_masks=_on(device, masks),
+                                        dtype=dtype)[1].flatten().double().cpu()
+        m = wt.train_step(state, batch, hp, dropout_masks=_on(device, masks), dtype=dtype)
+    if rec is not None:
+        rec.update(got)
+    return {k: float(m[k]) for k in ('loss', 'grad_norm')}, _grads(state, hp.wavenet_adam_beta1)
+
+
+def _judge_bf16(what, m, full, cut, outs, modules):
+    """Phase 14's checks of one model's bf16 step (see BF16_LOSS_TOL). `full`: {'bf16',
+    'f32': (metrics, gradients)} on the card, and for the Tacotron 'grad_fault', the
+    bf16 step under precast_fault; `cut`: the same on the cut batch and 'cpu', the
+    CPU's bf16; `outs`: the cut batch's forward outputs, {'bf16', 'f32', 'cpu'};
+    `modules`: {'bf16', 'f32', 'fault': {module: the CPU's bf16 replay of the card's
+    call against its output}}."""
+    gap = _rel(full['bf16'][1], full['f32'][1])
+    grad_fault = (_rel(full['grad_fault'][1], full['f32'][1]) if 'grad_fault' in full
+                  else None)
+    loss_gap = abs(full['bf16'][0]['loss'] - full['f32'][0]['loss']) / abs(full['f32'][0]['loss'])
+    cut_gap = _rel(cut['bf16'][1], cut['f32'][1])
+    device_grad = _rel(cut['bf16'][1], cut['cpu'][1])
+    device_loss = abs(cut['bf16'][0]['loss'] - cut['cpu'][0]['loss']) / abs(cut['cpu'][0]['loss'])
+    out_gap = _rel(outs['bf16'], outs['f32'])
+    device_out = _rel(outs['bf16'], outs['cpu'])
+    worst = max(modules['bf16'].values())
+    fault = max(modules['fault'].values())
+    finite = all(torch.isfinite(g).all() and np.isfinite(list(mm.values())).all()
+                 for mm, g in list(full.values()) + list(cut.values())) \
+        and all(torch.isfinite(o).all() for o in outs.values())
+    phase(14, f'{what}: bf16 vs f32 on the card ({m}): loss rel {loss_gap:.2e} (tol '
+              f'{BF16_LOSS_TOL}), gradients {gap:.2e} apart in relative L2 (tol '
+              f'{BF16_GRAD_TOL}'
+              + (f'; the decoder\'s weight gradients summed in bf16, planted: '
+                 f'{grad_fault:.2e}, must exceed it' if grad_fault is not None else '')
+              + f'); each module\'s bf16 call of the card\'s cut step run on '
+              f'the CPU in bf16, against the card\'s output (tol {BF16_MODULE_TOL}; beside '
+              f'it the module\'s f32 call replayed in bf16, its bf16-f32 gap): '
+              + ', '.join(f'{k} {v:.1e} ({modules["f32"][k]:.1e})'
+                          for k, v in modules['bf16'].items())
+              + f'; planted fault ({BF16_FAULTS[what.split()[0]]}): '
+              + ', '.join(f'{k} {v:.1e}' for k, v in modules['fault'].items())
+              + f' (the worst must exceed the tol); the whole cut step, the card\'s bf16 '
+              f'against the CPU\'s: outputs {device_out:.2e} (bf16-f32 gap {out_gap:.2e}), '
+              f'gradients {device_grad:.2e} (gap {cut_gap:.2e}), loss rel {device_loss:.2e}; '
+              f'all finite: {finite}')
+    if not (finite and loss_gap <= BF16_LOSS_TOL and gap <= BF16_GRAD_TOL
+            and worst <= BF16_MODULE_TOL):
+        fail(f'{what}: the bf16 step disagrees')
+    if not fault > BF16_MODULE_TOL:
+        fail(f'{what}: the card-vs-CPU bf16 check does not see a module left in f32')
+    if grad_fault is not None and not grad_fault > BF16_GRAD_TOL:
+        fail(f'{what}: the bf16-f32 gradient check does not see gradients summed in bf16')
+    return dict(loss_gap=loss_gap, grad_gap=gap, grad_fault_gap=grad_fault, cut_grad_gap=cut_gap,
+                device_grad_err=device_grad, device_loss_err=device_loss, out_gap=out_gap,
+                device_out_err=device_out, module_err=modules['bf16'],
+                module_gap=modules['f32'], fault_module_err=modules['fault'])
+
+
+def taco_bf16():
+    """Phase 14: the Tacotron train step in bf16 (see the module docstring). Returns the
+    readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    draw = Tacotron(hp)
+
+    def noise_for(batch):
+        B, T_in = batch['inputs'].shape
+        return draw.draw_noise(B, T_in, batch['mel_targets'].shape[1],
+                               torch.Generator().manual_seed(8), False, 'cpu')
+
+    full_batch = taco_timed_batch(hp, hp.tacotron_batch_size, TIMED_FRAMES, TIMED_CHARS)
+    noise = noise_for(full_batch)
+    full = {name: taco_bf16_step(hp, full_batch, 'cuda', dt, noise)
+            for name, dt in (('bf16', torch.bfloat16), ('f32', torch.float32))}
+    full['grad_fault'] = taco_bf16_step(hp, full_batch, 'cuda', torch.bfloat16, noise,
+                                        grad_fault=True)
+    B, T, chars = BF16_TACO_CUT
+    cut_batch = {k: v.cpu() for k, v in taco_timed_batch(hp, B, T, chars).items()}
+    noise = noise_for(cut_batch)
+    runs = (('bf16', 'cuda', torch.bfloat16), ('f32', 'cuda', torch.float32),
+            ('cpu', 'cpu', torch.bfloat16))
+    cut = {name: taco_bf16_step(hp, cut_batch, d, dt, noise) for name, d, dt in runs}
+    outs = {name: taco_bf16_step(hp, cut_batch, d, dt, noise, step=False)
+            for name, d, dt in runs}
+    modules = {}
+    fresh = tuple(_fresh_model('tacotron', hp, d) for d in ('cpu', 'cuda'))
+    for name, dt, fault in (('bf16', torch.bfloat16, False), ('f32', torch.float32, False),
+                            ('fault', torch.bfloat16, True)):
+        rec = {}
+        taco_bf16_step(hp, cut_batch, 'cuda', dt, noise, fault=fault, rec=rec)
+        modules[name] = replay_on_cpu(fresh, rec)
+    r = _judge_bf16('tacotron train step', f'B={hp.tacotron_batch_size} x {TIMED_FRAMES} '
+                    f'frames; cut for the CPU to B={B} x {T}', full, cut, outs, modules)
+    r['timed'] = taco_timed_step(hp, dtype=torch.bfloat16, n=14, split=False)
+    return r
+
+
+def wavenet_timed_steps(hp, batch, masks, dtype, reps=3):
+    """(median sec/step between two synchronizes, peak GiB) of `reps` WaveNet train steps
+    in `dtype` after one untimed step."""
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+
+    state = wt.create_train_state(hp, 'cuda', seed=4)
+    wt.train_step(state, batch, hp, dropout_masks=masks, dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wt.train_step(state, batch, hp, dropout_masks=masks, dtype=dtype)['loss'].item()
+        secs.append(time.perf_counter() - t0)
+    return float(np.median(secs)), (min(secs), max(secs)), \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def wavenet_bf16():
+    """Phase 14: the WaveNet train step in bf16 (see the module docstring). Returns the
+    readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.models.wavenet.model import WaveNet
+
+    hp = default_hparams()
+    draw = WaveNet(hp)
+    gen = torch.Generator().manual_seed(9)
+
+    def batch_for(B, T):
+        frames = T // hp.get_hop_size()
+        batch = dict(audio=(torch.rand(B, T, generator=gen) * 1.6 - 0.8),
+                     input_lengths=torch.full((B,), T),
+                     mel_conditions=torch.rand(B, frames, hp.num_mels, generator=gen)
+                     * 2 * hp.max_abs_value - hp.max_abs_value)
+        masks = [layer.dropout_mask((B, T, hp.residual_channels), gen)
+                 for layer in draw.residual_layers]
+        return batch, masks
+
+    full_batch, full_masks = batch_for(*BF16_WAVENET_BATCH)
+    full = {name: wavenet_bf16_step(hp, full_batch, 'cuda', dt, full_masks)
+            for name, dt in (('bf16', torch.bfloat16), ('f32', torch.float32))}
+    cut_batch, cut_masks = batch_for(*BF16_WAVENET_CUT)
+    runs = (('bf16', 'cuda', torch.bfloat16), ('f32', 'cuda', torch.float32),
+            ('cpu', 'cpu', torch.bfloat16))
+    cut = {name: wavenet_bf16_step(hp, cut_batch, d, dt, cut_masks) for name, d, dt in runs}
+    outs = {name: wavenet_bf16_step(hp, cut_batch, d, dt, cut_masks, step=False)
+            for name, d, dt in runs}
+    modules = {}
+    fresh = tuple(_fresh_model('wavenet', hp, d) for d in ('cpu', 'cuda'))
+    for name, dt, fault in (('bf16', torch.bfloat16, False), ('f32', torch.float32, False),
+                            ('fault', torch.bfloat16, True)):
+        rec = {}
+        wavenet_bf16_step(hp, cut_batch, 'cuda', dt, cut_masks, fault=fault, rec=rec)
+        modules[name] = replay_on_cpu(fresh, rec)
+    B, T = BF16_WAVENET_BATCH
+    r = _judge_bf16('wavenet train step', f'B={B} x {T} samples; cut for the CPU to '
+                    f'B={BF16_WAVENET_CUT[0]} x {BF16_WAVENET_CUT[1]}', full, cut, outs, modules)
+    batch = {k: v.cuda() for k, v in full_batch.items()}
+    masks = _on('cuda', full_masks)
+    for name, dt in (('bf16', torch.bfloat16), ('f32', torch.float32)):
+        sec, rng, gib = wavenet_timed_steps(hp, batch, masks, dt)
+        r[f'{name}_sec_step'], r[f'{name}_sec_step_range'], r[f'{name}_peak_gib'] = sec, rng, gib
+    phase(14, f'wavenet train step at B={B} x {T}, 3 steps between synchronizes: bf16 '
+              f'{r["bf16_sec_step"]:.3f} sec/step ({r["bf16_sec_step_range"][0]:.3f}-'
+              f'{r["bf16_sec_step_range"][1]:.3f}), peak {r["bf16_peak_gib"]:.2f} GiB; f32 '
+              f'{r["f32_sec_step"]:.3f} ({r["f32_sec_step_range"][0]:.3f}-'
+              f'{r["f32_sec_step_range"][1]:.3f}), peak {r["f32_peak_gib"]:.2f} GiB')
+    return r
+
+
+def upsampler_through_kernel(name, extra, gen):
+    """Phase 14: `synthesize --model WaveNet` on a WaveNet with the upsampler `extra`
+    (vocoder_cli), its launch held to the plain version on its own inputs in
+    state-carried chunks (UPSAMPLER_FULL's over UPSAMPLER_BOUNDS with the planted state
+    faults, the others' over UPSAMPLER_SHORT_BOUNDS), and the upsampler's card output
+    to its CPU output. Returns the readings."""
+    from tacotron2_tpu_torch.ops import wavenet_ar
+
+    t0 = time.perf_counter()
+    full = name == UPSAMPLER_FULL
+    bounds = UPSAMPLER_BOUNDS if full else UPSAMPLER_SHORT_BOUNDS
+    hp, model, weights, state = vocoder_model(extra)
+    path = f'synthesize --model WaveNet ({name})'
+    run = vocoder_cli(extra, hp, state, path=path, n=14)
+    call = run['ar_call']
+    r = variant_vs_plain(hp, weights, call['c_up'], call['noise'], None, bounds,
+                         f' on the inputs of {path}', n=14, plant=full)
+    if not torch.equal(r['audio'], call['audio'][:, :bounds[-1]]):
+        fail(f'{path}: the check\'s launch does not repeat the entry point\'s audio')
+    mel = torch.rand(MAIN_BATCH, VOCODER_FRAMES, hp.num_mels, generator=gen, device='cuda')
+    with torch.no_grad():
+        card = model.upsample_conditioning(mel)
+        cpu = model.cpu().upsample_conditioning(mel.cpu())
+    model.cuda()
+    up_err = (card.cpu() - cpu).abs().max().item()
+    seconds = time.perf_counter() - t0
+    phase(14, f'{path}: the upsampler on the card vs the CPU, (B={MAIN_BATCH}, '
+              f'{VOCODER_FRAMES}, {hp.num_mels}) -> {tuple(card.shape)}: max abs err '
+              f'{up_err:.2e} (tol {UPSAMPLER_TOL}); {seconds:.1f} s with its checks')
+    if not up_err <= UPSAMPLER_TOL:
+        fail(f'{path}: the upsampler\'s card output disagrees with the CPU\'s')
+    return dict(launches=run['launches'], us_step=run['us_step'], max_abs_err=r['max_abs_err'],
+                state_err=r['state_err'], ms=r['ms'], plain_ms=r['plain_ms'],
+                steps=bounds[-1], upsampler_err=up_err, seconds=seconds,
+                launch_of=wavenet_ar.variant(hp))
+
+
+def depth3():
+    """Phase 14: the decoder at depth 3 (see the module docstring). Returns the
+    readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(f'{TACO_OVERRIDES},{DEPTH3}')
+    out = {}
+    # one GTA batch, card vs CPU, as phase 13 holds it
+    state = tt.create_train_state(hp, 'cpu', seed=3)
+    B, T, chars = DEPTH3_GTA
+    batch = {k: v.cpu() for k, v in taco_timed_batch(hp, B, T, chars).items()}
+    noise = state.model.draw_noise(B, chars, T, torch.Generator().manual_seed(10), True, 'cpu')
+    mels = {}
+    for d in ('cpu', 'cuda'):
+        model = state.model.to(d).eval()
+        with torch.no_grad():
+            mels[d] = model.teacher_forced(
+                batch['inputs'].to(d), batch['input_lengths'].to(d),
+                batch['mel_targets'].to(d), {k: _on(d, v) for k, v in noise.items()},
+                deterministic=True, teacher_forcing_ratio=1.0, predict_linear=False,
+                dtype=torch.float32)['mel_outputs'].cpu()
+    out['gta_err'] = (mels['cuda'] - mels['cpu']).abs().max().item()
+    phase(14, f'depth 3 ({DEPTH3}): one GTA batch card vs CPU (B={B}, {T} frames, f32): mel '
+              f'max abs err {out["gta_err"]:.2e} (tol {PIPE_GTA_TOL})')
+    if not out['gta_err'] <= PIPE_GTA_TOL:
+        fail('depth 3: the card\'s GTA batch disagrees with the CPU\'s')
+    # one f32 train step, card vs CPU, at phase 12's tolerances
+    B, T, chars = DEPTH3_STEP
+    step_batch = {k: v.cpu() for k, v in taco_timed_batch(hp, B, T, chars).items()}
+    out['cpu_vs_card'] = taco_cpu_vs_card(hp, step_batch, n=14, what=f' at depth 3')
+    # remat_decoder: the same gradients, and peak memory with and without it
+    B, T, chars = DEPTH3_REMAT
+    batch = taco_timed_batch(hp, B, T, chars)
+    noise = state.model.draw_noise(B, chars, T, torch.Generator().manual_seed(11), False, 'cpu')
+    runs = []
+    for remat in (False, False, True):
+        h = hp.replace(remat_decoder=remat)
+        s = tt.create_train_state(h, 'cuda', seed=3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = tt.train_step(s, batch, h, noise={k: _on('cuda', v) for k, v in noise.items()},
+                             dtype=torch.float32)['loss'].item()
+        runs.append((loss, _grads(s, hp.tacotron_adam_beta1), time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+    again = _rel(runs[1][1], runs[0][1])
+    err = _rel(runs[2][1], runs[0][1])
+    out.update(remat_grad_err=err, rerun_grad_err=again, peak_gib=runs[0][3],
+               remat_peak_gib=runs[2][3], sec=runs[0][2], remat_sec=runs[2][2])
+    phase(14, f'depth 3, one f32 train step at B={B} x {T} frames ({chars} characters) with '
+              f'and without remat_decoder: loss {runs[0][0]:.6f} / {runs[2][0]:.6f}, the '
+              f'gradients {err:.2e} apart in relative L2 (tol {REMAT_TOL}; the same step run '
+              f'twice without it: {again:.2e}); peak device memory {runs[0][3]:.2f} / '
+              f'{runs[2][3]:.2f} GiB, {runs[0][2]:.2f} / {runs[2][2]:.2f} s')
+    if not err <= REMAT_TOL:
+        fail('remat_decoder changes the gradients')
+    return out
+
+
+def remaining_configurations(gen):
+    """Phase 14 (see the module docstring). Returns the readings."""
+    t0 = time.perf_counter()
+    out = dict(tacotron=taco_bf16())
+    t_wavenet = time.perf_counter()
+    out['wavenet'] = wavenet_bf16()
+    t1 = time.perf_counter()
+    out['upsamplers'] = {name: upsampler_through_kernel(name, extra, gen)
+                         for name, extra in UPSAMPLERS.items()}
+    t2 = time.perf_counter()
+    out['depth3'] = depth3()
+    t3 = time.perf_counter()
+    out['seconds'] = {k: round(v, 1) for k, v in dict(
+        bf16=t1 - t0, bf16_tacotron=t_wavenet - t0, bf16_wavenet=t1 - t_wavenet,
+        upsamplers=t2 - t1, depth3=t3 - t2, total=t3 - t0).items()}
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3463,6 +4045,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3528,6 +4111,11 @@ def main():
               f'{time.perf_counter() - t_start:.1f} s')
     pipeline = tacotron2_pipeline(t_start)
     pipe_eval, pipe_cli_runs = pipeline['eval_launch'], pipeline['cli']
+    t14 = time.perf_counter()
+    remaining = remaining_configurations(gen)
+    ups = remaining['upsamplers']
+    phase(14, f'phase 14 took {time.perf_counter() - t14:.1f} s ({remaining["seconds"]}); '
+              f'the whole run {time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']
     big_runs, sampled = head['runs'], head['sampled']
@@ -3548,7 +4136,7 @@ def main():
     # version followed, mol_full_ms its whole launch of 8,800, phase 8); the vocoder_ keys
     # are phase 9's, by
     # instantiation and batch (errors and us/step over vocoder_steps steps: the two that
-    # the entry point launches over the first 2,200 of its 8,800; the bounds are those of
+    # the entry point launches over the first 1,100 of its 8,800; the bounds are those of
     # the two entry-point launches).
     # the train_eval_ keys are the default trainer's eval launch against the plain
     # version on its own inputs (phase 10), the pipeline_eval_ keys the Tacotron-2
@@ -3573,7 +4161,7 @@ def main():
         + paper['serve_launches'] + vocoder['speakers_launches']
         + vocoder['categorical_launches'] + training['default']['launches']
         + pipeline['launches'] + pipe_cli_runs['wavenet_launches']
-        + pipe_cli_runs['tacotron2_launches'],
+        + pipe_cli_runs['tacotron2_launches'] + sum(u['launches'] for u in ups.values()),
         launches_by_path={'synthesize': launches_batch, 'serve': launches_serve,
                           TRAIN_PATH: training['default']['launches'],
                           PIPE_PATH: pipeline['launches'],
@@ -3585,11 +4173,12 @@ def main():
                           VOCODER_CATEGORICAL_PATH: vocoder['categorical_launches'],
                           'vocoder_checks': vocoder['check_launches'],
                           'state_carry_check': streamed['launches'],
-                          'mol_state_carry_check': paper['carry_launches']},
+                          'mol_state_carry_check': paper['carry_launches'],
+                          **{p: u['launches'] for p, u in zip(UPSAMPLER_PATHS, ups.values())}},
         max_abs_err=max(kernel['max_abs_err'], wide['max_abs_err'],
                         streamed['max_abs_err'],
                         training['default']['eval_launch']['max_abs_err'],
-                        pipe_eval['max_abs_err']),
+                        pipe_eval['max_abs_err'], *(u['max_abs_err'] for u in ups.values())),
         ms=kernel['ms'], plain_ms=kernel['plain_ms'], bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, steps=kernel['steps'], full_ms=kernel['full_ms'],
         full_steps=frames * hp.get_hop_size(),
@@ -3626,7 +4215,12 @@ def main():
         **{f'train_eval_{k}': v for k, v in training['default']['eval_launch'].items()},
         **{f'pipeline_eval_{k}': v for k, v in pipe_eval.items()},
         pipeline_gta_cpu_vs_card=pipeline['gta'],
-        pipeline_gta_s_per_utterance=pipeline['gta_s_per_utterance']),
+        pipeline_gta_s_per_utterance=pipeline['gta_s_per_utterance'],
+        upsamplers={k: {n: u[n] for n in ('launch_of', 'max_abs_err', 'state_err', 'steps',
+                                          'us_step', 'upsampler_err')}
+                    for k, u in ups.items()},
+        upsampler_ms={k: u['ms'] for k, u in ups.items()},
+        upsampler_plain_ms={k: u['plain_ms'] for k, u in ups.items()}),
         dict(
         name='wavenet_ar[categorical_big-fused+nll]', route='cuda', source=source,
         replaces=replaces, launches=training['big']['launches'],

@@ -5,10 +5,14 @@ The trees are what the JAX package's `create_train_state` or a checkpoint restor
 holds, with every leaf turned into a numpy array. The layout changes:
   - Dense kernel (in, out)            -> Linear.weight (out, in)
   - Conv kernel (k, in, out)          -> Conv1d.weight (out, in, k)
-  - SubPixel conv kernel (3, 3, 1, s) -> Conv2d.weight (s, 1, 3, 3)  (HWIO -> OIHW)
+  - SubPixel conv kernel (3, 3, 1, s) -> Conv2d.weight (s, 1, 3, 3)  (HWIO -> OIHW),
+    and a Resize conv kernel (fk, s, 1, 1) -> Conv2d.weight (1, 1, fk, s) likewise
   - 2D transpose-conv kernel (fk, s, 1, 1) -> ConvTranspose2d.weight (1, 1, fk, s),
     flipped on both spatial axes (lax.conv_transpose with transpose_kernel=False
-    correlates with the kernel as it is; torch's transpose conv flips it)
+    correlates with the kernel as it is; torch's transpose conv flips it), and a 1D
+    transpose-conv kernel (s, cin, cin) -> ConvTranspose1d.weight (cin, cin, s),
+    flipped in time for the same reason
+  - a NearestNeighbor upsampler has no parameters
   - BatchNorm scale/bias + batch_stats mean/var -> BatchNorm1d weight/bias/running_*
   - LSTM `gates` kernels keep their i, g, f, o order (the +1.0 forget bias is applied
     by the cell, not stored)
@@ -169,11 +173,13 @@ def wavenet_state_dict(params: Mapping, fold: bool = True) -> Dict[str, Tensor]:
     _dense(sd, 'skip_conv2', params['skip_conv2'], fold)
     ups = params.get('upsample_network', {})
     layouts = {'subpixel_conv': lambda k: k.transpose(3, 2, 0, 1),
-               'convt2d': lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1)}
+               'resize_conv': lambda k: k.transpose(3, 2, 0, 1),
+               'convt2d': lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1),
+               'convt1d': lambda k: k[::-1].transpose(1, 2, 0)}
     kinds = {name.rsplit('_', 1)[0] for name in ups}
     if len(kinds) > 1 or not kinds <= set(layouts):
-        raise NotImplementedError('only the SubPixel and 2D upsamplers are ported '
-                                  f'(upsample_network holds {sorted(ups)})')
+        raise ValueError(f'upsample_network holds {sorted(ups)}: not one of the '
+                         f'upsamplers {sorted(layouts)}')
     for kind in kinds:
         for i in range(len(ups)):
             p = ups[f'{kind}_{i + 1}']

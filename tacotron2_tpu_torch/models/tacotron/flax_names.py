@@ -7,7 +7,9 @@ A port name is dotted ('postnet_convolutions.convs.1.bn.weight'), a flax path
 '/'-joined ('postnet_convolutions/conv_2/bn/scale'). The module names are the same on
 both sides but for the port's ModuleLists, whose entry i is flax's `<name>_<i + 1>`,
 and the leaves of LEAVES. A GRU's fused tensors name the flax layers they join, in
-order ('cbhg_postnet/gru_fw/ir+iz+in/kernel')."""
+order ('cbhg_postnet/gru_fw/ir+iz+in/kernel'). At any decoder depth the LSTMs are
+'decoder.lstm_1', 'decoder.lstm_2', ... on both sides and the prenet's layers
+'decoder.prenet.layers.i' <-> 'decoder/prenet/dense_{i + 1}'."""
 
 # a port ModuleList -> the flax module name it numbers from 1
 INDEXED = {'convs': 'conv', 'bank': 'bank', 'highways': 'highway', 'layers': 'dense'}

@@ -11,7 +11,8 @@ request (the eval and live modes of a model with the CBHG).
 301-337`): the decoder reads the target frames with the step's coins, and every
 random draw (dropout and zoneout keep-masks, prenet masks, coins) comes in through
 `noise`, which `draw_noise` makes from a torch.Generator or a test builds from another
-package's draws.
+package's draws. `teacher_forced` runs in the compute dtype it is given
+(`models/precision.py`): float32 in, float32 out, the casting points flax's.
 """
 
 from typing import Dict, Optional, Tuple
@@ -21,6 +22,7 @@ from torch import Tensor, nn
 
 from ...ops import fused_decoder as fd
 from ...text import VOCAB_SIZE
+from ..precision import cast_forward
 from .attention import LocationSensitiveAttention
 from .modules import (CBHG, BiZoneoutLSTM, EncoderConvolutions, Postnet, Prenet,
                       ZoneoutLSTMCell, length_mask)
@@ -39,25 +41,32 @@ def _clip_outputs(x: Tensor, hp) -> Tensor:
 
 
 class DecoderCell(nn.Module):
-    """The decoder's weights: prenet, two zoneout LSTMs, attention, frame and stop
+    """The decoder's weights: prenet (len(hp.prenet_layers) layers), hp.decoder_layers
+    zoneout LSTMs `lstm_1`, `lstm_2`, ... (flax's names), attention, frame and stop
     projections. The step itself is `ops/fused_decoder._step`."""
 
     def __init__(self, hp, encoder_dim: int):
         super().__init__()
-        if len(tuple(hp.prenet_layers)) != 2 or hp.decoder_layers != 2:
-            raise NotImplementedError('the decoder covers 2 prenet layers and 2 LSTMs')
+        if hp.decoder_layers < 1 or not hp.prenet_layers:
+            raise ValueError('the decoder needs a prenet layer and an LSTM')
         U = hp.decoder_lstm_units
         self.num_mels = hp.num_mels
         self.stop_at_any = hp.stop_at_any
         self.prenet = Prenet(hp.num_mels, tuple(hp.prenet_layers))
         z = hp.tacotron_zoneout_rate
-        self.lstm_1 = ZoneoutLSTMCell(hp.prenet_layers[-1] + encoder_dim, U, z, z)
-        self.lstm_2 = ZoneoutLSTMCell(U, U, z, z)
+        self.depth = hp.decoder_layers
+        for i in range(self.depth):
+            self.add_module(f'lstm_{i + 1}', ZoneoutLSTMCell(
+                hp.prenet_layers[-1] + encoder_dim if i == 0 else U, U, z, z))
         self.attention = LocationSensitiveAttention(
             U, hp.attention_dim, hp.attention_filters, hp.attention_kernel[0],
             hp.cumulative_weights, hp.smoothing)
         self.frame_projection = nn.Linear(U + encoder_dim, hp.num_mels * hp.outputs_per_step)
         self.stop_projection = nn.Linear(U + encoder_dim, hp.outputs_per_step)
+
+    @property
+    def lstms(self):
+        return [getattr(self, f'lstm_{i + 1}') for i in range(self.depth)]
 
 
 class Tacotron(nn.Module):
@@ -89,14 +98,17 @@ class Tacotron(nn.Module):
                                                           hp.num_freq)
 
     def _encode(self, inputs: Tensor, input_lengths: Tensor, train: bool = False,
-                noise: Optional[Dict] = None):
-        """(keys, values, attention mask) of the encoder's memory."""
+                noise: Optional[Dict] = None, dtype: torch.dtype = torch.float32):
+        """(keys, values, attention mask) of the encoder's memory: the keys in `dtype`,
+        the values float32."""
         hp = self.hp
         noise = noise or {}
         T_in = inputs.shape[1]
-        embedded = self.inputs_embedding(inputs.long())
-        enc = self.encoder_convolutions(embedded, train, noise.get('encoder_convolutions'))
-        encoder_outputs = self.encoder_lstm(enc, input_lengths, noise.get('encoder_lstm'))
+        embedded = self.inputs_embedding(inputs.long()).to(dtype)
+        enc = self.encoder_convolutions(embedded, train, noise.get('encoder_convolutions'),
+                                        dtype)
+        encoder_outputs = self.encoder_lstm(enc, input_lengths, noise.get('encoder_lstm'),
+                                            dtype)
         memory_mask = length_mask(input_lengths, T_in, inputs.device)
         if hp.mask_encoder:
             values = encoder_outputs * memory_mask[..., None]
@@ -104,28 +116,31 @@ class Tacotron(nn.Module):
         else:
             values = encoder_outputs
             attn_mask = None
-        return self.attention_memory_layer(values), values, attn_mask
+        return cast_forward(self.attention_memory_layer, values, dtype), values, attn_mask
 
-    def _postnet(self, frames: Tensor, train: bool = False,
-                 keeps=None) -> Tuple[Tensor, Tensor]:
+    def _postnet(self, frames: Tensor, train: bool = False, keeps=None,
+                 dtype: torch.dtype = torch.float32) -> Tuple[Tensor, Tensor]:
         """(decoder_output, mel_outputs) (B, T*r, M) of the decoder's (T, B, M*r)
-        frames: clipped, and the post-net's residual added (and clipped)."""
+        frames: clipped, and the post-net's residual added (and clipped); float32."""
         hp = self.hp
         T_steps, B = frames.shape[0], frames.shape[1]
         decoder_output = frames.transpose(0, 1).reshape(
             B, T_steps * hp.outputs_per_step, hp.num_mels)
         if hp.clip_outputs:
             decoder_output = _clip_outputs(decoder_output, hp)
-        residual = self.postnet_convolutions(decoder_output, train, keeps)
-        mel_outputs = decoder_output + self.postnet_projection(residual)
+        residual = self.postnet_convolutions(decoder_output.to(dtype), train, keeps, dtype)
+        mel_outputs = decoder_output + cast_forward(self.postnet_projection, residual,
+                                                    dtype).float()
         if hp.clip_outputs:
             mel_outputs = _clip_outputs(mel_outputs, hp)
         return decoder_output, mel_outputs
 
-    def _linear(self, mel_outputs: Tensor, train: bool = False) -> Tensor:
+    def _linear(self, mel_outputs: Tensor, train: bool = False,
+                dtype: torch.dtype = torch.float32) -> Tensor:
         """(B, T, num_freq) linear spectrogram of the CBHG post-net over the mels."""
-        linear_outputs = self.cbhg_linear_specs_projection(
-            self.cbhg_postnet(mel_outputs, None, train))
+        linear_outputs = cast_forward(
+            self.cbhg_linear_specs_projection,
+            self.cbhg_postnet(mel_outputs.to(dtype), None, train, dtype), dtype).float()
         if self.hp.clip_outputs:
             linear_outputs = _clip_outputs(linear_outputs, self.hp)
         return linear_outputs
@@ -143,7 +158,8 @@ class Tacotron(nn.Module):
             input_lengths: (B,) int.
             max_iters: decoder steps (default hp.max_iters).
             generator: draws the prenet dropout masks.
-            masks: optional explicit prenet masks, see fused_decoder.synthesis_scan.
+            masks: optional explicit prenet masks, one a layer, see
+                fused_decoder.synthesis_scan.
             predict_linear: also run the CBHG post-net (the model must hold it).
         Returns: dict with decoder_output and mel_outputs (B, T*r, num_mels),
             stop_token_prediction (B, T*r), alignments (B, T_in, T), stop_finished (B,),
@@ -175,11 +191,12 @@ class Tacotron(nn.Module):
         """Every random draw of one teacher-forced pass over a batch of B rows, T_in
         characters and T_mel target frames, from `generator` (on `device`), in a fixed
         order. `teacher_forced` reads:
-          coins (T,) uniform, T = T_mel / r; m1, m2 (T, B, prenet units) prenet masks
-          scaled by 1/keep; and unless `deterministic`: encoder_convolutions and
-          postnet_convolutions, one bool dropout keep-mask (B, T, C) a block;
-          encoder_lstm, the four (T_in, B, U) bool zoneout keep-masks (forward c, h,
-          backward c, h); zo, the decoder's four (T, B, U) bool keep-gates.
+          coins (T,) uniform, T = T_mel / r; m1, m2, ... (T, B, units) the prenet masks
+          of layers 1, 2, ..., scaled by 1/keep; and unless `deterministic`:
+          encoder_convolutions and postnet_convolutions, one bool dropout keep-mask
+          (B, T, C) a block; encoder_lstm, the four (T_in, B, U) bool zoneout keep-masks
+          (forward c, h, backward c, h); zo, the decoder's (T, B, U) bool keep-gates, c
+          and h of each LSTM in turn.
         Dropout and zoneout at rate 0 draw nothing."""
         hp = self.hp
         T = T_mel // hp.outputs_per_step
@@ -190,9 +207,8 @@ class Tacotron(nn.Module):
             return torch.rand(shape, generator=generator, device=device) < p
 
         noise = dict(coins=torch.rand(T, generator=generator, device=device))
-        p1, p2 = hp.prenet_layers
-        noise['m1'] = fd.prenet_masks((T, B, p1), keep, generator, device)
-        noise['m2'] = fd.prenet_masks((T, B, p2), keep, generator, device)
+        for i, units in enumerate(hp.prenet_layers):
+            noise[f'm{i + 1}'] = fd.prenet_masks((T, B, units), keep, generator, device)
         if deterministic:
             return noise
         if keep < 1.0:
@@ -203,13 +219,15 @@ class Tacotron(nn.Module):
         if zkeep < 1.0:
             noise['encoder_lstm'] = [bern(zkeep, T_in, B, hp.encoder_lstm_units)
                                      for _ in range(4)]
-            noise['zo'] = [bern(zkeep, T, B, hp.decoder_lstm_units) for _ in range(4)]
+            noise['zo'] = [bern(zkeep, T, B, hp.decoder_lstm_units)
+                           for _ in range(2 * hp.decoder_layers)]
         return noise
 
     def teacher_forced(self, inputs: Tensor, input_lengths: Tensor, mel_targets: Tensor,
                        noise: Dict, deterministic: bool = True,
                        teacher_forcing_ratio: Optional[float] = None,
-                       predict_linear: Optional[bool] = None) -> Dict[str, Tensor]:
+                       predict_linear: Optional[bool] = None,
+                       dtype: torch.dtype = torch.float32) -> Dict[str, Tensor]:
         """The network over a batch with its targets (`model.py:176-254, 301-337`).
 
         Args:
@@ -222,6 +240,10 @@ class Tacotron(nn.Module):
             deterministic: zoneout's expectation, BatchNorm over running statistics and
                 no encoder or post-net dropout; the prenet's dropout stays on.
             predict_linear: override hp.predict_linear.
+            dtype: the compute dtype. With hp.remat_decoder, where the JAX package runs
+                its `nn.scan` decoder (fused_decoder off, or a depth its fused scan does
+                not cover: `model.py:199-205, 217-219`), each decoder step is recomputed
+                in the backward.
         Returns: dict with decoder_output and mel_outputs (B, T_mel, num_mels),
             stop_token_prediction (B, T_mel), alignments (B, T_in, T), stop_finished
             (B,), and linear_outputs (B, T_mel, num_freq) with predict_linear.
@@ -236,24 +258,27 @@ class Tacotron(nn.Module):
             raise ValueError(f'mel targets of {mel_targets.shape[1]} frames: not a '
                              f'multiple of outputs_per_step={r}')
         T_steps = mel_targets.shape[1] // r
-        keys, values, attn_mask = self._encode(inputs, input_lengths, train, noise)
+        keys, values, attn_mask = self._encode(inputs, input_lengths, train, noise, dtype)
         strided = mel_targets[:, r - 1::r, :].float()
         teacher = torch.cat([torch.zeros_like(strided[:, :1]), strided[:, :-1]],
                             dim=1).transpose(0, 1)
         if teacher_forcing_ratio is None:
             teacher_forcing_ratio = hp.tacotron_teacher_forcing_ratio
         use_teacher = (noise['coins'] < teacher_forcing_ratio).float()
+        depth2 = len(tuple(hp.prenet_layers)) == 2 and hp.decoder_layers == 2
         frames, stop_logits, alignments = fd.decoder_scan(
-            self.decoder, keys, values, attn_mask, teacher, use_teacher, noise['m1'],
-            noise['m2'], noise.get('zo') if train else None)
+            self.decoder, keys, values, attn_mask, teacher, use_teacher,
+            [noise[f'm{i + 1}'] for i in range(len(hp.prenet_layers))],
+            noise.get('zo') if train else None, dtype,
+            remat=hp.remat_decoder and not (hp.fused_decoder and depth2))
         with torch.no_grad():  # stop tracking, outside the gradient
             hit = torch.sigmoid(stop_logits) > 0.5
             hit = hit.any(dim=-1) if hp.stop_at_any else hit.all(dim=-1)
         decoder_output, mel_outputs = self._postnet(
-            frames, train, noise.get('postnet_convolutions'))
+            frames, train, noise.get('postnet_convolutions'), dtype)
         out = dict(decoder_output=decoder_output, mel_outputs=mel_outputs,
                    stop_token_prediction=stop_logits.transpose(0, 1).reshape(B, T_steps * r),
                    alignments=alignments.permute(1, 2, 0), stop_finished=hit.any(dim=0))
         if predict_linear:
-            out['linear_outputs'] = self._linear(mel_outputs, train)
+            out['linear_outputs'] = self._linear(mel_outputs, train, dtype)
         return out

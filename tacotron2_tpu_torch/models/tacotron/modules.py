@@ -6,6 +6,9 @@ its training form: dropout and zoneout from keep-masks given as bool tensors in 
 layout of the JAX draws (batch-major (B, T, C) for convolutions, time-major (T, B, U)
 for recurrences), BatchNorm over the batch statistics with flax's running update. Masks
 are drawn by the model from a torch.Generator, or passed in where they must be shared.
+
+`dtype` is flax's compute dtype (`models/precision.py`): each Dense, Conv and LSTM or
+GRU gate product casts to it, BatchNorm computes in float32.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -13,6 +16,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+from ..precision import cast_forward, sigmoid, weak
 
 BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
@@ -22,8 +27,8 @@ def lstm_gates(z: Tensor, c_prev: Tensor) -> Tuple[Tensor, Tensor]:
     """LSTM nonlinearity on gate pre-activations ordered i, g, f, o, with the +1.0
     forget bias applied here (tf LSTMCell's forget_bias). Returns (c_new, h_new)."""
     i, g, f, o = z.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f + 1.0) * c_prev + torch.sigmoid(i) * torch.tanh(g)
-    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    c_new = sigmoid(f + 1.0) * c_prev + sigmoid(i) * torch.tanh(g)
+    h_new = sigmoid(o) * torch.tanh(c_new)
     return c_new, h_new
 
 
@@ -38,9 +43,14 @@ def zoneout(new: Tensor, old: Tensor, rate: float, keep: Optional[Tensor]) -> Te
     """A recurrent state under zoneout. Training, with the bool keep-mask `keep`: the
     state takes `new` where `keep` holds and keeps `old` elsewhere (the JAX cells'
     (1 - z) * dropout(new - old, z) + old but for rounding, and the fused decoder's
-    keep-gates). Where `keep` is None, its expectation (1 - z) * new + z * old."""
+    keep-gates). Where `keep` is None, its expectation (1 - z) * new + z * old; in a
+    reduced dtype as the JAX fused decoder forms it, k * new + (1 - k) * old with
+    k = 1 - z in that dtype (`fused_decoder.py:526-544`)."""
     if keep is None:
-        return (1.0 - rate) * new + rate * old
+        if new.dtype == torch.float32:
+            return (1.0 - rate) * new + rate * old
+        k = weak(1.0 - rate, new.dtype)
+        return k * new + (1.0 - k) * old
     return torch.where(keep, new, old)
 
 
@@ -58,16 +68,18 @@ class ZoneoutLSTMCell(nn.Module):
         self.gates = nn.Linear(input_size + units, 4 * units)
 
     def forward(self, state: Tuple[Tensor, Tensor], x: Tensor,
-                keep_c: Optional[Tensor] = None, keep_h: Optional[Tensor] = None
-                ) -> Tuple[Tuple[Tensor, Tensor], Tensor]:
+                keep_c: Optional[Tensor] = None, keep_h: Optional[Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> Tuple[Tuple[Tensor, Tensor], Tensor]:
         c_prev, h_prev = state
-        c_new, h_new = lstm_gates(self.gates(torch.cat([x, h_prev], dim=-1)), c_prev)
+        c_new, h_new = lstm_gates(cast_forward(self.gates, torch.cat([x, h_prev], dim=-1),
+                                               dtype), c_prev)
         c = zoneout(c_new, c_prev, self.zoneout_cell, keep_c)
         h = zoneout(h_new, h_prev, self.zoneout_output, keep_h)
         return (c, h), h_new
 
-    def initial_state(self, batch: int, device=None) -> Tuple[Tensor, Tensor]:
-        z = torch.zeros(batch, self.units, device=device)
+    def initial_state(self, batch: int, device=None,
+                      dtype: torch.dtype = torch.float32) -> Tuple[Tensor, Tensor]:
+        z = torch.zeros(batch, self.units, device=device, dtype=dtype)
         return z, z
 
 
@@ -80,9 +92,10 @@ class Prenet(nn.Module):
         dims = [in_dim, *layer_sizes]
         self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
 
-    def forward(self, x: Tensor, masks: Sequence[Tensor]) -> Tensor:
-        for layer, m in zip(self.layers, masks):
-            x = torch.relu(layer(x)) * m
+    def forward(self, x: Tensor, masks: Sequence[Tensor],
+                dtype: torch.dtype = torch.float32) -> Tensor:
+        for layer, m in zip(self.layers, masks, strict=True):
+            x = torch.relu(cast_forward(layer, x, dtype)) * m.to(dtype)
         return x
 
 
@@ -116,6 +129,7 @@ class ConvBlock(nn.Module):
 
     def _bn(self, y: Tensor, train: bool) -> Tensor:
         bn = self.bn
+        y = y.float()  # flax's BatchNorm(dtype=float32), whatever the conv's dtype
         if not train:
             return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                                 training=False, eps=bn.eps)
@@ -127,11 +141,12 @@ class ConvBlock(nn.Module):
         mul = torch.rsqrt(var + bn.eps) * bn.weight
         return (y - mean[:, None]) * mul[:, None] + bn.bias[:, None]
 
-    def forward(self, x: Tensor, train: bool = False, keep: Optional[Tensor] = None
-                ) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False, keep: Optional[Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> Tensor:
         """`keep`: the dropout keep-mask (B, T, C), needed with `train` when the
-        block's dropout rate is nonzero."""
-        y = self.conv(x)
+        block's dropout rate is nonzero. The conv and an activation before BatchNorm
+        run in `dtype`; the output is float32."""
+        y = cast_forward(self.conv, x, dtype)
         if self.bnorm == 'after':
             y = self._bn(self._act(y), train)
         else:
@@ -145,10 +160,11 @@ class _ConvStack(nn.Module):
     """Conv blocks over (B, T, C); `keeps` holds one dropout keep-mask a block."""
 
     def forward(self, x: Tensor, train: bool = False,
-                keeps: Optional[Sequence[Tensor]] = None) -> Tensor:
+                keeps: Optional[Sequence[Tensor]] = None,
+                dtype: torch.dtype = torch.float32) -> Tensor:
         x = x.transpose(1, 2)
         for i, conv in enumerate(self.convs):
-            x = conv(x, train, keeps[i] if keeps is not None else None)
+            x = conv(x, train, keeps[i] if keeps is not None else None, dtype)
         return x.transpose(1, 2)
 
 
@@ -202,13 +218,16 @@ class BiZoneoutLSTM(nn.Module):
 
     @staticmethod
     def _run(cell: ZoneoutLSTMCell, seq: Tensor, mask: Tensor,
-             keeps: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
+             keeps: Optional[Tuple[Tensor, Tensor]], dtype: torch.dtype) -> Tensor:
         B, T, C = seq.shape
-        K = cell.gates.weight.t()                       # (C+U, 4U)
-        xp = seq @ K[:C] + cell.gates.bias              # input half, hoisted: (B, T, 4U)
-        Kh = K[C:]
+        # the input half hoisted, (B, T, 4U) in dtype; the state, and so the step, in the
+        # input's dtype, as the JAX scan's, its product with the kernel in dtype
+        # promoted (`modules.py:161-183`)
+        K = cell.gates.weight.t().to(dtype)                   # (C+U, 4U)
+        xp = seq.to(dtype) @ K[:C] + cell.gates.bias.to(dtype)
+        Kh = K[C:].to(seq.dtype)
         zc, zh = cell.zoneout_cell, cell.zoneout_output
-        c, h = cell.initial_state(B, seq.device)
+        c, h = cell.initial_state(B, seq.device, seq.dtype)
         outs = []
         for t in range(T):
             c_new, h_new = lstm_gates(xp[:, t] + h @ Kh, c)
@@ -220,16 +239,17 @@ class BiZoneoutLSTM(nn.Module):
         return torch.stack(outs, dim=1)
 
     def forward(self, x: Tensor, lengths: Tensor,
-                keeps: Optional[Sequence[Tensor]] = None) -> Tensor:
+                keeps: Optional[Sequence[Tensor]] = None,
+                dtype: torch.dtype = torch.float32) -> Tensor:
         """`keeps`: None (zoneout's expectation) or the four zoneout keep-masks
         (T, B, U) of training, forward c and h, then backward c and h, each indexed by
         the step of its own direction's scan."""
         T = x.shape[1]
         mask = length_mask(lengths, T, x.device)
         fw_keeps, bw_keeps = (None, None) if keeps is None else (keeps[:2], keeps[2:])
-        fw = self._run(self.fw, x, mask, fw_keeps)
+        fw = self._run(self.fw, x, mask, fw_keeps, dtype)
         bw = reverse_sequences(self._run(self.bw, reverse_sequences(x, lengths), mask,
-                                         bw_keeps), lengths)
+                                         bw_keeps, dtype), lengths)
         return torch.cat([fw, bw], dim=-1)
 
 
@@ -242,9 +262,9 @@ class HighwayNet(nn.Module):
         self.H = nn.Linear(units, units)
         self.T = nn.Linear(units, units)
 
-    def forward(self, x: Tensor) -> Tensor:
-        H = torch.relu(self.H(x))
-        T = torch.sigmoid(self.T(x))
+    def forward(self, x: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+        H = torch.relu(cast_forward(self.H, x, dtype))
+        T = sigmoid(cast_forward(self.T, x, dtype))
         return H * T + x * (1.0 - T)
 
 
@@ -254,7 +274,7 @@ class GRU(nn.Module):
     n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), h' = (1 - z) * n + z * h.
     `input` holds W_ir, W_iz, W_in and their biases, `hidden` W_hr, W_hz, W_hn, and
     `bias_hn` b_hn, the one hidden-side bias. Padded steps freeze the state and output
-    zero."""
+    zero. The state keeps the input's dtype, as the JAX scan's does."""
 
     def __init__(self, input_size: int, units: int):
         super().__init__()
@@ -263,18 +283,21 @@ class GRU(nn.Module):
         self.hidden = nn.Linear(units, 3 * units, bias=False)
         self.bias_hn = nn.Parameter(torch.zeros(units))
 
-    def forward(self, seq: Tensor, mask: Tensor) -> Tensor:
+    def forward(self, seq: Tensor, mask: Tensor,
+                dtype: torch.dtype = torch.float32) -> Tensor:
         B, T, _ = seq.shape
         H = self.units
-        ip = self.input(seq)                            # (B, T, 3H), hoisted
-        Kh = self.hidden.weight.t()
-        h = torch.zeros(B, H, device=seq.device)
+        ip = cast_forward(self.input, seq, dtype)      # (B, T, 3H), hoisted
+        Kh = self.hidden.weight.t().to(dtype).to(seq.dtype)
+        bias_hn = self.bias_hn.to(dtype)
+        mask = mask.to(seq.dtype)
+        h = torch.zeros(B, H, device=seq.device, dtype=seq.dtype)
         outs = []
         for t in range(T):
             ip_t, hh = ip[:, t], h @ Kh
-            r = torch.sigmoid(ip_t[:, :H] + hh[:, :H])
-            z = torch.sigmoid(ip_t[:, H:2 * H] + hh[:, H:2 * H])
-            n = torch.tanh(ip_t[:, 2 * H:] + r * (hh[:, 2 * H:] + self.bias_hn))
+            r = sigmoid(ip_t[:, :H] + hh[:, :H])
+            z = sigmoid(ip_t[:, H:2 * H] + hh[:, H:2 * H])
+            n = torch.tanh(ip_t[:, 2 * H:] + r * (hh[:, 2 * H:] + bias_hn))
             new_h = (1.0 - z) * n + z * h
             m = mask[:, t, None]
             h = torch.where(m > 0, new_h, h)
@@ -308,21 +331,23 @@ class CBHG(nn.Module):
         self.gru_bw = GRU(highway_units, rnn_units)
 
     def forward(self, x: Tensor, lengths: Optional[Tensor] = None,
-                train: bool = False) -> Tensor:
+                train: bool = False, dtype: torch.dtype = torch.float32) -> Tensor:
         B, T, _ = x.shape
         xt = x.transpose(1, 2)
-        y = torch.cat([conv(xt, train) for conv in self.bank], dim=1)
+        y = torch.cat([conv(xt, train, None, dtype) for conv in self.bank], dim=1)
         lo = (self.pool_size - 1) // 2
         y = F.max_pool1d(F.pad(y, (lo, self.pool_size - 1 - lo), value=float('-inf')),
                          self.pool_size, stride=1)
-        y = self.proj2(self.proj1(y, train), train).transpose(1, 2) + x
+        y = self.proj2(self.proj1(y, train, None, dtype), train, None,
+                       dtype).transpose(1, 2) + x
         if self.highway_in is not None:
-            y = self.highway_in(y)
+            y = cast_forward(self.highway_in, y, dtype)
         for highway in self.highways:
-            y = highway(y)
+            y = highway(y, dtype)
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.long, device=x.device)
         mask = length_mask(lengths, T, x.device)
-        fw = self.gru_fw(y, mask)
-        bw = reverse_sequences(self.gru_bw(reverse_sequences(y, lengths), mask), lengths)
+        fw = self.gru_fw(y, mask, dtype)
+        bw = reverse_sequences(self.gru_bw(reverse_sequences(y, lengths), mask, dtype),
+                               lengths)
         return torch.cat([fw, bw], dim=-1)

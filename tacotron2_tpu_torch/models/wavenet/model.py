@@ -7,8 +7,10 @@ generation runs on packed weights in `ops/wavenet_ar.py` (the kernel and its pla
 version); `incremental` here is the sample-by-sample loop over the unpacked f32
 modules, which shares no packing with the kernel: its oracle, and the path for what
 the kernel does not take (teacher forcing, no local conditioning). Covered: raw,
-mu-law and mu-law-quantized (one-hot) input, local conditioning with the SubPixel or
-2D upsampler (ReLU), global conditioning on speaker ids or embeddings.
+mu-law and mu-law-quantized (one-hot) input, local conditioning with each of the five
+upsamplers and their activations, global conditioning on speaker ids or embeddings.
+The teacher-forced pass runs in the compute dtype it is given (`models/precision.py`):
+each conv in it, the output float32 (`model.py:135`).
 """
 
 import math
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ...ops.mulaw import is_mulaw_quantize, is_scalar_input
+from ..precision import weak
 from . import distributions as dist
 from .modules import Conv1x1, Embedding, ResidualConv1DGLU, UpsampleNetwork
 
@@ -28,12 +31,6 @@ class WaveNet(nn.Module):
         super().__init__()
         if hp.layers % hp.stacks != 0:
             raise ValueError('layers must be a multiple of stacks')
-        if hp.cin_channels > 0 and (hp.upsample_type not in ('SubPixel', '2D')
-                                    or hp.upsample_activation != 'Relu'):
-            raise NotImplementedError(
-                f'upsample_type={hp.upsample_type!r}, upsample_activation='
-                f'{hp.upsample_activation!r}: the SubPixel and 2D upsamplers with ReLU '
-                'only')
         self.hp = hp
         lps = hp.layers // hp.stacks
         in_channels = 1 if is_scalar_input(hp.input_type) else hp.quantize_channels
@@ -50,7 +47,8 @@ class WaveNet(nn.Module):
         self.gc_embedding = (Embedding(hp.n_speakers, hp.gin_channels, 0.1)
                              if hp.gin_channels > 0 and hp.use_speaker_embedding else None)
         self.upsample = (UpsampleNetwork(hp.upsample_scales, hp.freq_axis_kernel_size,
-                                         hp.upsample_type, wn)
+                                         hp.upsample_type, hp.upsample_activation,
+                                         hp.leaky_alpha, hp.cin_channels, wn)
                          if hp.cin_channels > 0 else None)
 
     def embed_global(self, g: Optional[Tensor]) -> Optional[Tensor]:
@@ -77,15 +75,17 @@ class WaveNet(nn.Module):
         if skips is None:
             return s  # the first skip enters unscaled
         skips = skips + s
-        return skips * math.sqrt(0.5) if self.hp.legacy else skips
+        return skips * weak(math.sqrt(0.5), skips.dtype) if self.hp.legacy else skips
 
-    def _head(self, skips: Tensor) -> Tensor:
-        return self.skip_conv2(torch.relu(self.skip_conv1(torch.relu(skips))))
+    def _head(self, skips: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+        return self.skip_conv2(torch.relu(self.skip_conv1(torch.relu(skips), dtype)),
+                               dtype).float()
 
     def forward(self, x: Tensor, c: Optional[Tensor] = None, g: Optional[Tensor] = None,
                 c_is_upsampled: bool = False, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                dropout_masks: Optional[Sequence[Tensor]] = None) -> Tensor:
+                dropout_masks: Optional[Sequence[Tensor]] = None,
+                dtype: torch.dtype = torch.float32) -> Tensor:
         """Teacher-forced parallel pass.
 
         Args:
@@ -98,23 +98,24 @@ class WaveNet(nn.Module):
             train: apply dropout to every layer's input (hp.wavenet_dropout), the keep
                 masks drawn from `generator` (on x's device) or given as
                 `dropout_masks`, one bool (B, T, R) tensor a layer.
-        Returns: (B, T, out_channels) distribution params.
+            dtype: the compute dtype of every conv, the upsampler's included.
+        Returns: (B, T, out_channels) distribution params, float32.
         """
         B, T = x.shape[0], x.shape[1]
         if c is not None and self.upsample is not None:
             if not c_is_upsampled:
-                c = self.upsample(c)
+                c = self.upsample(c, dtype)
             if c.shape[1] != T:
                 raise ValueError(f'upsampled c length {c.shape[1]} != audio {T}')
         g_emb = self.embed_global(g)
         g_seq = g_emb[:, None, :].expand(B, T, -1) if g_emb is not None else None
-        h = self.first_conv(x)
+        h = self.first_conv(x, dtype)
         skips = None
         for i, layer in enumerate(self.residual_layers):
             h, s = layer(h, c, g_seq, train, generator,
-                         dropout_masks[i] if dropout_masks is not None else None)
+                         dropout_masks[i] if dropout_masks is not None else None, dtype)
             skips = self._skip_sum(skips, s)
-        return self._head(skips)
+        return self._head(skips, dtype)
 
     @torch.no_grad()
     def incremental(self, c: Optional[Tensor] = None, g: Optional[Tensor] = None,

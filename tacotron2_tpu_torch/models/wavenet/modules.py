@@ -7,8 +7,12 @@ one, with g and v both trained (`modules.py:25-32`): `module.weight` is then the
 effective weight wherever it is read (the forward pass, `ops/wavenet_ar.pack_params`),
 `module.parametrizations.weight.original` is v and `module.parametrizations.weight[0].g`
 is g. Inference checkpoints may instead carry the folded weight (`convert.py`). The
-upsampler covers the SubPixel variant (the default) and the 2D transpose-conv variant
-(the paper profile).
+upsampler covers the JAX package's five variants: NearestNeighbor, 1D, 2D, Resize and
+SubPixel (the default; 2D is the paper profile's), with a ReLU, leaky ReLU or no
+activation.
+
+The parallel path's forwards take the compute dtype (`models/precision.py`): each conv
+casts its input, weight and bias to it, as the flax modules do.
 """
 
 import math
@@ -18,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 from torch.nn.utils import parametrize
+
+from ..precision import cast_forward, sigmoid, weak
 
 
 class WeightNorm(nn.Module):
@@ -63,11 +69,11 @@ class Conv1x1(nn.Linear):
         if weight_normalization:
             weight_normalize(self)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
         if x.is_floating_point():
-            return super().forward(x)
-        y = F.embedding(x, self.weight.t())
-        return y + self.bias if self.bias is not None else y
+            return cast_forward(self, x, dtype)
+        y = F.embedding(x, self.weight.t().to(dtype))
+        return y + self.bias.to(dtype) if self.bias is not None else y
 
 
 class CausalConv1D(nn.Conv1d):
@@ -80,9 +86,9 @@ class CausalConv1D(nn.Conv1d):
         if weight_normalization:
             weight_normalize(self)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
         pad = (self.kernel_size[0] - 1) * self.dilation[0]
-        y = super().forward(F.pad(x.transpose(1, 2), (pad, 0)))
+        y = cast_forward(self, F.pad(x.transpose(1, 2).to(dtype), (pad, 0)), dtype)
         return y.transpose(1, 2)
 
 
@@ -119,7 +125,8 @@ class ResidualConv1DGLU(nn.Module):
         return bits < threshold
 
     def _outputs(self, conv_out: Tensor, c_proj: Optional[Tensor], g_proj: Optional[Tensor],
-                 residual: Tensor) -> Tuple[Tensor, Tensor]:
+                 residual: Tensor, dtype: torch.dtype = torch.float32
+                 ) -> Tuple[Tensor, Tensor]:
         """GLU of the conv output plus the projected conditionings, then the residual
         and skip 1x1s."""
         a, b = conv_out.chunk(2, dim=-1)
@@ -127,30 +134,34 @@ class ResidualConv1DGLU(nn.Module):
             if proj is not None:
                 pa, pb = proj.chunk(2, dim=-1)
                 a, b = a + pa, b + pb
-        gated = torch.tanh(a) * torch.sigmoid(b)
-        s = self.conv1x1_skip(gated)
-        out = self.conv1x1_out(gated) + residual
+        gated = torch.tanh(a) * sigmoid(b)
+        s = self.conv1x1_skip(gated, dtype)
+        out = self.conv1x1_out(gated, dtype) + residual
         if self.residual_legacy:
-            out = out * math.sqrt(0.5)
+            out = out * weak(math.sqrt(0.5), out.dtype)
         return out, s
 
     def forward(self, x: Tensor, c: Optional[Tensor], g: Optional[Tensor] = None,
                 train: bool = False, generator: Optional[torch.Generator] = None,
-                mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                mask: Optional[Tensor] = None, dtype: torch.dtype = torch.float32
+                ) -> Tuple[Tensor, Tensor]:
         """x (B, T, R); c (B, T, cin) or None; g (B, T, gin) or None. With `train` and
         dropout > 0 the conv's input (not the residual) keeps the elements of `mask`
         (bool, x's shape; drawn from `generator` when None), scaled by 1 / keep, the
-        nominal keep probability as in the JAX module (`modules.py:187`). Returns
-        (x_out (B, T, R), skip (B, T, S))."""
+        nominal keep probability as in the JAX module (`modules.py:187`). Every conv
+        runs in `dtype`. Returns (x_out (B, T, R), skip (B, T, S))."""
         residual = x
         if train and self.dropout > 0:
             if mask is None:
                 if generator is None:
                     raise ValueError('dropout in training needs a generator or a mask')
                 mask = self.dropout_mask(x.shape, generator)
-            x = torch.where(mask, x / (1.0 - self.dropout), torch.zeros((), device=x.device))
-        return self._outputs(self.conv(x), self.conv1x1c(c) if c is not None else None,
-                             self.conv1x1g(g) if g is not None else None, residual)
+            x = torch.where(mask, x / weak(1.0 - self.dropout, x.dtype),
+                            torch.zeros((), device=x.device, dtype=x.dtype))
+        return self._outputs(self.conv(x, dtype),
+                             self.conv1x1c(c, dtype) if c is not None else None,
+                             self.conv1x1g(g, dtype) if g is not None else None, residual,
+                             dtype)
 
     def incremental_step(self, taps: Tensor, c_proj: Optional[Tensor],
                          g_proj: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
@@ -171,59 +182,111 @@ class Embedding(nn.Embedding):
         nn.init.normal_(self.weight, 0.0, std)
 
 
+class _Cast:
+    """A torch conv whose forward takes the compute dtype (a module call, so that the
+    weight-norm init's hooks see it)."""
+
+    def forward(self, x: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+        return cast_forward(self, x, dtype)
+
+
+class Conv2d(_Cast, nn.Conv2d):
+    pass
+
+
+class ConvTranspose1d(_Cast, nn.ConvTranspose1d):
+    pass
+
+
+class ConvTranspose2d(_Cast, nn.ConvTranspose2d):
+    pass
+
+
+UPSAMPLE_TYPES = ('NearestNeighbor', '1D', '2D', 'Resize', 'SubPixel')
+UPSAMPLE_ACTIVATIONS = ('Relu', 'LeakyRelu', None)
+
+
 class UpsampleNetwork(nn.Module):
-    """mel (B, Tc, cin) -> (B, Tc*hop, cin), SubPixel or 2D variant.
+    """mel (B, Tc, cin) -> (B, Tc*hop, cin), one layer a scale s of upsample_scales, the
+    activation after each (`modules.py:310-397` of the JAX package):
 
-    The mel is an image with H = mel bins and W = time, one channel. A SubPixel layer
-    is a SAME conv (freq_axis_kernel_size, 3) from 1 to s channels, then the periodic
-    shuffle (B, H, W, s) -> (B, H, W*s). A 2D layer is a transpose conv
-    (freq_axis_kernel_size, s) with stride (1, s) from 1 channel to 1. A ReLU follows
-    every layer, the last included (`modules.py:357-397` of the JAX package).
+      - NearestNeighbor: each frame repeated hop times; no layer, no activation.
+      - 1D: a transpose conv over time of kernel s and stride s, cin channels to cin.
+      - 2D, Resize and SubPixel see the mel as an image, H = mel bins, W = time, one
+        channel. 2D: a transpose conv (freq_axis_kernel_size, s) of stride (1, s).
+        Resize: each column repeated s times, then a SAME conv (freq_axis_kernel_size,
+        s). SubPixel: a SAME conv (freq_axis_kernel_size, 3) from 1 to s channels, then
+        the periodic shuffle (B, H, W, s) -> (B, H, W*s).
 
-    The 2D layer reproduces `jax.lax.conv_transpose(..., 'SAME')` with
-    `transpose_kernel=False`: a correlation of the stride-dilated input with the
-    kernel as it is, padded by lax's rule, (fk-1)/2 on each side in frequency for an
-    odd fk and s-1 in time. torch's ConvTranspose2d correlates with the kernel flipped
-    on both axes, so `convert.py` stores the flax kernel flipped, and the layer runs
+    lax's SAME pads an even kernel (k-1)//2 before and k//2 after, as torch's 'same'
+    does. The transpose convs reproduce `jax.lax.conv_transpose(..., 'SAME')` with
+    `transpose_kernel=False`: a correlation of the stride-dilated input with the kernel
+    as it is. torch's transpose conv correlates with the kernel flipped, so `convert.py`
+    stores the flax kernel flipped. Kernel s and stride s need no padding; the 2D layer
+    pads (fk-1)/2 on each side in frequency for an odd fk and s-1 in time, so it runs
     unpadded and crops the frequency axis to lax's padding."""
 
     def __init__(self, upsample_scales: Sequence[int], freq_axis_kernel_size: int = 3,
-                 upsample_type: str = 'SubPixel', weight_normalization: bool = False):
+                 upsample_type: str = 'SubPixel', activation: Optional[str] = 'Relu',
+                 leaky_alpha: float = 0.4, cin_channels: int = 80,
+                 weight_normalization: bool = False):
         super().__init__()
-        if upsample_type not in ('SubPixel', '2D'):
-            raise NotImplementedError(f'upsample_type={upsample_type!r}: SubPixel and 2D '
-                                      'only')
+        if upsample_type not in UPSAMPLE_TYPES:
+            raise ValueError(f'unknown upsample_type {upsample_type!r}')
+        if activation not in UPSAMPLE_ACTIVATIONS:
+            raise ValueError(f'unknown upsample_activation {activation!r}')
         self.upsample_type = upsample_type
+        self.activation = activation
+        self.leaky_alpha = leaky_alpha
         self.scales = tuple(upsample_scales)
         fk = freq_axis_kernel_size
-        if upsample_type == '2D':
-            self.convs = nn.ModuleList(nn.ConvTranspose2d(1, 1, (fk, s), stride=(1, s))
-                                       for s in self.scales)
-        else:
-            self.convs = nn.ModuleList(nn.Conv2d(1, s, (fk, 3), padding='same')
-                                       for s in self.scales)
-        if weight_normalization:  # ConvTranspose2d's weight is (in, out, kh, kw)
+        layer = {'NearestNeighbor': None,
+                 '1D': lambda s: ConvTranspose1d(cin_channels, cin_channels, s, stride=s),
+                 '2D': lambda s: ConvTranspose2d(1, 1, (fk, s), stride=(1, s)),
+                 'Resize': lambda s: Conv2d(1, 1, (fk, s), padding='same'),
+                 'SubPixel': lambda s: Conv2d(1, s, (fk, 3), padding='same')}[upsample_type]
+        self.convs = nn.ModuleList(layer(s) for s in self.scales) if layer else nn.ModuleList()
+        if weight_normalization:  # a transpose conv's weight is (in, out, ...)
             for conv in self.convs:
-                weight_normalize(conv, out_dim=1 if upsample_type == '2D' else 0)
+                weight_normalize(conv, out_dim=1 if upsample_type in ('1D', '2D') else 0)
         # lax's SAME transpose padding in frequency (stride 1) is ceil((fk-1)/2) before
         # and floor((fk-1)/2) after; the unpadded ConvTranspose2d pads fk-1 on each
         # side, so the rest is cropped
         self._crop = ((fk - 1) // 2, fk // 2)
 
     def crop(self, y: Tensor) -> Tensor:
-        """A 2D layer's output cut to lax's SAME padding; a SubPixel layer's as it is."""
+        """A 2D layer's output cut to lax's SAME padding; any other layer's as it is."""
         if self.upsample_type != '2D':
             return y
         return y[:, :, self._crop[0]:y.shape[2] - self._crop[1]]
 
-    def forward(self, c: Tensor) -> Tensor:
+    def _act(self, x: Tensor) -> Tensor:
+        if self.activation == 'Relu':
+            return torch.relu(x)
+        if self.activation == 'LeakyRelu':
+            return F.leaky_relu(x, weak(self.leaky_alpha, x.dtype))
+        return x
+
+    def forward(self, c: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+        """c (B, Tc, cin) -> (B, Tc*hop, cin), in `dtype` but for NearestNeighbor, which
+        returns c's own dtype."""
+        if self.upsample_type == 'NearestNeighbor':
+            return c.repeat_interleave(math.prod(self.scales), dim=1)
+        if self.upsample_type == '1D':
+            x = c.transpose(1, 2)                          # (B, cin, T)
+            for conv in self.convs:
+                x = self._act(conv(x, dtype))
+            return x.transpose(1, 2)
         B = c.shape[0]
         x = c.transpose(1, 2)[:, None]                     # (B, 1, H, W)
         for conv, s in zip(self.convs, self.scales):
-            y = conv(x)
-            if self.upsample_type == '2D':                 # (B, 1, H + fk - 1, W*s)
-                x = torch.relu(self.crop(y))
+            if self.upsample_type == 'Resize':
+                x = conv(x.repeat_interleave(s, dim=3), dtype)
+            elif self.upsample_type == '2D':               # (B, 1, H + fk - 1, W*s)
+                x = self.crop(conv(x, dtype))
             else:                                          # (B, s, H, W)
+                y = conv(x, dtype)
                 _, _, H, W = y.shape
-                x = torch.relu(y.permute(0, 2, 3, 1).reshape(B, 1, H, W * s))
+                x = y.permute(0, 2, 3, 1).reshape(B, 1, H, W * s)
+            x = self._act(x)
         return x[:, 0].transpose(1, 2)                     # (B, T*hop, cin)

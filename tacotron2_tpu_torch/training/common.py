@@ -1,6 +1,6 @@
-"""Pieces the WaveNet and the Tacotron trainers share: flax's lecun-normal initializer,
-Adam as optax computes it, the seed of a step's random draws, a loader batch on the
-device, and the per-step log line of the training loops."""
+"""Pieces the WaveNet and the Tacotron trainers share: the compute dtype, flax's
+lecun-normal initializer, Adam as optax computes it, the seed of a step's random draws,
+a loader batch on the device, and the per-step log line of the training loops."""
 
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -11,6 +11,15 @@ from torch import Tensor, nn
 
 from ..infolog import log
 from ..utils import ValueWindow
+
+
+def resolve_compute_dtype(hp, device) -> torch.dtype:
+    """The dtype the trainers compute in on `device` (counterpart of
+    `resolve_compute_dtype`, `tacotron_trainer.py:130-135`): bfloat16 on a CUDA device
+    where hp.compute_dtype is 'bfloat16' (the default), else float32. The CPU stays
+    float32, as the JAX package keeps it."""
+    on_card = torch.device(device).type == 'cuda'
+    return torch.bfloat16 if on_card and hp.compute_dtype == 'bfloat16' else torch.float32
 
 
 def lecun_normal_(w: Tensor, generator: torch.Generator) -> None:

@@ -17,7 +17,8 @@ uninterrupted one; every eval draws its prenet masks and coins from the generato
 seeded with tacotron_random_seed alone, as the JAX loop hands each eval its root key.
 The loss of a step is read one step late, after the next step is dispatched, except
 where an interval needs it at once (`common.StepLog`, which also says what a step's
-logged time covers).
+logged time covers). Train and eval steps run in `common.resolve_compute_dtype`'s dtype:
+bfloat16 on the card at the default hparams, float32 on the CPU.
 """
 
 import importlib.util
@@ -36,7 +37,7 @@ from ..ops import audio, dsp
 from ..text import sequence_to_text, symbols
 from . import tacotron_trainer as tt
 from .checkpointing import CheckpointManager
-from .common import StepLog, step_seed, to_device
+from .common import StepLog, resolve_compute_dtype, step_seed, to_device
 
 EVAL_LOSSES = ('loss', 'before_loss', 'after_loss', 'stop_token_loss', 'linear_loss')
 
@@ -134,6 +135,10 @@ def train(log_dir: str, args, hparams: Hparams, device) -> str:
     state = tt.create_train_state(hp, device)
     log('Tacotron Parameters: {:.3f} Million.'.format(
         sum(p.numel() for p in state.model.parameters()) / 1e6))
+    dtype = resolve_compute_dtype(hp, device)
+    log('Compute dtype: {}'.format(dtype))
+    if dtype != torch.float32:  # bf16 products accumulate in f32, as XLA's do
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     ckpt = CheckpointManager(save_dir, max_to_keep=20)
     if args.restore and ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore())

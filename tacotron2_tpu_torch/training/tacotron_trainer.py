@@ -9,7 +9,10 @@ epsilon), then Adam as optax computes it with the learning rate of
 tacotron_fine_tuning the embedding and the encoder are frozen: they take no update and
 hold no moments, and the clip's norm runs over the other gradients alone, as under
 optax's multi_transform. The backward is autograd over the modules and the decoder's
-step loop, in float32 (the JAX package's bf16 compute option is not ported).
+step loop. The steps run in a compute dtype, by default `common.resolve_compute_dtype`'s
+for the batch's device (bfloat16 on the card at the default hparams, float32 on the
+CPU): the modules cast where flax's do, the parameters, the losses, the clip and Adam
+stay float32.
 """
 
 import dataclasses
@@ -23,7 +26,7 @@ from ..models.tacotron.losses import compute_losses, l2_parameters
 from ..models.tacotron.model import Tacotron
 from ..models.tacotron.modules import GRU, HighwayNet
 from . import schedules
-from .common import adam_update_, lecun_normal_
+from .common import adam_update_, lecun_normal_, resolve_compute_dtype
 
 
 @dataclasses.dataclass
@@ -122,22 +125,25 @@ def _noise(model: Tacotron, batch: Dict[str, Tensor], generator, deterministic: 
 
 def train_step(state: TacotronTrainState, batch: Dict[str, Tensor], hp,
                generator: Optional[torch.Generator] = None,
-               noise: Optional[Dict] = None) -> Dict[str, Any]:
+               noise: Optional[Dict] = None,
+               dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """One update of `state`, in place (counterpart of `train_step`,
     `tacotron_trainer.py:70-101`): dropout, zoneout and the teacher-forcing coins at
     the ratio of this step, drawn from `generator` (on the batch's device) unless
-    `noise` gives them (`Tacotron.draw_noise`). BatchNorm's running statistics move
-    with the batch's. Returns the metrics: each loss term and `grad_norm` as 0-d
+    `noise` gives them (`Tacotron.draw_noise`), in the compute dtype `dtype` (None: the
+    one `resolve_compute_dtype` gives the batch's device). BatchNorm's running
+    statistics move with the batch's. Returns the metrics: each loss term and `grad_norm` as 0-d
     tensors on the device, not read back here, and `learning_rate` and
     `teacher_forcing_ratio`, read at the step before the increment."""
     model = state.model
     names, params = zip(*model.named_parameters())
     ratio = schedules.teacher_forcing_ratio(hp, state.step)
+    dtype = dtype or resolve_compute_dtype(hp, batch['mel_targets'].device)
     if noise is None:
         noise = _noise(model, batch, generator, False)
     outputs = model.teacher_forced(batch['inputs'], batch['input_lengths'],
                                    batch['mel_targets'], noise, deterministic=False,
-                                   teacher_forcing_ratio=ratio)
+                                   teacher_forcing_ratio=ratio, dtype=dtype)
     loss, metrics = compute_losses(outputs, batch, l2_parameters(model), hp)
     # a parameter the pass does not reach (none with the default hparams) gets zero
     grads = [g if g is not None else torch.zeros_like(p) for g, p in
@@ -164,20 +170,23 @@ def train_step(state: TacotronTrainState, batch: Dict[str, Tensor], hp,
 @torch.no_grad()
 def eval_step(state: TacotronTrainState, batch: Dict[str, Tensor], hp,
               generator: Optional[torch.Generator] = None,
-              noise: Optional[Dict] = None) -> Dict[str, Tensor]:
-    """The teacher-forced pass without zoneout or encoder and post-net dropout, over
-    BatchNorm's running statistics; the prenet's dropout stays on. The coins compare
+              noise: Optional[Dict] = None,
+              dtype: Optional[torch.dtype] = None) -> Dict[str, Tensor]:
+    """The teacher-forced pass in the compute dtype `dtype` (None: as `train_step`
+    resolves it), without zoneout or encoder and post-net dropout, over BatchNorm's
+    running statistics; the prenet's dropout stays on. The coins compare
     with 0 under tacotron_natural_eval (every step reads the decoder's own frame), else
     with this step's ratio (`tacotron_trainer.py:104-124`). Returns each loss term and
     the outputs: mel_outputs, alignments, stop_token_prediction (and linear_outputs)."""
     model = state.model
     ratio = (0.0 if hp.tacotron_natural_eval
              else schedules.teacher_forcing_ratio(hp, state.step))
+    dtype = dtype or resolve_compute_dtype(hp, batch['mel_targets'].device)
     if noise is None:
         noise = _noise(model, batch, generator, True)
     outputs = model.teacher_forced(batch['inputs'], batch['input_lengths'],
                                    batch['mel_targets'], noise, deterministic=True,
-                                   teacher_forcing_ratio=ratio)
+                                   teacher_forcing_ratio=ratio, dtype=dtype)
     _, metrics = compute_losses(outputs, batch, l2_parameters(model), hp)
     for k in ('mel_outputs', 'alignments', 'stop_token_prediction', 'linear_outputs'):
         if k in outputs:

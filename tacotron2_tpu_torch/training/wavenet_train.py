@@ -14,6 +14,10 @@ loop does (`wavenet_train.py:272-317`): the read then waits for a step that has 
 finished while the device works on the next. It is read at once where an interval
 (summary, eval, checkpoint, the last step) needs it (`common.StepLog`, which also says
 what a step's logged time covers). Nothing else in the step loop reads a device value.
+The train and teacher-forced eval steps run in `common.resolve_compute_dtype`'s dtype
+(bfloat16 on the card at the default hparams, float32 on the CPU); the weight-norm init
+and the natural eval's AR launch run in float32, as the JAX loop runs them
+(`wavenet_train.py:101-105, 246`).
 """
 
 import os
@@ -36,7 +40,7 @@ from ..ops.mulaw import inv_mulaw, inv_mulaw_quantize, is_mulaw, is_mulaw_quanti
 from . import checkpoint_select, weight_norm_init
 from . import wavenet_trainer as wt
 from .checkpointing import CheckpointManager
-from .common import StepLog, step_seed, to_device
+from .common import StepLog, resolve_compute_dtype, step_seed, to_device
 
 
 def _to_waveform(y: np.ndarray, hp: Hparams) -> np.ndarray:
@@ -202,6 +206,10 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
     state = wt.create_train_state(hp, device)
     n_params = sum(p.numel() for p in state.model.parameters())
     log('WaveNet Parameters: {:.3f} Million.'.format(n_params / 1e6))
+    dtype = resolve_compute_dtype(hp, device)
+    log('Compute dtype: {}'.format(dtype))
+    if dtype != torch.float32:  # bf16 products accumulate in f32, as XLA's do
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     ckpt = CheckpointManager(save_dir, max_to_keep=20)
     if args.restore and ckpt.latest_step() is not None:

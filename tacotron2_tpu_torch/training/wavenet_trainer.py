@@ -10,8 +10,10 @@ trainable parameter (weight-norm g and v included), updated after the parameters
 is written out, as optax computes it: bias-corrected moments, epsilon added outside the
 root, update = lr * m_hat / (sqrt(v_hat) + eps). The JAX train step is
 `jax.value_and_grad` over XLA ops and has no hand-written backward kernel; here it is
-autograd over the modules, in float32 (the JAX package's bf16 compute option is not
-ported).
+autograd over the modules, in a compute dtype, by default `common.resolve_compute_dtype`'s
+for the batch's device (bfloat16 on the card at the default hparams, float32 on the
+CPU): the convs cast where flax's do, the parameters, the loss, the clip, Adam and the
+EMA stay float32.
 """
 
 import copy
@@ -25,7 +27,7 @@ from ..models.wavenet.model import WaveNet, compute_wavenet_loss
 from ..models.wavenet.modules import is_weight_normalized
 from ..ops.mulaw import is_mulaw_quantize
 from . import schedules
-from .common import adam_update_, lecun_normal_
+from .common import adam_update_, lecun_normal_, resolve_compute_dtype
 
 
 @dataclasses.dataclass
@@ -63,16 +65,19 @@ def init_parameters(model: WaveNet, hp, generator: torch.Generator) -> WaveNet:
     """Initialize `model` in place as the flax modules do: truncated-normal kernels of
     variance 1 / fan_in, zero biases, weight-norm g = 1, speaker embeddings N(0, 0.1),
     and, with hp.NN_init, upsampling kernels that start as a nearest-neighbour
-    upsampling scaled by NN_scaler^(1 / layers) (`modules.py:237-263, 382-392`): zero
-    but for the centre row in frequency, where a SubPixel kernel holds 1 in its middle
-    column and a 2D transpose kernel 1 in every column. `generator` is a CPU generator.
-    The draws are torch's, not flax's: the two packages agree in distribution."""
+    upsampling scaled by NN_scaler^(1 / layers) (`modules.py:237-263, 340-392`): a 1D
+    kernel the identity over channels at every tap; the others zero but for the centre
+    row in frequency, where a SubPixel kernel holds 1 in its middle column, a Resize
+    kernel 1 in its middle column (the two middle ones for an even scale) and a 2D
+    transpose kernel 1 in every column. `generator` is a CPU generator. The draws are
+    torch's, not flax's: the two packages agree in distribution."""
+    transposed = (nn.ConvTranspose1d, nn.ConvTranspose2d)
     for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d) + transposed):
             w = (module.parametrizations.weight.original if is_weight_normalized(module)
                  else module.weight)
             fresh = torch.empty(w.shape)
-            if isinstance(module, nn.ConvTranspose2d):  # (in, out, kh, kw): fan_in by out
+            if isinstance(module, transposed):  # (in, out, k...): fan_in by out
                 lecun_normal_(fresh.transpose(0, 1), generator)
             else:
                 lecun_normal_(fresh, generator)
@@ -89,11 +94,15 @@ def init_parameters(model: WaveNet, hp, generator: torch.Generator) -> WaveNet:
             w = (conv.parametrizations.weight.original if is_weight_normalized(conv)
                  else conv.weight)
             w.zero_()
-            fk = w.shape[2]
+            if hp.upsample_type == '1D':                    # (cin, cin, s)
+                w[:] = scale * torch.eye(w.shape[0])[:, :, None]
+                continue
+            fk, kw = w.shape[2], w.shape[3]
             if hp.upsample_type == '2D':
                 w[:, :, fk // 2, :] = scale
-            else:
-                w[:, :, fk // 2, 1] = scale
+            else:  # SubPixel (kw 3), Resize (kw the scale)
+                cols = [kw // 2 - 1, kw // 2] if kw % 2 == 0 else [kw // 2]
+                w[:, :, fk // 2, cols] = scale
     return model
 
 
@@ -143,16 +152,20 @@ def clip_gradients(grads: Sequence[Tensor], hp) -> List[Tensor]:
 
 def train_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
                generator: Optional[torch.Generator] = None,
-               dropout_masks: Optional[Sequence[Tensor]] = None) -> Dict[str, Any]:
+               dropout_masks: Optional[Sequence[Tensor]] = None,
+               dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """One update of `state`, in place (counterpart of `train_step`,
-    `wavenet_trainer.py:76-104`). `generator` (on the batch's device) draws the dropout
-    masks unless `dropout_masks` gives them. Returns the metrics: `loss` and
+    `wavenet_trainer.py:76-104`), its pass in the compute dtype `dtype` (None: the one
+    `resolve_compute_dtype` gives the batch's device). `generator`
+    (on the batch's device) draws the dropout masks unless `dropout_masks` gives them.
+    Returns the metrics: `loss` and
     `grad_norm` (the global norm of the unclipped gradients) as 0-d tensors on the
     device, not read back here, and `learning_rate`, read at the step before the
     increment."""
     params = list(state.model.parameters())
+    dtype = dtype or resolve_compute_dtype(hp, batch['audio'].device)
     loss, _ = _forward_loss(state.model, batch, hp, train=True, generator=generator,
-                            dropout_masks=dropout_masks)
+                            dropout_masks=dropout_masks, dtype=dtype)
     # the last layer's residual 1x1 feeds nothing: its gradient is zero, as in JAX
     grads = [g if g is not None else torch.zeros_like(p) for g, p in
              zip(torch.autograd.grad(loss, params, allow_unused=True), params)]
@@ -174,9 +187,11 @@ def train_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
 
 
 @torch.no_grad()
-def eval_teacher_forced_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp
-                             ) -> Dict[str, Tensor]:
+def eval_teacher_forced_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
+                             dtype: Optional[torch.dtype] = None) -> Dict[str, Tensor]:
     """Teacher-forced loss and params on the live (not the EMA) weights, without
-    dropout (`wavenet_trainer.py:107-118`)."""
-    loss, y_hat = _forward_loss(state.model, batch, hp)
+    dropout, in the compute dtype `dtype` (None: as `train_step` resolves it;
+    `wavenet_trainer.py:107-118`)."""
+    dtype = dtype or resolve_compute_dtype(hp, batch['audio'].device)
+    loss, y_hat = _forward_loss(state.model, batch, hp, dtype=dtype)
     return dict(loss=loss, y_hat=y_hat)

@@ -587,7 +587,8 @@ def test_train_steps_cuda_vs_cpu(device, extra):
     """Three train steps from the same seeded state on the same batch, dropout 0, on the
     card and on the CPU: loss and grad_norm within 1e-4 relative, every parameter, EMA
     value and Adam moment within 1e-3 of its tensor's largest magnitude (f32 on both,
-    TF32 off; only the order of the sums differs, but Adam's division by sqrt(nu)
+    pinned: the card's default compute dtype is bf16; TF32 off; only the order of the
+    sums differs, but Adam's division by sqrt(nu)
     amplifies that where a gradient is near zero, read 2e-4 on a bias, and the MoL
     loss's log(sigmoid(a) - sigmoid(b)) keeps few digits at its 1e-5 threshold, read
     1.2e-4 on a moment)."""
@@ -604,7 +605,8 @@ def test_train_steps_cuda_vs_cpu(device, extra):
                  mel_conditions=rng.uniform(0, 1, (2, 4, hp.num_mels)).astype(np.float32))
     states = {d: wt.create_train_state(hp, d, seed=3) for d in ('cpu', 'cuda')}
     for _ in range(3):
-        m = {d: wt.train_step(st, to_device(batch, d), hp) for d, st in states.items()}
+        m = {d: wt.train_step(st, to_device(batch, d), hp, dtype=torch.float32)
+             for d, st in states.items()}
         for key in ('loss', 'grad_norm'):
             a, b = m['cpu'][key].item(), m['cuda'][key].item()
             assert abs(a - b) <= 1e-4 * abs(a), key

@@ -241,7 +241,9 @@ def test_port_imports_no_jax():
             'tacotron2_tpu_torch.probes.ar_critpath', 'tacotron2_tpu_torch.probes.matmul_probe',
             'tacotron2_tpu_torch.probes.microbench', 'tacotron2_tpu_torch.preprocess',
             'tacotron2_tpu_torch.wavenet_preprocess', 'tacotron2_tpu_torch.data.preprocessor',
-            'tacotron2_tpu_torch.data.corpora'} <= set(names)
+            'tacotron2_tpu_torch.data.corpora', 'tacotron2_tpu_torch.models.precision',
+            'tacotron2_tpu_torch.models.wavenet.modules',
+            'tacotron2_tpu_torch.ops.fused_decoder'} <= set(names)
     assert loaded == []
     # imports inside functions too (chip_smoke.py imports in its phases)
     paths = [os.path.join(REPO, 'chip_smoke.py')] + [

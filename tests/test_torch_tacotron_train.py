@@ -428,8 +428,8 @@ def test_decoder_scan_and_gradients_match_jax(case):
     model = Tacotron(hp)
     model.load_state_dict(convert.tacotron_state_dict(v['params'], v['batch_stats']))
     tk, tv, tteach = (_t(a).requires_grad_() for a in (keys, values, teacher))
-    outs = tfd.decoder_scan(model.decoder, tk, tv, _t(mask), tteach, _t(use), _t(m1),
-                            _t(m2), None if zo is None else [_t(z) for z in zo])
+    outs = tfd.decoder_scan(model.decoder, tk, tv, _t(mask), tteach, _t(use),
+                            [_t(m1), _t(m2)], None if zo is None else [_t(z) for z in zo])
     sum(torch.sum(o * _t(c)) for o, c in zip(outs, cot)).backward()
     grads = {'decoder.' + n: p.grad for n, p in model.decoder.named_parameters()}
     for fn in (jfd.decoder_scan, jfd.decoder_scan_reference):
