@@ -214,6 +214,28 @@ Phases (one line each; any failure exits nonzero):
      at phase 12's tolerances, and one step at DEPTH3_REMAT with and without
      remat_decoder: the gradients within REMAT_TOL, beside the same step run twice;
      peak memory of each. The seconds of each part.
+ 15. Scale-out over torch.distributed (`tacotron2_tpu_torch/parallel/`), on the
+     one card, its children started at once, each loading the library phase 2 built (a
+     child that starts a build fails): a one-rank NCCL child on cuda:0, where the
+     data-parallel WaveNet step at the default width (8 x 11,000, f32, TF32 off) is
+     bit-identical to train_step without a mesh and generate_data_parallel at B=2 x
+     8,800 to generate; a two-rank gloo job on cuda:0 (gloo because NCCL refuses two
+     ranks on one card): (a) the data-parallel WaveNet and (b) Tacotron (B=32 at the
+     default width, cut to SCALE_TACO_FRAMES = 128 frames) over SCALE_STEPS steps with
+     ragged lengths against this process's one-process steps (SCALE_LOSS_TOL,
+     SCALE_NORM_TOL on every step; the state after the first step at phase 12's
+     card-vs-CPU bounds), (c) tensor parallelism over a model axis of 2 (128 of the 256
+     gate channels a rank), one step on SCALE_TP_ROWS rows (SCALE_TP_LOSS_TOL, the
+     state as (a) and (b)), (d) generate_data_parallel, one row
+     a rank, each rank's launch bit-identical to this process's B=2 launch of that row
+     where both run on one (N, P) layout, else within KERNEL_TOL, (e) two planted faults
+     that must show: the normalizers counted per rank, the gathered rows swapped; and
+     `python -m torch.distributed.run --standalone --nproc_per_node 2` of this script's
+     `--rank-cli` (train.main, its AR launches counted) as `train --model WaveNet
+     --dist_backend gloo --device cuda:0` on phase 10's corpus (the same seed): 2 steps,
+     one checkpoint and rank 0's natural eval (one launch of 11,000 steps); rank 0's
+     step-1 loss within SCALE_CLI_LOSS_TOL of phase 10's, only rank 0 writes. Two ranks
+     time-slice one card: nothing here is a scaling measurement.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -360,6 +382,14 @@ CLUSTER_MUTANTS = {
 FAULT_CLUSTER = {'a cluster of one halves what it shares (N = 1)': 1,
                  'the second sequence reads the first\'s taps (P = 2)': 2}
 FAULT_SEQUENCES = {'the second sequence reads the first\'s taps (P = 2)': 2}
+# the heads (bits over csrc/wavenet_ar.cu's Head: Gaussian 1, MoL 2, categorical 4, big
+# categorical 8) whose instantiations each planted-fault copy of the AR kernel builds
+# (T2_HEADS): those its check launches; a launch of another head would fail the run
+MUTANT_HEADS = {'g_cond added after the bf16 rounding': 1,
+                'feedback from the f32 first_w row': 4,
+                'plain chain ring written with the layer\'s output': 1,
+                **{fault: 8 for fault in BIG_VOCAB_MUTANTS},
+                **{fault: 1 for fault in CLUSTER_MUTANTS}}
 # phase 10: the big-vocab head and the in-kernel NLL
 BIG_VOCAB = "input_type='mulaw-quantize',quantize_channels=65536,out_channels=65536"
 BIG_RAGGED_Q = 50001  # odd: the last group of 8 classes and the last 1,024 are ragged
@@ -399,6 +429,7 @@ BIG_TRAIN_PATH = 'train --model WaveNet (Q=65536, natural eval)'
 AR_PATHS = ('synthesize', 'serve', TRAIN_PATH, VOCODER_SPEAKERS_PATH, VOCODER_CATEGORICAL_PATH)
 PAPER_PATHS = ('synthesize --paper_profile', 'serve --paper_profile')
 TRAIN_UTTERANCES = 24  # 16 to train on and one test batch of 8
+TRAIN_DEFAULT_EXTRA = 'wavenet_natural_eval=True,wavenet_ema_decay=0.5'
 # how far the plain version follows the default trainer's eval launch of 11,000 steps
 # (the kernel repeats all of them), in chunks at odd ends
 TRAIN_EVAL_BOUNDS = VOCODER_CLI_BOUNDS
@@ -480,7 +511,7 @@ def path_clusters(*paths):
 
 def layout_counts(path):
     """{'N,P': launches} of the main path `path` (JSON keys)."""
-    return {f'{n},{p}': c for (n, p), c in sorted(LAYOUTS_BY_PATH[path].items())}
+    return _layout_keys(LAYOUTS_BY_PATH[path])
 
 
 @contextlib.contextmanager
@@ -1389,8 +1420,9 @@ def mutated_source(fault):
 def build_kernels(tmp):
     """Phase 2: nvcc builds the port's library, the probes' library and, beside them, one
     library for each of ALL_MUTANTS, CLUSTER_MUTANTS and PROBE_MUTANTS from a changed
-    copy of its source
-    under `tmp`, all at once (one nvcc a library). Returns fault -> its loaded library."""
+    copy of its source (an AR kernel's copy with the instantiations of MUTANT_HEADS
+    alone) under `tmp`, all at once (one nvcc a library). Returns fault -> its loaded
+    library."""
     from tacotron2_tpu_torch.ops import _build
 
     def mutant(item):
@@ -1402,7 +1434,8 @@ def build_kernels(tmp):
         with open(src, 'w', encoding='utf-8') as f:
             f.write(text)
         lib = os.path.join(tmp, f'mutant{i}', 'libmutant.so')
-        _build.compile_library([src], lib)
+        _build.compile_library([src], lib, () if fault in PROBE_MUTANTS
+                               else (f'T2_HEADS={MUTANT_HEADS[fault]}',))
         return fault, ctypes.CDLL(lib)
 
     faults = list(ALL_MUTANTS) + list(CLUSTER_MUTANTS) + list(PROBE_MUTANTS)
@@ -2337,7 +2370,7 @@ def trainer_default(tmp):
     from tacotron2_tpu_torch.training.checkpointing import CheckpointManager
     from tacotron2_tpu_torch.training.common import to_device
 
-    extra = 'wavenet_natural_eval=True,wavenet_ema_decay=0.5'
+    extra = TRAIN_DEFAULT_EXTRA
     hp = default_hparams()
     hp.parse(extra)
     root = os.path.join(tmp, 'default')
@@ -4033,6 +4066,589 @@ def remaining_configurations(gen):
     return out
 
 
+# --- phase 15: scale-out over torch.distributed ------------------------------------------
+
+SCALE_SEED = 15
+SCALE_STEPS = 2
+# the data-parallel WaveNet batch: the default 8 x 11,000 samples, the lengths ragged, so
+# that the two ranks' valid counts differ (39,050 and 25,850 samples), and the rows'
+# loudness falling from the first to the last, so that their mean losses differ
+SCALE_WAVENET_LENGTHS = (11000, 10175, 9350, 8525, 7700, 6875, 6050, 5225)
+# the data-parallel Tacotron: B=32 at the default width, cut to 128 mel frames (512 in
+# phase 12) and 60 characters
+SCALE_TACO_BATCH, SCALE_TACO_FRAMES, SCALE_TACO_CHARS = 32, 128, 60
+SCALE_GEN_FRAMES = 32      # generate_data_parallel: B=2 x 8,800 samples, one row a rank
+SCALE_TP_ROWS = 2          # the tensor-parallel step: 2 x 11,000 samples at the full width
+# the data-parallel steps against the one-process steps on one card, f32, TF32 off,
+# deterministic convolutions: only the order of the sums differs (each rank's rows, then
+# the all-reduce). Every step's loss terms 1e-5 and grad norm 1e-4 relative. The state
+# after the first step as phase 12 holds the card against the CPU (TACO_GRAD_TOL on the
+# gradients, TACO_PARAM_TOL and TACO_SMALL_GRAD on the parameters): an entry whose
+# gradient is near zero (a Tacotron bias BatchNorm follows has a gradient of rounding
+# alone) moves by up to lr whatever its sign, so from the second step on the two runs'
+# gradients differ by more than their sums' order (2.4e-3 in relative L2 after two
+# Tacotron steps on an H100); BatchNorm's statistics 1e-4 of their largest magnitude
+SCALE_LOSS_TOL = 1e-5
+SCALE_NORM_TOL = 1e-4
+SCALE_PARAM_TOL = 1e-4
+# tensor parallelism against the one-process step: the loss and grad norm as
+# tests/test_model_parallel.py:60-64 holds the loss; the state after the step as (a)
+# and (b) hold theirs (that file's atol of 1e-5 on the parameters read 1.8e-5 at B=2 x
+# 11,000 on an H100: Adam's first step moves an entry whose gradient is near eps by
+# lr * g / (|g| + eps), which the split sums' rounding moves)
+SCALE_TP_LOSS_TOL = 1e-4
+# the CLI's step-1 loss under two ranks against phase 10's one-process step 1 (bf16, the
+# batch split over two ranks; phase 10 logs its loss to 5 places): phase 10's own bound
+# for two runs of one seed
+SCALE_CLI_LOSS_TOL = 1e-3
+SCALE_PG_TIMEOUT = 120     # a collective's wait for a lost rank, seconds
+SCALE_JOB_TIMEOUT = 240    # every child of the phase must exit within this
+SCALE_GEN_PATH = 'generate_data_parallel'
+SCALE_CLI_PATH = 'train --model WaveNet (2 ranks, gloo)'
+SCALE_PATHS = (SCALE_GEN_PATH, SCALE_CLI_PATH)
+
+
+def scale_hp(extra=''):
+    from tacotron2_tpu_torch.config import default_hparams
+
+    hp = default_hparams()
+    hp.parse(extra)
+    return hp
+
+
+def scale_wavenet_batch(hp):
+    """The seeded data-parallel WaveNet batch on the card (SCALE_WAVENET_LENGTHS)."""
+    g = torch.Generator('cuda').manual_seed(SCALE_SEED)
+    B, T = len(SCALE_WAVENET_LENGTHS), hp.max_time_steps
+    # loud rows first, quiet ones last: the two ranks' mean losses differ
+    amplitude = torch.linspace(0.8, 0.05, B, device='cuda')[:, None]
+    return dict(audio=(torch.rand(B, T, device='cuda', generator=g) * 2 - 1) * amplitude,
+                input_lengths=torch.tensor(SCALE_WAVENET_LENGTHS, device='cuda'),
+                mel_conditions=torch.rand(B, T // hp.get_hop_size(), hp.num_mels,
+                                          device='cuda', generator=g))
+
+
+def scale_tp_batch(hp):
+    """The tensor-parallel step's batch: the first SCALE_TP_ROWS rows of the
+    data-parallel WaveNet batch (each rank runs the whole batch, and its activations
+    cross the model group in every layer)."""
+    return {k: v[:SCALE_TP_ROWS] for k, v in scale_wavenet_batch(hp).items()}
+
+
+def scale_taco_batch(hp):
+    """taco_timed_batch at SCALE_TACO_* with ragged character and frame counts."""
+    batch = taco_timed_batch(hp, SCALE_TACO_BATCH, SCALE_TACO_FRAMES, SCALE_TACO_CHARS)
+    n = torch.arange(SCALE_TACO_BATCH, device='cuda')
+    batch['input_lengths'] = SCALE_TACO_CHARS - n
+    batch['targets_lengths'] = SCALE_TACO_FRAMES - 2 * n
+    chars = torch.arange(SCALE_TACO_CHARS, device='cuda')
+    batch['inputs'] = torch.where(chars[None] < batch['input_lengths'][:, None],
+                                  batch['inputs'], 0)
+    steps = torch.arange(SCALE_TACO_FRAMES, device='cuda')
+    batch['stop_token_targets'] = (steps[None] >= batch['targets_lengths'][:, None] - 1).float()
+    return batch
+
+
+def scale_generator(step):
+    from tacotron2_tpu_torch.training.common import step_seed
+
+    return torch.Generator('cuda').manual_seed(step_seed(SCALE_SEED, step))
+
+
+def scale_vocoder(hp):
+    """Phase 3's WaveNet (seeded weights of order 1) and SCALE_GEN_FRAMES of seeded
+    conditioning for two rows."""
+    from tacotron2_tpu_torch.models.wavenet.model import WaveNet
+    from tacotron2_tpu_torch.utils import randomize_weights
+
+    model = randomize_weights(WaveNet(hp), torch.Generator().manual_seed(1)).cuda().eval()
+    c = torch.rand(2, SCALE_GEN_FRAMES, hp.num_mels, device='cuda',
+                   generator=torch.Generator('cuda').manual_seed(SCALE_SEED + 1))
+    return model, c
+
+
+def scale_steps(trainer, state, batch, hp, mesh=None):
+    """SCALE_STEPS f32 steps of `trainer` (tacotron_trainer or wavenet_trainer) from
+    `state` on `batch`, the draws from scale_generator: each step's metrics, the state
+    after the first (the model's state_dict and Adam's first moments: the gradients of
+    one step from one state) and, under a mesh, whether every rank holds the same
+    parameters after the last."""
+    import torch.distributed as dist
+
+    metrics = []
+    for i in range(SCALE_STEPS):
+        metrics.append(_metric_floats(trainer.train_step(
+            state, batch, hp, scale_generator(i), dtype=torch.float32, mesh=mesh)))
+        if i == 0:
+            step1 = dict(model=_cpu_state(state.model.state_dict()),
+                         exp_avg=[m.detach().cpu() for m in state.exp_avg])
+    out = dict(metrics=metrics, step1=step1)
+    if mesh is not None:
+        flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+        lead = flat.clone()
+        dist.broadcast(lead, 0)
+        out['ranks_agree'] = torch.equal(flat, lead)
+    return out
+
+
+def _cpu_state(state):
+    return {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in state.items()}
+
+
+def _metric_floats(m):
+    return {k: float(v) for k, v in m.items()}
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _forbid_builds():
+    """A phase 15 child loads the kernels phase 2 built: a build there fails it."""
+    from tacotron2_tpu_torch.ops import _build
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError('a phase 15 child started a kernel build: it must load the '
+                           'library phase 2 built')
+    _build.compile_library = refuse
+
+
+def nccl_one_rank():
+    """Phase 15's one-rank NCCL child on cuda:0: the data-parallel WaveNet step at the
+    default width against `train_step` without a mesh, and generate_data_parallel at
+    B=2 x 8,800 against `generate`, each bit for bit."""
+    from tacotron2_tpu_torch.inference import wavenet_synthesizer as ws
+    from tacotron2_tpu_torch.ops import wavenet_ar
+    from tacotron2_tpu_torch.parallel import mesh as mesh_lib
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+
+    hp = scale_hp()
+    mesh = mesh_lib.make_mesh(hp, 'cuda:0')
+    batch = scale_wavenet_batch(hp)
+    plain, dp = (wt.create_train_state(hp, 'cuda', seed=SCALE_SEED) for _ in range(2))
+    m_plain = wt.train_step(plain, batch, hp, scale_generator(0), dtype=torch.float32)
+    m_dp = wt.train_step(dp, mesh_lib.shard_batch(batch, mesh), hp, scale_generator(0),
+                         dtype=torch.float32, mesh=mesh)
+    a, b = plain.state_dict(), dp.state_dict()
+    differ = [f'{part}.{k}' for part in ('model', 'ema_model') for k in a[part]
+              if not torch.equal(a[part][k], b[part][k])]
+    differ += [f'{part}[{i}]' for part in ('exp_avg', 'exp_avg_sq')
+               for i, (x, y) in enumerate(zip(a[part], b[part])) if not torch.equal(x, y)]
+    model, c = scale_vocoder(hp)
+    reset_counts()
+    out = ws.generate_data_parallel(model, hp, c, mesh, seed=SCALE_SEED)
+    torch.cuda.synchronize()
+    launches, layouts = wavenet_ar.LAUNCHES, dict(wavenet_ar.LAUNCHES_BY_LAYOUT)
+    ref = ws.generate(model, hp, torch.Generator('cuda').manual_seed(ws.shard_seed(SCALE_SEED, 0)),
+                      c, return_params=True)
+    return dict(step_metrics=(_metric_floats(m_plain), _metric_floats(m_dp)),
+                step_differ=differ,
+                gen_identical=torch.equal(out['audio'], ref['audio'])
+                and torch.equal(out['params'], ref['params']),
+                gen_launches=launches, gen_layouts=layouts)
+
+
+def gloo_two_ranks():
+    """Phase 15's two-rank gloo job on cuda:0 (see the module docstring): its readings,
+    rank by rank."""
+    import torch.distributed as dist
+
+    from tacotron2_tpu_torch.inference import wavenet_synthesizer as ws
+    from tacotron2_tpu_torch.models.wavenet import distributions
+    from tacotron2_tpu_torch.ops import wavenet_ar
+    from tacotron2_tpu_torch.parallel import collectives, mesh as mesh_lib, tensor_parallel
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+
+    rank, out = dist.get_rank(), {}
+    hp = scale_hp()
+    mesh = mesh_lib.make_mesh(hp, 'cuda:0')
+    # (a) the data-parallel WaveNet
+    t0 = time.perf_counter()
+    batch = mesh_lib.shard_batch(scale_wavenet_batch(hp), mesh)
+    out['wavenet'] = scale_steps(wt, wt.create_train_state(hp, 'cuda', seed=SCALE_SEED), batch,
+                                 hp, mesh)
+    # (e) the normalizers counted per rank, one step
+    state = wt.create_train_state(hp, 'cuda', seed=SCALE_SEED)
+    with _patched(distributions, 'global_sum',
+                  lambda t, group: t.detach().clone() * dist.get_world_size(group)):
+        out['wavenet_averaged'] = _metric_floats(wt.train_step(
+            state, batch, hp, scale_generator(0), dtype=torch.float32, mesh=mesh))
+    out['wavenet_s'] = time.perf_counter() - t0
+    # (b) the data-parallel Tacotron
+    t0 = time.perf_counter()
+    out['tacotron'] = scale_steps(tt, tt.create_train_state(hp, 'cuda', seed=SCALE_SEED),
+                                  mesh_lib.shard_batch(scale_taco_batch(hp), mesh), hp, mesh)
+    out['tacotron_s'] = time.perf_counter() - t0
+    # (c) tensor parallelism over a model axis of 2, one step
+    t0 = time.perf_counter()
+    tp_hp = scale_hp('mesh_model_axis=2,mesh_data_axis=1')
+    tp_mesh = mesh_lib.make_mesh(tp_hp, 'cuda:0')
+    tp_state = tensor_parallel.shard_wavenet_state(
+        wt.create_train_state(tp_hp, 'cuda', seed=SCALE_SEED), tp_hp, tp_mesh)
+    m = wt.make_tp_train_step(tp_hp, tp_mesh)(tp_state, scale_tp_batch(tp_hp),
+                                               scale_generator(0))
+    names = [n for n, _ in tp_state.model.named_parameters()]
+    out['tp'] = dict(metrics=_metric_floats(m),
+                     gates=tuple(tp_state.model.residual_layers[0].conv.weight.shape),
+                     step1=dict(model=_cpu_state(tensor_parallel.gather_state_dict(
+                         tp_state.model, tp_hp, tp_mesh)), exp_avg=list(_cpu_state(
+                             tensor_parallel.gather_tensors(dict(zip(names, tp_state.exp_avg)),
+                                                            tp_hp, tp_mesh)).values())))
+    out['tp_s'] = time.perf_counter() - t0
+    del tp_state
+    # (d) generate_data_parallel, one row a rank, its launches counted
+    model, c = scale_vocoder(hp)
+    reset_counts()
+    gen = ws.generate_data_parallel(model, hp, c, mesh, seed=SCALE_SEED)
+    torch.cuda.synchronize()
+    out['generate'] = dict(audio=gen['audio'].cpu(), params=gen['params'].cpu(),
+                           launches=wavenet_ar.LAUNCHES,
+                           layouts=dict(wavenet_ar.LAUNCHES_BY_LAYOUT))
+
+    # (e) the gathered rows in swapped order
+    gather = collectives.gather_rows
+
+    def swapped(local, rows, total, group):
+        return gather(local, slice(total - rows.stop, total - rows.start), total, group)
+    with _patched(collectives, 'gather_rows', swapped):
+        out['generate_swapped'] = ws.generate_data_parallel(model, hp, c, mesh,
+                                                            seed=SCALE_SEED)['audio'].cpu()
+    out['rank'] = rank
+    return out
+
+
+def rank_job(job, out_dir):
+    """A child of phase 15: `python3 chip_smoke.py --rank-job nccl1|gloo2 <dir>`, with
+    RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT set. Saves its readings to
+    <dir>/<job>-rank<r>.pt."""
+    import torch.distributed as dist
+
+    from tacotron2_tpu_torch.parallel import distributed
+
+    _forbid_builds()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    distributed.maybe_initialize({'nccl1': 'nccl', 'gloo2': 'gloo'}[job], SCALE_PG_TIMEOUT,
+                                 'cuda:0')
+    results = {'nccl1': nccl_one_rank, 'gloo2': gloo_two_ranks}[job]()
+    torch.save(results, os.path.join(out_dir, f'{job}-rank{dist.get_rank()}.pt'))
+    dist.destroy_process_group()
+
+
+def rank_cli(out_dir, argv):
+    """A rank of phase 15's command line under torchrun: `train.main(argv)`, its AR
+    launches counted from 0, each step's loss as the loop reads it and every checkpoint
+    this rank writes saved to <dir>/cli-rank<r>.pt."""
+    from tacotron2_tpu_torch import train
+    from tacotron2_tpu_torch.ops import wavenet_ar
+    from tacotron2_tpu_torch.parallel import distributed
+    from tacotron2_tpu_torch.training import common
+    from tacotron2_tpu_torch.training.checkpointing import CheckpointManager
+
+    _forbid_builds()
+    losses, saves = [], []
+    resolve, save = common.StepLog._resolve, CheckpointManager.save
+
+    def record_loss(self, step, metrics, start, end):
+        losses.append((step, float(metrics['loss'])))
+        return resolve(self, step, metrics, start, end)
+
+    def record_save(self, step, state):
+        saves.append(step)
+        return save(self, step, state)
+
+    common.StepLog._resolve, CheckpointManager.save = record_loss, record_save
+    reset_counts()
+    train.main(argv)
+    torch.cuda.synchronize()
+    torch.save(dict(losses=losses, saves=saves, lead=distributed.is_lead(),
+                    launches=wavenet_ar.LAUNCHES, layouts=dict(wavenet_ar.LAUNCHES_BY_LAYOUT)),
+               os.path.join(out_dir, f'cli-rank{int(os.environ["RANK"])}.pt'))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _start_ranks(argv_of, world, out_dir, name):
+    """`world` children of this script, one a rank (torchrun's environment, gloo's or
+    nccl's rendezvous on a free localhost port), their output in <dir>/<name>-<r>.log."""
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR='127.0.0.1',
+                   MASTER_PORT=str(port), PYTHONPATH=REPO)
+        log = open(os.path.join(out_dir, f'{name}-{rank}.log'), 'w')
+        procs.append((subprocess.Popen(argv_of(rank), env=env, cwd=REPO, stdout=log,
+                                       stderr=subprocess.STDOUT), log, f'{name}-{rank}'))
+    return procs
+
+
+def _join(procs, out_dir, deadline, t_start):
+    """Wait for every child until `deadline` (perf_counter), kill what is left, and fail
+    with the tail of each log where a child did not exit 0. Returns {child: seconds from
+    `t_start` to the wait's end}, the waits in turn."""
+    bad, done = [], {}
+    for proc, log, name in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        done[name] = round(time.perf_counter() - t_start, 1)
+        log.close()
+        if proc.returncode != 0:
+            with open(os.path.join(out_dir, f'{name}.log')) as f:
+                bad.append(f'--- {name} (exit {proc.returncode}):\n{f.read()[-4000:]}')
+    if bad:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        fail('phase 15: a child failed or hung:\n' + '\n'.join(bad))
+    return done
+
+
+def _step1_gap(want, got, names, b1):
+    """Two states after one step from one state (`scale_steps`' step1), read as phase 12
+    reads the card against the CPU (taco_cpu_vs_card): the gradients (first moments over
+    1 - b1) apart in relative L2 norm, the parameters' largest gap, the entries more than
+    TACO_PARAM_CLOSE apart and those of them whose gradient is TACO_SMALL_GRAD or more;
+    and every buffer's (BatchNorm's statistics) largest gap as a share of
+    SCALE_PARAM_TOL of its largest magnitude."""
+    g_err2 = g_norm2 = worst = stats = 0.0
+    off = off_large = 0
+    for name, ma, mb in zip(names, want['exp_avg'], got['exp_avg'], strict=True):
+        g = ma.double() / (1 - b1)
+        g_err2 += float(((ma.double() - mb.double()) / (1 - b1)).square().sum())
+        g_norm2 += float(g.square().sum())
+        diff = (want['model'][name].double() - got['model'][name].double()).abs()
+        worst = max(worst, float(diff.max()))
+        far = diff > TACO_PARAM_CLOSE
+        off += int(far.sum())
+        off_large += int((far & (g.abs() >= TACO_SMALL_GRAD)).sum())
+    for k, w in want['model'].items():
+        if k not in names and w.is_floating_point():
+            gap = float((w.double() - got['model'][k].double()).abs().max())
+            stats = max(stats, gap / (SCALE_PARAM_TOL * max(float(w.abs().max()), 1e-6)))
+    return dict(grad_rel_l2=(g_err2 / g_norm2) ** 0.5, param_max_abs=worst, params_off=off,
+                params_off_large=off_large, buffers_share_of_bound=stats)
+
+
+def _layout_keys(counts):
+    """{(N, P): launches} -> {'N,P': launches} (JSON keys)."""
+    return {f'{n},{p}': c for (n, p), c in sorted(counts.items())}
+
+
+def _metric_gap(want, got, keys):
+    return max(abs(w[k] - g[k]) / max(abs(w[k]), 1e-12) for w, g in zip(want, got) for k in keys)
+
+
+def scale_out(phase10_loss, phase10_extra):
+    """Phase 15 (see the module docstring): the one-rank NCCL child, the two-rank gloo
+    job and `python -m torch.distributed.run --nproc_per_node 2 ... train --model
+    WaveNet` on phase 10's corpus, all started at once; meanwhile this process computes
+    the one-process references. Returns the readings."""
+    from tacotron2_tpu_torch.inference import wavenet_synthesizer as ws
+    from tacotron2_tpu_torch.models.wavenet.model import WaveNet
+    from tacotron2_tpu_torch.ops import wavenet_ar
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+    from tacotron2_tpu_torch.training import wavenet_trainer as wt
+
+    t_start = time.perf_counter()
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory(prefix='t2torch_scale_') as tmp:
+        corpus = os.path.join(tmp, 'corpus')
+        os.makedirs(corpus)
+        meta = make_corpus(corpus, scale_hp(phase10_extra), TRAIN_UTTERANCES, seed=10)
+        procs = _start_ranks(lambda r: [sys.executable, me, '--rank-job', 'nccl1', tmp], 1,
+                             tmp, 'nccl1')
+        procs += _start_ranks(lambda r: [sys.executable, me, '--rank-job', 'gloo2', tmp], 2,
+                              tmp, 'gloo2')
+        cli = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', '2', me, '--rank-cli', tmp, '--model', 'WaveNet',
+               '--wavenet_input', meta, '--base_dir', corpus, '--name', 'ranks',
+               '--wavenet_train_steps', str(SCALE_STEPS), '--eval_interval', str(SCALE_STEPS),
+               '--checkpoint_interval', str(SCALE_STEPS), '--summary_interval', '1',
+               '--hparams', phase10_extra, '--dist_backend', 'gloo', '--device', 'cuda:0']
+        log = open(os.path.join(tmp, 'cli-0.log'), 'w')
+        procs.append((subprocess.Popen(cli, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                                       stdout=log, stderr=subprocess.STDOUT), log, 'cli-0'))
+        deadline = time.perf_counter() + SCALE_JOB_TIMEOUT
+        try:
+            # the one-process references, while the children run, with the children's
+            # deterministic convolutions
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            hp = scale_hp()
+            wave = scale_steps(wt, wt.create_train_state(hp, 'cuda', seed=SCALE_SEED),
+                               scale_wavenet_batch(hp), hp)
+            names = [n for n, _ in WaveNet(hp).named_parameters()]
+            taco = scale_steps(tt, tt.create_train_state(hp, 'cuda', seed=SCALE_SEED),
+                               scale_taco_batch(hp), hp)
+            taco_names = [n for n, _ in tt.Tacotron(hp).named_parameters()]
+            tp_state = wt.create_train_state(hp, 'cuda', seed=SCALE_SEED)
+            tp_ref = _metric_floats(wt.train_step(tp_state, scale_tp_batch(hp), hp,
+                                                  scale_generator(0), dtype=torch.float32))
+            tp_ref_step1 = dict(model=_cpu_state(tp_state.model.state_dict()),
+                                exp_avg=[m.detach().cpu() for m in tp_state.exp_avg])
+            del tp_state
+            torch.backends.cudnn.deterministic = deterministic
+            model, c = scale_vocoder(hp)
+            T = c.shape[1] * hp.get_hop_size()
+            noise = torch.cat([wavenet_ar.make_noise(
+                hp, torch.Generator('cuda').manual_seed(ws.shard_seed(SCALE_SEED, i)), 1, T)
+                for i in range(2)])
+            reset_counts()
+            gen_ref = ws.generate(model, hp, torch.Generator('cuda'), c, return_params=True,
+                                  noise=noise)
+            torch.cuda.synchronize()
+            ref_layouts = dict(wavenet_ar.LAUNCHES_BY_LAYOUT)
+            read_counts(None)
+        finally:
+            children_s = _join(procs, tmp, deadline, t_start)
+        nccl1 = torch.load(os.path.join(tmp, 'nccl1-rank0.pt'), weights_only=False)
+        gloo = [torch.load(os.path.join(tmp, f'gloo2-rank{r}.pt'), weights_only=False)
+                for r in range(2)]
+        clis = [torch.load(os.path.join(tmp, f'cli-rank{r}.pt'), weights_only=False)
+                for r in range(2)]
+        log_dir = os.path.join(corpus, 'logs-ranks')
+        ckpts = sorted(os.listdir(os.path.join(log_dir, 'wave_pretrained')))
+        with open(os.path.join(log_dir, 'Terminal_train_log'), encoding='utf-8') as f:
+            cli_log = f.read()
+
+    # the one-rank NCCL child: bit for bit
+    (mp, md), differ = nccl1['step_metrics'], nccl1['step_differ']
+    phase(15, f'one rank (nccl, cuda:0): the data-parallel WaveNet step (B=8 x '
+              f'{hp.max_time_steps}, f32) against train_step without a mesh: loss {md["loss"]!r} '
+              f'vs {mp["loss"]!r}, grad norm {md["grad_norm"]!r} vs {mp["grad_norm"]!r}, '
+              f'{len(differ)} tensors differ; generate_data_parallel at B=2 x {T} against '
+              f'generate: bit-identical {nccl1["gen_identical"]}, AR launches '
+              f'{nccl1["gen_launches"]} on {nccl1["gen_layouts"]}')
+    if mp != md or differ or not nccl1['gen_identical']:
+        fail(f'phase 15: the one-rank data-parallel runs are not bit-identical: {differ[:5]}')
+    # (a), (b): the two ranks against the one-process steps
+    readings = {}
+    taco_keys = ('loss', 'before_loss', 'after_loss', 'stop_token_loss', 'linear_loss',
+                 'regularization_loss')
+    for what, ref, keys, pnames, b1 in (
+            ('wavenet', wave, ('loss',), names, hp.wavenet_adam_beta1),
+            ('tacotron', taco, taco_keys, taco_names, hp.tacotron_adam_beta1)):
+        loss_gap = max(_metric_gap(ref['metrics'], g[what]['metrics'], keys) for g in gloo)
+        norm_gap = max(_metric_gap(ref['metrics'], g[what]['metrics'], ('grad_norm',))
+                       for g in gloo)
+        same = all(g[what]['ranks_agree'] for g in gloo)
+        gaps = _step1_gap(ref['step1'], gloo[0][what]['step1'], pnames, b1)
+        readings[what] = dict(loss_rel=loss_gap, grad_norm_rel=norm_gap, ranks_agree=same,
+                              seconds=gloo[0][f'{what}_s'], **gaps)
+        phase(15, f'two ranks (gloo, cuda:0), {what}, {SCALE_STEPS} steps against the '
+                  f'one-process steps: loss terms {loss_gap:.2e} relative (tol '
+                  f'{SCALE_LOSS_TOL}), grad norm {norm_gap:.2e} (tol {SCALE_NORM_TOL}); after '
+                  f'step 1 the gradients {gaps["grad_rel_l2"]:.2e} apart in relative L2 (tol '
+                  f'{TACO_GRAD_TOL}), parameters {gaps["param_max_abs"]:.2e} (tol '
+                  f'{TACO_PARAM_TOL}), {gaps["params_off"]} entries off by more than '
+                  f'{TACO_PARAM_CLOSE}, {gaps["params_off_large"]} of them with a gradient of '
+                  f'{TACO_SMALL_GRAD} or more (tol 0), buffers at '
+                  f'{gaps["buffers_share_of_bound"]:.3f} of their bound; the ranks hold the same '
+                  f'parameters after step {SCALE_STEPS}: {same}; {gloo[0][f"{what}_s"]:.1f} s')
+        if not (loss_gap <= SCALE_LOSS_TOL and norm_gap <= SCALE_NORM_TOL
+                and gaps['grad_rel_l2'] <= TACO_GRAD_TOL
+                and gaps['param_max_abs'] <= TACO_PARAM_TOL and gaps['params_off_large'] == 0
+                and gaps['buffers_share_of_bound'] <= 1.0 and same):
+            fail(f'phase 15: the data-parallel {what} is not the one-process step')
+    averaged = _metric_gap(wave['metrics'][:1], [gloo[0]['wavenet_averaged']], ('loss',))
+    # (c) tensor parallelism
+    tp = gloo[0]['tp']
+    tp_loss = max(abs(tp['metrics'][k] - tp_ref[k]) / abs(tp_ref[k])
+                  for k in ('loss', 'grad_norm'))
+    tp_gaps = _step1_gap(tp_ref_step1, tp['step1'], names, hp.wavenet_adam_beta1)
+    readings['tp'] = dict(loss_rel=tp_loss, gates=tp['gates'], seconds=gloo[0]['tp_s'],
+                          **tp_gaps)
+    phase(15, f'tensor parallelism over a model axis of 2 (each rank {tp["gates"][0]} of '
+              f'{hp.gate_channels} gate channels), B={SCALE_TP_ROWS} x {hp.max_time_steps}, one '
+              f'step against the one-process step: loss and grad norm {tp_loss:.2e} relative '
+              f'(tol {SCALE_TP_LOSS_TOL}); the gathered gradients {tp_gaps["grad_rel_l2"]:.2e} '
+              f'apart in relative L2 (tol {TACO_GRAD_TOL}), parameters '
+              f'{tp_gaps["param_max_abs"]:.2e} (tol {TACO_PARAM_TOL}), '
+              f'{tp_gaps["params_off"]} entries off by more than {TACO_PARAM_CLOSE}, '
+              f'{tp_gaps["params_off_large"]} of them with a gradient of {TACO_SMALL_GRAD} or '
+              f'more (tol 0); {gloo[0]["tp_s"]:.1f} s')
+    if not (tp_loss <= SCALE_TP_LOSS_TOL and tp_gaps['grad_rel_l2'] <= TACO_GRAD_TOL
+            and tp_gaps['param_max_abs'] <= TACO_PARAM_TOL and tp_gaps['params_off_large'] == 0
+            and tp['gates'][0] == hp.gate_channels // 2):
+        fail('phase 15: the tensor-parallel step is not the one-process step')
+    # (d) generate_data_parallel, each rank's row against this process's launch of it
+    gen_err, gen_identical = 0.0, True
+    for g in gloo:
+        r = g['rank']
+        same_layout = g['generate']['layouts'] == ref_layouts
+        for k in ('audio', 'params'):
+            got, want = g['generate'][k][r], gen_ref[k][r].cpu()
+            gen_identical &= torch.equal(got, want)
+            gen_err = max(gen_err, float((got.double() - want.double()).abs().max()))
+            if same_layout and not torch.equal(got, want):
+                fail(f'phase 15: rank {r}\'s row differs from the same launch layout\'s')
+        if not same_layout and gen_err > KERNEL_TOL:
+            fail(f'phase 15: rank {r}\'s row misses KERNEL_TOL: {gen_err}')
+    swapped = max(float((g['generate_swapped'] - gen_ref['audio'].cpu()).abs().max())
+                  for g in gloo)
+    readings['generate'] = dict(max_abs_err=gen_err, identical=gen_identical,
+                                layouts=[_layout_keys(g['generate']['layouts']) for g in gloo],
+                                reference_layouts=_layout_keys(ref_layouts))
+    phase(15, f'generate_data_parallel at B=2 x {T}, one row a rank: each rank\'s launch on '
+              f'{gloo[0]["generate"]["layouts"]}, this process\'s B=2 launch on {ref_layouts}: '
+              f'rows bit-identical {gen_identical} (max abs err {gen_err:.2e})')
+    # (e) planted faults
+    readings['faults'] = dict(averaged_normalizers_loss_rel=averaged, swapped_rows_abs=swapped)
+    phase(15, f'planted faults: normalizers counted per rank: loss off by {averaged:.2e} '
+              f'relative (must pass {SCALE_LOSS_TOL}); gathered rows in swapped order: audio off '
+              f'by {swapped:.3f} (must pass {KERNEL_TOL})')
+    if not (averaged > SCALE_LOSS_TOL and swapped > KERNEL_TOL):
+        fail('phase 15: a planted fault did not show')
+    # the command line under torchrun
+    step1 = dict(clis[0]['losses']).get(1)
+    cli_gap = None if phase10_loss is None or step1 is None else abs(step1 - phase10_loss)
+    readings['cli'] = dict(step1_loss=step1, phase10_step1_loss=phase10_loss, gap=cli_gap,
+                           launches=[c['launches'] for c in clis], saves=[c['saves'] for c in clis])
+    phase(15, f'torch.distributed.run --nproc_per_node 2 -m tacotron2_tpu_torch.train --model '
+              f'WaveNet --dist_backend gloo --device cuda:0: {SCALE_STEPS} steps, rank 0\'s losses '
+              f'{clis[0]["losses"]}, step 1 against phase 10\'s {phase10_loss} (tol '
+              f'{SCALE_CLI_LOSS_TOL}); checkpoints written by rank: '
+              f'{[c["saves"] for c in clis]}, on disk {ckpts}; AR launches by rank (the natural '
+              f'eval on rank 0) {[c["launches"] for c in clis]} on {clis[0]["layouts"]}')
+    if not ([c['lead'] for c in clis] == [True, False]
+            and [c['saves'] for c in clis] == [[SCALE_STEPS], []]
+            and ckpts == [f'ckpt-{SCALE_STEPS}.pt'] and clis[1]['launches'] == 0
+            and clis[0]['launches'] == 1 and cli_log.count('Starting new WaveNet training!') == 1
+            and 'Data-parallel over 2 ranks' in cli_log
+            and [s for s, _ in clis[0]['losses']] == list(range(1, SCALE_STEPS + 1))
+            and (cli_gap is None or cli_gap <= SCALE_CLI_LOSS_TOL)):
+        fail('phase 15: the command line under two ranks did not run as one rank would')
+    for counts in [nccl1['gen_layouts']] + [g['generate']['layouts'] for g in gloo]:
+        LAYOUTS_BY_PATH[SCALE_GEN_PATH].update(counts)
+    LAYOUTS_BY_PATH[SCALE_CLI_PATH].update(clis[0]['layouts'])
+    seconds = time.perf_counter() - t_start
+    phase(15, f'phase 15 took {seconds:.1f} s, its children done at {children_s} s (two ranks '
+              f'time-slice one card: no reading here is a scaling measurement)')
+    return dict(readings, seconds=seconds, children_s=children_s,
+                gen_launches=nccl1['gen_launches'] + sum(g['generate']['launches'] for g in gloo),
+                cli_launches=clis[0]['launches'])
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4116,6 +4732,8 @@ def main():
     ups = remaining['upsamplers']
     phase(14, f'phase 14 took {time.perf_counter() - t14:.1f} s ({remaining["seconds"]}); '
               f'the whole run {time.perf_counter() - t_start:.1f} s')
+    scale = scale_out(training['default']['losses'][0], TRAIN_DEFAULT_EXTRA)
+    phase(15, f'the whole run {time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']
     big_runs, sampled = head['runs'], head['sampled']
@@ -4161,7 +4779,8 @@ def main():
         + paper['serve_launches'] + vocoder['speakers_launches']
         + vocoder['categorical_launches'] + training['default']['launches']
         + pipeline['launches'] + pipe_cli_runs['wavenet_launches']
-        + pipe_cli_runs['tacotron2_launches'] + sum(u['launches'] for u in ups.values()),
+        + pipe_cli_runs['tacotron2_launches'] + sum(u['launches'] for u in ups.values())
+        + scale['gen_launches'] + scale['cli_launches'],
         launches_by_path={'synthesize': launches_batch, 'serve': launches_serve,
                           TRAIN_PATH: training['default']['launches'],
                           PIPE_PATH: pipeline['launches'],
@@ -4174,7 +4793,9 @@ def main():
                           'vocoder_checks': vocoder['check_launches'],
                           'state_carry_check': streamed['launches'],
                           'mol_state_carry_check': paper['carry_launches'],
-                          **{p: u['launches'] for p, u in zip(UPSAMPLER_PATHS, ups.values())}},
+                          **{p: u['launches'] for p, u in zip(UPSAMPLER_PATHS, ups.values())},
+                          SCALE_GEN_PATH: scale['gen_launches'],
+                          SCALE_CLI_PATH: scale['cli_launches']},
         max_abs_err=max(kernel['max_abs_err'], wide['max_abs_err'],
                         streamed['max_abs_err'],
                         training['default']['eval_launch']['max_abs_err'],
@@ -4184,8 +4805,10 @@ def main():
         full_steps=frames * hp.get_hop_size(),
         cluster=path_clusters(*AR_PATHS), mol_cluster=path_clusters(*PAPER_PATHS),
         occupancy=clusters['occupancy'],
-        launches_by_cluster={p: cluster_counts(p) for p in AR_PATHS + PAPER_PATHS + PIPE_PATHS},
-        launches_by_layout={p: layout_counts(p) for p in AR_PATHS + PAPER_PATHS + PIPE_PATHS},
+        launches_by_cluster={p: cluster_counts(p) for p in AR_PATHS + PAPER_PATHS + PIPE_PATHS
+                             + SCALE_PATHS},
+        launches_by_layout={p: layout_counts(p) for p in AR_PATHS + PAPER_PATHS + PIPE_PATHS
+                            + SCALE_PATHS},
         pair_check=pairs,
         cluster_check_max_abs_err=clusters['max_abs_err'],
         cluster_check_us_step=clusters['us_step_by_cluster'],
@@ -4220,7 +4843,8 @@ def main():
                                           'us_step', 'upsampler_err')}
                     for k, u in ups.items()},
         upsampler_ms={k: u['ms'] for k, u in ups.items()},
-        upsampler_plain_ms={k: u['plain_ms'] for k, u in ups.items()}),
+        upsampler_plain_ms={k: u['plain_ms'] for k, u in ups.items()},
+        scale_out={k: v for k, v in scale.items() if k not in ('gen_launches', 'cli_launches')}),
         dict(
         name='wavenet_ar[categorical_big-fused+nll]', route='cuda', source=source,
         replaces=replaces, launches=training['big']['launches'],
@@ -4263,4 +4887,9 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--rank-job']:      # a child of phase 15
+        rank_job(*sys.argv[2:4])
+    elif sys.argv[1:2] == ['--rank-cli']:    # a rank of phase 15's command line
+        rank_cli(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -36,6 +36,7 @@ from .models.tacotron.flax_names import GRU_GROUPS, port_name
 from .models.tacotron.model import Tacotron
 from .models.wavenet.model import WaveNet
 from .ops.wavenet_ar import ring_layout
+from .parallel.sharding_rules import shard_index
 from .training import checkpoint_select
 from .training.checkpointing import CheckpointManager
 from .training.tacotron_trainer import TacotronTrainState
@@ -205,6 +206,41 @@ def wavenet_train_state_from_jax(state: Mapping, hp, device='cpu') -> WaveNetTra
             sd = wavenet_state_dict(tree, fold=False)
             for m, name in zip(moments, names, strict=True):
                 m.copy_(sd[name])
+    return out
+
+
+def split_wavenet_state(state_dict: Mapping[str, Tensor], hp, model_size: int,
+                        model_index: int) -> Dict[str, Tensor]:
+    """A full WaveNet state_dict -> the shard that rank `model_index` of a model group
+    of `model_size` holds (`parallel/sharding_rules.py`: the r-th block of each half of
+    the gate channels, the matching rows of the out and skip kernels); replicated
+    entries as they are. The shard loads into `parallel.tensor_parallel.shard_wavenet`'s
+    model. The inverse of `join_wavenet_shards`."""
+    out = {}
+    for name, t in state_dict.items():
+        where = shard_index(name, t.shape, hp, model_size, model_index)
+        out[name] = t if where is None else t.index_select(where[0], where[1].to(t.device))
+    return out
+
+
+def join_wavenet_shards(shards: Sequence[Mapping[str, Tensor]], hp) -> Dict[str, Tensor]:
+    """The shards of every rank of a model group, in rank order -> the full WaveNet
+    state_dict (the layout a checkpoint holds). The inverse of `split_wavenet_state`."""
+    m = len(shards)
+    out = {}
+    for name, t in shards[0].items():
+        where = shard_index(name, t.shape, hp, m, 0)
+        if where is None:
+            out[name] = t
+            continue
+        axis = where[0]
+        shape = list(t.shape)
+        shape[axis] *= m
+        full = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        for r, shard in enumerate(shards):
+            full.index_copy_(axis, shard_index(name, t.shape, hp, m, r)[1].to(t.device),
+                             shard[name])
+        out[name] = full
     return out
 
 

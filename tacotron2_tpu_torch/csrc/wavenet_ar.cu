@@ -1682,6 +1682,15 @@ int occupancy(int N, int threads, size_t smem) {
   return clusters;
 }
 
+// T2_HEADS, a bit set over Head (bit h for head h), builds the instantiations of those
+// heads alone, and a launch of another head returns cudaErrorNotSupported: a copy of
+// this source with a planted fault builds only the heads its check launches. Every
+// head by default.
+#ifndef T2_HEADS
+#define T2_HEADS 15
+#endif
+constexpr bool built(int head) { return (T2_HEADS >> head) & 1; }
+
 // the instantiation of (head, fused, nll, small), handed to F as template arguments;
 // the big head has no SMALL one (small_layout)
 template <template <int, int, bool, bool> class F, typename... T>
@@ -1694,14 +1703,24 @@ int dispatch(int head, bool fused, bool nll, bool small, T... args) {
 #define T2_GENERAL(H, NL)                                                        \
   return fused ? F<H, FUSED, NL, false>::run(args...) : F<H, PLAIN, NL, false>::run(args...)
   switch (head) {
-    case GAUSSIAN: T2_CHAIN(GAUSSIAN, false);
-    case MOL: T2_CHAIN(MOL, false);
+    case GAUSSIAN:
+      if constexpr (built(GAUSSIAN)) { T2_CHAIN(GAUSSIAN, false); }
+      return (int)cudaErrorNotSupported;
+    case MOL:
+      if constexpr (built(MOL)) { T2_CHAIN(MOL, false); }
+      return (int)cudaErrorNotSupported;
     case CATEGORICAL:
-      if (nll) T2_CHAIN(CATEGORICAL, true);
-      T2_CHAIN(CATEGORICAL, false);
+      if constexpr (built(CATEGORICAL)) {
+        if (nll) T2_CHAIN(CATEGORICAL, true);
+        T2_CHAIN(CATEGORICAL, false);
+      }
+      return (int)cudaErrorNotSupported;
     default:
-      if (nll) T2_GENERAL(CATEGORICAL_BIG, true);
-      T2_GENERAL(CATEGORICAL_BIG, false);
+      if constexpr (built(CATEGORICAL_BIG)) {
+        if (nll) T2_GENERAL(CATEGORICAL_BIG, true);
+        T2_GENERAL(CATEGORICAL_BIG, false);
+      }
+      return (int)cudaErrorNotSupported;
   }
 #undef T2_GENERAL
 #undef T2_CHAIN

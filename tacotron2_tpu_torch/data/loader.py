@@ -5,12 +5,12 @@ dataset. numpy only."""
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..text import text_to_sequence
-from ..utils import round_down, round_up
+from ..utils import round_down, round_up, shard_rows
 from .wavenet_loader import train_test_split
 
 
@@ -71,7 +71,11 @@ class TacotronDataset:
     -max_abs_value when symmetric, else 0, stop token 1 with the target 0 over
     len(mel) - 1 frames); the lengths rounded up to pad_text_multiple and to
     pad_mel_multiple (itself rounded to outputs_per_step). Batches are float32 (the JAX
-    loader's float16 transfer option is not kept) and hold one host's whole batch."""
+    loader's float16 transfer option is not kept). With process_shard=(index, count)
+    (`loader.py:78-150`) the batch's composition, order and pad sizes are still decided
+    for the whole global batch, from metadata and one RNG stream, and only this
+    process's contiguous rows are read from disk and returned: every rank's rows have
+    the global padded shape."""
 
     def __init__(self, metadata_filename: str, hparams, base_dir: Optional[str] = None):
         self._hp = hparams
@@ -102,8 +106,10 @@ class TacotronDataset:
     def __len__(self):
         return len(self._train_meta)
 
-    def train_batches(self, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        """Infinite generator of bucketed, padded train batches."""
+    def train_batches(self, seed: int = 0, process_shard: Optional[Tuple[int, int]] = None
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+        """Infinite generator of bucketed, padded train batches; with process_shard,
+        this process's rows of each."""
         hp = self._hp
         rng = np.random.default_rng(seed)
         order = rng.permutation(len(self._train_meta))
@@ -122,7 +128,7 @@ class TacotronDataset:
             batches = [group[i:i + n] for i in range(0, len(group), n)]
             rng.shuffle(batches)
             for bidx in batches:
-                yield self._batch(bidx, rng, self._train_meta)
+                yield self._batch(bidx, rng, self._train_meta, process_shard)
 
     def test_batches(self) -> List[Dict[str, np.ndarray]]:
         """The eval batches, bucketed once by mel length."""
@@ -133,7 +139,8 @@ class TacotronDataset:
         return [self._batch(idxs[i:i + n], rng, self._test_meta)
                 for i in range(0, len(idxs), n)]
 
-    def _batch(self, bidx: List[int], rng, meta: List) -> Dict[str, np.ndarray]:
+    def _batch(self, bidx: List[int], rng, meta: List,
+               process_shard: Optional[Tuple[int, int]] = None) -> Dict[str, np.ndarray]:
         hp = self._hp
         r = hp.outputs_per_step
         metas = [meta[bidx[int(i)]] for i in rng.permutation(len(bidx))]
@@ -141,9 +148,13 @@ class TacotronDataset:
                 for m in metas]
         input_lengths = np.asarray([len(s) for s in seqs], np.int32)
         targets_lengths = np.asarray([int(m[4]) for m in metas], np.int32)
+        # the pad sizes of the global batch, from metadata alone
         in_max = round_up(int(input_lengths.max()), hp.pad_text_multiple)
         mel_max = round_up(round_up(int(targets_lengths.max()), r),
                            round_up(hp.pad_mel_multiple, r))
+        rows = shard_rows(len(metas), process_shard)
+        metas, seqs = metas[rows], seqs[rows]
+        input_lengths, targets_lengths = input_lengths[rows], targets_lengths[rows]
         mels = [np.load(os.path.join(self._mel_dir, m[1])) for m in metas]
 
         def pad_frames(x, value):

@@ -17,13 +17,14 @@ The train/test split is `train_test_split`, sklearn's shuffle split written with
 """
 
 import os
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import Hparams
 from ..ops.mulaw import is_mulaw_quantize, mulaw_quantize
 from ..utils import round_down as _round_down
+from ..utils import shard_rows
 
 
 def train_test_split(indices: np.ndarray, test_size, random_state: int):
@@ -146,8 +147,14 @@ class WaveNetDataset:
             self._len_cache[meta[0]] = length
         return length
 
-    def train_batches(self, seed: int = 0, group_batches: int = 64
+    def train_batches(self, seed: int = 0, group_batches: int = 64,
+                      process_shard: Optional[Tuple[int, int]] = None
                       ) -> Iterator[Dict[str, np.ndarray]]:
+        """Infinite generator of bucketed, cropped, padded train batches. With
+        process_shard=(index, count) (`wavenet_loader.py:132-195`) the composition and
+        every row's crop are drawn for the whole global batch from one RNG stream, the
+        pad length from all its rows, and only this process's contiguous rows are read
+        from disk and returned."""
         hp = self._hp
         rng = np.random.default_rng(seed)
         order = rng.permutation(len(self._train_meta))
@@ -165,7 +172,7 @@ class WaveNetDataset:
             batches = [group[i:i + n] for i in range(0, len(group), n)]
             rng.shuffle(batches)
             for bidx in batches:
-                yield self._prepare_batch_indices(bidx, rng)
+                yield self._prepare_batch_indices(bidx, rng, process_shard=process_shard)
 
     def test_batches(self) -> List[Dict[str, np.ndarray]]:
         hp = self._hp
@@ -178,7 +185,8 @@ class WaveNetDataset:
                 for b in batches]
 
     # ------------------------------------------------------------------
-    def _prepare_batch_indices(self, bidx, rng, meta=None) -> Dict[str, np.ndarray]:
+    def _prepare_batch_indices(self, bidx, rng, meta=None, process_shard=None
+                               ) -> Dict[str, np.ndarray]:
         hp = self._hp
         hop = hp.get_hop_size()
         meta = self._train_meta if meta is None else meta
@@ -203,8 +211,9 @@ class WaveNetDataset:
                 starts.append(0)
                 lens.append(n_samples)
 
+        rows = shard_rows(len(metas), process_shard)
         cropped, gs = [], []
-        for m, start, length in zip(metas, starts, lens):
+        for m, start, length in zip(metas[rows], starts[rows], lens[rows]):
             x, c, g, _ = self._load_example(m)
             if self.local_condition:
                 assert len(x) % len(c) == 0 and len(x) // len(c) == hop
@@ -215,11 +224,11 @@ class WaveNetDataset:
             cropped.append((x, c))
             gs.append(g)
 
-        input_lengths = np.asarray(lens, np.int64)
+        input_lengths = np.asarray(lens[rows], np.int64)
         if mts is not None:
             # static shape: always the hop-divisible crop length
             max_len = _ensure_divisible(mts, hop, True)
-        else:
+        else:  # the global batch's longest row: every process pads to one shape
             max_len = _ensure_divisible(int(max(lens)), hop, False)
 
         audio_batch = np.stack([

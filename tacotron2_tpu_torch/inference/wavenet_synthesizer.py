@@ -51,7 +51,8 @@ def generate(model: WaveNet, hp, generator: torch.Generator, c: Optional[Tensor]
              targets: Optional[Tensor] = None, return_params: bool = True,
              use_kernel: Optional[bool] = None,
              weights: Optional[Dict[str, Tensor]] = None,
-             y_eval: Optional[Tensor] = None) -> Dict[str, Tensor]:
+             y_eval: Optional[Tensor] = None,
+             noise: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """Autoregressive generation (counterpart of `generate`,
     `wavenet_trainer.py:171-238`, without its batch tiling).
 
@@ -71,6 +72,8 @@ def generate(model: WaveNet, hp, generator: torch.Generator, c: Optional[Tensor]
             with class 0 to the generated length (`wavenet_trainer.py:145-151`), and the
             result carries 'nll' (B, T), the per-step -log softmax(logits)[y]. This is
             how a big-vocab model is scored: its (B, T, Q) params are never built.
+        noise: the AR path's sampling noise (`wavenet_ar.make_noise`'s layout), in place
+            of the draw from `generator`.
     A big-vocab model (`wavenet_ar.is_big_vocab`) draws its in-kernel noise from a seed
     taken from `generator`, and raises on return_params=True.
     Returns: dict with 'audio' (B, T) and, when asked for, 'params' (B, T, out) or 'nll'
@@ -89,7 +92,9 @@ def generate(model: WaveNet, hp, generator: torch.Generator, c: Optional[Tensor]
         out = model.incremental(c, g, synthesis_length, targets=targets, generator=generator)
         return out if return_params else dict(audio=out['audio'])
     c_up = model.upsample_conditioning(c).contiguous()
-    noise = wavenet_ar.make_noise(hp, generator, c_up.shape[0], c_up.shape[1], c_up.device)
+    if noise is None:
+        noise = wavenet_ar.make_noise(hp, generator, c_up.shape[0], c_up.shape[1],
+                                      c_up.device)
     if weights is None:
         weights = wavenet_ar.pack_params(model, hp)
     g_cond = (wavenet_ar.pack_global(model, hp, model.embed_global(g))
@@ -106,6 +111,42 @@ def generate(model: WaveNet, hp, generator: torch.Generator, c: Optional[Tensor]
     if y_eval is not None:
         return dict(audio=audio, nll=second)
     return dict(audio=audio, params=second) if return_params else dict(audio=audio)
+
+
+def shard_seed(seed: int, data_index: int) -> int:
+    """The seed of data index `data_index`'s noise: a function of both, as
+    `fold_in(rng, axis_index)` keys each shard's (`wavenet_trainer.py:357-358`). The bits
+    are not JAX's."""
+    return (seed & 0xFFFFFFFF) << 32 | (data_index & 0xFFFFFFFF)
+
+
+@torch.no_grad()
+def generate_data_parallel(model: WaveNet, hp, c: Tensor, mesh, seed: int = 0,
+                           noise: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """Scale-out synthesis (counterpart of `generate_data_parallel`,
+    `wavenet_trainer.py:333-369`): each rank of the data axis takes its rows of the
+    conditioning `c` (B, frames, cin), upsamples them and runs `generate` on them, the
+    AR kernel on a CUDA device, with noise from a generator seeded by
+    `shard_seed(seed, data index)` or its rows of `noise` (B, T, ...) where given; the
+    model (replicated, on mesh.device) is each rank's own. The audio (B, T) and the
+    params (B, T, out) are gathered to every rank (an all-reduce of zeroed buffers over
+    the data group). Raises unless B divides by the data axis and the kernel covers the
+    configuration with params (not the big-vocab head). The JAX package's cap of B_MAX
+    rows a shard is not ported: the kernel states its own limits."""
+    from ..parallel.collectives import gather_rows
+
+    B = c.shape[0]
+    if B % mesh.data_size:
+        raise ValueError(f'batch {B} not divisible by data axis {mesh.data_size}')
+    wavenet_ar.check_supported(hp)
+    if wavenet_ar.is_big_vocab(hp):
+        raise NotImplementedError('generate_data_parallel returns params: the big-vocab '
+                                  'head has none to return')
+    rows = mesh.rows(B)
+    generator = torch.Generator(mesh.device).manual_seed(shard_seed(seed, mesh.data_index))
+    out = generate(model, hp, generator, c[rows].to(mesh.device), return_params=True,
+                   noise=noise[rows].to(mesh.device) if noise is not None else None)
+    return {k: gather_rows(out[k], rows, B, mesh.data_group) for k in ('audio', 'params')}
 
 
 class Synthesizer:

@@ -8,7 +8,10 @@ for recurrences), BatchNorm over the batch statistics with flax's running update
 are drawn by the model from a torch.Generator, or passed in where they must be shared.
 
 `dtype` is flax's compute dtype (`models/precision.py`): each Dense, Conv and LSTM or
-GRU gate product casts to it, BatchNorm computes in float32.
+GRU gate product casts to it, BatchNorm computes in float32. Under data parallelism
+(`sync_batch_norm`) BatchNorm's batch statistics are those of the global batch, as flax
+computes them under GSPMD: the per-channel sum, sum of squares and count all-reduced
+over the data group.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from ...parallel.collectives import all_reduce_sum, global_sum
 from ..precision import cast_forward, sigmoid, weak
 
 BN_MOMENTUM = 0.99
@@ -106,7 +110,9 @@ class ConvBlock(nn.Module):
     BatchNorm (eps 1e-3) normalizes over the running statistics, or with `train` over
     the batch's: the mean and the biased variance mean(x^2) - mean^2 over (B, T),
     padded frames included, each running statistic then moved to
-    0.99 * itself + 0.01 * the batch's (flax's BatchNorm, `modules.py:99-106`)."""
+    0.99 * itself + 0.01 * the batch's (flax's BatchNorm, `modules.py:99-106`).
+    `stats_group` (set by `sync_batch_norm`): the data group over which the batch
+    statistics are taken, None for this process's batch alone."""
 
     def __init__(self, in_channels: int, kernel_size: int, channels: int,
                  activation: Optional[str] = 'relu', bnorm: str = 'after',
@@ -119,6 +125,7 @@ class ConvBlock(nn.Module):
         self.drop_rate = drop_rate
         self.conv = nn.Conv1d(in_channels, channels, kernel_size, padding='same')
         self.bn = nn.BatchNorm1d(channels, eps=BN_EPS)
+        self.stats_group = None
 
     def _act(self, y: Tensor) -> Tensor:
         if self.activation == 'relu':
@@ -133,8 +140,17 @@ class ConvBlock(nn.Module):
         if not train:
             return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                                 training=False, eps=bn.eps)
-        mean = y.mean(dim=(0, 2))
-        var = torch.clamp(torch.square(y).mean(dim=(0, 2)) - torch.square(mean), min=0.0)
+        if self.stats_group is None:
+            mean = y.mean(dim=(0, 2))
+            mean_sq = torch.square(y).mean(dim=(0, 2))
+        else:  # the global batch's: sums and count over the data group
+            sums = all_reduce_sum(torch.stack([y.sum(dim=(0, 2)),
+                                               torch.square(y).sum(dim=(0, 2))]),
+                                  self.stats_group)
+            count = global_sum(torch.tensor(float(y.shape[0] * y.shape[2]), device=y.device),
+                               self.stats_group)
+            mean, mean_sq = sums[0] / count, sums[1] / count
+        var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
@@ -154,6 +170,15 @@ class ConvBlock(nn.Module):
         if train and self.drop_rate > 0.0:
             y = dropout(y, self.drop_rate, keep.transpose(1, 2))
         return y
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Take the batch statistics of every ConvBlock of `model` over the data `group`
+    (None: this process's batch alone). Returns `model`."""
+    for module in model.modules():
+        if isinstance(module, ConvBlock):
+            module.stats_group = group
+    return model
 
 
 class _ConvStack(nn.Module):

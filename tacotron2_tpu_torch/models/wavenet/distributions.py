@@ -2,7 +2,9 @@
 `tacotron2_tpu/models/wavenet/distributions.py` and of the draws in
 `models/wavenet/model.py:269-284`): the three training losses (discretized mixture of
 logistics, Gaussian with or without the CDF trick, masked softmax cross-entropy), each
-the mean NLL over the positions a mask keeps, and the samplers.
+the mean NLL over the positions a mask keeps, and the samplers. Under data parallelism
+each loss takes the data group: its denominator is the count over every rank's rows, so
+that the ranks' losses sum to the mean over the global batch.
 
 Every sampler takes its noise as a tensor, in the layout `ops/wavenet_ar.make_noise`
 uses, or draws it from a `torch.Generator` on the device of the params.
@@ -14,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+
+from ...parallel.collectives import global_sum
 
 # uniform draws stay inside [U_LO, 1 - U_LO], as the JAX samplers' minval / maxval
 U_LO = 1e-5
@@ -71,17 +75,21 @@ def sample_from_categorical(y: Tensor, noise: Optional[Tensor] = None,
     return (y + noise).argmax(-1)
 
 
-def _reduce(nll: Tensor, mask: Optional[Tensor]) -> Tensor:
-    """Mean over all positions, or over those `mask` (0/1) keeps (at least one)."""
+def _reduce(nll: Tensor, mask: Optional[Tensor], group=None) -> Tensor:
+    """Mean over all positions, or over those `mask` (0/1) keeps (at least one); with a
+    data `group`, this rank's sum over the count of the whole group's."""
     if mask is None:
-        return nll.mean()
+        if group is None:
+            return nll.mean()
+        return nll.sum() / global_sum(torch.tensor(float(nll.numel()), device=nll.device),
+                                      group)
     m = mask.to(nll.dtype)
-    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (nll * m).sum() / torch.clamp(global_sum(m.sum(), group), min=1.0)
 
 
 def discretized_mix_logistic_loss(y_hat: Tensor, y: Tensor, num_classes: int = 65536,
                                   log_scale_min: float = -32.23619130191664,
-                                  mask: Optional[Tensor] = None) -> Tensor:
+                                  mask: Optional[Tensor] = None, group=None) -> Tensor:
     """NLL of y (B, T) in [-1, 1] under a discretized mixture of logistics y_hat
     (B, T, 3*nr) = [logits | means | log-scales] (`distributions.py:30-69`): the
     probability of y's bin, cdf(y + half bin) - cdf(y - half bin); at the edges y <
@@ -106,7 +114,7 @@ def discretized_mix_logistic_loss(y_hat: Tensor, y: Tensor, num_classes: int = 6
     log_probs = torch.where(yb < -0.999, log_cdf_plus,
                             torch.where(yb > 0.999, log_one_minus_cdf_min, inner))
     log_probs = log_probs + torch.log_softmax(logit_probs, -1)
-    return _reduce(-torch.logsumexp(log_probs, -1), mask)
+    return _reduce(-torch.logsumexp(log_probs, -1), mask, group)
 
 
 def _normal_cdf(x: Tensor) -> Tensor:
@@ -122,7 +130,8 @@ def _normal_cdf(x: Tensor) -> Tensor:
 
 def gaussian_mle_loss(y_hat: Tensor, y: Tensor, num_classes: int,
                       log_scale_min_gauss: float = -16.118095650958319,
-                      use_cdf: bool = False, mask: Optional[Tensor] = None) -> Tensor:
+                      use_cdf: bool = False, mask: Optional[Tensor] = None,
+                      group=None) -> Tensor:
     """Gaussian maximum-likelihood loss (`distributions.py:91-107`); y_hat (B, T, 2) =
     [mean | log-scale], y (B, T). With `use_cdf` the log-probability of y's bin,
     floored at 1e-12, in place of the log-density."""
@@ -137,12 +146,12 @@ def gaussian_mle_loss(y_hat: Tensor, y: Tensor, num_classes: int,
     else:
         log_prob = -0.5 * (math.log(2.0 * math.pi) + 2.0 * log_scale
                            + torch.square(y - mean) * torch.exp(-2.0 * log_scale))
-    return _reduce(-log_prob, mask)
+    return _reduce(-log_prob, mask, group)
 
 
-def masked_cross_entropy_loss(y_hat: Tensor, y: Tensor, mask: Optional[Tensor] = None
-                              ) -> Tensor:
+def masked_cross_entropy_loss(y_hat: Tensor, y: Tensor, mask: Optional[Tensor] = None,
+                              group=None) -> Tensor:
     """Softmax cross-entropy (`distributions.py:119-124`); y_hat (B, T, Q) logits, y
     (B, T) class ids."""
     logp = torch.log_softmax(y_hat, -1)
-    return _reduce(-logp.gather(-1, y[..., None].long())[..., 0], mask)
+    return _reduce(-logp.gather(-1, y[..., None].long())[..., 0], mask, group)

@@ -14,7 +14,7 @@ each conv in it, the output float32 (`model.py:135`).
 """
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +27,10 @@ from .modules import Conv1x1, Embedding, ResidualConv1DGLU, UpsampleNetwork
 
 
 class WaveNet(nn.Module):
-    def __init__(self, hp):
+    """`block` builds each residual layer (a ResidualConv1DGLU; the tensor-parallel
+    step passes its own, `parallel/tensor_parallel.py`)."""
+
+    def __init__(self, hp, block: Callable[..., ResidualConv1DGLU] = ResidualConv1DGLU):
         super().__init__()
         if hp.layers % hp.stacks != 0:
             raise ValueError('layers must be a multiple of stacks')
@@ -37,7 +40,7 @@ class WaveNet(nn.Module):
         wn = hp.wavenet_weight_normalization
         self.first_conv = Conv1x1(in_channels, hp.residual_channels, hp.use_bias, wn)
         self.residual_layers = nn.ModuleList(
-            ResidualConv1DGLU(hp.residual_channels, hp.gate_channels, hp.kernel_size,
+            block(hp.residual_channels, hp.gate_channels, hp.kernel_size,
                               hp.skip_out_channels, hp.cin_channels, 2 ** (i % lps),
                               hp.use_bias, hp.residual_legacy, hp.gin_channels,
                               hp.wavenet_dropout, wn)
@@ -203,16 +206,18 @@ class WaveNet(nn.Module):
         return dict(audio=audio, params=params)
 
 
-def compute_wavenet_loss(hp, y_hat: Tensor, y: Tensor, mask: Optional[Tensor]) -> Tensor:
+def compute_wavenet_loss(hp, y_hat: Tensor, y: Tensor, mask: Optional[Tensor],
+                         group=None) -> Tensor:
     """One-sample-shifted NLL (counterpart of `compute_wavenet_loss`,
     `model.py:295-308`): the prediction at t scores target t+1. y_hat (B, T, out); y
-    (B, T) audio or class ids; mask (B, T), shifted with the targets."""
+    (B, T) audio or class ids; mask (B, T), shifted with the targets. With a data
+    `group`, the mean's denominator counts every rank's rows."""
     y_hat_s, y_s = y_hat[:, :-1], y[:, 1:]
     mask_s = mask[:, 1:] if mask is not None else None
     if is_mulaw_quantize(hp.input_type):
-        return dist.masked_cross_entropy_loss(y_hat_s, y_s, mask_s)
+        return dist.masked_cross_entropy_loss(y_hat_s, y_s, mask_s, group)
     if hp.out_channels == 2:
         return dist.gaussian_mle_loss(y_hat_s, y_s, hp.quantize_channels,
-                                      hp.log_scale_min_gauss, hp.cdf_loss, mask_s)
+                                      hp.log_scale_min_gauss, hp.cdf_loss, mask_s, group)
     return dist.discretized_mix_logistic_loss(y_hat_s, y_s, hp.quantize_channels,
-                                              hp.log_scale_min, mask_s)
+                                              hp.log_scale_min, mask_s, group)

@@ -135,8 +135,8 @@ class ResidualConv1DGLU(nn.Module):
                 pa, pb = proj.chunk(2, dim=-1)
                 a, b = a + pa, b + pb
         gated = torch.tanh(a) * sigmoid(b)
-        s = self.conv1x1_skip(gated, dtype)
-        out = self.conv1x1_out(gated, dtype) + residual
+        s = self._project(self.conv1x1_skip, gated, dtype)
+        out = self._project(self.conv1x1_out, gated, dtype) + residual
         if self.residual_legacy:
             out = out * weak(math.sqrt(0.5), out.dtype)
         return out, s
@@ -151,17 +151,26 @@ class ResidualConv1DGLU(nn.Module):
         nominal keep probability as in the JAX module (`modules.py:187`). Every conv
         runs in `dtype`. Returns (x_out (B, T, R), skip (B, T, S))."""
         residual = x
-        if train and self.dropout > 0:
-            if mask is None:
-                if generator is None:
-                    raise ValueError('dropout in training needs a generator or a mask')
-                mask = self.dropout_mask(x.shape, generator)
-            x = torch.where(mask, x / weak(1.0 - self.dropout, x.dtype),
-                            torch.zeros((), device=x.device, dtype=x.dtype))
+        x = self._dropout(x, train, generator, mask)
         return self._outputs(self.conv(x, dtype),
                              self.conv1x1c(c, dtype) if c is not None else None,
                              self.conv1x1g(g, dtype) if g is not None else None, residual,
                              dtype)
+
+    def _project(self, conv: 'Conv1x1', gated: Tensor, dtype: torch.dtype) -> Tensor:
+        """The skip or residual 1x1 of the gated activations."""
+        return conv(gated, dtype)
+
+    def _dropout(self, x: Tensor, train: bool, generator: Optional[torch.Generator],
+                 mask: Optional[Tensor]) -> Tensor:
+        if not (train and self.dropout > 0):
+            return x
+        if mask is None:
+            if generator is None:
+                raise ValueError('dropout in training needs a generator or a mask')
+            mask = self.dropout_mask(x.shape, generator)
+        return torch.where(mask, x / weak(1.0 - self.dropout, x.dtype),
+                           torch.zeros((), device=x.device, dtype=x.dtype))
 
     def incremental_step(self, taps: Tensor, c_proj: Optional[Tensor],
                          g_proj: Optional[Tensor]) -> Tuple[Tensor, Tensor]:

@@ -46,6 +46,21 @@ line and ignored.
 
 The device defaults to cuda, where the WaveNet natural eval's AR loop runs in the
 hand-written kernel; without a CUDA device pass --device cpu.
+
+Under several ranks (`parallel/distributed.py`), one process a rank:
+
+    torchrun --nproc_per_node=N -m tacotron2_tpu_torch.train --model Tacotron ... \
+        [--dist_backend nccl|gloo] [--device cuda]
+
+each rank runs on `cuda:LOCAL_RANK` (or on the device --device names: 'cpu', or one card
+for every rank with --dist_backend gloo; nccl refuses two ranks on one card), the
+backend is nccl on CUDA and gloo on the CPU unless --dist_backend names one, and the
+trainers run data-parallel over every rank (`parallel/mesh.py`): each rank reads its
+rows of the global batch and the update is the global batch's. Only rank 0 writes the
+log, the checkpoints, the eval wavs, the eval-history sidecar and the state_log; the
+WaveNet's natural eval and the pipeline's GTA synthesis run on rank 0 alone while the
+other ranks wait. The ranks share one filesystem. A failed start of the process group
+raises; nothing falls back to one process.
 """
 
 import argparse
@@ -57,6 +72,7 @@ import torch
 from . import infolog
 from .config import default_hparams, paper_hparams
 from .infolog import log
+from .parallel import distributed
 
 
 def write_state(path: str, done_flags, gta_map_path: str) -> None:
@@ -105,20 +121,25 @@ def run_pipeline(args, log_dir: str, hparams, device) -> str:
             'Delete {} to retrain.'.format(state_file))
         return state_file
 
+    lead = distributed.is_lead()
     if not done[0]:
         _banner('Phase 1/3: Tacotron training')
         checkpoint = tacotron_train.train(log_dir, args, hparams, device)
         done[0] = True
-        write_state(state_file, done, gta_map)
+        if lead:
+            write_state(state_file, done, gta_map)
     else:
         checkpoint = os.path.join(log_dir, 'taco_pretrained')
 
     if not done[1]:
         _banner('Phase 2/3: ground-truth-aligned synthesis')
         args.mode = 'synthesis'
-        gta_map = tacotron_synthesize(args, hparams, checkpoint, device=device)
+        if lead:  # rank 0 alone; the other ranks wait for its map
+            gta_map = tacotron_synthesize(args, hparams, checkpoint, device=device)
+        gta_map = distributed.broadcast_str(gta_map)
         done[1] = True
-        write_state(state_file, done, gta_map)
+        if lead:
+            write_state(state_file, done, gta_map)
 
     if not gta_map:
         raise RuntimeError('No GTA map path recorded after phase 2; cannot start '
@@ -128,7 +149,8 @@ def run_pipeline(args, log_dir: str, hparams, device) -> str:
         _banner('Phase 3/3: WaveNet training')
         wavenet_train.train(log_dir, args, hparams, gta_map, device)
         done[2] = True
-        write_state(state_file, done, gta_map)
+        if lead:
+            write_state(state_file, done, gta_map)
 
     log('Pipeline complete: all three phases finished.')
     return state_file
@@ -180,19 +202,27 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     parser.add_argument('--profile_step', type=int, default=0,
                         help='accepted for train.py\'s command line; ignored (the port '
                              'captures no profiler trace)')
-    parser.add_argument('--device', default='cuda', help='torch device (default cuda)')
+    parser.add_argument('--device', default='cuda',
+                        help='torch device (default cuda: cuda:LOCAL_RANK under torchrun)')
+    parser.add_argument('--dist_backend', default=None, choices=('nccl', 'gloo'),
+                        help='process-group backend under torchrun (default nccl on CUDA, '
+                             'gloo on the CPU)')
     args = parser.parse_args(argv)
 
-    device = torch.device(args.device)
+    device = distributed.rank_device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda, but torch finds no CUDA device '
                            '(pass --device cpu to train on the CPU)')
+    distributed.maybe_initialize(args.dist_backend, device=args.device)
     hp = paper_hparams() if args.paper_profile else default_hparams()
     hp.parse(args.hparams)
     run_name = args.name or args.model
     log_dir = os.path.join(args.base_dir, 'logs-{}'.format(run_name))
     os.makedirs(log_dir, exist_ok=True)
-    infolog.init(os.path.join(log_dir, 'Terminal_train_log'), run_name)
+    if distributed.is_lead():
+        infolog.init(os.path.join(log_dir, 'Terminal_train_log'), run_name)
+    else:
+        infolog.mute()
 
     if args.model == 'Tacotron':
         from .training.tacotron_train import train as tacotron_train

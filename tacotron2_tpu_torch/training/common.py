@@ -1,6 +1,7 @@
 """Pieces the WaveNet and the Tacotron trainers share: the compute dtype, flax's
-lecun-normal initializer, Adam as optax computes it, the seed of a step's random draws,
-a loader batch on the device, and the per-step log line of the training loops."""
+lecun-normal initializer, Adam as optax computes it, the gradients' sum over the data
+group, the seed of a step's random draws, a loader batch on the device, and the
+per-step log line of the training loops."""
 
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -10,6 +11,7 @@ import torch
 from torch import Tensor, nn
 
 from ..infolog import log
+from ..parallel.collectives import all_reduce_flat_
 from ..utils import ValueWindow
 
 
@@ -43,6 +45,15 @@ def adam_update_(params: Sequence[Tensor], grads: Sequence[Tensor],
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
     torch._foreach_addcdiv_(params, exp_avg, denom, value=-lr / (1.0 - b1 ** t))
+
+
+def all_reduce_grads(grads: Sequence[Tensor], group) -> None:
+    """Sum the gradients in place over the data `group` (None: one process), in one
+    all-reduce of a flat buffer, after the backward and before the norm, the clip, Adam
+    and the EMA. Each rank's loss is its share of the global batch's (its sum over the
+    group's count), so the sum is the global batch's gradient. The trainers take their
+    gradients with `torch.autograd.grad`, which DDP's reducer does not see."""
+    all_reduce_flat_(grads, group)
 
 
 def step_seed(seed: int, step: int) -> int:

@@ -8,8 +8,15 @@ losses averaged over the test batches, and the artifacts of sample 0: from each 
 the Griffin-Lim wavs from the predicted mel and linear spectrograms, from each
 checkpoint the predicted mel as .npy and its Griffin-Lim wav (on the device with
 hp.GL_on_GPU, `ops/dsp.py`). Not ported: the alignment and spectrogram plots,
-TensorBoard summaries, the embedding projector, the profiler trace, the multi-process
-batch shard and the Slack webhook.
+TensorBoard summaries, the embedding projector, the profiler trace and the Slack
+webhook.
+
+Under a process group (`parallel/distributed.py`) the loop runs data-parallel over
+every rank, as the JAX loop runs over its mesh with a lead host
+(`tacotron_train.py:118-144, 176, 251-257`): the state is broadcast from rank 0 at
+start, each rank reads its rows of every train batch (the loader's process_shard) and
+of every eval batch, the steps and the eval losses are the global batch's, and only
+rank 0 writes checkpoints, wavs, mels and the log.
 
 A step's dropout and zoneout masks and teacher-forcing coins come from a generator
 seeded by (tacotron_random_seed, step), so a resumed run draws the masks of an
@@ -34,6 +41,7 @@ from ..config import Hparams, hparams_debug_string
 from ..data.loader import Prefetcher, TacotronDataset
 from ..infolog import log
 from ..ops import audio, dsp
+from ..parallel import distributed, mesh as mesh_lib
 from ..text import sequence_to_text, symbols
 from . import tacotron_trainer as tt
 from .checkpointing import CheckpointManager
@@ -53,18 +61,21 @@ def add_embedding_tsv(log_dir: str) -> str:
 
 
 def run_eval(state, test_batches, hp: Hparams, step: int, eval_wav_dir: str,
-             generator: torch.Generator) -> Dict[str, float]:
+             generator: torch.Generator, mesh=None) -> Dict[str, float]:
     """The eval losses averaged over the test batches, and the wavs of sample 0 of the
-    last batch (`tacotron_train.py:241-296`)."""
+    last batch (`tacotron_train.py:241-296`). Under a `mesh` every rank runs it on its
+    rows of each batch (the losses the global batch's); rank 0 writes the wavs."""
     log('\nRunning evaluation at step {}'.format(step))
     sums = {k: 0.0 for k in EVAL_LOSSES}
     for tb in test_batches:
         generator.manual_seed(hp.tacotron_random_seed)
-        m = tt.eval_step(state, tb, hp, generator)
+        m = tt.eval_step(state, tb, hp, generator, mesh=mesh)
         for k in EVAL_LOSSES:
             sums[k] += float(m[k])
     avgs = {k: v / len(test_batches) for k, v in sums.items()}
     log('Eval losses: ' + ', '.join(f'{k}={v:.5f}' for k, v in avgs.items()))
+    if not distributed.is_lead():
+        return avgs
     mel_len = int(tb['targets_lengths'][0])
     audio.save_wav(dsp.gl_invert(m['mel_outputs'][0][:mel_len], hp),
                    os.path.join(eval_wav_dir, f'step-{step}-eval-wave-from-mel.wav'),
@@ -77,13 +88,19 @@ def run_eval(state, test_batches, hp: Hparams, step: int, eval_wav_dir: str,
 
 
 def save_checkpoint_artifacts(state, ckpt: CheckpointManager, batch, hp: Hparams, step: int,
-                              wav_dir: str, mel_dir: str, generator: torch.Generator):
+                              wav_dir: str, mel_dir: str, generator: torch.Generator,
+                              mesh=None):
     """The checkpoint, then the eval pass over the last train batch: sample 0's
-    predicted mel as .npy and its Griffin-Lim wav (`tacotron_train.py:299-329`)."""
+    predicted mel as .npy and its Griffin-Lim wav (`tacotron_train.py:299-329`). Under
+    a `mesh` every rank runs the pass on its rows; rank 0 writes."""
     log('\nSaving checkpoint + artifacts at step {}'.format(step))
-    ckpt.save(step, state.state_dict())
+    lead = distributed.is_lead()
+    if lead:
+        ckpt.save(step, state.state_dict())
     generator.manual_seed(hp.tacotron_random_seed)
-    m = tt.eval_step(state, batch, hp, generator)
+    m = tt.eval_step(state, batch, hp, generator, mesh=mesh)
+    if not lead:
+        return
     mel_len = int(batch['targets_lengths'][0])
     mel_pred = m['mel_outputs'][0][:mel_len]
     np.save(os.path.join(mel_dir, f'mel-prediction-step-{step}.npy'),
@@ -98,6 +115,8 @@ def train(log_dir: str, args, hparams: Hparams, device) -> str:
     args.tacotron_train_steps on `device`; returns the checkpoint directory."""
     hp = hparams
     device = torch.device(device)
+    mesh = mesh_lib.make_mesh(hp, device) if distributed.process_shard() else None
+    lead = distributed.is_lead()
     save_dir = os.path.join(log_dir, 'taco_pretrained')
     plot_dir = os.path.join(log_dir, 'plots')
     wav_dir = os.path.join(log_dir, 'wavs')
@@ -130,7 +149,8 @@ def train(log_dir: str, args, hparams: Hparams, device) -> str:
 
     dataset = TacotronDataset(input_path, hp, base_dir=os.path.dirname(input_path))
     log('Loaded metadata for {} examples ({:.2f} hours)'.format(len(dataset), dataset.hours))
-    add_embedding_tsv(log_dir)
+    if lead:
+        add_embedding_tsv(log_dir)
 
     state = tt.create_train_state(hp, device)
     log('Tacotron Parameters: {:.3f} Million.'.format(
@@ -145,9 +165,19 @@ def train(log_dir: str, args, hparams: Hparams, device) -> str:
         log('Loading checkpoint at step {}'.format(state.step))
     else:
         log('Starting new training!')
+    shard = None
+    if mesh is not None:  # every rank from rank 0's fresh or restored state
+        log('Data-parallel over {} ranks (mesh {}x{})'.format(
+            mesh.layout.size, mesh.data_size, mesh.model_size))
+        state.step = mesh_lib.broadcast_int(state.step, device)
+        mesh_lib.replicate(list(state.model.state_dict().values()) + state.exp_avg
+                           + state.exp_avg_sq)
+        shard = (mesh.data_index, mesh.data_size)
 
-    batches = Prefetcher(dataset.train_batches(seed=hp.tacotron_data_random_state), depth=8)
-    test_batches = [to_device(b, device) for b in dataset.test_batches()]
+    batches = Prefetcher(dataset.train_batches(seed=hp.tacotron_data_random_state,
+                                               process_shard=shard), depth=8)
+    test_batches = [to_device(mesh_lib.local_batch_slice(b, *shard) if shard else b, device)
+                    for b in dataset.test_batches()]
     log(f'{len(test_batches)} eval batches prepared')
     generator = torch.Generator(device)  # reseeded each step by (seed, step)
     eval_generator = torch.Generator(device)
@@ -161,7 +191,7 @@ def train(log_dir: str, args, hparams: Hparams, device) -> str:
             start = time.time()
             batch = to_device(next(batches), device)
             generator.manual_seed(step_seed(hp.tacotron_random_seed, state.step))
-            metrics = tt.train_step(state, batch, hp, generator)
+            metrics = tt.train_step(state, batch, hp, generator, mesh=mesh)
             step = state.step
             step_log.add(step, metrics, start)
             checkpoint_now = (step % args.checkpoint_interval == 0
@@ -179,11 +209,11 @@ def train(log_dir: str, args, hparams: Hparams, device) -> str:
                         metrics['learning_rate'], metrics['teacher_forcing_ratio']))
 
             if step % args.eval_interval == 0 and test_batches:
-                run_eval(state, test_batches, hp, step, eval_wav_dir, eval_generator)
+                run_eval(state, test_batches, hp, step, eval_wav_dir, eval_generator, mesh)
 
             if checkpoint_now:
                 save_checkpoint_artifacts(state, ckpt, batch, hp, step, wav_dir, mel_dir,
-                                          eval_generator)
+                                          eval_generator, mesh)
 
         step_log.flush()
         log('Tacotron training complete after {} global steps!'.format(

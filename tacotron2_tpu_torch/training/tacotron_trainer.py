@@ -13,9 +13,18 @@ step loop. The steps run in a compute dtype, by default `common.resolve_compute_
 for the batch's device (bfloat16 on the card at the default hparams, float32 on the
 CPU): the modules cast where flax's do, the parameters, the losses, the clip and Adam
 stay float32.
+
+Under a mesh (`parallel/mesh.py`) each rank takes its rows of the global batch and the
+step is the global batch's, as the JAX package's GSPMD step computes it
+(`make_jitted_steps`): the noise (dropout, zoneout, the teacher-forcing coins) is drawn
+for the global batch and sliced (`shard_noise`), the losses' denominators count every
+rank's rows (`losses.py`), BatchNorm's batch statistics are the global batch's
+(`modules.sync_batch_norm`), and the gradients are summed over the data group in one
+flat all-reduce before the norm, the clip and Adam.
 """
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -24,9 +33,11 @@ from torch import Tensor, nn
 from ..models.tacotron.flax_names import flax_name
 from ..models.tacotron.losses import compute_losses, l2_parameters
 from ..models.tacotron.model import Tacotron
-from ..models.tacotron.modules import GRU, HighwayNet
+from ..models.tacotron.modules import GRU, HighwayNet, sync_batch_norm
+from ..parallel.collectives import global_sum
+from ..parallel.mesh import Mesh
 from . import schedules
-from .common import adam_update_, lecun_normal_, resolve_compute_dtype
+from .common import adam_update_, all_reduce_grads, lecun_normal_, resolve_compute_dtype
 
 
 @dataclasses.dataclass
@@ -115,41 +126,84 @@ def state_from_model(model: Tacotron, step: int = 0) -> TacotronTrainState:
                               exp_avg_sq=[torch.zeros_like(p) for p in params])
 
 
-def _noise(model: Tacotron, batch: Dict[str, Tensor], generator, deterministic: bool):
+# the batch axis of each entry of `Tacotron.draw_noise` (the coins have none)
+NOISE_BATCH_AXIS = {'encoder_convolutions': 0, 'postnet_convolutions': 0,
+                    'encoder_lstm': 1, 'zo': 1}
+
+
+def shard_noise(noise: Dict, rows: slice) -> Dict:
+    """The rows `rows` of the noise of a global batch: the prenet masks (m1, m2, ...),
+    the encoder's zoneout and the decoder's gates are time-major (batch axis 1), the
+    conv blocks' masks batch-major; the coins are shared."""
+    out = {}
+    for k, v in noise.items():
+        axis = 1 if re.fullmatch(r'm\d+', k) else NOISE_BATCH_AXIS.get(k)
+        if axis is None:
+            out[k] = v
+        elif isinstance(v, (list, tuple)):
+            out[k] = [t.narrow(axis, rows.start, rows.stop - rows.start) for t in v]
+        else:
+            out[k] = v.narrow(axis, rows.start, rows.stop - rows.start)
+    return out
+
+
+def _noise(model: Tacotron, batch: Dict[str, Tensor], generator, deterministic: bool,
+           noise: Optional[Dict] = None, mesh: Optional[Mesh] = None):
+    """The draws of a pass over `batch`, `noise` where given, else drawn from
+    `generator`; under a mesh those of the global batch (this rank's rows times the data
+    size), sliced to this rank's rows."""
     B, T_in = batch['inputs'].shape
-    if generator is None:
-        raise ValueError('a train or eval step needs a generator or its noise')
-    return model.draw_noise(B, T_in, batch['mel_targets'].shape[1], generator,
-                            deterministic, batch['mel_targets'].device)
+    size = mesh.data_size if mesh is not None else 1
+    if noise is None:
+        if generator is None:
+            raise ValueError('a train or eval step needs a generator or its noise')
+        noise = model.draw_noise(B * size, T_in, batch['mel_targets'].shape[1], generator,
+                                 deterministic, batch['mel_targets'].device)
+    return shard_noise(noise, mesh.rows(B * size)) if mesh is not None else noise
+
+
+def _global_metrics(metrics: Dict[str, Tensor], group) -> Dict[str, Tensor]:
+    """Each loss term summed over the data group: the global batch's."""
+    if group is None:
+        return metrics
+    keys = list(metrics)
+    total = global_sum(torch.stack([metrics[k].detach().float() for k in keys]), group)
+    return {k: total[i] for i, k in enumerate(keys)}
 
 
 def train_step(state: TacotronTrainState, batch: Dict[str, Tensor], hp,
                generator: Optional[torch.Generator] = None,
                noise: Optional[Dict] = None,
-               dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+               dtype: Optional[torch.dtype] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """One update of `state`, in place (counterpart of `train_step`,
     `tacotron_trainer.py:70-101`): dropout, zoneout and the teacher-forcing coins at
     the ratio of this step, drawn from `generator` (on the batch's device) unless
     `noise` gives them (`Tacotron.draw_noise`), in the compute dtype `dtype` (None: the
     one `resolve_compute_dtype` gives the batch's device). BatchNorm's running
-    statistics move with the batch's. Returns the metrics: each loss term and `grad_norm` as 0-d
+    statistics move with the batch's. With a `mesh`, `batch` is this rank's rows of the
+    global batch, `noise` (when given) the global batch's, and the update is the
+    global batch's (see the module's docstring). Returns the metrics: each loss term
+    (the global batch's) and `grad_norm` as 0-d
     tensors on the device, not read back here, and `learning_rate` and
     `teacher_forcing_ratio`, read at the step before the increment."""
     model = state.model
     names, params = zip(*model.named_parameters())
     ratio = schedules.teacher_forcing_ratio(hp, state.step)
     dtype = dtype or resolve_compute_dtype(hp, batch['mel_targets'].device)
-    if noise is None:
-        noise = _noise(model, batch, generator, False)
+    group = mesh.data_group if mesh is not None else None
+    sync_batch_norm(model, group)
+    noise = _noise(model, batch, generator, False, noise, mesh)
     outputs = model.teacher_forced(batch['inputs'], batch['input_lengths'],
                                    batch['mel_targets'], noise, deterministic=False,
                                    teacher_forcing_ratio=ratio, dtype=dtype)
-    loss, metrics = compute_losses(outputs, batch, l2_parameters(model), hp)
+    loss, metrics = compute_losses(outputs, batch, l2_parameters(model), hp, group)
     # a parameter the pass does not reach (none with the default hparams) gets zero
     grads = [g if g is not None else torch.zeros_like(p) for g, p in
              zip(torch.autograd.grad(loss, params, allow_unused=True), params)]
     lr = schedules.tacotron_learning_rate(hp, state.step)
     with torch.no_grad():
+        all_reduce_grads(grads, group)
         grad_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
         keep = [i for i, n in enumerate(names) if trainable(hp, n)]
         grads = [grads[i] for i in keep]
@@ -162,7 +216,7 @@ def train_step(state: TacotronTrainState, batch: Dict[str, Tensor], hp,
                      [state.exp_avg_sq[i] for i in keep], lr, hp.tacotron_adam_beta1,
                      hp.tacotron_adam_beta2, hp.tacotron_adam_epsilon, state.step + 1)
     state.step += 1
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = _global_metrics({k: v.detach() for k, v in metrics.items()}, group)
     metrics.update(grad_norm=grad_norm, learning_rate=lr, teacher_forcing_ratio=ratio)
     return metrics
 
@@ -171,23 +225,27 @@ def train_step(state: TacotronTrainState, batch: Dict[str, Tensor], hp,
 def eval_step(state: TacotronTrainState, batch: Dict[str, Tensor], hp,
               generator: Optional[torch.Generator] = None,
               noise: Optional[Dict] = None,
-              dtype: Optional[torch.dtype] = None) -> Dict[str, Tensor]:
+              dtype: Optional[torch.dtype] = None,
+              mesh: Optional[Mesh] = None) -> Dict[str, Tensor]:
     """The teacher-forced pass in the compute dtype `dtype` (None: as `train_step`
     resolves it), without zoneout or encoder and post-net dropout, over BatchNorm's
     running statistics; the prenet's dropout stays on. The coins compare
     with 0 under tacotron_natural_eval (every step reads the decoder's own frame), else
     with this step's ratio (`tacotron_trainer.py:104-124`). Returns each loss term and
-    the outputs: mel_outputs, alignments, stop_token_prediction (and linear_outputs)."""
+    the outputs: mel_outputs, alignments, stop_token_prediction (and linear_outputs).
+    With a `mesh`, `batch` is this rank's rows, `noise` (when given) the global
+    batch's: the loss terms are the global batch's, the outputs this rank's rows'."""
     model = state.model
     ratio = (0.0 if hp.tacotron_natural_eval
              else schedules.teacher_forcing_ratio(hp, state.step))
     dtype = dtype or resolve_compute_dtype(hp, batch['mel_targets'].device)
-    if noise is None:
-        noise = _noise(model, batch, generator, True)
+    group = mesh.data_group if mesh is not None else None
+    noise = _noise(model, batch, generator, True, noise, mesh)
     outputs = model.teacher_forced(batch['inputs'], batch['input_lengths'],
                                    batch['mel_targets'], noise, deterministic=True,
                                    teacher_forcing_ratio=ratio, dtype=dtype)
-    _, metrics = compute_losses(outputs, batch, l2_parameters(model), hp)
+    _, metrics = compute_losses(outputs, batch, l2_parameters(model), hp, group)
+    metrics = _global_metrics(metrics, group)
     for k in ('mel_outputs', 'alignments', 'stop_token_prediction', 'linear_outputs'):
         if k in outputs:
             metrics[k] = outputs[k]

@@ -7,7 +7,15 @@ over the whole test split, the autoregressive natural eval on the EMA weights (t
 the hand-written AR kernel on a CUDA device) with its record in the eval-history
 sidecar, and the teacher-forced pred / real wavs. Not ported: the waveplots (the port
 has no plot module), TensorBoard summaries, the speaker-embedding projector, the
-profiler trace, the multi-process batch shard and the Slack webhook.
+profiler trace and the Slack webhook.
+
+Under a process group (`parallel/distributed.py`) the loop runs data-parallel over
+every rank, as the JAX loop runs over its mesh with a lead host
+(`wavenet_train.py:228-263, 292, 328-340`): the weight-norm init runs on the global
+example batch on every rank alike, the state is broadcast from rank 0, each rank reads
+its rows of every train and test batch, the steps and the teacher-forced eval losses
+are the global batch's, the natural eval's AR generation runs on rank 0 alone while
+the others wait, and only rank 0 writes checkpoints, wavs, the sidecar and the log.
 
 The loss of a step is read one step late, after the next step is dispatched, as the JAX
 loop does (`wavenet_train.py:272-317`): the read then waits for a step that has long
@@ -37,6 +45,7 @@ from ..models.wavenet import distributions as dist_mod
 from ..ops import audio, wavenet_ar
 from ..ops.mcd import mel_centroids
 from ..ops.mulaw import inv_mulaw, inv_mulaw_quantize, is_mulaw, is_mulaw_quantize
+from ..parallel import distributed, mesh as mesh_lib
 from . import checkpoint_select, weight_norm_init
 from . import wavenet_trainer as wt
 from .checkpointing import CheckpointManager
@@ -178,6 +187,8 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
     args.wavenet_train_steps on `device`; returns the checkpoint directory."""
     hp = hparams
     device = torch.device(device)
+    mesh = mesh_lib.make_mesh(hp, device) if distributed.process_shard() else None
+    lead = distributed.is_lead()
     save_dir = os.path.join(log_dir, 'wave_pretrained')
     wav_dir = os.path.join(log_dir, 'wavs')
     eval_wav_dir = os.path.join(log_dir, 'eval-dir', 'wavs')
@@ -215,13 +226,13 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
     if args.restore and ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore())
         log('Restored WaveNet checkpoint at step {}'.format(state.step))
-        dropped = checkpoint_select.truncate_eval_history(save_dir, state.step)
+        dropped = checkpoint_select.truncate_eval_history(save_dir, state.step) if lead else 0
         if dropped:
             log('Dropped {} eval records past the restored step'.format(dropped))
     else:
         log('Starting new WaveNet training!')
         # a fresh run's records start at step 0: none of an earlier run may win `best`
-        dropped = checkpoint_select.truncate_eval_history(save_dir, 0)
+        dropped = checkpoint_select.truncate_eval_history(save_dir, 0) if lead else 0
         if dropped:
             log('Dropped {} eval records of an earlier run'.format(dropped))
         if hp.wavenet_weight_normalization:
@@ -231,9 +242,20 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
             weight_norm_init.data_dependent_init(state.model, to_device(example, device),
                                                  hp)
             state = wt.state_from_model(state.model)
+    shard = None
+    if mesh is not None:  # every rank from rank 0's fresh or restored state
+        log('Data-parallel over {} ranks (mesh {}x{})'.format(
+            mesh.layout.size, mesh.data_size, mesh.model_size))
+        state.step = mesh_lib.broadcast_int(state.step, device)
+        mesh_lib.replicate(list(state.model.state_dict().values())
+                           + list(state.ema_model.state_dict().values())
+                           + state.exp_avg + state.exp_avg_sq)
+        shard = (mesh.data_index, mesh.data_size)
 
-    batches = Prefetcher(dataset.train_batches(seed=hp.wavenet_data_random_state), depth=8)
-    test_batches = [to_device(b, device) for b in dataset.test_batches()]
+    batches = Prefetcher(dataset.train_batches(seed=hp.wavenet_data_random_state,
+                                               process_shard=shard), depth=8)
+    test_batches = [to_device(mesh_lib.local_batch_slice(b, *shard) if shard else b, device)
+                    for b in dataset.test_batches()]
     generator = torch.Generator(device)  # reseeded each step by (seed, step)
 
     step = state.step
@@ -244,7 +266,7 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
             start = time.time()
             batch = to_device(next(batches), device)
             generator.manual_seed(step_seed(hp.wavenet_random_seed, state.step))
-            metrics = wt.train_step(state, batch, hp, generator)
+            metrics = wt.train_step(state, batch, hp, generator, mesh=mesh)
             step = state.step
             step_log.add(step, metrics, start)
             if (step % args.summary_interval == 0
@@ -260,22 +282,28 @@ def train(log_dir: str, args, hparams: Hparams, input_path: str, device) -> str:
 
             if step % args.eval_interval == 0 and test_batches:
                 log('\nEvaluating at step {}'.format(step))
-                tf_losses = [float(wt.eval_teacher_forced_step(state, tb, hp)['loss'])
+                tf_losses = [float(wt.eval_teacher_forced_step(state, tb, hp,
+                                                               mesh=mesh)['loss'])
                              for tb in test_batches]
                 eval_loss = float(np.mean(tf_losses))
                 log('Eval (teacher-forced) loss: {:.5f} over {} batches'.format(
                     eval_loss, len(tf_losses)))
-                # rotate through the split so successive evals score other utterances
-                tb = test_batches[(step // args.eval_interval) % len(test_batches)]
-                em = eval_step(state.ema_model, tb, hp, eval_wav_dir, step)
-                checkpoint_select.append_eval_record(
-                    save_dir, dict(step=step, teacher_forced_loss=eval_loss, **em))
+                if lead:  # the AR generation: rank 0 alone, on its rows (row 0 the
+                    # batch's first); rotate through the split so successive evals
+                    # score other utterances
+                    tb = test_batches[(step // args.eval_interval) % len(test_batches)]
+                    em = eval_step(state.ema_model, tb, hp, eval_wav_dir, step)
+                    checkpoint_select.append_eval_record(
+                        save_dir, dict(step=step, teacher_forced_loss=eval_loss, **em))
+                distributed.barrier()
 
             if step % args.checkpoint_interval == 0 or step == args.wavenet_train_steps:
                 log('\nSaving checkpoint at step {}'.format(step))
-                ckpt.save(step, state.state_dict())
-                m = wt.eval_teacher_forced_step(state, batch, hp)
-                save_log(step, batch, m['y_hat'], hp, wav_dir)
+                if lead:
+                    ckpt.save(step, state.state_dict())
+                m = wt.eval_teacher_forced_step(state, batch, hp, mesh=mesh)
+                if lead:
+                    save_log(step, batch, m['y_hat'], hp, wav_dir)
 
         step_log.flush()
         log('WaveNet training complete after {} global steps!'.format(

@@ -14,6 +14,14 @@ autograd over the modules, in a compute dtype, by default `common.resolve_comput
 for the batch's device (bfloat16 on the card at the default hparams, float32 on the
 CPU): the convs cast where flax's do, the parameters, the loss, the clip, Adam and the
 EMA stay float32.
+
+Under a mesh (`parallel/mesh.py`) each rank takes its rows of the global batch and the
+step is the global batch's, as the JAX package's GSPMD step computes it
+(`make_jitted_steps`, `wavenet_trainer.py:372-384`): the dropout masks are drawn for the
+global batch and sliced, the loss's denominator counts every rank's rows, and the
+gradients are summed over the data group in one flat all-reduce before the norm, the
+clip, Adam and the EMA. A tensor-parallel model (`parallel/tensor_parallel.py`) also
+sums the squared norms of its sharded tensors over the model group.
 """
 
 import copy
@@ -26,8 +34,10 @@ from torch import Tensor, nn
 from ..models.wavenet.model import WaveNet, compute_wavenet_loss
 from ..models.wavenet.modules import is_weight_normalized
 from ..ops.mulaw import is_mulaw_quantize
+from ..parallel.collectives import global_sum
+from ..parallel.mesh import Mesh
 from . import schedules
-from .common import adam_update_, lecun_normal_, resolve_compute_dtype
+from .common import adam_update_, all_reduce_grads, lecun_normal_, resolve_compute_dtype
 
 
 @dataclasses.dataclass
@@ -128,51 +138,92 @@ def _batch_mask(batch: Dict[str, Tensor]) -> Tensor:
     return (steps[None, :] < batch['input_lengths'][:, None]).float()
 
 
-def _forward_loss(model: WaveNet, batch: Dict[str, Tensor], hp, **kw):
-    """(loss, y_hat) of the teacher-forced pass over a batch. One-hot input goes in as
-    class ids: the first conv looks its columns up, the same arithmetic as the one-hot
-    product without the (B, T, Q) tensor."""
+def _forward_loss(model: WaveNet, batch: Dict[str, Tensor], hp, group=None, **kw):
+    """(loss, y_hat) of the teacher-forced pass over a batch, the loss's denominator
+    counted over the data `group`. One-hot input goes in as class ids: the first conv
+    looks its columns up, the same arithmetic as the one-hot product without the
+    (B, T, Q) tensor."""
     y = batch['audio']
     x = y if is_mulaw_quantize(hp.input_type) else model.encode_input(y)
     y_hat = model(x, batch.get('mel_conditions'), batch.get('speaker_ids'), **kw)
-    return compute_wavenet_loss(hp, y_hat, y, _batch_mask(batch)), y_hat
+    return compute_wavenet_loss(hp, y_hat, y, _batch_mask(batch), group), y_hat
 
 
-def clip_gradients(grads: Sequence[Tensor], hp) -> List[Tensor]:
+def _square_sums(grads: Sequence[Tensor], params: Sequence[Tensor],
+                 mesh: Optional[Mesh]) -> List[Tensor]:
+    """Each gradient's sum of squares over the whole tensor: a tensor-parallel shard's
+    (`tensor_parallel` set on its parameter) summed over the model group."""
+    sums = [torch.sum(torch.square(g)) for g in grads]
+    if mesh is None or mesh.model_group is None:
+        return sums
+    sharded = [i for i, p in enumerate(params) if getattr(p, 'tensor_parallel', False)]
+    if sharded:
+        total = global_sum(torch.stack([sums[i] for i in sharded]), mesh.model_group)
+        for j, i in enumerate(sharded):
+            sums[i] = total[j]
+    return sums
+
+
+def clip_gradients(grads: Sequence[Tensor], hp,
+                   square_sums: Optional[Sequence[Tensor]] = None) -> List[Tensor]:
     """Each gradient's norm clipped to wavenet_gradient_max_norm, then its values to
-    +-wavenet_gradient_max_value (`wavenet_trainer.py:36-44`)."""
+    +-wavenet_gradient_max_value (`wavenet_trainer.py:36-44`). `square_sums`: each
+    tensor's sum of squares where it is not this rank's gradient alone (a shard's)."""
     out = []
-    for g in grads:
-        norm = torch.sqrt(torch.sum(torch.square(g)) + 1e-12)
+    for i, g in enumerate(grads):
+        sq = torch.sum(torch.square(g)) if square_sums is None else square_sums[i]
+        norm = torch.sqrt(sq + 1e-12)
         g = g * torch.clamp(hp.wavenet_gradient_max_norm / norm, max=1.0)
         out.append(torch.clamp(g, -hp.wavenet_gradient_max_value,
                                hp.wavenet_gradient_max_value))
     return out
 
 
+def global_dropout_masks(model: WaveNet, hp, batch: Dict[str, Tensor],
+                         generator: torch.Generator, mesh: Mesh) -> Optional[List[Tensor]]:
+    """This rank's rows of the dropout masks of the global batch (data_size times this
+    rank's rows), drawn from `generator` layer by layer as the one-process pass draws
+    them; None without dropout."""
+    if not hp.wavenet_dropout > 0:
+        return None
+    B, T = batch['audio'].shape
+    rows = mesh.rows(B * mesh.data_size)
+    shape = (B * mesh.data_size, T, hp.residual_channels)
+    return [layer.dropout_mask(shape, generator)[rows] for layer in model.residual_layers]
+
+
 def train_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
                generator: Optional[torch.Generator] = None,
                dropout_masks: Optional[Sequence[Tensor]] = None,
-               dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+               dtype: Optional[torch.dtype] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """One update of `state`, in place (counterpart of `train_step`,
     `wavenet_trainer.py:76-104`), its pass in the compute dtype `dtype` (None: the one
     `resolve_compute_dtype` gives the batch's device). `generator`
     (on the batch's device) draws the dropout masks unless `dropout_masks` gives them.
-    Returns the metrics: `loss` and
+    With a `mesh`, `batch` is this rank's rows of the global batch, `dropout_masks`
+    (when given) are this rank's rows too, and the update is the global batch's (see
+    the module's docstring). Returns the metrics: `loss` and
     `grad_norm` (the global norm of the unclipped gradients) as 0-d tensors on the
     device, not read back here, and `learning_rate`, read at the step before the
     increment."""
     params = list(state.model.parameters())
     dtype = dtype or resolve_compute_dtype(hp, batch['audio'].device)
-    loss, _ = _forward_loss(state.model, batch, hp, train=True, generator=generator,
+    group = mesh.data_group if mesh is not None else None
+    if mesh is not None and dropout_masks is None and generator is not None:
+        dropout_masks = global_dropout_masks(state.model, hp, batch, generator, mesh)
+    loss, _ = _forward_loss(state.model, batch, hp, group, train=True, generator=generator,
                             dropout_masks=dropout_masks, dtype=dtype)
     # the last layer's residual 1x1 feeds nothing: its gradient is zero, as in JAX
     grads = [g if g is not None else torch.zeros_like(p) for g, p in
              zip(torch.autograd.grad(loss, params, allow_unused=True), params)]
     with torch.no_grad():
-        grad_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        all_reduce_grads(grads, group)
+        square_sums = _square_sums(grads, params, mesh) if mesh is not None else None
+        grad_norm = torch.sqrt(sum(square_sums) if square_sums is not None else
+                               sum(torch.sum(torch.square(g)) for g in grads))
         if hp.wavenet_clip_gradients:
-            grads = clip_gradients(grads, hp)
+            grads = clip_gradients(grads, hp, square_sums)
         lr = schedules.wavenet_learning_rate(hp, state.step)
         t = state.step + 1
         adam_update_(params, grads, state.exp_avg, state.exp_avg_sq, lr,
@@ -183,15 +234,32 @@ def train_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
         torch._foreach_mul_(ema, decay)
         torch._foreach_add_(ema, params, alpha=1.0 - decay)
     state.step = t
-    return dict(loss=loss.detach(), grad_norm=grad_norm, learning_rate=lr)
+    return dict(loss=global_sum(loss, group), grad_norm=grad_norm, learning_rate=lr)
+
+
+def make_tp_train_step(hp, mesh: Mesh):
+    """The tensor-parallel train step over `mesh` (counterpart of `make_tp_train_step`,
+    `wavenet_trainer.py:387-394`), in float32: `train_step` on a state that
+    `parallel.tensor_parallel.shard_wavenet_state` placed, each rank on its rows of the
+    batch. The model's blocks sum their partial products over the model group; the step
+    sums the gradients over the data group and the sharded tensors' norms over the
+    model group."""
+    def step(state: WaveNetTrainState, batch: Dict[str, Tensor],
+             generator: Optional[torch.Generator] = None,
+             dropout_masks: Optional[Sequence[Tensor]] = None) -> Dict[str, Any]:
+        return train_step(state, batch, hp, generator, dropout_masks, torch.float32, mesh)
+    return step
 
 
 @torch.no_grad()
 def eval_teacher_forced_step(state: WaveNetTrainState, batch: Dict[str, Tensor], hp,
-                             dtype: Optional[torch.dtype] = None) -> Dict[str, Tensor]:
+                             dtype: Optional[torch.dtype] = None,
+                             mesh: Optional[Mesh] = None) -> Dict[str, Tensor]:
     """Teacher-forced loss and params on the live (not the EMA) weights, without
     dropout, in the compute dtype `dtype` (None: as `train_step` resolves it;
-    `wavenet_trainer.py:107-118`)."""
+    `wavenet_trainer.py:107-118`). With a `mesh`, `batch` is this rank's rows: the loss
+    is the global batch's, y_hat this rank's rows'."""
     dtype = dtype or resolve_compute_dtype(hp, batch['audio'].device)
-    loss, y_hat = _forward_loss(state.model, batch, hp, dtype=dtype)
-    return dict(loss=loss, y_hat=y_hat)
+    group = mesh.data_group if mesh is not None else None
+    loss, y_hat = _forward_loss(state.model, batch, hp, group, dtype=dtype)
+    return dict(loss=global_sum(loss, group), y_hat=y_hat)

@@ -1,6 +1,6 @@
 """Small helpers shared by the port (counterpart of `tacotron2_tpu/utils/__init__.py`)."""
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -36,6 +36,18 @@ def round_up(x: int, multiple: int) -> int:
 
 def round_down(x: int, multiple: int) -> int:
     return x - (x % multiple)
+
+
+def shard_rows(n: int, process_shard: Optional[Tuple[int, int]]) -> slice:
+    """The contiguous rows of process `index` of `count` in a batch of n (all of them
+    without a shard)."""
+    if process_shard is None:
+        return slice(0, n)
+    index, count = process_shard
+    if n % count:
+        raise ValueError(f'batch {n} not divisible by process count {count}')
+    per = n // count
+    return slice(index * per, (index + 1) * per)
 
 
 class ValueWindow:

@@ -777,9 +777,9 @@ def test_resumed_run_draws_the_masks_of_its_steps(tmp_path, monkeypatch):
     states = {}
     train_step = wavenet_train.wt.train_step
 
-    def recording(state, batch, hp_, generator):
+    def recording(state, batch, hp_, generator, **kw):
         states.setdefault(run, {})[state.step + 1] = generator.get_state()
-        return train_step(state, batch, hp_, generator)
+        return train_step(state, batch, hp_, generator, **kw)
 
     monkeypatch.setattr(wavenet_train.wt, 'train_step', recording)
 

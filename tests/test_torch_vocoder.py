@@ -418,6 +418,21 @@ def test_kernel_mutants_apply_to_the_source():
         assert text != source and text.replace(new, old) == source, fault
 
 
+def test_every_kernel_mutant_names_the_heads_it_builds():
+    """chip_smoke builds each planted-fault copy of csrc/wavenet_ar.cu with the
+    instantiations of the heads in MUTANT_HEADS alone (T2_HEADS: a bit a head, in the
+    order of the source's Head enum; every head unless it is defined): each copy of the
+    AR kernel's source has an entry, a nonempty set of those bits."""
+    with open(os.path.join(os.path.dirname(wavenet_ar.__file__), '..', 'csrc',
+                           'wavenet_ar.cu'), encoding='utf-8') as f:
+        source = f.read()
+    assert 'enum Head { GAUSSIAN, MOL, CATEGORICAL, CATEGORICAL_BIG };' in source
+    assert '#define T2_HEADS 15' in source
+    assert set(chip_smoke.MUTANT_HEADS) == (set(chip_smoke.ALL_MUTANTS)
+                                            | set(chip_smoke.CLUSTER_MUTANTS))
+    assert all(0 < bits < 16 for bits in chip_smoke.MUTANT_HEADS.values())
+
+
 # --- (f) the mels input -------------------------------------------------------------
 
 def test_resolve_mels_input(tmp_path, monkeypatch):
