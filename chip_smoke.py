@@ -6,17 +6,18 @@
 Phases (one line each; any failure exits nonzero):
   1. torch, CUDA and the card (nvidia-smi name and power limit);
   2. build the hand-written kernels from tacotron2_tpu_torch/csrc (the probes' from
-     csrc/probes into a library of their own), with the planted-fault copies;
+     csrc/probes and the decoder step's from csrc/decoder into libraries of their own),
+     with the planted-fault copies;
   3. the WaveNet AR kernel against its plain PyTorch version at the default width, on
      a WaveNet whose seeded random weights give params of order 1: the kernel runs
      free with its params, the plain version runs on the same CUDA tensors
      teacher-forced on the kernel's audio, and the params agree to max abs
-     KERNEL_TOL; at B=8 over 10 mel frames, at the batch path's shape (B=2, 128
-     frames, 35,200 steps, through the real conditioning preparation and upsampler;
+     KERNEL_TOL; at B=8 over CHECK_FRAMES (4) mel frames, at the batch path's shape
+     (B=2, 128 frames, 35,200 steps, through the real conditioning preparation and upsampler;
      here the plain version, at 6 to 10 ms a step, follows the kernel over the first
      PLAIN_STEPS (5,500) steps only, in the state-carried chunks of one served request,
      SERVE_BOUNDS, and a second kernel launch over those steps, bit-identical to the
-     start of the first, is the one timed beside it), and at B=20 over 10 frames (the
+     start of the first, is the one timed beside it), and at B=20 over CHECK_FRAMES (the
      default WaveNet batch, whose conditioning row stays f32); before that, five
      planted faults (packed weights as a kernel with one bug would read them) must
      each miss the plain version by more than KERNEL_TOL; the kernel forced onto every
@@ -175,7 +176,9 @@ Phases (one line each; any failure exits nonzero):
      CBHG GRUs' forward and backward), each reading the median of three with its range.
      With TACO_UTTERANCES / 2 utterances to train on and bucket_group_batches=64, the
      feeder's bucketing (the JAX one's) fills each batch of 32 with copies of one
-     utterance. The phase launches no hand-written kernel.
+     utterance. The trainer's steps, eval and in-process steps run the fused decoder
+     (`ops/decoder_vjp.py`): its four kernels' launches in the two trainer runs are
+     counted for TACO_PATH (phase 16 reads them).
  13. The Tacotron-2 pipeline at the default hparams and full width, through the port's
      entry points: PIPE_UTTERANCES wavs of 1-2 s made from a seed in the LJSpeech layout
      through `python -m tacotron2_tpu_torch.preprocess` (every row's audio exactly its
@@ -191,20 +194,23 @@ Phases (one line each; any failure exits nonzero):
      names only (`synthesize --model Tacotron --mode eval`, `--model WaveNet --mels_dir
      tacotron_output/eval`, `--model Tacotron-2`) at max_iters=PIPE_CLI_MAX_ITERS, stop
      tokens suppressed, their AR launches counted by path. Each step's wall seconds,
-     the phase's and the whole run's. Both trainers step in bf16.
+     the phase's and the whole run's. Both trainers step in bf16. The decoder kernels'
+     launches of the pipeline's run are counted, its GTA synthesis's apart
+     (PIPE_GTA_PATH) from the rest of its Tacotron phase (PIPE_TACO_PATH).
  14. The JAX package's remaining configurations. bf16 training: one Tacotron
      train step at B=32 x TIMED_FRAMES and one WaveNet step at BF16_WAVENET_BATCH (8 x
      11,000), each in bf16 and in f32 on the card from the same seeded state, batch and
      draws (losses BF16_LOSS_TOL, gradients BF16_GRAD_TOL, all finite); a Tacotron bf16
-     step whose decoder weights, cast once a scan, sum their gradient in bf16
+     step whose decoder sums its weights' gradients over the steps in bf16
      (precast_fault) must miss BF16_GRAD_TOL; each step again on a batch cut for the
      CPU (BF16_TACO_CUT, BF16_WAVENET_CUT): each module of BF16_MODULES in the card's
-     bf16 step run again on the CPU in bf16 on the inputs it had, within
+     bf16 step (the Tacotron's with fused_decoder off, so that the decoder's modules
+     run their forward) run again on the CPU in bf16 on the inputs it had, within
      BF16_MODULE_TOL of the card's output, printed beside the module's bf16-f32 gap, and
      a copy of the step with one module left in f32 (BF16_FAULTS) must miss that bound;
      the whole cut step on both devices is printed, not bound; the Tacotron's bf16
-     sec/step and peak memory (phase 12 reads the f32 ones), the WaveNet's in both
-     dtypes. The upsamplers: `synthesize --model WaveNet` on seeded mels with each of
+     sec/step, peak memory and StepMarks split (phase 12 reads the f32 ones), the
+     WaveNet's in both dtypes. The upsamplers: `synthesize --model WaveNet` on seeded mels with each of
      UPSAMPLERS (NearestNeighbor, 1D, Resize, 2D with LeakyRelu); the UPSAMPLER_FULL
      run's launch held to the plain version on its own inputs over its first
      UPSAMPLER_BOUNDS[-1] steps in state-carried chunks with the two planted state
@@ -236,6 +242,26 @@ Phases (one line each; any failure exits nonzero):
      one checkpoint and rank 0's natural eval (one launch of 11,000 steps); rank 0's
      step-1 loss within SCALE_CLI_LOSS_TOL of phase 10's, only rank 0 writes. Two ranks
      time-slice one card: nothing here is a scaling measurement.
+ 16. The fused Tacotron decoder with its hand-written backward (`ops/decoder_vjp.py`,
+     `FusedDecoderScan`), which the Tacotron trainer, the pipeline's Tacotron phase and
+     GTA run at the default hparams. Each of its four kernels (csrc/decoder/
+     decoder_step.cu: lstm_cell_fwd, lstm_cell_bwd, attention_fwd, attention_bwd) against
+     its plain PyTorch version on the same CUDA tensors at the trainer's widths
+     (DECODER_WIDTHS: B=32, U=1,024, D=128, T_in=100), in f32 and bf16, the LSTM cell with
+     keep-gates and with zoneout's expectation, a ragged mask (DECODER_TOL, a bound a
+     kernel and dtype, relative to the plain output's largest entry), each with its
+     planted faults (DECODER_MUTANTS, built in phase 2; the LSTM cell's bf16 sigmoid
+     rounded once among them) that must miss it; each kernel's and plain version's time
+     (CUDA graphs) and its bound. fused_decoder_scan on the card against the autograd
+     loop `ops/fused_decoder.decoder_scan` on the card, TF32 off, B=32 x FUSED_FRAMES
+     frames with dropout and zoneout gates, in f32 at teacher forcing 1 and 0.5 and in
+     bf16 at 0.5: the outputs and the gradients (relative L2) within FUSED_TOL, in bf16
+     with a planted fault (the deferred weight gradients summed step by step in bf16,
+     precast_fault) that must miss it; both decoders' ms a step, and the fused one's
+     device busy time under torch.profiler. Phase 12's (f32) and phase 14's (bf16)
+     timed steps at B=32 x TIMED_FRAMES and their StepMarks split beside the autograd
+     decoder loop's (AUTOGRAD_TIMED). Every kernel launched on a main path
+     (DECODER_PATHS), GTA running the forward ones.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -288,6 +314,10 @@ SERVE_BOUNDS = tuple(int(b) for b in np.cumsum(SERVE_CHUNKS))
 # whole run read 1,068-1,115 s of its 1,200 on an H100 80GB HBM3 at 700 W at 6,600
 PLAIN_STEPS = 5500
 PAPER_PLAIN_STEPS = 5500
+# phase 3's checks at B=8 and B=20: 1,100 steps, which wrap the largest ring (1,024
+# slots) once; 10 frames (2,750 steps) until the fused decoder's phase 16, when one
+# whole run read 1,210 s of its 1,200 on a slow host (943 s on another)
+CHECK_FRAMES = 4
 FAULT_STEPS = 256  # steps of chunk 2 run from each planted state fault
 # the paper profile (phase 8)
 PAPER_MAX_ITERS = 32  # the paper entry points: 8,800 samples a sentence
@@ -1418,29 +1448,37 @@ def mutated_source(fault):
 
 
 def build_kernels(tmp):
-    """Phase 2: nvcc builds the port's library, the probes' library and, beside them, one
-    library for each of ALL_MUTANTS, CLUSTER_MUTANTS and PROBE_MUTANTS from a changed
-    copy of its source (an AR kernel's copy with the instantiations of MUTANT_HEADS
-    alone) under `tmp`, all at once (one nvcc a library). Returns fault -> its loaded
-    library."""
+    """Phase 2: nvcc builds the port's library, the probes' library, the decoder step's
+    library and, beside them, one library for each of ALL_MUTANTS, CLUSTER_MUTANTS,
+    PROBE_MUTANTS and DECODER_MUTANTS from a changed copy of its source (an AR kernel's
+    copy with the instantiations of MUTANT_HEADS alone) under `tmp`, all at once (one nvcc
+    a library). Returns fault -> its loaded library."""
     from tacotron2_tpu_torch.ops import _build
 
     def mutant(item):
         i, fault = item
-        name, text = (mutated_probe_source(fault) if fault in PROBE_MUTANTS
-                      else ('wavenet_ar.cu', mutated_source(fault)))
+        defines, flags = (), ()
+        if fault in PROBE_MUTANTS:
+            name, text = mutated_probe_source(fault)
+        elif fault in DECODER_MUTANTS:
+            name, text = 'decoder_step.cu', mutated_decoder_source(fault)
+            flags = _build.DECODER_FLAGS
+        else:
+            name, text = 'wavenet_ar.cu', mutated_source(fault)
+            defines = (f'T2_HEADS={MUTANT_HEADS[fault]}',)
         src = os.path.join(tmp, f'mutant{i}', name)
         os.makedirs(os.path.dirname(src))
         with open(src, 'w', encoding='utf-8') as f:
             f.write(text)
         lib = os.path.join(tmp, f'mutant{i}', 'libmutant.so')
-        _build.compile_library([src], lib, () if fault in PROBE_MUTANTS
-                               else (f'T2_HEADS={MUTANT_HEADS[fault]}',))
+        _build.compile_library([src], lib, defines, flags)
         return fault, ctypes.CDLL(lib)
 
-    faults = list(ALL_MUTANTS) + list(CLUSTER_MUTANTS) + list(PROBE_MUTANTS)
-    with concurrent.futures.ThreadPoolExecutor(2 + len(faults)) as pool:
-        builds = [pool.submit(_build.load_library), pool.submit(_build.load_probe_library)]
+    faults = (list(ALL_MUTANTS) + list(CLUSTER_MUTANTS) + list(PROBE_MUTANTS)
+              + list(DECODER_MUTANTS))
+    with concurrent.futures.ThreadPoolExecutor(3 + len(faults)) as pool:
+        builds = [pool.submit(_build.load_library), pool.submit(_build.load_probe_library),
+                  pool.submit(_build.load_decoder_library)]
         mutants = dict(pool.map(mutant, enumerate(faults)))
         for b in builds:
             b.result()
@@ -2838,13 +2876,15 @@ def make_taco_corpus(root, hp, n, seed):
 
 def run_taco_trainer(root, name, steps, eval_interval, checkpoint_interval, restore=True):
     """`python -m tacotron2_tpu_torch.train --model Tacotron` on the card at the default
-    hparams (but TACO_OVERRIDES), its console output captured. Returns the output, its
+    hparams (but TACO_OVERRIDES), its console output captured, its decoder kernel
+    launches counted for TACO_PATH. Returns the output, its
     (step, sec/step, loss) lines, the wall seconds, the peak device memory and the
     checkpoint directory."""
     from tacotron2_tpu_torch import train
 
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
+    reset_decoder_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         save_dir = train.main(
@@ -2854,6 +2894,7 @@ def run_taco_trainer(root, name, steps, eval_interval, checkpoint_interval, rest
              '--summary_interval', '2', '--restore', str(restore), '--hparams',
              TACO_OVERRIDES, '--device', 'cuda'])
     torch.cuda.synchronize()
+    read_decoder_counts(TACO_PATH)
     text = out.getvalue()
     lines = {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
              for m in STEP_LINE.finditer(text)}
@@ -3013,10 +3054,10 @@ def taco_timed_batch(hp, B, T, chars):
     return batch
 
 
-def taco_timed_step(hp, reps=3, dtype=torch.float32, n=12, split=True):
+def taco_timed_step(hp, reps=3, dtype=torch.float32, n=12):
     """A train step in `dtype` at B=32 x TIMED_FRAMES mel frames (TIMED_CHARS
     characters), after one untimed step: `reps` steps each between two synchronizes
-    (sec/step), then, with `split`, `reps` steps split by StepMarks into their parts
+    (sec/step), then `reps` steps split by StepMarks into their parts
     (CUDA events on the real step), and the peak device memory. Returns the readings:
     each the median of the reps, with its range."""
     from tacotron2_tpu_torch.training import tacotron_trainer as tt
@@ -3043,8 +3084,6 @@ def taco_timed_step(hp, reps=3, dtype=torch.float32, n=12, split=True):
              f'default hparams), {reps} steps each: median {np.median(secs):.3f} sec/step '
              f'({min(secs):.3f}-{max(secs):.3f}; losses {[round(x, 4) for x in losses]}); '
              f'peak device memory {peak:.2f} GiB')
-    if not split:
-        return timed
 
     marks = StepMarks(state.model, 'cuda')
     parts = []
@@ -3277,13 +3316,29 @@ def pipe_preprocess(base, hp):
 def run_pipeline_cli(base, calls=None, path=None):
     """`python -m tacotron2_tpu_torch.train --model Tacotron-2` on the card: 2 steps of
     each trainer with an eval at step 2, console captured, the AR launches recorded by
-    ar_timer into `calls` and counted for `path`. Returns (output, seconds)."""
+    ar_timer into `calls` and counted for `path`, and with a `path` the decoder kernels'
+    launches of its GTA synthesis counted for PIPE_GTA_PATH, the rest for PIPE_TACO_PATH.
+    Returns (output, seconds)."""
     from tacotron2_tpu_torch import train
+    from tacotron2_tpu_torch.inference import tacotron_synthesizer
+    from tacotron2_tpu_torch.ops import decoder_vjp
 
     reset_counts()
+    reset_decoder_counts()
+    gta = collections.Counter()
+    synthesize = tacotron_synthesizer.tacotron_synthesize
+
+    def counted(*args, **kwargs):
+        before = collections.Counter(decoder_vjp.LAUNCHES)
+        try:
+            return synthesize(*args, **kwargs)
+        finally:
+            gta.update(collections.Counter(decoder_vjp.LAUNCHES) - before)
+
     out = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), ar_timer(calls):
+    with contextlib.redirect_stdout(out), ar_timer(calls), \
+            _patched(tacotron_synthesizer, 'tacotron_synthesize', counted):
         train.main(['--model', 'Tacotron-2', '--base_dir', base, '--name', 'pipe',
                     '--tacotron_train_steps', '2', '--wavenet_train_steps', '2',
                     '--eval_interval', '2', '--checkpoint_interval', '2',
@@ -3292,6 +3347,10 @@ def run_pipeline_cli(base, calls=None, path=None):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     read_counts(path)
+    if path is not None:
+        DECODER_LAUNCHES_BY_PATH[PIPE_GTA_PATH].update(gta)
+        DECODER_LAUNCHES_BY_PATH[PIPE_TACO_PATH].update(
+            collections.Counter(decoder_vjp.LAUNCHES) - gta)
     return out.getvalue(), seconds
 
 
@@ -3708,11 +3767,15 @@ def bf16_fault(model_kind):
 
 @contextlib.contextmanager
 def precast_fault():
-    """The decoder's weights cast once a scan (`models/precision.precast`) held in bf16
-    itself, each step's use widened again: autograd then rounds each step's gradient of
-    a weight to bf16 and sums the steps in bf16, where the port sums them in f32."""
+    """The decoder's weight gradients summed over the steps in bf16, where the port sums
+    them in f32. The autograd decoder (`ops/fused_decoder.decoder_scan`): its weights cast
+    once a scan (`models/precision.precast`) held in bf16 itself, each step's use widened
+    again, so that autograd rounds each step's gradient of a weight to bf16 and sums the
+    steps in bf16. The fused decoder (`ops/decoder_vjp`, the default's): each deferred
+    weight gradient formed step by step, each step's product rounded to bf16 and the steps
+    summed in bf16."""
     from tacotron2_tpu_torch.models import precision
-    from tacotron2_tpu_torch.ops import fused_decoder
+    from tacotron2_tpu_torch.ops import decoder_vjp, fused_decoder
 
     sound, apply = fused_decoder.precast, precision._apply
 
@@ -3725,13 +3788,22 @@ def precast_fault():
                                   None if m.bias is None else m.bias.to(dtype))
             yield
 
-    fused_decoder.precast = bf16_sum
+    def wgrad_steps(dout, inp):
+        acc = torch.zeros(dout.shape[-1], inp.shape[-1], device=dout.device,
+                          dtype=torch.bfloat16)
+        for t in range(dout.shape[0]):
+            acc += (dout[t].float().t() @ inp[t].float()).to(torch.bfloat16)
+        return acc.float()
+
+    wgrad = decoder_vjp._wgrad
+    fused_decoder.precast, decoder_vjp._wgrad = bf16_sum, wgrad_steps
     precision._apply = lambda module, x, w, b: apply(
         module, x, w.to(x.dtype), None if b is None else b.to(x.dtype))
     try:
         yield
     finally:
         fused_decoder.precast, precision._apply = sound, apply
+        decoder_vjp._wgrad = wgrad
 
 
 def taco_bf16_step(hp, batch, device, dtype, noise, fault=False, step=True, rec=None,
@@ -3868,14 +3940,17 @@ def taco_bf16():
             for name, d, dt in runs}
     modules = {}
     fresh = tuple(_fresh_model('tacotron', hp, d) for d in ('cpu', 'cuda'))
+    # the decoder's modules run their forward only in the autograd decoder (the fused
+    # decoder's step is phase 16's kernels on the cell's weights): the replay's steps run it
+    unfused = hp.replace(fused_decoder=False)
     for name, dt, fault in (('bf16', torch.bfloat16, False), ('f32', torch.float32, False),
                             ('fault', torch.bfloat16, True)):
         rec = {}
-        taco_bf16_step(hp, cut_batch, 'cuda', dt, noise, fault=fault, rec=rec)
+        taco_bf16_step(unfused, cut_batch, 'cuda', dt, noise, fault=fault, rec=rec)
         modules[name] = replay_on_cpu(fresh, rec)
     r = _judge_bf16('tacotron train step', f'B={hp.tacotron_batch_size} x {TIMED_FRAMES} '
                     f'frames; cut for the CPU to B={B} x {T}', full, cut, outs, modules)
-    r['timed'] = taco_timed_step(hp, dtype=torch.bfloat16, n=14, split=False)
+    r['timed'] = taco_timed_step(hp, dtype=torch.bfloat16, n=14)
     return r
 
 
@@ -4649,6 +4724,392 @@ def scale_out(phase10_loss, phase10_extra):
                 cli_launches=clis[0]['launches'])
 
 
+# --- phase 16: the fused decoder's hand-written backward and its four kernels -----------
+
+DECODER_SOURCE = 'tacotron2_tpu_torch/csrc/decoder/decoder_step.cu'
+DECODER_REPLACES = {
+    'lstm_cell_fwd': 'tacotron2_tpu/ops/fused_decoder.py:122-127,356-364',
+    'lstm_cell_bwd': 'tacotron2_tpu/ops/fused_decoder.py:130-150,522-539',
+    'attention_fwd': 'tacotron2_tpu/ops/fused_decoder.py:215-228,367-368',
+    'attention_bwd': 'tacotron2_tpu/ops/fused_decoder.py:275-301'}
+PIPE_TACO_PATH = 'train --model Tacotron-2 (Tacotron phase)'
+PIPE_GTA_PATH = 'train --model Tacotron-2 (GTA)'
+DECODER_PATHS = (TACO_PATH, PIPE_TACO_PATH, PIPE_GTA_PATH)
+DECODER_WIDTHS = (32, 1024, 128, 100)  # B, U, D, T_in: the default trainer's, 100 characters
+# each kernel against its plain version on the same CUDA tensors: the largest error of
+# its outputs relative to the plain output's largest entry, a bound a kernel and dtype.
+# Read on an H100 80GB HBM3 at 700 W: the LSTM cell 0 in both dtypes (the same
+# operations, rounded at the same places), so its bound 1e-6 catches one bf16 step
+# rounded where the plain version does not round; the attention 4.6e-7 / 5.4e-7 in f32
+# (only the order of its sums differs), 3.8e-7 / 4.8e-4 in bf16 (attention_bwd: a du
+# that the two round from slightly different f32 sums lands one bf16 step apart); the
+# planted faults 0.10 to 0.75, the bf16 sigmoid rounded once 9.5e-3. The attention's
+# bounds sit 10-20x above its readings
+DECODER_TOL = {
+    'lstm_cell_fwd': {torch.float32: 1e-6, torch.bfloat16: 1e-6},
+    'lstm_cell_bwd': {torch.float32: 1e-6, torch.bfloat16: 1e-6},
+    'attention_fwd': {torch.float32: 1e-5, torch.bfloat16: 1e-5},
+    'attention_bwd': {torch.float32: 1e-5, torch.bfloat16: 5e-3}}
+# planted faults: each a build of a copy of csrc/decoder/decoder_step.cu with one line
+# changed, built in phase 2, {fault: (the kernels it must show in, the dtypes it must
+# show in, the line, its change)}; each must miss DECODER_TOL there. The bf16 sigmoid
+# rounded once (not step by step, as models/precision.sigmoid and JAX's bf16 round it)
+# changes nothing in f32, where sig<float> stands alone
+F32_BF16 = (torch.float32, torch.bfloat16)
+DECODER_MUTANTS = {
+    'lstm_cell_fwd: the forget bias dropped': (
+        ('lstm_cell_fwd',), F32_BF16, 'sf = sig<T>(rd<T>(f + 1.0f));', 'sf = sig<T>(f);'),
+    'lstm_cell_bwd: the cell bypass (1 - a) dc dropped': (
+        ('lstm_cell_bwd',), F32_BF16, 'dc_next[idx] = dcn * gt.sf + (1.0f - ac) * dcv;',
+        'dc_next[idx] = dcn * gt.sf;'),
+    'lstm cell: the bf16 sigmoid rounded once': (
+        ('lstm_cell_fwd', 'lstm_cell_bwd'), (torch.bfloat16,),
+        'return rd<__nv_bfloat16>(1.0f / rd<__nv_bfloat16>(rd<__nv_bfloat16>(expf(-x)) + 1.0f));',
+        'return rd<__nv_bfloat16>(1.0f / (expf(-x) + 1.0f));'),
+    'attention_fwd: the mask ignored': (
+        ('attention_fwd',), F32_BF16,
+        'if (lane == 0) e[t] = (mask && !(mask[(long)b * T_in + t] > 0.0f)) ? NEG_INF : s;',
+        'if (lane == 0) e[t] = s;'),
+    'attention_bwd: the dkeys accumulate skipped': (
+        ('attention_bwd',), F32_BF16, 'dkeys_acc[row + d] += g;', ';')}
+FUSED_FRAMES = 128  # fused_decoder_scan against autograd's decoder_scan: B=32 x 128 frames
+# the timed step at B=32 x 512 with the autograd decoder loop, before the fused decoder
+# ran there (H100 80GB HBM3, 700 W): sec/step, peak GiB, the decoder's forward and
+# backward ms (StepMarks)
+AUTOGRAD_TIMED = {'float32': dict(sec_step=2.649, peak_gib=4.89, fwd=663.0, bwd=987.0),
+              'bfloat16': dict(sec_step=3.551, peak_gib=4.52, fwd=863.0, bwd=1317.0)}
+F32_PEAK_OPS = 67e12  # f32 outside the tensor cores: the elementwise kernels' ops
+# the fused decoder against autograd's on the card, {dtype: (the outputs' max abs error,
+# the gradients' relative L2)}. f32, read 2.1e-7 to 3.3e-7 and 6.4e-7 to 7.0e-7 at
+# teacher forcing 1 and 0.5 (H100 80GB HBM3, 700 W; an earlier version of the backward
+# read 7.1e-5 at 0.5, where the fed-back frames carry two sum orders apart over 128
+# steps): TACO_GRAD_TOL holds them. bf16 at 1 and 0.5: the outputs 3.9e-3, the
+# gradients 7.6e-3 and 8.2e-3 (two bf16 recurrences that round a few sums apart drift
+# apart over the steps), the planted bf16 sum of the deferred weight gradients
+# (precast_fault) 1.56e-2: the bound sits between, 1.3x above the sound reading and
+# 1.4x below the fault's
+FUSED_TOL = {torch.float32: (1e-5, TACO_GRAD_TOL), torch.bfloat16: (1e-2, 1.1e-2)}
+# the decoder kernels' launches on each main path, {path: {kernel: launches}}, the counts
+# set to 0 just before each run of a path (reset_decoder_counts) and read just after it
+DECODER_LAUNCHES_BY_PATH = collections.defaultdict(collections.Counter)
+
+
+def reset_decoder_counts():
+    """Sets the decoder kernels' launch counts to 0, just before a run of a main path."""
+    from tacotron2_tpu_torch.ops import decoder_vjp
+
+    decoder_vjp.LAUNCHES.clear()
+
+
+def read_decoder_counts(path):
+    """Adds the decoder kernels' launches since reset_decoder_counts to
+    DECODER_LAUNCHES_BY_PATH[path], just after a run of the main path `path`."""
+    from tacotron2_tpu_torch.ops import decoder_vjp
+
+    DECODER_LAUNCHES_BY_PATH[path].update(decoder_vjp.LAUNCHES)
+
+
+def mutated_decoder_source(fault):
+    """The text of csrc/decoder/decoder_step.cu with DECODER_MUTANTS[fault]'s change."""
+    from tacotron2_tpu_torch.ops import _build
+
+    *_, old, new = DECODER_MUTANTS[fault]
+    with open(os.path.join(_build.DECODER_DIR, 'decoder_step.cu'), encoding='utf-8') as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times in '
+                         'csrc/decoder/decoder_step.cu: bring DECODER_MUTANTS up to date')
+    return text.replace(old, new)
+
+
+def graph_ms(fn, n=50):
+    """ms of one fn() on the card: n calls captured in a CUDA graph, replayed between two
+    CUDA events (the host's launch costs out of the reading)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    _, ms = cuda_ms(graph.replay)
+    return ms / n
+
+
+def decoder_cases(dt, gen):
+    """{kernel: (its wrapper, its plain version, its variants' inputs (each a function that
+    returns a fresh copy of the in-place accumulators), the outputs of a call from its
+    result and inputs, its bytes (each input read once, each output written once, the
+    first variant's), its f32 operations)} at DECODER_WIDTHS in `dt`, on seeded inputs of
+    the trainer's magnitudes: the LSTM cell with training's keep-gates (0.9) and with
+    zoneout's expectation, a ragged mask (50 to 100 input steps), the folded location
+    tier's pl_b in bf16 (the trainer's default at B=32), none at f32."""
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+    from tacotron2_tpu_torch.models.precision import weak
+
+    B, U, D, T_in = DECODER_WIDTHS
+    s = torch.finfo(dt).bits // 8
+
+    def rn(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(*shape, device='cuda', generator=gen) * scale).to(dtype)
+
+    keep = [torch.rand(B, U, device='cuda', generator=gen) < 0.9 for _ in range(2)]
+    z, c, h = rn(B, 4 * U), rn(B, U, scale=0.5), rn(B, U, scale=0.5)
+    wide = rn(B, U + 512)            # dx2 is a slice of the projections' gradient
+    dhb = rn(B, U, scale=0.1)
+    dh, dc = rn(B, U, dtype=torch.float32), rn(B, U, dtype=torch.float32)
+    a = weak(0.9, dt)
+    lengths = torch.linspace(T_in // 2, T_in, B, device='cuda').long()
+    mask = (torch.arange(T_in, device='cuda')[None] < lengths[:, None]).float()
+    keys, pq, pl = rn(B, T_in, D), rn(B, D), rn(B, T_in, D, scale=0.5)
+    pl_b = rn(D, scale=0.1, dtype=torch.float32) if dt == torch.bfloat16 else None
+    b_a, v_a = rn(D, scale=0.1, dtype=torch.float32), rn(D, scale=0.3, dtype=torch.float32)
+    state = torch.rand(B, T_in, device='cuda', generator=gen) * 2
+    dal, ga, dst = (rn(B, T_in, dtype=torch.float32) for _ in range(3))
+    accs = (rn(B, T_in, D, dtype=torch.float32), rn(B, D, dtype=torch.float32),
+            rn(B, D, dtype=torch.float32))
+    n_bu, n_att = B * U, B * T_in * D
+    n_vec = D * 4 * (2 + (pl_b is not None))  # b_a, v_a and pl_b, read by every row
+    listed = lambda r, args: list(r)
+    return {
+        'lstm_cell_fwd': (dv.lstm_cell_fwd, dv._lstm_cell_fwd_plain,
+                          (lambda: (z, c, h, *keep, 0.1, 0.1),
+                           lambda: (z, c, h, None, None, 0.1, 0.1)), listed,
+                          n_bu * (4 * s + 2 * s + 2 + 3 * s), n_bu * 40),
+        'lstm_cell_bwd': (dv.lstm_cell_bwd, dv._lstm_cell_bwd_plain,
+                          (lambda: (z, c, wide[:, :U], dhb, dh, dc, *keep, a, a),
+                           lambda: (z, c, wide[:, :U], None, dh, dc, None, None, a, a)),
+                          listed, n_bu * (4 * s + 3 * s + 8 + 2 + 4 * s + 8), n_bu * 70),
+        'attention_fwd': (dv.attention_fwd, dv._attention_fwd_plain,
+                          (lambda: (keys, pq, pl, pl_b, b_a, v_a, mask, state, False, True),),
+                          listed,
+                          2 * n_att * s + B * D * s + n_vec
+                          + B * T_in * 4 * (2 + 2 + (s == 2)),
+                          n_att * 8),
+        # the accumulators updated in place are outputs too
+        'attention_bwd': (dv.attention_bwd, dv._attention_bwd_plain,
+                          (lambda: (keys, pq, pl, pl_b, b_a, v_a, mask, dal, ga, dst, False,
+                                    *(x.clone() for x in accs)),),
+                          lambda r, args: [*r, *args[-3:]],
+                          2 * n_att * s + n_vec + B * T_in * 4 * 4 + n_att * (8 + s)
+                          + B * D * (2 * s + 16), n_att * 20)}
+
+
+def _rel_err(got, want):
+    return max(float((g.double() - w.double()).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want, strict=True))
+
+
+def decoder_kernel_checks(decoder_mutants):
+    """Each of the four decoder kernels against its plain version on the card at the
+    trainer's widths, in f32 and bf16, with its planted faults. Returns {kernel: readings}."""
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
+    out = collections.defaultdict(dict)
+    for dt in F32_BF16:
+        gen = torch.Generator('cuda').manual_seed(16)
+        for name, case in decoder_cases(dt, gen).items():
+            kernel, plain, variants, outputs, n_bytes, n_ops = case
+            tol = DECODER_TOL[name][dt]
+            faults = [f for f, m in DECODER_MUTANTS.items() if name in m[0] and dt in m[1]]
+            err = abs_err = 0.0
+            seen = dict.fromkeys(faults, 0.0)
+            for inputs in variants:  # training's keep-gates, then zoneout's expectation
+                args, args_p = inputs(), inputs()
+                got, want = outputs(kernel(*args), args), outputs(plain(*args_p), args_p)
+                err = max(err, _rel_err(got, want))
+                abs_err = max(abs_err, *(float((g.double() - w.double()).abs().max())
+                                         for g, w in zip(got, want)))
+                for fault in faults:
+                    with _patched(dv, 'library', lambda lib=decoder_mutants[fault]: lib):
+                        args = inputs()
+                        seen[fault] = max(seen[fault],
+                                          _rel_err(outputs(kernel(*args), args), want))
+            args, args_p = variants[0](), variants[0]()
+            ms, plain_ms = graph_ms(lambda: kernel(*args)), graph_ms(lambda: plain(*args_p))
+            byte_ms, op_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_PEAK_OPS * 1e3
+            key = str(dt).split('.')[-1]
+            out[name][key] = dict(rel_err=err, max_abs_err=abs_err, tol=tol, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
+                                  bound_by='bytes' if byte_ms >= op_ms else 'operations',
+                                  faults=seen)
+            phase(16, f'{name} {key} B={DECODER_WIDTHS[0]} U={DECODER_WIDTHS[1]} '
+                      f'D={DECODER_WIDTHS[2]} T_in={DECODER_WIDTHS[3]}: kernel vs plain rel '
+                      f'err {err:.2e} (max abs {abs_err:.2e}; tol {tol}); planted faults, '
+                      f'each must exceed it: '
+                      + '; '.join(f'{f} {v:.2e}' for f, v in seen.items())
+                      + f'; kernel {1e3 * ms:.2f} us, plain version {1e3 * plain_ms:.2f} us '
+                      f'(CUDA graphs), bound {1e3 * max(byte_ms, op_ms):.3f} us by '
+                      f'{"bytes" if byte_ms >= op_ms else "operations"}')
+            if not err <= tol:
+                fail(f'the {name} kernel disagrees with its plain version in {key}')
+            for fault, v in seen.items():
+                if not v > tol:
+                    fail(f'the {name} check does not see its planted fault ({fault}) in {key}')
+    return dict(out)
+
+
+def fused_vs_autograd(ratio=0.5, dtype=torch.float32):
+    """fused_decoder_scan on the card against ops/fused_decoder.decoder_scan under autograd
+    on the card, both in `dtype` (TF32 off), at the default width, B=32 x FUSED_FRAMES
+    frames, 100 characters, keys and values from the model's encoder, the model's dropout
+    masks and zoneout keep-gates, teacher forcing at `ratio`: the outputs' largest error
+    and the gradient of a seeded projection of them with respect to every decoder weight,
+    the keys, the values and the teacher frames in relative L2, all of them together as
+    phase 12 holds a step's (each tensor's printed), within FUSED_TOL[dtype]. In bf16 the
+    fused decoder again under precast_fault (its deferred weight gradients summed step by
+    step in bf16), whose gradients must miss that bound. Then the fused decoder's forward
+    and backward once more under torch.profiler: the device's busy time beside the
+    wall. Returns the readings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+    from tacotron2_tpu_torch.ops import fused_decoder as fd
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    model = tt.create_train_state(hp, 'cuda', seed=16).model
+    B, T = hp.tacotron_batch_size, FUSED_FRAMES
+    batch = taco_timed_batch(hp, B, T, TIMED_CHARS)
+    gen = torch.Generator('cuda').manual_seed(17)
+    noise = model.draw_noise(B, TIMED_CHARS, T, gen, False, 'cuda')
+    with torch.no_grad():
+        keys, values, mask = model._encode(batch['inputs'], batch['input_lengths'],
+                                           dtype=dtype)
+    strided = batch['mel_targets'][:, hp.outputs_per_step - 1::hp.outputs_per_step]
+    teacher = torch.cat([torch.zeros_like(strided[:, :1]), strided[:, :-1]], 1).transpose(0, 1)
+    use = (noise['coins'] < ratio).float()
+    steps = teacher.shape[0]
+    cot = [torch.randn(steps, B, n, device='cuda', generator=gen)
+           for n in (hp.num_mels * hp.outputs_per_step, hp.outputs_per_step, TIMED_CHARS)]
+
+    def run(fn, reps=2):  # the last run is timed
+        for _ in range(reps):
+            model.zero_grad()
+            k, v, tch = (x.detach().clone().requires_grad_() for x in (keys, values, teacher))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = fn(model.decoder, k, v, mask, tch, use, [noise['m1'], noise['m2']],
+                      noise['zo'], dtype)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sum(torch.sum(o.float() * c) for o, c in zip(outs, cot)).backward()
+            torch.cuda.synchronize()
+            secs = [t1 - t0, time.perf_counter() - t1]
+        grads = {n: p.grad.detach().clone() for n, p in model.decoder.named_parameters()}
+        grads.update(keys=k.grad, values=v.grad, teacher=tch.grad)
+        return outs, grads, secs
+
+    def gaps(of, gf):
+        out_err = max(float((a.float() - f.float()).detach().abs().max())
+                      for a, f in zip(oa, of))
+        rel = {n: float((gf[n].double() - ga[n].double()).norm() / ga[n].double().norm())
+               for n in ga}
+        whole = (sum(float((gf[n].double() - ga[n].double()).square().sum()) for n in ga)
+                 / sum(float(ga[n].double().square().sum()) for n in ga)) ** 0.5
+        return out_err, rel, whole
+
+    oa, ga, sa = run(fd.decoder_scan)
+    of, gf, sf = run(dv.fused_decoder_scan)
+    out_err, rel, whole = gaps(of, gf)
+    out_tol, grad_tol = FUSED_TOL[dtype]
+    fault = None
+    if dtype == torch.bfloat16:
+        with precast_fault():
+            fault = gaps(*run(dv.fused_decoder_scan, reps=1)[:2])[2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(dv.fused_decoder_scan, reps=1)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ms = {k: 1e3 * s / steps for k, s in (('autograd_fwd', sa[0]), ('autograd_bwd', sa[1]),
+                                          ('fused_fwd', sf[0]), ('fused_bwd', sf[1]))}
+    key = str(dtype).split('.')[-1]
+    phase(16, f'fused_decoder_scan vs autograd decoder_scan on the card, {key} (TF32 off), '
+              f'B={B} x {steps} steps, T_in={TIMED_CHARS}, dropout and zoneout gates, '
+              f'teacher forcing at {ratio}: outputs max abs err {out_err:.2e} (tol '
+              f'{out_tol}); the gradients (every decoder weight, keys, values, teacher '
+              f'frames) {whole:.2e} apart in relative L2 (tol {grad_tol}), each tensor: '
+              + ', '.join(f'{n} {r:.1e}' for n, r in rel.items())
+              + ('' if fault is None else f'; planted fault (the fused decoder\'s weight '
+                 f'gradients summed step by step in bf16) {fault:.2e}, must exceed it')
+              + f'; ms a step, host clock between synchronizes: autograd forward '
+              f'{ms["autograd_fwd"]:.3f}, backward {ms["autograd_bwd"]:.3f}; fused forward '
+              f'{ms["fused_fwd"]:.3f}, backward {ms["fused_bwd"]:.3f}; the fused forward and '
+              f'backward under torch.profiler: wall {wall_ms:.1f} ms, the device busy '
+              f'{busy_ms:.1f} ms ({busy_ms / wall_ms:.0%})')
+    if not (whole <= grad_tol and out_err <= out_tol):
+        fail(f'the fused decoder\'s outputs or gradients disagree with autograd\'s in {key}')
+    if fault is not None and not fault > grad_tol:
+        fail('the fused decoder check in bf16 does not see its planted fault')
+    return dict(out_max_abs_err=out_err, grad_rel_l2=whole, grad_rel_l2_by_tensor=rel,
+                worst=max(rel, key=rel.get), fault_grad_rel_l2=fault, ms_per_step=ms,
+                profiled_wall_ms=wall_ms, device_busy_ms=busy_ms)
+
+
+def timed_beside_autograd(timed):
+    """Phase 12's (f32) and phase 14's (bf16) timed steps at B=32 x TIMED_FRAMES beside
+    the autograd decoder loop's; the step's parts must still tile it (step_segments
+    raised otherwise)."""
+    for key, t in timed.items():
+        was = AUTOGRAD_TIMED[key]
+        phase(16, f'timed step {key}, B=32 x {TIMED_FRAMES} frames: {t["sec_step"]:.3f} '
+                  f'sec/step ({t["sec_step_range"][0]:.3f}-{t["sec_step_range"][1]:.3f}; autograd '
+                  f'{was["sec_step"]}), peak {t["peak_gib"]:.2f} GiB (autograd {was["peak_gib"]}); '
+                  f'the decoder forward {t["parts"]["fwd: decoder"]:.1f} ms (autograd '
+                  f'{was["fwd"]}), backward {t["parts"]["bwd: decoder"]:.1f} ms (autograd '
+                  f'{was["bwd"]}), {t["decoder_bwd_share"]:.0%} of the backward; the step '
+                  f'{t["step_ms"]:.1f} ms by its parts, which tile it')
+
+
+def decoder_slice(decoder_mutants, timed):
+    """Phase 16 (see the module docstring). Returns the readings."""
+    t0 = time.perf_counter()
+    kernels = decoder_kernel_checks(decoder_mutants)
+    fused = {f'float32 {ratio}': fused_vs_autograd(ratio) for ratio in (1.0, 0.5)}
+    fused['bfloat16 0.5'] = fused_vs_autograd(0.5, torch.bfloat16)
+    timed_beside_autograd(timed)
+    launches = {p: dict(DECODER_LAUNCHES_BY_PATH[p]) for p in DECODER_PATHS}
+    phase(16, f'decoder kernel launches on the main paths: {launches}; phase 16 took '
+              f'{time.perf_counter() - t0:.1f} s')
+    for name in kernels:
+        if not sum(DECODER_LAUNCHES_BY_PATH[p][name] for p in DECODER_PATHS):
+            fail(f'no main path launched the {name} kernel')
+    if not all(DECODER_LAUNCHES_BY_PATH[PIPE_GTA_PATH][k] for k in ('lstm_cell_fwd',
+                                                                      'attention_fwd')):
+        fail('GTA did not run the fused decoder\'s forward kernels')
+    return dict(kernels=kernels, fused=fused, launches=launches)
+
+
+def decoder_entries(decoder):
+    """The kernels line's entries of the four decoder kernels: launches from the main
+    paths' runs (phases 12 and 13), the rest from phase 16 in bf16 (the trainers' compute
+    dtype on the card), the f32 readings beside them."""
+    out = []
+    for name in ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd'):
+        k, by = decoder['kernels'][name], decoder['launches']
+        bf, f = k['bfloat16'], k['float32']
+        out.append(dict(
+            name=name, route='cuda', source=DECODER_SOURCE, replaces=DECODER_REPLACES[name],
+            launches=sum(by[p].get(name, 0) for p in DECODER_PATHS),
+            launches_by_path={p: by[p].get(name, 0) for p in DECODER_PATHS},
+            max_abs_err=max(bf['max_abs_err'], f['max_abs_err']), ms=bf['ms'],
+            plain_ms=bf['plain_ms'], bound_ms=bf['bound_ms'], bound_by=bf['bound_by'],
+            library_ms=None, dtype='bfloat16', widths=dict(zip(('B', 'U', 'D', 'T_in'),
+                                                               DECODER_WIDTHS)),
+            rel_err=bf['rel_err'], tol=bf['tol'], fault_rel_err=bf['faults'],
+            f32_ms=f['ms'], f32_plain_ms=f['plain_ms'], f32_bound_ms=f['bound_ms'],
+            f32_rel_err=f['rel_err'], f32_tol=f['tol'], f32_fault_rel_err=f['faults']))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4695,11 +5156,11 @@ def main():
     cluster_seen = cluster_faults(weights, model, hp, gen, mutants)
     pairs = pair_check(weights, model, hp, gen)
     sweep = batch_sweep(weights, model, hp, gen, 3)
-    kernel_vs_plain(weights, model, hp, 8, 10, gen)
+    kernel_vs_plain(weights, model, hp, 8, CHECK_FRAMES, gen)
     frames = MAX_ITERS * hp.outputs_per_step
     kernel = kernel_vs_plain(weights, model, hp, MAIN_BATCH, frames, gen, SERVE_BOUNDS,
                              plain_steps=PLAIN_STEPS)
-    wide = kernel_vs_plain(weights, model, hp, WAVENET_BATCH, 10, gen)
+    wide = kernel_vs_plain(weights, model, hp, WAVENET_BATCH, CHECK_FRAMES, gen)
     check_tacotron(hp)
     launches_batch, batch_us = main_path(overrides, hp, wavenet_state)
     streamed = check_state_carry(weights, model, hp, gen, kernel)
@@ -4722,7 +5183,7 @@ def main():
     phase(11, f'phase 11 took {time.perf_counter() - t11:.1f} s; the whole run '
               f'{time.perf_counter() - t_start:.1f} s')
     t12 = time.perf_counter()
-    tacotron_training()
+    taco = tacotron_training()
     phase(12, f'phase 12 took {time.perf_counter() - t12:.1f} s; the whole run '
               f'{time.perf_counter() - t_start:.1f} s')
     pipeline = tacotron2_pipeline(t_start)
@@ -4734,6 +5195,9 @@ def main():
               f'the whole run {time.perf_counter() - t_start:.1f} s')
     scale = scale_out(training['default']['losses'][0], TRAIN_DEFAULT_EXTRA)
     phase(15, f'the whole run {time.perf_counter() - t_start:.1f} s')
+    decoder = decoder_slice(mutants, {'float32': taco['timed'],
+                                      'bfloat16': remaining['tacotron']['timed']})
+    phase(16, f'the whole run {time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']
     big_runs, sampled = head['runs'], head['sampled']
@@ -4880,7 +5344,7 @@ def main():
         dict(name=name, route='cuda', source=f'tacotron2_tpu_torch/csrc/probes/{name}.cu',
              replaces=PROBE_REPLACES[name], launches=probe_launches[name],
              check_launches=probe_modules[name].LAUNCHES, **probe_readings[name])
-        for name in probe_modules]}))
+        for name in probe_modules] + decoder_entries(decoder)}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}))

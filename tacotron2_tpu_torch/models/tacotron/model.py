@@ -20,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import Tensor, nn
 
-from ...ops import fused_decoder as fd
+from ...ops import decoder_vjp, fused_decoder as fd
 from ...text import VOCAB_SIZE
 from ..precision import cast_forward
 from .attention import LocationSensitiveAttention
@@ -240,10 +240,12 @@ class Tacotron(nn.Module):
             deterministic: zoneout's expectation, BatchNorm over running statistics and
                 no encoder or post-net dropout; the prenet's dropout stays on.
             predict_linear: override hp.predict_linear.
-            dtype: the compute dtype. With hp.remat_decoder, where the JAX package runs
-                its `nn.scan` decoder (fused_decoder off, or a depth its fused scan does
-                not cover: `model.py:199-205, 217-219`), each decoder step is recomputed
-                in the backward.
+            dtype: the compute dtype.
+        The decoder is `ops/decoder_vjp.fused_decoder_scan`, with its hand-written
+        backward, where the JAX model runs its fused decoder (`use_fused`, `model.py:
+        213-248`: hp.fused_decoder at 2 prenet layers and 2 LSTMs); elsewhere (the JAX
+        model's `nn.scan` decoder) `ops/fused_decoder.decoder_scan` under autograd, each
+        step recomputed in the backward with hp.remat_decoder (`model.py:199-205`).
         Returns: dict with decoder_output and mel_outputs (B, T_mel, num_mels),
             stop_token_prediction (B, T_mel), alignments (B, T_in, T), stop_finished
             (B,), and linear_outputs (B, T_mel, num_freq) with predict_linear.
@@ -265,12 +267,15 @@ class Tacotron(nn.Module):
         if teacher_forcing_ratio is None:
             teacher_forcing_ratio = hp.tacotron_teacher_forcing_ratio
         use_teacher = (noise['coins'] < teacher_forcing_ratio).float()
-        depth2 = len(tuple(hp.prenet_layers)) == 2 and hp.decoder_layers == 2
-        frames, stop_logits, alignments = fd.decoder_scan(
-            self.decoder, keys, values, attn_mask, teacher, use_teacher,
-            [noise[f'm{i + 1}'] for i in range(len(hp.prenet_layers))],
-            noise.get('zo') if train else None, dtype,
-            remat=hp.remat_decoder and not (hp.fused_decoder and depth2))
+        masks = [noise[f'm{i + 1}'] for i in range(len(hp.prenet_layers))]
+        zo = noise.get('zo') if train else None
+        if hp.fused_decoder and decoder_vjp.supports(hp):  # the JAX model's use_fused
+            frames, stop_logits, alignments = decoder_vjp.fused_decoder_scan(
+                self.decoder, keys, values, attn_mask, teacher, use_teacher, masks, zo, dtype)
+        else:
+            frames, stop_logits, alignments = fd.decoder_scan(
+                self.decoder, keys, values, attn_mask, teacher, use_teacher, masks, zo, dtype,
+                remat=hp.remat_decoder)
         with torch.no_grad():  # stop tracking, outside the gradient
             hit = torch.sigmoid(stop_logits) > 0.5
             hit = hit.any(dim=-1) if hp.stop_at_any else hit.all(dim=-1)

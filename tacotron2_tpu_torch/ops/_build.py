@@ -2,8 +2,10 @@
 
 Every `*.cu` file at the top of `tacotron2_tpu_torch/csrc/` is compiled with nvcc for
 Hopper (`sm_90a`) into one shared library with a plain C interface, which is loaded with
-ctypes (`load_library`); the measurement probes' sources under `csrc/probes/` go into a
-library of their own (`load_probe_library`), so that neither build grows the other.
+ctypes (`load_library`); the measurement probes' sources under `csrc/probes/` and the
+decoder step's under `csrc/decoder/` go into libraries of their own (`load_probe_library`,
+`load_decoder_library`, the latter built with `--fmad=false`: DECODER_FLAGS), so that no
+build grows another.
 Each build runs at first use, into `build/tacotron2_tpu_torch/` at the root of the
 checkout, and is redone when its sources' hash changes. There is no fallback: a missing
 nvcc or a failed build raises.
@@ -19,9 +21,13 @@ import subprocess
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 PROBES_DIR = os.path.join(CSRC_DIR, 'probes')
+DECODER_DIR = os.path.join(CSRC_DIR, 'decoder')
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build', 'tacotron2_tpu_torch')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
+# the decoder step's kernels round where their plain PyTorch versions do: no product and
+# sum contracted into one fused multiply-add
+DECODER_FLAGS = ('--fmad=false',)
 
 
 def _sources(src_dir: str = CSRC_DIR):
@@ -43,12 +49,12 @@ def _nvcc() -> str:
                        'port\'s CUDA kernels are built from source at first use')
 
 
-def compile_library(srcs, lib_path: str, defines=()) -> None:
+def compile_library(srcs, lib_path: str, defines=(), flags=()) -> None:
     """Compile the CUDA sources `srcs` with nvcc into the shared library `lib_path`,
-    with the macros `defines` ('NAME' or 'NAME=value') set."""
+    with the macros `defines` ('NAME' or 'NAME=value') set and the nvcc `flags` added."""
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     tmp = f'{lib_path}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, *[f'-D{d}' for d in defines], '-o', tmp, *srcs]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, *[f'-D{d}' for d in defines], '-o', tmp, *srcs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f'nvcc failed ({res.returncode}):\n{" ".join(cmd)}\n'
@@ -56,17 +62,17 @@ def compile_library(srcs, lib_path: str, defines=()) -> None:
     os.replace(tmp, lib_path)  # atomic: a concurrent process never loads a partial file
 
 
-def _load(src_dir: str, stem: str) -> ctypes.CDLL:
-    """Compile the sources of `src_dir` (if they changed) into `<stem>-<hash>.so`, and
-    load it. The sources include no header of their own."""
+def _load(src_dir: str, stem: str, flags=()) -> ctypes.CDLL:
+    """Compile the sources of `src_dir` (if they changed) with the nvcc `flags` added into
+    `<stem>-<hash>.so`, and load it. The sources include no header of their own."""
     srcs = _sources(src_dir)
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS + tuple(flags)).encode())
     for path in srcs:
         with open(path, 'rb') as f:
             digest.update(f.read())
     lib_path = os.path.join(BUILD_DIR, f'{stem}-{digest.hexdigest()[:16]}.so')
     if not os.path.isfile(lib_path):
-        compile_library(srcs, lib_path)
+        compile_library(srcs, lib_path, flags=flags)
     return ctypes.CDLL(lib_path)
 
 
@@ -80,3 +86,9 @@ def load_library() -> ctypes.CDLL:
 def load_probe_library() -> ctypes.CDLL:
     """Compile (if the sources changed) and load the probes' shared library."""
     return _load(PROBES_DIR, 'libt2probes')
+
+
+@functools.cache
+def load_decoder_library() -> ctypes.CDLL:
+    """Compile (if the sources changed) and load the decoder step's shared library."""
+    return _load(DECODER_DIR, 'libt2decoder', DECODER_FLAGS)

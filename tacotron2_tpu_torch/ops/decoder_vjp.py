@@ -1,0 +1,705 @@
+"""The teacher-forced Tacotron decoder with a hand-written backward: the counterpart of
+the custom VJP of `tacotron2_tpu/ops/fused_decoder.py` (`decoder_scan`, `_fwd_rule`,
+`_bwd_rule`, `:423-643`), for training, evaluation and GTA at the reference's decoder (2
+prenet layers, 2 LSTMs: `supports`).
+
+`fused_decoder_scan` takes the contract of `ops/fused_decoder.decoder_scan`. With a
+gradient to take it runs `FusedDecoderScan`, a `torch.autograd.Function`:
+  - forward (`_forward`, `_step_fwd`): one loop over the steps that saves what the JAX
+    forward saves (`:379-384`): r1, r2, z1, z2, x1, x2, the zoned c and h of both LSTMs,
+    the context and the previous alignment state, and the query projection; residuals in
+    the compute dtype, the state in float32;
+  - backward (`_backward`): one reverse loop that carries only dh and dc of each LSTM,
+    the context's gradient, the fed-back frame's and the alignment state's, and emits the
+    gates' gradients dz1, dz2, dpq, the prenet's, the total context gradient and the
+    location features' gradient; dkeys, the energy's dva and dba, and the location
+    layer's gradient sum in float32 in place. Every large weight gradient is then one
+    product over the T * B rows (`:578-614`), as are the location conv's kernel and bias
+    gradients (one product where the per-step JAX accumulators sum the same terms:
+    `_loc_acc` and `_loc_acc_finalize` on the folded tier, `_loc_kernel_grad` on the
+    conv tier) and dvalues.
+Without a gradient (`torch.no_grad()`: GTA, `run_eval`, the trainer's eval) it runs the
+forward alone, saving nothing. The Function's inputs are the cell's float32 master
+parameters, cast once a call (`_weights`), and each gradient returns in its parameter's
+dtype; the mask, the coins, the dropout masks and the keep-gates get none.
+
+The step's elementwise stages and row reductions are four hand-written kernels for Hopper
+(`csrc/decoder/decoder_step.cu`, built into a library of their own by
+`_build.load_decoder_library`): `lstm_cell_fwd`, `lstm_cell_bwd`, `attention_fwd` and
+`attention_bwd`. Each wrapper launches its kernel on CUDA tensors (a failed build or
+launch raises; there is no fallback) and counts the launch in LAUNCHES; on CPU tensors it
+runs the kernel's plain PyTorch version beside it, which the CPU tests hold against the
+JAX package. The products stay library products, as JAX leaves them to XLA.
+
+In a reduced compute dtype the casting points are the JAX fused decoder's, as
+`ops/fused_decoder.decoder_scan` keeps them (`models/precision.py`); a product whose
+result is in that dtype runs in it (float32 accumulation, rounded once), one whose result
+is float32 (`preferred_element_type=f32` in JAX) runs in float32 on the rounded values.
+The location conv is folded into the location layer where `fused_decoder._location` folds
+it (bf16, a batch of at most 96, within LOC_MAT_BYTES); elsewhere, f32 included, the conv
+stays (the JAX package's banded `_loc_matrix` at float32 is not ported).
+"""
+
+import collections
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor
+
+from ..models.precision import sigmoid, weak
+from ..models.tacotron.attention import NEG_INF
+from ..models.tacotron.modules import lstm_gates, zoneout
+from . import fused_decoder as fd
+
+# launches of each hand-written kernel, counted by its wrapper where it launches it
+LAUNCHES: Dict[str, int] = collections.Counter()
+KERNELS = ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd')
+
+# the cell's parameters in the Function's order, with the short names of `_weights`
+PARAMS = (('p1_w', 'prenet.layers.0.weight'), ('p1_b', 'prenet.layers.0.bias'),
+          ('p2_w', 'prenet.layers.1.weight'), ('p2_b', 'prenet.layers.1.bias'),
+          ('g1_w', 'lstm_1.gates.weight'), ('g1_b', 'lstm_1.gates.bias'),
+          ('g2_w', 'lstm_2.gates.weight'), ('g2_b', 'lstm_2.gates.bias'),
+          ('q_w', 'attention.query_layer.weight'),
+          ('loc_w', 'attention.location_convolution.weight'),
+          ('loc_b', 'attention.location_convolution.bias'),
+          ('l_w', 'attention.location_layer.weight'),
+          ('v_a', 'attention.v_a'), ('b_a', 'attention.b_a'),
+          ('f_w', 'frame_projection.weight'), ('f_b', 'frame_projection.bias'),
+          ('s_w', 'stop_projection.weight'), ('s_b', 'stop_projection.bias'))
+
+
+def supports(hp) -> bool:
+    """The decoder this module covers (`fused_decoder.py:78-81`): 2 prenet layers and 2
+    decoder LSTMs, the reference's."""
+    return len(tuple(hp.prenet_layers)) == 2 and hp.decoder_layers == 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    num_mels: int
+    units: int
+    cumulate: bool
+    smoothing: bool
+    rates: Tuple[float, float, float, float]  # zoneout of c1, h1, c2, h2
+    dtype: torch.dtype
+
+
+def _config(cell, dtype: torch.dtype) -> Config:
+    l1, l2 = cell.lstms
+    return Config(cell.num_mels, l1.units, cell.attention.cumulate, cell.attention.smoothing,
+                  (l1.zoneout_cell, l1.zoneout_output, l2.zoneout_cell, l2.zoneout_output),
+                  dtype)
+
+
+def _weights(cfg: Config, cell, params: Sequence[Tensor], B: int, T_in: int) -> Dict:
+    """The parameters by short name, cast once to the compute dtype but v_a and b_a
+    (float32, `fused_decoder.py:96-119`); fs_w and fs_b, the frame and stop projections
+    stacked into one product; loc_w_t (K, F), the location kernel flipped for its
+    transpose; and on the folded tier loc_n (in the dtype and in float32) and pl_b
+    (float32), `fused_decoder._location`'s."""
+    dt = cfg.dtype
+    W = {k: p.detach() if k in ('v_a', 'b_a') else p.detach().to(dt)
+         for (k, _), p in zip(PARAMS, params, strict=True)}
+    W['v_a'] = W['v_a'][0]
+    W['fs_w'] = torch.cat([W['f_w'], W['s_w']])
+    W['fs_b'] = torch.cat([W['f_b'], W['s_b']])
+    W['loc_w_t'] = W['loc_w'][:, 0].flip(-1).t()
+    loc = fd._location(cell, B, T_in, dt)
+    if loc is not None:
+        W['loc_n32'], W['pl_b'] = loc
+        W['loc_n'] = loc[0].to(dt)
+    return W
+
+
+def _dense(x: Tensor, w: Tensor, b: Optional[Tensor], dt: torch.dtype) -> Tensor:
+    """x @ w.T + b as flax's Dense computes it in `dt` (`models/precision.cast_forward`):
+    at float32 one product with the bias; in a reduced dtype the product rounded to it,
+    then the rounded bias added."""
+    if dt == torch.float32:
+        return F.linear(x, w, b)
+    y = x.to(dt) @ w.t()
+    return y if b is None else y + b
+
+
+# ---------------------------------------------------------------- the kernels' launches
+
+def _library():
+    from ._build import load_decoder_library
+    return load_decoder_library()
+
+
+library = _library  # the build whose kernels launch (chip_smoke.py plants faulty ones)
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_ARGTYPES = {
+    't2_lstm_cell_fwd': [_P] * 5 + [_F] * 4 + [_P] * 3 + [_I] * 3 + [_P],
+    't2_lstm_cell_bwd': [_P, _P, _P, _L] + [_P] * 5 + [_F, _F] + [_P] * 3 + [_I] * 3 + [_P],
+    't2_attention_fwd': [_P] * 11 + [_I] * 6 + [_P],
+    't2_attention_bwd': [_P] * 15 + [_I] * 5 + [_P],
+}
+
+
+def _launch(name: str, ref: Tensor, *args) -> None:
+    """Launch the C entry t2_<name> with `args` (tensors as their device pointers, None
+    as null) on the current stream of `ref`'s device; count it; raise on an error."""
+    fn = getattr(library(), f't2_{name}')
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[f't2_{name}']
+        fn.restype = ctypes.c_int
+    args = [a.data_ptr() if isinstance(a, Tensor) else a for a in args]
+    err = fn(*args, torch.cuda.current_stream(ref.get_device()).cuda_stream)
+    if err:
+        raise RuntimeError(f'the {name} kernel did not launch: CUDA error {err}')
+    LAUNCHES[name] += 1
+
+
+def _refuse(what: str) -> None:
+    raise ValueError(f'the decoder kernels do not take {what}')
+
+
+def _check(dt: torch.dtype, *pairs) -> None:
+    """Each (tensor or None, dtype or None for `dt`, shape) is None or contiguous on the
+    device of the first, of that dtype and shape (the message formed only on a refusal:
+    the check runs at every launch)."""
+    dev = pairs[0][0].get_device()
+    for t, want, shape in pairs:
+        if t is not None and not (t.get_device() == dev and t.is_contiguous()
+                                  and t.dtype == (want or dt) and t.shape == shape):
+            _refuse(f'a {t.dtype} tensor of shape {tuple(t.shape)} on device '
+                    f'{t.get_device()}, contiguous {t.is_contiguous()}, where a '
+                    f'{want or dt} tensor of shape {tuple(shape)} on device {dev}, '
+                    'contiguous, is due')
+
+
+def _bf16(dt: torch.dtype) -> int:
+    if dt not in (torch.float32, torch.bfloat16):
+        _refuse(f'the compute dtype {dt}')
+    return int(dt == torch.bfloat16)
+
+
+# ---------------------------------------------------------------- the LSTM cell
+
+_lstm_fwd = lstm_gates  # `fused_decoder.py:122-127`: (c_new, h_new) of the gates z
+
+
+def _mix(rate: float, dt: torch.dtype) -> Tuple[float, float]:
+    """(a, b) of zoneout's expectation a * new + b * old, as `modules.zoneout` forms it."""
+    if dt == torch.float32:
+        return 1.0 - rate, rate
+    k = weak(1.0 - rate, dt)
+    return k, 1.0 - k
+
+
+def _lstm_cell_fwd_plain(z, c_prev, h_prev, keep_c, keep_h, rate_c, rate_h):
+    c_new, h_new = _lstm_fwd(z, c_prev)
+    return (zoneout(c_new, c_prev, rate_c, keep_c), zoneout(h_new, h_prev, rate_h, keep_h),
+            h_new)
+
+
+def lstm_cell_fwd(z: Tensor, c_prev: Tensor, h_prev: Tensor, keep_c: Optional[Tensor],
+                  keep_h: Optional[Tensor], rate_c: float, rate_h: float):
+    """The LSTM cell's gates and zoneout (`fused_decoder.py:122-127, 356-364`): z (B, 4U)
+    the pre-activations i, g, f, o and c_prev, h_prev (B, U), all in the compute dtype;
+    keep_c, keep_h the bool (B, U) keep-gates of training, or None: zoneout's expectation
+    at rate_c, rate_h. Returns (c, h) after zoneout and h_new, the step's output."""
+    if not z.is_cuda:
+        return _lstm_cell_fwd_plain(z, c_prev, h_prev, keep_c, keep_h, rate_c, rate_h)
+    dt, (B, U) = z.dtype, c_prev.shape
+    bf16 = _bf16(dt)
+    _check(dt, (z, None, (B, 4 * U)), (c_prev, None, (B, U)), (h_prev, None, (B, U)),
+           (keep_c, torch.bool, (B, U)), (keep_h, torch.bool, (B, U)))
+    out = [torch.empty_like(c_prev) for _ in range(3)]
+    _launch('lstm_cell_fwd', z, z, c_prev, h_prev, keep_c, keep_h, *_mix(rate_c, dt),
+            *_mix(rate_h, dt), *out, B, U, bf16)
+    return tuple(out)
+
+
+def _lstm_bwd(z, c_prev, dh_new, dc_post, a_c):
+    """Backward through the gates and the cell's zoneout mix (`fused_decoder.py:130-150`):
+    (dz, the gradient of c_prev through the gates)."""
+    i, g, f, o = z.chunk(4, dim=-1)
+    si, tg, sf, so = sigmoid(i), torch.tanh(g), sigmoid(f + 1.0), sigmoid(o)
+    c_new = sf * c_prev + si * tg
+    tc = torch.tanh(c_new)
+    dc_new = dh_new * so * (1.0 - tc * tc) + a_c * dc_post
+    do = dh_new * tc * so * (1.0 - so)
+    df = dc_new * c_prev * sf * (1.0 - sf)
+    di = dc_new * tg * si * (1.0 - si)
+    dg = dc_new * si * (1.0 - tg * tg)
+    return torch.cat([di, dg, df, do], dim=-1), dc_new * sf
+
+
+def _lstm_cell_bwd_plain(z, c_prev, dha, dhb, dh, dc, keep_c, keep_h, a_c, a_h):
+    ac = a_c if keep_c is None else keep_c.float()
+    ah = a_h if keep_h is None else keep_h.float()
+    dh_new = (dha if dhb is None else dha + dhb) + ah * dh
+    dz, dc_gates = _lstm_bwd(z, c_prev, dh_new, dc, ac)
+    return dz.to(z.dtype), dc_gates + (1.0 - ac) * dc, (1.0 - ah) * dh
+
+
+def lstm_cell_bwd(z: Tensor, c_prev: Tensor, dha: Tensor, dhb: Optional[Tensor], dh: Tensor,
+                  dc: Tensor, keep_c: Optional[Tensor], keep_h: Optional[Tensor],
+                  a_c: float, a_h: float):
+    """The LSTM cell's backward with its zoneout bypasses (`fused_decoder.py:130-150,
+    520-539`): the gradient of the step's output h_new is dha (+ dhb), in the compute
+    dtype (dha a (B, U) slice of a wider product), plus ah * dh, dh and dc (B, U) float32
+    the carried gradients of the zoned h and c; ac, ah the keep-gates as 0/1 where given,
+    else a_c, a_h (JAX's expectation keep 1 - z, rounded to the dtype). Returns (dz (B, 4U)
+    in the dtype, dc_prev = the gates' part + (1 - ac) dc, the h bypass (1 - ah) dh), the
+    last two float32."""
+    if not z.is_cuda:
+        return _lstm_cell_bwd_plain(z, c_prev, dha, dhb, dh, dc, keep_c, keep_h, a_c, a_h)
+    dt, (B, U) = z.dtype, c_prev.shape
+    bf16 = _bf16(dt)
+    if not (dha.shape == (B, U) and dha.stride(1) == 1 and dha.dtype == dt
+            and dha.get_device() == z.get_device()):
+        _refuse('dha of another shape, dtype or layout')
+    f32 = torch.float32
+    _check(dt, (z, None, (B, 4 * U)), (c_prev, None, (B, U)), (dhb, None, (B, U)),
+           (dh, f32, (B, U)), (dc, f32, (B, U)), (keep_c, torch.bool, (B, U)),
+           (keep_h, torch.bool, (B, U)))
+    dz = torch.empty_like(z)
+    dc_next, bypass = torch.empty_like(dc), torch.empty_like(dh)
+    _launch('lstm_cell_bwd', z, z, c_prev, dha, dha.stride(0), dhb, dh, dc, keep_c, keep_h,
+            a_c, a_h, dz, dc_next, bypass, B, U, bf16)
+    return dz, dc_next, bypass
+
+
+# ---------------------------------------------------------------- the attention
+
+def _energy_arg(keys, pq, pl, pl_b, b_a):
+    """u = keys + pq + pl + b_a (B, T_in, D) in float32, the terms widened before they meet
+    (`attention.py`: XLA forms this sum in float32 from bf16 terms)."""
+    loc = pl.float() if pl_b is None else pl.float() + pl_b
+    return keys.float() + pq.float()[:, None, :] + loc + b_a
+
+
+def _energies(keys, pq, pl, pl_b, b_a, v_a, mask):
+    u = _energy_arg(keys, pq, pl, pl_b, b_a)
+    tanh_u = torch.tanh(u)
+    e = torch.sum(v_a * tanh_u, dim=2)
+    if mask is not None:
+        e = torch.where(mask > 0, e, torch.full_like(e, NEG_INF))
+    return e, tanh_u
+
+
+def _att_align(keys, pq, pl, pl_b, b_a, v_a, mask, smoothing):
+    """The alignments (B, T_in) f32 of the query projection pq (B, D) against the keys
+    (B, T_in, D) with the location projection pl (+ pl_b) (`fused_decoder.py:215-228`)."""
+    e, _ = _energies(keys, pq, pl, pl_b, b_a, v_a, mask)
+    if smoothing:
+        sig = torch.sigmoid(e)
+        return sig / sig.sum(dim=-1, keepdim=True)
+    return F.softmax(e, dim=-1)
+
+
+def _attention_fwd_plain(keys, pq, pl, pl_b, b_a, v_a, mask, state, smoothing, cumulate):
+    align = _att_align(keys, pq, pl, pl_b, b_a, v_a, mask, smoothing)
+    return align, align + state if cumulate else align, align.to(keys.dtype).float()
+
+
+def attention_fwd(keys: Tensor, pq: Tensor, pl: Tensor, pl_b: Optional[Tensor], b_a: Tensor,
+                  v_a: Tensor, mask: Optional[Tensor], state: Tensor, smoothing: bool,
+                  cumulate: bool):
+    """The attention's energy and normalisation and the new state (`fused_decoder.py:
+    215-228, 367-368`): keys, pl (B, T_in, D) and pq (B, D) in the compute dtype, pl_b
+    (D,) float32 or None, b_a, v_a (D,) float32, mask (B, T_in) float or None, state (B,
+    T_in) float32. Returns (the alignments, the new state, the alignments rounded to the
+    dtype for the context product), float32."""
+    if not keys.is_cuda:
+        return _attention_fwd_plain(keys, pq, pl, pl_b, b_a, v_a, mask, state, smoothing,
+                                    cumulate)
+    dt, (B, T_in, D) = keys.dtype, keys.shape
+    bf16 = _bf16(dt)
+    f32 = torch.float32
+    if T_in > 6144:
+        _refuse(f'{T_in} input steps (the row lives in 48 KB of shared memory)')
+    _check(dt, (keys, None, (B, T_in, D)), (pq, None, (B, D)), (pl, None, (B, T_in, D)),
+           (pl_b, f32, (D,)), (b_a, f32, (D,)), (v_a, f32, (D,)), (mask, f32, (B, T_in)),
+           (state, f32, (B, T_in)))
+    align, new_state = torch.empty_like(state), torch.empty_like(state)
+    align_r = torch.empty_like(state) if bf16 else None
+    _launch('attention_fwd', keys, keys, pq, pl, pl_b, b_a, v_a, mask, state, align,
+            new_state, align_r, B, T_in, D, int(smoothing), int(cumulate), bf16)
+    return align, new_state, align if align_r is None else align_r
+
+
+def _attention_bwd_plain(keys, pq, pl, pl_b, b_a, v_a, mask, dalign, ga, dstate, smoothing,
+                         dkeys_acc, dva_acc, dba_acc):
+    e, tanh_u = _energies(keys, pq, pl, pl_b, b_a, v_a, mask)
+    dal = dalign + ga
+    if dstate is not None:
+        dal = dal + dstate
+    if smoothing:
+        sig = torch.sigmoid(e)
+        ssum = sig.sum(dim=-1, keepdim=True)
+        align = sig / ssum
+        dsig = (dal - torch.sum(dal * align, dim=-1, keepdim=True)) / ssum
+        de = dsig * sig * (1.0 - sig)
+    else:
+        align = F.softmax(e, dim=-1)
+        de = (dal - torch.sum(dal * align, dim=-1, keepdim=True)) * align
+    if mask is not None:
+        de = torch.where(mask > 0, de, torch.zeros_like(de))
+    du = (de[:, :, None] * v_a) * (1.0 - tanh_u * tanh_u)
+    dkeys_acc += du
+    dva_acc += torch.sum(de[:, :, None] * tanh_u, dim=1)
+    dpq = torch.sum(du, dim=1)
+    dba_acc += dpq
+    return du.to(keys.dtype), dpq.to(keys.dtype)
+
+
+def attention_bwd(keys: Tensor, pq: Tensor, pl: Tensor, pl_b: Optional[Tensor], b_a: Tensor,
+                  v_a: Tensor, mask: Optional[Tensor], dalign: Tensor, ga: Tensor,
+                  dstate: Optional[Tensor], smoothing: bool, dkeys_acc: Tensor,
+                  dva_acc: Tensor, dba_acc: Tensor):
+    """The attention's backward through its normalisation and energy (`fused_decoder.py:
+    275-301`), the energies recomputed: the alignments' gradient is dalign + ga (+ dstate,
+    cumulating), float32 (B, T_in); the inputs are attention_fwd's. Adds du (B, T_in, D)
+    to dkeys_acc and each row's sums of de * tanh(u) and du over the input steps to
+    dva_acc and dba_acc (B, D), all float32, in place. Returns (du, dpq = sum_t du (B, D)),
+    in the dtype."""
+    if not keys.is_cuda:
+        return _attention_bwd_plain(keys, pq, pl, pl_b, b_a, v_a, mask, dalign, ga, dstate,
+                                    smoothing, dkeys_acc, dva_acc, dba_acc)
+    dt, (B, T_in, D) = keys.dtype, keys.shape
+    bf16 = _bf16(dt)
+    f32 = torch.float32
+    if T_in > 6144:
+        _refuse(f'{T_in} input steps (the row lives in 48 KB of shared memory)')
+    _check(dt, (keys, None, (B, T_in, D)), (pq, None, (B, D)), (pl, None, (B, T_in, D)),
+           (pl_b, f32, (D,)), (b_a, f32, (D,)), (v_a, f32, (D,)), (mask, f32, (B, T_in)),
+           (dalign, f32, (B, T_in)), (ga, f32, (B, T_in)), (dstate, f32, (B, T_in)),
+           (dkeys_acc, f32, (B, T_in, D)), (dva_acc, f32, (B, D)), (dba_acc, f32, (B, D)))
+    du, dpq = torch.empty_like(keys), torch.empty_like(pq)
+    _launch('attention_bwd', keys, keys, pq, pl, pl_b, b_a, v_a, mask, dalign, ga, dstate,
+            dkeys_acc, dva_acc, dba_acc, du, dpq, B, T_in, D, int(smoothing), bf16)
+    return du, dpq
+
+
+# ---------------------------------------------------------------- the location path
+
+def _loc_features(cfg: Config, W, state: Tensor) -> Tensor:
+    """The location features f (B, T_in, F) of the alignment state in the compute dtype
+    (`fused_decoder.py:195-203`): the SAME conv on the rounded state, as a product of its
+    K taps a position and the kernel, rounded, plus the rounded bias (`precision.
+    cast_forward`'s rounding). A conv call of cuDNN cost some 100-400 us of host time a
+    call on the card's host, the loop's largest."""
+    K = W['loc_w'].shape[-1]
+    pad_lo = (K - 1) // 2
+    taps = F.pad(state.to(cfg.dtype), (pad_lo, K - 1 - pad_lo)).unfold(1, state.shape[1], 1)
+    return _dense(taps.transpose(1, 2), W['loc_w'][:, 0], W['loc_b'], cfg.dtype)
+
+
+def _loc_pl(cfg: Config, W, state: Tensor):
+    """(pl (B, T_in, D) in the compute dtype, pl_b): the location layer's projection of the
+    state's features (`fused_decoder.py:206-212`), on the folded tier state @ loc_n with
+    pl_b (D,) float32 to add in float32, else (on the conv tier) with pl_b None."""
+    if 'loc_n' in W:
+        B, T_in = state.shape
+        return (state.to(cfg.dtype) @ W['loc_n']).view(B, T_in, -1), W['pl_b']
+    return _dense(_loc_features(cfg, W, state), W['l_w'], None, cfg.dtype), None
+
+
+def _loc_conv_t(W, df: Tensor) -> Tensor:
+    """The location conv's transpose: the state's gradient (B, T_in) from the features'
+    df (B, T_in, F), in df's dtype (`fused_decoder.py:316-323`): the correlation with the
+    flipped kernel, padded as the forward's SAME padding mirrored (even kernels too), as
+    a product of each position's K taps of df and the kernel."""
+    K = W['loc_w'].shape[-1]
+    pad_lo = (K - 1) // 2
+    taps = F.pad(df, (0, 0, K - 1 - pad_lo, pad_lo)).unfold(1, df.shape[1], 1)
+    return torch.einsum('bkfs,kf->bs', taps, W['loc_w_t'])
+
+
+def _att_bwd(cfg: Config, W, keys, mask, pq, state_prev, dalign, ga, dstate, acc):
+    """One step of the attention's backward (`fused_decoder.py:257-338`) on the state the
+    step read: attention_bwd, then the location path. dkeys, dva, dba and the location
+    layer's gradient `dl` (D, F) sum into the float32 accumulators `acc` in place.
+    Returns (dpq (B, D) in the dtype, this step's gradient of the state (B, T_in) float32,
+    the location features' gradient df (B * T_in, F) in the dtype, from which the location
+    conv's kernel and bias gradients are formed after the loop)."""
+    B, T_in = state_prev.shape
+    state = state_prev.to(cfg.dtype)  # the location path reads the state rounded
+    f = _loc_features(cfg, W, state)
+    pl, pl_b = (_loc_pl(cfg, W, state) if 'loc_n' in W
+                else (_dense(f, W['l_w'], None, cfg.dtype), None))
+    du, dpq = attention_bwd(keys, pq, pl, pl_b, W['b_a'], W['v_a'], mask, dalign, ga, dstate,
+                            cfg.smoothing, acc['dkeys'], acc['dva'], acc['dba'])
+    du = du.view(B * T_in, -1)
+    du32 = du.float()
+    acc['dl'].addmm_(du32.t(), f.reshape(B * T_in, -1).float())
+    df = du @ W['l_w']
+    if 'loc_n' in W:
+        dstate_c = du32.view(B, -1) @ W['loc_n32'].t()
+    else:
+        dstate_c = _loc_conv_t(W, df.view(B, T_in, -1)).float()
+    return dpq, dstate_c, df
+
+
+def _loc_acc(states: Tensor, dfs: Tensor) -> Tensor:
+    """The folded tier's dense gradient (T_in, T_in * F) of the banded location matrix,
+    summed over all N = T * B rows: states (N, T_in) the rounded states, dfs (N, T_in, F)
+    the features' gradients (`fused_decoder.py:324-327`, each step's term at once)."""
+    return states.float().t() @ dfs.float().reshape(dfs.shape[0], -1)
+
+
+def _loc_acc_finalize(K: int, loc_acc: Tensor) -> Tensor:
+    """The location kernel's gradient (F, 1, K) from `_loc_acc`'s dense matrix: its band
+    diagonals, dloc_k[f, k] = sum_j dloc_m[j + k - pad_lo, j, f] (`fused_decoder.py:
+    240-254`)."""
+    T_in = loc_acc.shape[0]
+    n_f = loc_acc.shape[1] // T_in
+    pad_lo = (K - 1) // 2
+    s_pad = F.pad(loc_acc.view(T_in, T_in, n_f), (0, 0, 0, 0, pad_lo, K - 1 - pad_lo))
+    flat = s_pad.reshape(-1, n_f)
+    j = torch.arange(T_in, device=loc_acc.device)
+    idx = (j[None, :] + torch.arange(K, device=loc_acc.device)[:, None]) * T_in + j[None, :]
+    return flat[idx].sum(1).t()[:, None, :]
+
+
+def _loc_kernel_grad(K: int, states: Tensor, dfs: Tensor) -> Tensor:
+    """The conv tier's location kernel gradient (F, 1, K), summed over all N = T * B rows:
+    dloc_k[f, k] = sum_{n, j} state_pad[n, j + k] df[n, j, f] (`fused_decoder.py:328-337`),
+    one (K, N * T_in) x (N * T_in, F) product of the padded states' taps and the
+    gradients (a conv over N channels ran 18 ms at B=32 x 128 steps on an H100)."""
+    N, T_in = states.shape
+    pad_lo = (K - 1) // 2
+    taps = F.pad(states.float(), (pad_lo, K - 1 - pad_lo)).unfold(1, T_in, 1)  # (N, K, T_in)
+    return (taps.transpose(0, 1).reshape(K, -1)
+            @ dfs.float().reshape(N * T_in, -1)).t()[:, None, :]
+
+
+# ---------------------------------------------------------------- forward and backward
+
+def _prenet(W, x: Tensor, m1: Tensor, m2: Tensor, dt: torch.dtype):
+    """(r1, r2, p2): the prenet's two ReLU layers on the frames x (..., M) and its output
+    after the dropout masks, in the compute dtype (`fused_decoder.py:349-353`)."""
+    r1 = torch.relu(_dense(x, W['p1_w'], W['p1_b'], dt))
+    r2 = torch.relu(_dense(r1 * m1, W['p2_w'], W['p2_b'], dt))
+    return r1, r2, r2 * m2
+
+
+def _step_fwd(cfg: Config, W, keys, values, mask, carry, xs):
+    """One step (`fused_decoder.py:341-385`); `xs` holds the step's prenet (r1, r2, p2) where
+    it read its teacher frame (`_forward` runs those steps' prenets at once), else None,
+    the step's dropout masks and its keep-gates. Returns (the carry, (the stacked frame
+    and stop logits (B, M*r + r), the alignments) float32, the residuals)."""
+    c1, h1, c2, h2, ctx, state, prev = carry
+    pre, m1_t, m2_t, gates = xs
+    dt = cfg.dtype
+    r1, r2, p2 = _prenet(W, prev, m1_t, m2_t, dt) if pre is None else pre
+    z1 = _dense(torch.cat([p2, ctx, h1], dim=-1), W['g1_w'], W['g1_b'], dt)
+    c1p, h1p, x1 = lstm_cell_fwd(z1, c1, h1, gates[0], gates[1], cfg.rates[0], cfg.rates[1])
+    z2 = _dense(torch.cat([x1, h2], dim=-1), W['g2_w'], W['g2_b'], dt)
+    c2p, h2p, x2 = lstm_cell_fwd(z2, c2, h2, gates[2], gates[3], cfg.rates[2], cfg.rates[3])
+    pq = _dense(x2, W['q_w'], None, dt)
+    pl, pl_b = _loc_pl(cfg, W, state)
+    align, new_state, align_r = attention_fwd(keys, pq, pl, pl_b, W['b_a'], W['v_a'], mask,
+                                              state, cfg.smoothing, cfg.cumulate)
+    ctx_new = torch.bmm(align_r[:, None, :], values)[:, 0].to(dt)
+    fs = _dense(torch.cat([x2, ctx_new], dim=-1), W['fs_w'], W['fs_b'], dt).float()
+    fr = W['f_w'].shape[0]
+    carry = (c1p, h1p, c2p, h2p, ctx_new, new_state, fs[:, fr - cfg.num_mels:fr])
+    residuals = dict(r1=r1, r2=r2, z1=z1, z2=z2, x1=x1, x2=x2, c1p=c1p, h1p=h1p, c2p=c2p,
+                     h2p=h2p, ctx=ctx_new, state=state, pq=pq)
+    return carry, (fs, align), residuals
+
+
+def _forward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, save: bool):
+    """The forward loop (`fused_decoder.py:388-416`). Returns ((frames (T, B, M*r), stops
+    (T, B, r), alignments (T, B, T_in)) float32, the residuals stacked over the steps by
+    name, or None without `save`)."""
+    dt = cfg.dtype
+    T, B = teacher.shape[0], teacher.shape[1]
+    T_in, dev = keys.shape[1], keys.device
+    zero = torch.zeros(B, cfg.units, device=dev, dtype=dt)
+    carry = (zero, zero, zero, zero, torch.zeros(B, values.shape[-1], device=dev, dtype=dt),
+             torch.zeros(B, T_in, device=dev), torch.zeros(B, cfg.num_mels, device=dev))
+    use = (use_teacher > 0).tolist()
+    m1, m2 = (m.to(dt) for m in masks)
+    # the prenet of every step that reads its teacher frame, at once
+    pre = _prenet(W, teacher, m1, m2, dt) if any(use) else None
+    gates = [None] * 4 if zo is None else [g.bool() for g in zo]
+    outs, aligns = [], []
+    res = collections.defaultdict(list)
+    for t in range(T):
+        xs = (tuple(p[t] for p in pre) if use[t] else None, m1[t], m2[t],
+              [None if g is None else g[t] for g in gates])
+        carry, (fs, align), r = _step_fwd(cfg, W, keys, values, mask, carry, xs)
+        outs.append(fs)
+        aligns.append(align)
+        if save:
+            for k, v in r.items():
+                res[k].append(v)
+    fs = torch.stack(outs)
+    fr = W['f_w'].shape[0]
+    out = (fs[..., :fr].contiguous(), fs[..., fr:].contiguous(), torch.stack(aligns))
+    return out, ({k: torch.stack(v) for k, v in res.items()} if save else None)
+
+
+def _shift1(x: Tensor) -> Tensor:
+    """x[t] -> x[t - 1] along axis 0, zeros at t = 0."""
+    return torch.cat([torch.zeros_like(x[:1]), x[:-1]])
+
+
+def _wgrad(dout: Tensor, inp: Tensor) -> Tensor:
+    """The weight gradient (out, in) float32 of a product over all steps: dout (T, B,
+    out), inp (T, B, in), one product over the T * B rows in float32 on their values."""
+    return (dout.reshape(-1, dout.shape[-1]).float().t()
+            @ inp.reshape(-1, inp.shape[-1]).float())
+
+
+def _backward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, frames,
+              aligns, R, g_frames, g_stops, g_aligns):
+    """The hand-written backward (`fused_decoder.py:468-640`). Returns ({short name: the
+    parameter's gradient, float32}, dkeys, dvalues, dteacher)."""
+    dt = cfg.dtype
+    T, B = teacher.shape[0], teacher.shape[1]
+    U, M = cfg.units, cfg.num_mels
+    T_in, D = keys.shape[1], keys.shape[2]
+    P2, M_enc = W['p2_w'].shape[0], values.shape[-1]
+    fr = W['f_w'].shape[0]
+    dev = keys.device
+    use_b = use_teacher > 0
+    use = use_b.tolist()
+    m1, m2 = (m.to(dt) for m in masks)
+    relu1, relu2 = m1 * (R['r1'] > 0), m2 * (R['r2'] > 0)  # the prenet's dropout-relu gates
+    gates = [None] * 4 if zo is None else [g.bool() for g in zo]
+    keep = [weak(1.0 - rate, dt) for rate in cfg.rates]  # JAX's expectation gates, as f32
+    # the frames' and stops' gradients side by side, and rounded to the dtype for their
+    # product; the fed-back frame's gradient added in place where a step read its own
+    dfs = torch.cat([g_frames, g_stops], dim=-1)
+    dfs_dt = dfs.to(dt)
+    zeros = lambda *s: torch.zeros(*s, device=dev)
+    acc = dict(dkeys=zeros(B, T_in, D), dva=zeros(B, D), dba=zeros(B, D),
+               dl=zeros(*W['l_w'].shape))
+    dc1, dh1, dc2, dh2 = (zeros(B, U) for _ in range(4))
+    dctx, dstate = zeros(B, M_enc), zeros(B, T_in)
+    dprev = None  # the gradient of the frame step t + 1 read back, where it did
+    zero_u = torch.zeros(B, U, device=dev, dtype=dt)
+    emits = collections.defaultdict(list)
+    for t in reversed(range(T)):
+        g_t = [None if g is None else g[t] for g in gates]
+        if dprev is not None:
+            dfs[t, :, fr - M:fr] += dprev
+            if dfs_dt is not dfs:
+                dfs_dt[t] = dfs[t]
+        dproj = dfs_dt[t] @ W['fs_w']                                    # (B, U + M_enc)
+        dctx_total = (dproj[:, U:].float() + dctx).to(dt)
+        dalign = torch.bmm(values, dctx_total.float()[:, :, None])[..., 0]
+        # the new state's gradient reaches the alignments whether or not they cumulate
+        # (where they do not, the JAX package's `_bwd_rule` drops it: `:512-514`)
+        dpq, dstate_c, df = _att_bwd(cfg, W, keys, mask, R['pq'][t], R['state'][t], dalign,
+                                     g_aligns[t], dstate, acc)
+        dstate = dstate + dstate_c if cfg.cumulate else dstate_c
+        dz2, dc2, bypass2 = lstm_cell_bwd(R['z2'][t], R['c2p'][t - 1] if t else zero_u,
+                                          dproj[:, :U], dpq @ W['q_w'], dh2, dc2, g_t[2],
+                                          g_t[3], keep[2], keep[3])
+        din2 = dz2 @ W['g2_w']                                           # (B, U + U)
+        dh2 = din2[:, U:] + bypass2
+        dz1, dc1, bypass1 = lstm_cell_bwd(R['z1'][t], R['c1p'][t - 1] if t else zero_u,
+                                          din2[:, :U], None, dh1, dc1, g_t[0], g_t[1],
+                                          keep[0], keep[1])
+        din1 = dz1 @ W['g1_w']                                           # (B, P2 + M_enc + U)
+        dctx = din1[:, P2:P2 + M_enc].float()
+        dh1 = din1[:, P2 + M_enc:] + bypass1
+        dp2 = din1[:, :P2]
+        # the prenet's backward: in the loop where the step read its own last frame (its
+        # gradient goes on to step t - 1), after it for the steps that read their teacher
+        # frame (`fused_decoder.py:541-547`)
+        dprev = None if use[t] else ((dp2 * relu2[t]) @ W['p2_w'] * relu1[t]) @ W['p1_w']
+        for k, v in (('dz1', dz1), ('dz2', dz2), ('dpq', dpq), ('dp2', dp2),
+                     ('dctx_total', dctx_total), ('df', df)):
+            emits[k].append(v)
+    E = {k: torch.stack(v[::-1]) for k, v in emits.items()}
+    E['dp2pre'] = E['dp2'] * relu2
+    E['dp1pre'] = (E['dp2pre'] @ W['p2_w']) * relu1
+    ddec = E['dp1pre'] @ W['p1_w']                                       # (T, B, M)
+
+    # the deferred weight gradients: one product each over the T * B rows
+    in1 = torch.cat([R['r2'] * m2, _shift1(R['ctx']), _shift1(R['h1p'])], dim=-1)
+    in2 = torch.cat([R['x1'], _shift1(R['h2p'])], dim=-1)
+    proj = torch.cat([R['x2'], R['ctx']], dim=-1)
+    dec_in = torch.where(use_b[:, None, None], teacher, _shift1(frames[..., -M:]))
+    dfs_w, dfs_b = _wgrad(dfs_dt, proj), dfs.sum((0, 1))
+    states = R['state'].to(dt).reshape(T * B, T_in)
+    dfeat = E['df'].reshape(T * B, T_in, -1)
+    K = W['loc_w'].shape[-1]
+    g = dict(p1_w=_wgrad(E['dp1pre'], dec_in.to(dt)), p1_b=E['dp1pre'].float().sum((0, 1)),
+             p2_w=_wgrad(E['dp2pre'], R['r1'] * m1), p2_b=E['dp2pre'].float().sum((0, 1)),
+             g1_w=_wgrad(E['dz1'], in1), g1_b=E['dz1'].float().sum((0, 1)),
+             g2_w=_wgrad(E['dz2'], in2), g2_b=E['dz2'].float().sum((0, 1)),
+             q_w=_wgrad(E['dpq'], R['x2']),
+             loc_w=(_loc_acc_finalize(K, _loc_acc(states, dfeat)) if 'loc_n' in W
+                    else _loc_kernel_grad(K, states, dfeat)),
+             loc_b=dfeat.float().sum((0, 1)), l_w=acc['dl'],
+             v_a=acc['dva'].sum(0, keepdim=True), b_a=acc['dba'].sum(0),
+             f_w=dfs_w[:fr], f_b=dfs_b[:fr], s_w=dfs_w[fr:], s_b=dfs_b[fr:])
+    dvalues = torch.bmm(aligns.to(dt).float().permute(1, 2, 0),
+                        E['dctx_total'].float().transpose(0, 1))
+    dteacher = torch.where(use_b[:, None, None], ddec.float(), torch.zeros((), device=dev))
+    return g, acc['dkeys'], dvalues, dteacher
+
+
+class FusedDecoderScan(torch.autograd.Function):
+    """The teacher-forced decoder with its hand-written backward (`_forward`, `_backward`):
+    `apply(cfg, cell, keys, values, mask, teacher, use_teacher, m1, m2, zc1, zh1, zc2, zh2,
+    *params)`, the keep-gates None for zoneout's expectation, params the cell's in PARAMS'
+    order. Returns (frames, stops, alignments)."""
+
+    @staticmethod
+    def forward(ctx, cfg, cell, keys, values, mask, teacher, use_teacher, m1, m2, zc1, zh1,
+                zc2, zh2, *params):
+        zo = None if zc1 is None else (zc1, zh1, zc2, zh2)
+        W = _weights(cfg, cell, params, keys.shape[0], keys.shape[1])
+        (frames, stops, aligns), R = _forward(cfg, W, keys, values, mask, teacher,
+                                              use_teacher, (m1, m2), zo, save=True)
+        ctx.cfg, ctx.W, ctx.R, ctx.has_zo = cfg, W, R, zo is not None
+        ctx.save_for_backward(keys, values, mask, teacher, use_teacher, m1, m2, *(zo or ()),
+                              frames, aligns, *params)
+        return frames, stops, aligns
+
+    @staticmethod
+    def backward(ctx, g_frames, g_stops, g_aligns):
+        saved = list(ctx.saved_tensors)
+        keys, values, mask, teacher, use_teacher, m1, m2 = saved[:7]
+        n_zo = 4 if ctx.has_zo else 0
+        zo = saved[7:7 + n_zo] or None
+        frames, aligns = saved[7 + n_zo:9 + n_zo]
+        params = saved[9 + n_zo:]
+        g, dkeys, dvalues, dteacher = _backward(
+            ctx.cfg, ctx.W, keys, values, mask, teacher, use_teacher, (m1, m2), zo, frames,
+            aligns, ctx.R, g_frames.float(), g_stops.float(), g_aligns.float().contiguous())
+        ctx.R = ctx.W = None
+        dparams = [g[k].to(p.dtype) for (k, _), p in zip(PARAMS, params, strict=True)]
+        return (None, None, dkeys.to(keys.dtype), dvalues.to(values.dtype), None, dteacher,
+                None, None, None, None, None, None, None, *dparams)
+
+
+def fused_decoder_scan(cell, keys: Tensor, values: Tensor, mask: Optional[Tensor],
+                       teacher: Tensor, use_teacher: Tensor, masks: Sequence[Tensor],
+                       zo: Optional[Sequence[Tensor]], dtype: torch.dtype = torch.float32
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The teacher-forced decoder of the model's DecoderCell `cell` (2 prenet layers, 2
+    LSTMs) over T steps, with the arguments and outputs of `fused_decoder.decoder_scan`
+    (masks: the two prenet layers' (T, B, units) dropout masks scaled by 1/keep; zo: None
+    or the four (T, B, U) bool keep-gates c1, h1, c2, h2), differentiable through
+    `FusedDecoderScan` where a gradient is to be taken, else the forward alone, which keeps
+    no residuals."""
+    cfg = _config(cell, dtype)
+    params = [cell.get_parameter(name) for _, name in PARAMS]
+    keys, values = keys.to(dtype), values.float()
+    zo = [None] * 4 if zo is None else list(zo)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (keys, values, teacher, *params)):
+        return FusedDecoderScan.apply(cfg, cell, keys, values, mask, teacher, use_teacher,
+                                      *masks, *zo, *params)
+    with torch.no_grad():
+        W = _weights(cfg, cell, params, keys.shape[0], keys.shape[1])
+        return _forward(cfg, W, keys, values, mask, teacher, use_teacher, masks,
+                        None if zo[0] is None else zo, save=False)[0]

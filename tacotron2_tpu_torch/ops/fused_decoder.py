@@ -9,13 +9,16 @@ expectation, steps run in chunks of `chunk`, and decoding stops before a chunk o
 every sequence's stop token has fired. Stop logits of unvisited steps read 1e3
 ("already stopped").
 
-`decoder_scan` is the teacher-forced decoder of training, evaluation and GTA: the
-contract of the JAX `decoder_scan` (`fused_decoder.py:424-443`) with its forward
-(`_step_fwd`, `_forward`). Its backward is autograd over the step loop; the JAX
-package's hand-written VJP (residuals saved, the weight gradients as a few large
-matmuls after the reverse loop) is not ported. With `remat` each step is recomputed in
-the backward (`torch.utils.checkpoint`) instead of keeping its activations, as
-`remat_decoder` has `nn.remat` do to the JAX scan cell: less memory, the same values.
+`decoder_scan` is the teacher-forced decoder under autograd: the contract of the JAX
+`decoder_scan` (`fused_decoder.py:424-443`) with its forward (`_step_fwd`, `_forward`),
+at any prenet and LSTM depth. The model runs it where the JAX model runs its `nn.scan`
+decoder (fused_decoder off, or another depth than 2 prenet layers and 2 LSTMs); where
+the JAX model runs its fused decoder, the port runs `ops/decoder_vjp.fused_decoder_scan`,
+the JAX package's hand-written VJP (residuals saved, one reverse loop, the weight
+gradients as a few large matmuls after it) with the step's hand-written kernels. With
+`remat` each step is recomputed in the backward (`torch.utils.checkpoint`) instead of
+keeping its activations, as `remat_decoder` has `nn.remat` do to the JAX scan cell: less
+memory, the same values.
 
 In a reduced compute `dtype` the casting points are the JAX fused decoder's
 (`fused_decoder.py:500-562`): the LSTM states and the context carry in `dtype`, the

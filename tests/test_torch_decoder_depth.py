@@ -26,6 +26,7 @@ from tacotron2_tpu.training import tacotron_trainer as jtt
 from tacotron2_tpu_torch import convert
 from tacotron2_tpu_torch.models.tacotron.flax_names import flax_name, port_name
 from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+from tacotron2_tpu_torch.ops import decoder_vjp as dv
 from tacotron2_tpu_torch.ops import fused_decoder as tfd
 from tacotron2_tpu_torch.training import tacotron_trainer as tt
 
@@ -170,11 +171,15 @@ def test_remat_decoder_changes_no_gradient(case, monkeypatch):
     where the JAX package applies nn.remat: training on the non-fused path, at depth 3
     and at depth 2 with fused_decoder off. The loss and every gradient (Adam's first
     moment) are those of the run without it, bit for bit, with dropout and zoneout on;
-    at depth 2 with fused_decoder on, remat is not applied."""
+    at depth 2 with fused_decoder on, remat is not applied: the fused decoder with its
+    hand-written backward (`ops/decoder_vjp.fused_decoder_scan`) runs there, as the JAX
+    model's fused scan ignores remat, and `decoder_scan` does not."""
     seen = []
-    scan = tfd.decoder_scan
+    scan, fused = tfd.decoder_scan, dv.fused_decoder_scan
     monkeypatch.setattr(tfd, 'decoder_scan',
                         lambda *a, **kw: seen.append(kw['remat']) or scan(*a, **kw))
+    monkeypatch.setattr(dv, 'fused_decoder_scan',
+                        lambda *a, **kw: seen.append('fused') or fused(*a, **kw))
     runs = []
     for remat in (False, True):
         hp = make_hp(REMAT_CASES[case] + f',remat_decoder={remat}')
@@ -188,4 +193,4 @@ def test_remat_decoder_changes_no_gradient(case, monkeypatch):
     hp = make_hp(',remat_decoder=True')
     state = tt.create_train_state(hp, 'cpu', seed=2)
     tt.train_step(state, port_batch(make_batch(hp)), hp, torch.Generator().manual_seed(3))
-    assert seen[-1] is False
+    assert seen[2:] == ['fused']
