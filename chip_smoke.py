@@ -6,18 +6,20 @@
 Phases (one line each; any failure exits nonzero):
   1. torch, CUDA and the card (nvidia-smi name and power limit);
   2. build the hand-written kernels from tacotron2_tpu_torch/csrc (the probes' from
-     csrc/probes and the decoder step's from csrc/decoder into libraries of their own),
-     with the planted-fault copies;
+     csrc/probes, the decoder step's from csrc/decoder and the decoder forward loop's
+     from csrc/decoder_loop into libraries of their own), with the planted-fault copies:
+     the AR kernel's library first, the rest beside phase 3, all done before phase 4;
   3. the WaveNet AR kernel against its plain PyTorch version at the default width, on
      a WaveNet whose seeded random weights give params of order 1: the kernel runs
      free with its params, the plain version runs on the same CUDA tensors
      teacher-forced on the kernel's audio, and the params agree to max abs
-     KERNEL_TOL; at B=8 over CHECK_FRAMES (4) mel frames, at the batch path's shape
+     KERNEL_TOL; at B=8 over CHECK_FRAMES (10) mel frames, at the batch path's shape
      (B=2, 128 frames, 35,200 steps, through the real conditioning preparation and upsampler;
-     here the plain version, at 6 to 10 ms a step, follows the kernel over the first
-     PLAIN_STEPS (5,500) steps only, in the state-carried chunks of one served request,
-     SERVE_BOUNDS, and a second kernel launch over those steps, bit-identical to the
-     start of the first, is the one timed beside it), and at B=20 over CHECK_FRAMES (the
+     here the plain version, its step replayed as a CUDA graph at 1.1 to 2.3 ms, follows
+     the kernel over the first PLAIN_STEPS (8,800) steps only, in the state-carried
+     chunks of one served request, SERVE_BOUNDS, and a second kernel launch over those
+     steps, bit-identical to the start of the first, is the one timed beside it), and at
+     B=20 over CHECK_FRAMES (the
      default WaveNet batch, whose conditioning row stays f32); before that, five
      planted faults (packed weights as a kernel with one bug would read them) must
      each miss the plain version by more than KERNEL_TOL; the kernel forced onto every
@@ -63,8 +65,8 @@ Phases (one line each; any failure exits nonzero):
      MOL_KERNEL_TOL or samples beyond SAMPLE_TOL of the MoL draw from the kernel's own
      params); the kernel against the plain version as in phase 3 at the paper batch
      path's shape (B=2, 8,800 steps; the plain version over the first
-     PAPER_PLAIN_STEPS, 5,500, in the paper service's chunks, PAPER_SERVE_BOUNDS, a second
-     launch over those steps bit-identical to the first's start), its samples against the
+     PAPER_PLAIN_STEPS, all 8,800, in the paper service's chunks, PAPER_SERVE_BOUNDS, a
+     second launch over those steps bit-identical to the first), its samples against the
      draw from its own params, at most MAX_CLIPPED of them at +-1, with the mixtures
      chosen differently counted; the
      state carry as in phase 6 at the paper service's shape (B=1 over row 0 of that
@@ -177,8 +179,9 @@ Phases (one line each; any failure exits nonzero):
      With TACO_UTTERANCES / 2 utterances to train on and bucket_group_batches=64, the
      feeder's bucketing (the JAX one's) fills each batch of 32 with copies of one
      utterance. The trainer's steps, eval and in-process steps run the fused decoder
-     (`ops/decoder_vjp.py`): its four kernels' launches in the two trainer runs are
-     counted for TACO_PATH (phase 16 reads them).
+     (`ops/decoder_vjp.py`): its kernels' launches in the two trainer runs are counted
+     for TACO_PATH, those of the timed f32 steps for TACO_F32_TIMED_PATH (phase 16 reads
+     them).
  13. The Tacotron-2 pipeline at the default hparams and full width, through the port's
      entry points: PIPE_UTTERANCES wavs of 1-2 s made from a seed in the LJSpeech layout
      through `python -m tacotron2_tpu_torch.preprocess` (every row's audio exactly its
@@ -244,7 +247,7 @@ Phases (one line each; any failure exits nonzero):
      time-slice one card: nothing here is a scaling measurement.
  16. The fused Tacotron decoder with its hand-written backward (`ops/decoder_vjp.py`,
      `FusedDecoderScan`), which the Tacotron trainer, the pipeline's Tacotron phase and
-     GTA run at the default hparams. Each of its four kernels (csrc/decoder/
+     GTA run at the default hparams. Each of the step's four kernels (csrc/decoder/
      decoder_step.cu: lstm_cell_fwd, lstm_cell_bwd, attention_fwd, attention_bwd) against
      its plain PyTorch version on the same CUDA tensors at the trainer's widths
      (DECODER_WIDTHS: B=32, U=1,024, D=128, T_in=100), in f32 and bf16, the LSTM cell with
@@ -260,13 +263,29 @@ Phases (one line each; any failure exits nonzero):
      precast_fault) that must miss it; both decoders' ms a step, and the fused one's
      device busy time under torch.profiler. Phase 12's (f32) and phase 14's (bf16)
      timed steps at B=32 x TIMED_FRAMES and their StepMarks split beside the autograd
-     decoder loop's (AUTOGRAD_TIMED). Every kernel launched on a main path
-     (DECODER_PATHS), GTA running the forward ones.
+     decoder loop's (AUTOGRAD_TIMED) and the fused decoder's step loop's
+     (STEP_LOOP_TIMED), and phase 13's GTA seconds an utterance beside the step loop's.
+     The forward loop (csrc/decoder_loop/decoder_loop.cu, `decoder_fwd_loop`: all steps
+     of the bf16 teacher-forced forward
+     in one launch) against its plain version on the same CUDA tensors at the default
+     width over LOOP_STEPS (512) steps, B=32 with keep-gates, B=32 with zoneout's
+     expectation and a ragged mask, and B=1: the alignments, x2, the contexts and every
+     residual over the first LOOP_FIRST_STEPS steps and over all (LOOP_TOL), six planted
+     faults (LOOP_MUTANTS, built in phase 2) that must miss it, the launch without
+     residuals bit for bit the one with them; the B=32 launch's ms beside its plain
+     version's, the step loop's over the same steps and its bound; and
+     fused_decoder_scan in bf16 at teacher forcing 1 against autograd's, its forward
+     through the loop. Every kernel launched on a main path (ALL_DECODER_PATHS): on the
+     bf16 ones (BF16_DECODER_PATHS: the trainer and the pipeline's Tacotron phase)
+     decoder_fwd_loop and no lstm_cell_fwd or attention_fwd, on the f32 ones
+     (F32_DECODER_PATHS: GTA, whose model computes in f32 as the JAX synthesizer's does,
+     and phase 12's timed f32 steps) lstm_cell_fwd and attention_fwd and no loop.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
 """
 
+import atexit
 import collections
 import concurrent.futures
 import contextlib
@@ -277,6 +296,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -287,6 +307,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()  # the run's clock, which every phase line ends with
 # kernel vs plain version on weights whose params span about 1: on an H100 the two
 # differ by 2.0e-3 (B=8, 2,750 steps) and 2.3e-3 (B=2, 35,200 steps), where bf16
 # rounding of an activation flips with the f32 sum order; the planted faults miss by
@@ -305,19 +326,18 @@ SERVE_CHUNKS = [4352, 16512, 14336]  # streaming.py:115-117's rounding of 0.20 s
 # t_base are multiples of 128, so a dropped one shows only in the 512- and 1,024-slot
 # rings at 4,352 (and in the 256-slot rings too at 20,864)
 SERVE_BOUNDS = tuple(int(b) for b in np.cumsum(SERVE_CHUNKS))
-# how far the plain version follows phase 3's B=2 launch of 35,200 steps (20 of its 128
-# mel frames: the first served chunk and 1,148 steps of the second, which wrap the
-# largest ring, 1,024 slots, from the carried state): its 5 to 19 ms a step are host
-# time, which doubles from one machine to another, and the whole length would take 3
-# to 11 minutes of the run. Phase 8's follows the first PAPER_PLAIN_STEPS of its
-# launch's 8,800. Both were once 8,800, then 6,600: phase 14 needed the time, and the
-# whole run read 1,068-1,115 s of its 1,200 on an H100 80GB HBM3 at 700 W at 6,600
-PLAIN_STEPS = 5500
-PAPER_PLAIN_STEPS = 5500
-# phase 3's checks at B=8 and B=20: 1,100 steps, which wrap the largest ring (1,024
-# slots) once; 10 frames (2,750 steps) until the fused decoder's phase 16, when one
-# whole run read 1,210 s of its 1,200 on a slow host (943 s on another)
-CHECK_FRAMES = 4
+# how far the plain version follows phase 3's B=2 launch of 35,200 steps: the first
+# served chunk, whose state after it phase 6 reads, and 4,448 steps of the second from
+# the carried state, which wrap the largest ring (1,024 slots). Phase 8's follows all
+# PAPER_PLAIN_STEPS of its launch. Run eagerly, the plain version's 5 to 19 ms a step
+# were host time, and the spans were once cut to 4,608 steps to keep the run inside
+# its 1,200 s; its step replayed as a CUDA graph takes 1.1 to 2.3 ms, all device time
+# (H100 80GB HBM3, 700 W), and the spans are as they were before the cuts
+PLAIN_STEPS = 8800
+PAPER_PLAIN_STEPS = 8800
+# phase 3's checks at B=8 and B=20: 2,750 steps, which wrap the largest ring (1,024
+# slots) twice (4 frames, 1,100 steps, while the plain version ran eagerly)
+CHECK_FRAMES = 10
 FAULT_STEPS = 256  # steps of chunk 2 run from each planted state fault
 # the paper profile (phase 8)
 PAPER_MAX_ITERS = 32  # the paper entry points: 8,800 samples a sentence
@@ -482,7 +502,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 def phase(n, msg):
-    print(f'[{n}] {msg}', flush=True)
+    print(f'[{n}] {msg} [at {time.perf_counter() - T_START:.1f} s]', flush=True)
 
 
 def fail(msg):
@@ -1447,13 +1467,43 @@ def mutated_source(fault):
     return text.replace(old, new)
 
 
+class Builds:
+    """Phase 2's builds under way: `[fault]` waits for the library of that planted-fault
+    copy and returns it, loaded; `wait()` waits for every build, raising the first
+    failure, and returns the run's clock when the last one ended."""
+
+    def __init__(self, pool, libraries, mutants):
+        self._pool, self._libraries, self._mutants = pool, libraries, mutants
+        self.done_at = None
+
+    def __getitem__(self, fault):
+        return self._mutants[fault].result()[0]
+
+    def __len__(self):
+        return len(self._mutants)
+
+    def wait(self):
+        ends = [f.result() for f in self._libraries]
+        ends += [f.result()[1] for f in self._mutants.values()]
+        self._pool.shutdown()
+        self.done_at = max(ends)
+        return self.done_at
+
+
 def build_kernels(tmp):
-    """Phase 2: nvcc builds the port's library, the probes' library, the decoder step's
-    library and, beside them, one library for each of ALL_MUTANTS, CLUSTER_MUTANTS,
-    PROBE_MUTANTS and DECODER_MUTANTS from a changed copy of its source (an AR kernel's
-    copy with the instantiations of MUTANT_HEADS alone) under `tmp`, all at once (one nvcc
-    a library). Returns fault -> its loaded library."""
+    """Phase 2: nvcc builds the port's library first, alone, and loads it; then, in the
+    background, one nvcc a library and one fewer at a time than the host has cores, the
+    decoder step's library, the decoder forward loop's library, the probes' library and
+    one library for each of ALL_MUTANTS, CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS
+    and LOOP_MUTANTS from a changed copy of its source (an AR kernel's copy with the
+    instantiations of MUTANT_HEADS alone) under `tmp`, which must outlive the builds.
+    Phase 3 needs the first library alone and runs beside the others (its readings are
+    device times); the run waits for them all before phase 4, whose entry points are
+    timed on the host's clock. Returns the Builds."""
     from tacotron2_tpu_torch.ops import _build
+
+    def clock():
+        return time.perf_counter() - T_START
 
     def mutant(item):
         i, fault = item
@@ -1462,6 +1512,9 @@ def build_kernels(tmp):
             name, text = mutated_probe_source(fault)
         elif fault in DECODER_MUTANTS:
             name, text = 'decoder_step.cu', mutated_decoder_source(fault)
+            flags = _build.DECODER_FLAGS
+        elif fault in LOOP_MUTANTS:
+            name, text = 'decoder_loop.cu', mutated_loop_source(fault)
             flags = _build.DECODER_FLAGS
         else:
             name, text = 'wavenet_ar.cu', mutated_source(fault)
@@ -1472,17 +1525,25 @@ def build_kernels(tmp):
             f.write(text)
         lib = os.path.join(tmp, f'mutant{i}', 'libmutant.so')
         _build.compile_library([src], lib, defines, flags)
-        return fault, ctypes.CDLL(lib)
+        return ctypes.CDLL(lib), clock()
 
-    faults = (list(ALL_MUTANTS) + list(CLUSTER_MUTANTS) + list(PROBE_MUTANTS)
-              + list(DECODER_MUTANTS))
-    with concurrent.futures.ThreadPoolExecutor(3 + len(faults)) as pool:
-        builds = [pool.submit(_build.load_library), pool.submit(_build.load_probe_library),
-                  pool.submit(_build.load_decoder_library)]
-        mutants = dict(pool.map(mutant, enumerate(faults)))
-        for b in builds:
-            b.result()
-    return mutants
+    def library(load):
+        load()
+        return clock()
+
+    # the kernels' library alone (its nvcc splits the device code over every core; with
+    # the other builds beside it, it took as long as all of them together), then as many
+    # builds at a time as leave phase 3 a core, in the order the run needs them
+    _build.load_library()
+    pool = concurrent.futures.ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1))
+    libraries = [pool.submit(library, load) for load in (
+        _build.load_decoder_library, _build.load_decoder_loop_library)]
+    faults = list(CLUSTER_MUTANTS) + list(ALL_MUTANTS)
+    mutants = {fault: pool.submit(mutant, (i, fault)) for i, fault in enumerate(faults)}
+    libraries.append(pool.submit(library, _build.load_probe_library))
+    for fault in list(PROBE_MUTANTS) + list(DECODER_MUTANTS) + list(LOOP_MUTANTS):
+        mutants[fault] = pool.submit(mutant, (len(mutants), fault))
+    return Builds(pool, libraries, mutants)
 
 
 @contextlib.contextmanager
@@ -3182,7 +3243,9 @@ def tacotron_training():
             fail('the resumed Tacotron run did not write its checkpoint at step 8')
         synced = taco_synced_steps(state, dataset, hp)
         cpu = taco_cpu_vs_card(hp, batch)
+    reset_decoder_counts()
     timed = taco_timed_step(hp)
+    read_decoder_counts(TACO_F32_TIMED_PATH)
     return dict(sec_step=float(np.median(list(synced.values()))), peak_gib=gib,
                 losses=losses, loss7=loss7, logged7=logged7, cpu_vs_card=cpu, timed=timed)
 
@@ -3222,8 +3285,8 @@ PIPE_WAVENET_PATH = 'synthesize --model WaveNet --name'
 PIPE_TACOTRON2_PATH = 'synthesize --model Tacotron-2 --name'
 PIPE_PATHS = (PIPE_PATH, PIPE_WAVENET_PATH, PIPE_TACOTRON2_PATH)
 # the eval launch against the plain version over its first PIPE_EVAL_BOUNDS[-1] steps,
-# in state-carried chunks at odd ends (the plain version takes 5-19 ms a step of host
-# time): a cut of the launch's hp.max_time_steps = 11,000
+# in state-carried chunks at odd ends (run eagerly, the plain version took 5-19 ms a
+# step of host time): a cut of the launch's hp.max_time_steps = 11,000
 PIPE_EVAL_BOUNDS = (377, 731, 1100)
 # a WaveNet two steps from its initial weights gives params that span less than the
 # seeded weights' (about 1) that KERNEL_TOL was read on: the eval launch's params are
@@ -3638,8 +3701,9 @@ BF16_FAULTS = {'tacotron': 'the decoder\'s LSTM gate products left in f32',
 # held to the plain version in state-carried chunks (KERNEL_TOL): UPSAMPLER_FULL's over
 # its first UPSAMPLER_BOUNDS[-1] steps with the two planted state faults, the others'
 # over UPSAMPLER_SHORT_BOUNDS[-1] (each launch runs the same instantiation, and the
-# plain version's 6-11 ms a step of host time set phase 14's length: 63.8 s and 204.5 s
-# for four upsamplers over 1,100 steps each, in two runs on an H100 80GB HBM3 at 700 W);
+# plain version's 6-11 ms a step of host time, run eagerly, set phase 14's length: 63.8 s
+# and 204.5 s for four upsamplers over 1,100 steps each, in two runs on an H100 80GB HBM3
+# at 700 W);
 # the upsampler's output on the card to its CPU output
 UPSAMPLERS = {'NearestNeighbor': "upsample_type='NearestNeighbor'",
               '1D': "upsample_type='1D'",
@@ -4734,7 +4798,15 @@ DECODER_REPLACES = {
     'attention_bwd': 'tacotron2_tpu/ops/fused_decoder.py:275-301'}
 PIPE_TACO_PATH = 'train --model Tacotron-2 (Tacotron phase)'
 PIPE_GTA_PATH = 'train --model Tacotron-2 (GTA)'
+TACO_F32_TIMED_PATH = 'timed Tacotron train steps, float32 (phase 12)'
 DECODER_PATHS = (TACO_PATH, PIPE_TACO_PATH, PIPE_GTA_PATH)
+# the main paths whose decoder runs in bf16 (the trainers' compute dtype on the card), where
+# decoder_fwd_loop is their forward and lstm_cell_fwd and attention_fwd launch no more; and
+# those in f32, which keep the step loop: GTA (the synthesizer's model computes in float32,
+# as the JAX one's `Tacotron(hparams)` does) and phase 12's timed f32 steps
+BF16_DECODER_PATHS = (TACO_PATH, PIPE_TACO_PATH)
+F32_DECODER_PATHS = (PIPE_GTA_PATH, TACO_F32_TIMED_PATH)
+ALL_DECODER_PATHS = DECODER_PATHS + (TACO_F32_TIMED_PATH,)
 DECODER_WIDTHS = (32, 1024, 128, 100)  # B, U, D, T_in: the default trainer's, 100 characters
 # each kernel against its plain version on the same CUDA tensors: the largest error of
 # its outputs relative to the plain output's largest entry, a bound a kernel and dtype.
@@ -4778,6 +4850,11 @@ FUSED_FRAMES = 128  # fused_decoder_scan against autograd's decoder_scan: B=32 x
 # backward ms (StepMarks)
 AUTOGRAD_TIMED = {'float32': dict(sec_step=2.649, peak_gib=4.89, fwd=663.0, bwd=987.0),
               'bfloat16': dict(sec_step=3.551, peak_gib=4.52, fwd=863.0, bwd=1317.0)}
+# the same step with the fused decoder's step loop, lstm_cell_fwd and attention_fwd a step
+# (H100 80GB HBM3, 700 W), and its GTA seconds an utterance (phase 13)
+STEP_LOOP_TIMED = {'float32': dict(sec_step=2.048, peak_gib=4.64, fwd=260.7, bwd=384.0),
+              'bfloat16': dict(sec_step=2.153, peak_gib=3.27, fwd=268.5, bwd=415.9)}
+STEP_LOOP_GTA_S = 0.099
 F32_PEAK_OPS = 67e12  # f32 outside the tensor cores: the elementwise kernels' ops
 # the fused decoder against autograd's on the card, {dtype: (the outputs' max abs error,
 # the gradients' relative L2)}. f32, read 2.1e-7 to 3.3e-7 and 6.4e-7 to 7.0e-7 at
@@ -5054,38 +5131,276 @@ def fused_vs_autograd(ratio=0.5, dtype=torch.float32):
                 profiled_wall_ms=wall_ms, device_busy_ms=busy_ms)
 
 
-def timed_beside_autograd(timed):
+# --- phase 16: the decoder's forward recurrence as one persistent kernel -----------------
+
+LOOP_SOURCE = 'tacotron2_tpu_torch/csrc/decoder_loop/decoder_loop.cu'
+LOOP_REPLACES = ('tacotron2_tpu/ops/fused_decoder.py:122-127,356-364 (lstm_cell_fwd), '
+                 ':215-228,367-368 (attention_fwd), :341-416 (_step_fwd, _forward)')
+LOOP_STEPS = TIMED_FRAMES  # r = 1: the timed batch's 512 decoder steps
+# the error over the first steps (a planted state fault shows from step 2 on, where the
+# state first holds two alignments), and over all of them
+LOOP_FIRST_STEPS = 3
+# the kernel against its plain version on the same CUDA tensors, {span: bound}: the
+# largest error of the alignments, x2, the contexts and every residual, relative to the
+# plain tensor's largest entry over the span. Read on an H100 80GB HBM3 at 700 W: the
+# first three steps 1.2e-3 to 5.9e-3 (a gate that the two round from f32 sums in another
+# order lands one bf16 step apart: 2**-8 of the value), all 512 steps 1.7e-2 to 2.4e-2
+# (two bf16 recurrences that round a few sums apart drift apart over the steps); the
+# planted faults 0.34 to 0.72 over the first steps (the saved state's 0.50 there alone),
+# 0.83 to 1.14 over all. The bounds sit 1.7x and 2.1x above the sound readings
+LOOP_TOL = {'first': 1e-2, 'all': 5e-2}
+# (B, keep-gates, a ragged mask) of each check: the trainer's batch with training's
+# keep-gates, then with zoneout's expectation and 50 to 100 input steps; one row
+LOOP_CASES = {'B=32, keep-gates': (32, True, False),
+              'B=32, expectation, ragged mask': (32, False, True),
+              'B=1, expectation': (1, False, False)}
+# planted faults: each a build of a copy of csrc/decoder_loop/decoder_loop.cu with one line
+# changed, built in phase 2, {fault: (the line, its change)}; each must miss LOOP_TOL
+LOOP_MUTANTS = {
+    'the forget bias dropped': ('const float sf = sig(rd(z[2] + 1.0f));',
+                                'const float sf = sig(z[2]);'),
+    'h1\'s keep-gate ignored': ('const uint8_t* keep_h1 = a.keep[1];',
+                                'const uint8_t* keep_h1 = nullptr;'),
+    'pl_b not added': ('const float pl = rd(acc[n][2 * h + e]) + a.pl_b[dd];',
+                       'const float pl = rd(acc[n][2 * h + e]);'),
+    'the mask ignored': ('if (a.mask && !(a.mask[(size_t)tid * T_in + j] > 0.0f)) e = NEG_INF;',
+                         ';'),
+    'the state not cumulated': ('const float nw = a.cumulate ? al + old : al;',
+                                'const float nw = al;'),
+    'the saved state written after its update': ('if (a.state) a.state[o] = old;',
+                                                 'if (a.state) a.state[o] = nw;')}
+LOOP_NAMES = ('aligns', 'x2', 'ctx', 'z1', 'z2', 'x1', 'c1p', 'h1p', 'c2p', 'h2p', 'state', 'pq')
+
+
+def mutated_loop_source(fault):
+    """The text of csrc/decoder_loop/decoder_loop.cu with LOOP_MUTANTS[fault]'s change."""
+    from tacotron2_tpu_torch.ops import _build
+
+    old, new = LOOP_MUTANTS[fault]
+    with open(os.path.join(_build.DECODER_LOOP_DIR, 'decoder_loop.cu'), encoding='utf-8') as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times in '
+                         'csrc/decoder_loop/decoder_loop.cu: bring LOOP_MUTANTS up to date')
+    return text.replace(old, new)
+
+
+def loop_case(model, hp, B, gates, ragged):
+    """The forward loop's inputs at the default width, B rows x LOOP_STEPS steps and
+    TIMED_CHARS characters in bf16: keys, values and mask from the model's encoder on a
+    seeded batch (with `ragged`, 50 to 100 characters), the prenet's output on its
+    teacher frames with the model's dropout masks, training's keep-gates (0.9) where
+    `gates`, else zoneout's expectation. Returns the arguments of decoder_fwd_loop and of
+    the whole forward (`_forward`, `_step_loop`)."""
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
+    bf, T, T_in = torch.bfloat16, LOOP_STEPS, TIMED_CHARS
+    cell = model.decoder
+    cfg = dv._config(cell, bf)
+    W = dv._weights(cfg, cell, [cell.get_parameter(n) for _, n in dv.PARAMS], B, T_in)
+    batch = taco_timed_batch(hp, B, T, T_in)
+    lengths = (torch.linspace(T_in // 2, T_in, B, device='cuda').long() if ragged
+               else batch['input_lengths'])
+    gen = torch.Generator('cuda').manual_seed(18 + B)
+    noise = model.draw_noise(B, T_in, T, gen, not gates, 'cuda')
+    with torch.no_grad():
+        keys, values, mask = model._encode(batch['inputs'], lengths, dtype=bf)
+    mel = batch['mel_targets']
+    teacher = torch.cat([torch.zeros_like(mel[:, :1]), mel[:, :-1]], 1).transpose(0, 1)
+    masks = [noise['m1'], noise['m2']]
+    zo = noise['zo'] if gates else None
+    keys, values = keys.to(bf).contiguous(), values.float().contiguous()
+    mask = None if mask is None else mask.float().contiguous()
+    p2 = dv._prenet(W, teacher, *(m.to(bf) for m in masks), bf)[2]
+    gate_list = [None] * 4 if zo is None else [g.bool() for g in zo]
+    return dict(loop=(cfg, W, keys, values, mask, p2, gate_list),
+                forward=(cfg, W, keys, values, mask, teacher, torch.ones(T, device='cuda'),
+                         masks, zo))
+
+
+def _span_errs(got, want, steps):
+    """{name: the largest error over the first `steps` steps relative to the plain
+    tensor's largest entry there}."""
+    out = {}
+    for name in LOOP_NAMES:
+        g, w = got[name][:steps].double(), want[name][:steps].double()
+        out[name] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    return out
+
+
+def _loop_outputs(result):
+    aligns, x2, ctx, R = result
+    return dict(R, aligns=aligns, x2=x2, ctx=ctx)
+
+
+def loop_bound(B, T, T_in, save=True, gates=True):
+    """(ms, 'bytes' or 'operations') of the least time an H100 takes for the forward loop
+    of B rows over T steps at LOOP_WIDTHS: its products' operations over the bf16 tensor
+    cores' peak (decoder_loop.cu's note), or its bytes (each input read once: p2, keys,
+    values, the mask, the weights, loc_n and, with `gates`, the keep-gates; each output
+    written once: the alignments, x2, the contexts and, with `save`, the residuals) over
+    the HBM rate."""
+    from tacotron2_tpu_torch import probes
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
+    U, n_p, E, D = dv.LOOP_WIDTHS
+    ops = 2 * T * (B * (n_p + E + U + 2 * U) * 4 * U + B * U * D + B * T_in * T_in * D
+                   + B * T_in * E)
+    weights = (2 * (4 * U * (n_p + E + U) + 4 * U * 2 * U + 8 * U + D * U + T_in * T_in * D)
+               + 12 * D)
+    inputs = (2 * T * B * n_p + 2 * B * T_in * D + 4 * B * T_in * E + 4 * B * T_in + weights
+              + (4 * T * B * U if gates else 0))
+    outputs = T * B * (4 * T_in + 2 * U + 2 * E)
+    if save:
+        outputs += T * B * (2 * 8 * U + 2 * 5 * U + 4 * T_in + 2 * D)
+    return probes.bound_ms(inputs + outputs, flops_bf16=ops)
+
+
+def loop_kernel_checks(loop_mutants):
+    """decoder_fwd_loop against its plain version on the same CUDA tensors at the default
+    width over LOOP_STEPS steps, each of LOOP_CASES: the alignments, x2, the contexts and
+    every residual, over the first LOOP_FIRST_STEPS steps and over all of them, within
+    LOOP_TOL; each of LOOP_MUTANTS (`loop_mutants`: fault -> its library) must miss it in
+    one span of one case. At B=1 the launch without residuals must give the launch's
+    outputs bit for bit. Then the B=32 launch timed (CUDA events, the median of 3), its
+    plain version, the step loop (`_step_loop`: lstm_cell_fwd, attention_fwd and the
+    library products, the prenet and the projections included) and the kernel's whole
+    forward (`_forward`, the same) over the same steps. Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    model = tt.create_train_state(hp, 'cuda', seed=15).model
+    # the location conv's bias starts at 0; a trained one's is not, and pl_b carries it
+    bias = model.decoder.attention.location_convolution.bias
+    with torch.no_grad():
+        bias.copy_(torch.randn(bias.shape, device='cuda',
+                               generator=torch.Generator('cuda').manual_seed(15)) * 0.5)
+    readings, seen = {}, dict.fromkeys(LOOP_MUTANTS, 0.0)
+    launches0 = dv.LAUNCHES['decoder_fwd_loop']
+    for what, (B, gates, ragged) in LOOP_CASES.items():
+        case = loop_case(model, hp, B, gates, ragged)
+        with torch.no_grad():
+            want = _loop_outputs(dv._decoder_fwd_loop_plain(*case['loop'], True))
+            got = _loop_outputs(dv.decoder_fwd_loop(*case['loop'], True))
+            torch.cuda.synchronize()
+            spans = {'first': _span_errs(got, want, LOOP_FIRST_STEPS),
+                     'all': _span_errs(got, want, LOOP_STEPS)}
+            r = dict(first=max(spans['first'].values()), all=max(spans['all'].values()),
+                     worst_first=max(spans['first'], key=spans['first'].get),
+                     worst_all=max(spans['all'], key=spans['all'].get),
+                     max_abs_err=max(float((got[n].double() - want[n].double()).abs().max())
+                                     for n in LOOP_NAMES), by_tensor=spans['all'])
+            if B == 1:
+                lean = dv.decoder_fwd_loop(*case['loop'], False)
+                r['without_residuals_bit_identical'] = all(
+                    torch.equal(a, got[n]) for a, n in zip(lean[:3], ('aligns', 'x2', 'ctx')))
+                if not r['without_residuals_bit_identical']:
+                    fail('the forward loop without residuals differs from the launch with them')
+            for fault, lib in loop_mutants.items():
+                with _patched(dv, 'loop_library', lambda lib=lib: lib):
+                    bad = _loop_outputs(dv.decoder_fwd_loop(*case['loop'], True))
+                e = max(max(_span_errs(bad, want, LOOP_FIRST_STEPS).values()) / LOOP_TOL['first'],
+                        max(_span_errs(bad, want, LOOP_STEPS).values()) / LOOP_TOL['all'])
+                seen[fault] = max(seen[fault], e)
+            if B == 32 and gates:
+                args = case['loop']
+                ms = sorted(cuda_ms(lambda: dv.decoder_fwd_loop(*args, True))[1]
+                            for _ in range(3))[1]
+                plain_ms = cuda_ms(lambda: dv._decoder_fwd_loop_plain(*args, True))[1]
+                step_loop_ms = sorted(cuda_ms(lambda: dv._step_loop(*case['forward'], True))[1]
+                                      for _ in range(2))[0]
+                forward_ms = sorted(cuda_ms(lambda: dv._forward(*case['forward'], True))[1]
+                                    for _ in range(3))[1]
+                bound_ms, bound_by = loop_bound(B, LOOP_STEPS, TIMED_CHARS)
+                r.update(ms=ms, plain_ms=plain_ms, step_loop_ms=step_loop_ms,
+                         forward_ms=forward_ms, bound_ms=bound_ms, bound_by=bound_by)
+            if B == 1:
+                args = case['loop']
+                r['ms_without_residuals'] = sorted(
+                    cuda_ms(lambda: dv.decoder_fwd_loop(*args, False))[1] for _ in range(3))[1]
+                r['bound_ms'], r['bound_by'] = loop_bound(B, LOOP_STEPS, TIMED_CHARS, False,
+                                                          gates)
+        readings[what] = r
+        phase(16, f'decoder_fwd_loop {what}, {LOOP_STEPS} steps, T_in={TIMED_CHARS} '
+                  f'(bf16): kernel vs plain, relative to the plain tensor\'s largest entry, '
+                  f'first {LOOP_FIRST_STEPS} steps {r["first"]:.2e} ({r["worst_first"]}; tol '
+                  f'{LOOP_TOL["first"]}), all steps {r["all"]:.2e} ({r["worst_all"]}; tol '
+                  f'{LOOP_TOL["all"]}); max abs {r["max_abs_err"]:.2e}; by tensor over all '
+                  'steps: ' + ', '.join(f'{n} {v:.1e}' for n, v in spans['all'].items())
+                  + ('' if 'ms' not in r else
+                     f'; the launch {r["ms"]:.2f} ms ({1e3 * r["ms"] / LOOP_STEPS:.1f} us a '
+                     f'step), its plain version {r["plain_ms"]:.1f} ms, the step loop '
+                     f'(lstm_cell_fwd, attention_fwd, cuBLAS; the prenet and projections '
+                     f'in) {r["step_loop_ms"]:.1f} ms, the kernel\'s whole forward (the same) '
+                     f'{r["forward_ms"]:.2f} ms; bound {r["bound_ms"]:.3f} ms by '
+                     f'{r["bound_by"]}')
+                  + ('' if 'ms_without_residuals' not in r else
+                     f'; the launch without residuals {r["ms_without_residuals"]:.2f} ms '
+                     f'({1e3 * r["ms_without_residuals"] / LOOP_STEPS:.1f} us a step), bit '
+                     f'for bit the outputs of the one with them; bound {r["bound_ms"]:.3f} ms '
+                     f'by {r["bound_by"]}'))
+        if not (r['first'] <= LOOP_TOL['first'] and r['all'] <= LOOP_TOL['all']):
+            fail(f'the decoder_fwd_loop kernel disagrees with its plain version ({what})')
+    phase(16, 'decoder_fwd_loop planted faults, the largest of their errors over a bound '
+              '(each must exceed 1): ' + '; '.join(f'{f} {v:.2f}' for f, v in seen.items()))
+    for fault, v in seen.items():
+        if not v > 1:
+            fail(f'the decoder_fwd_loop check does not see its planted fault ({fault})')
+    return dict(cases=readings, faults=seen,
+                check_launches=dv.LAUNCHES['decoder_fwd_loop'] - launches0)
+
+
+def timed_beside_autograd(timed, gta_s):
     """Phase 12's (f32) and phase 14's (bf16) timed steps at B=32 x TIMED_FRAMES beside
-    the autograd decoder loop's; the step's parts must still tile it (step_segments
+    the autograd decoder loop's and the step loop's, and phase 13's GTA seconds an
+    utterance beside the step loop's; the step's parts must still tile it (step_segments
     raised otherwise)."""
     for key, t in timed.items():
-        was = AUTOGRAD_TIMED[key]
+        was, loop = AUTOGRAD_TIMED[key], STEP_LOOP_TIMED[key]
         phase(16, f'timed step {key}, B=32 x {TIMED_FRAMES} frames: {t["sec_step"]:.3f} '
                   f'sec/step ({t["sec_step_range"][0]:.3f}-{t["sec_step_range"][1]:.3f}; autograd '
-                  f'{was["sec_step"]}), peak {t["peak_gib"]:.2f} GiB (autograd {was["peak_gib"]}); '
-                  f'the decoder forward {t["parts"]["fwd: decoder"]:.1f} ms (autograd '
-                  f'{was["fwd"]}), backward {t["parts"]["bwd: decoder"]:.1f} ms (autograd '
-                  f'{was["bwd"]}), {t["decoder_bwd_share"]:.0%} of the backward; the step '
-                  f'{t["step_ms"]:.1f} ms by its parts, which tile it')
+                  f'{was["sec_step"]}, step loop {loop["sec_step"]}), peak {t["peak_gib"]:.2f} '
+                  f'GiB (autograd {was["peak_gib"]}, step loop {loop["peak_gib"]}); the decoder '
+                  f'forward {t["parts"]["fwd: decoder"]:.1f} ms (autograd {was["fwd"]}, step '
+                  f'loop {loop["fwd"]}), backward {t["parts"]["bwd: decoder"]:.1f} ms (autograd '
+                  f'{was["bwd"]}, step loop {loop["bwd"]}), {t["decoder_bwd_share"]:.0%} of the '
+                  f'backward; the step {t["step_ms"]:.1f} ms by its parts, which tile it')
+    phase(16, f'GTA (phase 13, f32, B=1): {gta_s:.3f} s an utterance (the step loop '
+              f'{STEP_LOOP_GTA_S})')
 
 
-def decoder_slice(decoder_mutants, timed):
+def decoder_slice(mutants, timed, gta_s):
     """Phase 16 (see the module docstring). Returns the readings."""
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
     t0 = time.perf_counter()
-    kernels = decoder_kernel_checks(decoder_mutants)
+    kernels = decoder_kernel_checks({f: mutants[f] for f in DECODER_MUTANTS})
+    loop = loop_kernel_checks({f: mutants[f] for f in LOOP_MUTANTS})
     fused = {f'float32 {ratio}': fused_vs_autograd(ratio) for ratio in (1.0, 0.5)}
+    before = dv.LAUNCHES['decoder_fwd_loop']
+    fused['bfloat16 1.0'] = fused_vs_autograd(1.0, torch.bfloat16)
+    if dv.LAUNCHES['decoder_fwd_loop'] == before:
+        fail('the fused decoder in bf16 at teacher forcing 1 did not run decoder_fwd_loop')
     fused['bfloat16 0.5'] = fused_vs_autograd(0.5, torch.bfloat16)
-    timed_beside_autograd(timed)
-    launches = {p: dict(DECODER_LAUNCHES_BY_PATH[p]) for p in DECODER_PATHS}
+    timed_beside_autograd(timed, gta_s)
+    launches = {p: dict(DECODER_LAUNCHES_BY_PATH[p]) for p in ALL_DECODER_PATHS}
     phase(16, f'decoder kernel launches on the main paths: {launches}; phase 16 took '
               f'{time.perf_counter() - t0:.1f} s')
-    for name in kernels:
-        if not sum(DECODER_LAUNCHES_BY_PATH[p][name] for p in DECODER_PATHS):
+    for name in dv.KERNELS:
+        if not sum(DECODER_LAUNCHES_BY_PATH[p][name] for p in ALL_DECODER_PATHS):
             fail(f'no main path launched the {name} kernel')
-    if not all(DECODER_LAUNCHES_BY_PATH[PIPE_GTA_PATH][k] for k in ('lstm_cell_fwd',
-                                                                      'attention_fwd')):
-        fail('GTA did not run the fused decoder\'s forward kernels')
-    return dict(kernels=kernels, fused=fused, launches=launches)
+    for p in BF16_DECODER_PATHS:
+        by = DECODER_LAUNCHES_BY_PATH[p]
+        if not by['decoder_fwd_loop'] or by['lstm_cell_fwd'] or by['attention_fwd']:
+            fail(f'{p} (bf16) did not run its forward through decoder_fwd_loop alone')
+    for p in F32_DECODER_PATHS:
+        by = DECODER_LAUNCHES_BY_PATH[p]
+        if not (by['lstm_cell_fwd'] and by['attention_fwd']) or by['decoder_fwd_loop']:
+            fail(f'{p} (f32) did not run the step loop\'s forward kernels')
+    return dict(kernels=kernels, loop=loop, fused=fused, launches=launches)
 
 
 def decoder_entries(decoder):
@@ -5093,13 +5408,14 @@ def decoder_entries(decoder):
     paths' runs (phases 12 and 13), the rest from phase 16 in bf16 (the trainers' compute
     dtype on the card), the f32 readings beside them."""
     out = []
+    by = decoder['launches']
     for name in ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd'):
-        k, by = decoder['kernels'][name], decoder['launches']
+        k = decoder['kernels'][name]
         bf, f = k['bfloat16'], k['float32']
         out.append(dict(
             name=name, route='cuda', source=DECODER_SOURCE, replaces=DECODER_REPLACES[name],
-            launches=sum(by[p].get(name, 0) for p in DECODER_PATHS),
-            launches_by_path={p: by[p].get(name, 0) for p in DECODER_PATHS},
+            launches=sum(by[p].get(name, 0) for p in ALL_DECODER_PATHS),
+            launches_by_path={p: by[p].get(name, 0) for p in ALL_DECODER_PATHS},
             max_abs_err=max(bf['max_abs_err'], f['max_abs_err']), ms=bf['ms'],
             plain_ms=bf['plain_ms'], bound_ms=bf['bound_ms'], bound_by=bf['bound_by'],
             library_ms=None, dtype='bfloat16', widths=dict(zip(('B', 'U', 'D', 'T_in'),
@@ -5107,11 +5423,29 @@ def decoder_entries(decoder):
             rel_err=bf['rel_err'], tol=bf['tol'], fault_rel_err=bf['faults'],
             f32_ms=f['ms'], f32_plain_ms=f['plain_ms'], f32_bound_ms=f['bound_ms'],
             f32_rel_err=f['rel_err'], f32_tol=f['tol'], f32_fault_rel_err=f['faults']))
+    # the forward loop: ms the B=32 x LOOP_STEPS launch with residuals (the train step's),
+    # plain_ms its plain version, step_loop_ms the step loop over the same steps
+    loop = decoder['loop']['cases']
+    b32, b1 = loop['B=32, keep-gates'], loop['B=1, expectation']
+    out.append(dict(
+        name='decoder_fwd_loop', route='cuda', source=LOOP_SOURCE, replaces=LOOP_REPLACES,
+        launches=sum(by[p].get('decoder_fwd_loop', 0) for p in ALL_DECODER_PATHS),
+        launches_by_path={p: by[p].get('decoder_fwd_loop', 0) for p in ALL_DECODER_PATHS},
+        check_launches=decoder['loop']['check_launches'],
+        max_abs_err=max(r['max_abs_err'] for r in loop.values()), ms=b32['ms'],
+        plain_ms=b32['plain_ms'], step_loop_ms=b32['step_loop_ms'],
+        forward_ms=b32['forward_ms'], bound_ms=b32['bound_ms'], bound_by=b32['bound_by'],
+        library_ms=None, dtype='bfloat16', steps=LOOP_STEPS,
+        widths=dict(zip(('B', 'U', 'D', 'T_in'), DECODER_WIDTHS)),
+        rel_err={k: dict(first=r['first'], all=r['all']) for k, r in loop.items()},
+        tol=LOOP_TOL, fault_err_over_tol=decoder['loop']['faults'],
+        b1_ms_without_residuals=b1['ms_without_residuals'], b1_bound_ms=b1['bound_ms'],
+        b1_bound_by=b1['bound_by']))
     return out
 
 
 def main():
-    t_start = time.perf_counter()
+    t_start = T_START
     if not torch.cuda.is_available():
         fail('torch finds no CUDA device')
     from tacotron2_tpu_torch.config import default_hparams
@@ -5131,11 +5465,12 @@ def main():
              f'{torch.cuda.device_count()} device(s); nvidia-smi: {smi}')
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix='t2torch_mutants_') as tmp:
-        mutants = build_kernels(tmp)
-    phase(2, f'built and loaded the CUDA kernels and the probes\' kernels, and '
-             f'{len(mutants)} copies with one planted fault each, in '
-             f'{time.perf_counter() - t0:.1f} s')
+    tmp = tempfile.mkdtemp(prefix='t2torch_mutants_')
+    atexit.register(shutil.rmtree, tmp, True)
+    mutants = build_kernels(tmp)
+    phase(2, f'built and loaded the AR kernel\'s library in {time.perf_counter() - t0:.1f} s; '
+             f'the probes\', the decoder step\'s and the forward loop\'s libraries and '
+             f'{len(mutants)} copies with one planted fault each build beside phase 3')
     probe_modules = {'prng_probe': prng_probe, 'ar_critpath': ar_critpath,
                      'matmul_probe': matmul_probe, 'microbench': microbench}
     for module in probe_modules.values():
@@ -5161,6 +5496,11 @@ def main():
     kernel = kernel_vs_plain(weights, model, hp, MAIN_BATCH, frames, gen, SERVE_BOUNDS,
                              plain_steps=PLAIN_STEPS)
     wide = kernel_vs_plain(weights, model, hp, WAVENET_BATCH, CHECK_FRAMES, gen)
+    t_wait = time.perf_counter()
+    mutants.wait()
+    phase(2, f'every build done at {mutants.done_at:.1f} s of the run; phase 3 waited '
+             f'{time.perf_counter() - t_wait:.1f} s for them at its end')
+    shutil.rmtree(tmp, ignore_errors=True)
     check_tacotron(hp)
     launches_batch, batch_us = main_path(overrides, hp, wavenet_state)
     streamed = check_state_carry(weights, model, hp, gen, kernel)
@@ -5196,7 +5536,8 @@ def main():
     scale = scale_out(training['default']['losses'][0], TRAIN_DEFAULT_EXTRA)
     phase(15, f'the whole run {time.perf_counter() - t_start:.1f} s')
     decoder = decoder_slice(mutants, {'float32': taco['timed'],
-                                      'bfloat16': remaining['tacotron']['timed']})
+                                      'bfloat16': remaining['tacotron']['timed']},
+                            pipeline['gta_s_per_utterance'])
     phase(16, f'the whole run {time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']

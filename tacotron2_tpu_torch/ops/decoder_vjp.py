@@ -5,10 +5,17 @@ prenet layers, 2 LSTMs: `supports`).
 
 `fused_decoder_scan` takes the contract of `ops/fused_decoder.decoder_scan`. With a
 gradient to take it runs `FusedDecoderScan`, a `torch.autograd.Function`:
-  - forward (`_forward`, `_step_fwd`): one loop over the steps that saves what the JAX
-    forward saves (`:379-384`): r1, r2, z1, z2, x1, x2, the zoned c and h of both LSTMs,
-    the context and the previous alignment state, and the query projection; residuals in
-    the compute dtype, the state in float32;
+  - forward (`_forward`): the steps' recurrence, saving what the JAX forward saves
+    (`:379-384`): r1, r2, z1, z2, x1, x2, the zoned c and h of both LSTMs, the context and
+    the previous alignment state, and the query projection; residuals in the compute
+    dtype, the state in float32. Where `fwd_loop_applies` (bf16, the location conv
+    folded, every step on its teacher frame, LOOP_WIDTHS, at most LOOP_MAX_BATCH rows:
+    the trainers' forward and eval on the card at the default hparams) the prenet runs
+    once over the steps, `decoder_fwd_loop` runs all T steps' recurrence in one launch
+    and the frame and stop projection runs once over the T * B rows after it; elsewhere
+    (f32, GTA among it; the conv tier; scheduled sampling; other widths) `_step_loop`
+    runs a step at a time (`_step_fwd`). This is a dispatch on the configuration: each
+    side is whole where it runs;
   - backward (`_backward`): one reverse loop that carries only dh and dc of each LSTM,
     the context's gradient, the fed-back frame's and the alignment state's, and emits the
     gates' gradients dz1, dz2, dpq, the prenet's, the total context gradient and the
@@ -26,10 +33,13 @@ dtype; the mask, the coins, the dropout masks and the keep-gates get none.
 The step's elementwise stages and row reductions are four hand-written kernels for Hopper
 (`csrc/decoder/decoder_step.cu`, built into a library of their own by
 `_build.load_decoder_library`): `lstm_cell_fwd`, `lstm_cell_bwd`, `attention_fwd` and
-`attention_bwd`. Each wrapper launches its kernel on CUDA tensors (a failed build or
-launch raises; there is no fallback) and counts the launch in LAUNCHES; on CPU tensors it
-runs the kernel's plain PyTorch version beside it, which the CPU tests hold against the
-JAX package. The products stay library products, as JAX leaves them to XLA.
+`attention_bwd`; around them the products stay library products, as JAX leaves them to
+XLA. The forward loop is a fifth, persistent one (`csrc/decoder_loop/decoder_loop.cu`,
+`_build.load_decoder_loop_library`): `decoder_fwd_loop`, the step's products on the tensor
+cores, lstm_cell_fwd's and attention_fwd's math in the same launch. Each wrapper launches
+its kernel on CUDA tensors (a failed build or launch raises; there is no fallback) and
+counts the launch in LAUNCHES; on CPU tensors it runs the kernel's plain PyTorch version
+beside it, which the CPU tests hold against the JAX package.
 
 In a reduced compute dtype the casting points are the JAX fused decoder's, as
 `ops/fused_decoder.decoder_scan` keeps them (`models/precision.py`); a product whose
@@ -56,7 +66,8 @@ from . import fused_decoder as fd
 
 # launches of each hand-written kernel, counted by its wrapper where it launches it
 LAUNCHES: Dict[str, int] = collections.Counter()
-KERNELS = ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd')
+KERNELS = ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd',
+           'decoder_fwd_loop')
 
 # the cell's parameters in the Function's order, with the short names of `_weights`
 PARAMS = (('p1_w', 'prenet.layers.0.weight'), ('p1_b', 'prenet.layers.0.bias'),
@@ -132,7 +143,13 @@ def _library():
     return load_decoder_library()
 
 
+def _loop_library():
+    from ._build import load_decoder_loop_library
+    return load_decoder_loop_library()
+
+
 library = _library  # the build whose kernels launch (chip_smoke.py plants faulty ones)
+loop_library = _loop_library  # ... and the forward loop's
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
@@ -484,36 +501,53 @@ def _prenet(W, x: Tensor, m1: Tensor, m2: Tensor, dt: torch.dtype):
     return r1, r2, r2 * m2
 
 
+def _recurrence(cfg: Config, W, keys, values, mask, carry, p2, gates, lstm, attention):
+    """One step's recurrence from the prenet's output p2 (B, P) on (`fused_decoder.py:
+    355-380`): the two LSTM cells through `lstm` (lstm_cell_fwd or its plain version) with
+    the step's keep-gates `gates`, the query and location projections, the attention
+    through `attention` (attention_fwd or its plain version) and the context; carry (c1,
+    h1, c2, h2, ctx, state). Returns (the carry, the alignments float32, the step's
+    residuals but r1 and r2)."""
+    c1, h1, c2, h2, ctx, state = carry
+    dt = cfg.dtype
+    z1 = _dense(torch.cat([p2, ctx, h1], dim=-1), W['g1_w'], W['g1_b'], dt)
+    c1p, h1p, x1 = lstm(z1, c1, h1, gates[0], gates[1], cfg.rates[0], cfg.rates[1])
+    z2 = _dense(torch.cat([x1, h2], dim=-1), W['g2_w'], W['g2_b'], dt)
+    c2p, h2p, x2 = lstm(z2, c2, h2, gates[2], gates[3], cfg.rates[2], cfg.rates[3])
+    pq = _dense(x2, W['q_w'], None, dt)
+    pl, pl_b = _loc_pl(cfg, W, state)
+    align, new_state, align_r = attention(keys, pq, pl, pl_b, W['b_a'], W['v_a'], mask, state,
+                                          cfg.smoothing, cfg.cumulate)
+    ctx_new = torch.bmm(align_r[:, None, :], values)[:, 0].to(dt)
+    residuals = dict(z1=z1, z2=z2, x1=x1, x2=x2, c1p=c1p, h1p=h1p, c2p=c2p, h2p=h2p,
+                     ctx=ctx_new, state=state, pq=pq)
+    return (c1p, h1p, c2p, h2p, ctx_new, new_state), align, residuals
+
+
 def _step_fwd(cfg: Config, W, keys, values, mask, carry, xs):
     """One step (`fused_decoder.py:341-385`); `xs` holds the step's prenet (r1, r2, p2) where
-    it read its teacher frame (`_forward` runs those steps' prenets at once), else None,
+    it read its teacher frame (`_step_loop` runs those steps' prenets at once), else None,
     the step's dropout masks and its keep-gates. Returns (the carry, (the stacked frame
     and stop logits (B, M*r + r), the alignments) float32, the residuals)."""
-    c1, h1, c2, h2, ctx, state, prev = carry
+    *rec, prev = carry
     pre, m1_t, m2_t, gates = xs
     dt = cfg.dtype
     r1, r2, p2 = _prenet(W, prev, m1_t, m2_t, dt) if pre is None else pre
-    z1 = _dense(torch.cat([p2, ctx, h1], dim=-1), W['g1_w'], W['g1_b'], dt)
-    c1p, h1p, x1 = lstm_cell_fwd(z1, c1, h1, gates[0], gates[1], cfg.rates[0], cfg.rates[1])
-    z2 = _dense(torch.cat([x1, h2], dim=-1), W['g2_w'], W['g2_b'], dt)
-    c2p, h2p, x2 = lstm_cell_fwd(z2, c2, h2, gates[2], gates[3], cfg.rates[2], cfg.rates[3])
-    pq = _dense(x2, W['q_w'], None, dt)
-    pl, pl_b = _loc_pl(cfg, W, state)
-    align, new_state, align_r = attention_fwd(keys, pq, pl, pl_b, W['b_a'], W['v_a'], mask,
-                                              state, cfg.smoothing, cfg.cumulate)
-    ctx_new = torch.bmm(align_r[:, None, :], values)[:, 0].to(dt)
-    fs = _dense(torch.cat([x2, ctx_new], dim=-1), W['fs_w'], W['fs_b'], dt).float()
+    rec, align, residuals = _recurrence(cfg, W, keys, values, mask, rec, p2, gates,
+                                        lstm_cell_fwd, attention_fwd)
+    fs = _dense(torch.cat([residuals['x2'], residuals['ctx']], dim=-1), W['fs_w'], W['fs_b'],
+                dt).float()
     fr = W['f_w'].shape[0]
-    carry = (c1p, h1p, c2p, h2p, ctx_new, new_state, fs[:, fr - cfg.num_mels:fr])
-    residuals = dict(r1=r1, r2=r2, z1=z1, z2=z2, x1=x1, x2=x2, c1p=c1p, h1p=h1p, c2p=c2p,
-                     h2p=h2p, ctx=ctx_new, state=state, pq=pq)
-    return carry, (fs, align), residuals
+    residuals.update(r1=r1, r2=r2)
+    return (*rec, fs[:, fr - cfg.num_mels:fr]), (fs, align), residuals
 
 
-def _forward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, save: bool):
-    """The forward loop (`fused_decoder.py:388-416`). Returns ((frames (T, B, M*r), stops
-    (T, B, r), alignments (T, B, T_in)) float32, the residuals stacked over the steps by
-    name, or None without `save`)."""
+def _step_loop(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo,
+               save: bool):
+    """The forward loop a step at a time (`fused_decoder.py:388-416`), its cells and
+    attention through lstm_cell_fwd and attention_fwd. Returns ((frames (T, B, M*r),
+    stops (T, B, r), alignments (T, B, T_in)) float32, the residuals stacked over the steps
+    by name, or None without `save`)."""
     dt = cfg.dtype
     T, B = teacher.shape[0], teacher.shape[1]
     T_in, dev = keys.shape[1], keys.device
@@ -540,6 +574,158 @@ def _forward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo
     fr = W['f_w'].shape[0]
     out = (fs[..., :fr].contiguous(), fs[..., fr:].contiguous(), torch.stack(aligns))
     return out, ({k: torch.stack(v) for k, v in res.items()} if save else None)
+
+
+# ---------------------------------------------------------------- the forward loop kernel
+
+# the widths csrc/decoder_loop/decoder_loop.cu is built for (U, the prenet's output, the
+# encoder's E, the attention's D: the default hparams' and the paper profile's; the
+# location conv's filters and kernel are folded into loc_n), and the largest batch and
+# number of input steps it takes (the warps' partials of 32 rows fill its shared memory
+# beside the resident weights; a thread an input step in its softmax)
+LOOP_WIDTHS = (1024, 256, 512, 128)
+LOOP_MAX_BATCH = 32
+LOOP_MAX_T_IN = 192
+# the C entry's pointers, in the order of decoder_loop.cu's `Ptr`
+_LOOP_INPUTS = ('p2', 'keys', 'values', 'mask', 'g1_w', 'g1_b', 'g2_w', 'g2_b', 'q_w',
+                'loc_nt', 'pl_b', 'v_a', 'b_a', 'keep_c1', 'keep_h1', 'keep_c2', 'keep_h2')
+_LOOP_OUTPUTS = ('aligns', 'x2', 'ctx')
+_LOOP_RESIDUALS = ('z1', 'z2', 'x1', 'c1p', 'h1p', 'c2p', 'h2p', 'state', 'pq')
+_LOOP_SCRATCH = ('h1c', 'h2c', 'x1b', 'pqb', 'eb', 'stb', 'bar')
+_LOOP_PROFILE = ('prof',)
+
+
+def fwd_loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
+    """Where the forward runs `decoder_fwd_loop`, all T steps in one launch, and not
+    `_step_loop`: the compute dtype bf16 (the trainers' on the card), the location conv
+    folded into loc_n (`fused_decoder._location`: a batch of at most 96 and loc_n within
+    LOC_MAT_BYTES, T_in <= 181 at D=128), every step on its teacher frame (the default
+    constant teacher forcing at ratio 1, GTA, eval), LOOP_WIDTHS, and a batch of at most
+    LOOP_MAX_BATCH. Which device runs it is the wrapper's to say, as for every kernel: on
+    CUDA tensors the kernel, on CPU ones its plain version."""
+    B, T_in, D = keys.shape
+    return (cfg.dtype == torch.bfloat16 and 'loc_n' in W and 1 <= B <= LOOP_MAX_BATCH
+            and T_in <= LOOP_MAX_T_IN
+            and (cfg.units, W['p2_w'].shape[0], values.shape[-1], D) == LOOP_WIDTHS
+            and bool((use_teacher > 0).all()))
+
+
+def _decoder_fwd_loop_plain(cfg: Config, W, keys, values, mask, p2, gates, save: bool):
+    """`decoder_fwd_loop`'s plain version: the step loop from the prenet's output on, its
+    cells and attention through their plain versions."""
+    dt = cfg.dtype
+    T, B = p2.shape[0], p2.shape[1]
+    T_in, dev = keys.shape[1], keys.device
+    zero = torch.zeros(B, cfg.units, device=dev, dtype=dt)
+    carry = (zero, zero, zero, zero, torch.zeros(B, values.shape[-1], device=dev, dtype=dt),
+             torch.zeros(B, T_in, device=dev))
+    aligns, res = [], collections.defaultdict(list)
+    for t in range(T):
+        carry, align, r = _recurrence(cfg, W, keys, values, mask, carry, p2[t],
+                                      [None if g is None else g[t] for g in gates],
+                                      _lstm_cell_fwd_plain, _attention_fwd_plain)
+        aligns.append(align)
+        for k in (r if save else ('x2', 'ctx')):
+            res[k].append(r[k])
+    R = {k: torch.stack(v) for k, v in res.items()}
+    return torch.stack(aligns), R['x2'], R['ctx'], R if save else None
+
+
+def decoder_fwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optional[Tensor],
+                     p2: Tensor, gates: Sequence[Optional[Tensor]], save: bool,
+                     profile: Optional[Tensor] = None):
+    """The teacher-forced forward recurrence of all T steps (`fused_decoder.py:341-416`)
+    from the prenet's output p2 (T, B, P) in the compute dtype: keys (B, T_in, D) in it,
+    values (B, T_in, E) and the mask (B, T_in) float32 or None, gates the four (T, B, U)
+    bool keep-gates c1, h1, c2, h2 or None (zoneout's expectation), W `_weights`' on the
+    folded tier. Returns (the alignments (T, B, T_in) float32, x2 (T, B, U) and the
+    contexts (T, B, E) in the dtype, the residuals by name but r1 and r2, or None without
+    `save`). On CUDA tensors one launch of csrc/decoder_loop/decoder_loop.cu (bf16, the
+    folded tier, LOOP_WIDTHS and at most LOOP_MAX_BATCH rows, else it raises), counted in
+    LAUNCHES; on CPU tensors its plain version. `profile`: the (128, 10) int64 stage
+    times that a build of the source with -DT2_PROFILE writes (`probes/loop_split.py`)."""
+    if not keys.is_cuda:
+        return _decoder_fwd_loop_plain(cfg, W, keys, values, mask, p2, gates, save)
+    T, B, n_p = p2.shape
+    T_in, D = keys.shape[1], keys.shape[2]
+    U, E = cfg.units, values.shape[-1]
+    bf, f32 = torch.bfloat16, torch.float32
+    if cfg.dtype != bf or 'loc_n' not in W:
+        _refuse('a forward loop in another dtype than bf16 or off the folded location tier')
+    if (U, n_p, E, D) != LOOP_WIDTHS or not 1 <= B <= LOOP_MAX_BATCH or T_in > LOOP_MAX_T_IN:
+        _refuse(f'the widths (U, P, E, D) {(U, n_p, E, D)} at B={B}, T_in={T_in} in its forward '
+                f'loop (built for {LOOP_WIDTHS}, B <= {LOOP_MAX_BATCH}, T_in <= '
+                f'{LOOP_MAX_T_IN})')
+    _check(bf, (p2, None, (T, B, n_p)), (keys, None, (B, T_in, D)),
+           (values, f32, (B, T_in, E)), (mask, f32, (B, T_in)),
+           (W['g1_w'], None, (4 * U, n_p + E + U)), (W['g1_b'], None, (4 * U,)),
+           (W['g2_w'], None, (4 * U, 2 * U)), (W['g2_b'], None, (4 * U,)),
+           (W['q_w'], None, (D, U)), (W['loc_n'], None, (T_in, T_in * D)),
+           (W['pl_b'], f32, (D,)), (W['v_a'], f32, (D,)), (W['b_a'], f32, (D,)),
+           *((g, torch.bool, (T, B, U)) for g in gates))
+    dev = keys.device
+    # loc_n transposed, each input step's D columns a block of rows over the T_in steps it
+    # reads, those padded with zeros to whole k-pairs of 32 (TP)
+    TP = -(-T_in // 32) * 32
+    loc_nt = torch.zeros(T_in, D, TP, device=dev, dtype=bf)
+    loc_nt[..., :T_in] = W['loc_n'].view(T_in, T_in, D).permute(1, 2, 0)
+    inputs = dict(p2=p2, keys=keys, values=values, mask=mask, loc_nt=loc_nt,
+                  **{k: W[k] for k in ('g1_w', 'g1_b', 'g2_w', 'g2_b', 'q_w', 'pl_b', 'v_a',
+                                       'b_a')},
+                  **dict(zip(_LOOP_INPUTS[-4:], gates, strict=True)))
+    empty = lambda *shape, dtype=bf: torch.empty(*shape, device=dev, dtype=dtype)
+    out = dict(aligns=empty(T, B, T_in, dtype=f32), x2=empty(T, B, U), ctx=empty(T, B, E))
+    res = (dict(z1=empty(T, B, 4 * U), z2=empty(T, B, 4 * U),
+                **{k: empty(T, B, U) for k in ('x1', 'c1p', 'h1p', 'c2p', 'h2p')},
+                state=empty(T, B, T_in, dtype=f32), pq=empty(T, B, D)) if save else {})
+    scratch = dict(h1c=empty(2, B, U), h2c=empty(2, B, U), x1b=empty(B, U), pqb=empty(B, D),
+                   eb=empty(B, T_in, dtype=f32),
+                   stb=torch.zeros(2, B, TP, device=dev),             # slot 1: the zero state
+                   bar=torch.zeros(1, device=dev, dtype=torch.int32))  # the grid barrier
+    tensors = {**inputs, **out, **res, **scratch, 'prof': profile}
+    names = _LOOP_INPUTS + _LOOP_OUTPUTS + _LOOP_RESIDUALS + _LOOP_SCRATCH + _LOOP_PROFILE
+    ptrs = (ctypes.c_void_p * len(names))(
+        *(None if tensors.get(k) is None else tensors[k].data_ptr() for k in names))
+    ints = (ctypes.c_int * 5)(T, B, T_in, int(cfg.smoothing), int(cfg.cumulate))
+    mix = (ctypes.c_float * 8)(*(x for rate in cfg.rates for x in _mix(rate, bf)))
+    info = (ctypes.c_int * 2)()
+    fn = loop_library().t2_decoder_fwd_loop
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(ptrs, ints, mix, info, torch.cuda.current_stream(dev).cuda_stream)
+    if info[1]:
+        raise RuntimeError(f'the decoder_fwd_loop kernel needs {info[1]} CTAs resident at once '
+                           f'(its grid barrier waits for all of them); this card keeps '
+                           f'{info[0]}')
+    if err:
+        raise RuntimeError(f'the decoder_fwd_loop kernel did not launch: CUDA error {err}')
+    LAUNCHES['decoder_fwd_loop'] += 1
+    R = dict(res, x2=out['x2'], ctx=out['ctx']) if save else None
+    return out['aligns'], out['x2'], out['ctx'], R
+
+
+def _forward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, save: bool):
+    """The forward (`fused_decoder.py:388-416`): where `fwd_loop_applies`, the prenet over
+    every step at once, `decoder_fwd_loop`, and the frame and stop projection over the
+    T * B rows (no step feeds its frame back); elsewhere `_step_loop`. Returns ((frames
+    (T, B, M*r), stops (T, B, r), alignments (T, B, T_in)) float32, the residuals stacked
+    over the steps by name, or None without `save`)."""
+    if not fwd_loop_applies(cfg, W, keys, values, use_teacher):
+        return _step_loop(cfg, W, keys, values, mask, teacher, use_teacher, masks, zo, save)
+    dt = cfg.dtype
+    m1, m2 = (m.to(dt) for m in masks)
+    r1, r2, p2 = _prenet(W, teacher, m1, m2, dt)
+    gates = [None] * 4 if zo is None else [g.bool() for g in zo]
+    aligns, x2, ctx, R = decoder_fwd_loop(cfg, W, keys, values, mask, p2, gates, save)
+    fs = _dense(torch.cat([x2, ctx], dim=-1), W['fs_w'], W['fs_b'], dt).float()
+    fr = W['f_w'].shape[0]
+    if save:
+        R.update(r1=r1, r2=r2)
+    return (fs[..., :fr].contiguous(), fs[..., fr:].contiguous(), aligns), R
 
 
 def _shift1(x: Tensor) -> Tensor:

@@ -49,6 +49,7 @@ from ..utils import round_up
 from .mulaw import is_mulaw_quantize
 
 SQRT_HALF = float(math.sqrt(0.5))
+GRAPH_WARMUP = 2  # steps of generate_ar_reference run eagerly before its graph's capture
 # most classes of the small categorical head: its noise and params are (B, T, Q)
 # tensors, and the kernel gives each class a thread of its 1024; past that the big-vocab
 # head, up to MAX_CLASSES (16-bit audio)
@@ -321,19 +322,19 @@ def gumbel_from_bits(bits: Tensor) -> Tensor:
     return -torch.log(-torch.log(u + 1e-9) + 1e-9)
 
 
-def philox_bits(seed: int, B: int, t_abs: int, Q: int, device) -> Tensor:
-    """The random bits of `philox_gumbel`, (B, Q) int64 tensor of 32-bit values."""
+def philox_bits(seed: int, B: int, t_abs, Q: int, device) -> Tensor:
+    """The random bits of `philox_gumbel`, (B, Q) int64 tensor of 32-bit values; t_abs
+    an int or an int64 tensor of one element on `device`."""
     n4 = -(-Q // 4)
-    counter = (torch.arange(n4, device=device)[None, :],
-               torch.full((1, 1), t_abs & _U32, device=device),
-               torch.full((1, 1), (t_abs >> 32) & _U32, device=device),
+    t_abs = torch.as_tensor(t_abs, dtype=torch.int64, device=device).reshape(1, 1)
+    counter = (torch.arange(n4, device=device)[None, :], t_abs & _U32, (t_abs >> 32) & _U32,
                torch.arange(B, device=device)[:, None])
     words = philox4x32_10(counter, (seed & _U32, (seed >> 32) & _U32))
     bits = torch.stack([w.expand(B, n4) for w in words], dim=-1).reshape(B, 4 * n4)
     return bits[:, :Q]
 
 
-def philox_gumbel(seed: int, B: int, t_abs: int, Q: int, device) -> Tensor:
+def philox_gumbel(seed: int, B: int, t_abs, Q: int, device) -> Tensor:
     """The big-vocab head's Gumbel noise of absolute step t_abs, (B, Q) f32: for
     sequence b and class c, word c % 4 of Philox4x32-10 with the 64-bit `seed` as its
     key and (c // 4, t_abs low and high 32 bits, b) as its counter. A function of
@@ -391,13 +392,22 @@ def _check_state(state_in, hp, B: int, device) -> int:
     return t_base
 
 
+@functools.cache
+def _graph_stream(index: int) -> 'torch.cuda.Stream':
+    """The side stream of device `index` on which generate_ar_reference captures its
+    graphs: one a process, since each stream that runs a cuBLAS call keeps a workspace
+    of its own until the process ends."""
+    return torch.cuda.Stream(index)
+
+
 @torch.no_grad()
 def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tensor, hp,
                           targets: Optional[Tensor] = None, return_params: bool = True,
                           state_in: Optional[Tuple[Tensor, Tensor, int]] = None,
                           return_state: bool = False, g_cond: Optional[Tensor] = None,
                           seed: Optional[int] = None, greedy: bool = False,
-                          y_eval: Optional[Tensor] = None, return_drawn: bool = False):
+                          y_eval: Optional[Tensor] = None, return_drawn: bool = False,
+                          graph: Optional[bool] = None):
     """Plain PyTorch AR generation with the kernel's arithmetic.
 
     Mirrors the step of `wavenet_ar.py:303-465` on the packed weights, the fused
@@ -431,6 +441,10 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
         return_drawn: with `targets`, return as audio what the head drew at each step
             (the targets are still what is fed back): how a head that returns no
             params is compared on an identical history.
+        graph: capture one step in a CUDA graph after the first GRAPH_WARMUP and replay
+            it for the rest (the same kernels, without the host's few microseconds a
+            kernel); None does so on a CUDA device. The step reads its index from the
+            device, so nothing of it is baked into the graph.
     Returns: (audio (B, T), params (B, T, out_channels) or nll (B, T) or None
         [, state]); audio holds the fed-back samples, floats or int64 class ids.
     """
@@ -460,26 +474,35 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
     else:
         t_base = _check_state(state_in, hp, B, dev)
         rings, h = state_in[0], state_in[1]
+    h = h.contiguous().clone()  # the layer stack's input, updated in place at each step
     bufs = [rings[:, off:off + win * R].view(B, win, R) for off, win in layout]
-    bases = [t_base % win for win in wins]  # absolute slots, without a growing int
+    # the step t lives on the device, so that a step reads and writes where t says
+    # without the host: tap x(t-m) of layer li lives at slot (t_base + t - m) mod win
+    # (wavenet_ar.py:317-326), its input goes to slot (t_base + t) mod win
+    t_dev = torch.zeros((), dtype=torch.int64, device=dev)
+    tap_slots = [torch.tensor([t_base % win + win - (k - 1 - j) * d for j in range(k - 1)],
+                              device=dev) for win, d in zip(wins, dils)]
+    write_slots = [torch.tensor([t_base % win], device=dev) for win in wins]
     round_cond = rounds_conditioning(B)
     audio = torch.empty(B, T, device=dev, dtype=torch.long if categorical else None)
     params = torch.empty(B, T, hp.out_channels, device=dev) if return_params else None
     c_up = c_up.float()
 
-    def read_taps(li, t):
-        # tap x(t-m) lives at slot (t_base + t - m) mod win (wavenet_ar.py:317-326)
-        return [bufs[li][:, (bases[li] + t + wins[li] - (k - 1 - j) * dils[li]) % wins[li]]
-                for j in range(k - 1)]
+    def read_taps(li):
+        """Layer li's k - 1 past taps, oldest first, side by side: (B, (k - 1) * R)."""
+        return bufs[li].index_select(1, (tap_slots[li] + t_dev) % wins[li]).reshape(B, past)
 
-    def plain_chain(h, cond, t):
+    def write_ring(li, x):
+        # the layer's input overwrites the oldest slot, after its taps are read
+        bufs[li].index_copy_(1, (write_slots[li] + t_dev) % wins[li], x[:, None])
+
+    def plain_chain(h, cond):
         """The layer stack as two serial matmuls per layer (wavenet_ar.py:342-361);
         returns the skip sum."""
         skips = torch.zeros(B, S, device=dev)
         for li in range(L):
-            tap_cat = _bf(torch.cat(read_taps(li, t) + [h], dim=1))
-            # the layer's input overwrites the oldest slot, its taps read (and copied)
-            bufs[li][:, (bases[li] + t) % wins[li]] = h
+            tap_cat = _bf(torch.cat([read_taps(li), h], dim=1))
+            write_ring(li, h)
             z = tap_cat @ W['w_tap'][li] + W['b_tap'][li]
             z = z + cond[:, li * G:(li + 1) * G]
             y = _bf(_glu(z, half)) @ W['w_os'][li] + W['b_os'][li]
@@ -489,14 +512,14 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
                 skips = skips * SQRT_HALF
         return skips
 
-    def fused_chain(h, cond, t):
+    def fused_chain(h, cond):
         """The layer stack with one serial matmul per layer (wavenet_ar.py:362-408);
         returns the skip sum."""
         skips = torch.zeros(B, S, device=dev)
         consts = []
         for li in range(L):
             p = W['b_tap'][li] + W['b_fused'][li] + cond[:, li * G:(li + 1) * G]
-            consts.append(p + _bf(torch.cat(read_taps(li, t), dim=1)) @ W['w_tap'][li, :past])
+            consts.append(p + _bf(read_taps(li)) @ W['w_tap'][li, :past])
         z = _glu(_bf(h) @ W['w_tap'][0, past:] + consts[0], half)
         h_prev = h
         hs = [h]
@@ -519,35 +542,40 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
         if hp.legacy and L > 1:
             skips = skips * SQRT_HALF
         for li in range(L):  # overwrite the oldest slot, after every read
-            bufs[li][:, (bases[li] + t) % wins[li]] = hs[li]
+            write_ring(li, hs[li])
         return skips
 
     layer_stack = fused_chain if hp.wavenet_fused_ar else plain_chain
-    for t in range(T):
-        cond = _bf(c_up[:, t]) @ W['w_cond'] + W['b_cond']
+
+    def step():
+        """Step t_dev: reads the inputs at t, writes the outputs at t, the rings and h,
+        and moves t_dev on by one."""
+        t1 = t_dev.view(1)
+        cond = _bf(c_up.index_select(1, t1)[:, 0]) @ W['w_cond'] + W['b_cond']
         if g_cond is not None:
             cond = cond + g_cond
         if round_cond:  # the TPU kernel's bf16 conditioning slab (wavenet_ar.py:292-301)
             cond = _bf(cond)
-        skips = layer_stack(h, cond, t)
+        skips = layer_stack(h, cond)
         o = torch.relu(skips)
         o = torch.relu(_bf(o) @ W['w_s1'] + W['b_s1'])
         params_t = (_bf(o) if big else o) @ W['w_s2'] + W['b_s2']
         if big:
-            noise_t = 0.0 if greedy else philox_gumbel(seed, B, t_base + t, Q, dev)
+            noise_t = 0.0 if greedy else philox_gumbel(seed, B, t_base + t_dev, Q, dev)
             x = (params_t + noise_t).argmax(-1)
         else:
-            noise_t = noise[:, t]
+            noise_t = noise.index_select(1, t1)[:, 0]
             x = sample(params_t, noise_t, hp)
         if nll is not None:
-            nll[:, t] = torch.logsumexp(params_t, -1) \
-                - params_t.gather(-1, y_eval[:, t, None].long())[:, 0]
+            y_t = y_eval.index_select(1, t1).long()
+            nll.index_copy_(1, t1, (torch.logsumexp(params_t, -1)
+                                    - params_t.gather(-1, y_t)[:, 0])[:, None])
         drawn = x
         if targets is not None:
-            x = targets[:, t].to(x.dtype)
-        audio[:, t] = drawn if return_drawn else x
+            x = targets.index_select(1, t1)[:, 0].to(x.dtype)
+        audio.index_copy_(1, t1, (drawn if return_drawn else x)[:, None])
         if params is not None:
-            params[:, t] = params_t
+            params.index_copy_(1, t1, params_t[:, None])
         if categorical:
             if targets is not None:
                 onehot = F.one_hot(x, Q).float()
@@ -555,12 +583,36 @@ def generate_ar_reference(weights: Dict[str, Tensor], c_up: Tensor, noise: Tenso
                 scores = params_t + noise_t
                 onehot = (scores >= scores.max(-1, keepdim=True).values).float()
                 onehot = onehot / onehot.sum(-1, keepdim=True)
-            h = _bf(onehot) @ first_wb + W['first_b']
+            h.copy_(_bf(onehot) @ first_wb + W['first_b'])
         else:
-            h = x[:, None] * W['first_w'][0] + W['first_b']
+            h.copy_(x[:, None] * W['first_w'][0] + W['first_b'])
+        t_dev.add_(1)
+
+    if graph is None:
+        graph = dev.type == 'cuda'
+    elif graph and dev.type != 'cuda':
+        raise ValueError(f'a CUDA graph needs CUDA tensors, not tensors on {dev}')
+    if graph and T > GRAPH_WARMUP:
+        # the first steps run as they are, on a side stream (which readies the libraries'
+        # handles there), the next one is captured and replayed for the rest: the same
+        # kernels in the same order, launched without the host's time a kernel
+        side, main = _graph_stream(dev.index), torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                step()
+        main.wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side, capture_error_mode='thread_local'):
+            step()
+        for _ in range(T - GRAPH_WARMUP):
+            g.replay()
+    else:
+        for _ in range(T):
+            step()
     second = nll if nll is not None else params
     if return_state:
-        return audio, second, (rings, h.contiguous(), t_base + T)
+        return audio, second, (rings, h, t_base + T)
     return audio, second
 
 

@@ -1,0 +1,181 @@
+"""Where the decoder forward loop's step goes, on the card: the split of a step inside
+`decoder_fwd_loop` (csrc/decoder_loop/decoder_loop.cu).
+
+Not a counterpart of a TPU kernel: a timing probe of the port's own forward loop. The
+variant `profile` is the source built with -DT2_PROFILE into a library of its own, whose
+thread 0 of every CTA adds up the %globaltimer nanoseconds of each of the step's five
+stages (decoder_loop.cu's STAGES): its work, from the release of the barrier before it to
+its arrival at its own, and its wait there. `base` is the port's own build; `--source NAME=PATH` adds a variant NAME built from another copy of the
+source, such as a parent checkout's, to time two versions in one run (a name may repeat
+in `--variants`: each is timed in turn). Every variant runs on the same seeded inputs at
+the default widths (a decoder cell with seeded random weights, B rows x --steps steps,
+--t_in input steps, training's keep-gates, the residuals saved as the train step saves
+them; with --lean none, as eval saves none) and its outputs are held to the port's
+build, bit for bit for `profile` (the macro changes no sum). `--registers` prints each
+source's registers, stack and spills (`nvcc -Xptxas -v`) instead:
+
+    python -m tacotron2_tpu_torch.probes.loop_split [--variants base,profile]
+        [--batch 32,1] [--steps 512] [--t_in 100] [--lean] [--source NAME=PATH ...]
+        [--registers]
+"""
+
+import argparse
+import concurrent.futures
+import ctypes
+import os
+import re
+import subprocess
+import tempfile
+from typing import Dict, Optional
+
+import torch
+
+from . import best_ms
+
+VARIANTS = {'base': (), 'profile': ('T2_PROFILE',)}
+STAGES = ('lstm 1', 'lstm 2', 'pq', 'energies', 'softmax and context')
+
+
+def _source() -> str:
+    from ..ops import _build
+    return os.path.join(_build.DECODER_LOOP_DIR, 'decoder_loop.cu')
+
+
+def build(variants, tmp: str, sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+    """The library of each variant (the port's own for `base`; those of `sources` built
+    from the file each names), built at once."""
+    from ..ops import _build
+
+    def one(name):
+        macros = VARIANTS.get(name, ())
+        if not macros and name not in sources:
+            return name, _build.load_decoder_loop_library()
+        lib = os.path.join(tmp, f'libloop_{name}.so')
+        _build.compile_library([sources.get(name, _source())], lib, defines=macros,
+                               flags=_build.DECODER_FLAGS)
+        return name, ctypes.CDLL(lib)
+
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        return dict(pool.map(one, variants))
+
+
+def registers(sources: Dict[str, str]) -> Dict[str, str]:
+    """{variant: 'R registers, ... spill loads'} of the port's source and of `sources`."""
+    from ..ops import _build
+
+    def one(item):
+        name, path = item
+        with tempfile.TemporaryDirectory(prefix='t2_ptxas_') as tmp:
+            res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *_build.DECODER_FLAGS,
+                                  '-Xptxas', '-v', '-o', os.path.join(tmp, 'lib.so'), path],
+                                 capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {path}:\n{res.stderr[-3000:]}')
+        text = res.stdout + res.stderr
+        regs = re.search(r'Used (\d+) registers.*', text)
+        frame = re.search(r'\d+ bytes stack frame.*', text)
+        return name, f'{regs.group(0) if regs else "?"}; {frame.group(0) if frame else "?"}'
+
+    paths = {'base': _source(), **sources}
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        table = dict(pool.map(one, paths.items()))
+    for name, line in table.items():
+        print(f'{name}: {line}', flush=True)
+    return table
+
+
+def inputs(B: int, T: int, T_in: int, seed: int = 3):
+    """decoder_fwd_loop's arguments at the default widths on seeded values, keep-gates at
+    0.9, the prenet's output of dropout-masked ReLUs."""
+    from ..config import default_hparams
+    from ..models.tacotron.model import DecoderCell
+    from ..ops import decoder_vjp as dv
+
+    hp = default_hparams()
+    torch.manual_seed(seed)
+    cell = DecoderCell(hp, 2 * hp.encoder_lstm_units).cuda()
+    bf = torch.bfloat16
+    cfg = dv._config(cell, bf)
+    W = dv._weights(cfg, cell, [cell.get_parameter(n) for _, n in dv.PARAMS], B, T_in)
+    g = torch.Generator('cuda').manual_seed(seed)
+    U, n_p, E, D = dv.LOOP_WIDTHS
+    keys = torch.randn(B, T_in, D, device='cuda', generator=g).to(bf)
+    values = torch.randn(B, T_in, E, device='cuda', generator=g) * 0.5
+    keep = torch.rand(T, B, n_p, device='cuda', generator=g) < 0.5
+    p2 = (torch.relu(torch.randn(T, B, n_p, device='cuda', generator=g)) * 2 * keep).to(bf)
+    gates = [torch.rand(T, B, U, device='cuda', generator=g) < 0.9 for _ in range(4)]
+    return cfg, W, keys, values, None, p2, gates
+
+
+def run(library, args, save: bool, profile=None):
+    """One launch of `library`'s kernel through decoder_fwd_loop."""
+    from ..ops import decoder_vjp as dv
+
+    saved = dv.loop_library
+    dv.loop_library = lambda: library
+    try:
+        return dv.decoder_fwd_loop(*args, save, profile=profile)
+    finally:
+        dv.loop_library = saved
+
+
+def main(argv: Optional[list] = None) -> Dict:
+    p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    p.add_argument('--variants', default=','.join(VARIANTS),
+                   help=f'comma-separated, of {", ".join(VARIANTS)} or a --source name')
+    p.add_argument('--batch', default='32,1', help='batch size(s), comma-separated')
+    p.add_argument('--steps', type=int, default=512)
+    p.add_argument('--t_in', type=int, default=100)
+    p.add_argument('--lean', action='store_true', help='save no residuals')
+    p.add_argument('--source', action='append', default=[], metavar='NAME=PATH',
+                   help='a variant NAME built from the kernel source at PATH')
+    p.add_argument('--registers', action='store_true',
+                   help="print each source's registers and spills (nvcc -Xptxas -v)")
+    args = p.parse_args(argv)
+    sources = dict(item.split('=', 1) for item in args.source)
+    if args.registers:
+        return registers(sources)
+    if not torch.cuda.is_available():
+        raise RuntimeError('loop_split times the kernel on a CUDA card; torch finds none')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    variants = args.variants.split(',')
+    with tempfile.TemporaryDirectory(prefix='t2_loop_split_') as tmp:
+        libs = build(sorted(set(variants) | {'base'}), tmp, sources)
+    save, T = not args.lean, args.steps
+    results = {}
+    for B in (int(b) for b in args.batch.split(',')):
+        largs = inputs(B, T, args.t_in)
+        ref = run(libs['base'], largs, save)
+        for i, name in enumerate(variants):
+            prof = (torch.zeros(128, 2 * len(STAGES), dtype=torch.int64, device='cuda')
+                    if name == 'profile' else None)
+            out = run(libs[name], largs, save, prof)
+            same = all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3]))
+            err = max(float((a.double() - b.double()).abs().max()) for a, b in
+                      zip(out[:3], ref[:3]))
+            if name == 'profile' and not same:
+                raise RuntimeError('the profile build changed the outputs')
+            ms = best_ms(lambda: run(libs[name], largs, save), reps=3)
+            line = (f'{name} B={B} T={T} T_in={args.t_in} residuals {save}: {ms:.3f} ms, '
+                    f'{1e3 * ms / T:.2f} us a step; outputs against base: '
+                    + ('bit for bit' if same else f'max abs {err:.3e}'))
+            r = dict(ms=ms, us_step=1e3 * ms / T, bit_identical=same, max_abs_err=err)
+            if prof is not None:
+                us = prof.double().cpu() / 1e3 / T  # (CTA, slot) us a step
+                n = len(STAGES)
+                split = {s: dict(work=float(us[:, k].mean()), work_max=float(us[:, k].max()),
+                                 wait=float(us[:, n + k].mean()),
+                                 wait_max=float(us[:, n + k].max()))
+                         for k, s in enumerate(STAGES)}
+                r['split'] = split
+                line += ('; us a step, work / wait (mean over the CTAs, the largest): '
+                         + '; '.join(f'{s} {v["work"]:.2f} ({v["work_max"]:.2f}) / '
+                                     f'{v["wait"]:.2f} ({v["wait_max"]:.2f})'
+                                     for s, v in split.items()))
+            print(line, flush=True)
+            results[f'{name} B={B} #{i}'] = r
+    return results
+
+
+if __name__ == '__main__':
+    main()
