@@ -6,8 +6,9 @@
 Phases (one line each; any failure exits nonzero):
   1. torch, CUDA and the card (nvidia-smi name and power limit);
   2. build the hand-written kernels from tacotron2_tpu_torch/csrc (the probes' from
-     csrc/probes, the decoder step's from csrc/decoder and the decoder forward loop's
-     from csrc/decoder_loop into libraries of their own), with the planted-fault copies:
+     csrc/probes, the decoder step's from csrc/decoder and the decoder's forward and
+     reverse loops' from csrc/decoder_loop and csrc/decoder_bwd_loop into libraries of
+     their own), with the planted-fault copies:
      the AR kernel's library first, the rest beside phase 3, all done before phase 4;
   3. the WaveNet AR kernel against its plain PyTorch version at the default width, on
      a WaveNet whose seeded random weights give params of order 1: the kernel runs
@@ -273,13 +274,22 @@ Phases (one line each; any failure exits nonzero):
      residual over the first LOOP_FIRST_STEPS steps and over all (LOOP_TOL), six planted
      faults (LOOP_MUTANTS, built in phase 2) that must miss it, the launch without
      residuals bit for bit the one with them; the B=32 launch's ms beside its plain
-     version's, the step loop's over the same steps and its bound; and
-     fused_decoder_scan in bf16 at teacher forcing 1 against autograd's, its forward
-     through the loop. Every kernel launched on a main path (ALL_DECODER_PATHS): on the
-     bf16 ones (BF16_DECODER_PATHS: the trainer and the pipeline's Tacotron phase)
-     decoder_fwd_loop and no lstm_cell_fwd or attention_fwd, on the f32 ones
+     version's, the step loop's over the same steps and its bound. The reverse loop
+     (csrc/decoder_bwd_loop/decoder_bwd_loop.cu, `decoder_bwd_loop`: all steps of the bf16
+     teacher-forced backward in one launch) against its plain version on the same CUDA
+     tensors in the same three cases, after the forward loop with its residuals and on
+     seeded cotangents: dz1, dz2, dpq, dctx_total and df over the loop's first
+     BWD_LOOP_FIRST_STEPS steps and over all, and the accumulators (BWD_LOOP_TOL), six
+     planted faults (BWD_LOOP_MUTANTS, built in phase 2) that must miss it, two launches
+     bit for bit; the B=32 launch's ms beside its plain version's, the step loop's whole
+     backward over the same steps and its bound. fused_decoder_scan in bf16 at teacher
+     forcing 1 against autograd's, its forward and backward through the loops. Every
+     kernel launched on a main path (ALL_DECODER_PATHS): on the bf16 ones
+     (BF16_DECODER_PATHS: the trainer and the pipeline's Tacotron phase) decoder_fwd_loop
+     and decoder_bwd_loop and none of the four step kernels, on the f32 ones
      (F32_DECODER_PATHS: GTA, whose model computes in f32 as the JAX synthesizer's does,
-     and phase 12's timed f32 steps) lstm_cell_fwd and attention_fwd and no loop.
+     and phase 12's timed f32 steps) lstm_cell_fwd and attention_fwd (and, where they
+     train, lstm_cell_bwd and attention_bwd) and no loop.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -1493,9 +1503,10 @@ class Builds:
 def build_kernels(tmp):
     """Phase 2: nvcc builds the port's library first, alone, and loads it; then, in the
     background, one nvcc a library and one fewer at a time than the host has cores, the
-    decoder step's library, the decoder forward loop's library, the probes' library and
-    one library for each of ALL_MUTANTS, CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS
-    and LOOP_MUTANTS from a changed copy of its source (an AR kernel's copy with the
+    decoder step's library, the decoder forward and reverse loops' libraries, the probes'
+    library and
+    one library for each of ALL_MUTANTS, CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS,
+    LOOP_MUTANTS and BWD_LOOP_MUTANTS from a changed copy of its source (an AR kernel's copy with the
     instantiations of MUTANT_HEADS alone) under `tmp`, which must outlive the builds.
     Phase 3 needs the first library alone and runs beside the others (its readings are
     device times); the run waits for them all before phase 4, whose entry points are
@@ -1515,6 +1526,9 @@ def build_kernels(tmp):
             flags = _build.DECODER_FLAGS
         elif fault in LOOP_MUTANTS:
             name, text = 'decoder_loop.cu', mutated_loop_source(fault)
+            flags = _build.DECODER_FLAGS
+        elif fault in BWD_LOOP_MUTANTS:
+            name, text = 'decoder_bwd_loop.cu', mutated_bwd_loop_source(fault)
             flags = _build.DECODER_FLAGS
         else:
             name, text = 'wavenet_ar.cu', mutated_source(fault)
@@ -1537,11 +1551,13 @@ def build_kernels(tmp):
     _build.load_library()
     pool = concurrent.futures.ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1))
     libraries = [pool.submit(library, load) for load in (
-        _build.load_decoder_library, _build.load_decoder_loop_library)]
+        _build.load_decoder_library, _build.load_decoder_loop_library,
+        _build.load_decoder_bwd_loop_library)]
     faults = list(CLUSTER_MUTANTS) + list(ALL_MUTANTS)
     mutants = {fault: pool.submit(mutant, (i, fault)) for i, fault in enumerate(faults)}
     libraries.append(pool.submit(library, _build.load_probe_library))
-    for fault in list(PROBE_MUTANTS) + list(DECODER_MUTANTS) + list(LOOP_MUTANTS):
+    for fault in (list(PROBE_MUTANTS) + list(DECODER_MUTANTS) + list(LOOP_MUTANTS)
+                  + list(BWD_LOOP_MUTANTS)):
         mutants[fault] = pool.submit(mutant, (len(mutants), fault))
     return Builds(pool, libraries, mutants)
 
@@ -5353,6 +5369,219 @@ def loop_kernel_checks(loop_mutants):
                 check_launches=dv.LAUNCHES['decoder_fwd_loop'] - launches0)
 
 
+# --- phase 16: the decoder's reverse recurrence as one persistent kernel -----------------
+
+BWD_LOOP_SOURCE = 'tacotron2_tpu_torch/csrc/decoder_bwd_loop/decoder_bwd_loop.cu'
+BWD_LOOP_REPLACES = ('tacotron2_tpu/ops/fused_decoder.py:130-150 (lstm_cell_bwd), :257-338 '
+                     '(attention_bwd), :494-571 (_bwd_rule\'s step_bwd and its reverse scan)')
+# the error over the loop's first steps (the last three in time: a planted carry fault shows
+# from its second step on), and over all of them
+BWD_LOOP_FIRST_STEPS = 3
+# the kernel against its plain version on the same CUDA tensors, {span: bound}: the
+# largest error of dz1, dz2, dpq, dctx_total and df over the span and (over all steps) of
+# the accumulators dkeys, dva, dba and dl, relative to the plain tensor's largest entry
+# there. Read on an H100 80GB HBM3 at 700 W: the first three steps 4.6e-5 to 1.9e-3 (a
+# value that the two round from f32 sums in another order lands one bf16 step apart), all
+# 512 steps and the accumulators 5.5e-3 to 6.5e-3; the planted faults 2.1 to 41 times
+# bounds twice these. The bounds sit 2.6x and 3.1x above the sound readings
+BWD_LOOP_TOL = {'first': 5e-3, 'all': 2e-2}
+BWD_LOOP_STEP_NAMES = ('dz1', 'dz2', 'dpq', 'dctx_total', 'df')
+BWD_LOOP_NAMES = BWD_LOOP_STEP_NAMES + ('dkeys', 'dva', 'dba', 'dl')
+# planted faults: each a build of a copy of csrc/decoder_bwd_loop/decoder_bwd_loop.cu with one
+# line changed, built in phase 2, {fault: (the line, its change)}; each must miss
+# BWD_LOOP_TOL in one span of one case
+BWD_LOOP_MUTANTS = {
+    'the cell bypass (1 - a) dc dropped': ('dc = dcn * sf + (1.0f - ac) * dc;',
+                                           'dc = dcn * sf;'),
+    'dpq @ q_w dropped': ('const float ds = rd(dha + DHB[crow * 8 + ci]);',
+                          'const float ds = dha;'),
+    'the state\'s gradient not carried': (
+        'a.dstate[i] = a.cumulate ? __ldcg(a.dstate + i) + v : v;', 'a.dstate[i] = v;'),
+    'the context\'s gradient not carried': (
+        'if (ci < EPC) a.dctx[(size_t)crow * E + EPC * cta + ci] = column(RED, crow, 8 + ci);',
+        ';'),
+    'the location features\' bias dropped': ('v = rd(rd(s) + ldf(a.loc_b + c));', 'v = rd(s);'),
+    'the dkeys sum skipped': ('a.dkeys[o] = sum[n][c] + g;', ';')}
+
+
+def mutated_bwd_loop_source(fault):
+    """The text of csrc/decoder_bwd_loop/decoder_bwd_loop.cu with BWD_LOOP_MUTANTS[fault]'s
+    change."""
+    from tacotron2_tpu_torch.ops import _build
+
+    old, new = BWD_LOOP_MUTANTS[fault]
+    path = os.path.join(_build.DECODER_BWD_LOOP_DIR, 'decoder_bwd_loop.cu')
+    with open(path, encoding='utf-8') as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times in '
+                         'csrc/decoder_bwd_loop/decoder_bwd_loop.cu: bring BWD_LOOP_MUTANTS up '
+                         'to date')
+    return text.replace(old, new)
+
+
+def bwd_loop_case(model, hp, B, gates, ragged):
+    """The reverse loop's inputs after the forward of `loop_case(model, hp, B, gates,
+    ragged)` with its residuals (through decoder_fwd_loop, on the card), and seeded
+    cotangents of the frames, stops and alignments. Returns the arguments of
+    decoder_bwd_loop and of the whole backward (`_backward`)."""
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
+    case = loop_case(model, hp, B, gates, ragged)
+    cfg, W = case['forward'][:2]
+    with torch.no_grad():
+        (frames, stops, aligns), R = dv._forward(*case['forward'], True)
+    gen = torch.Generator('cuda').manual_seed(40 + B)
+    g_frames, g_stops, g_aligns = (torch.randn(x.shape, device='cuda', generator=gen)
+                                   for x in (frames, stops, aligns))
+    dproj = torch.cat([g_frames, g_stops], -1).to(torch.bfloat16) @ W['fs_w']
+    cfg, W, keys, values, mask, _, gate_list = case['loop']
+    return dict(loop=(cfg, W, keys, values, mask, R, dproj, g_aligns, gate_list),
+                backward=(*case['forward'], frames, aligns, R, g_frames, g_stops, g_aligns))
+
+
+def _bwd_outputs(result):
+    return dict(zip(BWD_LOOP_NAMES, result, strict=True))
+
+
+def _bwd_span_errs(got, want, steps):
+    """{name: the largest error over the loop's first `steps` steps (the last in time) of
+    each per-step output, and, over all steps, of each accumulator, relative to the plain
+    tensor's largest entry there}."""
+    out = {}
+    for name in BWD_LOOP_STEP_NAMES:
+        g, w = got[name][-steps:].double(), want[name][-steps:].double()
+        out[name] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    if steps == LOOP_STEPS:
+        for name in BWD_LOOP_NAMES[len(BWD_LOOP_STEP_NAMES):]:
+            g, w = got[name].double(), want[name].double()
+            out[name] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    return out
+
+
+def bwd_loop_bound(B, T, T_in, K, gates=True):
+    """(ms, 'bytes' or 'operations') of the least time an H100 takes for the reverse loop
+    of B rows over T steps at LOOP_WIDTHS and LOOP_FILTERS with a location conv of width
+    K: its products' operations over the bf16 tensor cores' peak and its f32 ones (dalign,
+    the location features) over the f32 peak (decoder_bwd_loop.cu's note), or its bytes
+    (each input read once: keys, values, the mask, dproj, the alignments' gradient, the
+    residuals it reads, the weights' columns it reads, loc_n and, with `gates`, the
+    keep-gates; each output written once: dz1, dz2, dpq, dctx_total, df and the
+    accumulators) over the HBM rate."""
+    from tacotron2_tpu_torch import probes
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
+    U, n_p, E, D = dv.LOOP_WIDTHS
+    n_f = dv.LOOP_FILTERS
+    ops = 2 * T * B * (4 * U * 2 * U + 4 * U * (U + E) + 2 * T_in * T_in * D
+                       + 2 * T_in * D * n_f + D * U)
+    ops_f32 = 2 * T * B * T_in * (E + n_f * K)
+    weights = 2 * (4 * U * (E + U) + 4 * U * 2 * U + D * U + T_in * T_in * D + n_f * K + n_f
+                   + D * n_f) + 12 * D
+    inputs = (2 * B * T_in * D + 4 * B * T_in * E + 4 * B * T_in + weights
+              + T * B * (2 * (U + E) + 4 * T_in + 2 * 2 * 4 * U + 2 * 2 * U + 4 * T_in + 2 * D)
+              + (4 * T * B * U if gates else 0))
+    outputs = (T * B * (2 * 2 * 4 * U + 2 * D + 2 * E + 2 * T_in * n_f) + 4 * B * T_in * D
+               + 8 * B * D + 4 * D * n_f)
+    return probes.bound_ms(inputs + outputs, flops_bf16=ops, flops_f32=ops_f32)
+
+
+def bwd_loop_kernel_checks(bwd_mutants):
+    """decoder_bwd_loop against its plain version on the same CUDA tensors at the default
+    width over LOOP_STEPS steps, each of LOOP_CASES (the forward loop's inputs, its
+    residuals from decoder_fwd_loop, seeded cotangents): dz1, dz2, dpq, dctx_total and df
+    over the loop's first BWD_LOOP_FIRST_STEPS steps and over all of them, and the
+    accumulators, within BWD_LOOP_TOL; each of BWD_LOOP_MUTANTS (`bwd_mutants`: fault ->
+    its library) must miss it in one span of one case. At B=32 with keep-gates a second
+    launch must give the first's outputs bit for bit; that launch is timed (CUDA events,
+    the median of 3) beside its plain version, the step loop's whole backward
+    (`_backward` through `_step_loop_bwd`: lstm_cell_bwd, attention_bwd and the library
+    products, the deferred weight gradients in) and the kernel's (`_backward`, the same)
+    over the same steps, and its bound. Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    model = tt.create_train_state(hp, 'cuda', seed=15).model
+    bias = model.decoder.attention.location_convolution.bias  # as loop_kernel_checks
+    with torch.no_grad():
+        bias.copy_(torch.randn(bias.shape, device='cuda',
+                               generator=torch.Generator('cuda').manual_seed(15)) * 0.5)
+    K = model.decoder.attention.location_convolution.weight.shape[-1]
+    t0 = time.perf_counter()
+    readings, seen = {}, dict.fromkeys(BWD_LOOP_MUTANTS, 0.0)
+    launches0 = dv.LAUNCHES['decoder_bwd_loop']
+    for what, (B, gates, ragged) in LOOP_CASES.items():
+        case = bwd_loop_case(model, hp, B, gates, ragged)
+        with torch.no_grad():
+            want = _bwd_outputs(dv._decoder_bwd_loop_plain(*case['loop']))
+            got = _bwd_outputs(dv.decoder_bwd_loop(*case['loop']))
+            torch.cuda.synchronize()
+            spans = {'first': _bwd_span_errs(got, want, BWD_LOOP_FIRST_STEPS),
+                     'all': _bwd_span_errs(got, want, LOOP_STEPS)}
+            r = dict(first=max(spans['first'].values()), all=max(spans['all'].values()),
+                     worst_first=max(spans['first'], key=spans['first'].get),
+                     worst_all=max(spans['all'], key=spans['all'].get),
+                     max_abs_err=max(float((got[n].double() - want[n].double()).abs().max())
+                                     for n in BWD_LOOP_NAMES), by_tensor=spans['all'])
+            for fault, lib in bwd_mutants.items():
+                with _patched(dv, 'bwd_loop_library', lambda lib=lib: lib):
+                    bad = _bwd_outputs(dv.decoder_bwd_loop(*case['loop']))
+                e = max(max(_bwd_span_errs(bad, want, BWD_LOOP_FIRST_STEPS).values())
+                        / BWD_LOOP_TOL['first'],
+                        max(_bwd_span_errs(bad, want, LOOP_STEPS).values()) / BWD_LOOP_TOL['all'])
+                seen[fault] = max(seen[fault], e)
+            if B == 32 and gates:
+                args = case['loop']
+                again = _bwd_outputs(dv.decoder_bwd_loop(*args))
+                r['bit_identical'] = all(torch.equal(again[n], got[n]) for n in BWD_LOOP_NAMES)
+                if not r['bit_identical']:
+                    fail('two launches of decoder_bwd_loop on the same inputs differ')
+                ms = sorted(cuda_ms(lambda: dv.decoder_bwd_loop(*args))[1] for _ in range(3))[1]
+                plain_ms = cuda_ms(lambda: dv._decoder_bwd_loop_plain(*args))[1]
+                with _patched(dv, 'fwd_loop_applies', lambda *a: False):
+                    step_loop_ms = sorted(cuda_ms(lambda: dv._backward(*case['backward']))[1]
+                                          for _ in range(2))[0]
+                backward_ms = sorted(cuda_ms(lambda: dv._backward(*case['backward']))[1]
+                                     for _ in range(3))[1]
+                bound_ms, bound_by = bwd_loop_bound(B, LOOP_STEPS, TIMED_CHARS, K)
+                r.update(ms=ms, plain_ms=plain_ms, step_loop_ms=step_loop_ms,
+                         backward_ms=backward_ms, bound_ms=bound_ms, bound_by=bound_by)
+            if B == 1:
+                args = case['loop']
+                r['ms'] = sorted(cuda_ms(lambda: dv.decoder_bwd_loop(*args))[1] for _ in range(3))[1]
+                r['bound_ms'], r['bound_by'] = bwd_loop_bound(B, LOOP_STEPS, TIMED_CHARS, K, gates)
+        readings[what] = r
+        phase(16, f'decoder_bwd_loop {what}, {LOOP_STEPS} steps, T_in={TIMED_CHARS} (bf16): '
+                  f'kernel vs plain, relative to the plain tensor\'s largest entry, the loop\'s '
+                  f'first {BWD_LOOP_FIRST_STEPS} steps {r["first"]:.2e} ({r["worst_first"]}; '
+                  f'tol {BWD_LOOP_TOL["first"]}), all steps and the accumulators '
+                  f'{r["all"]:.2e} ({r["worst_all"]}; tol {BWD_LOOP_TOL["all"]}); max abs '
+                  f'{r["max_abs_err"]:.2e}; by tensor over all steps: '
+                  + ', '.join(f'{n} {v:.1e}' for n, v in spans['all'].items())
+                  + ('' if 'step_loop_ms' not in r else
+                     f'; a second launch bit for bit the first; its plain version '
+                     f'{r["plain_ms"]:.1f} ms, the step loop\'s whole backward (lstm_cell_bwd, '
+                     f'attention_bwd, cuBLAS; the deferred weight gradients in) '
+                     f'{r["step_loop_ms"]:.1f} ms, the kernel\'s whole backward (the same) '
+                     f'{r["backward_ms"]:.2f} ms')
+                  + ('' if 'ms' not in r else
+                     f'; the launch {r["ms"]:.2f} ms ({1e3 * r["ms"] / LOOP_STEPS:.1f} us a '
+                     f'step), bound {r["bound_ms"]:.3f} ms by {r["bound_by"]}'))
+        if not (r['first'] <= BWD_LOOP_TOL['first'] and r['all'] <= BWD_LOOP_TOL['all']):
+            fail(f'the decoder_bwd_loop kernel disagrees with its plain version ({what})')
+    phase(16, 'decoder_bwd_loop planted faults, the largest of their errors over a bound '
+              '(each must exceed 1): ' + '; '.join(f'{f} {v:.2f}' for f, v in seen.items())
+              + f'; the reverse loop\'s checks took {time.perf_counter() - t0:.1f} s')
+    for fault, v in seen.items():
+        if not v > 1:
+            fail(f'the decoder_bwd_loop check does not see its planted fault ({fault})')
+    return dict(cases=readings, faults=seen,
+                check_launches=dv.LAUNCHES['decoder_bwd_loop'] - launches0)
+
+
 def timed_beside_autograd(timed, gta_s):
     """Phase 12's (f32) and phase 14's (bf16) timed steps at B=32 x TIMED_FRAMES beside
     the autograd decoder loop's and the step loop's, and phase 13's GTA seconds an
@@ -5379,11 +5608,14 @@ def decoder_slice(mutants, timed, gta_s):
     t0 = time.perf_counter()
     kernels = decoder_kernel_checks({f: mutants[f] for f in DECODER_MUTANTS})
     loop = loop_kernel_checks({f: mutants[f] for f in LOOP_MUTANTS})
+    bwd_loop = bwd_loop_kernel_checks({f: mutants[f] for f in BWD_LOOP_MUTANTS})
     fused = {f'float32 {ratio}': fused_vs_autograd(ratio) for ratio in (1.0, 0.5)}
-    before = dv.LAUNCHES['decoder_fwd_loop']
+    before = collections.Counter(dv.LAUNCHES)
     fused['bfloat16 1.0'] = fused_vs_autograd(1.0, torch.bfloat16)
-    if dv.LAUNCHES['decoder_fwd_loop'] == before:
-        fail('the fused decoder in bf16 at teacher forcing 1 did not run decoder_fwd_loop')
+    ran = collections.Counter(dv.LAUNCHES) - before
+    if not (ran['decoder_fwd_loop'] and ran['decoder_bwd_loop']):
+        fail('the fused decoder in bf16 at teacher forcing 1 did not run decoder_fwd_loop and '
+             'decoder_bwd_loop')
     fused['bfloat16 0.5'] = fused_vs_autograd(0.5, torch.bfloat16)
     timed_beside_autograd(timed, gta_s)
     launches = {p: dict(DECODER_LAUNCHES_BY_PATH[p]) for p in ALL_DECODER_PATHS}
@@ -5396,11 +5628,18 @@ def decoder_slice(mutants, timed, gta_s):
         by = DECODER_LAUNCHES_BY_PATH[p]
         if not by['decoder_fwd_loop'] or by['lstm_cell_fwd'] or by['attention_fwd']:
             fail(f'{p} (bf16) did not run its forward through decoder_fwd_loop alone')
+        if not by['decoder_bwd_loop'] or by['lstm_cell_bwd'] or by['attention_bwd']:
+            fail(f'{p} (bf16) did not run its backward through decoder_bwd_loop alone')
     for p in F32_DECODER_PATHS:
         by = DECODER_LAUNCHES_BY_PATH[p]
         if not (by['lstm_cell_fwd'] and by['attention_fwd']) or by['decoder_fwd_loop']:
             fail(f'{p} (f32) did not run the step loop\'s forward kernels')
-    return dict(kernels=kernels, loop=loop, fused=fused, launches=launches)
+        if by['decoder_bwd_loop']:
+            fail(f'{p} (f32) ran decoder_bwd_loop')
+    by = DECODER_LAUNCHES_BY_PATH[TACO_F32_TIMED_PATH]  # the f32 path that trains (GTA does not)
+    if not (by['lstm_cell_bwd'] and by['attention_bwd']):
+        fail(f'{TACO_F32_TIMED_PATH} did not run the step loop\'s backward kernels')
+    return dict(kernels=kernels, loop=loop, bwd_loop=bwd_loop, fused=fused, launches=launches)
 
 
 def decoder_entries(decoder):
@@ -5441,6 +5680,25 @@ def decoder_entries(decoder):
         tol=LOOP_TOL, fault_err_over_tol=decoder['loop']['faults'],
         b1_ms_without_residuals=b1['ms_without_residuals'], b1_bound_ms=b1['bound_ms'],
         b1_bound_by=b1['bound_by']))
+    # the reverse loop: ms the B=32 x LOOP_STEPS launch, plain_ms its plain version,
+    # step_loop_ms the step loop's whole backward over the same steps
+    bwd = decoder['bwd_loop']['cases']
+    b32, b1 = bwd['B=32, keep-gates'], bwd['B=1, expectation']
+    out.append(dict(
+        name='decoder_bwd_loop', route='cuda', source=BWD_LOOP_SOURCE,
+        replaces=BWD_LOOP_REPLACES,
+        launches=sum(by[p].get('decoder_bwd_loop', 0) for p in ALL_DECODER_PATHS),
+        launches_by_path={p: by[p].get('decoder_bwd_loop', 0) for p in ALL_DECODER_PATHS},
+        check_launches=decoder['bwd_loop']['check_launches'],
+        max_abs_err=max(r['max_abs_err'] for r in bwd.values()), ms=b32['ms'],
+        plain_ms=b32['plain_ms'], step_loop_ms=b32['step_loop_ms'],
+        backward_ms=b32['backward_ms'], bound_ms=b32['bound_ms'], bound_by=b32['bound_by'],
+        library_ms=None, dtype='bfloat16', steps=LOOP_STEPS,
+        widths=dict(zip(('B', 'U', 'D', 'T_in'), DECODER_WIDTHS)),
+        rel_err={k: dict(first=r['first'], all=r['all']) for k, r in bwd.items()},
+        tol=BWD_LOOP_TOL, fault_err_over_tol=decoder['bwd_loop']['faults'],
+        bit_identical=b32['bit_identical'], b1_ms=b1['ms'], b1_bound_ms=b1['bound_ms'],
+        b1_bound_by=b1['bound_by']))
     return out
 
 
@@ -5469,7 +5727,7 @@ def main():
     atexit.register(shutil.rmtree, tmp, True)
     mutants = build_kernels(tmp)
     phase(2, f'built and loaded the AR kernel\'s library in {time.perf_counter() - t0:.1f} s; '
-             f'the probes\', the decoder step\'s and the forward loop\'s libraries and '
+             f'the probes\', the decoder step\'s and the two decoder loops\' libraries and '
              f'{len(mutants)} copies with one planted fault each build beside phase 3')
     probe_modules = {'prng_probe': prng_probe, 'ar_critpath': ar_critpath,
                      'matmul_probe': matmul_probe, 'microbench': microbench}

@@ -20,7 +20,11 @@ gradient to take it runs `FusedDecoderScan`, a `torch.autograd.Function`:
     the context's gradient, the fed-back frame's and the alignment state's, and emits the
     gates' gradients dz1, dz2, dpq, the prenet's, the total context gradient and the
     location features' gradient; dkeys, the energy's dva and dba, and the location
-    layer's gradient sum in float32 in place. Every large weight gradient is then one
+    layer's gradient sum in float32 in place. Where `fwd_loop_applies` (the same
+    predicate as the forward's) the projections' gradient runs once over the steps,
+    `decoder_bwd_loop` runs all T reverse steps in one launch and the prenet's gradient
+    runs once over the T * B rows after it; elsewhere `_step_loop_bwd` runs a step at a
+    time. Both run the step `_reverse_step`. Every large weight gradient is then one
     product over the T * B rows (`:578-614`), as are the location conv's kernel and bias
     gradients (one product where the per-step JAX accumulators sum the same terms:
     `_loc_acc` and `_loc_acc_finalize` on the folded tier, `_loc_kernel_grad` on the
@@ -36,7 +40,9 @@ The step's elementwise stages and row reductions are four hand-written kernels f
 `attention_bwd`; around them the products stay library products, as JAX leaves them to
 XLA. The forward loop is a fifth, persistent one (`csrc/decoder_loop/decoder_loop.cu`,
 `_build.load_decoder_loop_library`): `decoder_fwd_loop`, the step's products on the tensor
-cores, lstm_cell_fwd's and attention_fwd's math in the same launch. Each wrapper launches
+cores, lstm_cell_fwd's and attention_fwd's math in the same launch; the reverse loop a
+sixth (`csrc/decoder_bwd_loop/decoder_bwd_loop.cu`, `_build.load_decoder_bwd_loop_library`):
+`decoder_bwd_loop`, with lstm_cell_bwd's and attention_bwd's math. Each wrapper launches
 its kernel on CUDA tensors (a failed build or launch raises; there is no fallback) and
 counts the launch in LAUNCHES; on CPU tensors it runs the kernel's plain PyTorch version
 beside it, which the CPU tests hold against the JAX package.
@@ -67,7 +73,7 @@ from . import fused_decoder as fd
 # launches of each hand-written kernel, counted by its wrapper where it launches it
 LAUNCHES: Dict[str, int] = collections.Counter()
 KERNELS = ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd',
-           'decoder_fwd_loop')
+           'decoder_fwd_loop', 'decoder_bwd_loop')
 
 # the cell's parameters in the Function's order, with the short names of `_weights`
 PARAMS = (('p1_w', 'prenet.layers.0.weight'), ('p1_b', 'prenet.layers.0.bias'),
@@ -148,8 +154,14 @@ def _loop_library():
     return load_decoder_loop_library()
 
 
+def _bwd_loop_library():
+    from ._build import load_decoder_bwd_loop_library
+    return load_decoder_bwd_loop_library()
+
+
 library = _library  # the build whose kernels launch (chip_smoke.py plants faulty ones)
 loop_library = _loop_library  # ... and the forward loop's
+bwd_loop_library = _bwd_loop_library  # ... and the reverse loop's
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
@@ -433,20 +445,22 @@ def _loc_conv_t(W, df: Tensor) -> Tensor:
     return torch.einsum('bkfs,kf->bs', taps, W['loc_w_t'])
 
 
-def _att_bwd(cfg: Config, W, keys, mask, pq, state_prev, dalign, ga, dstate, acc):
+def _att_bwd(cfg: Config, W, keys, mask, pq, state_prev, dalign, ga, dstate, acc,
+             attention=attention_bwd):
     """One step of the attention's backward (`fused_decoder.py:257-338`) on the state the
-    step read: attention_bwd, then the location path. dkeys, dva, dba and the location
-    layer's gradient `dl` (D, F) sum into the float32 accumulators `acc` in place.
-    Returns (dpq (B, D) in the dtype, this step's gradient of the state (B, T_in) float32,
-    the location features' gradient df (B * T_in, F) in the dtype, from which the location
-    conv's kernel and bias gradients are formed after the loop)."""
+    step read: `attention` (attention_bwd, or its plain version), then the location path.
+    dkeys, dva, dba and the location layer's gradient `dl` (D, F) sum into the float32
+    accumulators `acc` in place. Returns (dpq (B, D) in the dtype, this step's gradient of
+    the state (B, T_in) float32, the location features' gradient df (B * T_in, F) in the
+    dtype, from which the location conv's kernel and bias gradients are formed after the
+    loop)."""
     B, T_in = state_prev.shape
     state = state_prev.to(cfg.dtype)  # the location path reads the state rounded
     f = _loc_features(cfg, W, state)
     pl, pl_b = (_loc_pl(cfg, W, state) if 'loc_n' in W
                 else (_dense(f, W['l_w'], None, cfg.dtype), None))
-    du, dpq = attention_bwd(keys, pq, pl, pl_b, W['b_a'], W['v_a'], mask, dalign, ga, dstate,
-                            cfg.smoothing, acc['dkeys'], acc['dva'], acc['dba'])
+    du, dpq = attention(keys, pq, pl, pl_b, W['b_a'], W['v_a'], mask, dalign, ga, dstate,
+                        cfg.smoothing, acc['dkeys'], acc['dva'], acc['dba'])
     du = du.view(B * T_in, -1)
     du32 = du.float()
     acc['dl'].addmm_(du32.t(), f.reshape(B * T_in, -1).float())
@@ -586,6 +600,12 @@ def _step_loop(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, 
 LOOP_WIDTHS = (1024, 256, 512, 128)
 LOOP_MAX_BATCH = 32
 LOOP_MAX_T_IN = 192
+# the location conv's filters that csrc/decoder_bwd_loop/decoder_bwd_loop.cu is built for
+# (the default hparams' and the paper profile's; the reverse loop forms the location
+# features and their gradient, which the forward folds away), and the conv's widest
+# kernel that it takes (its taps staged in shared memory; the defaults' is 31)
+LOOP_FILTERS = 32
+LOOP_MAX_KERNEL = 64
 # the C entry's pointers, in the order of decoder_loop.cu's `Ptr`
 _LOOP_INPUTS = ('p2', 'keys', 'values', 'mask', 'g1_w', 'g1_b', 'g2_w', 'g2_b', 'q_w',
                 'loc_nt', 'pl_b', 'v_a', 'b_a', 'keep_c1', 'keep_h1', 'keep_c2', 'keep_h2')
@@ -595,18 +615,36 @@ _LOOP_SCRATCH = ('h1c', 'h2c', 'x1b', 'pqb', 'eb', 'stb', 'bar')
 _LOOP_PROFILE = ('prof',)
 
 
+def _loc_nt(W, T_in: int, D: int) -> Tuple[int, Tensor]:
+    """(TP, loc_nt): the loops' loc_n transposed, each input step's D columns a block of
+    rows over the T_in steps it reads, those padded with zeros to TP, whole k-pairs of 32."""
+    TP = -(-T_in // 32) * 32
+    loc_nt = W['loc_n'].new_zeros(T_in, D, TP)
+    loc_nt[..., :T_in] = W['loc_n'].view(T_in, T_in, D).permute(1, 2, 0)
+    return TP, loc_nt
+
+
+def _keep(cfg: Config):
+    """JAX's zoneout expectation keeps 1 - rate of c1, h1, c2, h2, rounded to the dtype."""
+    return [weak(1.0 - rate, cfg.dtype) for rate in cfg.rates]
+
+
 def fwd_loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
     """Where the forward runs `decoder_fwd_loop`, all T steps in one launch, and not
-    `_step_loop`: the compute dtype bf16 (the trainers' on the card), the location conv
-    folded into loc_n (`fused_decoder._location`: a batch of at most 96 and loc_n within
-    LOC_MAT_BYTES, T_in <= 181 at D=128), every step on its teacher frame (the default
-    constant teacher forcing at ratio 1, GTA, eval), LOOP_WIDTHS, and a batch of at most
-    LOOP_MAX_BATCH. Which device runs it is the wrapper's to say, as for every kernel: on
-    CUDA tensors the kernel, on CPU ones its plain version."""
+    `_step_loop`, and the backward `decoder_bwd_loop` and not `_step_loop_bwd` (one
+    predicate for both, so that no batch runs one loop without the other): the compute
+    dtype bf16 (the trainers' on the card), the location conv folded into loc_n
+    (`fused_decoder._location`: a batch of at most 96 and loc_n within LOC_MAT_BYTES,
+    T_in <= 181 at D=128), every step on its teacher frame (the default constant teacher
+    forcing at ratio 1, GTA, eval), LOOP_WIDTHS, LOOP_FILTERS and a location kernel of at
+    most LOOP_MAX_KERNEL taps, and a batch of at most LOOP_MAX_BATCH. Which device runs it
+    is the wrapper's to say, as for every kernel: on CUDA tensors the kernel, on CPU ones
+    its plain version."""
     B, T_in, D = keys.shape
     return (cfg.dtype == torch.bfloat16 and 'loc_n' in W and 1 <= B <= LOOP_MAX_BATCH
             and T_in <= LOOP_MAX_T_IN
             and (cfg.units, W['p2_w'].shape[0], values.shape[-1], D) == LOOP_WIDTHS
+            and W['l_w'].shape[1] == LOOP_FILTERS and W['loc_w'].shape[-1] <= LOOP_MAX_KERNEL
             and bool((use_teacher > 0).all()))
 
 
@@ -664,11 +702,7 @@ def decoder_fwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optiona
            (W['pl_b'], f32, (D,)), (W['v_a'], f32, (D,)), (W['b_a'], f32, (D,)),
            *((g, torch.bool, (T, B, U)) for g in gates))
     dev = keys.device
-    # loc_n transposed, each input step's D columns a block of rows over the T_in steps it
-    # reads, those padded with zeros to whole k-pairs of 32 (TP)
-    TP = -(-T_in // 32) * 32
-    loc_nt = torch.zeros(T_in, D, TP, device=dev, dtype=bf)
-    loc_nt[..., :T_in] = W['loc_n'].view(T_in, T_in, D).permute(1, 2, 0)
+    TP, loc_nt = _loc_nt(W, T_in, D)
     inputs = dict(p2=p2, keys=keys, values=values, mask=mask, loc_nt=loc_nt,
                   **{k: W[k] for k in ('g1_w', 'g1_b', 'g2_w', 'g2_b', 'q_w', 'pl_b', 'v_a',
                                        'b_a')},
@@ -740,69 +774,242 @@ def _wgrad(dout: Tensor, inp: Tensor) -> Tensor:
             @ inp.reshape(-1, inp.shape[-1]).float())
 
 
-def _backward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, frames,
-              aligns, R, g_frames, g_stops, g_aligns):
-    """The hand-written backward (`fused_decoder.py:468-640`). Returns ({short name: the
-    parameter's gradient, float32}, dkeys, dvalues, dteacher)."""
-    dt = cfg.dtype
-    T, B = teacher.shape[0], teacher.shape[1]
-    U, M = cfg.units, cfg.num_mels
-    T_in, D = keys.shape[1], keys.shape[2]
-    P2, M_enc = W['p2_w'].shape[0], values.shape[-1]
-    fr = W['f_w'].shape[0]
-    dev = keys.device
-    use_b = use_teacher > 0
-    use = use_b.tolist()
-    m1, m2 = (m.to(dt) for m in masks)
-    relu1, relu2 = m1 * (R['r1'] > 0), m2 * (R['r2'] > 0)  # the prenet's dropout-relu gates
-    gates = [None] * 4 if zo is None else [g.bool() for g in zo]
-    keep = [weak(1.0 - rate, dt) for rate in cfg.rates]  # JAX's expectation gates, as f32
-    # the frames' and stops' gradients side by side, and rounded to the dtype for their
-    # product; the fed-back frame's gradient added in place where a step read its own
-    dfs = torch.cat([g_frames, g_stops], dim=-1)
-    dfs_dt = dfs.to(dt)
+def _reverse_step(cfg: Config, W, keys, values, mask, R, t: int, dproj, ga, carry, acc,
+                  gates, keep, lstm, attention, g1):
+    """One step t of the reverse recurrence (`fused_decoder.py:494-571`), as `_recurrence`
+    serves the forward: from the frame and stop projections' gradient dproj (B, U + E) in
+    the compute dtype and the alignments' ga (B, T_in) float32 on, the context's total
+    gradient and the alignments', the attention's backward (`_att_bwd` through
+    `attention`: attention_bwd or its plain version), both LSTM cells' backward through
+    `lstm` (lstm_cell_bwd or its plain version) with the step's keep-gates `gates`, else
+    zoneout's expectation `keep` (JAX's 1 - rate, rounded to the dtype), and the first
+    LSTM's input gradient din1 = dz1 @ g1, g1 that LSTM's weight whole or from its context
+    columns on. carry: (dh1, dc1, dh2, dc2, dctx, dstate) float32, the gradients carried
+    from step t + 1; acc the float32 accumulators of `_att_bwd`. Returns (the carry, the
+    step's dz1, dz2, dpq, dctx_total and df by name, din1's columns before the context's:
+    the prenet's gradient, none where g1 starts at the context)."""
+    dt, U = cfg.dtype, cfg.units
+    M_enc = values.shape[-1]
+    dh1, dc1, dh2, dc2, dctx, dstate = carry
+    dctx_total = (dproj[:, U:].float() + dctx).to(dt)
+    dalign = torch.bmm(values, dctx_total.float()[:, :, None])[..., 0]
+    # the new state's gradient reaches the alignments whether or not they cumulate
+    # (where they do not, the JAX package's `_bwd_rule` drops it: `:512-514`)
+    dpq, dstate_c, df = _att_bwd(cfg, W, keys, mask, R['pq'][t], R['state'][t], dalign, ga,
+                                 dstate, acc, attention)
+    dstate = dstate + dstate_c if cfg.cumulate else dstate_c
+    zero_u = torch.zeros_like(R['c2p'][0])
+    dz2, dc2, bypass2 = lstm(R['z2'][t], R['c2p'][t - 1] if t else zero_u, dproj[:, :U],
+                             dpq @ W['q_w'], dh2, dc2, gates[2], gates[3], keep[2], keep[3])
+    din2 = dz2 @ W['g2_w']                                               # (B, U + U)
+    dh2 = din2[:, U:] + bypass2
+    dz1, dc1, bypass1 = lstm(R['z1'][t], R['c1p'][t - 1] if t else zero_u, din2[:, :U], None,
+                             dh1, dc1, gates[0], gates[1], keep[0], keep[1])
+    din1 = dz1 @ g1                                                      # (B, [P2 +] M_enc + U)
+    n_pre = din1.shape[-1] - M_enc - U
+    dctx = din1[:, n_pre:n_pre + M_enc].float()
+    dh1 = din1[:, n_pre + M_enc:] + bypass1
+    emits = dict(dz1=dz1, dz2=dz2, dpq=dpq, dctx_total=dctx_total, df=df)
+    return (dh1, dc1, dh2, dc2, dctx, dstate), emits, din1[:, :n_pre]
+
+
+def _zero_carry(B: int, U: int, M_enc: int, T_in: int, dev) -> Tuple[Tensor, ...]:
+    """The reverse recurrence's carry at the last step: every gradient zero, float32."""
     zeros = lambda *s: torch.zeros(*s, device=dev)
-    acc = dict(dkeys=zeros(B, T_in, D), dva=zeros(B, D), dba=zeros(B, D),
-               dl=zeros(*W['l_w'].shape))
-    dc1, dh1, dc2, dh2 = (zeros(B, U) for _ in range(4))
-    dctx, dstate = zeros(B, M_enc), zeros(B, T_in)
+    return (*(zeros(B, U) for _ in range(4)), zeros(B, M_enc), zeros(B, T_in))
+
+
+def _accumulators(W, B: int, T_in: int, D: int, dev) -> Dict[str, Tensor]:
+    """The float32 accumulators of `_att_bwd` at zero: dkeys, dva, dba and dl."""
+    zeros = lambda *s: torch.zeros(*s, device=dev)
+    return dict(dkeys=zeros(B, T_in, D), dva=zeros(B, D), dba=zeros(B, D),
+                dl=zeros(*W['l_w'].shape))
+
+
+def _step_loop_bwd(cfg: Config, W, keys, values, mask, R, dfs, dfs_dt, g_aligns, use, gates,
+                   relu1, relu2):
+    """The reverse loop a step at a time (`fused_decoder.py:494-571`), its cells and
+    attention through lstm_cell_bwd and attention_bwd: each step's dproj from the frames'
+    and stops' gradients dfs (T, B, M*r + r) float32 and dfs_dt (them in the dtype), the
+    fed-back frame's gradient added into both in place where step t + 1 read its own.
+    Returns (the emits stacked over the steps by name, dp2 among them; the accumulators)."""
+    T, (B, T_in, D) = dfs.shape[0], keys.shape
+    M, fr = cfg.num_mels, W['f_w'].shape[0]
+    acc = _accumulators(W, B, T_in, D, keys.device)
+    carry = _zero_carry(B, cfg.units, values.shape[-1], T_in, keys.device)
+    keep = _keep(cfg)
     dprev = None  # the gradient of the frame step t + 1 read back, where it did
-    zero_u = torch.zeros(B, U, device=dev, dtype=dt)
     emits = collections.defaultdict(list)
     for t in reversed(range(T)):
-        g_t = [None if g is None else g[t] for g in gates]
         if dprev is not None:
             dfs[t, :, fr - M:fr] += dprev
             if dfs_dt is not dfs:
                 dfs_dt[t] = dfs[t]
         dproj = dfs_dt[t] @ W['fs_w']                                    # (B, U + M_enc)
-        dctx_total = (dproj[:, U:].float() + dctx).to(dt)
-        dalign = torch.bmm(values, dctx_total.float()[:, :, None])[..., 0]
-        # the new state's gradient reaches the alignments whether or not they cumulate
-        # (where they do not, the JAX package's `_bwd_rule` drops it: `:512-514`)
-        dpq, dstate_c, df = _att_bwd(cfg, W, keys, mask, R['pq'][t], R['state'][t], dalign,
-                                     g_aligns[t], dstate, acc)
-        dstate = dstate + dstate_c if cfg.cumulate else dstate_c
-        dz2, dc2, bypass2 = lstm_cell_bwd(R['z2'][t], R['c2p'][t - 1] if t else zero_u,
-                                          dproj[:, :U], dpq @ W['q_w'], dh2, dc2, g_t[2],
-                                          g_t[3], keep[2], keep[3])
-        din2 = dz2 @ W['g2_w']                                           # (B, U + U)
-        dh2 = din2[:, U:] + bypass2
-        dz1, dc1, bypass1 = lstm_cell_bwd(R['z1'][t], R['c1p'][t - 1] if t else zero_u,
-                                          din2[:, :U], None, dh1, dc1, g_t[0], g_t[1],
-                                          keep[0], keep[1])
-        din1 = dz1 @ W['g1_w']                                           # (B, P2 + M_enc + U)
-        dctx = din1[:, P2:P2 + M_enc].float()
-        dh1 = din1[:, P2 + M_enc:] + bypass1
-        dp2 = din1[:, :P2]
+        carry, e, dp2 = _reverse_step(cfg, W, keys, values, mask, R, t, dproj, g_aligns[t],
+                                      carry, acc, [None if g is None else g[t] for g in gates],
+                                      keep, lstm_cell_bwd, attention_bwd, W['g1_w'])
         # the prenet's backward: in the loop where the step read its own last frame (its
         # gradient goes on to step t - 1), after it for the steps that read their teacher
         # frame (`fused_decoder.py:541-547`)
         dprev = None if use[t] else ((dp2 * relu2[t]) @ W['p2_w'] * relu1[t]) @ W['p1_w']
-        for k, v in (('dz1', dz1), ('dz2', dz2), ('dpq', dpq), ('dp2', dp2),
-                     ('dctx_total', dctx_total), ('df', df)):
+        for k, v in dict(e, dp2=dp2).items():
+            emits[k].append(v)
+    return {k: torch.stack(v[::-1]) for k, v in emits.items()}, acc
+
+
+# ---------------------------------------------------------------- the reverse loop kernel
+
+# the C entry's pointers, in the order of decoder_bwd_loop.cu's `Ptr`
+_BWD_INPUTS = ('keys', 'values', 'mask', 'dproj', 'ga', 'z1', 'z2', 'c1p', 'c2p', 'state', 'pq',
+               'g1_w', 'g2_w', 'q_w', 'loc_nt', 'loc_n', 'pl_b', 'v_a', 'b_a', 'loc_w', 'loc_b',
+               'l_w', 'keep_c1', 'keep_h1', 'keep_c2', 'keep_h2')
+_BWD_OUTPUTS = ('dz1', 'dz2', 'dpq', 'dctx_total', 'df', 'dkeys', 'dva', 'dba', 'dl')
+_BWD_SCRATCH = ('dctx', 'dstate', 'dalign', 'eb', 'dus', 'dsp', 'dpqb', 'g1c', 'dvap', 'dlp',
+                'bar')
+_BWD_PROFILE = ('prof',)
+
+
+def _decoder_bwd_loop_plain(cfg: Config, W, keys, values, mask, R, dproj, g_aligns, gates):
+    """`decoder_bwd_loop`'s plain version: the reverse recurrence a step at a time through
+    `_reverse_step` with the cells' and the attention's plain versions, din1 from the
+    context's columns on."""
+    T, (B, T_in, D) = dproj.shape[0], keys.shape
+    P2 = W['p2_w'].shape[0]
+    acc = _accumulators(W, B, T_in, D, keys.device)
+    carry = _zero_carry(B, cfg.units, values.shape[-1], T_in, keys.device)
+    keep = _keep(cfg)
+    g1 = W['g1_w'][:, P2:]
+    emits = collections.defaultdict(list)
+    for t in reversed(range(T)):
+        carry, e, _ = _reverse_step(cfg, W, keys, values, mask, R, t, dproj[t], g_aligns[t],
+                                    carry, acc, [None if g is None else g[t] for g in gates],
+                                    keep, _lstm_cell_bwd_plain, _attention_bwd_plain, g1)
+        for k, v in e.items():
             emits[k].append(v)
     E = {k: torch.stack(v[::-1]) for k, v in emits.items()}
+    return (E['dz1'], E['dz2'], E['dpq'], E['dctx_total'], E['df'], acc['dkeys'], acc['dva'],
+            acc['dba'], acc['dl'])
+
+
+def decoder_bwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optional[Tensor],
+                     R, dproj: Tensor, g_aligns: Tensor, gates: Sequence[Optional[Tensor]],
+                     profile: Optional[Tensor] = None):
+    """The teacher-forced reverse recurrence of all T steps (`fused_decoder.py:494-571`)
+    where `fwd_loop_applies`: from the frame and stop projections' gradient dproj (T, B,
+    U + E) in the compute dtype (no step feeds its frame back, so it is one product over
+    the T * B rows) and the alignments' g_aligns (T, B, T_in) float32, over the forward's
+    residuals R, keys (B, T_in, D) in the dtype, values (B, T_in, E) and the mask (B,
+    T_in) float32 or None, gates the four (T, B, U) bool keep-gates c1, h1, c2, h2 or None
+    (zoneout's expectation), W `_weights`' on the folded tier. Returns (dz1, dz2 (T, B,
+    4U), dpq (T, B, D), dctx_total (T, B, E), df (T, B * T_in, F), all in the dtype; the
+    float32 accumulators dkeys (B, T_in, D), dva, dba (B, D) and dl (D, F)). On CUDA
+    tensors one launch of csrc/decoder_bwd_loop/decoder_bwd_loop.cu (bf16, the folded
+    tier, LOOP_WIDTHS, LOOP_FILTERS, at most LOOP_MAX_BATCH rows and LOOP_MAX_T_IN input
+    steps, else it raises), counted in LAUNCHES; on CPU tensors its plain version.
+    `profile`: the (128, 12) int64 stage times that a build of the source with
+    -DT2_PROFILE writes (`probes/loop_split.py`)."""
+    if not keys.is_cuda:
+        return _decoder_bwd_loop_plain(cfg, W, keys, values, mask, R, dproj, g_aligns, gates)
+    T, B = dproj.shape[:2]
+    T_in, D = keys.shape[1], keys.shape[2]
+    U, E, n_p = cfg.units, values.shape[-1], W['p2_w'].shape[0]
+    n_f, K = W['loc_w'].shape[0], W['loc_w'].shape[-1]
+    bf, f32 = torch.bfloat16, torch.float32
+    if cfg.dtype != bf or 'loc_n' not in W:
+        _refuse('a reverse loop in another dtype than bf16 or off the folded location tier')
+    if ((U, n_p, E, D) != LOOP_WIDTHS or n_f != LOOP_FILTERS or K > LOOP_MAX_KERNEL
+            or not 1 <= B <= LOOP_MAX_BATCH or T_in > LOOP_MAX_T_IN):
+        _refuse(f'the widths (U, P, E, D) {(U, n_p, E, D)}, {n_f} location filters of {K} taps '
+                f'at B={B}, T_in={T_in} in its reverse loop (built for {LOOP_WIDTHS}, '
+                f'{LOOP_FILTERS} filters of at most {LOOP_MAX_KERNEL} taps, B <= '
+                f'{LOOP_MAX_BATCH}, T_in <= {LOOP_MAX_T_IN})')
+    _check(bf, (keys, None, (B, T_in, D)), (values, f32, (B, T_in, E)), (mask, f32, (B, T_in)),
+           (dproj, None, (T, B, U + E)), (g_aligns, f32, (T, B, T_in)),
+           *((R[k], None, (T, B, 4 * U)) for k in ('z1', 'z2')),
+           *((R[k], None, (T, B, U)) for k in ('c1p', 'c2p')),
+           (R['state'], f32, (T, B, T_in)), (R['pq'], None, (T, B, D)),
+           (W['g1_w'], None, (4 * U, n_p + E + U)), (W['g2_w'], None, (4 * U, 2 * U)),
+           (W['q_w'], None, (D, U)), (W['loc_n'], None, (T_in, T_in * D)),
+           (W['pl_b'], f32, (D,)), (W['v_a'], f32, (D,)), (W['b_a'], f32, (D,)),
+           (W['loc_w'], None, (n_f, 1, K)), (W['loc_b'], None, (n_f,)),
+           (W['l_w'], None, (D, n_f)), *((g, torch.bool, (T, B, U)) for g in gates))
+    dev = keys.device
+    TP, loc_nt = _loc_nt(W, T_in, D)
+    inputs = dict(keys=keys, values=values, mask=mask, dproj=dproj, ga=g_aligns, loc_nt=loc_nt,
+                  **{k: R[k] for k in ('z1', 'z2', 'c1p', 'c2p', 'state', 'pq')},
+                  **{k: W[k] for k in ('g1_w', 'g2_w', 'q_w', 'loc_n', 'pl_b', 'v_a', 'b_a',
+                                       'loc_w', 'loc_b', 'l_w')},
+                  **dict(zip(_BWD_INPUTS[-4:], gates, strict=True)))
+    empty = lambda *shape, dtype=bf: torch.empty(*shape, device=dev, dtype=dtype)
+    zeros = lambda *shape: torch.zeros(*shape, device=dev)
+    G = U // 8  # the kernel's CTAs
+    out = dict(dz1=empty(T, B, 4 * U), dz2=empty(T, B, 4 * U), dpq=empty(T, B, D),
+               dctx_total=empty(T, B, E), df=empty(T, B * T_in, n_f),
+               dkeys=zeros(B, T_in, D), dva=empty(B, D, dtype=f32), dba=empty(B, D, dtype=f32),
+               dl=empty(D, n_f, dtype=f32))
+    scratch = dict(dctx=zeros(B, E), dstate=zeros(B, TP),                # the carried ones
+                   dalign=empty(B, T_in, dtype=f32), eb=empty(B, T_in, dtype=f32),
+                   dus=empty(B, T_in, D, dtype=f32), dsp=empty(T_in, B, TP, dtype=f32),
+                   dpqb=empty(B, D), g1c=empty(G, 4 * U * 4), dvap=empty(G, B, D, dtype=f32),
+                   dlp=empty(G, D, n_f, dtype=f32),
+                   bar=torch.zeros(1, device=dev, dtype=torch.int32))  # the grid barrier
+    tensors = {**inputs, **out, **scratch, 'prof': profile}
+    names = _BWD_INPUTS + _BWD_OUTPUTS + _BWD_SCRATCH + _BWD_PROFILE
+    ptrs = (ctypes.c_void_p * len(names))(
+        *(None if tensors.get(k) is None else tensors[k].data_ptr() for k in names))
+    ints = (ctypes.c_int * 6)(T, B, T_in, K, int(cfg.smoothing), int(cfg.cumulate))
+    keep = (ctypes.c_float * 4)(*_keep(cfg))
+    info = (ctypes.c_int * 2)()
+    fn = bwd_loop_library().t2_decoder_bwd_loop
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(ptrs, ints, keep, info, torch.cuda.current_stream(dev).cuda_stream)
+    if info[1]:
+        raise RuntimeError(f'the decoder_bwd_loop kernel needs {info[1]} CTAs resident at once '
+                           f'(its grid barrier waits for all of them); this card keeps '
+                           f'{info[0]}')
+    if err:
+        raise RuntimeError(f'the decoder_bwd_loop kernel did not launch: CUDA error {err}')
+    LAUNCHES['decoder_bwd_loop'] += 1
+    return tuple(out[k] for k in _BWD_OUTPUTS)
+
+
+def _backward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, frames,
+              aligns, R, g_frames, g_stops, g_aligns):
+    """The hand-written backward (`fused_decoder.py:468-640`): where `fwd_loop_applies`
+    (the forward ran `decoder_fwd_loop`) the frame and stop projections' gradient once
+    over the T * B rows, `decoder_bwd_loop`, and the prenet's gradient once over them
+    after it; elsewhere `_step_loop_bwd`. Returns ({short name: the parameter's gradient,
+    float32}, dkeys, dvalues, dteacher)."""
+    dt = cfg.dtype
+    T, B = teacher.shape[0], teacher.shape[1]
+    M = cfg.num_mels
+    T_in = keys.shape[1]
+    P2 = W['p2_w'].shape[0]
+    fr = W['f_w'].shape[0]
+    dev = keys.device
+    use_b = use_teacher > 0
+    m1, m2 = (m.to(dt) for m in masks)
+    relu1, relu2 = m1 * (R['r1'] > 0), m2 * (R['r2'] > 0)  # the prenet's dropout-relu gates
+    gates = [None] * 4 if zo is None else [g.bool() for g in zo]
+    # the frames' and stops' gradients side by side, and rounded to the dtype for their
+    # product; the fed-back frame's gradient added in place where a step read its own
+    dfs = torch.cat([g_frames, g_stops], dim=-1)
+    dfs_dt = dfs.to(dt)
+    if fwd_loop_applies(cfg, W, keys, values, use_teacher):
+        names = ('dz1', 'dz2', 'dpq', 'dctx_total', 'df', 'dkeys', 'dva', 'dba', 'dl')
+        out = dict(zip(names, decoder_bwd_loop(cfg, W, keys, values, mask, R,
+                                               dfs_dt @ W['fs_w'], g_aligns, gates)))
+        acc = {k: out.pop(k) for k in names[5:]}
+        E = dict(out, dp2=out['dz1'] @ W['g1_w'][:, :P2])
+    else:
+        E, acc = _step_loop_bwd(cfg, W, keys, values, mask, R, dfs, dfs_dt, g_aligns,
+                                use_b.tolist(), gates, relu1, relu2)
     E['dp2pre'] = E['dp2'] * relu2
     E['dp1pre'] = (E['dp2pre'] @ W['p2_w']) * relu1
     ddec = E['dp1pre'] @ W['p1_w']                                       # (T, B, M)

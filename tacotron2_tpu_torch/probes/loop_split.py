@@ -1,20 +1,24 @@
-"""Where the decoder forward loop's step goes, on the card: the split of a step inside
-`decoder_fwd_loop` (csrc/decoder_loop/decoder_loop.cu).
+"""Where the decoder loops' steps go, on the card: the split of a step inside
+`decoder_fwd_loop` (csrc/decoder_loop/decoder_loop.cu) and `decoder_bwd_loop`
+(csrc/decoder_bwd_loop/decoder_bwd_loop.cu).
 
-Not a counterpart of a TPU kernel: a timing probe of the port's own forward loop. The
-variant `profile` is the source built with -DT2_PROFILE into a library of its own, whose
-thread 0 of every CTA adds up the %globaltimer nanoseconds of each of the step's five
-stages (decoder_loop.cu's STAGES): its work, from the release of the barrier before it to
-its arrival at its own, and its wait there. `base` is the port's own build; `--source NAME=PATH` adds a variant NAME built from another copy of the
-source, such as a parent checkout's, to time two versions in one run (a name may repeat
-in `--variants`: each is timed in turn). Every variant runs on the same seeded inputs at
-the default widths (a decoder cell with seeded random weights, B rows x --steps steps,
---t_in input steps, training's keep-gates, the residuals saved as the train step saves
-them; with --lean none, as eval saves none) and its outputs are held to the port's
-build, bit for bit for `profile` (the macro changes no sum). `--registers` prints each
-source's registers, stack and spills (`nvcc -Xptxas -v`) instead:
+Not a counterpart of a TPU kernel: a timing probe of the port's own loops. The variant
+`profile` is a loop's source built with -DT2_PROFILE into a library of its own, whose
+thread 0 of every CTA adds up the %globaltimer nanoseconds of each of the step's stages
+(the forward's five, the reverse loop's six: each source's STAGES): its work, from the
+release of the barrier before it to its arrival at its own, and its wait there. `base` is
+the port's own build; `--source NAME=PATH` adds a variant NAME built from another copy of
+the source of the one loop that `--loop` names, such as a parent checkout's, to time two
+versions in one run (a name may repeat in `--variants`: each is timed in turn). Every
+variant runs on the same seeded inputs at the default widths (a decoder cell with seeded
+random weights, B rows x --steps steps, --t_in input steps, training's keep-gates; the
+forward saves the residuals as the train step saves them, with --lean none, as eval saves
+none; the reverse loop runs on the forward loop's residuals and seeded gradients) and its
+outputs are held to the port's build, bit for bit for `profile` (the macro changes no
+sum). `--registers` prints each source's registers, stack and spills (`nvcc -Xptxas -v`)
+instead:
 
-    python -m tacotron2_tpu_torch.probes.loop_split [--variants base,profile]
+    python -m tacotron2_tpu_torch.probes.loop_split [--loop fwd,bwd] [--variants base,profile]
         [--batch 32,1] [--steps 512] [--t_in 100] [--lean] [--source NAME=PATH ...]
         [--registers]
 """
@@ -33,25 +37,35 @@ import torch
 from . import best_ms
 
 VARIANTS = {'base': (), 'profile': ('T2_PROFILE',)}
-STAGES = ('lstm 1', 'lstm 2', 'pq', 'energies', 'softmax and context')
+# each loop's source file, its library's loader, the wrapper's library attribute and the
+# names of its step's stages
+LOOPS = {
+    'fwd': dict(dir='DECODER_LOOP_DIR', file='decoder_loop.cu',
+                load='load_decoder_loop_library', attr='loop_library',
+                stages=('lstm 1', 'lstm 2', 'pq', 'energies', 'softmax and context')),
+    'bwd': dict(dir='DECODER_BWD_LOOP_DIR', file='decoder_bwd_loop.cu',
+                load='load_decoder_bwd_loop_library', attr='bwd_loop_library',
+                stages=('dalign and energies', 'normalisation and location', 'sums', 'lstm 2',
+                        'din2 and lstm 1', 'din1'))}
 
 
-def _source() -> str:
+def _source(loop: str = 'fwd') -> str:
     from ..ops import _build
-    return os.path.join(_build.DECODER_LOOP_DIR, 'decoder_loop.cu')
+    return os.path.join(getattr(_build, LOOPS[loop]['dir']), LOOPS[loop]['file'])
 
 
-def build(variants, tmp: str, sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    """The library of each variant (the port's own for `base`; those of `sources` built
-    from the file each names), built at once."""
+def build(variants, tmp: str, sources: Dict[str, str], loop: str = 'fwd'
+          ) -> Dict[str, ctypes.CDLL]:
+    """The library of each variant of `loop` (the port's own for `base`; those of `sources`
+    built from the file each names), built at once."""
     from ..ops import _build
 
     def one(name):
         macros = VARIANTS.get(name, ())
         if not macros and name not in sources:
-            return name, _build.load_decoder_loop_library()
-        lib = os.path.join(tmp, f'libloop_{name}.so')
-        _build.compile_library([sources.get(name, _source())], lib, defines=macros,
+            return name, getattr(_build, LOOPS[loop]['load'])()
+        lib = os.path.join(tmp, f'lib{loop}_{name}.so')
+        _build.compile_library([sources.get(name, _source(loop))], lib, defines=macros,
                                flags=_build.DECODER_FLAGS)
         return name, ctypes.CDLL(lib)
 
@@ -59,8 +73,9 @@ def build(variants, tmp: str, sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]
         return dict(pool.map(one, variants))
 
 
-def registers(sources: Dict[str, str]) -> Dict[str, str]:
-    """{variant: 'R registers, ... spill loads'} of the port's source and of `sources`."""
+def registers(sources: Dict[str, str], loops=('fwd',)) -> Dict[str, str]:
+    """{variant: 'R registers, ... spill loads'} of the port's source of each loop (`base`,
+    `bwd base`) and of `sources`."""
     from ..ops import _build
 
     def one(item):
@@ -76,7 +91,8 @@ def registers(sources: Dict[str, str]) -> Dict[str, str]:
         frame = re.search(r'\d+ bytes stack frame.*', text)
         return name, f'{regs.group(0) if regs else "?"}; {frame.group(0) if frame else "?"}'
 
-    paths = {'base': _source(), **sources}
+    paths = {('base' if loop == 'fwd' else f'{loop} base'): _source(loop) for loop in loops}
+    paths.update(sources)
     with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
         table = dict(pool.map(one, paths.items()))
     for name, line in table.items():
@@ -107,73 +123,102 @@ def inputs(B: int, T: int, T_in: int, seed: int = 3):
     return cfg, W, keys, values, None, p2, gates
 
 
-def run(library, args, save: bool, profile=None):
-    """One launch of `library`'s kernel through decoder_fwd_loop."""
+def bwd_inputs(B: int, T: int, T_in: int, seed: int = 3):
+    """decoder_bwd_loop's arguments: the residuals of the forward loop (the port's build) on
+    `inputs`', seeded gradients of the projections and the alignments."""
     from ..ops import decoder_vjp as dv
 
-    saved = dv.loop_library
-    dv.loop_library = lambda: library
+    cfg, W, keys, values, mask, p2, gates = inputs(B, T, T_in, seed)
+    with torch.no_grad():
+        R = dv.decoder_fwd_loop(cfg, W, keys, values, mask, p2, gates, True)[3]
+    g = torch.Generator('cuda').manual_seed(seed + 1)
+    U, _, E, _ = dv.LOOP_WIDTHS
+    dproj = (torch.randn(T, B, U + E, device='cuda', generator=g) * 0.1).to(torch.bfloat16)
+    g_aligns = torch.randn(T, B, T_in, device='cuda', generator=g)
+    return cfg, W, keys, values, mask, R, dproj, g_aligns, gates
+
+
+def run(library, args, save: bool, profile=None, loop: str = 'fwd'):
+    """One launch of `library`'s kernel through decoder_fwd_loop (or decoder_bwd_loop)."""
+    from ..ops import decoder_vjp as dv
+
+    attr = LOOPS[loop]['attr']
+    saved = getattr(dv, attr)
+    setattr(dv, attr, lambda: library)
     try:
-        return dv.decoder_fwd_loop(*args, save, profile=profile)
+        if loop == 'fwd':
+            return dv.decoder_fwd_loop(*args, save, profile=profile)
+        return dv.decoder_bwd_loop(*args, profile=profile)
     finally:
-        dv.loop_library = saved
+        setattr(dv, attr, saved)
 
 
 def main(argv: Optional[list] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    p.add_argument('--loop', default='fwd,bwd', help='fwd, bwd or both, comma-separated')
     p.add_argument('--variants', default=','.join(VARIANTS),
                    help=f'comma-separated, of {", ".join(VARIANTS)} or a --source name')
     p.add_argument('--batch', default='32,1', help='batch size(s), comma-separated')
     p.add_argument('--steps', type=int, default=512)
     p.add_argument('--t_in', type=int, default=100)
-    p.add_argument('--lean', action='store_true', help='save no residuals')
+    p.add_argument('--lean', action='store_true', help='save no residuals (the forward)')
     p.add_argument('--source', action='append', default=[], metavar='NAME=PATH',
-                   help='a variant NAME built from the kernel source at PATH')
+                   help='a variant NAME built from the kernel source at PATH (of the one '
+                        'loop that --loop names)')
     p.add_argument('--registers', action='store_true',
                    help="print each source's registers and spills (nvcc -Xptxas -v)")
     args = p.parse_args(argv)
+    loops = args.loop.split(',')
     sources = dict(item.split('=', 1) for item in args.source)
+    if sources and len(loops) != 1:
+        raise ValueError('--source names a copy of one loop\'s source: give --loop fwd or bwd')
     if args.registers:
-        return registers(sources)
+        return registers(sources, loops)
     if not torch.cuda.is_available():
         raise RuntimeError('loop_split times the kernel on a CUDA card; torch finds none')
     torch.backends.cuda.matmul.allow_tf32 = False
     variants = args.variants.split(',')
     with tempfile.TemporaryDirectory(prefix='t2_loop_split_') as tmp:
-        libs = build(sorted(set(variants) | {'base'}), tmp, sources)
+        libs = {loop: build(sorted(set(variants) | {'base'}), tmp, sources, loop)
+                for loop in loops}
     save, T = not args.lean, args.steps
     results = {}
-    for B in (int(b) for b in args.batch.split(',')):
-        largs = inputs(B, T, args.t_in)
-        ref = run(libs['base'], largs, save)
-        for i, name in enumerate(variants):
-            prof = (torch.zeros(128, 2 * len(STAGES), dtype=torch.int64, device='cuda')
-                    if name == 'profile' else None)
-            out = run(libs[name], largs, save, prof)
-            same = all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3]))
-            err = max(float((a.double() - b.double()).abs().max()) for a, b in
-                      zip(out[:3], ref[:3]))
-            if name == 'profile' and not same:
-                raise RuntimeError('the profile build changed the outputs')
-            ms = best_ms(lambda: run(libs[name], largs, save), reps=3)
-            line = (f'{name} B={B} T={T} T_in={args.t_in} residuals {save}: {ms:.3f} ms, '
-                    f'{1e3 * ms / T:.2f} us a step; outputs against base: '
-                    + ('bit for bit' if same else f'max abs {err:.3e}'))
-            r = dict(ms=ms, us_step=1e3 * ms / T, bit_identical=same, max_abs_err=err)
-            if prof is not None:
-                us = prof.double().cpu() / 1e3 / T  # (CTA, slot) us a step
-                n = len(STAGES)
-                split = {s: dict(work=float(us[:, k].mean()), work_max=float(us[:, k].max()),
-                                 wait=float(us[:, n + k].mean()),
-                                 wait_max=float(us[:, n + k].max()))
-                         for k, s in enumerate(STAGES)}
-                r['split'] = split
-                line += ('; us a step, work / wait (mean over the CTAs, the largest): '
-                         + '; '.join(f'{s} {v["work"]:.2f} ({v["work_max"]:.2f}) / '
-                                     f'{v["wait"]:.2f} ({v["wait_max"]:.2f})'
-                                     for s, v in split.items()))
-            print(line, flush=True)
-            results[f'{name} B={B} #{i}'] = r
+    for loop in loops:
+        stages = LOOPS[loop]['stages']
+        n = len(stages)
+        for B in (int(b) for b in args.batch.split(',')):
+            largs = (inputs if loop == 'fwd' else bwd_inputs)(B, T, args.t_in)
+            outs = slice(0, 3) if loop == 'fwd' else slice(None)
+            ref = run(libs[loop]['base'], largs, save, loop=loop)
+            for i, name in enumerate(variants):
+                prof = (torch.zeros(128, 2 * n, dtype=torch.int64, device='cuda')
+                        if name == 'profile' else None)
+                out = run(libs[loop][name], largs, save, prof, loop)
+                same = all(torch.equal(a, b) for a, b in zip(out[outs], ref[outs]))
+                err = max(float((a.double() - b.double()).abs().max()) for a, b in
+                          zip(out[outs], ref[outs]))
+                if name == 'profile' and not same:
+                    raise RuntimeError(f'the profile build changed the {loop} loop\'s outputs')
+                ms = best_ms(lambda: run(libs[loop][name], largs, save, loop=loop), reps=3)
+                what = (f'residuals {save}' if loop == 'fwd' else 'reverse loop')
+                line = (f'{loop} {name} B={B} T={T} T_in={args.t_in} {what}: {ms:.3f} ms, '
+                        f'{1e3 * ms / T:.2f} us a step; outputs against base: '
+                        + ('bit for bit' if same else f'max abs {err:.3e}'))
+                r = dict(ms=ms, us_step=1e3 * ms / T, bit_identical=same, max_abs_err=err)
+                if prof is not None:
+                    us = prof.double().cpu() / 1e3 / T  # (CTA, slot) us a step
+                    split = {s: dict(work=float(us[:, k].mean()),
+                                     work_max=float(us[:, k].max()),
+                                     wait=float(us[:, n + k].mean()),
+                                     wait_max=float(us[:, n + k].max()))
+                             for k, s in enumerate(stages)}
+                    r['split'] = split
+                    line += ('; us a step, work / wait (mean over the CTAs, the largest): '
+                             + '; '.join(f'{s} {v["work"]:.2f} ({v["work_max"]:.2f}) / '
+                                         f'{v["wait"]:.2f} ({v["wait_max"]:.2f})'
+                                         for s, v in split.items()))
+                print(line, flush=True)
+                results[f'{loop} {name} B={B} #{i}'] = r
     return results
 
 
