@@ -179,10 +179,15 @@ Phases (one line each; any failure exits nonzero):
      CBHG GRUs' forward and backward), each reading the median of three with its range.
      With TACO_UTTERANCES / 2 utterances to train on and bucket_group_batches=64, the
      feeder's bucketing (the JAX one's) fills each batch of 32 with copies of one
-     utterance. The trainer's steps, eval and in-process steps run the fused decoder
-     (`ops/decoder_vjp.py`): its kernels' launches in the two trainer runs are counted
-     for TACO_PATH, those of the timed f32 steps for TACO_F32_TIMED_PATH (phase 16 reads
-     them).
+     utterance. The card-vs-CPU step is followed by a second step on each device from its
+     own state (Adam's moments now differ): the two devices' parameter displacements over
+     both steps within TACO_PARAM2_TOL in relative L2. Then `train --model
+     Tacotron` again in float32 at teacher forcing 0.5 (TACO_F32_SCHEDULED, 2 steps at
+     B=8, no eval): its steps on their own last frame keep the step loop. The trainer's
+     steps, eval and in-process steps run the fused decoder (`ops/decoder_vjp.py`): its
+     kernels' launches in the two trainer runs are counted for TACO_PATH, those of the
+     float32 run for TACO_F32_SCHEDULED_PATH, those of the timed f32 steps for
+     TACO_F32_TIMED_PATH (phase 16 reads them).
  13. The Tacotron-2 pipeline at the default hparams and full width, through the port's
      entry points: PIPE_UTTERANCES wavs of 1-2 s made from a seed in the LJSpeech layout
      through `python -m tacotron2_tpu_torch.preprocess` (every row's audio exactly its
@@ -282,14 +287,25 @@ Phases (one line each; any failure exits nonzero):
      BWD_LOOP_FIRST_STEPS steps and over all, and the accumulators (BWD_LOOP_TOL), six
      planted faults (BWD_LOOP_MUTANTS, built in phase 2) that must miss it, two launches
      bit for bit; the B=32 launch's ms beside its plain version's, the step loop's whole
-     backward over the same steps and its bound. fused_decoder_scan in bf16 at teacher
-     forcing 1 against autograd's, its forward and backward through the loops. Every
-     kernel launched on a main path (ALL_DECODER_PATHS): on the bf16 ones
-     (BF16_DECODER_PATHS: the trainer and the pipeline's Tacotron phase) decoder_fwd_loop
-     and decoder_bwd_loop and none of the four step kernels, on the f32 ones
-     (F32_DECODER_PATHS: GTA, whose model computes in f32 as the JAX synthesizer's does,
-     and phase 12's timed f32 steps) lstm_cell_fwd and attention_fwd (and, where they
-     train, lstm_cell_bwd and attention_bwd) and no loop.
+     backward over the same steps and its bound. The float32 forward loop
+     (csrc/decoder_loop_f32/decoder_loop_f32.cu, `decoder_fwd_loop` at float32, counted as
+     decoder_fwd_loop_f32: the products as 3xTF32, the location conv inside) against its
+     plain version on the same CUDA tensors over LOOP_STEPS steps (F32_LOOP_CASES: B=32 and
+     B=1 at T_in=100 with keep-gates and with zoneout's expectation, and B=32 at T_in=200
+     with a ragged mask, past the bf16 fold): every output and residual over the first
+     LOOP_FIRST_STEPS steps and over all (F32_LOOP_TOL), two launches bit for bit, six
+     planted faults (F32_LOOP_MUTANTS, built in phase 2) that must miss it; the B=32
+     launch's ms beside its plain version's, the f32 step loop's forward over the same
+     steps and its bound, and the B=1 launch without residuals (GTA's). fused_decoder_scan
+     in bf16 and in f32 at teacher forcing 1 against autograd's, the forward through the
+     loop of its dtype. Every kernel launched on a main path (ALL_DECODER_PATHS): on the
+     bf16 ones (BF16_DECODER_PATHS: the trainer and the pipeline's Tacotron phase)
+     decoder_fwd_loop and decoder_bwd_loop and none of the four step kernels; on the f32
+     ones (F32_DECODER_PATHS: GTA, whose model computes in f32 as the JAX synthesizer's
+     does, and phase 12's timed f32 steps) decoder_fwd_loop_f32 and neither lstm_cell_fwd
+     nor attention_fwd, and, where they train, lstm_cell_bwd and attention_bwd; on the
+     float32 trainer at teacher forcing 0.5 (TACO_F32_SCHEDULED_PATH) all four step
+     kernels.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -1503,10 +1519,10 @@ class Builds:
 def build_kernels(tmp):
     """Phase 2: nvcc builds the port's library first, alone, and loads it; then, in the
     background, one nvcc a library and one fewer at a time than the host has cores, the
-    decoder step's library, the decoder forward and reverse loops' libraries, the probes'
-    library and
-    one library for each of ALL_MUTANTS, CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS,
-    LOOP_MUTANTS and BWD_LOOP_MUTANTS from a changed copy of its source (an AR kernel's copy with the
+    decoder step's library, the decoder's bf16 and float32 forward loops' and its reverse
+    loop's libraries, the probes' library and one library for each of ALL_MUTANTS,
+    CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS, LOOP_MUTANTS, F32_LOOP_MUTANTS and
+    BWD_LOOP_MUTANTS from a changed copy of its source (an AR kernel's copy with the
     instantiations of MUTANT_HEADS alone) under `tmp`, which must outlive the builds.
     Phase 3 needs the first library alone and runs beside the others (its readings are
     device times); the run waits for them all before phase 4, whose entry points are
@@ -1526,6 +1542,9 @@ def build_kernels(tmp):
             flags = _build.DECODER_FLAGS
         elif fault in LOOP_MUTANTS:
             name, text = 'decoder_loop.cu', mutated_loop_source(fault)
+            flags = _build.DECODER_FLAGS
+        elif fault in F32_LOOP_MUTANTS:
+            name, text = 'decoder_loop_f32.cu', mutated_loop_f32_source(fault)
             flags = _build.DECODER_FLAGS
         elif fault in BWD_LOOP_MUTANTS:
             name, text = 'decoder_bwd_loop.cu', mutated_bwd_loop_source(fault)
@@ -1552,12 +1571,12 @@ def build_kernels(tmp):
     pool = concurrent.futures.ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1))
     libraries = [pool.submit(library, load) for load in (
         _build.load_decoder_library, _build.load_decoder_loop_library,
-        _build.load_decoder_bwd_loop_library)]
+        _build.load_decoder_loop_f32_library, _build.load_decoder_bwd_loop_library)]
     faults = list(CLUSTER_MUTANTS) + list(ALL_MUTANTS)
     mutants = {fault: pool.submit(mutant, (i, fault)) for i, fault in enumerate(faults)}
     libraries.append(pool.submit(library, _build.load_probe_library))
     for fault in (list(PROBE_MUTANTS) + list(DECODER_MUTANTS) + list(LOOP_MUTANTS)
-                  + list(BWD_LOOP_MUTANTS)):
+                  + list(F32_LOOP_MUTANTS) + list(BWD_LOOP_MUTANTS)):
         mutants[fault] = pool.submit(mutant, (len(mutants), fault))
     return Builds(pool, libraries, mutants)
 
@@ -2899,6 +2918,12 @@ def probes(mutants):
 TACO_UTTERANCES = 64   # 32 to train on and one test batch of 32
 TACO_OVERRIDES = 'tacotron_test_size=None,tacotron_test_batches=1'
 TACO_PATH = 'train --model Tacotron'
+# a float32 trainer at teacher forcing 0.5, 2 steps at B=8: the main path whose decoder
+# still runs the step loop (a step on its own last frame)
+TACO_F32_SCHEDULED = (',compute_dtype=float32,tacotron_teacher_forcing_ratio=0.5,'
+                      'tacotron_batch_size=8')
+TACO_F32_SCHEDULED_PATH = 'train --model Tacotron, float32, teacher forcing 0.5'
+F32_SCHEDULED_STEPS = 2
 TACO_CPU_BATCH = 4     # the card-vs-CPU step: full width, the batch cut
 TIMED_FRAMES = 512     # the timed step: B=32 x 512 mel frames, a typical LJSpeech utterance
 TIMED_CHARS = 100      # ... and its characters
@@ -2918,6 +2943,16 @@ TACO_GRAD_TOL = 5e-4
 TACO_PARAM_TOL = 2.5e-3
 TACO_PARAM_CLOSE = 1e-5
 TACO_SMALL_GRAD = 1e-4
+# the second step, each device from its own state after the first (Adam's moments differ):
+# the two devices' parameter displacements over both steps, apart in relative L2. Read on
+# an H100 80GB HBM3 at 700 W in three runs: 1.16e-4 to 3.14e-4 at the default depth (the
+# fused decoder, its float32 forward loop on the card) and 1.52e-3 at depth 3 (the
+# autograd decoder, phase 14). A bound on single entries cannot hold: where a parameter's
+# two gradients nearly cancel in Adam's first moment, its second update follows the
+# devices' rounding (5.3e-4 apart at depth 3, the learning rate 1e-3, among entries whose
+# gradient is 1e-4 or more at both steps; 9.7e-7 to 1.2e-6 at the default depth). The
+# bound sits 3.3x above the largest reading
+TACO_PARAM2_TOL = 5e-3
 
 
 def make_taco_corpus(root, hp, n, seed):
@@ -2951,12 +2986,12 @@ def make_taco_corpus(root, hp, n, seed):
     return path
 
 
-def run_taco_trainer(root, name, steps, eval_interval, checkpoint_interval, restore=True):
+def run_taco_trainer(root, name, steps, eval_interval, checkpoint_interval, restore=True,
+                     extra='', path=TACO_PATH):
     """`python -m tacotron2_tpu_torch.train --model Tacotron` on the card at the default
-    hparams (but TACO_OVERRIDES), its console output captured, its decoder kernel
-    launches counted for TACO_PATH. Returns the output, its
-    (step, sec/step, loss) lines, the wall seconds, the peak device memory and the
-    checkpoint directory."""
+    hparams (but TACO_OVERRIDES and `extra`), its console output captured, its decoder
+    kernel launches counted for `path`. Returns the output, its (step, sec/step, loss)
+    lines, the wall seconds, the peak device memory and the checkpoint directory."""
     from tacotron2_tpu_torch import train
 
     torch.cuda.reset_peak_memory_stats()
@@ -2969,14 +3004,31 @@ def run_taco_trainer(root, name, steps, eval_interval, checkpoint_interval, rest
              '--name', name, '--tacotron_train_steps', str(steps), '--eval_interval',
              str(eval_interval), '--checkpoint_interval', str(checkpoint_interval),
              '--summary_interval', '2', '--restore', str(restore), '--hparams',
-             TACO_OVERRIDES, '--device', 'cuda'])
+             TACO_OVERRIDES + extra, '--device', 'cuda'])
     torch.cuda.synchronize()
-    read_decoder_counts(TACO_PATH)
+    read_decoder_counts(path)
     text = out.getvalue()
     lines = {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
              for m in STEP_LINE.finditer(text)}
     return dict(out=text, steps=lines, seconds=time.perf_counter() - t0,
                 peak_bytes=torch.cuda.max_memory_allocated(), save_dir=save_dir)
+
+
+def taco_f32_scheduled(root):
+    """`train --model Tacotron` in float32 at teacher forcing 0.5 (TACO_F32_SCHEDULED):
+    F32_SCHEDULED_STEPS steps at B=8 on phase 12's corpus, no eval, its decoder kernel
+    launches counted for TACO_F32_SCHEDULED_PATH. Steps that read their own last frame
+    keep the step loop (lstm_cell_fwd and attention_fwd, with their reverse kernels): the
+    main path that still runs them. Returns the readings."""
+    run = run_taco_trainer(root, 'f32s', F32_SCHEDULED_STEPS, 100, 100, restore=False,
+                           extra=TACO_F32_SCHEDULED, path=TACO_F32_SCHEDULED_PATH)
+    losses = [run['steps'].get(i, (0, float('nan')))[1]
+              for i in range(1, F32_SCHEDULED_STEPS + 1)]
+    phase(12, f'{TACO_F32_SCHEDULED_PATH} ({TACO_F32_SCHEDULED}): {F32_SCHEDULED_STEPS} steps in '
+              f'{run["seconds"]:.1f} s of wall, losses {losses}')
+    if not all(np.isfinite(l) for l in losses):
+        fail(f'the float32 trainer at teacher forcing 0.5 gave losses of {losses}')
+    return dict(seconds=run['seconds'], losses=losses)
 
 
 def _wav_ok(path):
@@ -3004,6 +3056,7 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
             return [on(device, y) for y in x]
         return x.to(device)
 
+    start = [p.detach().clone() for p in states['cpu'].model.parameters()]
     metrics, secs = {}, {}
     for d, state in states.items():
         t0 = time.perf_counter()
@@ -3040,8 +3093,56 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
     if not (loss_err <= TACO_STEP_TOL and norm_err <= TACO_STEP_TOL and grad_err <= TACO_GRAD_TOL
             and worst <= TACO_PARAM_TOL and off_large == 0):
         fail('the card\'s Tacotron train step disagrees with the CPU\'s')
+    second = taco_second_step(states, start, small, noise, hp, n, what)
     return dict(loss_rel_err=loss_err, grad_norm_rel_err=norm_err, grad_rel_err=grad_err,
-                param_max_abs_err=worst, params_off=off, card_s=secs['cuda'], cpu_s=secs['cpu'])
+                param_max_abs_err=worst, params_off=off, card_s=secs['cuda'], cpu_s=secs['cpu'],
+                second_step=second)
+
+
+def taco_second_step(states, start, batch, noise, hp, n=12, what=''):
+    """The second f32 train step of taco_cpu_vs_card, each device from its own state after
+    the first (Adam's moments now differ between them), on the same batch and draws: the
+    loss, and the parameters after it: the two devices' displacements over both steps from
+    `start` (the fresh state's parameters) within TACO_PARAM2_TOL of each other in relative
+    L2; beside it the largest difference of all, and of the entries whose gradient is
+    TACO_SMALL_GRAD or more at both steps. Returns the readings."""
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    b1 = hp.tacotron_adam_beta1
+    m1 = [m.detach().clone() for m in states['cpu'].exp_avg]
+    losses = {}
+    t0 = time.perf_counter()
+    for d, state in states.items():
+        m = tt.train_step(state, {k: v.to(d) for k, v in batch.items()}, hp,
+                          noise={k: [y.to(d) for y in v] if isinstance(v, list) else v.to(d)
+                                 for k, v in noise.items()}, dtype=torch.float32)
+        losses[d] = float(m['loss'])
+    worst = worst_set = 0.0
+    n_set, diff2, move2 = 0, 0.0, 0.0
+    for a, b, m2, m1_, p0 in zip(states['cpu'].model.parameters(),
+                                  states['cuda'].model.parameters(), states['cpu'].exp_avg, m1,
+                                  start):
+        g1, g2 = m1_ / (1 - b1), (m2 - b1 * m1_) / (1 - b1)
+        diff = (a.detach() - b.detach().cpu()).abs()
+        worst = max(worst, float(diff.max()))
+        settled = (g1.abs() >= TACO_SMALL_GRAD) & (g2.abs() >= TACO_SMALL_GRAD)
+        n_set += int(settled.sum())
+        if settled.any():
+            worst_set = max(worst_set, float(diff[settled].max()))
+        diff2 += float(diff.double().square().sum())
+        move2 += float((a.detach() - p0).double().square().sum())
+    loss_err = abs(losses['cuda'] - losses['cpu']) / abs(losses['cpu'])
+    rel = (diff2 / move2) ** 0.5
+    phase(n, f'the second f32 train step{what}, each device from its own state after the '
+              f'first: loss {losses["cuda"]:.6f} vs {losses["cpu"]:.6f} (rel err '
+              f'{loss_err:.2e}); the parameters\' displacements over both steps {rel:.2e} '
+              f'apart in relative L2 (tol {TACO_PARAM2_TOL}); max abs err {worst:.2e} of all, '
+              f'{worst_set:.2e} where the gradient is {TACO_SMALL_GRAD} or more at both steps '
+              f'({n_set} entries); {time.perf_counter() - t0:.1f} s on both devices')
+    if not rel <= TACO_PARAM2_TOL:
+        fail('the card\'s second Tacotron train step disagrees with the CPU\'s')
+    return dict(loss_rel_err=loss_err, settled_entries=n_set, settled_max_abs_err=worst_set,
+                param_max_abs_err=worst, displacement_rel_l2=rel)
 
 
 # the modules whose boundaries StepMarks marks inside the real train step: each one's
@@ -3259,11 +3360,13 @@ def tacotron_training():
             fail('the resumed Tacotron run did not write its checkpoint at step 8')
         synced = taco_synced_steps(state, dataset, hp)
         cpu = taco_cpu_vs_card(hp, batch)
+        scheduled = taco_f32_scheduled(root)
     reset_decoder_counts()
     timed = taco_timed_step(hp)
     read_decoder_counts(TACO_F32_TIMED_PATH)
     return dict(sec_step=float(np.median(list(synced.values()))), peak_gib=gib,
-                losses=losses, loss7=loss7, logged7=logged7, cpu_vs_card=cpu, timed=timed)
+                losses=losses, loss7=loss7, logged7=logged7, cpu_vs_card=cpu, timed=timed,
+                scheduled=scheduled)
 
 
 def taco_synced_steps(state, dataset, hp, n=5):
@@ -4818,11 +4921,12 @@ TACO_F32_TIMED_PATH = 'timed Tacotron train steps, float32 (phase 12)'
 DECODER_PATHS = (TACO_PATH, PIPE_TACO_PATH, PIPE_GTA_PATH)
 # the main paths whose decoder runs in bf16 (the trainers' compute dtype on the card), where
 # decoder_fwd_loop is their forward and lstm_cell_fwd and attention_fwd launch no more; and
-# those in f32, which keep the step loop: GTA (the synthesizer's model computes in float32,
-# as the JAX one's `Tacotron(hparams)` does) and phase 12's timed f32 steps
+# those in f32, whose forward is decoder_fwd_loop_f32: GTA (the synthesizer's model
+# computes in float32, as the JAX one's `Tacotron(hparams)` does) and phase 12's timed f32
+# steps; the float32 trainer at teacher forcing 0.5 keeps the step loop
 BF16_DECODER_PATHS = (TACO_PATH, PIPE_TACO_PATH)
 F32_DECODER_PATHS = (PIPE_GTA_PATH, TACO_F32_TIMED_PATH)
-ALL_DECODER_PATHS = DECODER_PATHS + (TACO_F32_TIMED_PATH,)
+ALL_DECODER_PATHS = DECODER_PATHS + (TACO_F32_TIMED_PATH, TACO_F32_SCHEDULED_PATH)
 DECODER_WIDTHS = (32, 1024, 128, 100)  # B, U, D, T_in: the default trainer's, 100 characters
 # each kernel against its plain version on the same CUDA tensors: the largest error of
 # its outputs relative to the plain output's largest entry, a bound a kernel and dtype.
@@ -4871,6 +4975,10 @@ AUTOGRAD_TIMED = {'float32': dict(sec_step=2.649, peak_gib=4.89, fwd=663.0, bwd=
 STEP_LOOP_TIMED = {'float32': dict(sec_step=2.048, peak_gib=4.64, fwd=260.7, bwd=384.0),
               'bfloat16': dict(sec_step=2.153, peak_gib=3.27, fwd=268.5, bwd=415.9)}
 STEP_LOOP_GTA_S = 0.099
+# the f32 timed step with the step loops in both directions, the last before the float32
+# forward loop (H100 80GB HBM3, 700 W): sec/step, the decoder's forward and backward ms
+# (StepMarks), and GTA's seconds an utterance
+F32_STEP_LOOPS_TIMED = dict(sec_step=1.953, fwd=263.3, bwd=373.4, gta_s=0.176)
 F32_PEAK_OPS = 67e12  # f32 outside the tensor cores: the elementwise kernels' ops
 # the fused decoder against autograd's on the card, {dtype: (the outputs' max abs error,
 # the gradients' relative L2)}. f32, read 2.1e-7 to 3.3e-7 and 6.4e-7 to 7.0e-7 at
@@ -5201,18 +5309,18 @@ def mutated_loop_source(fault):
     return text.replace(old, new)
 
 
-def loop_case(model, hp, B, gates, ragged):
-    """The forward loop's inputs at the default width, B rows x LOOP_STEPS steps and
-    TIMED_CHARS characters in bf16: keys, values and mask from the model's encoder on a
-    seeded batch (with `ragged`, 50 to 100 characters), the prenet's output on its
-    teacher frames with the model's dropout masks, training's keep-gates (0.9) where
-    `gates`, else zoneout's expectation. Returns the arguments of decoder_fwd_loop and of
-    the whole forward (`_forward`, `_step_loop`)."""
+def loop_case(model, hp, B, gates, ragged, dtype=torch.bfloat16, T_in=TIMED_CHARS):
+    """The forward loop's inputs at the default width, B rows x LOOP_STEPS steps and T_in
+    characters in `dtype`: keys, values and mask from the model's encoder on a seeded
+    batch (with `ragged`, T_in / 2 to T_in characters), the prenet's output on its teacher
+    frames with the model's dropout masks, training's keep-gates (0.9) where `gates`,
+    else zoneout's expectation. Returns the arguments of decoder_fwd_loop and of the whole
+    forward (`_forward`, `_step_loop`)."""
     from tacotron2_tpu_torch.ops import decoder_vjp as dv
 
-    bf, T, T_in = torch.bfloat16, LOOP_STEPS, TIMED_CHARS
+    dt, T = dtype, LOOP_STEPS
     cell = model.decoder
-    cfg = dv._config(cell, bf)
+    cfg = dv._config(cell, dt)
     W = dv._weights(cfg, cell, [cell.get_parameter(n) for _, n in dv.PARAMS], B, T_in)
     batch = taco_timed_batch(hp, B, T, T_in)
     lengths = (torch.linspace(T_in // 2, T_in, B, device='cuda').long() if ragged
@@ -5220,14 +5328,14 @@ def loop_case(model, hp, B, gates, ragged):
     gen = torch.Generator('cuda').manual_seed(18 + B)
     noise = model.draw_noise(B, T_in, T, gen, not gates, 'cuda')
     with torch.no_grad():
-        keys, values, mask = model._encode(batch['inputs'], lengths, dtype=bf)
+        keys, values, mask = model._encode(batch['inputs'], lengths, dtype=dt)
     mel = batch['mel_targets']
     teacher = torch.cat([torch.zeros_like(mel[:, :1]), mel[:, :-1]], 1).transpose(0, 1)
     masks = [noise['m1'], noise['m2']]
     zo = noise['zo'] if gates else None
-    keys, values = keys.to(bf).contiguous(), values.float().contiguous()
+    keys, values = keys.to(dt).contiguous(), values.float().contiguous()
     mask = None if mask is None else mask.float().contiguous()
-    p2 = dv._prenet(W, teacher, *(m.to(bf) for m in masks), bf)[2]
+    p2 = dv._prenet(W, teacher, *(m.to(dt) for m in masks), dt)[2]
     gate_list = [None] * 4 if zo is None else [g.bool() for g in zo]
     return dict(loop=(cfg, W, keys, values, mask, p2, gate_list),
                 forward=(cfg, W, keys, values, mask, teacher, torch.ones(T, device='cuda'),
@@ -5367,6 +5475,193 @@ def loop_kernel_checks(loop_mutants):
             fail(f'the decoder_fwd_loop check does not see its planted fault ({fault})')
     return dict(cases=readings, faults=seen,
                 check_launches=dv.LAUNCHES['decoder_fwd_loop'] - launches0)
+
+
+# --- phase 16: the decoder's float32 forward recurrence as one persistent kernel ---------
+
+F32_LOOP_SOURCE = 'tacotron2_tpu_torch/csrc/decoder_loop_f32/decoder_loop_f32.cu'
+F32_LOOP_REPLACES = ('tacotron2_tpu/ops/fused_decoder.py:122-127,356-364 (lstm_cell_fwd), '
+                     ':195-228,367-368 (attention_fwd with the location conv), :341-416 '
+                     '(_step_fwd, _forward), at float32')
+# (B, keep-gates, a ragged mask, T_in) of each check: the trainer's batch and GTA's one
+# row, each with training's keep-gates and with zoneout's expectation, at 100 characters;
+# and 200 characters with a ragged mask, past the bf16 fold's 181, which only the conv
+# tier takes
+F32_LOOP_CASES = {'B=32, keep-gates': (32, True, False, 100),
+                  'B=32, expectation': (32, False, False, 100),
+                  'B=1, keep-gates': (1, True, False, 100),
+                  'B=1, expectation': (1, False, False, 100),
+                  'B=32, T_in=200, keep-gates, ragged mask': (32, True, True, 200)}
+# the kernel against its plain version on the same CUDA tensors, {span: bound}, as LOOP_TOL.
+# Read on an H100 80GB HBM3 at 700 W: the first three steps 4.3e-7 to 1.7e-6 (the gate
+# products as 3xTF32 against cuBLAS's f32 sums), all 512 steps 3.6e-6 to 5.8e-6 (the
+# alignments: an energy a few ulps apart moves the softmax, and the recurrence carries it);
+# with the six products of a k-quad summed through the accumulator over a whole K-slice,
+# 3.8e-6 and 7.1e-6 (the tensor cores' sum truncates); the planted faults read 944x to
+# 8,369x bounds of 1e-4 / 1e-3. The bounds sit about 6x above the sound readings
+F32_LOOP_TOL = {'first': 1e-5, 'all': 3e-5}
+# planted faults: each a build of a copy of csrc/decoder_loop_f32/decoder_loop_f32.cu with one
+# line changed, built in phase 2, {fault: (the line, its change)}; each must miss
+# F32_LOOP_TOL in one span of one case
+F32_LOOP_MUTANTS = {
+    'f32 loop: the forget bias dropped': ('const float sf = sig(z[2] + 1.0f);',
+                                          'const float sf = sig(z[2]);'),
+    'f32 loop: the zoneout mix of h swapped': (
+        'h = kh >= 0 ? (kh ? hn : h) : mh[0] * hn + mh[1] * h;',
+        'h = kh >= 0 ? (kh ? hn : h) : mh[1] * hn + mh[0] * h;'),
+    'f32 loop: the mask ignored': (
+        'if (a.mask && !(a.mask[(size_t)tid * T_in + j] > 0.0f)) e = NEG_INF;', ';'),
+    'f32 loop: a conv tap off by one': ('const int r = i / K, k = i % K, s = j + k - pad_lo;',
+                                        'const int r = i / K, k = i % K, s = j + k - pad_lo + 1;'),
+    'f32 loop: the state not cumulated': ('const float nw = a.cumulate ? al + old : al;',
+                                          'const float nw = al;'),
+    'f32 loop: a streamed k-quad of g2 skipped': (
+        'segment<MT, true, true>(d, x1, U, B, 0, KQ_U, warp, lane, streamed);',
+        'segment<MT, true, true>(d, x1, U, B, 0, KQ_U - 1, warp, lane, streamed);')}
+
+
+def mutated_loop_f32_source(fault):
+    """The text of csrc/decoder_loop_f32/decoder_loop_f32.cu with F32_LOOP_MUTANTS[fault]'s
+    change."""
+    from tacotron2_tpu_torch.ops import _build
+
+    old, new = F32_LOOP_MUTANTS[fault]
+    path = os.path.join(_build.DECODER_LOOP_F32_DIR, 'decoder_loop_f32.cu')
+    with open(path, encoding='utf-8') as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times in '
+                         'csrc/decoder_loop_f32/decoder_loop_f32.cu: bring F32_LOOP_MUTANTS up '
+                         'to date')
+    return text.replace(old, new)
+
+
+TF32_PEAK_OPS = 495e12  # TF32 on the tensor cores, dense (the 3xTF32 products' type)
+# the timed cases: the trainer's (with residuals) and GTA's (one row, without them)
+F32_LOOP_TIMED = ('B=32, keep-gates', 'B=1, expectation')
+
+
+def loop_f32_bound(B, T, T_in, K, save=True, gates=True):
+    """(ms, 'bytes' or 'operations', the operations' ms as 3xTF32) of the least time an
+    H100 takes for the float32 forward loop of B rows over T steps at LOOP_WIDTHS and
+    LOOP_FILTERS with a location conv of K taps: its products' operations (the gates, pq,
+    the location features and their projection, the context) over the f32 CUDA cores'
+    peak (decoder_loop_f32.cu's note), or its bytes (each input read once: p2, keys,
+    values, the mask, the weights and, with `gates`, the keep-gates; each output written
+    once: the alignments, x2, the contexts and, with `save`, the residuals) over the HBM
+    rate; beside it the same operations with the gates' and pq's three times over on the
+    TF32 tensor cores, as the kernel runs them."""
+    from tacotron2_tpu_torch import probes
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
+    U, n_p, E, D = dv.LOOP_WIDTHS
+    n_f = dv.LOOP_FILTERS
+    mma_ops = 2 * T * B * ((n_p + E + U + 2 * U) * 4 * U + U * D)
+    core_ops = 2 * T * B * T_in * (K * n_f + n_f * D + E)
+    weights = 4 * (4 * U * (n_p + E + U + 2 * U) + 8 * U + D * U + n_f * K + n_f + D * n_f
+                   + 2 * D)
+    inputs = (4 * T * B * n_p + 4 * B * T_in * (D + E + 1) + weights
+              + (4 * T * B * U if gates else 0))
+    outputs = 4 * T * B * (T_in + U + E)
+    if save:
+        outputs += 4 * T * B * (8 * U + 5 * U + T_in + D)
+    ms, by = probes.bound_ms(inputs + outputs, flops_f32=mma_ops + core_ops)
+    tf32_ms = 1e3 * (3 * mma_ops / TF32_PEAK_OPS + core_ops / F32_PEAK_OPS)
+    return ms, by, tf32_ms
+
+
+def loop_f32_kernel_checks(f32_mutants):
+    """decoder_fwd_loop in float32 (csrc/decoder_loop_f32/decoder_loop_f32.cu) against its
+    plain version on the same CUDA tensors at the default width over LOOP_STEPS steps,
+    each of F32_LOOP_CASES: the alignments, x2, the contexts and every residual, over the
+    first LOOP_FIRST_STEPS steps and over all of them, within F32_LOOP_TOL; a second
+    launch bit for bit the first; each of F32_LOOP_MUTANTS (`f32_mutants`: fault -> its
+    library) must miss the bound in one span of one case. Then F32_LOOP_TIMED's launches
+    timed (CUDA events, the median of 3; GTA's without residuals, as it runs), at B=32
+    beside the plain version, the float32 step loop's forward (`_step_loop`:
+    lstm_cell_fwd, attention_fwd, the library products and the location conv; the prenet
+    and the projections in) and the kernel's whole forward (`_forward`, the same) over the
+    same steps. Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    model = tt.create_train_state(hp, 'cuda', seed=15).model
+    conv = model.decoder.attention.location_convolution
+    with torch.no_grad():  # a trained location conv's bias is not 0 (as loop_kernel_checks)
+        conv.bias.copy_(torch.randn(conv.bias.shape, device='cuda',
+                                    generator=torch.Generator('cuda').manual_seed(15)) * 0.5)
+    K = conv.weight.shape[-1]
+    t0 = time.perf_counter()
+    readings, seen = {}, dict.fromkeys(F32_LOOP_MUTANTS, 0.0)
+    launches0 = dv.LAUNCHES['decoder_fwd_loop_f32']
+    for what, (B, gates, ragged, T_in) in F32_LOOP_CASES.items():
+        case = loop_case(model, hp, B, gates, ragged, torch.float32, T_in)
+        args = case['loop']
+        with torch.no_grad():
+            want = _loop_outputs(dv._decoder_fwd_loop_plain(*args, True))
+            got = _loop_outputs(dv.decoder_fwd_loop(*args, True))
+            again = _loop_outputs(dv.decoder_fwd_loop(*args, True))
+            torch.cuda.synchronize()
+            spans = {'first': _span_errs(got, want, LOOP_FIRST_STEPS),
+                     'all': _span_errs(got, want, LOOP_STEPS)}
+            r = dict(first=max(spans['first'].values()), all=max(spans['all'].values()),
+                     worst_first=max(spans['first'], key=spans['first'].get),
+                     worst_all=max(spans['all'], key=spans['all'].get),
+                     max_abs_err=max(float((got[n].double() - want[n].double()).abs().max())
+                                     for n in LOOP_NAMES), by_tensor=spans['all'],
+                     bit_identical=all(torch.equal(again[n], got[n]) for n in LOOP_NAMES))
+            if not r['bit_identical']:
+                fail(f'two launches of the float32 decoder_fwd_loop differ ({what})')
+            for fault, lib in f32_mutants.items():
+                with _patched(dv, 'loop_f32_library', lambda lib=lib: lib):
+                    bad = _loop_outputs(dv.decoder_fwd_loop(*args, True))
+                e = max(max(_span_errs(bad, want, LOOP_FIRST_STEPS).values())
+                        / F32_LOOP_TOL['first'],
+                        max(_span_errs(bad, want, LOOP_STEPS).values()) / F32_LOOP_TOL['all'])
+                seen[fault] = max(seen[fault], e)
+            if what in F32_LOOP_TIMED:
+                save = B > 1  # GTA (one row) runs without residuals, training with them
+                r['ms'] = sorted(cuda_ms(lambda: dv.decoder_fwd_loop(*args, save))[1]
+                                 for _ in range(3))[1]
+                r['bound_ms'], r['bound_by'], r['tf32_bound_ms'] = loop_f32_bound(
+                    B, LOOP_STEPS, T_in, K, save, gates)
+            if what == F32_LOOP_TIMED[0]:
+                r['plain_ms'] = cuda_ms(lambda: dv._decoder_fwd_loop_plain(*args, True))[1]
+                r['step_loop_ms'] = sorted(cuda_ms(lambda: dv._step_loop(*case['forward'], True))[1]
+                                           for _ in range(2))[0]
+                r['forward_ms'] = sorted(cuda_ms(lambda: dv._forward(*case['forward'], True))[1]
+                                         for _ in range(3))[1]
+        readings[what] = r
+        phase(16, f'decoder_fwd_loop_f32 {what}, {LOOP_STEPS} steps, T_in={T_in} (f32): kernel '
+                  f'vs plain, relative to the plain tensor\'s largest entry, first '
+                  f'{LOOP_FIRST_STEPS} steps {r["first"]:.2e} ({r["worst_first"]}; tol '
+                  f'{F32_LOOP_TOL["first"]}), all steps {r["all"]:.2e} ({r["worst_all"]}; tol '
+                  f'{F32_LOOP_TOL["all"]}); max abs {r["max_abs_err"]:.2e}; a second launch bit '
+                  'for bit the first; by tensor over all steps: '
+                  + ', '.join(f'{n} {v:.1e}' for n, v in spans['all'].items())
+                  + ('' if 'ms' not in r else
+                     f'; the launch{"" if B > 1 else " without residuals"} {r["ms"]:.2f} ms '
+                     f'({1e3 * r["ms"] / LOOP_STEPS:.1f} us a step), bound {r["bound_ms"]:.3f} '
+                     f'ms by {r["bound_by"]} ({r["tf32_bound_ms"]:.3f} ms as 3xTF32)')
+                  + ('' if 'plain_ms' not in r else
+                     f'; its plain version {r["plain_ms"]:.1f} ms, the f32 step loop\'s forward '
+                     f'(lstm_cell_fwd, attention_fwd, cuBLAS, the conv; the prenet and '
+                     f'projections in) {r["step_loop_ms"]:.1f} ms, the kernel\'s whole forward '
+                     f'(the same) {r["forward_ms"]:.2f} ms'))
+        if not (r['first'] <= F32_LOOP_TOL['first'] and r['all'] <= F32_LOOP_TOL['all']):
+            fail(f'the float32 decoder_fwd_loop kernel disagrees with its plain version ({what})')
+    seconds = time.perf_counter() - t0
+    phase(16, 'decoder_fwd_loop_f32 planted faults, the largest of their errors over a bound '
+              '(each must exceed 1): ' + '; '.join(f'{f} {v:.2f}' for f, v in seen.items())
+              + f'; the float32 loop\'s checks took {seconds:.1f} s')
+    for fault, v in seen.items():
+        if not v > 1:
+            fail(f'the float32 decoder_fwd_loop check does not see its planted fault ({fault})')
+    return dict(cases=readings, faults=seen, seconds=seconds,
+                check_launches=dv.LAUNCHES['decoder_fwd_loop_f32'] - launches0)
 
 
 # --- phase 16: the decoder's reverse recurrence as one persistent kernel -----------------
@@ -5589,6 +5884,13 @@ def timed_beside_autograd(timed, gta_s):
     raised otherwise)."""
     for key, t in timed.items():
         was, loop = AUTOGRAD_TIMED[key], STEP_LOOP_TIMED[key]
+        if key == 'float32':
+            last = F32_STEP_LOOPS_TIMED
+            phase(16, f'timed step float32 with the float32 forward loop: {t["sec_step"]:.3f} '
+                      f'sec/step, the decoder forward {t["parts"]["fwd: decoder"]:.1f} ms, '
+                      f'backward {t["parts"]["bwd: decoder"]:.1f} ms (with the step loops in '
+                      f'both directions: {last["sec_step"]} s, {last["fwd"]} and '
+                      f'{last["bwd"]} ms)')
         phase(16, f'timed step {key}, B=32 x {TIMED_FRAMES} frames: {t["sec_step"]:.3f} '
                   f'sec/step ({t["sec_step_range"][0]:.3f}-{t["sec_step_range"][1]:.3f}; autograd '
                   f'{was["sec_step"]}, step loop {loop["sec_step"]}), peak {t["peak_gib"]:.2f} '
@@ -5598,7 +5900,7 @@ def timed_beside_autograd(timed, gta_s):
                   f'{was["bwd"]}, step loop {loop["bwd"]}), {t["decoder_bwd_share"]:.0%} of the '
                   f'backward; the step {t["step_ms"]:.1f} ms by its parts, which tile it')
     phase(16, f'GTA (phase 13, f32, B=1): {gta_s:.3f} s an utterance (the step loop '
-              f'{STEP_LOOP_GTA_S})')
+              f'{STEP_LOOP_GTA_S}-{F32_STEP_LOOPS_TIMED["gta_s"]})')
 
 
 def decoder_slice(mutants, timed, gta_s):
@@ -5608,15 +5910,18 @@ def decoder_slice(mutants, timed, gta_s):
     t0 = time.perf_counter()
     kernels = decoder_kernel_checks({f: mutants[f] for f in DECODER_MUTANTS})
     loop = loop_kernel_checks({f: mutants[f] for f in LOOP_MUTANTS})
+    loop_f32 = loop_f32_kernel_checks({f: mutants[f] for f in F32_LOOP_MUTANTS})
     bwd_loop = bwd_loop_kernel_checks({f: mutants[f] for f in BWD_LOOP_MUTANTS})
-    fused = {f'float32 {ratio}': fused_vs_autograd(ratio) for ratio in (1.0, 0.5)}
-    before = collections.Counter(dv.LAUNCHES)
-    fused['bfloat16 1.0'] = fused_vs_autograd(1.0, torch.bfloat16)
-    ran = collections.Counter(dv.LAUNCHES) - before
-    if not (ran['decoder_fwd_loop'] and ran['decoder_bwd_loop']):
-        fail('the fused decoder in bf16 at teacher forcing 1 did not run decoder_fwd_loop and '
-             'decoder_bwd_loop')
-    fused['bfloat16 0.5'] = fused_vs_autograd(0.5, torch.bfloat16)
+    fused = {}
+    for ratio, dtype, loops in ((1.0, torch.float32, ('decoder_fwd_loop_f32',)),
+                                (0.5, torch.float32, ()),
+                                (1.0, torch.bfloat16, ('decoder_fwd_loop', 'decoder_bwd_loop')),
+                                (0.5, torch.bfloat16, ())):
+        before = collections.Counter(dv.LAUNCHES)
+        fused[f'{str(dtype).split(".")[-1]} {ratio}'] = fused_vs_autograd(ratio, dtype)
+        ran = collections.Counter(dv.LAUNCHES) - before
+        if not all(ran[name] for name in loops):
+            fail(f'the fused decoder in {dtype} at teacher forcing 1 did not run {loops}')
     timed_beside_autograd(timed, gta_s)
     launches = {p: dict(DECODER_LAUNCHES_BY_PATH[p]) for p in ALL_DECODER_PATHS}
     phase(16, f'decoder kernel launches on the main paths: {launches}; phase 16 took '
@@ -5632,14 +5937,19 @@ def decoder_slice(mutants, timed, gta_s):
             fail(f'{p} (bf16) did not run its backward through decoder_bwd_loop alone')
     for p in F32_DECODER_PATHS:
         by = DECODER_LAUNCHES_BY_PATH[p]
-        if not (by['lstm_cell_fwd'] and by['attention_fwd']) or by['decoder_fwd_loop']:
-            fail(f'{p} (f32) did not run the step loop\'s forward kernels')
+        if (not by['decoder_fwd_loop_f32'] or by['lstm_cell_fwd'] or by['attention_fwd']
+                or by['decoder_fwd_loop']):
+            fail(f'{p} (f32) did not run its forward through decoder_fwd_loop_f32 alone')
         if by['decoder_bwd_loop']:
             fail(f'{p} (f32) ran decoder_bwd_loop')
     by = DECODER_LAUNCHES_BY_PATH[TACO_F32_TIMED_PATH]  # the f32 path that trains (GTA does not)
     if not (by['lstm_cell_bwd'] and by['attention_bwd']):
         fail(f'{TACO_F32_TIMED_PATH} did not run the step loop\'s backward kernels')
-    return dict(kernels=kernels, loop=loop, bwd_loop=bwd_loop, fused=fused, launches=launches)
+    by = DECODER_LAUNCHES_BY_PATH[TACO_F32_SCHEDULED_PATH]
+    if not all(by[k] for k in ('lstm_cell_fwd', 'attention_fwd', 'lstm_cell_bwd', 'attention_bwd')):
+        fail(f'{TACO_F32_SCHEDULED_PATH} did not run the step loop\'s four kernels')
+    return dict(kernels=kernels, loop=loop, loop_f32=loop_f32, bwd_loop=bwd_loop, fused=fused,
+                launches=launches)
 
 
 def decoder_entries(decoder):
@@ -5680,6 +5990,27 @@ def decoder_entries(decoder):
         tol=LOOP_TOL, fault_err_over_tol=decoder['loop']['faults'],
         b1_ms_without_residuals=b1['ms_without_residuals'], b1_bound_ms=b1['bound_ms'],
         b1_bound_by=b1['bound_by']))
+    # the float32 forward loop: ms the B=32 x LOOP_STEPS launch with residuals (the f32
+    # train step's), plain_ms its plain version, step_loop_ms the f32 step loop over the
+    # same steps; b1_ms GTA's launch (one row, no residuals)
+    f32 = decoder['loop_f32']['cases']
+    b32, b1 = f32['B=32, keep-gates'], f32['B=1, expectation']
+    out.append(dict(
+        name='decoder_fwd_loop_f32', route='cuda', source=F32_LOOP_SOURCE,
+        replaces=F32_LOOP_REPLACES,
+        launches=sum(by[p].get('decoder_fwd_loop_f32', 0) for p in ALL_DECODER_PATHS),
+        launches_by_path={p: by[p].get('decoder_fwd_loop_f32', 0) for p in ALL_DECODER_PATHS},
+        check_launches=decoder['loop_f32']['check_launches'],
+        max_abs_err=max(r['max_abs_err'] for r in f32.values()), ms=b32['ms'],
+        plain_ms=b32['plain_ms'], step_loop_ms=b32['step_loop_ms'],
+        forward_ms=b32['forward_ms'], bound_ms=b32['bound_ms'], bound_by=b32['bound_by'],
+        tf32_bound_ms=b32['tf32_bound_ms'], library_ms=None, dtype='float32',
+        steps=LOOP_STEPS, widths=dict(zip(('B', 'U', 'D', 'T_in'), DECODER_WIDTHS)),
+        rel_err={k: dict(first=r['first'], all=r['all']) for k, r in f32.items()},
+        tol=F32_LOOP_TOL, fault_err_over_tol=decoder['loop_f32']['faults'],
+        bit_identical=all(r['bit_identical'] for r in f32.values()),
+        b1_ms_without_residuals=b1['ms'], b1_bound_ms=b1['bound_ms'],
+        b1_bound_by=b1['bound_by'], b1_tf32_bound_ms=b1['tf32_bound_ms']))
     # the reverse loop: ms the B=32 x LOOP_STEPS launch, plain_ms its plain version,
     # step_loop_ms the step loop's whole backward over the same steps
     bwd = decoder['bwd_loop']['cases']

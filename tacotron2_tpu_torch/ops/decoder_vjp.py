@@ -8,27 +8,29 @@ gradient to take it runs `FusedDecoderScan`, a `torch.autograd.Function`:
   - forward (`_forward`): the steps' recurrence, saving what the JAX forward saves
     (`:379-384`): r1, r2, z1, z2, x1, x2, the zoned c and h of both LSTMs, the context and
     the previous alignment state, and the query projection; residuals in the compute
-    dtype, the state in float32. Where `fwd_loop_applies` (bf16, the location conv
-    folded, every step on its teacher frame, LOOP_WIDTHS, at most LOOP_MAX_BATCH rows:
-    the trainers' forward and eval on the card at the default hparams) the prenet runs
-    once over the steps, `decoder_fwd_loop` runs all T steps' recurrence in one launch
-    and the frame and stop projection runs once over the T * B rows after it; elsewhere
-    (f32, GTA among it; the conv tier; scheduled sampling; other widths) `_step_loop`
-    runs a step at a time (`_step_fwd`). This is a dispatch on the configuration: each
-    side is whole where it runs;
+    dtype, the state in float32. Where `fwd_loop_applies` (every step on its teacher
+    frame, LOOP_WIDTHS, LOOP_FILTERS location filters of at most LOOP_MAX_KERNEL taps, at
+    most LOOP_MAX_BATCH rows, and either bf16 on the folded location tier or float32 on
+    the conv tier: the trainers' forward and eval on the card at the default hparams, GTA,
+    and training at compute_dtype=float32) the prenet runs once over the steps,
+    `decoder_fwd_loop` runs all T steps' recurrence in one launch and the frame and stop
+    projection runs once over the T * B rows after it; elsewhere (scheduled sampling, bf16
+    off the folded tier, other widths) `_step_loop` runs a step at a time (`_step_fwd`).
+    This is a dispatch on the configuration: each side is whole where it runs;
   - backward (`_backward`): one reverse loop that carries only dh and dc of each LSTM,
     the context's gradient, the fed-back frame's and the alignment state's, and emits the
     gates' gradients dz1, dz2, dpq, the prenet's, the total context gradient and the
     location features' gradient; dkeys, the energy's dva and dba, and the location
-    layer's gradient sum in float32 in place. Where `fwd_loop_applies` (the same
-    predicate as the forward's) the projections' gradient runs once over the steps,
-    `decoder_bwd_loop` runs all T reverse steps in one launch and the prenet's gradient
-    runs once over the T * B rows after it; elsewhere `_step_loop_bwd` runs a step at a
-    time. Both run the step `_reverse_step`. Every large weight gradient is then one
-    product over the T * B rows (`:578-614`), as are the location conv's kernel and bias
-    gradients (one product where the per-step JAX accumulators sum the same terms:
-    `_loc_acc` and `_loc_acc_finalize` on the folded tier, `_loc_kernel_grad` on the
-    conv tier) and dvalues.
+    layer's gradient sum in float32 in place. Where `bwd_loop_applies` (bf16 on the
+    folded tier, where the forward ran the bf16 loop; float32 has no reverse loop yet and
+    runs `_step_loop_bwd` on the float32 forward loop's residuals) the projections'
+    gradient runs once over the steps, `decoder_bwd_loop` runs all T reverse steps in one
+    launch and the prenet's gradient runs once over the T * B rows after it; elsewhere
+    `_step_loop_bwd` runs a step at a time. Both run the step `_reverse_step`. Every large
+    weight gradient is then one product over the T * B rows (`:578-614`), as are the
+    location conv's kernel and bias gradients (one product where the per-step JAX
+    accumulators sum the same terms: `_loc_acc` and `_loc_acc_finalize` on the folded
+    tier, `_loc_kernel_grad` on the conv tier) and dvalues.
 Without a gradient (`torch.no_grad()`: GTA, `run_eval`, the trainer's eval) it runs the
 forward alone, saving nothing. The Function's inputs are the cell's float32 master
 parameters, cast once a call (`_weights`), and each gradient returns in its parameter's
@@ -38,10 +40,13 @@ The step's elementwise stages and row reductions are four hand-written kernels f
 (`csrc/decoder/decoder_step.cu`, built into a library of their own by
 `_build.load_decoder_library`): `lstm_cell_fwd`, `lstm_cell_bwd`, `attention_fwd` and
 `attention_bwd`; around them the products stay library products, as JAX leaves them to
-XLA. The forward loop is a fifth, persistent one (`csrc/decoder_loop/decoder_loop.cu`,
-`_build.load_decoder_loop_library`): `decoder_fwd_loop`, the step's products on the tensor
-cores, lstm_cell_fwd's and attention_fwd's math in the same launch; the reverse loop a
-sixth (`csrc/decoder_bwd_loop/decoder_bwd_loop.cu`, `_build.load_decoder_bwd_loop_library`):
+XLA. The forward loop is a persistent kernel in each dtype: bf16
+(`csrc/decoder_loop/decoder_loop.cu`, `_build.load_decoder_loop_library`) and float32
+with the location conv inside it (`csrc/decoder_loop_f32/decoder_loop_f32.cu`,
+`_build.load_decoder_loop_f32_library`), both behind `decoder_fwd_loop`, the step's
+products on the tensor cores (the float32 ones as 3xTF32), lstm_cell_fwd's and
+attention_fwd's math in the same launch; the reverse loop another
+(`csrc/decoder_bwd_loop/decoder_bwd_loop.cu`, `_build.load_decoder_bwd_loop_library`):
 `decoder_bwd_loop`, with lstm_cell_bwd's and attention_bwd's math. Each wrapper launches
 its kernel on CUDA tensors (a failed build or launch raises; there is no fallback) and
 counts the launch in LAUNCHES; on CPU tensors it runs the kernel's plain PyTorch version
@@ -73,7 +78,7 @@ from . import fused_decoder as fd
 # launches of each hand-written kernel, counted by its wrapper where it launches it
 LAUNCHES: Dict[str, int] = collections.Counter()
 KERNELS = ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd',
-           'decoder_fwd_loop', 'decoder_bwd_loop')
+           'decoder_fwd_loop', 'decoder_fwd_loop_f32', 'decoder_bwd_loop')
 
 # the cell's parameters in the Function's order, with the short names of `_weights`
 PARAMS = (('p1_w', 'prenet.layers.0.weight'), ('p1_b', 'prenet.layers.0.bias'),
@@ -154,6 +159,11 @@ def _loop_library():
     return load_decoder_loop_library()
 
 
+def _loop_f32_library():
+    from ._build import load_decoder_loop_f32_library
+    return load_decoder_loop_f32_library()
+
+
 def _bwd_loop_library():
     from ._build import load_decoder_bwd_loop_library
     return load_decoder_bwd_loop_library()
@@ -161,6 +171,7 @@ def _bwd_loop_library():
 
 library = _library  # the build whose kernels launch (chip_smoke.py plants faulty ones)
 loop_library = _loop_library  # ... and the forward loop's
+loop_f32_library = _loop_f32_library  # ... and the float32 forward loop's
 bwd_loop_library = _bwd_loop_library  # ... and the reverse loop's
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -592,18 +603,21 @@ def _step_loop(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, 
 
 # ---------------------------------------------------------------- the forward loop kernel
 
-# the widths csrc/decoder_loop/decoder_loop.cu is built for (U, the prenet's output, the
-# encoder's E, the attention's D: the default hparams' and the paper profile's; the
-# location conv's filters and kernel are folded into loc_n), and the largest batch and
-# number of input steps it takes (the warps' partials of 32 rows fill its shared memory
-# beside the resident weights; a thread an input step in its softmax)
+# the widths csrc/decoder_loop/decoder_loop.cu and csrc/decoder_loop_f32/decoder_loop_f32.cu
+# are built for (U, the prenet's output, the encoder's E, the attention's D: the default
+# hparams' and the paper profile's), and the largest batch and number of input steps they
+# take (the warps' partials of 32 rows fill their shared memory beside the resident
+# weights; a thread an input step in their softmax: the bf16 loop's 192, the float32
+# loop's 256, a corpus's longest line of about 190 characters padded to 16)
 LOOP_WIDTHS = (1024, 256, 512, 128)
 LOOP_MAX_BATCH = 32
 LOOP_MAX_T_IN = 192
-# the location conv's filters that csrc/decoder_bwd_loop/decoder_bwd_loop.cu is built for
-# (the default hparams' and the paper profile's; the reverse loop forms the location
-# features and their gradient, which the forward folds away), and the conv's widest
-# kernel that it takes (its taps staged in shared memory; the defaults' is 31)
+LOOP_F32_MAX_T_IN = 256
+# the location conv's filters that csrc/decoder_bwd_loop/decoder_bwd_loop.cu and the float32
+# forward loop are built for (the default hparams' and the paper profile's; the reverse
+# loop forms the location features and their gradient, which the bf16 forward folds away,
+# and the float32 forward forms them), and the conv's widest kernel that they take (its
+# taps staged in shared memory; the defaults' is 31)
 LOOP_FILTERS = 32
 LOOP_MAX_KERNEL = 64
 # the C entry's pointers, in the order of decoder_loop.cu's `Ptr`
@@ -613,6 +627,10 @@ _LOOP_OUTPUTS = ('aligns', 'x2', 'ctx')
 _LOOP_RESIDUALS = ('z1', 'z2', 'x1', 'c1p', 'h1p', 'c2p', 'h2p', 'state', 'pq')
 _LOOP_SCRATCH = ('h1c', 'h2c', 'x1b', 'pqb', 'eb', 'stb', 'bar')
 _LOOP_PROFILE = ('prof',)
+# ... and of decoder_loop_f32.cu's `Ptr` (each 'P_' and the name in capitals): the location
+# conv's kernel and bias and the location layer in place of loc_nt and pl_b
+_F32_INPUTS = ('p2', 'keys', 'values', 'mask', 'g1_w', 'g1_b', 'g2_w', 'g2_b', 'q_w', 'loc_w',
+               'loc_b', 'l_w', 'v_a', 'b_a', 'keep_c1', 'keep_h1', 'keep_c2', 'keep_h2')
 
 
 def _loc_nt(W, T_in: int, D: int) -> Tuple[int, Tensor]:
@@ -629,23 +647,42 @@ def _keep(cfg: Config):
     return [weak(1.0 - rate, cfg.dtype) for rate in cfg.rates]
 
 
-def fwd_loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
-    """Where the forward runs `decoder_fwd_loop`, all T steps in one launch, and not
-    `_step_loop`, and the backward `decoder_bwd_loop` and not `_step_loop_bwd` (one
-    predicate for both, so that no batch runs one loop without the other): the compute
-    dtype bf16 (the trainers' on the card), the location conv folded into loc_n
-    (`fused_decoder._location`: a batch of at most 96 and loc_n within LOC_MAT_BYTES,
-    T_in <= 181 at D=128), every step on its teacher frame (the default constant teacher
-    forcing at ratio 1, GTA, eval), LOOP_WIDTHS, LOOP_FILTERS and a location kernel of at
-    most LOOP_MAX_KERNEL taps, and a batch of at most LOOP_MAX_BATCH. Which device runs it
-    is the wrapper's to say, as for every kernel: on CUDA tensors the kernel, on CPU ones
-    its plain version."""
-    B, T_in, D = keys.shape
-    return (cfg.dtype == torch.bfloat16 and 'loc_n' in W and 1 <= B <= LOOP_MAX_BATCH
-            and T_in <= LOOP_MAX_T_IN
+def _loop_shapes(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
+    """What both forward loops and the reverse loop ask of a call, whatever the dtype:
+    LOOP_WIDTHS, LOOP_FILTERS and a location kernel of at most LOOP_MAX_KERNEL taps, a
+    batch of at most LOOP_MAX_BATCH, and every step on its teacher frame (the default
+    constant teacher forcing at ratio 1, GTA, eval)."""
+    B, _, D = keys.shape
+    return (1 <= B <= LOOP_MAX_BATCH
             and (cfg.units, W['p2_w'].shape[0], values.shape[-1], D) == LOOP_WIDTHS
             and W['l_w'].shape[1] == LOOP_FILTERS and W['loc_w'].shape[-1] <= LOOP_MAX_KERNEL
             and bool((use_teacher > 0).all()))
+
+
+def bwd_loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
+    """Where the backward runs `decoder_bwd_loop`, all T reverse steps in one launch, and
+    not `_step_loop_bwd`: `_loop_shapes`, the compute dtype bf16 (the trainers' on the
+    card) and the location conv folded into loc_n (`fused_decoder._location`: a batch of
+    at most 96 and loc_n within LOC_MAT_BYTES, T_in <= 181 at D=128), at most
+    LOOP_MAX_T_IN input steps. There the forward ran the bf16 `decoder_fwd_loop`
+    (`fwd_loop_applies` holds too). Which device runs it is the wrapper's to say, as for
+    every kernel: on CUDA tensors the kernel, on CPU ones its plain version."""
+    return (cfg.dtype == torch.bfloat16 and 'loc_n' in W and keys.shape[1] <= LOOP_MAX_T_IN
+            and _loop_shapes(cfg, W, keys, values, use_teacher))
+
+
+def fwd_loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
+    """Where the forward runs `decoder_fwd_loop`, all T steps in one launch, and not
+    `_step_loop`: `_loop_shapes`, and either what `bwd_loop_applies` asks (bf16 on the
+    folded tier: the bf16 loop) or the compute dtype float32 on the conv location tier
+    with at most LOOP_F32_MAX_T_IN input steps (the float32 loop: GTA, the trainers'
+    float32 forward and eval). A float32 batch then runs its backward through
+    `_step_loop_bwd` on the loop's residuals. Which device runs it is the wrapper's to
+    say: on CUDA tensors the kernel, on CPU ones its plain version."""
+    if cfg.dtype == torch.float32:
+        return ('loc_n' not in W and keys.shape[1] <= LOOP_F32_MAX_T_IN
+                and _loop_shapes(cfg, W, keys, values, use_teacher))
+    return bwd_loop_applies(cfg, W, keys, values, use_teacher)
 
 
 def _decoder_fwd_loop_plain(cfg: Config, W, keys, values, mask, p2, gates, save: bool):
@@ -669,27 +706,60 @@ def _decoder_fwd_loop_plain(cfg: Config, W, keys, values, mask, p2, gates, save:
     return torch.stack(aligns), R['x2'], R['ctx'], R if save else None
 
 
+def _launch_loop(entry, name: str, tensors: Dict, names: Sequence[str], ints: Sequence[int],
+                 floats: Sequence[float], dev) -> None:
+    """Launch a persistent loop's C entry `entry` with the device pointers of `tensors` in
+    the order of `names` (null where absent), `ints` and `floats`, on the current stream of
+    `dev`; count it in LAUNCHES[name]. Raises where the card keeps fewer CTAs resident than
+    the grid barrier needs, with both numbers, and where the launch failed."""
+    ptrs = (ctypes.c_void_p * len(names))(
+        *(None if tensors.get(k) is None else tensors[k].data_ptr() for k in names))
+    info = (ctypes.c_int * 2)()
+    if entry.argtypes is None:
+        entry.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+                          ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = entry(ptrs, (ctypes.c_int * len(ints))(*ints),
+                    (ctypes.c_float * len(floats))(*floats), info,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if info[1]:
+        raise RuntimeError(f'the {name} kernel needs {info[1]} CTAs resident at once (its grid '
+                           f'barrier waits for all of them); this card keeps {info[0]}')
+    if err:
+        raise RuntimeError(f'the {name} kernel did not launch: CUDA error {err}')
+    LAUNCHES[name] += 1
+
+
 def decoder_fwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optional[Tensor],
                      p2: Tensor, gates: Sequence[Optional[Tensor]], save: bool,
                      profile: Optional[Tensor] = None):
     """The teacher-forced forward recurrence of all T steps (`fused_decoder.py:341-416`)
     from the prenet's output p2 (T, B, P) in the compute dtype: keys (B, T_in, D) in it,
     values (B, T_in, E) and the mask (B, T_in) float32 or None, gates the four (T, B, U)
-    bool keep-gates c1, h1, c2, h2 or None (zoneout's expectation), W `_weights`' on the
-    folded tier. Returns (the alignments (T, B, T_in) float32, x2 (T, B, U) and the
-    contexts (T, B, E) in the dtype, the residuals by name but r1 and r2, or None without
-    `save`). On CUDA tensors one launch of csrc/decoder_loop/decoder_loop.cu (bf16, the
-    folded tier, LOOP_WIDTHS and at most LOOP_MAX_BATCH rows, else it raises), counted in
-    LAUNCHES; on CPU tensors its plain version. `profile`: the (128, 10) int64 stage
-    times that a build of the source with -DT2_PROFILE writes (`probes/loop_split.py`)."""
+    bool keep-gates c1, h1, c2, h2 or None (zoneout's expectation), W `_weights`'. Returns
+    (the alignments (T, B, T_in) float32, x2 (T, B, U) and the contexts (T, B, E) in the
+    dtype, the residuals by name but r1 and r2, or None without `save`). On CUDA tensors
+    one launch: in bf16 of csrc/decoder_loop/decoder_loop.cu (the folded tier, LOOP_WIDTHS,
+    at most LOOP_MAX_BATCH rows and LOOP_MAX_T_IN input steps), counted in LAUNCHES as
+    decoder_fwd_loop; in float32 of csrc/decoder_loop_f32/decoder_loop_f32.cu (the conv
+    tier, LOOP_WIDTHS, LOOP_FILTERS filters of at most LOOP_MAX_KERNEL taps, at most
+    LOOP_MAX_BATCH rows and LOOP_F32_MAX_T_IN input steps), counted as
+    decoder_fwd_loop_f32; anything else raises. On CPU tensors its plain version.
+    `profile`: the (128, 10) int64 stage times that a build of either source with
+    -DT2_PROFILE writes (`probes/loop_split.py`)."""
     if not keys.is_cuda:
         return _decoder_fwd_loop_plain(cfg, W, keys, values, mask, p2, gates, save)
+    if cfg.dtype == torch.float32:
+        return _decoder_fwd_loop_f32(cfg, W, keys, values, mask, p2, gates, save, profile)
     T, B, n_p = p2.shape
     T_in, D = keys.shape[1], keys.shape[2]
     U, E = cfg.units, values.shape[-1]
     bf, f32 = torch.bfloat16, torch.float32
     if cfg.dtype != bf or 'loc_n' not in W:
-        _refuse('a forward loop in another dtype than bf16 or off the folded location tier')
+        _refuse('a forward loop in another dtype than bf16 or f32, or in bf16 off the folded '
+                'location tier')
     if (U, n_p, E, D) != LOOP_WIDTHS or not 1 <= B <= LOOP_MAX_BATCH or T_in > LOOP_MAX_T_IN:
         _refuse(f'the widths (U, P, E, D) {(U, n_p, E, D)} at B={B}, T_in={T_in} in its forward '
                 f'loop (built for {LOOP_WIDTHS}, B <= {LOOP_MAX_BATCH}, T_in <= '
@@ -716,28 +786,62 @@ def decoder_fwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optiona
                    eb=empty(B, T_in, dtype=f32),
                    stb=torch.zeros(2, B, TP, device=dev),             # slot 1: the zero state
                    bar=torch.zeros(1, device=dev, dtype=torch.int32))  # the grid barrier
-    tensors = {**inputs, **out, **res, **scratch, 'prof': profile}
-    names = _LOOP_INPUTS + _LOOP_OUTPUTS + _LOOP_RESIDUALS + _LOOP_SCRATCH + _LOOP_PROFILE
-    ptrs = (ctypes.c_void_p * len(names))(
-        *(None if tensors.get(k) is None else tensors[k].data_ptr() for k in names))
-    ints = (ctypes.c_int * 5)(T, B, T_in, int(cfg.smoothing), int(cfg.cumulate))
-    mix = (ctypes.c_float * 8)(*(x for rate in cfg.rates for x in _mix(rate, bf)))
-    info = (ctypes.c_int * 2)()
-    fn = loop_library().t2_decoder_fwd_loop
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(ptrs, ints, mix, info, torch.cuda.current_stream(dev).cuda_stream)
-    if info[1]:
-        raise RuntimeError(f'the decoder_fwd_loop kernel needs {info[1]} CTAs resident at once '
-                           f'(its grid barrier waits for all of them); this card keeps '
-                           f'{info[0]}')
-    if err:
-        raise RuntimeError(f'the decoder_fwd_loop kernel did not launch: CUDA error {err}')
-    LAUNCHES['decoder_fwd_loop'] += 1
+    _launch_loop(loop_library().t2_decoder_fwd_loop, 'decoder_fwd_loop',
+                 {**inputs, **out, **res, **scratch, 'prof': profile},
+                 _LOOP_INPUTS + _LOOP_OUTPUTS + _LOOP_RESIDUALS + _LOOP_SCRATCH + _LOOP_PROFILE,
+                 (T, B, T_in, int(cfg.smoothing), int(cfg.cumulate)),
+                 [x for rate in cfg.rates for x in _mix(rate, bf)], dev)
+    R = dict(res, x2=out['x2'], ctx=out['ctx']) if save else None
+    return out['aligns'], out['x2'], out['ctx'], R
+
+
+def _decoder_fwd_loop_f32(cfg: Config, W, keys, values, mask, p2, gates, save: bool,
+                          profile: Optional[Tensor]):
+    """`decoder_fwd_loop` on CUDA tensors in float32: one launch of
+    csrc/decoder_loop_f32/decoder_loop_f32.cu, the location conv inside it."""
+    T, B, n_p = p2.shape
+    T_in, D = keys.shape[1], keys.shape[2]
+    U, E = cfg.units, values.shape[-1]
+    n_f, K = W['loc_w'].shape[0], W['loc_w'].shape[-1]
+    if 'loc_n' in W:
+        _refuse('a float32 forward loop on the folded location tier')
+    if ((U, n_p, E, D) != LOOP_WIDTHS or n_f != LOOP_FILTERS or K > LOOP_MAX_KERNEL
+            or not 1 <= B <= LOOP_MAX_BATCH or T_in > LOOP_F32_MAX_T_IN):
+        _refuse(f'the widths (U, P, E, D) {(U, n_p, E, D)}, {n_f} location filters of {K} taps '
+                f'at B={B}, T_in={T_in} in its float32 forward loop (built for {LOOP_WIDTHS}, '
+                f'{LOOP_FILTERS} filters of at most {LOOP_MAX_KERNEL} taps, B <= '
+                f'{LOOP_MAX_BATCH}, T_in <= {LOOP_F32_MAX_T_IN})')
+    # a data-parallel rank's rows are slices of the batch
+    p2, keys, values = p2.contiguous(), keys.contiguous(), values.contiguous()
+    mask = None if mask is None else mask.contiguous()
+    gates = [None if g is None else g.contiguous() for g in gates]
+    f32 = torch.float32
+    _check(f32, (p2, None, (T, B, n_p)), (keys, None, (B, T_in, D)),
+           (values, None, (B, T_in, E)), (mask, None, (B, T_in)),
+           (W['g1_w'], None, (4 * U, n_p + E + U)), (W['g1_b'], None, (4 * U,)),
+           (W['g2_w'], None, (4 * U, 2 * U)), (W['g2_b'], None, (4 * U,)),
+           (W['q_w'], None, (D, U)), (W['loc_w'], None, (n_f, 1, K)),
+           (W['loc_b'], None, (n_f,)), (W['l_w'], None, (D, n_f)), (W['v_a'], None, (D,)),
+           (W['b_a'], None, (D,)), *((g, torch.bool, (T, B, U)) for g in gates))
+    dev = keys.device
+    inputs = dict(p2=p2, keys=keys, values=values, mask=mask,
+                  **{k: W[k] for k in _F32_INPUTS[4:-4]},
+                  **dict(zip(_F32_INPUTS[-4:], gates, strict=True)))
+    empty = lambda *shape: torch.empty(*shape, device=dev)
+    out = dict(aligns=empty(T, B, T_in), x2=empty(T, B, U), ctx=empty(T, B, E))
+    res = (dict(z1=empty(T, B, 4 * U), z2=empty(T, B, 4 * U),
+                **{k: empty(T, B, U) for k in ('x1', 'c1p', 'h1p', 'c2p', 'h2p')},
+                state=empty(T, B, T_in), pq=empty(T, B, D)) if save else {})
+    scratch = dict(h1c=empty(2, B, U), h2c=empty(2, B, U), x1b=empty(B, U),
+                   pqb=empty(U // 8 // (D // 8), B, D),  # pq's sums by K-chunk
+                   eb=empty(B, T_in),
+                   stb=torch.zeros(2, B, T_in, device=dev),           # slot 1: the zero state
+                   bar=torch.zeros(1, device=dev, dtype=torch.int32))  # the grid barrier
+    _launch_loop(loop_f32_library().t2_decoder_fwd_loop_f32, 'decoder_fwd_loop_f32',
+                 {**inputs, **out, **res, **scratch, 'prof': profile},
+                 _F32_INPUTS + _LOOP_OUTPUTS + _LOOP_RESIDUALS + _LOOP_SCRATCH + _LOOP_PROFILE,
+                 (T, B, T_in, K, int(cfg.smoothing), int(cfg.cumulate)),
+                 [x for rate in cfg.rates for x in _mix(rate, f32)], dev)
     R = dict(res, x2=out['x2'], ctx=out['ctx']) if save else None
     return out['aligns'], out['x2'], out['ctx'], R
 
@@ -896,7 +1000,7 @@ def decoder_bwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optiona
                      R, dproj: Tensor, g_aligns: Tensor, gates: Sequence[Optional[Tensor]],
                      profile: Optional[Tensor] = None):
     """The teacher-forced reverse recurrence of all T steps (`fused_decoder.py:494-571`)
-    where `fwd_loop_applies`: from the frame and stop projections' gradient dproj (T, B,
+    where `bwd_loop_applies`: from the frame and stop projections' gradient dproj (T, B,
     U + E) in the compute dtype (no step feeds its frame back, so it is one product over
     the T * B rows) and the alignments' g_aligns (T, B, T_in) float32, over the forward's
     residuals R, keys (B, T_in, D) in the dtype, values (B, T_in, E) and the mask (B,
@@ -954,37 +1058,20 @@ def decoder_bwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optiona
                    dpqb=empty(B, D), g1c=empty(G, 4 * U * 4), dvap=empty(G, B, D, dtype=f32),
                    dlp=empty(G, D, n_f, dtype=f32),
                    bar=torch.zeros(1, device=dev, dtype=torch.int32))  # the grid barrier
-    tensors = {**inputs, **out, **scratch, 'prof': profile}
-    names = _BWD_INPUTS + _BWD_OUTPUTS + _BWD_SCRATCH + _BWD_PROFILE
-    ptrs = (ctypes.c_void_p * len(names))(
-        *(None if tensors.get(k) is None else tensors[k].data_ptr() for k in names))
-    ints = (ctypes.c_int * 6)(T, B, T_in, K, int(cfg.smoothing), int(cfg.cumulate))
-    keep = (ctypes.c_float * 4)(*_keep(cfg))
-    info = (ctypes.c_int * 2)()
-    fn = bwd_loop_library().t2_decoder_bwd_loop
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(ptrs, ints, keep, info, torch.cuda.current_stream(dev).cuda_stream)
-    if info[1]:
-        raise RuntimeError(f'the decoder_bwd_loop kernel needs {info[1]} CTAs resident at once '
-                           f'(its grid barrier waits for all of them); this card keeps '
-                           f'{info[0]}')
-    if err:
-        raise RuntimeError(f'the decoder_bwd_loop kernel did not launch: CUDA error {err}')
-    LAUNCHES['decoder_bwd_loop'] += 1
+    _launch_loop(bwd_loop_library().t2_decoder_bwd_loop, 'decoder_bwd_loop',
+                 {**inputs, **out, **scratch, 'prof': profile},
+                 _BWD_INPUTS + _BWD_OUTPUTS + _BWD_SCRATCH + _BWD_PROFILE,
+                 (T, B, T_in, K, int(cfg.smoothing), int(cfg.cumulate)), _keep(cfg), dev)
     return tuple(out[k] for k in _BWD_OUTPUTS)
 
 
 def _backward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, frames,
               aligns, R, g_frames, g_stops, g_aligns):
-    """The hand-written backward (`fused_decoder.py:468-640`): where `fwd_loop_applies`
-    (the forward ran `decoder_fwd_loop`) the frame and stop projections' gradient once
-    over the T * B rows, `decoder_bwd_loop`, and the prenet's gradient once over them
-    after it; elsewhere `_step_loop_bwd`. Returns ({short name: the parameter's gradient,
+    """The hand-written backward (`fused_decoder.py:468-640`): where `bwd_loop_applies`
+    (bf16: the forward ran the bf16 `decoder_fwd_loop`) the frame and stop projections'
+    gradient once over the T * B rows, `decoder_bwd_loop`, and the prenet's gradient once
+    over them after it; elsewhere `_step_loop_bwd`, on the residuals of whichever forward
+    ran (the float32 loop's among them). Returns ({short name: the parameter's gradient,
     float32}, dkeys, dvalues, dteacher)."""
     dt = cfg.dtype
     T, B = teacher.shape[0], teacher.shape[1]
@@ -1001,7 +1088,7 @@ def _backward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, z
     # product; the fed-back frame's gradient added in place where a step read its own
     dfs = torch.cat([g_frames, g_stops], dim=-1)
     dfs_dt = dfs.to(dt)
-    if fwd_loop_applies(cfg, W, keys, values, use_teacher):
+    if bwd_loop_applies(cfg, W, keys, values, use_teacher):
         names = ('dz1', 'dz2', 'dpq', 'dctx_total', 'df', 'dkeys', 'dva', 'dba', 'dl')
         out = dict(zip(names, decoder_bwd_loop(cfg, W, keys, values, mask, R,
                                                dfs_dt @ W['fs_w'], g_aligns, gates)))

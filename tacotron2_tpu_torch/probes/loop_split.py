@@ -1,6 +1,7 @@
 """Where the decoder loops' steps go, on the card: the split of a step inside
-`decoder_fwd_loop` (csrc/decoder_loop/decoder_loop.cu) and `decoder_bwd_loop`
-(csrc/decoder_bwd_loop/decoder_bwd_loop.cu).
+`decoder_fwd_loop` in bf16 (csrc/decoder_loop/decoder_loop.cu, `--loop fwd`) and in float32
+(csrc/decoder_loop_f32/decoder_loop_f32.cu, `--loop f32`) and inside `decoder_bwd_loop`
+(csrc/decoder_bwd_loop/decoder_bwd_loop.cu, `--loop bwd`).
 
 Not a counterpart of a TPU kernel: a timing probe of the port's own loops. The variant
 `profile` is a loop's source built with -DT2_PROFILE into a library of its own, whose
@@ -18,7 +19,7 @@ outputs are held to the port's build, bit for bit for `profile` (the macro chang
 sum). `--registers` prints each source's registers, stack and spills (`nvcc -Xptxas -v`)
 instead:
 
-    python -m tacotron2_tpu_torch.probes.loop_split [--loop fwd,bwd] [--variants base,profile]
+    python -m tacotron2_tpu_torch.probes.loop_split [--loop fwd,bwd,f32] [--variants base,profile]
         [--batch 32,1] [--steps 512] [--t_in 100] [--lean] [--source NAME=PATH ...]
         [--registers]
 """
@@ -42,6 +43,9 @@ VARIANTS = {'base': (), 'profile': ('T2_PROFILE',)}
 LOOPS = {
     'fwd': dict(dir='DECODER_LOOP_DIR', file='decoder_loop.cu',
                 load='load_decoder_loop_library', attr='loop_library',
+                stages=('lstm 1', 'lstm 2', 'pq', 'energies', 'softmax and context')),
+    'f32': dict(dir='DECODER_LOOP_F32_DIR', file='decoder_loop_f32.cu',
+                load='load_decoder_loop_f32_library', attr='loop_f32_library',
                 stages=('lstm 1', 'lstm 2', 'pq', 'energies', 'softmax and context')),
     'bwd': dict(dir='DECODER_BWD_LOOP_DIR', file='decoder_bwd_loop.cu',
                 load='load_decoder_bwd_loop_library', attr='bwd_loop_library',
@@ -100,9 +104,9 @@ def registers(sources: Dict[str, str], loops=('fwd',)) -> Dict[str, str]:
     return table
 
 
-def inputs(B: int, T: int, T_in: int, seed: int = 3):
-    """decoder_fwd_loop's arguments at the default widths on seeded values, keep-gates at
-    0.9, the prenet's output of dropout-masked ReLUs."""
+def inputs(B: int, T: int, T_in: int, seed: int = 3, dtype: torch.dtype = torch.bfloat16):
+    """decoder_fwd_loop's arguments in `dtype` at the default widths on seeded values,
+    keep-gates at 0.9, the prenet's output of dropout-masked ReLUs."""
     from ..config import default_hparams
     from ..models.tacotron.model import DecoderCell
     from ..ops import decoder_vjp as dv
@@ -110,7 +114,7 @@ def inputs(B: int, T: int, T_in: int, seed: int = 3):
     hp = default_hparams()
     torch.manual_seed(seed)
     cell = DecoderCell(hp, 2 * hp.encoder_lstm_units).cuda()
-    bf = torch.bfloat16
+    bf = dtype
     cfg = dv._config(cell, bf)
     W = dv._weights(cfg, cell, [cell.get_parameter(n) for _, n in dv.PARAMS], B, T_in)
     g = torch.Generator('cuda').manual_seed(seed)
@@ -146,7 +150,7 @@ def run(library, args, save: bool, profile=None, loop: str = 'fwd'):
     saved = getattr(dv, attr)
     setattr(dv, attr, lambda: library)
     try:
-        if loop == 'fwd':
+        if loop in ('fwd', 'f32'):
             return dv.decoder_fwd_loop(*args, save, profile=profile)
         return dv.decoder_bwd_loop(*args, profile=profile)
     finally:
@@ -155,7 +159,7 @@ def run(library, args, save: bool, profile=None, loop: str = 'fwd'):
 
 def main(argv: Optional[list] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    p.add_argument('--loop', default='fwd,bwd', help='fwd, bwd or both, comma-separated')
+    p.add_argument('--loop', default='fwd,bwd', help='of fwd, bwd and f32, comma-separated')
     p.add_argument('--variants', default=','.join(VARIANTS),
                    help=f'comma-separated, of {", ".join(VARIANTS)} or a --source name')
     p.add_argument('--batch', default='32,1', help='batch size(s), comma-separated')
@@ -187,8 +191,9 @@ def main(argv: Optional[list] = None) -> Dict:
         stages = LOOPS[loop]['stages']
         n = len(stages)
         for B in (int(b) for b in args.batch.split(',')):
-            largs = (inputs if loop == 'fwd' else bwd_inputs)(B, T, args.t_in)
-            outs = slice(0, 3) if loop == 'fwd' else slice(None)
+            largs = (bwd_inputs(B, T, args.t_in) if loop == 'bwd' else
+                     inputs(B, T, args.t_in, dtype=torch.float32 if loop == 'f32' else torch.bfloat16))
+            outs = slice(0, 3) if loop != 'bwd' else slice(None)
             ref = run(libs[loop]['base'], largs, save, loop=loop)
             for i, name in enumerate(variants):
                 prof = (torch.zeros(128, 2 * n, dtype=torch.int64, device='cuda')
@@ -200,7 +205,7 @@ def main(argv: Optional[list] = None) -> Dict:
                 if name == 'profile' and not same:
                     raise RuntimeError(f'the profile build changed the {loop} loop\'s outputs')
                 ms = best_ms(lambda: run(libs[loop][name], largs, save, loop=loop), reps=3)
-                what = (f'residuals {save}' if loop == 'fwd' else 'reverse loop')
+                what = (f'residuals {save}' if loop != 'bwd' else 'reverse loop')
                 line = (f'{loop} {name} B={B} T={T} T_in={args.t_in} {what}: {ms:.3f} ms, '
                         f'{1e3 * ms / T:.2f} us a step; outputs against base: '
                         + ('bit for bit' if same else f'max abs {err:.3e}'))

@@ -40,7 +40,8 @@ def _grads(model, d, dt, loop, monkeypatch):
     cfg = dv._config(cell, dt)
     params = [cell.get_parameter(n) for _, n in dv.PARAMS]
     W = dv._weights(cfg, cell, params, B, T_IN)
-    monkeypatch.setattr(dv, 'fwd_loop_applies', lambda *a: loop)
+    for name in ('fwd_loop_applies', 'bwd_loop_applies'):
+        monkeypatch.setattr(dv, name, lambda *a: loop)
     zo = None if d['zo'] is None else [_t(z) for z in d['zo']]
     args = (cfg, W, _t(d['keys']).to(dt), _t(d['values']), _t(d['mask']), _t(d['teacher']),
             _t(d['use']), [_t(d['m1']), _t(d['m2'])], zo)
@@ -82,7 +83,8 @@ def test_bwd_loop_matches_jax(dt, monkeypatch):
     test_bf16_fused_decoder_scan_matches_jax, the folded tier on both sides): each output
     and the gradients (every decoder weight, the keys and the values) nearer to JAX's
     bf16 than to its f32, and within 1e-2 of its f32 norm (that test's bounds)."""
-    monkeypatch.setattr(dv, 'fwd_loop_applies', lambda *a: True)
+    for name in ('fwd_loop_applies', 'bwd_loop_applies'):
+        monkeypatch.setattr(dv, name, lambda *a: True)
     launches = collections.Counter()
     for name in ('decoder_fwd_loop', 'decoder_bwd_loop'):
         def counted(*a, fn=getattr(dv, name), name=name, **k):
@@ -115,21 +117,22 @@ def test_bwd_loop_matches_jax(dt, monkeypatch):
 
 # the dispatch at the default widths, one train step's forward and backward over 2 steps
 # at B=2 and 8 input steps: (compute dtype, every step on its teacher frame, an extra
-# hparam) -> whether both loops run
-DISPATCH = {'bf16': ('bfloat16', True, '', True),
-            'f32': ('float32', True, '', False),
-            'a step on its own frame': ('bfloat16', False, '', False),
-            'other location filters': ('bfloat16', True, 'attention_filters=16', False),
-            'a wider location kernel': ('bfloat16', True, 'attention_kernel=[65]', False)}
+# hparam) -> (whether the forward loop runs, whether the reverse loop runs)
+DISPATCH = {'bf16': ('bfloat16', True, '', (True, True)),
+            'f32': ('float32', True, '', (True, False)),
+            'a step on its own frame': ('bfloat16', False, '', (False, False)),
+            'other location filters': ('bfloat16', True, 'attention_filters=16', (False, False)),
+            'a wider location kernel': ('bfloat16', True, 'attention_kernel=[65]', (False, False))}
 
 
 @pytest.mark.parametrize('case', list(DISPATCH))
 def test_bwd_loop_dispatch(case, monkeypatch):
     """The Function at the default widths runs `decoder_bwd_loop` exactly where
-    `fwd_loop_applies` holds, and then `decoder_fwd_loop` too (one predicate for both),
-    else `_step_loop_bwd` and `_step_loop`: bf16 with every step on its teacher frame
-    runs both loops; f32, a step on its own frame, another number of location filters
-    (LOOP_FILTERS) and a location kernel wider than LOOP_MAX_KERNEL run neither."""
+    `bwd_loop_applies` holds, else `_step_loop_bwd`, and `decoder_fwd_loop` where
+    `fwd_loop_applies` holds, else `_step_loop`: bf16 with every step on its teacher frame
+    runs both loops; f32 the forward loop (the float32 one) and the step loop's backward;
+    a step on its own frame, another number of location filters (LOOP_FILTERS) and a
+    location kernel wider than LOOP_MAX_KERNEL run neither loop."""
     dtype, all_teacher, extra, want = DISPATCH[case]
     hp = default_hparams()
     if extra:
@@ -156,9 +159,9 @@ def test_bwd_loop_dispatch(case, monkeypatch):
     outs = dv.fused_decoder_scan(cell, keys, values, None, teacher, use, masks, zo,
                                  getattr(torch, dtype))
     sum(o.float().sum() for o in outs).backward()
-    loops = {'decoder_fwd_loop': 1, 'decoder_bwd_loop': 1}
-    steps = {'_step_loop': 1, '_step_loop_bwd': 1}
-    assert calls == (loops if want else steps)
+    fwd, bwd = want
+    assert calls == {'decoder_fwd_loop' if fwd else '_step_loop': 1,
+                     'decoder_bwd_loop' if bwd else '_step_loop_bwd': 1}
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in cell.parameters())
 

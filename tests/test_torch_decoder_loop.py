@@ -149,11 +149,12 @@ def test_loop_matches_jax_forward(dt, monkeypatch):
 
 
 # the dispatch at the default widths: (compute dtype, B, T_in, every step on its teacher
-# frame, an extra hparam) -> whether the forward loop runs
+# frame, an extra hparam) -> whether the forward loop runs (float32: the float32 loop, on
+# the conv tier)
 DISPATCH = {'bf16-B32': ('bfloat16', 32, 100, True, '', True),
             'bf16-B1': ('bfloat16', 1, 100, True, '', True),
             'bf16-T_in181': ('bfloat16', 32, 181, True, '', True),
-            'f32': ('float32', 32, 100, True, '', False),
+            'f32': ('float32', 32, 100, True, '', True),
             'B33': ('bfloat16', 33, 100, True, '', False),
             'B97-unfolded': ('bfloat16', 97, 100, True, '', False),
             'T_in182-unfolded': ('bfloat16', 32, 182, True, '', False),
@@ -178,8 +179,9 @@ def cells():
 def test_fwd_loop_dispatch(case, cells):
     """`fwd_loop_applies` case by case: bf16 on the folded tier with every step on its
     teacher frame at LOOP_WIDTHS and B <= 32 takes the forward loop (T_in 181, the fold's
-    largest at D=128, too); f32, B=33 (folded, above the kernel's 32 rows), B=97 and
-    T_in=182 (not folded), a step on its own frame and another attention width do not."""
+    largest at D=128, too), and so does f32 there (the float32 loop, on the conv tier);
+    B=33 (folded, above the kernels' 32 rows), B=97 and T_in=182 in bf16 (not folded), a
+    step on its own frame and another attention width do not."""
     dtype, b, t_in, all_teacher, extra, want = DISPATCH[case]
     hp, cell = cells[extra]
     dt = getattr(torch, dtype)
