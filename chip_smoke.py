@@ -102,9 +102,9 @@ Phases (one line each; any failure exits nonzero):
      and launches checked. The conditioning, noise and g_cond that each of these two
      launches was given (B=2, 8,800 steps) then go to the kernel once more, whose audio
      must be the entry point's, bit for bit, over all 8,800 steps, and through the same
-     check as above over the first 1,100 of them, in chunks ending at
-     VOCODER_CLI_BOUNDS: bit-identical again, and the params within KERNEL_TOL of the
-     plain version's.
+     check as above over all of them too, in chunks ending at VOCODER_CLI_BOUNDS:
+     bit-identical again, and the params within KERNEL_TOL of the plain version's (the
+     reading over the first CUT_STEPS printed beside the whole one's).
  10. WaveNet training (`python -m tacotron2_tpu_torch.train --model WaveNet`) and the AR
      kernel's last two variants, which its natural eval launches: the big-vocab
      categorical head (1,025 to 65,536 classes: bf16 first conv and last head layer,
@@ -138,11 +138,11 @@ Phases (one line each; any failure exits nonzero):
      inputs it had (the EMA weights it packed, the loader's conditioning, its noise or
      seed, the batch's class ids as y_eval): a further launch must repeat its outputs
      bit for bit over all its steps (B=1 over 11,000 at the defaults, over 2,750 at
-     Q = 65,536), and the plain version follows in state-carried chunks at odd ends,
-     the Gaussian one over the first TRAIN_EVAL_BOUNDS[-1] steps, the big-vocab one
-     over all of them. The trainers step in bf16, the card's default compute dtype
-     (`training/common.resolve_compute_dtype`), the in-process step 7 as well; their
-     eval launches run in f32.
+     Q = 65,536), and the plain version follows in state-carried chunks at odd ends
+     over all of them (the Gaussian one's chunks TRAIN_EVAL_BOUNDS, the reading over the
+     first CUT_STEPS printed beside the whole one's). The trainers step in bf16, the
+     card's default compute dtype (`training/common.resolve_compute_dtype`), the
+     in-process step 7 as well; their eval launches run in f32.
  11. the probes, the counterparts of the JAX package's four measurement scripts
      (tacotron2_tpu_torch/probes/, kernels in csrc/probes/, built in phase 2 into a
      library of their own with one planted-fault copy each, PROBE_MUTANTS), each
@@ -172,7 +172,8 @@ Phases (one line each; any failure exits nonzero):
      compute dtype pinned to f32: five more steps on the corpus, each between two
      synchronizes; one train step on the card against the
      same step on the CPU at full width and TACO_CPU_BATCH rows (the same state, batch,
-     masks and coins; TACO_STEP_TOL, TACO_GRAD_TOL, TACO_PARAM_TOL, TACO_SMALL_GRAD);
+     masks and coins; TACO_STEP_TOL, TACO_GRAD_TOL, TACO_PARAM_TOL, TACO_SMALL_GRAD; the
+     card's step must launch the float32 reverse loop, decoder_bwd_loop_f32);
      and steps at B=32 x TIMED_FRAMES frames: three between synchronizes (sec/step), peak
      device memory, and three split at module boundaries by CUDA events that hooks
      record inside the real step (`StepMarks`: the decoder's, the encoder LSTM's and the
@@ -187,7 +188,8 @@ Phases (one line each; any failure exits nonzero):
      steps, eval and in-process steps run the fused decoder (`ops/decoder_vjp.py`): its
      kernels' launches in the two trainer runs are counted for TACO_PATH, those of the
      float32 run for TACO_F32_SCHEDULED_PATH, those of the timed f32 steps for
-     TACO_F32_TIMED_PATH (phase 16 reads them).
+     TACO_F32_TIMED_PATH (phase 16 reads them); the timed steps' f32 decoder backward is
+     printed beside its reading with the step loop's backward (F32_FWD_LOOP_TIMED).
  13. The Tacotron-2 pipeline at the default hparams and full width, through the port's
      entry points: PIPE_UTTERANCES wavs of 1-2 s made from a seed in the LJSpeech layout
      through `python -m tacotron2_tpu_torch.preprocess` (every row's audio exactly its
@@ -296,16 +298,26 @@ Phases (one line each; any failure exits nonzero):
      LOOP_FIRST_STEPS steps and over all (F32_LOOP_TOL), two launches bit for bit, six
      planted faults (F32_LOOP_MUTANTS, built in phase 2) that must miss it; the B=32
      launch's ms beside its plain version's, the f32 step loop's forward over the same
-     steps and its bound, and the B=1 launch without residuals (GTA's). fused_decoder_scan
-     in bf16 and in f32 at teacher forcing 1 against autograd's, the forward through the
-     loop of its dtype. Every kernel launched on a main path (ALL_DECODER_PATHS): on the
-     bf16 ones (BF16_DECODER_PATHS: the trainer and the pipeline's Tacotron phase)
-     decoder_fwd_loop and decoder_bwd_loop and none of the four step kernels; on the f32
-     ones (F32_DECODER_PATHS: GTA, whose model computes in f32 as the JAX synthesizer's
-     does, and phase 12's timed f32 steps) decoder_fwd_loop_f32 and neither lstm_cell_fwd
-     nor attention_fwd, and, where they train, lstm_cell_bwd and attention_bwd; on the
-     float32 trainer at teacher forcing 0.5 (TACO_F32_SCHEDULED_PATH) all four step
-     kernels.
+     steps and its bound, and the B=1 launch without residuals (GTA's). The float32
+     reverse loop (csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu, `decoder_bwd_loop` at
+     float32, counted as decoder_bwd_loop_f32: the gate products as 3xTF32, the location
+     conv and its transpose inside) against its plain version on the same CUDA tensors
+     over LOOP_STEPS steps after the float32 forward loop with its residuals, on seeded
+     cotangents (F32_BWD_LOOP_CASES: B=32 with keep-gates and with zoneout's expectation
+     and B=1 at T_in=100, B=32 at T_in=200 with a ragged mask): dz1, dz2, dpq, dctx_total
+     and df over the loop's first BWD_LOOP_FIRST_STEPS steps and over all, and the
+     accumulators (F32_BWD_LOOP_TOL), two launches bit for bit, six planted faults
+     (F32_BWD_LOOP_MUTANTS, built in phase 2) that must miss it F32_BWD_FAULT_FACTOR times
+     over; the B=32 and B=1 launches' ms and bounds, at B=32 beside its plain version's,
+     the f32 step loop's whole backward and the kernel's over the same steps.
+     fused_decoder_scan in bf16 and in f32 at teacher forcing 1 against autograd's, both
+     directions through the loops of its dtype. Every kernel launched on a main path
+     (ALL_DECODER_PATHS): on the bf16 ones (BF16_DECODER_PATHS: the trainer and the
+     pipeline's Tacotron phase) decoder_fwd_loop and decoder_bwd_loop and none of the four
+     step kernels; on the f32 ones (F32_DECODER_PATHS: GTA, whose model computes in f32 as
+     the JAX synthesizer's does, and phase 12's timed f32 steps) decoder_fwd_loop_f32 and
+     none of the step kernels, and, where they train, decoder_bwd_loop_f32; on the float32
+     trainer at teacher forcing 0.5 (TACO_F32_SCHEDULED_PATH) all four step kernels.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -391,9 +403,12 @@ SAMPLE_TOL = 1e-5  # kernel samples against the head's draw from the kernel's ow
 # the standalone vocoder (phase 9): 32 frames a mel (8,800 samples), two mels
 VOCODER_FRAMES = 32
 VOCODER_BOUNDS = PAPER_STATE_BOUNDS  # odd chunk ends: t_base mod win nonzero in every ring
-# how far the plain version follows each of the entry point's launches of 8,800 steps
-# (2,200 until the whole run's length left too little margin of its 1,200 s)
-VOCODER_CLI_BOUNDS = VOCODER_BOUNDS
+# how far the plain version follows each of the entry point's launches of 8,800 steps: all
+# of them, in chunks at odd ends (2,200 until the whole run's length left too little
+# margin of its 1,200 s, then 1,100 until the plain version ran as a CUDA graph); the
+# reading over the first CUT_STEPS is printed beside the whole one's
+CUT_STEPS = 1100
+VOCODER_CLI_BOUNDS = (*VOCODER_BOUNDS, 8800)  # VOCODER_FRAMES frames of 275 samples
 CATEGORICAL = "input_type='mulaw-quantize',quantize_channels=256,out_channels=256"
 SPEAKERS = 'gin_channels=16,n_speakers=5'
 VOCODER_SPEAKERS_PATH = 'synthesize --model WaveNet --speaker_id'
@@ -507,8 +522,9 @@ PAPER_PATHS = ('synthesize --paper_profile', 'serve --paper_profile')
 TRAIN_UTTERANCES = 24  # 16 to train on and one test batch of 8
 TRAIN_DEFAULT_EXTRA = 'wavenet_natural_eval=True,wavenet_ema_decay=0.5'
 # how far the plain version follows the default trainer's eval launch of 11,000 steps
-# (the kernel repeats all of them), in chunks at odd ends
-TRAIN_EVAL_BOUNDS = VOCODER_CLI_BOUNDS
+# (the kernel repeats all of them): all of them, in chunks at odd ends (the first
+# CUT_STEPS until the plain version ran as a CUDA graph)
+TRAIN_EVAL_BOUNDS = (*VOCODER_BOUNDS, 11000)
 # the first steps of a fresh call at B=16 (the largest batch whose conditioning row is
 # rounded to bf16): no rounding flip has a history yet, so in most sequences the kernel
 # and its plain version differ by the f32 sum order alone. Over 2 steps on an H100 10 or
@@ -998,7 +1014,9 @@ def _judge_carry(n, what, r, bounds, tol=KERNEL_TOL):
     """Print and check one state-carry reading (see check_state_carry)."""
     T = bounds[-1]
     phase(n, f'{what}, chunks ending at {list(bounds)}: bit-identical to one call: '
-             f'{r["bit_identical"]}; chunked params max_abs_err={r["max_abs_err"]:.3e}, '
+             f'{r["bit_identical"]}; chunked params max_abs_err={r["max_abs_err"]:.3e}'
+             + (f' (over the first {CUT_STEPS} steps {r["cut_err"]:.3e})'
+                if T > CUT_STEPS and 'cut_err' in r else '') + f', '
              f'state after chunk 1 max_abs_err={r["state_err"]:.3e}, t_base {r["t_base"]} '
              f'(tol {tol}); '
              + (f'planted state faults over {FAULT_STEPS} steps of chunk 2: '
@@ -1037,8 +1055,10 @@ def state_carry(weights, c_up, noise, hp, bounds, g_cond=None, plant=True):
         wavenet_ar.generate_ar_reference, weights, c_up, noise, hp, bounds,
         targets=audio, g_cond=g_cond))
     lo, hi = bounds[0], min(bounds[0] + FAULT_STEPS, bounds[1])
+    cut = min(T, CUT_STEPS)
     return dict(bit_identical=torch.equal(audio, full),
                 max_abs_err=(params - ref_params).abs().max().item(),
+                cut_err=(params[:, :cut] - ref_params[:, :cut]).abs().max().item(),
                 state_err=_state_err(k_after1, r_after1), t_base=(k_after1[2], r_after1[2]),
                 faults=state_faults(weights, c_up[:, lo:hi].contiguous(),
                                     noise[:, lo:hi].contiguous(), hp, k_after1, r_after1,
@@ -1519,11 +1539,11 @@ class Builds:
 def build_kernels(tmp):
     """Phase 2: nvcc builds the port's library first, alone, and loads it; then, in the
     background, one nvcc a library and one fewer at a time than the host has cores, the
-    decoder step's library, the decoder's bf16 and float32 forward loops' and its reverse
-    loop's libraries, the probes' library and one library for each of ALL_MUTANTS,
-    CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS, LOOP_MUTANTS, F32_LOOP_MUTANTS and
-    BWD_LOOP_MUTANTS from a changed copy of its source (an AR kernel's copy with the
-    instantiations of MUTANT_HEADS alone) under `tmp`, which must outlive the builds.
+    decoder step's library, the decoder's bf16 and float32 forward loops' and its bf16 and
+    float32 reverse loops' libraries, the probes' library and one library for each of
+    ALL_MUTANTS, CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS, LOOP_MUTANTS,
+    F32_LOOP_MUTANTS, BWD_LOOP_MUTANTS and F32_BWD_LOOP_MUTANTS from a changed copy of its
+    source (an AR kernel's copy with the instantiations of MUTANT_HEADS alone) under `tmp`, which must outlive the builds.
     Phase 3 needs the first library alone and runs beside the others (its readings are
     device times); the run waits for them all before phase 4, whose entry points are
     timed on the host's clock. Returns the Builds."""
@@ -1549,6 +1569,9 @@ def build_kernels(tmp):
         elif fault in BWD_LOOP_MUTANTS:
             name, text = 'decoder_bwd_loop.cu', mutated_bwd_loop_source(fault)
             flags = _build.DECODER_FLAGS
+        elif fault in F32_BWD_LOOP_MUTANTS:
+            name, text = 'decoder_bwd_loop_f32.cu', mutated_bwd_loop_f32_source(fault)
+            flags = _build.DECODER_FLAGS
         else:
             name, text = 'wavenet_ar.cu', mutated_source(fault)
             defines = (f'T2_HEADS={MUTANT_HEADS[fault]}',)
@@ -1571,12 +1594,14 @@ def build_kernels(tmp):
     pool = concurrent.futures.ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1))
     libraries = [pool.submit(library, load) for load in (
         _build.load_decoder_library, _build.load_decoder_loop_library,
-        _build.load_decoder_loop_f32_library, _build.load_decoder_bwd_loop_library)]
+        _build.load_decoder_loop_f32_library, _build.load_decoder_bwd_loop_library,
+        _build.load_decoder_bwd_loop_f32_library)]
     faults = list(CLUSTER_MUTANTS) + list(ALL_MUTANTS)
     mutants = {fault: pool.submit(mutant, (i, fault)) for i, fault in enumerate(faults)}
     libraries.append(pool.submit(library, _build.load_probe_library))
     for fault in (list(PROBE_MUTANTS) + list(DECODER_MUTANTS) + list(LOOP_MUTANTS)
-                  + list(F32_LOOP_MUTANTS) + list(BWD_LOOP_MUTANTS)):
+                  + list(F32_LOOP_MUTANTS) + list(BWD_LOOP_MUTANTS)
+                  + list(F32_BWD_LOOP_MUTANTS)):
         mutants[fault] = pool.submit(mutant, (len(mutants), fault))
     return Builds(pool, libraries, mutants)
 
@@ -3041,8 +3066,9 @@ def _wav_ok(path):
 def taco_cpu_vs_card(hp, batch, n=12, what=''):
     """One f32 train step (compute_dtype pinned: the card's default is bf16) at full
     width on the card and on the CPU from the same fresh state, on the first
-    TACO_CPU_BATCH rows of `batch` with the same draws (made on the CPU and copied).
-    Returns the readings."""
+    TACO_CPU_BATCH rows of `batch` with the same draws (made on the CPU and copied), and
+    the float32 reverse loop's launches in the card's step. Returns the readings."""
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
     from tacotron2_tpu_torch.training import tacotron_trainer as tt
 
     small = {k: v[:TACO_CPU_BATCH] for k, v in batch.items()}
@@ -3057,13 +3083,15 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
         return x.to(device)
 
     start = [p.detach().clone() for p in states['cpu'].model.parameters()]
-    metrics, secs = {}, {}
+    metrics, secs, bwd_loops = {}, {}, {}
     for d, state in states.items():
         t0 = time.perf_counter()
+        before = dv.LAUNCHES['decoder_bwd_loop_f32']
         m = tt.train_step(state, {k: v.to(d) for k, v in small.items()}, hp,
                           noise={k: on(d, v) for k, v in noise.items()}, dtype=torch.float32)
         metrics[d] = {k: float(m[k]) for k in ('loss', 'grad_norm')}
         secs[d] = time.perf_counter() - t0
+        bwd_loops[d] = dv.LAUNCHES['decoder_bwd_loop_f32'] - before
     loss_err = abs(metrics['cuda']['loss'] - metrics['cpu']['loss']) / abs(metrics['cpu']['loss'])
     norm_err = abs(metrics['cuda']['grad_norm'] - metrics['cpu']['grad_norm']) \
         / metrics['cpu']['grad_norm']
@@ -3089,14 +3117,15 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
               f'{TACO_GRAD_TOL}); parameters after the step: max abs err {worst:.2e} (tol '
               f'{TACO_PARAM_TOL}), {off} of {total} entries off by more than '
               f'{TACO_PARAM_CLOSE}, {off_large} of them with a gradient of {TACO_SMALL_GRAD} '
-              f'or more (tol 0); {secs["cuda"]:.2f} s on the card, {secs["cpu"]:.2f} s on the CPU')
+              f'or more (tol 0); {secs["cuda"]:.2f} s on the card, {secs["cpu"]:.2f} s on the '
+              f'CPU; the card\'s step launched decoder_bwd_loop_f32 {bwd_loops["cuda"]} time(s)')
     if not (loss_err <= TACO_STEP_TOL and norm_err <= TACO_STEP_TOL and grad_err <= TACO_GRAD_TOL
             and worst <= TACO_PARAM_TOL and off_large == 0):
         fail('the card\'s Tacotron train step disagrees with the CPU\'s')
     second = taco_second_step(states, start, small, noise, hp, n, what)
     return dict(loss_rel_err=loss_err, grad_norm_rel_err=norm_err, grad_rel_err=grad_err,
                 param_max_abs_err=worst, params_off=off, card_s=secs['cuda'], cpu_s=secs['cpu'],
-                second_step=second)
+                bwd_loop_launches=bwd_loops['cuda'], second_step=second)
 
 
 def taco_second_step(states, start, batch, noise, hp, n=12, what=''):
@@ -3360,10 +3389,20 @@ def tacotron_training():
             fail('the resumed Tacotron run did not write its checkpoint at step 8')
         synced = taco_synced_steps(state, dataset, hp)
         cpu = taco_cpu_vs_card(hp, batch)
+        if not cpu['bwd_loop_launches']:
+            fail('the card\'s f32 Tacotron train step did not run its decoder backward '
+                 'through decoder_bwd_loop_f32')
         scheduled = taco_f32_scheduled(root)
     reset_decoder_counts()
     timed = taco_timed_step(hp)
     read_decoder_counts(TACO_F32_TIMED_PATH)
+    lo, hi = F32_FWD_LOOP_TIMED['bwd']
+    phase(12, f'the f32 decoder backward (StepMarks) {timed["parts"]["bwd: decoder"]:.1f} ms '
+              f'({timed["part_ranges"]["bwd: decoder"][0]:.1f}-'
+              f'{timed["part_ranges"]["bwd: decoder"][1]:.1f}) through decoder_bwd_loop_f32, '
+              f'{DECODER_LAUNCHES_BY_PATH[TACO_F32_TIMED_PATH]["decoder_bwd_loop_f32"]} '
+              f'launches; with the step loop\'s backward (lstm_cell_bwd, attention_bwd) it read '
+              f'{lo}-{hi} ms')
     return dict(sec_step=float(np.median(list(synced.values()))), peak_gib=gib,
                 losses=losses, loss7=loss7, logged7=logged7, cpu_vs_card=cpu, timed=timed,
                 scheduled=scheduled)
@@ -3404,9 +3443,10 @@ PIPE_WAVENET_PATH = 'synthesize --model WaveNet --name'
 PIPE_TACOTRON2_PATH = 'synthesize --model Tacotron-2 --name'
 PIPE_PATHS = (PIPE_PATH, PIPE_WAVENET_PATH, PIPE_TACOTRON2_PATH)
 # the eval launch against the plain version over its first PIPE_EVAL_BOUNDS[-1] steps,
-# in state-carried chunks at odd ends (run eagerly, the plain version took 5-19 ms a
-# step of host time): a cut of the launch's hp.max_time_steps = 11,000
-PIPE_EVAL_BOUNDS = (377, 731, 1100)
+# in state-carried chunks at odd ends: all of the launch's hp.max_time_steps = 11,000
+# (run eagerly, the plain version took 5-19 ms a step of host time, and the check
+# followed the first CUT_STEPS until it ran as a CUDA graph)
+PIPE_EVAL_BOUNDS = (377, 731, CUT_STEPS, 11000)
 # a WaveNet two steps from its initial weights gives params that span less than the
 # seeded weights' (about 1) that KERNEL_TOL was read on: the eval launch's params are
 # held to PIPE_EVAL_TOL_PER_SPAN of their span, the same share, and each planted fault
@@ -4979,6 +5019,10 @@ STEP_LOOP_GTA_S = 0.099
 # forward loop (H100 80GB HBM3, 700 W): sec/step, the decoder's forward and backward ms
 # (StepMarks), and GTA's seconds an utterance
 F32_STEP_LOOPS_TIMED = dict(sec_step=1.953, fwd=263.3, bwd=373.4, gta_s=0.176)
+# the f32 timed step with the float32 forward loop and the step loop's backward, the last
+# before the float32 reverse loop (four runs, H100 80GB HBM3, 700 W): the ranges of its
+# sec/step and of its decoder backward's ms (StepMarks)
+F32_FWD_LOOP_TIMED = dict(sec_step=(1.493, 1.885), bwd=(396.1, 521.2))
 F32_PEAK_OPS = 67e12  # f32 outside the tensor cores: the elementwise kernels' ops
 # the fused decoder against autograd's on the card, {dtype: (the outputs' max abs error,
 # the gradients' relative L2)}. f32, read 2.1e-7 to 3.3e-7 and 6.4e-7 to 7.0e-7 at
@@ -5541,17 +5585,30 @@ TF32_PEAK_OPS = 495e12  # TF32 on the tensor cores, dense (the 3xTF32 products' 
 F32_LOOP_TIMED = ('B=32, keep-gates', 'B=1, expectation')
 
 
-def loop_f32_bound(B, T, T_in, K, save=True, gates=True):
-    """(ms, 'bytes' or 'operations', the operations' ms as 3xTF32) of the least time an
-    H100 takes for the float32 forward loop of B rows over T steps at LOOP_WIDTHS and
-    LOOP_FILTERS with a location conv of K taps: its products' operations (the gates, pq,
-    the location features and their projection, the context) over the f32 CUDA cores'
-    peak (decoder_loop_f32.cu's note), or its bytes (each input read once: p2, keys,
-    values, the mask, the weights and, with `gates`, the keep-gates; each output written
-    once: the alignments, x2, the contexts and, with `save`, the residuals) over the HBM
-    rate; beside it the same operations with the gates' and pq's three times over on the
-    TF32 tensor cores, as the kernel runs them."""
+def _f32_bound(nbytes, mma_ops, core_ops):
+    """(ms, 'bytes' or 'operations', the operations' ms on the f32 CUDA cores) of the least
+    time an H100 takes to move `nbytes` and do, at float32 accuracy, `mma_ops` of products
+    and `core_ops` of other operations: the larger of the bytes over the HBM rate and the
+    operations at their fastest, the products three times over on the TF32 tensor cores
+    (3xTF32, as the loops run them; 165 TFLOP/s of f32 products) and the rest on the f32
+    CUDA cores. Beside it, the same operations all on the f32 CUDA cores."""
     from tacotron2_tpu_torch import probes
+
+    bytes_ms = 1e3 * nbytes / probes.HBM_BYTES_PER_S
+    ops_ms = 1e3 * (3 * mma_ops / TF32_PEAK_OPS + core_ops / F32_PEAK_OPS)
+    core_ms = 1e3 * (mma_ops + core_ops) / F32_PEAK_OPS
+    return max(bytes_ms, ops_ms), 'operations' if ops_ms >= bytes_ms else 'bytes', core_ms
+
+
+def loop_f32_bound(B, T, T_in, K, save=True, gates=True):
+    """(ms, 'bytes' or 'operations', the operations' ms on the f32 CUDA cores) of the least
+    time an H100 takes for the float32 forward loop of B rows over T steps at LOOP_WIDTHS
+    and LOOP_FILTERS with a location conv of K taps (`_f32_bound`): its products'
+    operations (the gates and pq as 3xTF32; the location features and their projection
+    and the context on the CUDA cores; decoder_loop_f32.cu's note), or its bytes (each
+    input read once: p2, keys, values, the mask, the weights and, with `gates`, the
+    keep-gates; each output written once: the alignments, x2, the contexts and, with
+    `save`, the residuals) over the HBM rate."""
     from tacotron2_tpu_torch.ops import decoder_vjp as dv
 
     U, n_p, E, D = dv.LOOP_WIDTHS
@@ -5565,9 +5622,7 @@ def loop_f32_bound(B, T, T_in, K, save=True, gates=True):
     outputs = 4 * T * B * (T_in + U + E)
     if save:
         outputs += 4 * T * B * (8 * U + 5 * U + T_in + D)
-    ms, by = probes.bound_ms(inputs + outputs, flops_f32=mma_ops + core_ops)
-    tf32_ms = 1e3 * (3 * mma_ops / TF32_PEAK_OPS + core_ops / F32_PEAK_OPS)
-    return ms, by, tf32_ms
+    return _f32_bound(inputs + outputs, mma_ops, core_ops)
 
 
 def loop_f32_kernel_checks(f32_mutants):
@@ -5626,7 +5681,7 @@ def loop_f32_kernel_checks(f32_mutants):
                 save = B > 1  # GTA (one row) runs without residuals, training with them
                 r['ms'] = sorted(cuda_ms(lambda: dv.decoder_fwd_loop(*args, save))[1]
                                  for _ in range(3))[1]
-                r['bound_ms'], r['bound_by'], r['tf32_bound_ms'] = loop_f32_bound(
+                r['bound_ms'], r['bound_by'], r['f32_core_bound_ms'] = loop_f32_bound(
                     B, LOOP_STEPS, T_in, K, save, gates)
             if what == F32_LOOP_TIMED[0]:
                 r['plain_ms'] = cuda_ms(lambda: dv._decoder_fwd_loop_plain(*args, True))[1]
@@ -5645,7 +5700,7 @@ def loop_f32_kernel_checks(f32_mutants):
                   + ('' if 'ms' not in r else
                      f'; the launch{"" if B > 1 else " without residuals"} {r["ms"]:.2f} ms '
                      f'({1e3 * r["ms"] / LOOP_STEPS:.1f} us a step), bound {r["bound_ms"]:.3f} '
-                     f'ms by {r["bound_by"]} ({r["tf32_bound_ms"]:.3f} ms as 3xTF32)')
+                     f'ms by {r["bound_by"]} ({r["f32_core_bound_ms"]:.3f} ms on the f32 CUDA cores)')
                   + ('' if 'plain_ms' not in r else
                      f'; its plain version {r["plain_ms"]:.1f} ms, the f32 step loop\'s forward '
                      f'(lstm_cell_fwd, attention_fwd, cuBLAS, the conv; the prenet and '
@@ -5715,21 +5770,21 @@ def mutated_bwd_loop_source(fault):
     return text.replace(old, new)
 
 
-def bwd_loop_case(model, hp, B, gates, ragged):
+def bwd_loop_case(model, hp, B, gates, ragged, dtype=torch.bfloat16, T_in=TIMED_CHARS):
     """The reverse loop's inputs after the forward of `loop_case(model, hp, B, gates,
-    ragged)` with its residuals (through decoder_fwd_loop, on the card), and seeded
-    cotangents of the frames, stops and alignments. Returns the arguments of
-    decoder_bwd_loop and of the whole backward (`_backward`)."""
+    ragged, dtype, T_in)` with its residuals (through decoder_fwd_loop of the dtype, on the
+    card), and seeded cotangents of the frames, stops and alignments. Returns the arguments
+    of decoder_bwd_loop and of the whole backward (`_backward`)."""
     from tacotron2_tpu_torch.ops import decoder_vjp as dv
 
-    case = loop_case(model, hp, B, gates, ragged)
+    case = loop_case(model, hp, B, gates, ragged, dtype, T_in)
     cfg, W = case['forward'][:2]
     with torch.no_grad():
         (frames, stops, aligns), R = dv._forward(*case['forward'], True)
     gen = torch.Generator('cuda').manual_seed(40 + B)
     g_frames, g_stops, g_aligns = (torch.randn(x.shape, device='cuda', generator=gen)
                                    for x in (frames, stops, aligns))
-    dproj = torch.cat([g_frames, g_stops], -1).to(torch.bfloat16) @ W['fs_w']
+    dproj = torch.cat([g_frames, g_stops], -1).to(dtype) @ W['fs_w']
     cfg, W, keys, values, mask, _, gate_list = case['loop']
     return dict(loop=(cfg, W, keys, values, mask, R, dproj, g_aligns, gate_list),
                 backward=(*case['forward'], frames, aligns, R, g_frames, g_stops, g_aligns))
@@ -5836,7 +5891,7 @@ def bwd_loop_kernel_checks(bwd_mutants):
                     fail('two launches of decoder_bwd_loop on the same inputs differ')
                 ms = sorted(cuda_ms(lambda: dv.decoder_bwd_loop(*args))[1] for _ in range(3))[1]
                 plain_ms = cuda_ms(lambda: dv._decoder_bwd_loop_plain(*args))[1]
-                with _patched(dv, 'fwd_loop_applies', lambda *a: False):
+                with _patched(dv, 'loop_applies', lambda *a: False):
                     step_loop_ms = sorted(cuda_ms(lambda: dv._backward(*case['backward']))[1]
                                           for _ in range(2))[0]
                 backward_ms = sorted(cuda_ms(lambda: dv._backward(*case['backward']))[1]
@@ -5877,6 +5932,190 @@ def bwd_loop_kernel_checks(bwd_mutants):
                 check_launches=dv.LAUNCHES['decoder_bwd_loop'] - launches0)
 
 
+# --- phase 16: the decoder's float32 reverse recurrence as one persistent kernel ---------
+
+F32_BWD_LOOP_SOURCE = 'tacotron2_tpu_torch/csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu'
+F32_BWD_LOOP_REPLACES = ('tacotron2_tpu/ops/fused_decoder.py:130-150 (lstm_cell_bwd), :257-338 '
+                         '(attention_bwd with the conv transpose), :494-571 (_bwd_rule\'s '
+                         'step_bwd and its reverse scan), at float32')
+# (B, keep-gates, a ragged mask, T_in) of each check: the trainer's batch with training's
+# keep-gates and with zoneout's expectation, one row, and 200 characters with a ragged
+# mask (past the bf16 fold's 181, which only the conv tier takes)
+F32_BWD_LOOP_CASES = {'B=32, keep-gates': (32, True, False, 100),
+                      'B=32, expectation': (32, False, False, 100),
+                      'B=1, expectation': (1, False, False, 100),
+                      'B=32, T_in=200, keep-gates, ragged mask': (32, True, True, 200)}
+# the kernel against its plain version on the same CUDA tensors, {span: bound}, as
+# BWD_LOOP_TOL: the largest error of dz1, dz2, dpq, dctx_total and df over the loop's first
+# BWD_LOOP_FIRST_STEPS steps and over all of them and of the accumulators, relative to the
+# plain tensor's largest entry there. Read on an H100 80GB HBM3 at 700 W: the first three
+# steps 4.1e-7 to 1.2e-6 (dpq, df: the gate products as 3xTF32 and the attention's sums
+# in another order than cuBLAS's and the plain version's), all 512 steps and the
+# accumulators 2.2e-6 to 8.1e-6 (dl, summed over 512 x B x T_in terms); the planted
+# faults 8.7x (a 3xTF32 term dropped) to 36,721x bounds of 2e-5 / 1e-4. The bounds sit
+# 8.6x and 6.1x above the sound readings
+F32_BWD_LOOP_TOL = {'first': 1e-5, 'all': 5e-5}
+# a planted fault must miss F32_BWD_LOOP_TOL by this factor in one span of one case
+F32_BWD_FAULT_FACTOR = 10
+# planted faults: each a build of a copy of csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu
+# with one line changed, built in phase 2, {fault: (the line, its change)}
+F32_BWD_LOOP_MUTANTS = {
+    'f32 reverse loop: the conv transpose\'s flip dropped': (
+        'const float4 x = DFW[(i - k + K - 1) * (F / 4) + q];',
+        'const float4 x = DFW[(i + k) * (F / 4) + q];'),
+    'f32 reverse loop: the state\'s gradient not carried': (
+        'a.dstate[o] = a.cumulate ? __ldcg(a.dstate + o) + acc : acc;', 'a.dstate[o] = acc;'),
+    'f32 reverse loop: a 3xTF32 term dropped': ('mma(d, al[k], bh[2 * k], bh[2 * k + 1]);', ';'),
+    'f32 reverse loop: the mask ignored in the energies': (
+        'if (a.mask && !(a.mask[(size_t)tid * T_in + j] > 0.0f)) e = NEG_INF;', ';'),
+    'f32 reverse loop: the context\'s gradient not carried': (
+        'if (ci < EPC) a.dctx[(size_t)crow * E + EPC * cta + ci] = column(RED, crow, 8 + ci);',
+        ';'),
+    'f32 reverse loop: the cell bypass (1 - a) dc dropped': (
+        'dc = dcn * sf + (1.0f - ac) * dc;', 'dc = dcn * sf;')}
+
+
+def mutated_bwd_loop_f32_source(fault):
+    """The text of csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu with
+    F32_BWD_LOOP_MUTANTS[fault]'s change."""
+    from tacotron2_tpu_torch.ops import _build
+
+    old, new = F32_BWD_LOOP_MUTANTS[fault]
+    path = os.path.join(_build.DECODER_BWD_LOOP_F32_DIR, 'decoder_bwd_loop_f32.cu')
+    with open(path, encoding='utf-8') as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise ValueError(f'the line that {fault!r} changes stands {text.count(old)} times in '
+                         'csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu: bring '
+                         'F32_BWD_LOOP_MUTANTS up to date')
+    return text.replace(old, new)
+
+
+def bwd_loop_f32_bound(B, T, T_in, K, gates=True):
+    """(ms, 'bytes' or 'operations', the operations' ms on the f32 CUDA cores) of the least
+    time an H100 takes for the float32 reverse loop of B rows over T steps at LOOP_WIDTHS
+    and LOOP_FILTERS with a location conv of K taps, as loop_f32_bound reckons the
+    forward's: its products' operations (the gate gradients' din2 and din1 and dpq @ q_w
+    as 3xTF32; dalign, the location features, their projection and its gradient, dl and
+    the conv's transpose on the CUDA cores; decoder_bwd_loop_f32.cu's note), or its bytes
+    (each input read once: keys, values, the mask, dproj, the alignments' gradient, the
+    residuals it reads, the weights' columns it reads and, with `gates`, the keep-gates;
+    each output written once: dz1, dz2, dpq, dctx_total, df and the accumulators) over the
+    HBM rate."""
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+
+    U, n_p, E, D = dv.LOOP_WIDTHS
+    n_f = dv.LOOP_FILTERS
+    mma_ops = 2 * T * B * (4 * U * 2 * U + 4 * U * (E + U) + D * U)
+    core_ops = 2 * T * B * T_in * (E + 2 * K * n_f + 3 * n_f * D)
+    weights = 4 * (4 * U * (2 * U + E + U) + D * U + n_f * K + n_f + D * n_f + 2 * D)
+    inputs = (4 * B * T_in * (D + E + 1) + weights
+              + 4 * T * B * ((U + E) + 2 * T_in + 2 * 4 * U + 2 * U + D)
+              + (4 * T * B * U if gates else 0))
+    outputs = (4 * T * B * (2 * 4 * U + D + E + T_in * n_f) + 4 * B * T_in * D + 8 * B * D
+               + 4 * D * n_f)
+    return _f32_bound(inputs + outputs, mma_ops, core_ops)
+
+
+def bwd_loop_f32_kernel_checks(f32_bwd_mutants):
+    """decoder_bwd_loop in float32 (csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu)
+    against its plain version on the same CUDA tensors at the default width over
+    LOOP_STEPS steps, each of F32_BWD_LOOP_CASES (the float32 forward loop's inputs, its
+    residuals from decoder_fwd_loop, seeded cotangents): dz1, dz2, dpq, dctx_total and df
+    over the loop's first BWD_LOOP_FIRST_STEPS steps and over all of them, and the
+    accumulators, within F32_BWD_LOOP_TOL; a second launch bit for bit the first; each of
+    F32_BWD_LOOP_MUTANTS (`f32_bwd_mutants`: fault -> its library) must miss the bound by
+    F32_BWD_FAULT_FACTOR in one span of one case. The B=32 launch with keep-gates timed
+    (CUDA events, the median of 3) beside its plain version, the float32 step loop's whole
+    backward (`_backward` through `_step_loop_bwd`: lstm_cell_bwd, attention_bwd, the
+    library products and the conv's transpose; the deferred weight gradients in) and the
+    kernel's (`_backward`, the same) over the same steps, and its bound; the B=1 launch
+    timed with its bound. Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import decoder_vjp as dv
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    model = tt.create_train_state(hp, 'cuda', seed=15).model
+    conv = model.decoder.attention.location_convolution
+    with torch.no_grad():  # a trained location conv's bias is not 0 (as loop_kernel_checks)
+        conv.bias.copy_(torch.randn(conv.bias.shape, device='cuda',
+                                    generator=torch.Generator('cuda').manual_seed(15)) * 0.5)
+    K = conv.weight.shape[-1]
+    t0 = time.perf_counter()
+    readings, seen = {}, dict.fromkeys(F32_BWD_LOOP_MUTANTS, 0.0)
+    launches0 = dv.LAUNCHES['decoder_bwd_loop_f32']
+    for what, (B, gates, ragged, T_in) in F32_BWD_LOOP_CASES.items():
+        case = bwd_loop_case(model, hp, B, gates, ragged, torch.float32, T_in)
+        args = case['loop']
+        with torch.no_grad():
+            want = _bwd_outputs(dv._decoder_bwd_loop_plain(*args))
+            got = _bwd_outputs(dv.decoder_bwd_loop(*args))
+            again = _bwd_outputs(dv.decoder_bwd_loop(*args))
+            torch.cuda.synchronize()
+            spans = {'first': _bwd_span_errs(got, want, BWD_LOOP_FIRST_STEPS),
+                     'all': _bwd_span_errs(got, want, LOOP_STEPS)}
+            r = dict(first=max(spans['first'].values()), all=max(spans['all'].values()),
+                     worst_first=max(spans['first'], key=spans['first'].get),
+                     worst_all=max(spans['all'], key=spans['all'].get),
+                     max_abs_err=max(float((got[n].double() - want[n].double()).abs().max())
+                                     for n in BWD_LOOP_NAMES), by_tensor=spans['all'],
+                     bit_identical=all(torch.equal(again[n], got[n]) for n in BWD_LOOP_NAMES))
+            if not r['bit_identical']:
+                fail(f'two launches of the float32 decoder_bwd_loop differ ({what})')
+            for fault, lib in f32_bwd_mutants.items():
+                with _patched(dv, 'bwd_loop_f32_library', lambda lib=lib: lib):
+                    bad = _bwd_outputs(dv.decoder_bwd_loop(*args))
+                e = max(max(_bwd_span_errs(bad, want, BWD_LOOP_FIRST_STEPS).values())
+                        / F32_BWD_LOOP_TOL['first'],
+                        max(_bwd_span_errs(bad, want, LOOP_STEPS).values())
+                        / F32_BWD_LOOP_TOL['all'])
+                seen[fault] = max(seen[fault], e)
+            if what in ('B=32, keep-gates', 'B=1, expectation'):
+                r['ms'] = sorted(cuda_ms(lambda: dv.decoder_bwd_loop(*args))[1]
+                                 for _ in range(3))[1]
+                r['bound_ms'], r['bound_by'], r['f32_core_bound_ms'] = bwd_loop_f32_bound(
+                    B, LOOP_STEPS, T_in, K, gates)
+            if what == 'B=32, keep-gates':
+                r['plain_ms'] = cuda_ms(lambda: dv._decoder_bwd_loop_plain(*args))[1]
+                with _patched(dv, 'loop_applies', lambda *a: False):
+                    r['step_loop_ms'] = sorted(cuda_ms(lambda: dv._backward(*case['backward']))[1]
+                                               for _ in range(2))[0]
+                r['backward_ms'] = sorted(cuda_ms(lambda: dv._backward(*case['backward']))[1]
+                                          for _ in range(3))[1]
+        readings[what] = r
+        phase(16, f'decoder_bwd_loop_f32 {what}, {LOOP_STEPS} steps, T_in={T_in} (f32): kernel '
+                  f'vs plain, relative to the plain tensor\'s largest entry, the loop\'s first '
+                  f'{BWD_LOOP_FIRST_STEPS} steps {r["first"]:.2e} ({r["worst_first"]}; tol '
+                  f'{F32_BWD_LOOP_TOL["first"]}), all steps and the accumulators '
+                  f'{r["all"]:.2e} ({r["worst_all"]}; tol {F32_BWD_LOOP_TOL["all"]}); max abs '
+                  f'{r["max_abs_err"]:.2e}; a second launch bit for bit the first; by tensor '
+                  'over all steps: ' + ', '.join(f'{n} {v:.1e}' for n, v in spans['all'].items())
+                  + ('' if 'ms' not in r else
+                     f'; the launch {r["ms"]:.2f} ms ({1e3 * r["ms"] / LOOP_STEPS:.1f} us a '
+                     f'step), bound {r["bound_ms"]:.3f} ms by {r["bound_by"]} '
+                     f'({r["f32_core_bound_ms"]:.3f} ms on the f32 CUDA cores)')
+                  + ('' if 'plain_ms' not in r else
+                     f'; its plain version {r["plain_ms"]:.1f} ms, the f32 step loop\'s whole '
+                     f'backward (lstm_cell_bwd, attention_bwd, cuBLAS, the conv\'s transpose; '
+                     f'the deferred weight gradients in) {r["step_loop_ms"]:.1f} ms, the '
+                     f'kernel\'s whole backward (the same) {r["backward_ms"]:.2f} ms'))
+        if not (r['first'] <= F32_BWD_LOOP_TOL['first'] and r['all'] <= F32_BWD_LOOP_TOL['all']):
+            fail(f'the float32 decoder_bwd_loop kernel disagrees with its plain version ({what})')
+    seconds = time.perf_counter() - t0
+    phase(16, 'decoder_bwd_loop_f32 planted faults, the largest of their errors over a bound '
+              f'(each must exceed {F32_BWD_FAULT_FACTOR}): '
+              + '; '.join(f'{f} {v:.2f}' for f, v in seen.items())
+              + f'; the float32 reverse loop\'s checks took {seconds:.1f} s')
+    for fault, v in seen.items():
+        if not v > F32_BWD_FAULT_FACTOR:
+            fail(f'the float32 decoder_bwd_loop check does not see its planted fault ({fault}) '
+                 f'{F32_BWD_FAULT_FACTOR} times over its bound')
+    return dict(cases=readings, faults=seen, seconds=seconds,
+                check_launches=dv.LAUNCHES['decoder_bwd_loop_f32'] - launches0)
+
+
 def timed_beside_autograd(timed, gta_s):
     """Phase 12's (f32) and phase 14's (bf16) timed steps at B=32 x TIMED_FRAMES beside
     the autograd decoder loop's and the step loop's, and phase 13's GTA seconds an
@@ -5886,11 +6125,14 @@ def timed_beside_autograd(timed, gta_s):
         was, loop = AUTOGRAD_TIMED[key], STEP_LOOP_TIMED[key]
         if key == 'float32':
             last = F32_STEP_LOOPS_TIMED
-            phase(16, f'timed step float32 with the float32 forward loop: {t["sec_step"]:.3f} '
+            phase(16, f'timed step float32 with both float32 loops: {t["sec_step"]:.3f} '
                       f'sec/step, the decoder forward {t["parts"]["fwd: decoder"]:.1f} ms, '
-                      f'backward {t["parts"]["bwd: decoder"]:.1f} ms (with the step loops in '
-                      f'both directions: {last["sec_step"]} s, {last["fwd"]} and '
-                      f'{last["bwd"]} ms)')
+                      f'backward {t["parts"]["bwd: decoder"]:.1f} ms (with the float32 forward '
+                      f'loop and the step loop\'s backward: '
+                      f'{"-".join(map(str, F32_FWD_LOOP_TIMED["sec_step"]))} s, the backward '
+                      f'{"-".join(map(str, F32_FWD_LOOP_TIMED["bwd"]))} ms; with the step '
+                      f'loops in both directions: '
+                      f'{last["sec_step"]} s, {last["fwd"]} and {last["bwd"]} ms)')
         phase(16, f'timed step {key}, B=32 x {TIMED_FRAMES} frames: {t["sec_step"]:.3f} '
                   f'sec/step ({t["sec_step_range"][0]:.3f}-{t["sec_step_range"][1]:.3f}; autograd '
                   f'{was["sec_step"]}, step loop {loop["sec_step"]}), peak {t["peak_gib"]:.2f} '
@@ -5912,8 +6154,10 @@ def decoder_slice(mutants, timed, gta_s):
     loop = loop_kernel_checks({f: mutants[f] for f in LOOP_MUTANTS})
     loop_f32 = loop_f32_kernel_checks({f: mutants[f] for f in F32_LOOP_MUTANTS})
     bwd_loop = bwd_loop_kernel_checks({f: mutants[f] for f in BWD_LOOP_MUTANTS})
+    bwd_loop_f32 = bwd_loop_f32_kernel_checks({f: mutants[f] for f in F32_BWD_LOOP_MUTANTS})
     fused = {}
-    for ratio, dtype, loops in ((1.0, torch.float32, ('decoder_fwd_loop_f32',)),
+    for ratio, dtype, loops in ((1.0, torch.float32, ('decoder_fwd_loop_f32',
+                                                      'decoder_bwd_loop_f32')),
                                 (0.5, torch.float32, ()),
                                 (1.0, torch.bfloat16, ('decoder_fwd_loop', 'decoder_bwd_loop')),
                                 (0.5, torch.bfloat16, ())):
@@ -5922,6 +6166,9 @@ def decoder_slice(mutants, timed, gta_s):
         ran = collections.Counter(dv.LAUNCHES) - before
         if not all(ran[name] for name in loops):
             fail(f'the fused decoder in {dtype} at teacher forcing 1 did not run {loops}')
+        if ratio == 1.0 and dtype == torch.float32 and (ran['lstm_cell_bwd']
+                                                        or ran['attention_bwd']):
+            fail('the fused decoder in float32 at teacher forcing 1 ran the step loop\'s backward')
     timed_beside_autograd(timed, gta_s)
     launches = {p: dict(DECODER_LAUNCHES_BY_PATH[p]) for p in ALL_DECODER_PATHS}
     phase(16, f'decoder kernel launches on the main paths: {launches}; phase 16 took '
@@ -5940,16 +6187,16 @@ def decoder_slice(mutants, timed, gta_s):
         if (not by['decoder_fwd_loop_f32'] or by['lstm_cell_fwd'] or by['attention_fwd']
                 or by['decoder_fwd_loop']):
             fail(f'{p} (f32) did not run its forward through decoder_fwd_loop_f32 alone')
-        if by['decoder_bwd_loop']:
-            fail(f'{p} (f32) ran decoder_bwd_loop')
+        if by['decoder_bwd_loop'] or by['lstm_cell_bwd'] or by['attention_bwd']:
+            fail(f'{p} (f32) ran a backward kernel other than decoder_bwd_loop_f32')
     by = DECODER_LAUNCHES_BY_PATH[TACO_F32_TIMED_PATH]  # the f32 path that trains (GTA does not)
-    if not (by['lstm_cell_bwd'] and by['attention_bwd']):
-        fail(f'{TACO_F32_TIMED_PATH} did not run the step loop\'s backward kernels')
+    if not by['decoder_bwd_loop_f32']:
+        fail(f'{TACO_F32_TIMED_PATH} did not run its backward through decoder_bwd_loop_f32')
     by = DECODER_LAUNCHES_BY_PATH[TACO_F32_SCHEDULED_PATH]
     if not all(by[k] for k in ('lstm_cell_fwd', 'attention_fwd', 'lstm_cell_bwd', 'attention_bwd')):
         fail(f'{TACO_F32_SCHEDULED_PATH} did not run the step loop\'s four kernels')
-    return dict(kernels=kernels, loop=loop, loop_f32=loop_f32, bwd_loop=bwd_loop, fused=fused,
-                launches=launches)
+    return dict(kernels=kernels, loop=loop, loop_f32=loop_f32, bwd_loop=bwd_loop,
+                bwd_loop_f32=bwd_loop_f32, fused=fused, launches=launches)
 
 
 def decoder_entries(decoder):
@@ -6004,13 +6251,13 @@ def decoder_entries(decoder):
         max_abs_err=max(r['max_abs_err'] for r in f32.values()), ms=b32['ms'],
         plain_ms=b32['plain_ms'], step_loop_ms=b32['step_loop_ms'],
         forward_ms=b32['forward_ms'], bound_ms=b32['bound_ms'], bound_by=b32['bound_by'],
-        tf32_bound_ms=b32['tf32_bound_ms'], library_ms=None, dtype='float32',
+        f32_core_bound_ms=b32['f32_core_bound_ms'], library_ms=None, dtype='float32',
         steps=LOOP_STEPS, widths=dict(zip(('B', 'U', 'D', 'T_in'), DECODER_WIDTHS)),
         rel_err={k: dict(first=r['first'], all=r['all']) for k, r in f32.items()},
         tol=F32_LOOP_TOL, fault_err_over_tol=decoder['loop_f32']['faults'],
         bit_identical=all(r['bit_identical'] for r in f32.values()),
         b1_ms_without_residuals=b1['ms'], b1_bound_ms=b1['bound_ms'],
-        b1_bound_by=b1['bound_by'], b1_tf32_bound_ms=b1['tf32_bound_ms']))
+        b1_bound_by=b1['bound_by'], b1_f32_core_bound_ms=b1['f32_core_bound_ms']))
     # the reverse loop: ms the B=32 x LOOP_STEPS launch, plain_ms its plain version,
     # step_loop_ms the step loop's whole backward over the same steps
     bwd = decoder['bwd_loop']['cases']
@@ -6030,6 +6277,27 @@ def decoder_entries(decoder):
         tol=BWD_LOOP_TOL, fault_err_over_tol=decoder['bwd_loop']['faults'],
         bit_identical=b32['bit_identical'], b1_ms=b1['ms'], b1_bound_ms=b1['bound_ms'],
         b1_bound_by=b1['bound_by']))
+    # the float32 reverse loop: ms the B=32 x LOOP_STEPS launch (the f32 train step's),
+    # plain_ms its plain version, step_loop_ms the f32 step loop's whole backward over the
+    # same steps
+    f32b = decoder['bwd_loop_f32']['cases']
+    b32, b1 = f32b['B=32, keep-gates'], f32b['B=1, expectation']
+    out.append(dict(
+        name='decoder_bwd_loop_f32', route='cuda', source=F32_BWD_LOOP_SOURCE,
+        replaces=F32_BWD_LOOP_REPLACES,
+        launches=sum(by[p].get('decoder_bwd_loop_f32', 0) for p in ALL_DECODER_PATHS),
+        launches_by_path={p: by[p].get('decoder_bwd_loop_f32', 0) for p in ALL_DECODER_PATHS},
+        check_launches=decoder['bwd_loop_f32']['check_launches'],
+        max_abs_err=max(r['max_abs_err'] for r in f32b.values()), ms=b32['ms'],
+        plain_ms=b32['plain_ms'], step_loop_ms=b32['step_loop_ms'],
+        backward_ms=b32['backward_ms'], bound_ms=b32['bound_ms'], bound_by=b32['bound_by'],
+        f32_core_bound_ms=b32['f32_core_bound_ms'], library_ms=None, dtype='float32',
+        steps=LOOP_STEPS, widths=dict(zip(('B', 'U', 'D', 'T_in'), DECODER_WIDTHS)),
+        rel_err={k: dict(first=r['first'], all=r['all']) for k, r in f32b.items()},
+        tol=F32_BWD_LOOP_TOL, fault_err_over_tol=decoder['bwd_loop_f32']['faults'],
+        bit_identical=all(r['bit_identical'] for r in f32b.values()), b1_ms=b1['ms'],
+        b1_bound_ms=b1['bound_ms'], b1_bound_by=b1['bound_by'],
+        b1_f32_core_bound_ms=b1['f32_core_bound_ms']))
     return out
 
 
@@ -6058,7 +6326,7 @@ def main():
     atexit.register(shutil.rmtree, tmp, True)
     mutants = build_kernels(tmp)
     phase(2, f'built and loaded the AR kernel\'s library in {time.perf_counter() - t0:.1f} s; '
-             f'the probes\', the decoder step\'s and the two decoder loops\' libraries and '
+             f'the probes\', the decoder step\'s and the four decoder loops\' libraries and '
              f'{len(mutants)} copies with one planted fault each build beside phase 3')
     probe_modules = {'prng_probe': prng_probe, 'ar_critpath': ar_critpath,
                      'matmul_probe': matmul_probe, 'microbench': microbench}

@@ -1,6 +1,6 @@
 // The teacher-forced Tacotron decoder's reverse recurrence on Hopper: all T steps of the
 // fused decoder's backward loop in one persistent launch (tacotron2_tpu_torch/ops/
-// decoder_vjp.py, `decoder_bwd_loop`, where `fwd_loop_applies` holds: bf16, the folded
+// decoder_vjp.py, `decoder_bwd_loop`, where `loop_applies` holds: bf16, the folded
 // location tier, every step on its teacher frame, the widths below, B <= 32).
 //
 // It replaces, where it runs, the step loop of the port's attention_bwd and two

@@ -1,6 +1,6 @@
 // The teacher-forced Tacotron decoder's forward recurrence on Hopper: all T steps of the
 // fused decoder's forward in one persistent launch (tacotron2_tpu_torch/ops/decoder_vjp.py,
-// `decoder_fwd_loop`, where `fwd_loop_applies` holds: bf16, the folded location tier, every
+// `decoder_fwd_loop`, where `loop_applies` holds: bf16, the folded location tier, every
 // step on its teacher frame, the widths below, B <= 32).
 //
 // It replaces, where it runs, the step loop of the port's lstm_cell_fwd and attention_fwd

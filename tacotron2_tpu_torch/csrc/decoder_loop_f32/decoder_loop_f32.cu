@@ -1,7 +1,7 @@
 // The teacher-forced Tacotron decoder's forward recurrence on Hopper in float32: all T steps
 // of the fused decoder's forward in one persistent launch, the location conv inside it
 // (tacotron2_tpu_torch/ops/decoder_vjp.py, `decoder_fwd_loop` at float32, where
-// `fwd_loop_applies` holds: float32, the conv location tier, every step on its teacher
+// `loop_applies` holds: float32, the conv location tier, every step on its teacher
 // frame, the widths below, B <= 32, T_in <= 256).
 //
 // It replaces, where it runs, the step loop of the port's lstm_cell_fwd and attention_fwd

@@ -5,10 +5,11 @@ Hopper (`sm_90a`) into one shared library with a plain C interface, which is loa
 ctypes (`load_library`); the measurement probes' sources under `csrc/probes/`, the
 decoder step's under `csrc/decoder/`, the decoder's forward loop's under
 `csrc/decoder_loop/` (bf16) and `csrc/decoder_loop_f32/` (float32) and its reverse loop's
-under `csrc/decoder_bwd_loop/` go into libraries of their own (`load_probe_library`,
-`load_decoder_library`, `load_decoder_loop_library`, `load_decoder_loop_f32_library`,
-`load_decoder_bwd_loop_library`, the last four built with `--fmad=false`:
-DECODER_FLAGS), so that no build grows another.
+under `csrc/decoder_bwd_loop/` (bf16) and `csrc/decoder_bwd_loop_f32/` (float32) go into
+libraries of their own (`load_probe_library`, `load_decoder_library`,
+`load_decoder_loop_library`, `load_decoder_loop_f32_library`,
+`load_decoder_bwd_loop_library`, `load_decoder_bwd_loop_f32_library`, the last five built
+with `--fmad=false`: DECODER_FLAGS), so that no build grows another.
 Each build runs at first use, into `build/tacotron2_tpu_torch/` at the root of the
 checkout, and is redone when its sources' hash changes. There is no fallback: a missing
 nvcc or a failed build raises.
@@ -28,6 +29,7 @@ DECODER_DIR = os.path.join(CSRC_DIR, 'decoder')
 DECODER_LOOP_DIR = os.path.join(CSRC_DIR, 'decoder_loop')
 DECODER_LOOP_F32_DIR = os.path.join(CSRC_DIR, 'decoder_loop_f32')
 DECODER_BWD_LOOP_DIR = os.path.join(CSRC_DIR, 'decoder_bwd_loop')
+DECODER_BWD_LOOP_F32_DIR = os.path.join(CSRC_DIR, 'decoder_bwd_loop_f32')
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build', 'tacotron2_tpu_torch')
 # --split-compile=0: the device code's optimization passes run on as many threads as
 # the host has, one unit of kernels each: the kernels' library of 20 instantiations no
@@ -120,3 +122,10 @@ def load_decoder_loop_f32_library() -> ctypes.CDLL:
 def load_decoder_bwd_loop_library() -> ctypes.CDLL:
     """Compile (if the sources changed) and load the decoder reverse loop's library."""
     return _load(DECODER_BWD_LOOP_DIR, 'libt2decoderbwdloop', DECODER_FLAGS)
+
+
+@functools.cache
+def load_decoder_bwd_loop_f32_library() -> ctypes.CDLL:
+    """Compile (if the sources changed) and load the decoder's float32 reverse loop's
+    library."""
+    return _load(DECODER_BWD_LOOP_F32_DIR, 'libt2decoderbwdloopf32', DECODER_FLAGS)

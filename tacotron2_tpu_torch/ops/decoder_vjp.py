@@ -8,7 +8,7 @@ gradient to take it runs `FusedDecoderScan`, a `torch.autograd.Function`:
   - forward (`_forward`): the steps' recurrence, saving what the JAX forward saves
     (`:379-384`): r1, r2, z1, z2, x1, x2, the zoned c and h of both LSTMs, the context and
     the previous alignment state, and the query projection; residuals in the compute
-    dtype, the state in float32. Where `fwd_loop_applies` (every step on its teacher
+    dtype, the state in float32. Where `loop_applies` (every step on its teacher
     frame, LOOP_WIDTHS, LOOP_FILTERS location filters of at most LOOP_MAX_KERNEL taps, at
     most LOOP_MAX_BATCH rows, and either bf16 on the folded location tier or float32 on
     the conv tier: the trainers' forward and eval on the card at the default hparams, GTA,
@@ -21,12 +21,11 @@ gradient to take it runs `FusedDecoderScan`, a `torch.autograd.Function`:
     the context's gradient, the fed-back frame's and the alignment state's, and emits the
     gates' gradients dz1, dz2, dpq, the prenet's, the total context gradient and the
     location features' gradient; dkeys, the energy's dva and dba, and the location
-    layer's gradient sum in float32 in place. Where `bwd_loop_applies` (bf16 on the
-    folded tier, where the forward ran the bf16 loop; float32 has no reverse loop yet and
-    runs `_step_loop_bwd` on the float32 forward loop's residuals) the projections'
-    gradient runs once over the steps, `decoder_bwd_loop` runs all T reverse steps in one
-    launch and the prenet's gradient runs once over the T * B rows after it; elsewhere
-    `_step_loop_bwd` runs a step at a time. Both run the step `_reverse_step`. Every large
+    layer's gradient sum in float32 in place. Where `loop_applies` (where the forward ran
+    its loop) the projections' gradient runs
+    once over the steps, `decoder_bwd_loop` runs all T reverse steps in one launch and the
+    prenet's gradient runs once over the T * B rows after it; elsewhere `_step_loop_bwd`
+    runs a step at a time. Both run the step `_reverse_step`. Every large
     weight gradient is then one product over the T * B rows (`:578-614`), as are the
     location conv's kernel and bias gradients (one product where the per-step JAX
     accumulators sum the same terms: `_loc_acc` and `_loc_acc_finalize` on the folded
@@ -45,9 +44,12 @@ XLA. The forward loop is a persistent kernel in each dtype: bf16
 with the location conv inside it (`csrc/decoder_loop_f32/decoder_loop_f32.cu`,
 `_build.load_decoder_loop_f32_library`), both behind `decoder_fwd_loop`, the step's
 products on the tensor cores (the float32 ones as 3xTF32), lstm_cell_fwd's and
-attention_fwd's math in the same launch; the reverse loop another
-(`csrc/decoder_bwd_loop/decoder_bwd_loop.cu`, `_build.load_decoder_bwd_loop_library`):
-`decoder_bwd_loop`, with lstm_cell_bwd's and attention_bwd's math. Each wrapper launches
+attention_fwd's math in the same launch; the reverse loop too: bf16
+(`csrc/decoder_bwd_loop/decoder_bwd_loop.cu`, `_build.load_decoder_bwd_loop_library`) and
+float32 with the location conv and its transpose inside it
+(`csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu`,
+`_build.load_decoder_bwd_loop_f32_library`), both behind `decoder_bwd_loop`, with
+lstm_cell_bwd's and attention_bwd's math. Each wrapper launches
 its kernel on CUDA tensors (a failed build or launch raises; there is no fallback) and
 counts the launch in LAUNCHES; on CPU tensors it runs the kernel's plain PyTorch version
 beside it, which the CPU tests hold against the JAX package.
@@ -78,7 +80,8 @@ from . import fused_decoder as fd
 # launches of each hand-written kernel, counted by its wrapper where it launches it
 LAUNCHES: Dict[str, int] = collections.Counter()
 KERNELS = ('lstm_cell_fwd', 'lstm_cell_bwd', 'attention_fwd', 'attention_bwd',
-           'decoder_fwd_loop', 'decoder_fwd_loop_f32', 'decoder_bwd_loop')
+           'decoder_fwd_loop', 'decoder_fwd_loop_f32', 'decoder_bwd_loop',
+           'decoder_bwd_loop_f32')
 
 # the cell's parameters in the Function's order, with the short names of `_weights`
 PARAMS = (('p1_w', 'prenet.layers.0.weight'), ('p1_b', 'prenet.layers.0.bias'),
@@ -169,10 +172,16 @@ def _bwd_loop_library():
     return load_decoder_bwd_loop_library()
 
 
+def _bwd_loop_f32_library():
+    from ._build import load_decoder_bwd_loop_f32_library
+    return load_decoder_bwd_loop_f32_library()
+
+
 library = _library  # the build whose kernels launch (chip_smoke.py plants faulty ones)
 loop_library = _loop_library  # ... and the forward loop's
 loop_f32_library = _loop_f32_library  # ... and the float32 forward loop's
 bwd_loop_library = _bwd_loop_library  # ... and the reverse loop's
+bwd_loop_f32_library = _bwd_loop_f32_library  # ... and the float32 reverse loop's
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
@@ -603,21 +612,22 @@ def _step_loop(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, 
 
 # ---------------------------------------------------------------- the forward loop kernel
 
-# the widths csrc/decoder_loop/decoder_loop.cu and csrc/decoder_loop_f32/decoder_loop_f32.cu
-# are built for (U, the prenet's output, the encoder's E, the attention's D: the default
-# hparams' and the paper profile's), and the largest batch and number of input steps they
-# take (the warps' partials of 32 rows fill their shared memory beside the resident
-# weights; a thread an input step in their softmax: the bf16 loop's 192, the float32
-# loop's 256, a corpus's longest line of about 190 characters padded to 16)
+# the widths the four loops (csrc/decoder_loop, decoder_loop_f32, decoder_bwd_loop and
+# decoder_bwd_loop_f32) are built for (U, the prenet's output, the encoder's E, the
+# attention's D: the default hparams' and the paper profile's), and the largest batch and
+# number of input steps they take (the warps' partials of 32 rows fill their shared memory
+# beside the resident weights; a thread an input step in the forward's softmax, two input
+# steps a CTA in the reverse loops: the bf16 loops' 192, the float32 loops' 256, a
+# corpus's longest line of about 190 characters padded to 16)
 LOOP_WIDTHS = (1024, 256, 512, 128)
 LOOP_MAX_BATCH = 32
 LOOP_MAX_T_IN = 192
 LOOP_F32_MAX_T_IN = 256
-# the location conv's filters that csrc/decoder_bwd_loop/decoder_bwd_loop.cu and the float32
-# forward loop are built for (the default hparams' and the paper profile's; the reverse
-# loop forms the location features and their gradient, which the bf16 forward folds away,
-# and the float32 forward forms them), and the conv's widest kernel that they take (its
-# taps staged in shared memory; the defaults' is 31)
+# the location conv's filters that the reverse loops and the float32 forward loop are built
+# for (the default hparams' and the paper profile's; the bf16 reverse loop forms the
+# location features and their gradient, which the bf16 forward folds away, and the float32
+# loops form them and the conv's transpose), and the conv's widest kernel that they take
+# (its taps staged in shared memory; the defaults' is 31)
 LOOP_FILTERS = 32
 LOOP_MAX_KERNEL = 64
 # the C entry's pointers, in the order of decoder_loop.cu's `Ptr`
@@ -647,42 +657,47 @@ def _keep(cfg: Config):
     return [weak(1.0 - rate, cfg.dtype) for rate in cfg.rates]
 
 
-def _loop_shapes(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
-    """What both forward loops and the reverse loop ask of a call, whatever the dtype:
-    LOOP_WIDTHS, LOOP_FILTERS and a location kernel of at most LOOP_MAX_KERNEL taps, a
-    batch of at most LOOP_MAX_BATCH, and every step on its teacher frame (the default
-    constant teacher forcing at ratio 1, GTA, eval)."""
-    B, _, D = keys.shape
-    return (1 <= B <= LOOP_MAX_BATCH
+def loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
+    """Where both loops run, all T steps in one launch each way (`decoder_fwd_loop`,
+    `decoder_bwd_loop`; the reverse loop reads the residuals of the forward loop of its
+    dtype), and not the step loops (`_step_loop`, `_step_loop_bwd`): LOOP_WIDTHS,
+    LOOP_FILTERS and a location kernel of at most LOOP_MAX_KERNEL taps, a batch of at most
+    LOOP_MAX_BATCH, every step on its teacher frame (the default constant teacher forcing
+    at ratio 1, GTA, eval), and either the compute dtype bf16 (the trainers' on the card)
+    with the location conv folded into loc_n (`fused_decoder._location`: a batch of at
+    most 96 and loc_n within LOC_MAT_BYTES, T_in <= 181 at D=128) and at most
+    LOOP_MAX_T_IN input steps (the bf16 loops), or float32 on the conv location tier with
+    at most LOOP_F32_MAX_T_IN input steps (the float32 loops, the location conv and its
+    transpose inside them: GTA, the trainers' float32 forward, backward and eval). Which
+    device runs them is the wrappers' to say, as for every kernel: on CUDA tensors the
+    kernels, on CPU ones their plain versions."""
+    B, T_in, D = keys.shape
+    if cfg.dtype == torch.float32:
+        tier = 'loc_n' not in W and T_in <= LOOP_F32_MAX_T_IN
+    else:
+        tier = cfg.dtype == torch.bfloat16 and 'loc_n' in W and T_in <= LOOP_MAX_T_IN
+    return (tier and 1 <= B <= LOOP_MAX_BATCH
             and (cfg.units, W['p2_w'].shape[0], values.shape[-1], D) == LOOP_WIDTHS
             and W['l_w'].shape[1] == LOOP_FILTERS and W['loc_w'].shape[-1] <= LOOP_MAX_KERNEL
             and bool((use_teacher > 0).all()))
 
 
-def bwd_loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
-    """Where the backward runs `decoder_bwd_loop`, all T reverse steps in one launch, and
-    not `_step_loop_bwd`: `_loop_shapes`, the compute dtype bf16 (the trainers' on the
-    card) and the location conv folded into loc_n (`fused_decoder._location`: a batch of
-    at most 96 and loc_n within LOC_MAT_BYTES, T_in <= 181 at D=128), at most
-    LOOP_MAX_T_IN input steps. There the forward ran the bf16 `decoder_fwd_loop`
-    (`fwd_loop_applies` holds too). Which device runs it is the wrapper's to say, as for
-    every kernel: on CUDA tensors the kernel, on CPU ones its plain version."""
-    return (cfg.dtype == torch.bfloat16 and 'loc_n' in W and keys.shape[1] <= LOOP_MAX_T_IN
-            and _loop_shapes(cfg, W, keys, values, use_teacher))
-
-
-def fwd_loop_applies(cfg: Config, W, keys: Tensor, values: Tensor, use_teacher: Tensor) -> bool:
-    """Where the forward runs `decoder_fwd_loop`, all T steps in one launch, and not
-    `_step_loop`: `_loop_shapes`, and either what `bwd_loop_applies` asks (bf16 on the
-    folded tier: the bf16 loop) or the compute dtype float32 on the conv location tier
-    with at most LOOP_F32_MAX_T_IN input steps (the float32 loop: GTA, the trainers'
-    float32 forward and eval). A float32 batch then runs its backward through
-    `_step_loop_bwd` on the loop's residuals. Which device runs it is the wrapper's to
-    say: on CUDA tensors the kernel, on CPU ones its plain version."""
-    if cfg.dtype == torch.float32:
-        return ('loc_n' not in W and keys.shape[1] <= LOOP_F32_MAX_T_IN
-                and _loop_shapes(cfg, W, keys, values, use_teacher))
-    return bwd_loop_applies(cfg, W, keys, values, use_teacher)
+def _loop_dims(cfg: Config, W, keys: Tensor, values: Tensor, B: int, max_t_in: int,
+               what: str) -> Tuple[int, int, int, int]:
+    """(T_in, D, n_f, K) of a call of a loop that forms the location features (the
+    reverse loops and the float32 forward, `what`): refuses, with the numbers, other
+    widths than LOOP_WIDTHS, other than LOOP_FILTERS filters or more than LOOP_MAX_KERNEL
+    taps, other than 1 to LOOP_MAX_BATCH rows or more than `max_t_in` input steps."""
+    T_in, D = keys.shape[1], keys.shape[2]
+    U, E, n_p = cfg.units, values.shape[-1], W['p2_w'].shape[0]
+    n_f, K = W['loc_w'].shape[0], W['loc_w'].shape[-1]
+    if ((U, n_p, E, D) != LOOP_WIDTHS or n_f != LOOP_FILTERS or K > LOOP_MAX_KERNEL
+            or not 1 <= B <= LOOP_MAX_BATCH or T_in > max_t_in):
+        _refuse(f'the widths (U, P, E, D) {(U, n_p, E, D)}, {n_f} location filters of {K} taps '
+                f'at B={B}, T_in={T_in} in its {what} (built for {LOOP_WIDTHS}, '
+                f'{LOOP_FILTERS} filters of at most {LOOP_MAX_KERNEL} taps, B <= '
+                f'{LOOP_MAX_BATCH}, T_in <= {max_t_in})')
+    return T_in, D, n_f, K
 
 
 def _decoder_fwd_loop_plain(cfg: Config, W, keys, values, mask, p2, gates, save: bool):
@@ -800,17 +815,11 @@ def _decoder_fwd_loop_f32(cfg: Config, W, keys, values, mask, p2, gates, save: b
     """`decoder_fwd_loop` on CUDA tensors in float32: one launch of
     csrc/decoder_loop_f32/decoder_loop_f32.cu, the location conv inside it."""
     T, B, n_p = p2.shape
-    T_in, D = keys.shape[1], keys.shape[2]
     U, E = cfg.units, values.shape[-1]
-    n_f, K = W['loc_w'].shape[0], W['loc_w'].shape[-1]
     if 'loc_n' in W:
         _refuse('a float32 forward loop on the folded location tier')
-    if ((U, n_p, E, D) != LOOP_WIDTHS or n_f != LOOP_FILTERS or K > LOOP_MAX_KERNEL
-            or not 1 <= B <= LOOP_MAX_BATCH or T_in > LOOP_F32_MAX_T_IN):
-        _refuse(f'the widths (U, P, E, D) {(U, n_p, E, D)}, {n_f} location filters of {K} taps '
-                f'at B={B}, T_in={T_in} in its float32 forward loop (built for {LOOP_WIDTHS}, '
-                f'{LOOP_FILTERS} filters of at most {LOOP_MAX_KERNEL} taps, B <= '
-                f'{LOOP_MAX_BATCH}, T_in <= {LOOP_F32_MAX_T_IN})')
+    T_in, D, n_f, K = _loop_dims(cfg, W, keys, values, B, LOOP_F32_MAX_T_IN,
+                                 'float32 forward loop')
     # a data-parallel rank's rows are slices of the batch
     p2, keys, values = p2.contiguous(), keys.contiguous(), values.contiguous()
     mask = None if mask is None else mask.contiguous()
@@ -847,12 +856,12 @@ def _decoder_fwd_loop_f32(cfg: Config, W, keys, values, mask, p2, gates, save: b
 
 
 def _forward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, save: bool):
-    """The forward (`fused_decoder.py:388-416`): where `fwd_loop_applies`, the prenet over
+    """The forward (`fused_decoder.py:388-416`): where `loop_applies`, the prenet over
     every step at once, `decoder_fwd_loop`, and the frame and stop projection over the
     T * B rows (no step feeds its frame back); elsewhere `_step_loop`. Returns ((frames
     (T, B, M*r), stops (T, B, r), alignments (T, B, T_in)) float32, the residuals stacked
     over the steps by name, or None without `save`)."""
-    if not fwd_loop_applies(cfg, W, keys, values, use_teacher):
+    if not loop_applies(cfg, W, keys, values, use_teacher):
         return _step_loop(cfg, W, keys, values, mask, teacher, use_teacher, masks, zo, save)
     dt = cfg.dtype
     m1, m2 = (m.to(dt) for m in masks)
@@ -972,6 +981,14 @@ _BWD_OUTPUTS = ('dz1', 'dz2', 'dpq', 'dctx_total', 'df', 'dkeys', 'dva', 'dba', 
 _BWD_SCRATCH = ('dctx', 'dstate', 'dalign', 'eb', 'dus', 'dsp', 'dpqb', 'g1c', 'dvap', 'dlp',
                 'bar')
 _BWD_PROFILE = ('prof',)
+# ... and of decoder_bwd_loop_f32.cu's `Ptr` (its outputs `_BWD_OUTPUTS`): the location
+# conv's kernel and bias and the location layer in place of loc_nt, loc_n and pl_b; the
+# CTAs' streamed weight columns as fragments (g2x, g1h, g1c) in place of g1c
+_BWD_F32_INPUTS = ('keys', 'values', 'mask', 'dproj', 'ga', 'z1', 'z2', 'c1p', 'c2p', 'state',
+                   'pq', 'g1_w', 'g2_w', 'q_w', 'loc_w', 'loc_b', 'l_w', 'v_a', 'b_a',
+                   'keep_c1', 'keep_h1', 'keep_c2', 'keep_h2')
+_BWD_F32_SCRATCH = ('dctx', 'dstate', 'dalign', 'eb', 'dus', 'g2x', 'g1h', 'g1c', 'dvap', 'dlp',
+                    'bar')
 
 
 def _decoder_bwd_loop_plain(cfg: Config, W, keys, values, mask, R, dproj, g_aligns, gates):
@@ -1000,34 +1017,34 @@ def decoder_bwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optiona
                      R, dproj: Tensor, g_aligns: Tensor, gates: Sequence[Optional[Tensor]],
                      profile: Optional[Tensor] = None):
     """The teacher-forced reverse recurrence of all T steps (`fused_decoder.py:494-571`)
-    where `bwd_loop_applies`: from the frame and stop projections' gradient dproj (T, B,
+    where `loop_applies`: from the frame and stop projections' gradient dproj (T, B,
     U + E) in the compute dtype (no step feeds its frame back, so it is one product over
     the T * B rows) and the alignments' g_aligns (T, B, T_in) float32, over the forward's
     residuals R, keys (B, T_in, D) in the dtype, values (B, T_in, E) and the mask (B,
     T_in) float32 or None, gates the four (T, B, U) bool keep-gates c1, h1, c2, h2 or None
-    (zoneout's expectation), W `_weights`' on the folded tier. Returns (dz1, dz2 (T, B,
-    4U), dpq (T, B, D), dctx_total (T, B, E), df (T, B * T_in, F), all in the dtype; the
-    float32 accumulators dkeys (B, T_in, D), dva, dba (B, D) and dl (D, F)). On CUDA
-    tensors one launch of csrc/decoder_bwd_loop/decoder_bwd_loop.cu (bf16, the folded
-    tier, LOOP_WIDTHS, LOOP_FILTERS, at most LOOP_MAX_BATCH rows and LOOP_MAX_T_IN input
-    steps, else it raises), counted in LAUNCHES; on CPU tensors its plain version.
-    `profile`: the (128, 12) int64 stage times that a build of the source with
-    -DT2_PROFILE writes (`probes/loop_split.py`)."""
+    (zoneout's expectation), W `_weights`'. Returns (dz1, dz2 (T, B, 4U), dpq (T, B, D),
+    dctx_total (T, B, E), df (T, B * T_in, F), all in the dtype; the float32 accumulators
+    dkeys (B, T_in, D), dva, dba (B, D) and dl (D, F)). On CUDA tensors one launch: in bf16
+    of csrc/decoder_bwd_loop/decoder_bwd_loop.cu (the folded tier, LOOP_WIDTHS,
+    LOOP_FILTERS, at most LOOP_MAX_BATCH rows and LOOP_MAX_T_IN input steps), counted in
+    LAUNCHES as decoder_bwd_loop; in float32 of
+    csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu (the conv tier, LOOP_WIDTHS,
+    LOOP_FILTERS filters of at most LOOP_MAX_KERNEL taps, at most LOOP_MAX_BATCH rows and
+    LOOP_F32_MAX_T_IN input steps), counted as decoder_bwd_loop_f32; anything else raises.
+    On CPU tensors its plain version. `profile`: the (128, 12) int64 stage times that a
+    build of either source with -DT2_PROFILE writes (`probes/loop_split.py`)."""
     if not keys.is_cuda:
         return _decoder_bwd_loop_plain(cfg, W, keys, values, mask, R, dproj, g_aligns, gates)
+    if cfg.dtype == torch.float32:
+        return _decoder_bwd_loop_f32(cfg, W, keys, values, mask, R, dproj, g_aligns, gates,
+                                     profile)
     T, B = dproj.shape[:2]
-    T_in, D = keys.shape[1], keys.shape[2]
     U, E, n_p = cfg.units, values.shape[-1], W['p2_w'].shape[0]
-    n_f, K = W['loc_w'].shape[0], W['loc_w'].shape[-1]
     bf, f32 = torch.bfloat16, torch.float32
     if cfg.dtype != bf or 'loc_n' not in W:
-        _refuse('a reverse loop in another dtype than bf16 or off the folded location tier')
-    if ((U, n_p, E, D) != LOOP_WIDTHS or n_f != LOOP_FILTERS or K > LOOP_MAX_KERNEL
-            or not 1 <= B <= LOOP_MAX_BATCH or T_in > LOOP_MAX_T_IN):
-        _refuse(f'the widths (U, P, E, D) {(U, n_p, E, D)}, {n_f} location filters of {K} taps '
-                f'at B={B}, T_in={T_in} in its reverse loop (built for {LOOP_WIDTHS}, '
-                f'{LOOP_FILTERS} filters of at most {LOOP_MAX_KERNEL} taps, B <= '
-                f'{LOOP_MAX_BATCH}, T_in <= {LOOP_MAX_T_IN})')
+        _refuse('a reverse loop in another dtype than bf16 or f32, or in bf16 off the folded '
+                'location tier')
+    T_in, D, n_f, K = _loop_dims(cfg, W, keys, values, B, LOOP_MAX_T_IN, 'reverse loop')
     _check(bf, (keys, None, (B, T_in, D)), (values, f32, (B, T_in, E)), (mask, f32, (B, T_in)),
            (dproj, None, (T, B, U + E)), (g_aligns, f32, (T, B, T_in)),
            *((R[k], None, (T, B, 4 * U)) for k in ('z1', 'z2')),
@@ -1065,13 +1082,61 @@ def decoder_bwd_loop(cfg: Config, W, keys: Tensor, values: Tensor, mask: Optiona
     return tuple(out[k] for k in _BWD_OUTPUTS)
 
 
+def _decoder_bwd_loop_f32(cfg: Config, W, keys, values, mask, R, dproj, g_aligns, gates,
+                          profile: Optional[Tensor]):
+    """`decoder_bwd_loop` on CUDA tensors in float32: one launch of
+    csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu, the location conv and its transpose
+    inside it."""
+    T, B = dproj.shape[:2]
+    U, E, n_p = cfg.units, values.shape[-1], W['p2_w'].shape[0]
+    if 'loc_n' in W:
+        _refuse('a float32 reverse loop on the folded location tier')
+    T_in, D, n_f, K = _loop_dims(cfg, W, keys, values, B, LOOP_F32_MAX_T_IN,
+                                 'float32 reverse loop')
+    # a data-parallel rank's rows are slices of the batch (`fused_decoder_scan` passes the
+    # caller's float32 keys and values themselves)
+    keys, values, dproj, g_aligns = (x.contiguous() for x in (keys, values, dproj, g_aligns))
+    mask = None if mask is None else mask.contiguous()
+    gates = [None if g is None else g.contiguous() for g in gates]
+    res = {k: R[k].contiguous() for k in ('z1', 'z2', 'c1p', 'c2p', 'state', 'pq')}
+    f32 = torch.float32
+    _check(f32, (keys, None, (B, T_in, D)), (values, None, (B, T_in, E)), (mask, None, (B, T_in)),
+           (dproj, None, (T, B, U + E)), (g_aligns, None, (T, B, T_in)),
+           *((res[k], None, (T, B, 4 * U)) for k in ('z1', 'z2')),
+           *((res[k], None, (T, B, U)) for k in ('c1p', 'c2p')),
+           (res['state'], None, (T, B, T_in)), (res['pq'], None, (T, B, D)),
+           (W['g1_w'], None, (4 * U, n_p + E + U)), (W['g2_w'], None, (4 * U, 2 * U)),
+           (W['q_w'], None, (D, U)), (W['loc_w'], None, (n_f, 1, K)),
+           (W['loc_b'], None, (n_f,)), (W['l_w'], None, (D, n_f)), (W['v_a'], None, (D,)),
+           (W['b_a'], None, (D,)), *((g, torch.bool, (T, B, U)) for g in gates))
+    dev = keys.device
+    inputs = dict(keys=keys, values=values, mask=mask, dproj=dproj, ga=g_aligns, **res,
+                  **{k: W[k] for k in _BWD_F32_INPUTS[11:-4]},
+                  **dict(zip(_BWD_F32_INPUTS[-4:], gates, strict=True)))
+    empty = lambda *shape: torch.empty(*shape, device=dev)
+    zeros = lambda *shape: torch.zeros(*shape, device=dev)
+    G, KQ = U // 8, 4 * U // 16  # the kernel's CTAs, the gates' k-quads
+    out = dict(dz1=empty(T, B, 4 * U), dz2=empty(T, B, 4 * U), dpq=empty(T, B, D),
+               dctx_total=empty(T, B, E), df=empty(T, B * T_in, n_f), dkeys=zeros(B, T_in, D),
+               dva=empty(B, D), dba=empty(B, D), dl=empty(D, n_f))
+    scratch = dict(dctx=zeros(B, E), dstate=zeros(B, T_in),              # the carried ones
+                   dalign=empty(B, T_in), eb=empty(B, T_in), dus=empty(B, T_in, D),
+                   g2x=empty(G, KQ * 32 * 4), g1h=empty(G, KQ * 32 * 4), g1c=empty(G, KQ * 16 * 4),
+                   dvap=empty(G, B, D), dlp=empty(G, 2, D, n_f),
+                   bar=torch.zeros(1, device=dev, dtype=torch.int32))  # the grid barrier
+    _launch_loop(bwd_loop_f32_library().t2_decoder_bwd_loop_f32, 'decoder_bwd_loop_f32',
+                 {**inputs, **out, **scratch, 'prof': profile},
+                 _BWD_F32_INPUTS + _BWD_OUTPUTS + _BWD_F32_SCRATCH + _BWD_PROFILE,
+                 (T, B, T_in, K, int(cfg.smoothing), int(cfg.cumulate)), _keep(cfg), dev)
+    return tuple(out[k] for k in _BWD_OUTPUTS)
+
+
 def _backward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, zo, frames,
               aligns, R, g_frames, g_stops, g_aligns):
-    """The hand-written backward (`fused_decoder.py:468-640`): where `bwd_loop_applies`
-    (bf16: the forward ran the bf16 `decoder_fwd_loop`) the frame and stop projections'
+    """The hand-written backward (`fused_decoder.py:468-640`): where `loop_applies`
+    (the forward ran `decoder_fwd_loop` of the dtype) the frame and stop projections'
     gradient once over the T * B rows, `decoder_bwd_loop`, and the prenet's gradient once
-    over them after it; elsewhere `_step_loop_bwd`, on the residuals of whichever forward
-    ran (the float32 loop's among them). Returns ({short name: the parameter's gradient,
+    over them after it; elsewhere `_step_loop_bwd`. Returns ({short name: the parameter's gradient,
     float32}, dkeys, dvalues, dteacher)."""
     dt = cfg.dtype
     T, B = teacher.shape[0], teacher.shape[1]
@@ -1088,7 +1153,7 @@ def _backward(cfg: Config, W, keys, values, mask, teacher, use_teacher, masks, z
     # product; the fed-back frame's gradient added in place where a step read its own
     dfs = torch.cat([g_frames, g_stops], dim=-1)
     dfs_dt = dfs.to(dt)
-    if bwd_loop_applies(cfg, W, keys, values, use_teacher):
+    if loop_applies(cfg, W, keys, values, use_teacher):
         names = ('dz1', 'dz2', 'dpq', 'dctx_total', 'df', 'dkeys', 'dva', 'dba', 'dl')
         out = dict(zip(names, decoder_bwd_loop(cfg, W, keys, values, mask, R,
                                                dfs_dt @ W['fs_w'], g_aligns, gates)))

@@ -1,12 +1,13 @@
 """Where the decoder loops' steps go, on the card: the split of a step inside
 `decoder_fwd_loop` in bf16 (csrc/decoder_loop/decoder_loop.cu, `--loop fwd`) and in float32
-(csrc/decoder_loop_f32/decoder_loop_f32.cu, `--loop f32`) and inside `decoder_bwd_loop`
-(csrc/decoder_bwd_loop/decoder_bwd_loop.cu, `--loop bwd`).
+(csrc/decoder_loop_f32/decoder_loop_f32.cu, `--loop f32`) and inside `decoder_bwd_loop` in
+bf16 (csrc/decoder_bwd_loop/decoder_bwd_loop.cu, `--loop bwd`) and in float32
+(csrc/decoder_bwd_loop_f32/decoder_bwd_loop_f32.cu, `--loop bwd_f32`).
 
 Not a counterpart of a TPU kernel: a timing probe of the port's own loops. The variant
 `profile` is a loop's source built with -DT2_PROFILE into a library of its own, whose
 thread 0 of every CTA adds up the %globaltimer nanoseconds of each of the step's stages
-(the forward's five, the reverse loop's six: each source's STAGES): its work, from the
+(the forward's five, the reverse loops' six: each source's STAGES): its work, from the
 release of the barrier before it to its arrival at its own, and its wait there. `base` is
 the port's own build; `--source NAME=PATH` adds a variant NAME built from another copy of
 the source of the one loop that `--loop` names, such as a parent checkout's, to time two
@@ -14,12 +15,13 @@ versions in one run (a name may repeat in `--variants`: each is timed in turn). 
 variant runs on the same seeded inputs at the default widths (a decoder cell with seeded
 random weights, B rows x --steps steps, --t_in input steps, training's keep-gates; the
 forward saves the residuals as the train step saves them, with --lean none, as eval saves
-none; the reverse loop runs on the forward loop's residuals and seeded gradients) and its
-outputs are held to the port's build, bit for bit for `profile` (the macro changes no
-sum). `--registers` prints each source's registers, stack and spills (`nvcc -Xptxas -v`)
+none; the reverse loops run on their dtype's forward loop's residuals and seeded
+gradients) and its outputs are held to the port's build, bit for bit for `profile` (the
+macro changes no sum). `--registers` prints each source's registers, stack and spills (`nvcc -Xptxas -v`)
 instead:
 
-    python -m tacotron2_tpu_torch.probes.loop_split [--loop fwd,bwd,f32] [--variants base,profile]
+    python -m tacotron2_tpu_torch.probes.loop_split [--loop fwd,bwd,f32,bwd_f32]
+        [--variants base,profile]
         [--batch 32,1] [--steps 512] [--t_in 100] [--lean] [--source NAME=PATH ...]
         [--registers]
 """
@@ -50,7 +52,11 @@ LOOPS = {
     'bwd': dict(dir='DECODER_BWD_LOOP_DIR', file='decoder_bwd_loop.cu',
                 load='load_decoder_bwd_loop_library', attr='bwd_loop_library',
                 stages=('dalign and energies', 'normalisation and location', 'sums', 'lstm 2',
-                        'din2 and lstm 1', 'din1'))}
+                        'din2 and lstm 1', 'din1')),
+    'bwd_f32': dict(dir='DECODER_BWD_LOOP_F32_DIR', file='decoder_bwd_loop_f32.cu',
+                    load='load_decoder_bwd_loop_f32_library', attr='bwd_loop_f32_library',
+                    stages=('dalign and energies', 'normalisation and location',
+                            'sums and conv transpose', 'lstm 2', 'din2 and lstm 1', 'din1'))}
 
 
 def _source(loop: str = 'fwd') -> str:
@@ -79,7 +85,8 @@ def build(variants, tmp: str, sources: Dict[str, str], loop: str = 'fwd'
 
 def registers(sources: Dict[str, str], loops=('fwd',)) -> Dict[str, str]:
     """{variant: 'R registers, ... spill loads'} of the port's source of each loop (`base`,
-    `bwd base`) and of `sources`."""
+    `bwd base`) and of `sources`, each kernel of a source (a build for each number of
+    m-tiles, `MT=1`, `MT=2`) in turn."""
     from ..ops import _build
 
     def one(item):
@@ -90,10 +97,14 @@ def registers(sources: Dict[str, str], loops=('fwd',)) -> Dict[str, str]:
                                  capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f'nvcc failed on {path}:\n{res.stderr[-3000:]}')
-        text = res.stdout + res.stderr
-        regs = re.search(r'Used (\d+) registers.*', text)
-        frame = re.search(r'\d+ bytes stack frame.*', text)
-        return name, f'{regs.group(0) if regs else "?"}; {frame.group(0) if frame else "?"}'
+        lines = []
+        for entry in (res.stdout + res.stderr).split('Compiling entry function')[1:]:
+            mt = re.search(r'ILi(\d+)E', entry.split('\n')[0])
+            regs = re.search(r'Used (\d+) registers.*', entry)
+            frame = re.search(r'\d+ bytes stack frame.*', entry)
+            lines.append((f'MT={mt.group(1)}: ' if mt else '')
+                         + f'{regs.group(0) if regs else "?"}; {frame.group(0) if frame else "?"}')
+        return name, ' / '.join(lines) or '?'
 
     paths = {('base' if loop == 'fwd' else f'{loop} base'): _source(loop) for loop in loops}
     paths.update(sources)
@@ -127,17 +138,18 @@ def inputs(B: int, T: int, T_in: int, seed: int = 3, dtype: torch.dtype = torch.
     return cfg, W, keys, values, None, p2, gates
 
 
-def bwd_inputs(B: int, T: int, T_in: int, seed: int = 3):
-    """decoder_bwd_loop's arguments: the residuals of the forward loop (the port's build) on
-    `inputs`', seeded gradients of the projections and the alignments."""
+def bwd_inputs(B: int, T: int, T_in: int, seed: int = 3, dtype: torch.dtype = torch.bfloat16):
+    """decoder_bwd_loop's arguments in `dtype`: the residuals of the forward loop of the
+    dtype (the port's build) on `inputs`', seeded gradients of the projections and the
+    alignments."""
     from ..ops import decoder_vjp as dv
 
-    cfg, W, keys, values, mask, p2, gates = inputs(B, T, T_in, seed)
+    cfg, W, keys, values, mask, p2, gates = inputs(B, T, T_in, seed, dtype)
     with torch.no_grad():
         R = dv.decoder_fwd_loop(cfg, W, keys, values, mask, p2, gates, True)[3]
     g = torch.Generator('cuda').manual_seed(seed + 1)
     U, _, E, _ = dv.LOOP_WIDTHS
-    dproj = (torch.randn(T, B, U + E, device='cuda', generator=g) * 0.1).to(torch.bfloat16)
+    dproj = (torch.randn(T, B, U + E, device='cuda', generator=g) * 0.1).to(dtype)
     g_aligns = torch.randn(T, B, T_in, device='cuda', generator=g)
     return cfg, W, keys, values, mask, R, dproj, g_aligns, gates
 
@@ -159,7 +171,8 @@ def run(library, args, save: bool, profile=None, loop: str = 'fwd'):
 
 def main(argv: Optional[list] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    p.add_argument('--loop', default='fwd,bwd', help='of fwd, bwd and f32, comma-separated')
+    p.add_argument('--loop', default='fwd,bwd',
+                   help='of fwd, bwd, f32 and bwd_f32, comma-separated')
     p.add_argument('--variants', default=','.join(VARIANTS),
                    help=f'comma-separated, of {", ".join(VARIANTS)} or a --source name')
     p.add_argument('--batch', default='32,1', help='batch size(s), comma-separated')
@@ -175,7 +188,7 @@ def main(argv: Optional[list] = None) -> Dict:
     loops = args.loop.split(',')
     sources = dict(item.split('=', 1) for item in args.source)
     if sources and len(loops) != 1:
-        raise ValueError('--source names a copy of one loop\'s source: give --loop fwd or bwd')
+        raise ValueError('--source names a copy of one loop\'s source: give one --loop')
     if args.registers:
         return registers(sources, loops)
     if not torch.cuda.is_available():
@@ -191,9 +204,11 @@ def main(argv: Optional[list] = None) -> Dict:
         stages = LOOPS[loop]['stages']
         n = len(stages)
         for B in (int(b) for b in args.batch.split(',')):
-            largs = (bwd_inputs(B, T, args.t_in) if loop == 'bwd' else
-                     inputs(B, T, args.t_in, dtype=torch.float32 if loop == 'f32' else torch.bfloat16))
-            outs = slice(0, 3) if loop != 'bwd' else slice(None)
+            dtype = torch.float32 if loop in ('f32', 'bwd_f32') else torch.bfloat16
+            bwd = loop in ('bwd', 'bwd_f32')
+            largs = (bwd_inputs(B, T, args.t_in, dtype=dtype) if bwd else
+                     inputs(B, T, args.t_in, dtype=dtype))
+            outs = slice(0, 3) if not bwd else slice(None)
             ref = run(libs[loop]['base'], largs, save, loop=loop)
             for i, name in enumerate(variants):
                 prof = (torch.zeros(128, 2 * n, dtype=torch.int64, device='cuda')
@@ -205,7 +220,7 @@ def main(argv: Optional[list] = None) -> Dict:
                 if name == 'profile' and not same:
                     raise RuntimeError(f'the profile build changed the {loop} loop\'s outputs')
                 ms = best_ms(lambda: run(libs[loop][name], largs, save, loop=loop), reps=3)
-                what = (f'residuals {save}' if loop != 'bwd' else 'reverse loop')
+                what = (f'residuals {save}' if not bwd else 'reverse loop')
                 line = (f'{loop} {name} B={B} T={T} T_in={args.t_in} {what}: {ms:.3f} ms, '
                         f'{1e3 * ms / T:.2f} us a step; outputs against base: '
                         + ('bit for bit' if same else f'max abs {err:.3e}'))

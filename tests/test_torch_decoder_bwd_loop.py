@@ -40,8 +40,7 @@ def _grads(model, d, dt, loop, monkeypatch):
     cfg = dv._config(cell, dt)
     params = [cell.get_parameter(n) for _, n in dv.PARAMS]
     W = dv._weights(cfg, cell, params, B, T_IN)
-    for name in ('fwd_loop_applies', 'bwd_loop_applies'):
-        monkeypatch.setattr(dv, name, lambda *a: loop)
+    monkeypatch.setattr(dv, 'loop_applies', lambda *a: loop)
     zo = None if d['zo'] is None else [_t(z) for z in d['zo']]
     args = (cfg, W, _t(d['keys']).to(dt), _t(d['values']), _t(d['mask']), _t(d['teacher']),
             _t(d['use']), [_t(d['m1']), _t(d['m2'])], zo)
@@ -83,8 +82,7 @@ def test_bwd_loop_matches_jax(dt, monkeypatch):
     test_bf16_fused_decoder_scan_matches_jax, the folded tier on both sides): each output
     and the gradients (every decoder weight, the keys and the values) nearer to JAX's
     bf16 than to its f32, and within 1e-2 of its f32 norm (that test's bounds)."""
-    for name in ('fwd_loop_applies', 'bwd_loop_applies'):
-        monkeypatch.setattr(dv, name, lambda *a: True)
+    monkeypatch.setattr(dv, 'loop_applies', lambda *a: True)
     launches = collections.Counter()
     for name in ('decoder_fwd_loop', 'decoder_bwd_loop'):
         def counted(*a, fn=getattr(dv, name), name=name, **k):
@@ -119,7 +117,7 @@ def test_bwd_loop_matches_jax(dt, monkeypatch):
 # at B=2 and 8 input steps: (compute dtype, every step on its teacher frame, an extra
 # hparam) -> (whether the forward loop runs, whether the reverse loop runs)
 DISPATCH = {'bf16': ('bfloat16', True, '', (True, True)),
-            'f32': ('float32', True, '', (True, False)),
+            'f32': ('float32', True, '', (True, True)),
             'a step on its own frame': ('bfloat16', False, '', (False, False)),
             'other location filters': ('bfloat16', True, 'attention_filters=16', (False, False)),
             'a wider location kernel': ('bfloat16', True, 'attention_kernel=[65]', (False, False))}
@@ -127,12 +125,11 @@ DISPATCH = {'bf16': ('bfloat16', True, '', (True, True)),
 
 @pytest.mark.parametrize('case', list(DISPATCH))
 def test_bwd_loop_dispatch(case, monkeypatch):
-    """The Function at the default widths runs `decoder_bwd_loop` exactly where
-    `bwd_loop_applies` holds, else `_step_loop_bwd`, and `decoder_fwd_loop` where
-    `fwd_loop_applies` holds, else `_step_loop`: bf16 with every step on its teacher frame
-    runs both loops; f32 the forward loop (the float32 one) and the step loop's backward;
-    a step on its own frame, another number of location filters (LOOP_FILTERS) and a
-    location kernel wider than LOOP_MAX_KERNEL run neither loop."""
+    """The Function at the default widths runs `decoder_fwd_loop` and `decoder_bwd_loop`
+    exactly where `loop_applies` holds, else `_step_loop` and `_step_loop_bwd`: bf16 and
+    f32 with every step on its teacher frame run both loops (f32 the float32 ones); a step on its own frame, another
+    number of location filters (LOOP_FILTERS) and a location kernel wider than
+    LOOP_MAX_KERNEL run neither loop."""
     dtype, all_teacher, extra, want = DISPATCH[case]
     hp = default_hparams()
     if extra:

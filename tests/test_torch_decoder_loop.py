@@ -1,6 +1,6 @@
 """The fused decoder's forward recurrence as one launch (`ops/decoder_vjp.py`:
 `decoder_fwd_loop`, its plain version `_decoder_fwd_loop_plain`, the dispatch
-`fwd_loop_applies`; the kernel, csrc/decoder_loop/decoder_loop.cu, runs only on the card)
+`loop_applies`; the kernel, csrc/decoder_loop/decoder_loop.cu, runs only on the card)
 on the CPU at the TINY widths of test_torch_tacotron_train.py: the forward through the
 loop against the step loop `_step_loop`, against the JAX forward's residuals
 (`fused_decoder.py:388-416`, through `_fwd_rule`), the dispatch case by case, and the
@@ -45,7 +45,7 @@ def _port_forward(model, d, dt, loop, monkeypatch):
     with torch.no_grad():
         if not loop:
             return dv._step_loop(*args)
-        monkeypatch.setattr(dv, 'fwd_loop_applies', lambda *a: True)
+        monkeypatch.setattr(dv, 'loop_applies', lambda *a: True)
         return dv._forward(*args)
 
 
@@ -177,7 +177,7 @@ def cells():
 
 @pytest.mark.parametrize('case', list(DISPATCH))
 def test_fwd_loop_dispatch(case, cells):
-    """`fwd_loop_applies` case by case: bf16 on the folded tier with every step on its
+    """`loop_applies` case by case: bf16 on the folded tier with every step on its
     teacher frame at LOOP_WIDTHS and B <= 32 takes the forward loop (T_in 181, the fold's
     largest at D=128, too), and so does f32 there (the float32 loop, on the conv tier);
     B=33 (folded, above the kernels' 32 rows), B=97 and T_in=182 in bf16 (not folded), a
@@ -193,7 +193,7 @@ def test_fwd_loop_dispatch(case, cells):
     use = torch.ones(8)
     if not all_teacher:
         use[3] = 0
-    assert dv.fwd_loop_applies(cfg, W, keys, values, use) is want
+    assert dv.loop_applies(cfg, W, keys, values, use) is want
 
 
 @pytest.mark.parametrize('fault', list(chip_smoke.LOOP_MUTANTS))

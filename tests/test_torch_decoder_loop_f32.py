@@ -1,6 +1,6 @@
 """The fused decoder's float32 forward recurrence as one launch (`ops/decoder_vjp.py`:
 `decoder_fwd_loop` at float32, its plain version `_decoder_fwd_loop_plain` on the conv
-location tier, the dispatch `fwd_loop_applies` / `bwd_loop_applies`; the kernel,
+location tier, the dispatch `loop_applies`; the kernel,
 csrc/decoder_loop_f32/decoder_loop_f32.cu, runs only on the card) on the CPU: the wrapper's
 CPU route against the JAX fused decoder's `decoder_scan` forward at the TINY widths of
 test_torch_tacotron_train.py (and at an input length past JAX's float32 fold, where it
@@ -91,7 +91,7 @@ def test_f32_loop_matches_jax_decoder_scan(case, monkeypatch):
     extra, gates, t_in, mask = FORWARD_CASES[case]
     hp, v, model = _pair(extra)
     d = _inputs_at(hp, t_in, gates, mask)
-    monkeypatch.setattr(dv, 'fwd_loop_applies', lambda *a: True)
+    monkeypatch.setattr(dv, 'loop_applies', lambda *a: True)
     calls = _counted(monkeypatch, 'decoder_fwd_loop', '_step_loop')
     with torch.no_grad():
         got = dv.fused_decoder_scan(
@@ -113,9 +113,10 @@ GRAD_CASES = {'gates': ('', True), 'expectation': ('', False), 'smoothing': (',s
 
 @pytest.mark.parametrize('case', list(GRAD_CASES))
 def test_f32_loop_gradients_match_jax(case, monkeypatch):
-    """`FusedDecoderScan` at float32 with its forward through the loop (the forward
-    predicate held to it) and its backward where `bwd_loop_applies` sends a float32 batch,
-    the step loop `_step_loop_bwd` on the loop's residuals, against the JAX custom VJP
+    """`FusedDecoderScan` at float32 with its forward through the loop and its backward
+    through the step loop `_step_loop_bwd` on the loop's residuals (the dispatch held to
+    the loop where the forward asks and to the step loop where the backward does; both
+    loops: test_torch_decoder_bwd_loop_f32.py), against the JAX custom VJP
     `decoder_scan` over 8 teacher-forced steps with a ragged mask: the outputs within 1e-5
     and the gradient of a projection of them with respect to every decoder weight, the
     keys, the values and the teacher frames within 2e-5 of each one's largest entry (the
@@ -124,7 +125,8 @@ def test_f32_loop_gradients_match_jax(case, monkeypatch):
     extra, gates = GRAD_CASES[case]
     hp, v, model = _pair(extra)
     d = _inputs(hp, 1.0, gates)
-    monkeypatch.setattr(dv, 'fwd_loop_applies', lambda *a: True)
+    answers = iter((True, False))  # the forward asks first, the backward second
+    monkeypatch.setattr(dv, 'loop_applies', lambda *a: next(answers))
     calls = _counted(monkeypatch, 'decoder_fwd_loop', 'decoder_bwd_loop', '_step_loop',
                      '_step_loop_bwd')
     got = _port_run(model, d)
@@ -134,11 +136,11 @@ def test_f32_loop_gradients_match_jax(case, monkeypatch):
 
 # the dispatch at the default widths: (compute dtype, B, T_in, every second step on its
 # own frame) -> (whether the forward loop runs, whether the reverse loop runs)
-DISPATCH = {'f32-B1-T_in100': ('float32', 1, 100, False, (True, False)),
-            'f32-B32-T_in100': ('float32', 32, 100, False, (True, False)),
-            'f32-B1-T_in200': ('float32', 1, 200, False, (True, False)),
-            'f32-B32-T_in200': ('float32', 32, 200, False, (True, False)),
-            'f32-T_in256': ('float32', 32, 256, False, (True, False)),
+DISPATCH = {'f32-B1-T_in100': ('float32', 1, 100, False, (True, True)),
+            'f32-B32-T_in100': ('float32', 32, 100, False, (True, True)),
+            'f32-B1-T_in200': ('float32', 1, 200, False, (True, True)),
+            'f32-B32-T_in200': ('float32', 32, 200, False, (True, True)),
+            'f32-T_in256': ('float32', 32, 256, False, (True, True)),
             'f32-T_in257': ('float32', 32, 257, False, (False, False)),
             'f32-ratio0.5': ('float32', 32, 100, True, (False, False)),
             'f32-B33': ('float32', 33, 100, False, (False, False)),
@@ -156,11 +158,11 @@ def cell():
 
 @pytest.mark.parametrize('case', list(DISPATCH))
 def test_f32_dispatch(case, cell):
-    """`fwd_loop_applies` and `bwd_loop_applies` case by case at LOOP_WIDTHS: float32 with
-    every step on its teacher frame takes the forward loop at B = 1 and 32 and up to
-    LOOP_F32_MAX_T_IN (256) input steps, past the bf16 fold's 181, and never the reverse
-    loop; float32 at teacher forcing 0.5, past 256 input steps or at B=33 takes neither;
-    bf16 takes both on the folded tier (T_in=100) and neither off it (T_in=200)."""
+    """`loop_applies` case by case at LOOP_WIDTHS, for both loops: float32 with
+    every step on its teacher frame takes both loops (the float32 ones) at B = 1 and 32 and
+    up to LOOP_F32_MAX_T_IN (256) input steps, past the bf16 fold's 181; float32 at teacher
+    forcing 0.5, past 256 input steps or at B=33 takes neither; bf16 takes both on the
+    folded tier (T_in=100) and neither off it (T_in=200)."""
     dtype, b, t_in, own_frames, (fwd, bwd) = DISPATCH[case]
     hp, c = cell
     dt = getattr(torch, dtype)
@@ -171,8 +173,7 @@ def test_f32_dispatch(case, cell):
     use = torch.ones(8)
     if own_frames:
         use[1::2] = 0
-    assert dv.fwd_loop_applies(cfg, W, keys, values, use) is fwd
-    assert dv.bwd_loop_applies(cfg, W, keys, values, use) is bwd
+    assert fwd is bwd and dv.loop_applies(cfg, W, keys, values, use) is fwd
 
 
 def test_gta_synthesizer_runs_the_f32_loop(tmp_path, monkeypatch):
