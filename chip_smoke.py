@@ -6,9 +6,10 @@
 Phases (one line each; any failure exits nonzero):
   1. torch, CUDA and the card (nvidia-smi name and power limit);
   2. build the hand-written kernels from tacotron2_tpu_torch/csrc (the probes' from
-     csrc/probes, the decoder step's from csrc/decoder and the decoder's forward and
-     reverse loops' from csrc/decoder_loop and csrc/decoder_bwd_loop into libraries of
-     their own), with the planted-fault copies:
+     csrc/probes, the decoder step's from csrc/decoder, the decoder's forward and
+     reverse loops' from csrc/decoder_loop and csrc/decoder_bwd_loop and the CBHG's GRU
+     loops' from csrc/gru_loop into libraries of their own), with the planted-fault
+     copies:
      the AR kernel's library first, the rest beside phase 3, all done before phase 4;
   3. the WaveNet AR kernel against its plain PyTorch version at the default width, on
      a WaveNet whose seeded random weights give params of order 1: the kernel runs
@@ -173,11 +174,13 @@ Phases (one line each; any failure exits nonzero):
      synchronizes; one train step on the card against the
      same step on the CPU at full width and TACO_CPU_BATCH rows (the same state, batch,
      masks and coins; TACO_STEP_TOL, TACO_GRAD_TOL, TACO_PARAM_TOL, TACO_SMALL_GRAD; the
-     card's step must launch the float32 reverse loop, decoder_bwd_loop_f32);
+     card's step must launch the float32 reverse loop, decoder_bwd_loop_f32, and the
+     CBHG's GRU loops, gru_fwd_loop and gru_bwd_loop);
      and steps at B=32 x TIMED_FRAMES frames: three between synchronizes (sec/step), peak
      device memory, and three split at module boundaries by CUDA events that hooks
      record inside the real step (`StepMarks`: the decoder's, the encoder LSTM's and the
-     CBHG GRUs' forward and backward), each reading the median of three with its range.
+     CBHG GRUs' forward and backward, those on the CBHG's BiGRU, which runs both
+     directions), each reading the median of three with its range.
      With TACO_UTTERANCES / 2 utterances to train on and bucket_group_batches=64, the
      feeder's bucketing (the JAX one's) fills each batch of 32 with copies of one
      utterance. The card-vs-CPU step is followed by a second step on each device from its
@@ -188,7 +191,8 @@ Phases (one line each; any failure exits nonzero):
      steps, eval and in-process steps run the fused decoder (`ops/decoder_vjp.py`): its
      kernels' launches in the two trainer runs are counted for TACO_PATH, those of the
      float32 run for TACO_F32_SCHEDULED_PATH, those of the timed f32 steps for
-     TACO_F32_TIMED_PATH (phase 16 reads them); the timed steps' f32 decoder backward is
+     TACO_F32_TIMED_PATH (phase 16 reads them), and so are the GRU loops' (phase 17); the
+     timed steps' f32 decoder backward is
      printed beside its reading with the step loop's backward (F32_FWD_LOOP_TIMED).
  13. The Tacotron-2 pipeline at the default hparams and full width, through the port's
      entry points: PIPE_UTTERANCES wavs of 1-2 s made from a seed in the LJSpeech layout
@@ -202,12 +206,14 @@ Phases (one line each; any failure exits nonzero):
      batch on the card against the CPU in f32 (PIPE_GTA_TOL); the eval launch, recorded by
      ar_timer, against the plain version on its own inputs over PIPE_EVAL_BOUNDS with
      PIPE_FAULTS planted (PIPE_EVAL_TOL_PER_SPAN); then the JAX command lines with run
-     names only (`synthesize --model Tacotron --mode eval`, `--model WaveNet --mels_dir
-     tacotron_output/eval`, `--model Tacotron-2`) at max_iters=PIPE_CLI_MAX_ITERS, stop
-     tokens suppressed, their AR launches counted by path. Each step's wall seconds,
-     the phase's and the whole run's. Both trainers step in bf16. The decoder kernels'
-     launches of the pipeline's run are counted, its GTA synthesis's apart
-     (PIPE_GTA_PATH) from the rest of its Tacotron phase (PIPE_TACO_PATH).
+     names only (`synthesize --model Tacotron --mode eval`, `--mode live` on one line of
+     stdin, `--model WaveNet --mels_dir tacotron_output/eval`, `--model Tacotron-2`) at
+     max_iters=PIPE_CLI_MAX_ITERS, stop tokens suppressed, their AR launches counted by
+     path. Each step's wall seconds, the phase's and the whole run's. Both trainers step
+     in bf16. The decoder kernels' and the GRU loops' launches of the pipeline's run are
+     counted, its GTA synthesis's apart (PIPE_GTA_PATH) from the rest of its Tacotron phase
+     (PIPE_TACO_PATH), and the GRU loops' of the Tacotron command lines (TACO_EVAL_CLI_PATH,
+     TACO_LIVE_CLI_PATH).
  14. The JAX package's remaining configurations. bf16 training: one Tacotron
      train step at B=32 x TIMED_FRAMES and one WaveNet step at BF16_WAVENET_BATCH (8 x
      11,000), each in bf16 and in f32 on the card from the same seeded state, batch and
@@ -220,7 +226,8 @@ Phases (one line each; any failure exits nonzero):
      BF16_MODULE_TOL of the card's output, printed beside the module's bf16-f32 gap, and
      a copy of the step with one module left in f32 (BF16_FAULTS) must miss that bound;
      the whole cut step on both devices is printed, not bound; the Tacotron's bf16
-     sec/step, peak memory and StepMarks split (phase 12 reads the f32 ones), the
+     sec/step, peak memory and StepMarks split (phase 12 reads the f32 ones; its GRU
+     loops' launches counted for TACO_BF16_TIMED_PATH), the
      WaveNet's in both dtypes. The upsamplers: `synthesize --model WaveNet` on seeded mels with each of
      UPSAMPLERS (NearestNeighbor, 1D, Resize, 2D with LeakyRelu); the UPSAMPLER_FULL
      run's launch held to the plain version on its own inputs over its first
@@ -318,6 +325,25 @@ Phases (one line each; any failure exits nonzero):
      the JAX synthesizer's does, and phase 12's timed f32 steps) decoder_fwd_loop_f32 and
      none of the step kernels, and, where they train, decoder_bwd_loop_f32; on the float32
      trainer at teacher forcing 0.5 (TACO_F32_SCHEDULED_PATH) all four step kernels.
+ 17. The CBHG's bidirectional GRU recurrence (`ops/gru_scan.py`, `GRUScan`), which the
+     Tacotron trainer, its eval, the pipeline's Tacotron phase and `synthesize --model
+     Tacotron` (eval, live) run at the default hparams. Its two kernels (csrc/gru_loop/
+     gru_loop.cu: gru_fwd_loop, all steps of both directions in one launch, and
+     gru_bwd_loop, their reverse recurrence) against their plain versions on the same CUDA
+     tensors at the default width (H = 128, input 128) over GRU_STEPS (512) steps, in f32
+     (TF32 off) and bf16, each of GRU_CASES (B=32 at lengths None as the model calls it,
+     B=1, B=32 with a ragged mask, B=32 with W_hh = 0): the output and every residual, dip
+     and dg over each direction's first GRU_FIRST_STEPS steps and over all, and dW_hh and
+     db_hn formed from them (GRU_TOL; GRU_ZERO_TOL with W_hh = 0), two launches bit for bit,
+     seven planted faults (GRU_MUTANTS, each a build with one macro set, built in phase 2)
+     that must miss a bound GRU_FAULT_FACTOR times over; at B=32 and B=1 each kernel's ms
+     (the forward with and without residuals) beside its bound and its plain version's, and
+     at B=32 the CBHG's GRU module (BiGRU) forward and backward beside cuDNN's bidirectional
+     GRU on the same input (nn.GRU with b_hh = (0, 0, b_hn), held to the plain output in
+     f32 first), the library yardstick. Phase 12's (f32) and phase 14's (bf16) timed steps'
+     GRU parts (StepMarks) beside the step loop's (GRU_STEP_LOOP_TIMED). Every main path
+     that trains (GRU_TRAIN_PATHS) launched both kernels, the synthesizer's
+     (GRU_SYNTH_PATHS) gru_fwd_loop alone.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -1543,7 +1569,9 @@ def build_kernels(tmp):
     float32 reverse loops' libraries, the probes' library and one library for each of
     ALL_MUTANTS, CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS, LOOP_MUTANTS,
     F32_LOOP_MUTANTS, BWD_LOOP_MUTANTS and F32_BWD_LOOP_MUTANTS from a changed copy of its
-    source (an AR kernel's copy with the instantiations of MUTANT_HEADS alone) under `tmp`, which must outlive the builds.
+    source (an AR kernel's copy with the instantiations of MUTANT_HEADS alone), and the
+    CBHG's GRU loops' library and one build of its source for each of GRU_MUTANTS with
+    that fault's macro set, under `tmp`, which must outlive the builds.
     Phase 3 needs the first library alone and runs beside the others (its readings are
     device times); the run waits for them all before phase 4, whose entry points are
     timed on the host's clock. Returns the Builds."""
@@ -1572,6 +1600,11 @@ def build_kernels(tmp):
         elif fault in F32_BWD_LOOP_MUTANTS:
             name, text = 'decoder_bwd_loop_f32.cu', mutated_bwd_loop_f32_source(fault)
             flags = _build.DECODER_FLAGS
+        elif fault in GRU_MUTANTS:  # the source as it stands, its fault's macro set
+            lib = os.path.join(tmp, f'mutant{i}', 'libmutant.so')
+            _build.compile_library(_build._sources(_build.GRU_LOOP_DIR), lib,
+                                   (GRU_MUTANTS[fault],), _build.DECODER_FLAGS)
+            return ctypes.CDLL(lib), clock()
         else:
             name, text = 'wavenet_ar.cu', mutated_source(fault)
             defines = (f'T2_HEADS={MUTANT_HEADS[fault]}',)
@@ -1595,13 +1628,13 @@ def build_kernels(tmp):
     libraries = [pool.submit(library, load) for load in (
         _build.load_decoder_library, _build.load_decoder_loop_library,
         _build.load_decoder_loop_f32_library, _build.load_decoder_bwd_loop_library,
-        _build.load_decoder_bwd_loop_f32_library)]
+        _build.load_decoder_bwd_loop_f32_library, _build.load_gru_loop_library)]
     faults = list(CLUSTER_MUTANTS) + list(ALL_MUTANTS)
     mutants = {fault: pool.submit(mutant, (i, fault)) for i, fault in enumerate(faults)}
     libraries.append(pool.submit(library, _build.load_probe_library))
     for fault in (list(PROBE_MUTANTS) + list(DECODER_MUTANTS) + list(LOOP_MUTANTS)
                   + list(F32_LOOP_MUTANTS) + list(BWD_LOOP_MUTANTS)
-                  + list(F32_BWD_LOOP_MUTANTS)):
+                  + list(F32_BWD_LOOP_MUTANTS) + list(GRU_MUTANTS)):
         mutants[fault] = pool.submit(mutant, (len(mutants), fault))
     return Builds(pool, libraries, mutants)
 
@@ -3069,6 +3102,7 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
     TACO_CPU_BATCH rows of `batch` with the same draws (made on the CPU and copied), and
     the float32 reverse loop's launches in the card's step. Returns the readings."""
     from tacotron2_tpu_torch.ops import decoder_vjp as dv
+    from tacotron2_tpu_torch.ops import gru_scan
     from tacotron2_tpu_torch.training import tacotron_trainer as tt
 
     small = {k: v[:TACO_CPU_BATCH] for k, v in batch.items()}
@@ -3083,15 +3117,17 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
         return x.to(device)
 
     start = [p.detach().clone() for p in states['cpu'].model.parameters()]
-    metrics, secs, bwd_loops = {}, {}, {}
+    metrics, secs, bwd_loops, grus = {}, {}, {}, {}
     for d, state in states.items():
         t0 = time.perf_counter()
         before = dv.LAUNCHES['decoder_bwd_loop_f32']
+        before_gru = collections.Counter(gru_scan.LAUNCHES)
         m = tt.train_step(state, {k: v.to(d) for k, v in small.items()}, hp,
                           noise={k: on(d, v) for k, v in noise.items()}, dtype=torch.float32)
         metrics[d] = {k: float(m[k]) for k in ('loss', 'grad_norm')}
         secs[d] = time.perf_counter() - t0
         bwd_loops[d] = dv.LAUNCHES['decoder_bwd_loop_f32'] - before
+        grus[d] = dict(collections.Counter(gru_scan.LAUNCHES) - before_gru)
     loss_err = abs(metrics['cuda']['loss'] - metrics['cpu']['loss']) / abs(metrics['cpu']['loss'])
     norm_err = abs(metrics['cuda']['grad_norm'] - metrics['cpu']['grad_norm']) \
         / metrics['cpu']['grad_norm']
@@ -3118,14 +3154,16 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
               f'{TACO_PARAM_TOL}), {off} of {total} entries off by more than '
               f'{TACO_PARAM_CLOSE}, {off_large} of them with a gradient of {TACO_SMALL_GRAD} '
               f'or more (tol 0); {secs["cuda"]:.2f} s on the card, {secs["cpu"]:.2f} s on the '
-              f'CPU; the card\'s step launched decoder_bwd_loop_f32 {bwd_loops["cuda"]} time(s)')
+              f'CPU; the card\'s step launched decoder_bwd_loop_f32 {bwd_loops["cuda"]} time(s), '
+              f'the GRU loops {grus["cuda"]}')
     if not (loss_err <= TACO_STEP_TOL and norm_err <= TACO_STEP_TOL and grad_err <= TACO_GRAD_TOL
             and worst <= TACO_PARAM_TOL and off_large == 0):
         fail('the card\'s Tacotron train step disagrees with the CPU\'s')
     second = taco_second_step(states, start, small, noise, hp, n, what)
     return dict(loss_rel_err=loss_err, grad_norm_rel_err=norm_err, grad_rel_err=grad_err,
                 param_max_abs_err=worst, params_off=off, card_s=secs['cuda'], cpu_s=secs['cpu'],
-                bwd_loop_launches=bwd_loops['cuda'], second_step=second)
+                bwd_loop_launches=bwd_loops['cuda'], gru_launches=grus['cuda'],
+                second_step=second)
 
 
 def taco_second_step(states, start, batch, noise, hp, n=12, what=''):
@@ -3178,7 +3216,7 @@ def taco_second_step(states, start, batch, noise, hp, n=12, what=''):
 # forward start and end, and the start and end of its backward (the gradient of its
 # outputs ready, then that of its inputs)
 MARKED = ('encoder_convolutions', 'encoder_lstm', 'postnet_convolutions', 'cbhg_postnet',
-          'cbhg_postnet.gru_fw', 'cbhg_postnet.gru_bw')
+          'cbhg_postnet.bigru')
 
 
 class StepMarks:
@@ -3221,8 +3259,7 @@ def step_segments(o):
     the order they run and tiling the step from 'start' to 'end'. 'losses' is the loss
     terms' forward and backward; the decoder's forward holds the memory layer, its
     backward all of the decoder's step loop. Raises if the marks are not in that order."""
-    gru = [min(o['gru_fw.fwd_pre'], o['gru_bw.fwd_pre']), max(o['gru_fw.fwd'], o['gru_bw.fwd']),
-           min(o['gru_fw.bwd_pre'], o['gru_bw.bwd_pre']), max(o['gru_fw.bwd'], o['gru_bw.bwd'])]
+    gru = [o['bigru.fwd_pre'], o['bigru.fwd'], o['bigru.bwd_pre'], o['bigru.bwd']]
     order = [('fwd: embedding, encoder convs', o['encoder_lstm.fwd_pre']),
              ('fwd: encoder LSTM', o['encoder_lstm.fwd']),
              ('fwd: decoder', o['postnet_convolutions.fwd_pre']),
@@ -3392,6 +3429,9 @@ def tacotron_training():
         if not cpu['bwd_loop_launches']:
             fail('the card\'s f32 Tacotron train step did not run its decoder backward '
                  'through decoder_bwd_loop_f32')
+        if not all(cpu['gru_launches'].get(k) for k in ('gru_fwd_loop', 'gru_bwd_loop')):
+            fail('the card\'s f32 Tacotron train step did not run the CBHG\'s GRUs through '
+                 'gru_fwd_loop and gru_bwd_loop')
         scheduled = taco_f32_scheduled(root)
     reset_decoder_counts()
     timed = taco_timed_step(hp)
@@ -3543,19 +3583,21 @@ def run_pipeline_cli(base, calls=None, path=None):
     Returns (output, seconds)."""
     from tacotron2_tpu_torch import train
     from tacotron2_tpu_torch.inference import tacotron_synthesizer
-    from tacotron2_tpu_torch.ops import decoder_vjp
+    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan
 
     reset_counts()
     reset_decoder_counts()
-    gta = collections.Counter()
+    gta, gta_gru = collections.Counter(), collections.Counter()
     synthesize = tacotron_synthesizer.tacotron_synthesize
 
     def counted(*args, **kwargs):
         before = collections.Counter(decoder_vjp.LAUNCHES)
+        before_gru = collections.Counter(gru_scan.LAUNCHES)
         try:
             return synthesize(*args, **kwargs)
         finally:
             gta.update(collections.Counter(decoder_vjp.LAUNCHES) - before)
+            gta_gru.update(collections.Counter(gru_scan.LAUNCHES) - before_gru)
 
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -3573,6 +3615,9 @@ def run_pipeline_cli(base, calls=None, path=None):
         DECODER_LAUNCHES_BY_PATH[PIPE_GTA_PATH].update(gta)
         DECODER_LAUNCHES_BY_PATH[PIPE_TACO_PATH].update(
             collections.Counter(decoder_vjp.LAUNCHES) - gta)
+        GRU_LAUNCHES_BY_PATH[PIPE_GTA_PATH].update(gta_gru)
+        GRU_LAUNCHES_BY_PATH[PIPE_TACO_PATH].update(
+            collections.Counter(gru_scan.LAUNCHES) - gta_gru)
     return out.getvalue(), seconds
 
 
@@ -3704,8 +3749,16 @@ def pipe_cli(base, hp):
         f.write('\n'.join(PIPE_SENTENCES) + '\n')
     common = ['--name', 'cli', '--text_list', texts, '--hparams',
               f'max_iters={PIPE_CLI_MAX_ITERS},tacotron_synthesis_batch_size=2']
+    reset_decoder_counts()
     eval_dir, taco_launches, taco_s = cli_run(
         base, ['--model', 'Tacotron', '--mode', 'eval'] + common)
+    read_decoder_counts(TACO_EVAL_CLI_PATH)
+    reset_decoder_counts()
+    with _patched(sys, 'stdin', io.StringIO(PIPE_SENTENCES[1] + '\n')):
+        _, live_launches, live_s = cli_run(
+            base, ['--model', 'Tacotron', '--mode', 'live'] + common[:2] + common[4:])
+    read_decoder_counts(TACO_LIVE_CLI_PATH)
+    live_wav = os.path.join(base, 'live_out', 'wavs', 'wav-live_0-mel.wav')
     with open(os.path.join(eval_dir, 'map.txt'), encoding='utf-8') as f:
         rows = [line.rstrip('\n').split('|') for line in f]
     mels = [np.load(r[1]) for r in rows]
@@ -3730,19 +3783,23 @@ def pipe_cli(base, hp):
         PIPE_TACOTRON2_PATH)
     ok_e2e = [len(w) for w in e2e['wavs']] == [frames * hop] * 2 \
         and all(np.isfinite(w).all() for w in e2e['wavs'])
+    ok_live = os.path.isfile(live_wav) and _wav_ok(live_wav)
     phase(13, f'synthesize --model Tacotron --mode eval --name cli ({len(rows)} sentences, '
               f'max_iters={PIPE_CLI_MAX_ITERS}): {len(mels)} mels of {frames} frames, map.txt, '
               f'{len(wavs)} Griffin-Lim wavs in {taco_s:.1f} s, AR launches {taco_launches}; '
+              f'--mode live on one line of stdin: {live_wav} in {live_s:.1f} s, finite: '
+              f'{ok_live}; '
               f'--model WaveNet --mels_dir tacotron_output/eval: {len(vocoded["wavs"])} wavs '
               f'in {wave_s:.1f} s, AR launches {wave_launches}; --model Tacotron-2: '
               f'{len(e2e["wavs"])} wavs in {e2e_s:.1f} s, AR launches {e2e_launches}; '
               f'outputs as expected: {ok}, {ok_wave}, {ok_e2e}')
-    if not (ok and ok_wave and ok_e2e):
+    if not (ok and ok_wave and ok_e2e and ok_live):
         fail('a run-name command line wrote the wrong outputs')
-    if (taco_launches, wave_launches, e2e_launches) != (0, 1, 1):
-        fail('the run-name command lines should launch the AR kernel 0, 1 and 1 times')
+    if (taco_launches, live_launches, wave_launches, e2e_launches) != (0, 0, 1, 1):
+        fail('the run-name command lines should launch the AR kernel 0, 0, 1 and 1 times')
     return dict(wavenet_launches=wave_launches, tacotron2_launches=e2e_launches,
-                seconds=taco_s + wave_s + e2e_s, taco_s=taco_s, wave_s=wave_s, e2e_s=e2e_s)
+                seconds=taco_s + live_s + wave_s + e2e_s, taco_s=taco_s, live_s=live_s,
+                wave_s=wave_s, e2e_s=e2e_s)
 
 
 def tacotron2_pipeline(t_start):
@@ -4173,7 +4230,9 @@ def taco_bf16():
         modules[name] = replay_on_cpu(fresh, rec)
     r = _judge_bf16('tacotron train step', f'B={hp.tacotron_batch_size} x {TIMED_FRAMES} '
                     f'frames; cut for the CPU to B={B} x {T}', full, cut, outs, modules)
+    reset_decoder_counts()
     r['timed'] = taco_timed_step(hp, dtype=torch.bfloat16, n=14)
+    read_decoder_counts(TACO_BF16_TIMED_PATH)
     return r
 
 
@@ -5039,19 +5098,28 @@ FUSED_TOL = {torch.float32: (1e-5, TACO_GRAD_TOL), torch.bfloat16: (1e-2, 1.1e-2
 DECODER_LAUNCHES_BY_PATH = collections.defaultdict(collections.Counter)
 
 
+# the CBHG's GRU kernels' launches on each main path, {path: {kernel: launches}}, set and
+# read with the decoder's
+GRU_LAUNCHES_BY_PATH = collections.defaultdict(collections.Counter)
+
+
 def reset_decoder_counts():
-    """Sets the decoder kernels' launch counts to 0, just before a run of a main path."""
-    from tacotron2_tpu_torch.ops import decoder_vjp
+    """Sets the decoder kernels' and the GRU kernels' launch counts to 0, just before a run
+    of a main path."""
+    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan
 
     decoder_vjp.LAUNCHES.clear()
+    gru_scan.LAUNCHES.clear()
 
 
 def read_decoder_counts(path):
-    """Adds the decoder kernels' launches since reset_decoder_counts to
-    DECODER_LAUNCHES_BY_PATH[path], just after a run of the main path `path`."""
-    from tacotron2_tpu_torch.ops import decoder_vjp
+    """Adds the decoder kernels' and the GRU kernels' launches since reset_decoder_counts to
+    DECODER_LAUNCHES_BY_PATH[path] and GRU_LAUNCHES_BY_PATH[path], just after a run of the
+    main path `path`."""
+    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan
 
     DECODER_LAUNCHES_BY_PATH[path].update(decoder_vjp.LAUNCHES)
+    GRU_LAUNCHES_BY_PATH[path].update(gru_scan.LAUNCHES)
 
 
 def mutated_decoder_source(fault):
@@ -6301,6 +6369,392 @@ def decoder_entries(decoder):
     return out
 
 
+
+# --- phase 17: the CBHG's bidirectional GRU recurrence as persistent kernels -------------
+
+GRU_SOURCE = 'tacotron2_tpu_torch/csrc/gru_loop/gru_loop.cu'
+GRU_REPLACES = {
+    'gru_fwd_loop': 'tacotron2_tpu/models/tacotron/modules.py:278-317 (the CBHG\'s '
+                    'jax.lax.scan over flax\'s GRUCell, `run`: an XLA loop, no Pallas kernel)',
+    'gru_bwd_loop': 'tacotron2_tpu/models/tacotron/modules.py:278-317 (XLA\'s reverse scan '
+                    'of that scan\'s autodiff, no Pallas kernel)'}
+GRU_STEPS = TIMED_FRAMES   # the timed batch's 512 mel frames: the CBHG's steps
+GRU_FIRST_STEPS = 3
+# (B, a ragged mask, W_hh = 0) of each check: the trainer's batch at lengths None (as the
+# model calls the CBHG), one row, a ragged mask (the mask and the in-kernel reversal), and
+# the trainer's batch with W_hh = 0: the step's elementwise math alone, where no product's
+# sum order parts the two and each op rounds at the same place on both, so that its bound
+# catches one bf16 op rounded where the plain version does not round it
+GRU_CASES = {'B=32': (32, False, False), 'B=1': (1, False, False),
+             'B=32, ragged mask': (32, True, False), 'B=32, W_hh = 0': (32, False, True)}
+# each kernel against its plain version on the same CUDA tensors, {kernel: {dtype: {span:
+# bound}}}: the largest error of its outputs (gru_fwd_loop: the output and the residuals;
+# gru_bwd_loop: dip and dg, and dW_hh and db_hn formed from them) over each direction's first
+# GRU_FIRST_STEPS steps (the reverse kernel's first, the last in step order) and over all of
+# them, relative to the plain tensor's largest entry there; the W_hh = 0 case's bound is
+# GRU_ZERO_TOL. Read on an H100 80GB HBM3 at 700 W: f32 0 at B=32 (cuBLAS sums h W_hh^T in
+# the kernel's order there) and at most 2.2e-7 / 5.7e-7 (the forward at B=1), 1.8e-7 /
+# 4.2e-7 (the reverse, dW_hh); bf16 forward 3.9e-4 over the first steps, 2.2e-2 over all
+# (a gate that the two round from f32 sums in another order lands one bf16 step apart, and
+# two bf16 recurrences drift apart over 512 steps), reverse 1.1e-6 and 1.6e-3 (dip rounded
+# once from float32 sums in another order); W_hh = 0 reads 0 in both dtypes; the planted
+# faults 1.8e4 to 1.8e6 times a bound. The f32 bounds sit about 9x above the readings, bf16's
+# first steps at one bf16 step of the largest value (2**-8 = 3.9e-3), its forward over all
+# steps at the ceiling, 2.2x, its reverse 6x
+GRU_TOL = {'gru_fwd_loop': {torch.float32: {'first': 2e-6, 'all': 5e-6},
+                            torch.bfloat16: {'first': 4e-3, 'all': 5e-2}},
+           'gru_bwd_loop': {torch.float32: {'first': 2e-6, 'all': 5e-6},
+                            torch.bfloat16: {'first': 4e-3, 'all': 1e-2}}}
+GRU_ZERO_TOL = 1e-6
+# a planted fault must miss its case's bound by this factor in one span of one case
+GRU_FAULT_FACTOR = 10
+# planted faults: a build of csrc/gru_loop/gru_loop.cu with one macro set, built in phase 2,
+# {fault: the macro}
+GRU_MUTANTS = {
+    'gru_fwd_loop: b_hn added outside r (the reset before the product)': 'GRU_FAULT_RESET_BEFORE',
+    'gru_fwd_loop: z and 1 - z swapped': 'GRU_FAULT_Z_SWAPPED',
+    'gru_fwd_loop: the padding mask ignored': 'GRU_FAULT_MASK_IGNORED',
+    'gru_fwd_loop: the reversed direction read over the whole row': 'GRU_FAULT_WHOLE_ROW_REVERSED',
+    'gru_fwd_loop: the bf16 sigmoid rounded once': 'GRU_FAULT_SIGMOID_ROUNDED_ONCE',
+    'gru_bwd_loop: the dh z carry dropped': 'GRU_FAULT_CARRY_DROPPED',
+    'gru_bwd_loop: the padding mask ignored': 'GRU_FAULT_BWD_MASK_IGNORED'}
+# the CBHG's GRUs in the timed B=32 x 512 steps while they ran as a step loop (StepMarks,
+# H100 80GB HBM3, 700 W; PERF.md): f32 forward and backward ms, bf16 both together
+GRU_STEP_LOOP_TIMED = {'float32': dict(fwd=219.0, bwd=523.0),
+                       'bfloat16': dict(fwd=None, bwd=None, both=1480.0)}
+TACO_BF16_TIMED_PATH = 'timed Tacotron train steps, bf16 (phase 14)'
+TACO_EVAL_CLI_PATH = 'synthesize --model Tacotron --mode eval --name'
+TACO_LIVE_CLI_PATH = 'synthesize --model Tacotron --mode live --name'
+# the main paths that run the CBHG and so its GRUs: those that train launch both kernels,
+# the synthesizer's the forward alone
+GRU_TRAIN_PATHS = (TACO_PATH, TACO_F32_SCHEDULED_PATH, TACO_F32_TIMED_PATH,
+                   TACO_BF16_TIMED_PATH, PIPE_TACO_PATH)
+GRU_SYNTH_PATHS = (TACO_EVAL_CLI_PATH, TACO_LIVE_CLI_PATH)
+GRU_PATHS = GRU_TRAIN_PATHS + GRU_SYNTH_PATHS
+
+
+def gru_case(cbhg, B, ragged, zero_w, dtype, seed=23):
+    """The operands of a GRU check on the card: the seeded CBHG's two GRUs (a b_hn of order
+    0.5: a trained one is not 0) on a seeded (B, GRU_STEPS, C) input in `dtype`, through
+    their own casts (`GRU.operands`), W_hh zeroed with `zero_w`, the lengths (each row's
+    own from GRU_STEPS / 4 up where `ragged`, row 0 whole), the mask, and a seeded
+    cotangent of the output."""
+    from tacotron2_tpu_torch.models.tacotron.modules import length_mask
+
+    g = torch.Generator('cuda').manual_seed(seed)
+    T, H = GRU_STEPS, cbhg.gru_fw.units
+    y = torch.randn(B, T, cbhg.gru_fw.input.in_features, device='cuda', generator=g).to(dtype)
+    lengths = torch.full((B,), T, device='cuda')
+    if ragged:
+        lengths = torch.randint(T // 4, T + 1, (B,), device='cuda', generator=g)
+        lengths[0] = T
+    with torch.no_grad():
+        ips, ws, bs = (list(x) for x in zip(*(gru.operands(y, dtype)
+                                              for gru in (cbhg.gru_fw, cbhg.gru_bw))))
+    if zero_w:
+        ws = [torch.zeros_like(w) for w in ws]
+    return dict(y=y, ips=ips, ws=ws, bs=bs, lengths=lengths,
+                mask=length_mask(lengths, T, 'cuda'), reverse=(False, True),
+                dout=torch.randn(B, T, 2 * H, device='cuda', generator=g).to(dtype))
+
+
+def _gru_span_err(got, want, first, from_end=False):
+    """The largest error of `got` against `want` (B, T, ...) in step order over the first
+    (or with `from_end` the last) GRU_FIRST_STEPS steps, or all steps, relative to want's
+    largest entry there (absolute where that is 0)."""
+    if first:
+        sl = slice(-GRU_FIRST_STEPS, None) if from_end else slice(0, GRU_FIRST_STEPS)
+        got, want = got[:, sl], want[:, sl]
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    return err / scale if scale > 0 else err
+
+
+def _gru_fwd_errs(case, got, want):
+    """{span: {tensor: error}} of gru_fwd_loop's output and residuals against the plain
+    version's, each direction in its own step order."""
+    from tacotron2_tpu_torch.ops import gru_scan as gs
+
+    H, out = case['ws'][0].shape[1], {'first': {}, 'all': {}}
+    for d, rev in enumerate(case['reverse']):
+        pairs = {f'out{d}': (got[0][..., d * H:(d + 1) * H], want[0][..., d * H:(d + 1) * H])}
+        for i, name in enumerate(gs.RESIDUALS):
+            pairs[f'{name}{d}'] = (got[1][d][i], want[1][d][i])
+        for name, (g, w) in pairs.items():
+            g, w = (gs._order(x, case['lengths'], rev) for x in (g, w))
+            for span in out:
+                out[span][name] = _gru_span_err(g, w, span == 'first')
+    return out
+
+
+def _gru_bwd_errs(case, got, want, res):
+    """{span: {tensor: error}} of gru_bwd_loop's dip and dg against the plain version's,
+    each direction in its own step order (the reverse kernel's first steps the last ones),
+    and of dW_hh and db_hn formed from them as GRUScan forms them (over all)."""
+    from tacotron2_tpu_torch.ops import gru_scan as gs
+
+    H, out = case['ws'][0].shape[1], {'first': {}, 'all': {}}
+    for d, rev in enumerate(case['reverse']):
+        for name, g, w in ((f'dip{d}', got[0][d], want[0][d]), (f'dg{d}', got[1][d], want[1][d])):
+            g, w = (gs._order(x, case['lengths'], rev) for x in (g, w))
+            for span in out:
+                out[span][name] = _gru_span_err(g, w, span == 'first', from_end=True)
+    for d, R in enumerate(res):
+        g, w = gs.weight_grads(got[1][d], R), gs.weight_grads(want[1][d], R)
+        out['all'][f'dW_hh{d}'] = _gru_span_err(g[0][None], w[0][None], False)
+        out['all'][f'db_hn{d}'] = _gru_span_err(g[1][None, None], w[1][None, None], False)
+    return out
+
+
+def gru_bound(B, T, dtype, forward, save=True):
+    """(ms, 'bytes' or 'operations') of the least time an H100 takes for a launch of both
+    directions over B rows and T steps: its products, 2 B T 3H H operations a direction
+    (forward h W_hh^T, reverse dg W_hh) at the peak rate of the inputs' type (f32 on the
+    CUDA cores, bf16 on the tensor cores), or its bytes over the HBM rate: forward ip, W_hh,
+    b_hn and the mask read, the output and (with `save`) the residuals written; reverse the
+    output's gradient, the residuals, W_hh and the mask read, dip and dg written."""
+    from tacotron2_tpu_torch.ops import gru_scan as gs
+
+    H, s, n_res = gs.GRU_LOOP_UNITS, (4 if dtype == torch.float32 else 2), len(gs.RESIDUALS)
+    ops = 2 * 2 * B * T * 3 * H * H
+    if forward:
+        nbytes = (2 * (B * T * 3 * H + 3 * H * H + H) * s + 4 * B * T + B * T * 2 * H * s
+                  + (2 * n_res * B * T * H * s if save else 0))
+    else:
+        nbytes = (B * T * 2 * H * s + 2 * n_res * B * T * H * s + 2 * 3 * H * H * s + 4 * B * T
+                  + 2 * B * T * 3 * H * (s + 4))
+    ops_ms = 1e3 * ops / (PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
+
+
+def _median_ms(fn, reps=3):
+    return sorted(cuda_ms(fn)[1] for _ in range(reps))[reps // 2]
+
+
+def cudnn_gru(cbhg, case, want):
+    """The library's yardstick: cuDNN's bidirectional GRU (nn.GRU) on the case's input y
+    with the CBHG's GRUs' weights (b_ih the input bias, b_hh = (0, 0, b_hn): PyTorch's GRU
+    is then flax's GRUCell), held to the plain output `want` of the same input, then timed
+    (the median of 3): its forward with a gradient to take, and its backward to the input
+    and the weights from the case's cotangent. Returns the readings."""
+    dt, y = case['y'].dtype, case['y']
+    H = cbhg.gru_fw.units
+    gru = torch.nn.GRU(y.shape[-1], H, batch_first=True, bidirectional=True).to('cuda', dt)
+    with torch.no_grad():
+        for sfx, g in (('', cbhg.gru_fw), ('_reverse', cbhg.gru_bw)):
+            getattr(gru, f'weight_ih_l0{sfx}').copy_(g.input.weight)
+            getattr(gru, f'bias_ih_l0{sfx}').copy_(g.input.bias)
+            getattr(gru, f'weight_hh_l0{sfx}').copy_(g.hidden.weight)
+            getattr(gru, f'bias_hh_l0{sfx}').copy_(torch.cat([torch.zeros(2 * H, device='cuda'),
+                                                              g.bias_hn.detach()]))
+    gru.flatten_parameters()
+    x = y.detach().requires_grad_()
+    out = gru(x)[0]
+    err = float((out.detach().double() - want.double()).abs().max())
+    leaves = [x] + list(gru.parameters())
+    fwd_ms = _median_ms(lambda: gru(x)[0])
+    bwd_ms = _median_ms(lambda: torch.autograd.grad(out, leaves, case['dout'],
+                                                    retain_graph=True))
+    return dict(max_abs_err=err, fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+
+def gru_kernel_checks(mutants):
+    """gru_fwd_loop and gru_bwd_loop (csrc/gru_loop/gru_loop.cu) against their plain versions
+    on the same CUDA tensors at the default width (H = 128, input 128) over GRU_STEPS steps,
+    each of GRU_CASES in f32 (TF32 off) and bf16 (the forward on the case's operands, the
+    reverse on the plain forward's residuals and the case's cotangent): the spans of
+    _gru_fwd_errs and _gru_bwd_errs within GRU_TOL (GRU_ZERO_TOL with W_hh = 0); a second
+    launch of each bit for bit the first; each of GRU_MUTANTS (`mutants`: fault -> its
+    library) must miss its case's bound by GRU_FAULT_FACTOR in one span of one case. At B=32
+    and B=1 each kernel timed (CUDA events, the median of 3: the forward with the residuals,
+    as training launches it, and without, as inference does) with its bound and its plain
+    version's time; at B=32 the CBHG's whole GRU module (BiGRU: the input projections and
+    the Function) forward and backward, and cuDNN's bidirectional GRU on the same input
+    (cudnn_gru), first held to the plain output in f32. Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import gru_scan as gs
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    cbhg = tt.create_train_state(hp, 'cuda', seed=19).model.cbhg_postnet
+    with torch.no_grad():
+        g = torch.Generator('cuda').manual_seed(19)
+        for gru in (cbhg.gru_fw, cbhg.gru_bw):
+            gru.bias_hn.copy_(torch.randn(gru.units, device='cuda', generator=g) * 0.5)
+    t0 = time.perf_counter()
+    launches0 = collections.Counter(gs.LAUNCHES)
+    readings, seen = {}, dict.fromkeys(GRU_MUTANTS, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        for what, (B, ragged, zero_w) in GRU_CASES.items():
+            case = gru_case(cbhg, B, ragged, zero_w, dtype)
+            tols = {k: {'first': GRU_ZERO_TOL, 'all': GRU_ZERO_TOL} if zero_w else t[dtype]
+                    for k, t in GRU_TOL.items()}
+            args = (case['ips'], case['ws'], case['bs'], case['mask'], case['lengths'],
+                    case['reverse'])
+            bargs = (case['ws'], case['mask'], case['lengths'], case['reverse'])
+            with torch.no_grad():
+                want = gs._gru_fwd_loop_plain(*args, True)
+                got = gs.gru_fwd_loop(*args, True)
+                again = gs.gru_fwd_loop(*args, True)
+                bwant = gs._gru_bwd_loop_plain(case['dout'], want[1], *bargs)
+                bgot = gs.gru_bwd_loop(case['dout'], want[1], *bargs)
+                bagain = gs.gru_bwd_loop(case['dout'], want[1], *bargs)
+                torch.cuda.synchronize()
+                errs = {'gru_fwd_loop': _gru_fwd_errs(case, got, want),
+                        'gru_bwd_loop': _gru_bwd_errs(case, bgot, bwant, want[1])}
+                abs_errs = {'gru_fwd_loop': float((got[0].float() - want[0].float()).abs().max()),
+                            'gru_bwd_loop': max(float((a.float() - b.float()).abs().max())
+                                                for a, b in zip(bgot[0], bwant[0]))}
+                same = (torch.equal(got[0], again[0])
+                        and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+                        and all(torch.equal(a, b) for x, y in zip(bgot, bagain)
+                                for a, b in zip(x, y)))
+                if not same:
+                    fail(f'two launches of a GRU loop kernel differ ({dname}, {what})')
+                for fault, lib in mutants.items():
+                    with _patched(gs, 'library', lambda lib=lib: lib):
+                        bad = {'gru_fwd_loop': _gru_fwd_errs(case, gs.gru_fwd_loop(*args, True),
+                                                             want),
+                               'gru_bwd_loop': _gru_bwd_errs(
+                                   case, gs.gru_bwd_loop(case['dout'], want[1], *bargs),
+                                   bwant, want[1])}
+                    seen[fault] = max(seen[fault], *(max(e[span].values()) / tols[k][span]
+                                                     for k, e in bad.items() for span in e))
+            for kernel, e in errs.items():
+                tol = tols[kernel]
+                r = dict(first=max(e['first'].values()), all=max(e['all'].values()),
+                         worst_first=max(e['first'], key=e['first'].get),
+                         worst_all=max(e['all'], key=e['all'].get), tol=tol, by_tensor=e['all'],
+                         max_abs_err=abs_errs[kernel])
+                readings[(kernel, dname, what)] = r
+                phase(17, f'{kernel} {dname} {what}, {GRU_STEPS} steps: kernel vs plain, '
+                          f'relative to the plain tensor\'s largest entry, the first '
+                          f'{GRU_FIRST_STEPS} steps {r["first"]:.2e} ({r["worst_first"]}; tol '
+                          f'{tol["first"]}), all {r["all"]:.2e} ({r["worst_all"]}; tol '
+                          f'{tol["all"]}); a second launch bit for bit the first; by tensor '
+                          'over all steps: '
+                          + ', '.join(f'{n} {v:.1e}' for n, v in e['all'].items()))
+                if not (r['first'] <= tol['first'] and r['all'] <= tol['all']):
+                    fail(f'the {kernel} kernel disagrees with its plain version ({dname}, {what})')
+            if what not in ('B=32', 'B=1'):
+                continue
+            t = readings[('timing', dname, what)] = {}
+            with torch.no_grad():
+                t['fwd_ms'] = _median_ms(lambda: gs.gru_fwd_loop(*args, True))
+                t['fwd_ms_without_residuals'] = _median_ms(lambda: gs.gru_fwd_loop(*args, False))
+                t['bwd_ms'] = _median_ms(lambda: gs.gru_bwd_loop(case['dout'], want[1], *bargs))
+                t['fwd_plain_ms'] = cuda_ms(lambda: gs._gru_fwd_loop_plain(*args, True))[1]
+                t['bwd_plain_ms'] = cuda_ms(
+                    lambda: gs._gru_bwd_loop_plain(case['dout'], want[1], *bargs))[1]
+            t['fwd_bound_ms'], t['fwd_bound_by'] = gru_bound(B, GRU_STEPS, dtype, True)
+            t['fwd_bound_ms_without_residuals'], _ = gru_bound(B, GRU_STEPS, dtype, True, False)
+            t['bwd_bound_ms'], t['bwd_bound_by'] = gru_bound(B, GRU_STEPS, dtype, False)
+            if what == 'B=32':
+                y = case['y'].detach().requires_grad_()
+                out = cbhg.bigru(y, case['mask'], case['lengths'], dtype)
+                leaves = [y] + [p for g in (cbhg.gru_fw, cbhg.gru_bw) for p in g.parameters()]
+                t['module_fwd_ms'] = _median_ms(
+                    lambda: cbhg.bigru(y, case['mask'], case['lengths'], dtype))
+                t['module_bwd_ms'] = _median_ms(lambda: torch.autograd.grad(
+                    out, leaves, case['dout'], retain_graph=True))
+                t['cudnn'] = cudnn_gru(cbhg, case, want[0])
+                if dtype == torch.float32 and not t['cudnn']['max_abs_err'] <= TACOTRON_TOL:
+                    fail(f'cuDNN\'s GRU does not compute the CBHG\'s GRU: max abs err '
+                         f'{t["cudnn"]["max_abs_err"]:.2e} from the plain version')
+            phase(17, f'{dname} {what} x {GRU_STEPS} steps, both directions: gru_fwd_loop '
+                      f'{t["fwd_ms"]:.3f} ms ({1e3 * t["fwd_ms"] / GRU_STEPS:.2f} us a step; '
+                      f'without residuals {t["fwd_ms_without_residuals"]:.3f} ms), bound '
+                      f'{t["fwd_bound_ms"]:.4f} ms by {t["fwd_bound_by"]}, its plain version '
+                      f'{t["fwd_plain_ms"]:.1f} ms; gru_bwd_loop {t["bwd_ms"]:.3f} ms '
+                      f'({1e3 * t["bwd_ms"] / GRU_STEPS:.2f} us a step), bound '
+                      f'{t["bwd_bound_ms"]:.4f} ms by {t["bwd_bound_by"]}, its plain version '
+                      f'{t["bwd_plain_ms"]:.1f} ms'
+                      + ('' if 'cudnn' not in t else
+                         f'; the CBHG\'s GRU module (input projections, the kernels, dW_hh) '
+                         f'forward {t["module_fwd_ms"]:.3f} ms, backward {t["module_bwd_ms"]:.3f} '
+                         f'ms; cuDNN\'s bidirectional GRU (nn.GRU, b_hh = (0, 0, b_hn), its '
+                         f'input projection inside) forward {t["cudnn"]["fwd_ms"]:.3f} ms, '
+                         f'backward {t["cudnn"]["bwd_ms"]:.3f} ms, max abs err from the plain '
+                         f'output {t["cudnn"]["max_abs_err"]:.2e}'))
+    seconds = time.perf_counter() - t0
+    phase(17, 'GRU loop planted faults, the largest of their errors over their case\'s bound '
+              f'(each must exceed {GRU_FAULT_FACTOR}): '
+              + '; '.join(f'{f} {v:.1f}' for f, v in seen.items())
+              + f'; the GRU loops\' checks took {seconds:.1f} s')
+    for fault, v in seen.items():
+        if not v > GRU_FAULT_FACTOR:
+            fail(f'the GRU loop checks do not see the planted fault ({fault}) '
+                 f'{GRU_FAULT_FACTOR} times over a bound')
+    return dict(readings=readings, faults=seen, seconds=seconds,
+                check_launches=dict(collections.Counter(gs.LAUNCHES) - launches0))
+
+
+def gru_slice(mutants, timed):
+    """Phase 17 (see the module docstring): the kernel checks, then the timed steps' GRU
+    parts (phases 12 and 14, StepMarks) beside the step loop's, and the GRU kernels'
+    launches on the main paths. Returns the readings."""
+    from tacotron2_tpu_torch.ops import gru_scan as gs
+
+    t0 = time.perf_counter()
+    checks = gru_kernel_checks({f: mutants[f] for f in GRU_MUTANTS})
+    for key, t in timed.items():
+        was = GRU_STEP_LOOP_TIMED[key]
+        before = (f'{was["fwd"]} + {was["bwd"]} ms' if was['fwd'] is not None
+                  else f'{was["both"]} ms in all')
+        phase(17, f'timed step {key}, B=32 x {TIMED_FRAMES} frames: the CBHG\'s GRUs (StepMarks) '
+                  f'forward {t["parts"]["fwd: CBHG GRUs"]:.1f} ms, backward '
+                  f'{t["parts"]["bwd: CBHG GRUs"]:.1f} ms (the step loop: {before}); the step '
+                  f'{t["step_ms"]:.1f} ms by its parts, {t["sec_step"]:.3f} sec/step')
+    launches = {p: dict(GRU_LAUNCHES_BY_PATH[p]) for p in GRU_PATHS}
+    phase(17, f'GRU kernel launches on the main paths: {launches}; phase 17 took '
+              f'{time.perf_counter() - t0:.1f} s')
+    for p in GRU_TRAIN_PATHS:
+        if not all(GRU_LAUNCHES_BY_PATH[p][k] for k in gs.KERNELS):
+            fail(f'{p} did not run the CBHG\'s GRUs through {gs.KERNELS}')
+    for p in GRU_SYNTH_PATHS:
+        by = GRU_LAUNCHES_BY_PATH[p]
+        if not by['gru_fwd_loop'] or by['gru_bwd_loop']:
+            fail(f'{p} did not run the CBHG\'s GRUs through gru_fwd_loop alone')
+    return dict(checks=checks, launches=launches)
+
+
+def gru_entries(gru):
+    """The kernels line's entries of the two GRU loops: launches from the main paths' runs,
+    the rest from phase 17 at B=32 x GRU_STEPS in bf16 (the trainers' compute dtype on the
+    card), the f32 and B=1 readings beside them; library_ms cuDNN's bidirectional GRU
+    (forward, or backward) on the same input, its input projection inside."""
+    out = []
+    r = gru['checks']['readings']
+    for name, key in (('gru_fwd_loop', 'fwd'), ('gru_bwd_loop', 'bwd')):
+        by = {p: gru['launches'][p].get(name, 0) for p in GRU_PATHS}
+        entry = dict(name=name, route='cuda', source=GRU_SOURCE, replaces=GRU_REPLACES[name],
+                     launches=sum(by.values()), launches_by_path=by,
+                     check_launches=gru['checks']['check_launches'].get(name, 0),
+                     max_abs_err=max(v['max_abs_err'] for k, v in r.items() if k[0] == name),
+                     dtype='bfloat16', steps=GRU_STEPS,
+                     fault_err_over_tol=gru['checks']['faults'])
+        for dname in ('bfloat16', 'float32'):
+            pre = '' if dname == 'bfloat16' else 'f32_'
+            t32, t1 = r[('timing', dname, 'B=32')], r[('timing', dname, 'B=1')]
+            entry.update({
+                f'{pre}ms': t32[f'{key}_ms'], f'{pre}plain_ms': t32[f'{key}_plain_ms'],
+                f'{pre}bound_ms': t32[f'{key}_bound_ms'], f'{pre}bound_by': t32[f'{key}_bound_by'],
+                f'{pre}library_ms': t32['cudnn'][f'{key}_ms'],
+                f'{pre}module_ms': t32[f'module_{key}_ms'],
+                f'{pre}b1_ms': t1[f'{key}_ms'], f'{pre}b1_bound_ms': t1[f'{key}_bound_ms'],
+                f'{pre}rel_err': {what: dict(first=r[(name, dname, what)]['first'],
+                                             all=r[(name, dname, what)]['all'])
+                                  for what in GRU_CASES},
+                f'{pre}tol': {what: r[(name, dname, what)]['tol'] for what in GRU_CASES}})
+            if key == 'fwd':
+                entry[f'{pre}ms_without_residuals'] = t32['fwd_ms_without_residuals']
+        out.append(entry)
+    return out
+
+
 def main():
     t_start = T_START
     if not torch.cuda.is_available():
@@ -6326,7 +6780,8 @@ def main():
     atexit.register(shutil.rmtree, tmp, True)
     mutants = build_kernels(tmp)
     phase(2, f'built and loaded the AR kernel\'s library in {time.perf_counter() - t0:.1f} s; '
-             f'the probes\', the decoder step\'s and the four decoder loops\' libraries and '
+             f'the probes\', the decoder step\'s, the four decoder loops\' and the GRU loops\' '
+             f'libraries and '
              f'{len(mutants)} copies with one planted fault each build beside phase 3')
     probe_modules = {'prng_probe': prng_probe, 'ar_critpath': ar_critpath,
                      'matmul_probe': matmul_probe, 'microbench': microbench}
@@ -6396,6 +6851,9 @@ def main():
                                       'bfloat16': remaining['tacotron']['timed']},
                             pipeline['gta_s_per_utterance'])
     phase(16, f'the whole run {time.perf_counter() - t_start:.1f} s')
+    gru = gru_slice(mutants, {'float32': taco['timed'],
+                              'bfloat16': remaining['tacotron']['timed']})
+    phase(17, f'the whole run {time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']
     big_runs, sampled = head['runs'], head['sampled']
@@ -6542,7 +7000,7 @@ def main():
         dict(name=name, route='cuda', source=f'tacotron2_tpu_torch/csrc/probes/{name}.cu',
              replaces=PROBE_REPLACES[name], launches=probe_launches[name],
              check_launches=probe_modules[name].LAUNCHES, **probe_readings[name])
-        for name in probe_modules] + decoder_entries(decoder)}))
+        for name in probe_modules] + decoder_entries(decoder) + gru_entries(gru)}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}))

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from ...ops.gru_scan import gru_scan
 from ...parallel.collectives import all_reduce_sum, global_sum
 from ..precision import cast_forward, sigmoid, weak
 
@@ -299,7 +300,9 @@ class GRU(nn.Module):
     n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), h' = (1 - z) * n + z * h.
     `input` holds W_ir, W_iz, W_in and their biases, `hidden` W_hr, W_hz, W_hn, and
     `bias_hn` b_hn, the one hidden-side bias. Padded steps freeze the state and output
-    zero. The state keeps the input's dtype, as the JAX scan's does."""
+    zero. The recurrence runs in the input's dtype promoted with `dtype` (the input's, as
+    the JAX scan's state keeps it, in the model), through `ops/gru_scan`: its kernels on
+    the card, their plain versions elsewhere."""
 
     def __init__(self, input_size: int, units: int):
         super().__init__()
@@ -308,26 +311,33 @@ class GRU(nn.Module):
         self.hidden = nn.Linear(units, 3 * units, bias=False)
         self.bias_hn = nn.Parameter(torch.zeros(units))
 
+    def operands(self, seq: Tensor, dtype: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
+        """(ip (B, T, 3H), the input projection hoisted, W_hh (3H, H), b_hn) of the scan,
+        each cast to `dtype` as flax casts them and then to the recurrence's dtype."""
+        rd = torch.promote_types(seq.dtype, dtype)
+        return (cast_forward(self.input, seq, dtype).to(rd),
+                self.hidden.weight.to(dtype).to(rd), self.bias_hn.to(dtype).to(rd))
+
     def forward(self, seq: Tensor, mask: Tensor,
                 dtype: torch.dtype = torch.float32) -> Tensor:
-        B, T, _ = seq.shape
-        H = self.units
-        ip = cast_forward(self.input, seq, dtype)      # (B, T, 3H), hoisted
-        Kh = self.hidden.weight.t().to(dtype).to(seq.dtype)
-        bias_hn = self.bias_hn.to(dtype)
-        mask = mask.to(seq.dtype)
-        h = torch.zeros(B, H, device=seq.device, dtype=seq.dtype)
-        outs = []
-        for t in range(T):
-            ip_t, hh = ip[:, t], h @ Kh
-            r = sigmoid(ip_t[:, :H] + hh[:, :H])
-            z = sigmoid(ip_t[:, H:2 * H] + hh[:, H:2 * H])
-            n = torch.tanh(ip_t[:, 2 * H:] + r * (hh[:, 2 * H:] + bias_hn))
-            new_h = (1.0 - z) * n + z * h
-            m = mask[:, t, None]
-            h = torch.where(m > 0, new_h, h)
-            outs.append(h * m)
-        return torch.stack(outs, dim=1)
+        ip, w, b = self.operands(seq, dtype)
+        return gru_scan([ip], [w], [b], mask, None, (False,))
+
+
+class BiGRU(nn.Module):
+    """The CBHG's two GRUs in one `gru_scan`: `fw` over the steps, `bw` over each row's
+    first lengths[b] steps backwards (its output where each step's input was), side by
+    side. It holds no parameters of its own: its GRUs are the CBHG's `gru_fw` and
+    `gru_bw`, referred to, not registered twice."""
+
+    def __init__(self, fw: GRU, bw: GRU):
+        super().__init__()
+        self._grus = (fw, bw)
+
+    def forward(self, seq: Tensor, mask: Tensor, lengths: Tensor,
+                dtype: torch.dtype = torch.float32) -> Tensor:
+        ips, ws, bs = zip(*(gru.operands(seq, dtype) for gru in self._grus))
+        return gru_scan(ips, ws, bs, mask, lengths, (False, True))
 
 
 class CBHG(nn.Module):
@@ -354,6 +364,7 @@ class CBHG(nn.Module):
                                       for _ in range(highway_layers))
         self.gru_fw = GRU(highway_units, rnn_units)
         self.gru_bw = GRU(highway_units, rnn_units)
+        self.bigru = BiGRU(self.gru_fw, self.gru_bw)
 
     def forward(self, x: Tensor, lengths: Optional[Tensor] = None,
                 train: bool = False, dtype: torch.dtype = torch.float32) -> Tensor:
@@ -371,8 +382,4 @@ class CBHG(nn.Module):
             y = highway(y, dtype)
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.long, device=x.device)
-        mask = length_mask(lengths, T, x.device)
-        fw = self.gru_fw(y, mask, dtype)
-        bw = reverse_sequences(self.gru_bw(reverse_sequences(y, lengths), mask, dtype),
-                               lengths)
-        return torch.cat([fw, bw], dim=-1)
+        return self.bigru(y, length_mask(lengths, T, x.device), lengths, dtype)
