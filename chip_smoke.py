@@ -7,9 +7,9 @@ Phases (one line each; any failure exits nonzero):
   1. torch, CUDA and the card (nvidia-smi name and power limit);
   2. build the hand-written kernels from tacotron2_tpu_torch/csrc (the probes' from
      csrc/probes, the decoder step's from csrc/decoder, the decoder's forward and
-     reverse loops' from csrc/decoder_loop and csrc/decoder_bwd_loop and the CBHG's GRU
-     loops' from csrc/gru_loop into libraries of their own), with the planted-fault
-     copies:
+     reverse loops' from csrc/decoder_loop and csrc/decoder_bwd_loop, the CBHG's GRU
+     loops' from csrc/gru_loop and the encoder LSTM's loops' from csrc/lstm_loop into
+     libraries of their own), with the planted-fault copies:
      the AR kernel's library first, the rest beside phase 3, all done before phase 4;
   3. the WaveNet AR kernel against its plain PyTorch version at the default width, on
      a WaveNet whose seeded random weights give params of order 1: the kernel runs
@@ -45,7 +45,9 @@ Phases (one line each; any failure exits nonzero):
   5. the main path, text -> mel -> wav, at full width with the same WaveNet through
      `python -m tacotron2_tpu_torch.synthesize`: two sentences of sentences.txt,
      stop tokens suppressed, max_iters=128; every wav has 128*hop samples, all
-     finite, and the AR kernel launched;
+     finite, and the AR kernel launched; then the encoder LSTM's ms inside one Tacotron
+     synthesis of the two sentences (CUDA events around `encoder_lstm`) through the step
+     loop and through lstm_fwd_loop, beside the Tacotron stage's (encoder_lstm_reading);
   6. the AR kernel's state carry at full width, twice: B=2 in three chunks at odd
      ends (STATE_BOUNDS) over the real upsampler's conditioning, and the service's
      own shape, B=1 in the chunks of one served request (SERVE_BOUNDS) over sequence 0
@@ -59,7 +61,8 @@ Phases (one line each; any failure exits nonzero):
      same WaveNet (stop tokens suppressed, max_iters=128: 35,200 samples a request):
      a GET wav, a POST f32 with a seed, two pcm16 at once and one request of
      scripts/measure_ttfa.py; exact byte counts, finite f32 samples, /healthz, and
-     three AR launches per request (chunks of 4,352 + 16,512 + 14,336 samples);
+     three AR launches per request (chunks of 4,352 + 16,512 + 14,336 samples); then
+     the encoder LSTM's reading of phase 5 at B=1;
   8. the paper profile (`config.paper_hparams()`: MoL-10 head, 24 layers in 4 stacks at
      R=256, G=512, S=256, the 2D upsampler, no legacy scalings) at full width on a
      WaveNet with seeded random weights whose head is quieted (quiet_mol_head) so that
@@ -174,8 +177,9 @@ Phases (one line each; any failure exits nonzero):
      synchronizes; one train step on the card against the
      same step on the CPU at full width and TACO_CPU_BATCH rows (the same state, batch,
      masks and coins; TACO_STEP_TOL, TACO_GRAD_TOL, TACO_PARAM_TOL, TACO_SMALL_GRAD; the
-     card's step must launch the float32 reverse loop, decoder_bwd_loop_f32, and the
-     CBHG's GRU loops, gru_fwd_loop and gru_bwd_loop);
+     card's step must launch the float32 reverse loop, decoder_bwd_loop_f32, the
+     CBHG's GRU loops, gru_fwd_loop and gru_bwd_loop, and the encoder LSTM's,
+     lstm_fwd_loop and lstm_bwd_loop);
      and steps at B=32 x TIMED_FRAMES frames: three between synchronizes (sec/step), peak
      device memory, and three split at module boundaries by CUDA events that hooks
      record inside the real step (`StepMarks`: the decoder's, the encoder LSTM's and the
@@ -344,6 +348,30 @@ Phases (one line each; any failure exits nonzero):
      GRU parts (StepMarks) beside the step loop's (GRU_STEP_LOOP_TIMED). Every main path
      that trains (GRU_TRAIN_PATHS) launched both kernels, the synthesizer's
      (GRU_SYNTH_PATHS) gru_fwd_loop alone.
+ 18. The encoder's bidirectional zoneout-LSTM recurrence (`ops/lstm_scan.py`, `LSTMScan`),
+     which every path that encodes text runs. Its two kernels (csrc/lstm_loop/
+     lstm_loop.cu: lstm_fwd_loop, all steps of both directions in one launch, a cluster of
+     8 CTAs a (direction, group of rows) with W_hh split over their shared memory and h
+     exchanged through distributed shared memory, and lstm_bwd_loop, their reverse
+     recurrence) against their plain versions on the same CUDA tensors at the default
+     widths (C = 512, U = 256), at compute dtype f32 (TF32 off) and bf16, each of
+     LSTM_CASES (B=32 x LSTM_T_IN = 192, the feeder's largest padded text, and B=1 x 112, in
+     the training form with keep-masks at rate 0.1 and in the synthesis form, ragged
+     lengths, W_hh = 0): the output and every residual, and dz over each direction's first
+     LSTM_FIRST_STEPS steps and over all, and dW_hh formed from it (LSTM_TOL; LSTM_ZERO_TOL
+     with W_hh = 0), two launches bit for bit (and the launch without residuals the one
+     with them), ten planted faults (LSTM_MUTANTS, each a build with one macro set, built in
+     phase 2) that must miss a bound LSTM_FAULT_FACTOR times over; each kernel's ms (the
+     forward with and without residuals) at B=32 x 192, B=32 x 112 and B=1 x 112 beside its
+     bound and its plain version's, and at B=32 x 192 the encoder LSTM module forward and
+     backward beside cuDNN's bidirectional LSTM at zoneout 0 on the same input (nn.LSTM, the
+     gates reordered and the forget bias folded in, held to the plain output at zoneout 0
+     in f32 first), the library yardstick. Phase 12's (f32) and phase 14's (bf16) timed
+     steps' encoder LSTM parts (StepMarks) beside the step loop's (LSTM_STEP_LOOP_TIMED).
+     Every main path that trains (LSTM_TRAIN_PATHS) launched both kernels, every other path
+     that encodes text (LSTM_SYNTH_PATHS: synthesize and serve at both profiles, GTA, the
+     Tacotron eval and live command lines and `synthesize --model Tacotron-2`)
+     lstm_fwd_loop alone.
 Then a JSON line of the kernels (with each kernel's bound: the larger of its bytes over
 the HBM rate and its operations over the peak rate of their type, for the run timed),
 the card's nvidia-smi line, and the result line.
@@ -1190,6 +1218,7 @@ def main_path(hp_overrides, hp, wavenet_state, n=5, paper=False):
         what = 'synthesize --paper_profile' if paper else 'synthesize'
         with ar_timer() as chunks:
             reset_counts()
+            reset_decoder_counts()
             stats = synthesize.main((['--paper_profile'] if paper else [])
                                     + ['--tacotron_checkpoint', taco_path,
                                        '--wavenet_checkpoint', wave_path,
@@ -1197,6 +1226,7 @@ def main_path(hp_overrides, hp, wavenet_state, n=5, paper=False):
                                        '--output_dir', os.path.join(tmp, 'out'),
                                        '--device', 'cuda'])
             launches = read_counts(what)
+            read_decoder_counts(what)
         n_rows = len(open(os.path.join(tmp, 'out', 'map.txt'), encoding='utf-8')
                      .read().splitlines())
     want_len = hp.max_iters * hp.outputs_per_step * hp.get_hop_size()
@@ -1267,6 +1297,7 @@ def service(hp_overrides, hp, wavenet_state):
             startup = time.perf_counter() - t0
             chunks.clear()
             reset_counts()
+            reset_decoder_counts()
             server.start()
             try:
                 addr = server.address
@@ -1288,6 +1319,7 @@ def service(hp_overrides, hp, wavenet_state):
             finally:
                 server.close()
             launches = read_counts('serve')
+            read_decoder_counts('serve')
 
     want = {'GET wav': 44 + 2 * n, 'POST f32 seed=7': 4 * n,
             'GET pcm16 #0 (concurrent)': 2 * n, 'GET pcm16 #1 (concurrent)': 2 * n}
@@ -1463,6 +1495,7 @@ def paper_service(hp_overrides, hp, wavenet_state):
             startup = time.perf_counter() - t0
             chunks.clear()
             reset_counts()
+            reset_decoder_counts()
             server.start()
             try:
                 status, data, first, wall = fetch(
@@ -1470,6 +1503,7 @@ def paper_service(hp_overrides, hp, wavenet_state):
             finally:
                 server.close()
             launches = read_counts('serve --paper_profile')
+            read_decoder_counts('serve --paper_profile')
     audio_s = n / hp.sample_rate
     us_step = 1000 * sum(ms for _, ms in chunks) / sum(steps for steps, _ in chunks)
     phase(8, f'serve --paper_profile: up in {startup:.1f} s (load + 1 warmup stream); one '
@@ -1570,8 +1604,9 @@ def build_kernels(tmp):
     ALL_MUTANTS, CLUSTER_MUTANTS, PROBE_MUTANTS, DECODER_MUTANTS, LOOP_MUTANTS,
     F32_LOOP_MUTANTS, BWD_LOOP_MUTANTS and F32_BWD_LOOP_MUTANTS from a changed copy of its
     source (an AR kernel's copy with the instantiations of MUTANT_HEADS alone), and the
-    CBHG's GRU loops' library and one build of its source for each of GRU_MUTANTS with
-    that fault's macro set, under `tmp`, which must outlive the builds.
+    CBHG's GRU loops' and the encoder LSTM's loops' libraries and one build of each one's
+    source for each of GRU_MUTANTS and LSTM_MUTANTS with that fault's macro set, under
+    `tmp`, which must outlive the builds.
     Phase 3 needs the first library alone and runs beside the others (its readings are
     device times); the run waits for them all before phase 4, whose entry points are
     timed on the host's clock. Returns the Builds."""
@@ -1600,10 +1635,12 @@ def build_kernels(tmp):
         elif fault in F32_BWD_LOOP_MUTANTS:
             name, text = 'decoder_bwd_loop_f32.cu', mutated_bwd_loop_f32_source(fault)
             flags = _build.DECODER_FLAGS
-        elif fault in GRU_MUTANTS:  # the source as it stands, its fault's macro set
+        elif fault in GRU_MUTANTS or fault in LSTM_MUTANTS:  # the source, one macro set
+            src_dir, macro = ((_build.GRU_LOOP_DIR, GRU_MUTANTS[fault]) if fault in GRU_MUTANTS
+                              else (_build.LSTM_LOOP_DIR, LSTM_MUTANTS[fault]))
             lib = os.path.join(tmp, f'mutant{i}', 'libmutant.so')
-            _build.compile_library(_build._sources(_build.GRU_LOOP_DIR), lib,
-                                   (GRU_MUTANTS[fault],), _build.DECODER_FLAGS)
+            _build.compile_library(_build._sources(src_dir), lib, (macro,),
+                                   _build.DECODER_FLAGS)
             return ctypes.CDLL(lib), clock()
         else:
             name, text = 'wavenet_ar.cu', mutated_source(fault)
@@ -1628,13 +1665,14 @@ def build_kernels(tmp):
     libraries = [pool.submit(library, load) for load in (
         _build.load_decoder_library, _build.load_decoder_loop_library,
         _build.load_decoder_loop_f32_library, _build.load_decoder_bwd_loop_library,
-        _build.load_decoder_bwd_loop_f32_library, _build.load_gru_loop_library)]
+        _build.load_decoder_bwd_loop_f32_library, _build.load_gru_loop_library,
+        _build.load_lstm_loop_library)]
     faults = list(CLUSTER_MUTANTS) + list(ALL_MUTANTS)
     mutants = {fault: pool.submit(mutant, (i, fault)) for i, fault in enumerate(faults)}
     libraries.append(pool.submit(library, _build.load_probe_library))
     for fault in (list(PROBE_MUTANTS) + list(DECODER_MUTANTS) + list(LOOP_MUTANTS)
                   + list(F32_LOOP_MUTANTS) + list(BWD_LOOP_MUTANTS)
-                  + list(F32_BWD_LOOP_MUTANTS) + list(GRU_MUTANTS)):
+                  + list(F32_BWD_LOOP_MUTANTS) + list(GRU_MUTANTS) + list(LSTM_MUTANTS)):
         mutants[fault] = pool.submit(mutant, (len(mutants), fault))
     return Builds(pool, libraries, mutants)
 
@@ -3102,7 +3140,7 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
     TACO_CPU_BATCH rows of `batch` with the same draws (made on the CPU and copied), and
     the float32 reverse loop's launches in the card's step. Returns the readings."""
     from tacotron2_tpu_torch.ops import decoder_vjp as dv
-    from tacotron2_tpu_torch.ops import gru_scan
+    from tacotron2_tpu_torch.ops import gru_scan, lstm_scan
     from tacotron2_tpu_torch.training import tacotron_trainer as tt
 
     small = {k: v[:TACO_CPU_BATCH] for k, v in batch.items()}
@@ -3117,17 +3155,19 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
         return x.to(device)
 
     start = [p.detach().clone() for p in states['cpu'].model.parameters()]
-    metrics, secs, bwd_loops, grus = {}, {}, {}, {}
+    metrics, secs, bwd_loops, grus, lstms = {}, {}, {}, {}, {}
     for d, state in states.items():
         t0 = time.perf_counter()
         before = dv.LAUNCHES['decoder_bwd_loop_f32']
         before_gru = collections.Counter(gru_scan.LAUNCHES)
+        before_lstm = collections.Counter(lstm_scan.LAUNCHES)
         m = tt.train_step(state, {k: v.to(d) for k, v in small.items()}, hp,
                           noise={k: on(d, v) for k, v in noise.items()}, dtype=torch.float32)
         metrics[d] = {k: float(m[k]) for k in ('loss', 'grad_norm')}
         secs[d] = time.perf_counter() - t0
         bwd_loops[d] = dv.LAUNCHES['decoder_bwd_loop_f32'] - before
         grus[d] = dict(collections.Counter(gru_scan.LAUNCHES) - before_gru)
+        lstms[d] = dict(collections.Counter(lstm_scan.LAUNCHES) - before_lstm)
     loss_err = abs(metrics['cuda']['loss'] - metrics['cpu']['loss']) / abs(metrics['cpu']['loss'])
     norm_err = abs(metrics['cuda']['grad_norm'] - metrics['cpu']['grad_norm']) \
         / metrics['cpu']['grad_norm']
@@ -3163,7 +3203,7 @@ def taco_cpu_vs_card(hp, batch, n=12, what=''):
     return dict(loss_rel_err=loss_err, grad_norm_rel_err=norm_err, grad_rel_err=grad_err,
                 param_max_abs_err=worst, params_off=off, card_s=secs['cuda'], cpu_s=secs['cpu'],
                 bwd_loop_launches=bwd_loops['cuda'], gru_launches=grus['cuda'],
-                second_step=second)
+                lstm_launches=lstms['cuda'], second_step=second)
 
 
 def taco_second_step(states, start, batch, noise, hp, n=12, what=''):
@@ -3432,6 +3472,9 @@ def tacotron_training():
         if not all(cpu['gru_launches'].get(k) for k in ('gru_fwd_loop', 'gru_bwd_loop')):
             fail('the card\'s f32 Tacotron train step did not run the CBHG\'s GRUs through '
                  'gru_fwd_loop and gru_bwd_loop')
+        if not all(cpu['lstm_launches'].get(k) for k in ('lstm_fwd_loop', 'lstm_bwd_loop')):
+            fail('the card\'s f32 Tacotron train step did not run the encoder LSTM through '
+                 'lstm_fwd_loop and lstm_bwd_loop')
         scheduled = taco_f32_scheduled(root)
     reset_decoder_counts()
     timed = taco_timed_step(hp)
@@ -3583,21 +3626,23 @@ def run_pipeline_cli(base, calls=None, path=None):
     Returns (output, seconds)."""
     from tacotron2_tpu_torch import train
     from tacotron2_tpu_torch.inference import tacotron_synthesizer
-    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan
+    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan, lstm_scan
 
     reset_counts()
     reset_decoder_counts()
-    gta, gta_gru = collections.Counter(), collections.Counter()
+    gta, gta_gru, gta_lstm = collections.Counter(), collections.Counter(), collections.Counter()
     synthesize = tacotron_synthesizer.tacotron_synthesize
 
     def counted(*args, **kwargs):
         before = collections.Counter(decoder_vjp.LAUNCHES)
         before_gru = collections.Counter(gru_scan.LAUNCHES)
+        before_lstm = collections.Counter(lstm_scan.LAUNCHES)
         try:
             return synthesize(*args, **kwargs)
         finally:
             gta.update(collections.Counter(decoder_vjp.LAUNCHES) - before)
             gta_gru.update(collections.Counter(gru_scan.LAUNCHES) - before_gru)
+            gta_lstm.update(collections.Counter(lstm_scan.LAUNCHES) - before_lstm)
 
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -3618,6 +3663,9 @@ def run_pipeline_cli(base, calls=None, path=None):
         GRU_LAUNCHES_BY_PATH[PIPE_GTA_PATH].update(gta_gru)
         GRU_LAUNCHES_BY_PATH[PIPE_TACO_PATH].update(
             collections.Counter(gru_scan.LAUNCHES) - gta_gru)
+        LSTM_LAUNCHES_BY_PATH[PIPE_GTA_PATH].update(gta_lstm)
+        LSTM_LAUNCHES_BY_PATH[PIPE_TACO_PATH].update(
+            collections.Counter(lstm_scan.LAUNCHES) - gta_lstm)
     return out.getvalue(), seconds
 
 
@@ -3778,9 +3826,11 @@ def pipe_cli(base, hp):
     hop = hp.get_hop_size()
     ok_wave = ([len(w) for w in vocoded['wavs']] == [frames * hop] * 2
                and all(np.isfinite(w).all() and np.abs(w).max() <= 1.0 for w in vocoded['wavs']))
+    reset_decoder_counts()
     e2e, e2e_launches, e2e_s = cli_run(
         base, ['--model', 'Tacotron-2', '--output_dir', os.path.join(base, 'e2e')] + common,
         PIPE_TACOTRON2_PATH)
+    read_decoder_counts(PIPE_TACOTRON2_PATH)
     ok_e2e = [len(w) for w in e2e['wavs']] == [frames * hop] * 2 \
         and all(np.isfinite(w).all() for w in e2e['wavs'])
     ok_live = os.path.isfile(live_wav) and _wav_ok(live_wav)
@@ -5098,28 +5148,31 @@ FUSED_TOL = {torch.float32: (1e-5, TACO_GRAD_TOL), torch.bfloat16: (1e-2, 1.1e-2
 DECODER_LAUNCHES_BY_PATH = collections.defaultdict(collections.Counter)
 
 
-# the CBHG's GRU kernels' launches on each main path, {path: {kernel: launches}}, set and
-# read with the decoder's
+# the CBHG's GRU kernels' and the encoder LSTM's kernels' launches on each main path,
+# {path: {kernel: launches}}, set and read with the decoder's
 GRU_LAUNCHES_BY_PATH = collections.defaultdict(collections.Counter)
+LSTM_LAUNCHES_BY_PATH = collections.defaultdict(collections.Counter)
 
 
 def reset_decoder_counts():
-    """Sets the decoder kernels' and the GRU kernels' launch counts to 0, just before a run
-    of a main path."""
-    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan
+    """Sets the decoder kernels', the GRU kernels' and the encoder LSTM kernels' launch
+    counts to 0, just before a run of a main path."""
+    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan, lstm_scan
 
     decoder_vjp.LAUNCHES.clear()
     gru_scan.LAUNCHES.clear()
+    lstm_scan.LAUNCHES.clear()
 
 
 def read_decoder_counts(path):
-    """Adds the decoder kernels' and the GRU kernels' launches since reset_decoder_counts to
-    DECODER_LAUNCHES_BY_PATH[path] and GRU_LAUNCHES_BY_PATH[path], just after a run of the
-    main path `path`."""
-    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan
+    """Adds the decoder kernels', the GRU kernels' and the encoder LSTM kernels' launches
+    since reset_decoder_counts to DECODER_LAUNCHES_BY_PATH[path], GRU_LAUNCHES_BY_PATH[path]
+    and LSTM_LAUNCHES_BY_PATH[path], just after a run of the main path `path`."""
+    from tacotron2_tpu_torch.ops import decoder_vjp, gru_scan, lstm_scan
 
     DECODER_LAUNCHES_BY_PATH[path].update(decoder_vjp.LAUNCHES)
     GRU_LAUNCHES_BY_PATH[path].update(gru_scan.LAUNCHES)
+    LSTM_LAUNCHES_BY_PATH[path].update(lstm_scan.LAUNCHES)
 
 
 def mutated_decoder_source(fault):
@@ -6755,6 +6808,497 @@ def gru_entries(gru):
     return out
 
 
+# --- phase 18: the encoder's bidirectional zoneout-LSTM recurrence on clusters -----------
+
+LSTM_SOURCE = 'tacotron2_tpu_torch/csrc/lstm_loop/lstm_loop.cu'
+# planted faults: a build of csrc/lstm_loop/lstm_loop.cu with one macro set, built in phase 2,
+# {fault: the macro}
+LSTM_MUTANTS = {
+    'lstm_fwd_loop: the +1 forget bias dropped': 'LSTM_FAULT_FORGET_BIAS_DROPPED',
+    'lstm_fwd_loop: gates f and i swapped': 'LSTM_FAULT_GATES_SWAPPED',
+    'lstm_fwd_loop: the c and h keep-masks swapped': 'LSTM_FAULT_KEEPS_SWAPPED',
+    'lstm_fwd_loop: the reversed direction\'s keep-masks read at the sequence position':
+        'LSTM_FAULT_KEEPS_AT_POSITION',
+    'lstm_fwd_loop: the padding hold ignored': 'LSTM_FAULT_HOLD_IGNORED',
+    'lstm_fwd_loop: the zoned h written as the output': 'LSTM_FAULT_ZONED_OUTPUT',
+    'lstm_fwd_loop: a peer\'s h read from the other buffer (the step before last)':
+        'LSTM_FAULT_STALE_PEER',
+    'lstm_bwd_loop: the dc sigma(f + 1) carry dropped': 'LSTM_FAULT_CARRY_DROPPED',
+    'lstm_bwd_loop: the c and h keep-masks swapped': 'LSTM_FAULT_BWD_KEEPS_SWAPPED',
+    'lstm_bwd_loop: the last partial of dh W_hh^T dropped': 'LSTM_FAULT_BWD_SLOT_DROPPED'}
+LSTM_REPLACES = {
+    'lstm_fwd_loop': 'tacotron2_tpu/models/tacotron/modules.py:136-206 (the encoder\'s '
+                     'jax.lax.scan over its zoneout LSTM step, `run`: an XLA loop, no Pallas '
+                     'kernel)',
+    'lstm_bwd_loop': 'tacotron2_tpu/models/tacotron/modules.py:136-206 (XLA\'s reverse scan '
+                     'of that scan\'s autodiff, no Pallas kernel)'}
+LSTM_T_IN = 192        # the feeder's largest padded text: the encoder's steps at B=32
+LSTM_B1_T_IN = 112     # a served sentence's text
+LSTM_TIMED_T_IN = 112  # the timed step's text (about 100 characters), timed alone
+LSTM_RATE = 0.1        # tacotron_zoneout_rate: the keep-masks' rate and the mix's z
+# (B, T_in, training form, a ragged `lengths`, W_hh = 0) of each check, in f32 and bf16:
+# the trainer's batch at the feeder's largest text in both forms, ragged in each (the hold
+# and the in-kernel reversal), one served sentence, and W_hh = 0, where only the
+# elementwise math is left, so that each op must round as the plain version's does
+LSTM_CASES = {'B=32, training': (32, LSTM_T_IN, True, False, False),
+              'B=32, training, ragged': (32, LSTM_T_IN, True, True, False),
+              'B=32, synthesis, ragged': (32, LSTM_T_IN, False, True, False),
+              'B=1, training': (1, LSTM_B1_T_IN, True, False, False),
+              'B=1, synthesis': (1, LSTM_B1_T_IN, False, False, False),
+              'B=32, W_hh = 0, training, ragged': (32, LSTM_T_IN, True, True, True),
+              'B=32, W_hh = 0, synthesis': (32, LSTM_T_IN, False, False, True)}
+LSTM_FIRST_STEPS = GRU_FIRST_STEPS
+# each kernel against its plain version on the same CUDA tensors, {kernel: {span: bound}}
+# in both dtypes (the recurrence is float32 in both; bf16 only stores xp and W_hh): the
+# largest error of its outputs (lstm_fwd_loop: the output and the residuals; lstm_bwd_loop:
+# dz) over each direction's first LSTM_FIRST_STEPS steps (the reverse kernel's first, the
+# last in step order) and over all, relative to the plain tensor's largest entry there,
+# and lstm_bwd_loop's dW_hh ('dW': the kernel path's one product against the plain
+# version's sum step by step); with W_hh = 0 the first two bounds are LSTM_ZERO_TOL. Read
+# on an H100 80GB HBM3 at 700 W: the forward at most 2.0e-7 over the first steps
+# and 4.5e-7 over all (the product's f32 sums in another order than cuBLAS's), dz 1.5e-7
+# and 1.9e-7, dW_hh 6.9e-7, W_hh = 0 reads 0 in the forward and dz (every elementwise op
+# rounds where the plain version's does), in both dtypes; the planted faults 1.8e4 to
+# 1.8e6 times a bound. The bounds sit 10x, 11x, 13x, 26x and 7x above the readings
+LSTM_TOL = {'lstm_fwd_loop': {'first': 2e-6, 'all': 5e-6},
+            'lstm_bwd_loop': {'first': 2e-6, 'all': 5e-6, 'dW': 5e-6}}
+LSTM_ZERO_TOL = 1e-6
+# a planted fault must miss its case's bound by this factor in one span of one case
+LSTM_FAULT_FACTOR = 10
+# the encoder LSTM in the timed B=32 x 512 steps while it ran as a step loop (StepMarks
+# parts "fwd: encoder LSTM" and "bwd: encoder LSTM", ms; H100 80GB HBM3, 700 W; PERF.md
+# section 5)
+LSTM_STEP_LOOP_TIMED = {'float32': dict(fwd=71.4, bwd=117.4),
+                        'bfloat16': dict(fwd=68.2, bwd=127.5)}
+# the main paths that encode text: those that train launch both kernels, the others (the
+# synthesis of the CLIs and the service, GTA) lstm_fwd_loop alone
+LSTM_TRAIN_PATHS = (TACO_PATH, TACO_F32_SCHEDULED_PATH, TACO_F32_TIMED_PATH,
+                    TACO_BF16_TIMED_PATH, PIPE_TACO_PATH)
+LSTM_SYNTH_PATHS = ('synthesize', 'serve', 'synthesize --paper_profile',
+                    'serve --paper_profile', PIPE_GTA_PATH, TACO_EVAL_CLI_PATH,
+                    TACO_LIVE_CLI_PATH, PIPE_TACOTRON2_PATH)
+LSTM_PATHS = LSTM_TRAIN_PATHS + LSTM_SYNTH_PATHS
+
+
+def encoder_lstm_reading(hp, B, n):
+    """Phases 5 (B=2) and 7 (B=1): one free-running Tacotron synthesis of B sentences on the
+    card at `hp` (a seeded, stop-suppressed model, the CLIs' Synthesizer), its encoder LSTM
+    timed by CUDA events from hooks around `encoder_lstm` and the whole Tacotron stage
+    around the call, through the step loop (`lstm_loop_applies` false: the path before the
+    kernel) and through lstm_fwd_loop, after one untimed run. Returns the readings."""
+    from tacotron2_tpu_torch.inference.tacotron_synthesizer import Synthesizer
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import lstm_scan
+    from tacotron2_tpu_torch.utils import suppress_stop_tokens
+
+    hp = hp.replace(tacotron_synthesis_batch_size=B)
+    torch.manual_seed(8)
+    model = Tacotron(hp)
+    model.load_state_dict(suppress_stop_tokens(model.state_dict()))
+    synth = Synthesizer(model.cuda(), hp, 'cuda')
+    with open(os.path.join(REPO, 'sentences.txt'), encoding='utf-8') as f:
+        texts = [line.strip() for line in f if line.strip()][:B]
+    marks = {}
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+    hooks = [model.encoder_lstm.register_forward_pre_hook(lambda *a: mark('pre')),
+             model.encoder_lstm.register_forward_hook(lambda *a: mark('post'))]
+    out = {}
+    try:
+        for route in ('warm-up', 'step loop', 'lstm_fwd_loop'):
+            loop = route == 'step loop'
+            with torch.no_grad(), _patched(lstm_scan, 'lstm_loop_applies',
+                                           (lambda *a: False) if loop
+                                           else lstm_scan.lstm_loop_applies):
+                before = lstm_scan.LAUNCHES['lstm_fwd_loop']
+                _, stage_ms = cuda_ms(lambda: synth.synthesize(
+                    texts, torch.Generator('cuda').manual_seed(9)))
+                launched = lstm_scan.LAUNCHES['lstm_fwd_loop'] - before
+            if launched != (0 if loop else 1):
+                fail(f'the {route} synthesis launched lstm_fwd_loop {launched} times')
+            out[route] = dict(encoder_lstm_ms=marks['pre'].elapsed_time(marks['post']),
+                              tacotron_ms=stage_ms)
+    finally:
+        for h in hooks:
+            h.remove()
+    del out['warm-up']
+    phase(n, f'the encoder LSTM inside one Tacotron synthesis at B={B} (max_iters='
+             f'{hp.max_iters}, CUDA events): ' + '; '.join(
+                 f'{route} {r["encoder_lstm_ms"]:.2f} ms of the Tacotron stage\'s '
+                 f'{r["tacotron_ms"]:.1f} ms ({100 * r["encoder_lstm_ms"] / r["tacotron_ms"]:.1f}%)'
+                 for route, r in out.items()))
+    return out
+
+
+def lstm_case(rnn, B, T, train, ragged, zero_w, dtype, seed=29):
+    """The operands of an LSTM check on the card: the seeded encoder LSTM's two cells (the
+    trainer's initial weights, biases of order 0.3) on a seeded (B, T, C) float32 input
+    through their own casts (`BiZoneoutLSTM.operands`, compute dtype `dtype`; the backward
+    cell's over each row's reversed sequence, as the module hoists it), W_hh zeroed
+    with `zero_w`, the lengths (each row's own from T / 4 up where `ragged`, row 0 whole),
+    seeded keep-masks at LSTM_RATE with `train`, and a seeded cotangent of the output."""
+    from tacotron2_tpu_torch.models.tacotron.modules import reverse_sequences
+
+    g = torch.Generator('cuda').manual_seed(seed)
+    U = rnn.fw.units
+    x = torch.randn(B, T, rnn.fw.gates.in_features - U, device='cuda', generator=g)
+    lengths = torch.full((B,), T, device='cuda')
+    if ragged:
+        lengths = torch.randint(T // 4, T + 1, (B,), device='cuda', generator=g)
+        lengths[0] = T
+    with torch.no_grad():
+        xps, ws = (list(v) for v in zip(*(
+            rnn.operands(cell, seq, dtype)
+            for cell, seq in ((rnn.fw, x), (rnn.bw, reverse_sequences(x, lengths))))))
+    if zero_w:
+        ws = [torch.zeros_like(w) for w in ws]
+    keeps = None
+    if train:
+        keeps = [tuple(torch.rand(T, B, U, device='cuda', generator=g) >= LSTM_RATE
+                       for _ in range(2)) for _ in range(2)]
+    return dict(x=x, xps=xps, ws=ws, lengths=lengths, keeps=keeps,
+                rates=[(cell.zoneout_cell, cell.zoneout_output) for cell in (rnn.fw, rnn.bw)],
+                reverse=(False, True),
+                dout=torch.randn(B, T, 2 * U, device='cuda', generator=g))
+
+
+def _lstm_fwd_errs(case, got, want):
+    """{span: {tensor: error}} of lstm_fwd_loop's output and residuals against the plain
+    version's, each direction in its own step order (the residuals are in it already)."""
+    from tacotron2_tpu_torch.ops import lstm_scan as ls
+
+    U, out = case['ws'][0].shape[0], {'first': {}, 'all': {}}
+    for d, rev in enumerate(case['reverse']):
+        pairs = {f'out{d}': tuple(ls._order(x[0][..., d * U:(d + 1) * U], case['lengths'], rev)
+                                  for x in (got, want))}
+        for i, name in enumerate(ls.RESIDUALS):
+            pairs[f'{name}{d}'] = (got[1][d][i], want[1][d][i])
+        for name, (g, w) in pairs.items():
+            for span in out:
+                out[span][name] = _gru_span_err(g, w, span == 'first')
+    return out
+
+
+def _lstm_bwd_errs(got, want):
+    """{span: {tensor: error}} of lstm_bwd_loop's dz against the plain version's, each
+    direction in its own step order (the reverse kernel's first steps the last ones), and
+    of dW_hh ('dW'): the kernel's one product after the launch against the plain version's
+    sum step by step."""
+    out = {'first': {}, 'all': {}, 'dW': {}}
+    for d, (g, w) in enumerate(zip(got[0], want[0])):
+        for span in ('first', 'all'):
+            out[span][f'dz{d}'] = _gru_span_err(g, w, span == 'first', from_end=True)
+        out['dW'][f'dW_hh{d}'] = _gru_span_err(got[1][d][None], want[1][d][None], False)
+    return out
+
+
+# operations a unit, row and step of a direction outside the gate product, counted low: forward
+# the four sums with xp, f + 1, three sigmoids and two tanh (one each), the state (3), h (1),
+# zoneout (6), the hold (2) and the mask (1); reverse the hold and zoneout (8), dh_new (2),
+# dc_new (4), the four gate gradients (15) and the carries (3)
+LSTM_CORE_OPS = {'fwd': 23, 'bwd': 32}
+
+
+def lstm_bound(B, T, dtype, forward, save=True):
+    """(ms, 'bytes' or 'operations', the operations' ms on the f32 CUDA cores) of the least
+    time an H100 takes for a launch of both directions over B rows and T steps (`_f32_bound`):
+    its operations, the products 2 B T 4U U a direction (forward h W_hh, reverse dz W_hh^T;
+    float32-accurate, the state is float32) as 3xTF32 on the tensor cores and LSTM_CORE_OPS
+    on the f32 CUDA cores, or its bytes over the HBM rate: forward xp and W_hh (in `dtype`),
+    the lengths and (training) the four keep-masks read, the output and (with `save`) the
+    residuals written; reverse the output's gradient, the residuals (all but h), W_hh, the
+    lengths and the keep-masks read, dz written."""
+    from tacotron2_tpu_torch.ops import lstm_scan as ls
+
+    U, s, n_res = ls.LSTM_LOOP_UNITS, (4 if dtype == torch.float32 else 2), len(ls.RESIDUALS)
+    mma_ops = 2 * 2 * B * T * 4 * U * U
+    core_ops = 2 * B * T * U * LSTM_CORE_OPS['fwd' if forward else 'bwd']
+    keeps = 4 * T * B * U
+    if forward:
+        nbytes = (2 * (B * T * 4 * U + U * 4 * U) * s + 4 * B + keeps + B * T * 2 * U * 4
+                  + (2 * n_res * B * T * U * 4 if save else 0))
+    else:
+        nbytes = (B * T * 2 * U * 4 + 2 * (n_res - 1) * B * T * U * 4 + 2 * U * 4 * U * s
+                  + 4 * B + keeps + 2 * B * T * 4 * U * 4)
+    return _f32_bound(nbytes, mma_ops, core_ops)
+
+
+def cudnn_lstm(rnn, case, want):
+    """The library's yardstick at zoneout 0: cuDNN's bidirectional LSTM (nn.LSTM) on the
+    case's input x (full lengths) with the encoder cells' weights, the gates reordered from
+    (i, g, f, o) to torch's (i, f, g, o) and the +1 forget bias folded into b_f (b_hh = 0),
+    in the case's compute dtype; in f32 first held to the plain version's output at zoneout 0
+    (`want`), then timed (the median of 3): its forward with a gradient to take, and its
+    backward to the input and the weights from the case's cotangent. Returns the readings."""
+    dt, x = case['xps'][0].dtype, case['x']
+    U = rnn.fw.units
+    C = x.shape[-1]
+    order = torch.cat([torch.arange(0, U), torch.arange(2 * U, 3 * U), torch.arange(U, 2 * U),
+                       torch.arange(3 * U, 4 * U)]).to(x.device)
+    lstm = torch.nn.LSTM(C, U, batch_first=True, bidirectional=True).to('cuda', dt)
+    with torch.no_grad():
+        for sfx, cell in (('', rnn.fw), ('_reverse', rnn.bw)):
+            w, b = cell.gates.weight[order], cell.gates.bias[order].clone()
+            b[U:2 * U] += 1.0
+            getattr(lstm, f'weight_ih_l0{sfx}').copy_(w[:, :C])
+            getattr(lstm, f'weight_hh_l0{sfx}').copy_(w[:, C:])
+            getattr(lstm, f'bias_ih_l0{sfx}').copy_(b)
+            getattr(lstm, f'bias_hh_l0{sfx}').zero_()
+    lstm.flatten_parameters()
+    xi = x.to(dt).detach().requires_grad_()
+    out = lstm(xi)[0]
+    err = None if want is None else float((out.detach().double() - want.double()).abs().max())
+    leaves = [xi] + list(lstm.parameters())
+    fwd_ms = _median_ms(lambda: lstm(xi)[0])
+    bwd_ms = _median_ms(lambda: torch.autograd.grad(out, leaves, case['dout'].to(dt),
+                                                    retain_graph=True))
+    return dict(max_abs_err=err, fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+
+def lstm_kernel_checks(mutants):
+    """lstm_fwd_loop and lstm_bwd_loop (csrc/lstm_loop/lstm_loop.cu) against their plain
+    versions on the same CUDA tensors at the default widths (C = 512, U = 256), each of
+    LSTM_CASES at compute dtype f32 (TF32 off) and bf16 (the forward on the case's
+    operands, the reverse on the plain forward's residuals and the case's cotangent): the
+    spans of _lstm_fwd_errs and _lstm_bwd_errs within LSTM_TOL (LSTM_ZERO_TOL with W_hh = 0);
+    a second launch of each bit for bit the first; each of LSTM_MUTANTS (`mutants`: fault ->
+    its library) must miss its case's bound by LSTM_FAULT_FACTOR in one span of one case.
+    Each kernel timed (CUDA events, the median of 3: the forward with the residuals, as
+    training launches it, and without, as synthesis does) at B=32 x LSTM_T_IN, B=32 x
+    LSTM_TIMED_T_IN and B=1 x LSTM_B1_T_IN in the training form, with its bound and its plain
+    version's time; at B=32 x LSTM_T_IN the whole module (BiZoneoutLSTM: the hoisted
+    products, the Function, dW_hh) forward and backward, and cuDNN's bidirectional LSTM at
+    zoneout 0 on the same input (cudnn_lstm), first held to the plain output at zoneout 0 in
+    f32. Returns the readings."""
+    from tacotron2_tpu_torch.config import default_hparams
+    from tacotron2_tpu_torch.ops import lstm_scan as ls
+    from tacotron2_tpu_torch.training import tacotron_trainer as tt
+
+    hp = default_hparams()
+    hp.parse(TACO_OVERRIDES)
+    rnn = tt.create_train_state(hp, 'cuda', seed=29).model.encoder_lstm
+    with torch.no_grad():
+        g = torch.Generator('cuda').manual_seed(29)
+        for cell in (rnn.fw, rnn.bw):
+            cell.gates.bias.copy_(torch.randn(cell.gates.bias.shape, device='cuda',
+                                              generator=g) * 0.3)
+    t0 = time.perf_counter()
+    launches0 = collections.Counter(ls.LAUNCHES)
+    readings, seen = {}, dict.fromkeys(LSTM_MUTANTS, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        for what, (B, T, train, ragged, zero_w) in LSTM_CASES.items():
+            case = lstm_case(rnn, B, T, train, ragged, zero_w, dtype)
+            tols = {k: {**t, 'first': LSTM_ZERO_TOL, 'all': LSTM_ZERO_TOL} if zero_w else t
+                    for k, t in LSTM_TOL.items()}
+            args = (case['xps'], case['ws'], case['lengths'], case['keeps'], case['rates'],
+                    case['reverse'], torch.float32)
+            bargs = (case['ws'], case['lengths'], case['keeps'], case['rates'], case['reverse'])
+            with torch.no_grad():
+                want = ls._lstm_fwd_loop_plain(*args, True)
+                got = ls.lstm_fwd_loop(*args, True)
+                again = ls.lstm_fwd_loop(*args, True)
+                bare = ls.lstm_fwd_loop(*args, False)
+                bwant = ls._lstm_bwd_loop_plain(case['dout'], want[1], *bargs)
+                bgot = ls.lstm_bwd_loop(case['dout'], want[1], *bargs)
+                bagain = ls.lstm_bwd_loop(case['dout'], want[1], *bargs)
+                torch.cuda.synchronize()
+                errs = {'lstm_fwd_loop': _lstm_fwd_errs(case, got, want),
+                        'lstm_bwd_loop': _lstm_bwd_errs(bgot, bwant)}
+                abs_errs = {'lstm_fwd_loop': float((got[0] - want[0]).abs().max()),
+                            'lstm_bwd_loop': max(float((a - b).abs().max())
+                                                 for a, b in zip(bgot[0], bwant[0]))}
+                same = (torch.equal(got[0], again[0]) and torch.equal(got[0], bare[0])
+                        and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+                        and all(torch.equal(a, b) for x, y in zip(bgot, bagain)
+                                for a, b in zip(x, y)))
+                if not same:
+                    fail(f'two launches of an LSTM loop kernel differ ({dname}, {what})')
+                for fault, lib in mutants.items():
+                    with _patched(ls, 'library', lambda lib=lib: lib):
+                        bad = {'lstm_fwd_loop': _lstm_fwd_errs(case, ls.lstm_fwd_loop(*args, True),
+                                                               want),
+                               'lstm_bwd_loop': _lstm_bwd_errs(
+                                   ls.lstm_bwd_loop(case['dout'], want[1], *bargs), bwant)}
+                    seen[fault] = max(seen[fault], *(max(e[span].values()) / tols[k][span]
+                                                     for k, e in bad.items() for span in e))
+            for kernel, e in errs.items():
+                tol = tols[kernel]
+                r = dict({span: max(v.values()) for span, v in e.items()},
+                         worst_first=max(e['first'], key=e['first'].get),
+                         worst_all=max(e['all'], key=e['all'].get), tol=tol,
+                         by_tensor={**e['all'], **e.get('dW', {})},
+                         max_abs_err=abs_errs[kernel],
+                         rows=ls.rows_per_cluster(B, 2, dtype == torch.bfloat16,
+                                                  kernel == 'lstm_fwd_loop'))
+                readings[(kernel, dname, what)] = r
+                phase(18, f'{kernel} {dname} {what}, {T} steps on clusters of '
+                          f'{ls.LSTM_LOOP_CLUSTER} CTAs, {r["rows"]} rows a cluster: kernel vs '
+                          f'plain, relative to the plain tensor\'s largest entry, the first '
+                          f'{LSTM_FIRST_STEPS} steps {r["first"]:.2e} ({r["worst_first"]}; tol '
+                          f'{tol["first"]}), all {r["all"]:.2e} ({r["worst_all"]}; tol '
+                          f'{tol["all"]})'
+                          + (f', dW_hh {r["dW"]:.2e} (tol {tol["dW"]})' if 'dW' in r else '')
+                          + '; a second launch bit for bit the first; by tensor over all steps: '
+                          + ', '.join(f'{n} {v:.1e}' for n, v in r['by_tensor'].items()))
+                if not all(r[span] <= tol[span] for span in e):
+                    fail(f'the {kernel} kernel disagrees with its plain version ({dname}, {what})')
+        timed_cases = {'B=32': (32, LSTM_T_IN), 'B=32, short': (32, LSTM_TIMED_T_IN),
+                       'B=1': (1, LSTM_B1_T_IN)}
+        for what, (B, T) in timed_cases.items():
+            case = lstm_case(rnn, B, T, True, False, False, dtype)
+            args = (case['xps'], case['ws'], case['lengths'], case['keeps'], case['rates'],
+                    case['reverse'], torch.float32)
+            bargs = (case['ws'], case['lengths'], case['keeps'], case['rates'], case['reverse'])
+            t = readings[('timing', dname, what)] = dict(steps=T)
+            with torch.no_grad():
+                res = ls.lstm_fwd_loop(*args, True)[1]
+                t['fwd_ms'] = _median_ms(lambda: ls.lstm_fwd_loop(*args, True))
+                t['fwd_ms_without_residuals'] = _median_ms(lambda: ls.lstm_fwd_loop(*args, False))
+                t['bwd_ms'] = _median_ms(lambda: ls.lstm_bwd_loop(case['dout'], res, *bargs))
+                if what != 'B=32, short':
+                    plain, t['fwd_plain_ms'] = cuda_ms(lambda: ls._lstm_fwd_loop_plain(*args, True))
+                    t['bwd_plain_ms'] = cuda_ms(
+                        lambda: ls._lstm_bwd_loop_plain(case['dout'], plain[1], *bargs))[1]
+            t['fwd_bound_ms'], t['fwd_bound_by'], t['fwd_f32_core_bound_ms'] = lstm_bound(
+                B, T, dtype, True)
+            t['fwd_bound_ms_without_residuals'] = lstm_bound(B, T, dtype, True, False)[0]
+            t['bwd_bound_ms'], t['bwd_bound_by'], t['bwd_f32_core_bound_ms'] = lstm_bound(
+                B, T, dtype, False)
+            if what == 'B=32':
+                x = case['x'].detach().requires_grad_()
+                out = rnn(x, case['lengths'], [k for pair in case['keeps'] for k in pair], dtype)
+                leaves = [x] + list(rnn.parameters())
+                t['module_fwd_ms'] = _median_ms(lambda: rnn(
+                    x, case['lengths'], [k for pair in case['keeps'] for k in pair], dtype))
+                t['module_bwd_ms'] = _median_ms(lambda: torch.autograd.grad(
+                    out, leaves, case['dout'], retain_graph=True))
+                want0 = None
+                if dtype == torch.float32:
+                    with torch.no_grad():
+                        want0 = ls._lstm_fwd_loop_plain(
+                            case['xps'], case['ws'], case['lengths'], None,
+                            [(0.0, 0.0)] * 2, case['reverse'], torch.float32, False)[0]
+                t['cudnn'] = cudnn_lstm(rnn, case, want0)
+                if want0 is not None and not t['cudnn']['max_abs_err'] <= TACOTRON_TOL:
+                    fail(f'cuDNN\'s LSTM does not compute the encoder LSTM at zoneout 0: max abs '
+                         f'err {t["cudnn"]["max_abs_err"]:.2e} from the plain version')
+            phase(18, f'{dname} B={B} x {T} steps, both directions: lstm_fwd_loop '
+                      f'{t["fwd_ms"]:.3f} ms ({1e3 * t["fwd_ms"] / T:.2f} us a step; without '
+                      f'residuals {t["fwd_ms_without_residuals"]:.3f} ms), bound '
+                      f'{t["fwd_bound_ms"]:.4f} ms by {t["fwd_bound_by"]} '
+                      f'({t["fwd_f32_core_bound_ms"]:.4f} ms on the f32 CUDA cores); '
+                      f'lstm_bwd_loop {t["bwd_ms"]:.3f} ms ({1e3 * t["bwd_ms"] / T:.2f} us a '
+                      f'step), bound {t["bwd_bound_ms"]:.4f} ms by {t["bwd_bound_by"]} '
+                      f'({t["bwd_f32_core_bound_ms"]:.4f} ms on the f32 CUDA cores)'
+                      + ('' if 'fwd_plain_ms' not in t else
+                         f'; the plain versions {t["fwd_plain_ms"]:.1f} + '
+                         f'{t["bwd_plain_ms"]:.1f} ms')
+                      + ('' if 'cudnn' not in t else
+                         f'; the encoder LSTM module (the hoisted products, the kernels, dW_hh) '
+                         f'forward {t["module_fwd_ms"]:.3f} ms, backward {t["module_bwd_ms"]:.3f} '
+                         f'ms; cuDNN\'s bidirectional LSTM at zoneout 0 (nn.LSTM, its input '
+                         f'product inside) forward {t["cudnn"]["fwd_ms"]:.3f} ms, backward '
+                         f'{t["cudnn"]["bwd_ms"]:.3f} ms'
+                         + ('' if t['cudnn']['max_abs_err'] is None else
+                            f', max abs err from the plain output at zoneout 0 '
+                            f'{t["cudnn"]["max_abs_err"]:.2e}')))
+    seconds = time.perf_counter() - t0
+    phase(18, 'LSTM loop planted faults, the largest of their errors over their case\'s bound '
+              f'(each must exceed {LSTM_FAULT_FACTOR}): '
+              + '; '.join(f'{f} {v:.1f}' for f, v in seen.items())
+              + f'; the LSTM loops\' checks took {seconds:.1f} s')
+    for fault, v in seen.items():
+        if not v > LSTM_FAULT_FACTOR:
+            fail(f'the LSTM loop checks do not see the planted fault ({fault}) '
+                 f'{LSTM_FAULT_FACTOR} times over a bound')
+    return dict(readings=readings, faults=seen, seconds=seconds,
+                occupancy={f'{"bf16" if bf else "f32"} {"fwd" if fw else "bwd"} R={r}':
+                           ls.occupancy(r, bf, fw) for bf in (False, True)
+                           for fw in (True, False) for r in ls.LSTM_LOOP_ROWS},
+                check_launches=dict(collections.Counter(ls.LAUNCHES) - launches0))
+
+
+def lstm_slice(mutants, timed, main_readings):
+    """Phase 18 (see the module docstring): the kernel checks, then the timed steps' encoder
+    LSTM parts (phases 12 and 14, StepMarks) beside the step loop's, the main path's
+    readings of phases 5 and 7, and the LSTM kernels' launches on the main paths. Returns
+    the readings."""
+    from tacotron2_tpu_torch.ops import lstm_scan as ls
+
+    t0 = time.perf_counter()
+    checks = lstm_kernel_checks({f: mutants[f] for f in LSTM_MUTANTS})
+    steps = {}
+    for key, t in timed.items():
+        was = LSTM_STEP_LOOP_TIMED[key]
+        steps[key] = dict(fwd=t['parts']['fwd: encoder LSTM'], bwd=t['parts']['bwd: encoder LSTM'],
+                          step_ms=t['step_ms'], sec_step=t['sec_step'])
+        phase(18, f'timed step {key}, B=32 x {TIMED_FRAMES} frames ({TIMED_CHARS} characters): '
+                  f'the encoder LSTM (StepMarks) forward {steps[key]["fwd"]:.1f} ms, backward '
+                  f'{steps[key]["bwd"]:.1f} ms (the step loop: {was["fwd"]} + {was["bwd"]} ms); '
+                  f'the step {t["step_ms"]:.1f} ms by its parts, {t["sec_step"]:.3f} sec/step')
+    launches = {p: dict(LSTM_LAUNCHES_BY_PATH[p]) for p in LSTM_PATHS}
+    seconds = time.perf_counter() - t0
+    phase(18, f'LSTM kernel launches on the main paths: {launches}; occupancy (clusters of '
+              f'{ls.LSTM_LOOP_CLUSTER} resident) {checks["occupancy"]}; phase 18 took '
+              f'{seconds:.1f} s')
+    for p in LSTM_TRAIN_PATHS:
+        if not all(LSTM_LAUNCHES_BY_PATH[p][k] for k in ls.KERNELS):
+            fail(f'{p} did not run the encoder LSTM through {ls.KERNELS}')
+    for p in LSTM_SYNTH_PATHS:
+        by = LSTM_LAUNCHES_BY_PATH[p]
+        if not by['lstm_fwd_loop'] or by['lstm_bwd_loop']:
+            fail(f'{p} did not run the encoder LSTM through lstm_fwd_loop alone')
+    return dict(checks=checks, launches=launches, steps=steps, main=main_readings,
+                seconds=seconds)
+
+
+def lstm_entries(lstm):
+    """The kernels line's entries of the two LSTM loops: launches from the main paths' runs,
+    the rest from phase 18 at B=32 x LSTM_T_IN in bf16 (the trainers' compute dtype on the
+    card; the recurrence is float32 in both), the f32, B=32 x LSTM_TIMED_T_IN and B=1
+    readings beside them; library_ms cuDNN's bidirectional LSTM at zoneout 0 (forward, or
+    backward) on the same input, its input product inside."""
+    out = []
+    r = lstm['checks']['readings']
+    for name, key in (('lstm_fwd_loop', 'fwd'), ('lstm_bwd_loop', 'bwd')):
+        by = {p: lstm['launches'][p].get(name, 0) for p in LSTM_PATHS}
+        entry = dict(name=name, route='cuda', source=LSTM_SOURCE, replaces=LSTM_REPLACES[name],
+                     launches=sum(by.values()), launches_by_path=by,
+                     check_launches=lstm['checks']['check_launches'].get(name, 0),
+                     max_abs_err=max(v['max_abs_err'] for k, v in r.items() if k[0] == name),
+                     dtype='bfloat16', steps=LSTM_T_IN,
+                     fault_err_over_tol=lstm['checks']['faults'],
+                     occupancy=lstm['checks']['occupancy'],
+                     timed_step_ms={k: v[key] for k, v in lstm['steps'].items()})
+        if key == 'fwd':
+            entry['main_path'] = lstm['main']
+        for dname in ('bfloat16', 'float32'):
+            pre = '' if dname == 'bfloat16' else 'f32_'
+            t32, t1 = r[('timing', dname, 'B=32')], r[('timing', dname, 'B=1')]
+            t112 = r[('timing', dname, 'B=32, short')]
+            entry.update({
+                f'{pre}ms': t32[f'{key}_ms'], f'{pre}plain_ms': t32[f'{key}_plain_ms'],
+                f'{pre}bound_ms': t32[f'{key}_bound_ms'], f'{pre}bound_by': t32[f'{key}_bound_by'],
+                f'{pre}f32_core_bound_ms': t32[f'{key}_f32_core_bound_ms'],
+                f'{pre}library_ms': t32['cudnn'][f'{key}_ms'],
+                f'{pre}module_ms': t32[f'module_{key}_ms'],
+                f'{pre}t{LSTM_TIMED_T_IN}_ms': t112[f'{key}_ms'],
+                f'{pre}t{LSTM_TIMED_T_IN}_bound_ms': t112[f'{key}_bound_ms'],
+                f'{pre}b1_ms': t1[f'{key}_ms'], f'{pre}b1_bound_ms': t1[f'{key}_bound_ms'],
+                f'{pre}b1_plain_ms': t1[f'{key}_plain_ms'],
+                f'{pre}rel_err': {what: {span: r[(name, dname, what)][span]
+                                         for span in r[(name, dname, what)]['tol']}
+                                  for what in LSTM_CASES},
+                f'{pre}tol': {what: r[(name, dname, what)]['tol'] for what in LSTM_CASES}})
+            if key == 'fwd':
+                entry[f'{pre}ms_without_residuals'] = t32['fwd_ms_without_residuals']
+        out.append(entry)
+    return out
+
+
 def main():
     t_start = T_START
     if not torch.cuda.is_available():
@@ -6780,8 +7324,8 @@ def main():
     atexit.register(shutil.rmtree, tmp, True)
     mutants = build_kernels(tmp)
     phase(2, f'built and loaded the AR kernel\'s library in {time.perf_counter() - t0:.1f} s; '
-             f'the probes\', the decoder step\'s, the four decoder loops\' and the GRU loops\' '
-             f'libraries and '
+             f'the probes\', the decoder step\'s, the four decoder loops\', the GRU loops\' and '
+             f'the LSTM loops\' libraries and '
              f'{len(mutants)} copies with one planted fault each build beside phase 3')
     probe_modules = {'prng_probe': prng_probe, 'ar_critpath': ar_critpath,
                      'matmul_probe': matmul_probe, 'microbench': microbench}
@@ -6815,8 +7359,10 @@ def main():
     shutil.rmtree(tmp, ignore_errors=True)
     check_tacotron(hp)
     launches_batch, batch_us = main_path(overrides, hp, wavenet_state)
+    encoder_reading = {'synthesize, B=2': encoder_lstm_reading(hp, MAIN_BATCH, 5)}
     streamed = check_state_carry(weights, model, hp, gen, kernel)
     launches_serve = service(f'max_iters={MAX_ITERS}', hp, wavenet_state)
+    encoder_reading['serve, B=1'] = encoder_lstm_reading(hp, 1, 7)
     t8 = time.perf_counter()
     paper = paper_profile(gen)
     phase(8, f'phase 8 took {time.perf_counter() - t8:.1f} s; the whole run so far '
@@ -6854,6 +7400,9 @@ def main():
     gru = gru_slice(mutants, {'float32': taco['timed'],
                               'bfloat16': remaining['tacotron']['timed']})
     phase(17, f'the whole run {time.perf_counter() - t_start:.1f} s')
+    lstm = lstm_slice(mutants, {'float32': taco['timed'],
+                                'bfloat16': remaining['tacotron']['timed']}, encoder_reading)
+    phase(18, f'the whole run {time.perf_counter() - t_start:.1f} s')
     bound_ms, bound_by = ar_bound(hp, weights, MAIN_BATCH, kernel['steps'])
     head, small = training['head'], training['head']['small']
     big_runs, sampled = head['runs'], head['sampled']
@@ -7000,7 +7549,8 @@ def main():
         dict(name=name, route='cuda', source=f'tacotron2_tpu_torch/csrc/probes/{name}.cu',
              replaces=PROBE_REPLACES[name], launches=probe_launches[name],
              check_launches=probe_modules[name].LAUNCHES, **probe_readings[name])
-        for name in probe_modules] + decoder_entries(decoder) + gru_entries(gru)}))
+        for name in probe_modules] + decoder_entries(decoder) + gru_entries(gru)
+        + lstm_entries(lstm)}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}))

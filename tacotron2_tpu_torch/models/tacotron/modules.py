@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ...ops.gru_scan import gru_scan
+from ...ops.lstm_scan import lstm_scan
 from ...parallel.collectives import all_reduce_sum, global_sum
 from ..precision import cast_forward, sigmoid, weak
 
@@ -235,7 +236,13 @@ def length_mask(lengths: Tensor, T: int, device) -> Tensor:
 class BiZoneoutLSTM(nn.Module):
     """Bidirectional zoneout-LSTM over the valid region of each sequence: the backward
     direction reverses only the first lengths[b] steps, the state freezes on padded
-    steps, and the output there is zero."""
+    steps, and the output there is zero. The input half of each gate product is hoisted
+    out of the recurrence (`modules.py:161-170`), the backward direction's over its
+    reversed sequence as the JAX scan hoists it (its gradient then sums the rows in that
+    order); the recurrence of both directions runs through `ops/lstm_scan` (its kernels on
+    the card, their plain versions elsewhere), which writes the backward direction's
+    output back where each step's input was, in the input's dtype, as the JAX scan's state
+    keeps it, its product with the kernel in `dtype` promoted."""
 
     def __init__(self, input_size: int, units: int = 256, zoneout: float = 0.1):
         super().__init__()
@@ -243,26 +250,13 @@ class BiZoneoutLSTM(nn.Module):
         self.bw = ZoneoutLSTMCell(input_size, units, zoneout, zoneout)
 
     @staticmethod
-    def _run(cell: ZoneoutLSTMCell, seq: Tensor, mask: Tensor,
-             keeps: Optional[Tuple[Tensor, Tensor]], dtype: torch.dtype) -> Tensor:
-        B, T, C = seq.shape
-        # the input half hoisted, (B, T, 4U) in dtype; the state, and so the step, in the
-        # input's dtype, as the JAX scan's, its product with the kernel in dtype
-        # promoted (`modules.py:161-183`)
+    def operands(cell: ZoneoutLSTMCell, seq: Tensor,
+                 dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+        """(xp (B, T, 4U), the input half hoisted, W_hh (U, 4U)) of one cell's scan, each
+        in `dtype` as flax casts the kernel and the bias."""
+        C = seq.shape[-1]
         K = cell.gates.weight.t().to(dtype)                   # (C+U, 4U)
-        xp = seq.to(dtype) @ K[:C] + cell.gates.bias.to(dtype)
-        Kh = K[C:].to(seq.dtype)
-        zc, zh = cell.zoneout_cell, cell.zoneout_output
-        c, h = cell.initial_state(B, seq.device, seq.dtype)
-        outs = []
-        for t in range(T):
-            c_new, h_new = lstm_gates(xp[:, t] + h @ Kh, c)
-            kc, kh = (None, None) if keeps is None else (keeps[0][t], keeps[1][t])
-            m = mask[:, t, None] > 0
-            c = torch.where(m, zoneout(c_new, c, zc, kc), c)
-            h = torch.where(m, zoneout(h_new, h, zh, kh), h)
-            outs.append(h_new * mask[:, t, None])
-        return torch.stack(outs, dim=1)
+        return seq.to(dtype) @ K[:C] + cell.gates.bias.to(dtype), K[C:]
 
     def forward(self, x: Tensor, lengths: Tensor,
                 keeps: Optional[Sequence[Tensor]] = None,
@@ -270,13 +264,12 @@ class BiZoneoutLSTM(nn.Module):
         """`keeps`: None (zoneout's expectation) or the four zoneout keep-masks
         (T, B, U) of training, forward c and h, then backward c and h, each indexed by
         the step of its own direction's scan."""
-        T = x.shape[1]
-        mask = length_mask(lengths, T, x.device)
-        fw_keeps, bw_keeps = (None, None) if keeps is None else (keeps[:2], keeps[2:])
-        fw = self._run(self.fw, x, mask, fw_keeps, dtype)
-        bw = reverse_sequences(self._run(self.bw, reverse_sequences(x, lengths), mask,
-                                         bw_keeps, dtype), lengths)
-        return torch.cat([fw, bw], dim=-1)
+        cells = (self.fw, self.bw)
+        xps, ws = zip(*(self.operands(cell, seq, dtype)
+                        for cell, seq in zip(cells, (x, reverse_sequences(x, lengths)))))
+        return lstm_scan(xps, ws, lengths, None if keeps is None else (keeps[:2], keeps[2:]),
+                         [(cell.zoneout_cell, cell.zoneout_output) for cell in cells],
+                         (False, True), x.dtype)
 
 
 class HighwayNet(nn.Module):

@@ -8,9 +8,10 @@ decoder step's under `csrc/decoder/`, the decoder's forward loop's under
 under `csrc/decoder_bwd_loop/` (bf16) and `csrc/decoder_bwd_loop_f32/` (float32) go into
 libraries of their own (`load_probe_library`, `load_decoder_library`,
 `load_decoder_loop_library`, `load_decoder_loop_f32_library`,
-`load_decoder_bwd_loop_library`, `load_decoder_bwd_loop_f32_library`) and the CBHG's GRU
-loops' under `csrc/gru_loop/` (`load_gru_loop_library`) go into libraries of their own, the
-last six built with `--fmad=false` (DECODER_FLAGS), so that no build grows another.
+`load_decoder_bwd_loop_library`, `load_decoder_bwd_loop_f32_library`), the CBHG's GRU
+loops' under `csrc/gru_loop/` (`load_gru_loop_library`) and the encoder LSTM's loops' under
+`csrc/lstm_loop/` (`load_lstm_loop_library`) go into libraries of their own, the last seven
+built with `--fmad=false` (DECODER_FLAGS), so that no build grows another.
 Each build runs at first use, into `build/tacotron2_tpu_torch/` at the root of the
 checkout, and is redone when its sources' hash changes. There is no fallback: a missing
 nvcc or a failed build raises.
@@ -32,14 +33,15 @@ DECODER_LOOP_F32_DIR = os.path.join(CSRC_DIR, 'decoder_loop_f32')
 DECODER_BWD_LOOP_DIR = os.path.join(CSRC_DIR, 'decoder_bwd_loop')
 DECODER_BWD_LOOP_F32_DIR = os.path.join(CSRC_DIR, 'decoder_bwd_loop_f32')
 GRU_LOOP_DIR = os.path.join(CSRC_DIR, 'gru_loop')
+LSTM_LOOP_DIR = os.path.join(CSRC_DIR, 'lstm_loop')
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build', 'tacotron2_tpu_torch')
 # --split-compile=0: the device code's optimization passes run on as many threads as
 # the host has, one unit of kernels each: the kernels' library of 20 instantiations no
 # longer builds on one core
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '--split-compile=0')
-# the decoder's and the GRU's kernels round where their plain PyTorch versions do: no
-# product and sum contracted into one fused multiply-add
+# the decoder's, the GRU's and the encoder LSTM's kernels round where their plain PyTorch
+# versions do: no product and sum contracted into one fused multiply-add
 DECODER_FLAGS = ('--fmad=false',)
 
 
@@ -137,3 +139,9 @@ def load_decoder_bwd_loop_f32_library() -> ctypes.CDLL:
 def load_gru_loop_library() -> ctypes.CDLL:
     """Compile (if the sources changed) and load the CBHG's GRU loops' library."""
     return _load(GRU_LOOP_DIR, 'libt2gruloop', DECODER_FLAGS)
+
+
+@functools.cache
+def load_lstm_loop_library() -> ctypes.CDLL:
+    """Compile (if the sources changed) and load the encoder LSTM's loops' library."""
+    return _load(LSTM_LOOP_DIR, 'libt2lstmloop', DECODER_FLAGS)

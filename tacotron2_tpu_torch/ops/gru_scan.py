@@ -27,13 +27,14 @@ on CPU tensors.
 """
 
 import collections
-import ctypes
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
 
 from ..models.precision import sigmoid
+from ._loop_launch import check, launch, order as _order, refuse
 
 # launches of each hand-written kernel, counted by its wrapper where it launches it
 LAUNCHES: Dict[str, int] = collections.Counter()
@@ -62,18 +63,11 @@ def _library():
 
 
 library = _library  # the build whose kernels launch (chip_smoke.py plants faulty ones)
+_refuse = functools.partial(refuse, 'GRU loop')
+_check = functools.partial(check, 'GRU loop')
 
 
 # ---------------------------------------------------------------- the plain versions
-
-def _order(x: Tensor, lengths: Optional[Tensor], rev: bool) -> Tensor:
-    """(B, T, C) from sequence positions to a direction's step order, or back: each row's
-    first lengths[b] steps reversed for a reversed direction, else x."""
-    if not rev:
-        return x
-    from ..models.tacotron.modules import reverse_sequences
-    return reverse_sequences(x, lengths)
-
 
 def _gru_step_loop(ip: Tensor, w: Tensor, b_hn: Tensor, mask: Tensor, save: bool = False):
     """One direction of the GRU step by step (the port's loop as it stood, op for op) over
@@ -165,17 +159,6 @@ def _gru_bwd_loop_plain(dout, res, ws, mask, lengths, reverse):
 
 # ---------------------------------------------------------------- the kernels' launches
 
-def _refuse(what: str) -> None:
-    raise ValueError(f'the GRU loop kernels do not take {what}')
-
-
-def _check(name: str, xs: Sequence[Tensor], shape, dt: torch.dtype, dev) -> None:
-    for x in xs:
-        if x.shape != shape or x.dtype != dt or x.device != dev:
-            _refuse(f'a {name} of shape {tuple(x.shape)} in {x.dtype} on {x.device}, where '
-                    f'{tuple(shape)} in {dt} on {dev} is due')
-
-
 def _prepared(B: int, T: int, dt: torch.dtype, dev, ws, mask, lengths, reverse):
     """The operands every launch takes checked against the build (GRU_LOOP_UNITS units, 1
     to GRU_LOOP_MAX_DIRS directions, float32 or bf16, B >= 1 and T >= 1, one device) and
@@ -198,26 +181,6 @@ def _prepared(B: int, T: int, dt: torch.dtype, dev, ws, mask, lengths, reverse):
     return ([w if w.data_ptr() % 16 == 0 else w.clone() for w in ws], mask.float().contiguous(),
             None if lengths is None else lengths.to(dev, torch.int32).contiguous(),
             (B, T, D, *rev, int(dt == torch.bfloat16)))
-
-
-def _launch(name: str, tensors: Dict[str, Optional[Tensor]], names: Sequence[str],
-            ints: Sequence[int], dev) -> None:
-    """Launch the C entry t2_<name> with the device pointers of `tensors` in the order of
-    `names` (null where absent) and `ints`, on the current stream of `dev`; count it in
-    LAUNCHES[name]; raise where the launch failed."""
-    fn = getattr(library(), f't2_{name}')
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * len(names))(
-        *(None if tensors.get(k) is None else tensors[k].data_ptr() for k in names))
-    with torch.cuda.device(dev):
-        err = fn(ptrs, (ctypes.c_int * len(ints))(*ints),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f'the {name} kernel did not launch: CUDA error {err}')
-    LAUNCHES[name] += 1
 
 
 def gru_fwd_loop(ips: Sequence[Tensor], ws: Sequence[Tensor], bs: Sequence[Tensor],
@@ -243,7 +206,7 @@ def gru_fwd_loop(ips: Sequence[Tensor], ws: Sequence[Tensor], bs: Sequence[Tenso
     for d in range(D):
         t.update({f'ip{d}': ips[d].contiguous(), f'w{d}': ws[d], f'b{d}': bs[d].contiguous(),
                   f'res{d}': res[d] if save else None})
-    _launch('gru_fwd_loop', t, _FWD_PTRS, ints, ips[0].device)
+    launch(library(), LAUNCHES, 'gru_fwd_loop', t, _FWD_PTRS, ints, ips[0].device)
     return out, res
 
 
@@ -268,7 +231,7 @@ def gru_bwd_loop(dout: Tensor, res: Sequence[Tensor], ws: Sequence[Tensor], mask
     for d in range(D):
         t.update({f'res{d}': res[d].contiguous(), f'w{d}': ws[d], f'dip{d}': dips[d],
                   f'dg{d}': dgs[d]})
-    _launch('gru_bwd_loop', t, _BWD_PTRS, ints, dev)
+    launch(library(), LAUNCHES, 'gru_bwd_loop', t, _BWD_PTRS, ints, dev)
     return dips, dgs
 
 
